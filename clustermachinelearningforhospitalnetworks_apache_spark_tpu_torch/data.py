@@ -1,0 +1,114 @@
+"""Single-device datasets: host numpy → padded, weighted tensors.
+
+The port's counterpart of the JAX package's ``parallel/sharding.py``
+``DeviceDataset`` on one device.  Rows are padded (an empty input gets one
+pad row) and an explicit weight column marks validity: pad rows carry
+w = 0, so every weighted reduction ignores them — the contract the Lloyd
+kernels and the evaluators rely on.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+
+
+def padded_slots(count: int, multiple: int) -> int:
+    """Smallest slot-axis length >= count divisible by ``multiple``."""
+    return -(-count // multiple) * multiple
+
+
+def slot_mask(n_valid: int, n_total: int, dtype=np.float32) -> np.ndarray:
+    """0/1 validity mask over a padded slot axis: ``[:n_valid] = 1``."""
+    m = np.zeros((n_total,), dtype=dtype)
+    m[:n_valid] = 1.0
+    return m
+
+
+def pad_slots(arr: np.ndarray, n_total: int, dtype=np.float32) -> np.ndarray:
+    """Zero-extend ``arr`` along axis 0 to ``n_total`` slots (host-side)."""
+    arr = np.asarray(arr, dtype=dtype)
+    out = np.zeros((n_total,) + arr.shape[1:], dtype=dtype)
+    out[: arr.shape[0]] = arr
+    return out
+
+
+@dataclass
+class DeviceDataset:
+    """A padded, weighted design matrix on one device.
+
+    ``x``: (n_pad, d) float32 features; ``y``: (n_pad,) labels (zeros if
+    absent); ``w``: (n_pad,) weights, 0 on pad rows."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    w: torch.Tensor
+
+    @property
+    def n_padded(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def n_features(self) -> int:
+        return self.x.shape[1]
+
+
+def device_dataset(
+    x: np.ndarray,
+    y: np.ndarray | None = None,
+    device=None,
+    weights: np.ndarray | None = None,
+) -> DeviceDataset:
+    """Pad a host design matrix and move it to ``device`` (default the
+    card).  The float32 conversion happens in numpy, as in the JAX
+    package, so both hold bit-equal features.  ``weights`` are optional
+    non-negative per-row sample weights folded into ``w``."""
+    dev = resolve_device(device)
+    x = np.atleast_2d(np.asarray(x))
+    n = x.shape[0]
+    n_pad = max(n, 1)  # an empty input keeps one (weight-0) pad row
+    xp = np.zeros((n_pad, x.shape[1]), dtype=np.float32)
+    xp[:n] = x
+    if weights is not None:
+        wh = np.asarray(weights, dtype=np.float64).reshape(-1)
+        if wh.shape[0] != n:
+            raise ValueError(f"weights length {wh.shape[0]} != number of rows {n}")
+        if np.any(wh < 0):
+            raise ValueError("sample weights must be non-negative")
+        wp = np.zeros((n_pad,), dtype=np.float32)
+        wp[:n] = wh
+        w = torch.from_numpy(wp).to(dev)
+    else:
+        w = (torch.arange(n_pad, device=dev) < n).to(torch.float32)
+    yp = np.zeros((n_pad,), dtype=np.float32)
+    if y is not None:
+        yp[:n] = np.asarray(y).reshape(-1)
+    return DeviceDataset(
+        x=torch.from_numpy(xp).to(dev), y=torch.from_numpy(yp).to(dev), w=w
+    )
+
+
+def unpad(values: torch.Tensor, n: int) -> np.ndarray:
+    """A row-aligned device result on the host with padding stripped."""
+    return values[:n].cpu().numpy()
+
+
+def sample_valid_rows(ds: DeviceDataset, size: int, seed: int) -> np.ndarray:
+    """A uniform sample of ≤ ``size`` valid rows on the host, as float64.
+
+    The same draw as the JAX package: ``default_rng(seed).choice`` over
+    the valid row indices without replacement, then sorted; only the
+    weights and the sampled rows leave the device."""
+    w = ds.w.cpu().numpy()
+    valid_idx = np.flatnonzero(w > 0)
+    if valid_idx.size == 0:
+        return np.empty((0, ds.n_features), dtype=np.float64)
+    if valid_idx.size > size:
+        rng = np.random.default_rng(seed)
+        valid_idx = np.sort(rng.choice(valid_idx, size=size, replace=False))
+    rows = ds.x[torch.from_numpy(valid_idx).to(ds.x.device)]
+    return rows.cpu().numpy().astype(np.float64)

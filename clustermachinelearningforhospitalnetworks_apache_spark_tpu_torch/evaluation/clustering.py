@@ -1,0 +1,101 @@
+"""ClusteringEvaluator — the squared-Euclidean silhouette in O(n·k).
+
+The JAX package's ``evaluation/clustering.py`` formulation (Spark's):
+
+    Σ_{q∈C} ||p−q||² = N_C·||p||² − 2·p·Y_C + Ψ_C,
+    with Y_C = Σ_{q∈C} q  and  Ψ_C = Σ_{q∈C} ||q||².
+
+Pass 1 accumulates the weighted (N_C, Y_C, Ψ_C); pass 2 scores rows in
+chunks against them, so no (n, n) or (n, k) tensor is ever built.  a(p)
+divides by N_C−1 (self excluded), b(p) is the min over other non-empty
+clusters dividing by N_C, s(p) = (b−a)/max(a,b); singleton clusters score
+0.  Runs on the device the features lie on.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..data import DeviceDataset, device_dataset
+from ..device import resolve_device
+
+#: bound on the floats of one (chunk, k) tile of pass 2
+_SIL_TILE = 1 << 24
+
+
+def _silhouette(x, assign, w, k: int):
+    """(x, assign, w) → (Σ s·w, Σ w), both float64 host scalars."""
+    in_range = (assign >= 0) & (assign < k)
+    w = torch.where(in_range, w, torch.zeros_like(w))
+    idx = torch.where(in_range, assign, torch.zeros_like(assign)).to(torch.int64)
+    sq = (x * x).sum(dim=1)
+    counts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(0, idx, w)
+    y = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(
+        0, idx, x * w[:, None]
+    )
+    psi = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(0, idx, sq * w)
+    empty = counts == 0
+    safe_counts = torch.clamp(counts, min=1.0)
+
+    s_sum = torch.zeros((), dtype=torch.float64, device=x.device)
+    step = max(1, _SIL_TILE // k)
+    for s in range(0, x.shape[0], step):
+        xc, ic, wc, sqc = x[s : s + step], idx[s : s + step], w[s : s + step], sq[s : s + step]
+        tot = counts[None, :] * sqc[:, None] - 2.0 * (xc @ y.T) + psi[None, :]
+        tot = torch.clamp(tot, min=0.0)
+        n_own = counts[ic]
+        a = tot.gather(1, ic[:, None])[:, 0] / torch.clamp(n_own - 1.0, min=1.0)
+        own = torch.zeros_like(tot, dtype=torch.bool).scatter_(1, ic[:, None], True)
+        b = torch.where(own | empty[None, :], torch.full_like(tot, float("inf")),
+                        tot / safe_counts[None, :]).min(dim=1).values
+        sc = torch.where(
+            n_own > 1.0, (b - a) / torch.clamp(torch.maximum(a, b), min=1e-30),
+            torch.zeros_like(a),
+        )
+        sc = torch.where(torch.isfinite(sc), sc, torch.zeros_like(sc))
+        s_sum += (sc * wc).sum().to(torch.float64)
+    return float(s_sum), float(w.sum(dtype=torch.float64))
+
+
+@dataclass(frozen=True)
+class ClusteringEvaluator:
+    """metricName="silhouette", distanceMeasure="squaredEuclidean"."""
+
+    metric_name: str = "silhouette"
+
+    def evaluate(self, features, assignments, k: int | None = None,
+                 device=None) -> float:
+        """``features``: the DeviceDataset a model was fit on (with
+        assignments from ``model.predict(ds.x)``) or host rows, moved to
+        ``device`` (default the card)."""
+        if self.metric_name != "silhouette":
+            raise ValueError(f"unsupported metric {self.metric_name!r}")
+        if isinstance(features, DeviceDataset):
+            ds = features
+        else:
+            ds = device_dataset(np.asarray(features), device=resolve_device(device))
+        n_pad, dev = ds.n_padded, ds.x.device
+
+        def to_slots(values, dtype):
+            v = torch.as_tensor(np.asarray(values).astype(dtype).reshape(-1))
+            out = torch.zeros((n_pad,), dtype=v.dtype)
+            out[: v.shape[0]] = v
+            return out.to(dev)
+
+        if isinstance(assignments, torch.Tensor) and assignments.shape[0] == n_pad:
+            assign = assignments.to(dev, torch.int32)
+        else:
+            assign = to_slots(
+                assignments.cpu().numpy()
+                if isinstance(assignments, torch.Tensor) else assignments,
+                np.int32,
+            )
+        w = ds.w
+        if k is None:
+            k = int(torch.where(w > 0, assign, torch.zeros_like(assign)).max()) + 1
+        s_sum, n = _silhouette(ds.x.to(torch.float32), assign,
+                               w.to(torch.float32), int(k))
+        return s_sum / max(n, 1.0)

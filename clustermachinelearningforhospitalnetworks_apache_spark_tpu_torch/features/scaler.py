@@ -1,0 +1,108 @@
+"""StandardScaler — fit/transform with mean/std, computed on the device.
+
+The fit is one weighted float32 moment pass over the padded rows (the
+JAX package's ``features/scaler.py``): population std from
+E[x²] − E[x]², columns with std 0 left unscaled, pad rows re-zeroed after
+the shift so weighted reductions downstream still ignore them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from ..data import DeviceDataset
+from ..device import resolve_device
+from .assembler import AssembledTable
+
+
+def _moments(x: torch.Tensor, w: torch.Tensor):
+    wcol = w[:, None]
+    n = w.sum()
+    s1 = (x * wcol).sum(dim=0)
+    s2 = (x * x * wcol).sum(dim=0)
+    mean = s1 / torch.clamp(n, min=1.0)
+    var = s2 / torch.clamp(n, min=1.0) - mean * mean
+    return mean, torch.sqrt(torch.clamp(var, min=0.0)), n
+
+
+@dataclass(frozen=True)
+class StandardScalerModel:
+    mean: np.ndarray
+    std: np.ndarray
+    with_mean: bool = True
+    with_std: bool = True
+
+    def transform(self, x):
+        """AssembledTable → AssembledTable, DeviceDataset → DeviceDataset,
+        tensor → tensor (on its device), ndarray → ndarray."""
+        if isinstance(x, AssembledTable):
+            return replace(x, features=self.transform(x.features))
+        if isinstance(x, DeviceDataset):
+            return self.transform_dataset(x)
+        if isinstance(x, torch.Tensor):
+            out = x
+            if self.with_mean:
+                out = out - torch.as_tensor(self.mean, dtype=out.dtype,
+                                            device=out.device)
+            if self.with_std:
+                std = torch.as_tensor(self.std, device=out.device)
+                safe = torch.where(std > 0, std, torch.ones_like(std))
+                out = out / safe.to(out.dtype)
+            return out
+        out = x
+        if self.with_mean:
+            out = out - np.asarray(self.mean, dtype=out.dtype)
+        if self.with_std:
+            safe = np.where(np.asarray(self.std) > 0, np.asarray(self.std), 1.0)
+            out = out / safe.astype(out.dtype)
+        return out
+
+    def transform_dataset(self, ds: DeviceDataset) -> DeviceDataset:
+        # pad rows are zeros; re-zero them after the shift
+        x = self.transform(ds.x) * (ds.w[:, None] > 0)
+        return DeviceDataset(x=x, y=ds.y, w=ds.w)
+
+
+@dataclass(frozen=True)
+class StandardScaler:
+    with_mean: bool = True
+    with_std: bool = True
+
+    def fit(self, data, device=None) -> StandardScalerModel:
+        """``data``: DeviceDataset (fit where it lies), or an AssembledTable,
+        ndarray or tensor, moved to ``device`` (default the card).  A matrix
+        is fit in float64 with the population std, as the JAX package fits
+        an ndarray on the host."""
+        if isinstance(data, AssembledTable):
+            data = data.to_device(device=device)
+        if isinstance(data, DeviceDataset):
+            mean, std, _ = _moments(data.x, data.w)
+        else:
+            x = _matrix(data, device)
+            mean, std = x.mean(dim=0), x.std(dim=0, correction=0)
+        return StandardScalerModel(
+            mean.cpu().numpy(), std.cpu().numpy(), self.with_mean, self.with_std
+        )
+
+    def fit_transform(self, data, device=None):
+        """Fit then transform on ``device`` (default the card).  A
+        DeviceDataset or AssembledTable comes back as a DeviceDataset; an
+        ndarray comes back as a float64 ndarray, a tensor as a tensor."""
+        if isinstance(data, AssembledTable):
+            data = data.to_device(device=device)
+        if isinstance(data, DeviceDataset):
+            model = self.fit(data)
+            return DeviceDataset(model.transform(data.x), data.y, data.w)
+        x = _matrix(data, device)
+        out = self.fit(x, device=x.device).transform(x)
+        return out if isinstance(data, torch.Tensor) else out.cpu().numpy()
+
+
+def _matrix(data, device) -> torch.Tensor:
+    """An ndarray or tensor as a float64 matrix on ``device``."""
+    if not isinstance(data, torch.Tensor):
+        data = np.asarray(data, dtype=np.float64)
+    return torch.as_tensor(data, dtype=torch.float64, device=resolve_device(device))

@@ -1,0 +1,116 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface — no PyTorch
+headers, so a build takes seconds, not minutes.  Libraries are cached in
+the build directory under a name that hashes the source and the flags, so
+an edited source rebuilds and an unchanged one loads straight away.
+
+Nothing here runs at import: the CPU-only test machine imports every
+module but has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+
+#: name -> source file under csrc/
+SOURCES = {"lloyd": "lloyd.cu"}
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """Where libraries land: ``CMLHN_TORCH_BUILD_DIR`` or ``_build/`` in
+    the package (listed in ``.gitignore``)."""
+    return Path(os.environ.get("CMLHN_TORCH_BUILD_DIR", _PKG / "_build"))
+
+
+def nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the port's kernels are compiled "
+        "from csrc/ at first use on a machine with the CUDA toolkit"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    h = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{h}.so"
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile every missing library among ``names`` (default: all), one
+    ``nvcc`` per source, all started together.  Returns name -> path.
+    Each compiler log (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside its library as ``<lib>.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    out = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in out.items() if not p.exists()}
+    if not todo:
+        return out
+    build_dir().mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_suffix(f".{os.getpid()}.tmp")
+        log = open(p.with_suffix(".log"), "w")
+        procs[n] = (
+            subprocess.Popen(
+                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])],
+                stdout=log, stderr=subprocess.STDOUT,
+            ),
+            tmp, log,
+        )
+    failed = []
+    for n, (proc, tmp, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, out[n])
+        else:
+            failed.append(n)
+    if failed:
+        logs = "\n".join(
+            out[n].with_suffix(".log").read_text()[-4000:] for n in failed
+        )
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
+        return lib
