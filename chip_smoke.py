@@ -4,13 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``csrc/``, holds each against its plain
-PyTorch version on the card, then drives the port's KMeans k=256 path at
-full width — 10M standardized 8-feature rows: Table → VectorAssembler →
-StandardScaler → KMeans fit → predict → silhouette → an InferenceServer
-answering requests → bulk scoring — and shows through the launch
-counters that this path ran on the kernels.  Any failed check exits
-non-zero before the last line; without a CUDA device, or without the
-port's package beside it, the script prints no result and exits 1.
+PyTorch version on the card, then drives the port's two main paths at
+full width and shows through the launch counters that each ran on its
+kernels:
+
+* the KMeans k=256 path — 10M standardized 8-feature rows: Table →
+  VectorAssembler → StandardScaler → KMeans fit → predict → silhouette →
+  an InferenceServer answering requests → bulk scoring (K1, K2);
+* the hospital pipeline's model stage — the bundled CSV on the card and
+  on the CPU, then 2M rows of the example generator's law: Binarizer →
+  seed-42 split → VectorAssembler → LinearRegression, decision-tree and
+  random-forest regressors and classifiers → RMSE / accuracy /
+  importances (K3), and the rf20 forest (2M x 8 rows, 20 trees) with its
+  fit breakdown and a check that its level loop makes no host sync.
+
+Any failed check exits non-zero before the last line; without a CUDA
+device, or without the port's package beside it, the script prints no
+result and exits 1.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the per-kernel record (launches, error, kernel / plain / library
@@ -31,6 +41,9 @@ PKG = "clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch"
 JAX_KERNELS = "clustermachinelearningforhospitalnetworks_apache_spark_tpu/ops/pallas_kernels.py"
 
 N, D, K = 10_000_000, 8, 256
+TREE_N = 2_000_000          # rf20 and the model stage at scale
+CSV = ROOT / "data" / "hospital_patients.csv"
+WHOLE_DAY = ("2025-03-31 00:00:00", "2025-03-31 23:59:59")
 SEED = 0
 MAX_ITER = 20
 BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
@@ -246,6 +259,374 @@ def make_table_columns(n: int, d: int, k: int, seed: int):
     return {f"f{j}": x[:, j] for j in range(d)}
 
 
+# ------------------------------------------------------------------- K3
+#: the device of the model-stage phases; a CPU rehearsal of this script's
+#: control flow (plain versions, small sizes) may set it to "cpu"
+DEV = "cuda"
+
+
+def sync() -> None:
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+def k3_inputs(n: int, d: int, S: int, T: int, LN: int, B: int, seed: int,
+              integer: bool = True, off: float = 0.1):
+    """Random K3 inputs on the card: bins in [0, B), ``off`` of the rows
+    off the frontier (pos = -1), the rest spread over LN nodes.  Integer
+    stats (labels in {0..3} and Poisson-like weights 0..2) keep every
+    float32 sum exact below 2**24; else weights and stats in (0, 1]."""
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    binned = torch.randint(0, B, (d, n), device=DEV, generator=g, dtype=torch.int32)
+    pos = torch.randint(0, LN, (T, n), device=DEV, generator=g, dtype=torch.int32)
+    pos[torch.rand((T, n), device=DEV, generator=g) < off] = -1
+    if integer:
+        y = torch.randint(0, 4, (n,), device=DEV, generator=g).float()
+        base = torch.stack([torch.ones_like(y), y, y * y])[:S] if S <= 3 else \
+            torch.randint(0, 4, (S, n), device=DEV, generator=g).float()
+        w = torch.randint(0, 3, (T, n), device=DEV, generator=g).float()
+    else:
+        base = 1.0 - torch.rand((S, n), device=DEV, generator=g)
+        w = 1.0 - torch.rand((T, n), device=DEV, generator=g)
+    return binned, base.contiguous(), w.contiguous(), pos
+
+
+def k3_check(H, binned, base, w, pos, LN: int, B: int, tag: str) -> tuple[float, float]:
+    """K3 against its plain version evaluated in float64: integer-valued
+    stats exactly equal, float stats each bin within rtol 1e-5; two
+    launches bit-identical.  → (max abs err, max rel err)."""
+    import torch
+
+    h = H.fused_level_hist(binned, base, w, pos, LN, B)
+    h2 = H.fused_level_hist(binned, base, w, pos, LN, B)
+    ref = H.fused_level_hist_plain(binned, base.double(), w.double(), pos, LN, B)
+    sync()
+    check(tuple(h.shape) == tuple(ref.shape), f"K3 {tag}: shape {tuple(h.shape)}")
+    check(torch.equal(h, h2), f"K3 {tag}: two launches differ")
+    diff = (h.double() - ref).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    rel = float((diff / ref.abs().clamp(min=1e-300)).max()) if diff.numel() else 0.0
+    integer = bool((base == base.round()).all() and (w == w.round()).all())
+    if integer:
+        check(err == 0.0, f"K3 {tag}: integer stats differ from the plain version by {err}")
+    else:
+        check(bool((diff <= 1e-5 * ref.abs()).all()),
+              f"K3 {tag}: a bin is off the float64 plain version by rel {rel:.3g} > 1e-5")
+    return err, rel
+
+
+def k3_time(H, binned, base, w, pos, LN: int, B: int, reps: int) -> dict:
+    """K3, its plain version (float32) and one library composition:
+    ``index_add_`` of w*base into the flat histogram keyed by
+    ((t*LN + p)*d + f)*B + b, rows off the frontier into a spare slot."""
+    import torch
+
+    d, n = binned.shape
+    S, T = base.shape[0], w.shape[0]
+    keys = None
+
+    def library():
+        nonlocal keys
+        if keys is None:
+            tp = (torch.arange(T, device=DEV)[:, None] * LN + pos.long())  # (T, n)
+            k = (tp[:, None, :] * d + torch.arange(d, device=DEV)[None, :, None]) * B \
+                + binned.long()[None, :, :]
+            keys = torch.where((pos >= 0)[:, None, :], k, T * LN * d * B).reshape(-1)
+        out = torch.zeros((T * LN * d * B + 1, S), device=DEV)
+        for s in range(S):
+            vals = (w * base[s][None, :])[:, None, :].expand(T, d, n).reshape(-1)
+            out[:, s].index_add_(0, keys, vals)
+        return out
+
+    t = {
+        "ms": gpu_ms(lambda: H.fused_level_hist(binned, base, w, pos, LN, B), reps),
+        "plain_ms": gpu_ms(lambda: H.fused_level_hist_plain(binned, base, w, pos, LN, B),
+                           max(1, reps // 5)),
+        "library_ms": gpu_ms(library, max(1, reps // 5)),
+    }
+    t["bound_ms"], t["bound_by"] = H.bound_ms(n, d, S, T, LN, B)
+    del keys
+    return t
+
+
+def k3_phase(H) -> dict:
+    """K3 against its plain version at the main shapes and the edge
+    shapes; times at rf20's and the pipeline's shapes.  → the kernel
+    record at the pipeline forest's deepest level."""
+    import torch
+
+    B = 32
+    main = [  # (tag, n, d, S, T, LN)
+        ("rf20 root", TREE_N, 8, 3, 20, 1),
+        ("rf20 depth 5", TREE_N, 8, 3, 20, 32),
+        ("pipeline RF regressor depth 5", 1_400_000, 4, 3, 20, 32),
+        ("classification", TREE_N, 4, 2, 20, 16),
+    ]
+    times = {}
+    for i, (tag, n, d, S, T, LN) in enumerate(main):
+        ins = k3_inputs(n, d, S, T, LN, B, seed=10 + i)
+        err, _ = k3_check(H, *ins, LN, B, tag)
+        t = k3_time(H, *ins, LN, B, reps=10)
+        times[tag] = (t, err)
+        say(f"K3 {tag} (n={n} d={d} S={S} T={T} LN={LN} B={B}): {t['ms']:.4f} ms "
+            f"(plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+            f"{t['bound_ms']:.4f} by {t['bound_by']}); integer stats exact, two launches "
+            f"bit-identical — ok")
+        del ins
+
+    # fractional weights and stats at rf20's root and in the edge shapes
+    worst = 0.0
+    _, rel = k3_check(H, *k3_inputs(TREE_N, 8, 3, 20, 1, B, seed=20, integer=False), 1, B,
+                      "rf20 root, fractional")
+    worst = max(worst, rel)
+    edges = [  # (tag, n, d, S, T, LN, B, kind)
+        ("n=0", 0, 8, 3, 2, 4, 32, "int"),
+        ("n=1", 1, 8, 3, 2, 1, 32, "int"),
+        ("all rows off the frontier", 5000, 8, 3, 3, 4, 32, "off"),
+        ("all w=0", 5000, 8, 3, 3, 4, 32, "w0"),
+        ("d=1", 40_001, 1, 3, 5, 8, 32, "frac"),
+        ("d=100", 20_003, 100, 3, 3, 2, 32, "frac"),
+        ("B=2", 30_001, 8, 3, 4, 8, 2, "int"),
+        ("S=5", 30_001, 8, 5, 4, 8, 32, "int"),
+        ("LN=1024 (node tiles)", 200_000, 8, 3, 2, 1024, 32, "int"),
+        ("n=300,007 (ragged last tile), fractional", 300_007, 8, 3, 4, 8, 32, "frac"),
+    ]
+    for i, (tag, n, d, S, T, LN, b, kind) in enumerate(edges):
+        binned, base, w, pos = k3_inputs(max(n, 0), d, S, T, LN, b, seed=30 + i,
+                                         integer=kind != "frac")
+        if kind == "off":
+            pos = torch.full_like(pos, -1)
+        if kind == "w0":
+            w = torch.zeros_like(w)
+        _, rel = k3_check(H, binned, base, w, pos, LN, b, tag)
+        if kind == "frac":
+            worst = max(worst, rel)
+        if kind in ("off", "w0") or n == 0:
+            check(not bool(H.fused_level_hist(binned, base, w, pos, LN, b).any()),
+                  f"K3 {tag}: expected an all-zero histogram")
+    say(f"K3 edge shapes {[e[0] for e in edges]}: ok; largest relative error of a "
+        f"fractional bin against the float64 plain version {worst:.3g} (limit 1e-5)")
+
+    t, err = times["pipeline RF regressor depth 5"]
+    return {"name": "fused_level_hist", "route": "cuda",
+            "source": f"{PKG}/csrc/tree_hist.cu", "replaces": f"{JAX_KERNELS}:335",
+            "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def stage_on_bundled_csv(port) -> None:
+    """The model stage on the bundled 20,000-row CSV (the whole day) on the
+    card and on the CPU: classifier trees equal; LR coefficients within
+    1e-4 of the largest coefficient (float32 normal equations with a
+    condition number near 1e7 move the smallest coefficient by ~1e-3 of
+    itself in any two summation orders); regressor RMSE within rtol 1e-4.
+    Then with LOS rounded to integers, where every float32 sum is exact:
+    every tree equal."""
+    import numpy as np
+
+    table = port.read_csv(str(CSV), port.hospital_event_schema())
+    table = table.between("event_time", *WHOLE_DAY).na_drop()
+    check(table.num_rows == 20_000, f"bundled CSV read {table.num_rows} rows")
+    cfg = port.PipelineConfig(training_window_start=WHOLE_DAY[0],
+                              training_window_end=WHOLE_DAY[1])
+    trees = ("DecisionTreeRegressor", "RandomForestRegressor",
+             "DecisionTreeClassifier", "RandomForestClassifier")
+
+    def same_tree(a, b):
+        return (np.array_equal(a.split_feat, b.split_feat)
+                and np.array_equal(a.threshold, b.threshold)
+                and np.array_equal(a.value, b.value))
+
+    for rounded in (False, True):
+        t = table
+        if rounded:
+            t = t.with_column("length_of_stay", np.round(t["length_of_stay"]), dtype="float")
+        card = port.run_model_stage(t, cfg, device=DEV)
+        cpu = port.run_model_stage(t, cfg, device="cpu")
+        tag = "integer LOS" if rounded else "bundled CSV"
+        for name in (trees if rounded else trees[2:]):
+            check(same_tree(card.models[name], cpu.models[name]),
+                  f"{tag}: {name} grown on the card differs from the CPU's")
+        cc = card.models["LinearRegression"]
+        pc = cpu.models["LinearRegression"]
+        a = np.r_[cc.coefficients.cpu().numpy(), float(cc.intercept)]
+        b = np.r_[pc.coefficients.numpy(), float(pc.intercept)]
+        check(np.abs(a - b).max() <= 1e-4 * np.abs(b).max(),
+              f"{tag}: LR coefficients {a} vs CPU {b}")
+        for name, v in card.regression_rmse.items():
+            check(abs(v - cpu.regression_rmse[name]) <= 1e-4 * cpu.regression_rmse[name],
+                  f"{tag}: {name} RMSE {v} vs CPU {cpu.regression_rmse[name]}")
+        # equal trees give equal per-tree outputs; the forest's float32 mean
+        # over 20 trees is summed in another order on the card, which may
+        # flip a row whose two class means tie to the last bit
+        n_test = table.num_rows - round(0.7 * table.num_rows)
+        for name, v in card.classification_accuracy.items():
+            slack = 0.0 if name.startswith("DecisionTree") else 2.0 / n_test
+            check(abs(v - cpu.classification_accuracy[name]) <= slack + 1e-12,
+                  f"{tag}: {name} accuracy {v} vs CPU {cpu.classification_accuracy[name]}")
+        say(f"model stage, {tag} ({card.training_rows} rows, card == CPU): RMSE "
+            f"{json.dumps(card.regression_rmse)}; accuracy "
+            f"{json.dumps(card.classification_accuracy)}")
+        if not rounded:
+            say(f"  feature importances {json.dumps(card.feature_importances)}")
+
+
+def hospital_events(n_per_hospital: int, seed: int = 7):
+    """The example generator's law (``examples/run_hospital_pipeline.py``
+    ``generate_events``): 5 hospitals, events in 22:00–23:00, LOS linear in
+    the 4 features plus noise — built in memory."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = np.datetime64("2025-03-31T22:00:00")
+    cols = {k: [] for k in ("hospital_id", "event_time", "admission_count",
+                            "current_occupancy", "emergency_visits",
+                            "seasonality_index", "length_of_stay")}
+    for h in range(5):
+        n = n_per_hospital
+        adm = rng.integers(0, 50, n)
+        occ = rng.integers(20, 400, n)
+        emg = rng.integers(0, 30, n)
+        sea = rng.uniform(0.5, 1.5, n)
+        los = 0.05 * adm + 0.008 * occ + 0.12 * emg + 2.0 * sea + rng.normal(0.0, 0.4, n)
+        cols["hospital_id"].append(np.array([f"H{h:02d}"] * n, dtype=object))
+        cols["event_time"].append(base + rng.integers(0, 3600, n).astype("timedelta64[s]"))
+        for k, v in (("admission_count", adm), ("current_occupancy", occ),
+                     ("emergency_visits", emg), ("seasonality_index", sea),
+                     ("length_of_stay", los)):
+            cols[k].append(v)
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def stage_at_scale(port, H) -> int:
+    """The model stage on 2M rows of the example generator's law, on the
+    card: 6 K3 launches per depth-5 tree fit, 24 in the stage.  → the K3
+    launches of this run."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    cfg = port.PipelineConfig()
+    table = port.Table.from_dict(hospital_events(TREE_N // 5), port.hospital_event_schema())
+    table = table.between("event_time", cfg.training_window_start,
+                          cfg.training_window_end).na_drop()
+    check(table.num_rows == TREE_N, f"generator gave {table.num_rows} rows in the window")
+    say(f"stage data: {TREE_N} rows of the example generator's law in "
+        f"{time.perf_counter() - t0:.2f} s")
+    H.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = port.run_model_stage(table, cfg, device=DEV)
+    stage_s = time.perf_counter() - t0
+    launches = H.launch_counts()["fused_level_hist"]
+    check(launches == 24, f"K3 launched {launches} times in the stage (expected 6 x 4 = 24)")
+    for v in (*res.regression_rmse.values(), *res.classification_accuracy.values()):
+        check(np.isfinite(v) and v > 0, f"stage metric {v} not finite")
+    check(res.regression_rmse["LinearRegression"] < 0.45,
+          f"LR RMSE {res.regression_rmse['LinearRegression']} far above the noise (0.4)")
+    for name, imp in res.feature_importances.items():
+        check(abs(sum(imp.values()) - 1.0) < 1e-5, f"{name} importances do not sum to 1")
+    secs = ", ".join(f"{k} {v:.3f} s" for k, v in res.seconds.items())
+    say(f"model stage at scale ({res.training_rows} rows, {stage_s:.2f} s, K3 launches "
+        f"{launches}): {secs}")
+    say(f"  RMSE {json.dumps(res.regression_rmse)}; accuracy "
+        f"{json.dumps(res.classification_accuracy)}")
+    return launches
+
+
+def rf20(port) -> None:
+    """rf20: RandomForestRegressor(num_trees=20, max_depth=5, all features,
+    seed 0) on bench.py's 2M x 8 generator: fit time and rows/s, the fit's
+    breakdown, predict time and RMSE, the level loop under
+    ``set_sync_debug_mode("error")``, and the card-vs-CPU Poisson draw."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import prng
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import (
+        engine,
+    )
+
+    d = 8
+    rng = np.random.default_rng(0)
+    x = make_table_columns(TREE_N, d, 16, 0)
+    x = np.stack([x[f"f{j}"] for j in range(d)], axis=1)
+    x = ((x - x.mean(axis=0)) / x.std(axis=0)).astype(np.float32)
+    y = (x @ rng.normal(size=(d,)) + rng.normal(0.0, 0.3, size=TREE_N)).astype(np.float32)
+    ds = port.device_dataset(x, y, device=DEV)
+    est = port.RandomForestRegressor(num_trees=20, max_depth=5,
+                                     feature_subset_strategy="all", seed=0)
+    est.fit(ds)                                    # warm-up
+    sync()
+    t0 = time.perf_counter()
+    model = est.fit(ds)
+    fit_s = time.perf_counter() - t0
+    # the breakdown: each step of a timed fit ends with a sync, and CUDA
+    # events around every K3 launch give K3's share of the level loop
+    timings: dict = {}
+    events = []
+    hist = engine.fused_level_hist
+
+    def timed_hist(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = hist(*a, **k)
+        e.record()
+        events.append((s, e))
+        return out
+
+    engine.fused_level_hist = timed_hist
+    try:
+        engine.grow_forest(ds, task="regression", num_trees=20, max_depth=5, bootstrap=True,
+                           seed=0, timings=timings)
+    finally:
+        engine.fused_level_hist = hist
+    sync()
+    k3_ms = [s.elapsed_time(e) for s, e in events]
+    total_ms = sum(timings.values()) * 1e3
+    parts = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timings.items())
+    parts += (f"; K3 {len(k3_ms)} launches {[round(t, 3) for t in k3_ms]} ms = "
+              f"{sum(k3_ms):.1f} ms ({100 * sum(k3_ms) / total_ms:.1f}% of the timed fit's "
+              f"{total_ms:.1f} ms)")
+    t0 = time.perf_counter()
+    pred = model.predict(ds.x)
+    sync()
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    rmse = port.RegressionEvaluator().evaluate(
+        port.PredictionResult(prediction=pred, label=ds.y, weight=ds.w))
+    check(np.isfinite(rmse) and rmse < float(y.std()), f"rf20 RMSE {rmse} not below std(y)")
+    say(f"rf20 fit: {fit_s:.3f} s, {TREE_N / fit_s:.4g} rows/s; breakdown (timed run): {parts}")
+    say(f"rf20 predict: {pred_ms:.2f} ms over {TREE_N} rows, RMSE {rmse:.6f}")
+
+    # the level loop makes no host sync
+    loop = engine._level_loop
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return loop(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    engine._level_loop = guarded
+    try:
+        again = est.fit(ds)
+        # and the per-node feature-subset draw the pipeline's forests make
+        port.RandomForestRegressor(num_trees=20, max_depth=5, seed=0).fit(ds)
+    finally:
+        engine._level_loop = loop
+    check(np.array_equal(again.split_feat, model.split_feat)
+          and np.array_equal(again.threshold, model.threshold),
+          "rf20 refit under the sync check grew another forest")
+    say("rf20 level loop (all features, and onethird subsets) under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    a = prng.poisson(prng.key(0), 1.0, (20, 100_000), DEV).cpu()
+    b = prng.poisson(prng.key(0), 1.0, (20, 100_000), "cpu")
+    say(f"Poisson(1) draw (20, 100000), card vs CPU: {int((a != b).sum())} entries differ")
+
+
 def main() -> None:
     try:
         import torch
@@ -259,11 +640,13 @@ def main() -> None:
     import numpy as np
 
     import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import ops
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import _build
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import lloyd as L
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import tree_hist as H
 
-    check(not any(m.split(".")[0] == JAX_KERNELS.split("/")[0] for m in sys.modules),
-          "the port pulled in the JAX package")
+    check(not any(m.split(".")[0] in (JAX_KERNELS.split("/")[0], "jax") for m in sys.modules),
+          "the port pulled in jax or the JAX package")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -291,6 +674,7 @@ def main() -> None:
     kernel_case(L, 1_000_003, D, 16, 3, seed=2, reps=10, dup=True)
     kernel_case(L, 1_000_000, 64, 1024, 0, seed=3, reps=5)
     edge_cases(L)
+    records.append(k3_phase(H))
 
     # ----------------------------------------------------------- main path
     t0 = time.perf_counter()
@@ -392,7 +776,7 @@ def main() -> None:
     scored = port.serve.bulk_score(model, x_host, device="cuda")
     bulk_s = time.perf_counter() - t0
     check(np.array_equal(scored, pred_h), "bulk_score disagrees with predict")
-    counts = L.launch_counts()
+    counts = ops.launch_counts()          # K3's entry is set by its own path below
     say(f"bulk_score: {N} rows in {bulk_s:.2f} s, equal to predict")
 
     # ---------------------------- the fit against the plain path, small input
@@ -405,10 +789,15 @@ def main() -> None:
           "kernel fit centers disagree with the plain fit")
     say(f"small-input reference: card fit == CPU plain fit (n_iter {on_card.n_iter})")
 
-    check(counts["fused_lloyd_stats"] > 0 and counts["fused_assign"] > 0, "a kernel was never launched")
-    say(f"kernels launched on the main path: {json.dumps(counts)}")
-    records[0]["launches"] = counts["fused_lloyd_stats"]
-    records[1]["launches"] = counts["fused_assign"]
+    # ---------------------------------------------- the model stage (K3)
+    stage_on_bundled_csv(port)
+    counts["fused_level_hist"] = stage_at_scale(port, H)
+    rf20(port)
+
+    check(all(v > 0 for v in counts.values()), "a kernel was never launched")
+    say(f"kernels launched on the main paths: {json.dumps(counts)}")
+    for rec in records:
+        rec["launches"] = counts[rec["name"]]
     say(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

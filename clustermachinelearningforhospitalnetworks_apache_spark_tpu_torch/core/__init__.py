@@ -1,1 +1,1 @@
-"""Host-side tables (the subset the assembler needs)."""
+"""Host-side tables, schemas and the seeded split."""

@@ -1,5 +1,5 @@
-"""Schema types: named, typed columns (copied from the JAX package's
-``core/schema.py``, without its hospital-specific schemas)."""
+"""Schema types: named, typed columns, and the hospital event schema
+(copied from the JAX package's ``core/schema.py``)."""
 
 from __future__ import annotations
 
@@ -57,6 +57,12 @@ class Schema:
     def __iter__(self) -> Iterator[Field]:
         return iter(self.fields)
 
+    def __len__(self) -> int:
+        return len(self.fields)
+
+    def __contains__(self, name: str) -> bool:
+        return any(f.name == name for f in self.fields)
+
     @property
     def names(self) -> list[str]:
         return [f.name for f in self.fields]
@@ -66,3 +72,35 @@ class Schema:
             if f.name == name:
                 return f
         raise KeyError(f"no field {name!r}; schema has {self.names}")
+
+    def add(self, f: Field | tuple[str, str]) -> "Schema":
+        f = f if isinstance(f, Field) else Field(*f)
+        return Schema(self.fields + (f,))
+
+    def select(self, names: Iterable[str]) -> "Schema":
+        return Schema(tuple(self.field(n) for n in names))
+
+
+def hospital_event_schema() -> Schema:
+    """The reference script's streaming schema: 7 declared fields."""
+    return Schema(
+        [
+            ("hospital_id", STRING),
+            ("event_time", TIMESTAMP),
+            ("admission_count", INT),
+            ("current_occupancy", INT),
+            ("emergency_visits", INT),
+            ("seasonality_index", FLOAT),
+            ("length_of_stay", FLOAT),
+        ]
+    )
+
+
+#: the reference script's 4 feature columns and its regression label
+FEATURE_COLS = (
+    "admission_count",
+    "current_occupancy",
+    "emergency_visits",
+    "seasonality_index",
+)
+LABEL_COL = "length_of_stay"

@@ -1,6 +1,8 @@
 """Columnar in-memory table — the subset of the JAX package's
-``core/table.py`` that the feature assembler needs: construction from a
-dict of columns, row count, column access and the numeric matrix."""
+``core/table.py`` that the feature stages and the hospital pipeline's
+model stage need: construction, column access, the numeric matrix, and
+the relational steps concat / empty / select / mask / with_column /
+na_drop / between."""
 
 from __future__ import annotations
 
@@ -47,6 +49,12 @@ class Table:
     def num_rows(self) -> int:
         return len(self)
 
+    def column(self, name: str) -> np.ndarray:
+        return self.columns[name]
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.columns[name]
+
     @classmethod
     def from_dict(cls, data: Mapping[str, Any], schema: Schema | None = None) -> "Table":
         if schema is None:
@@ -64,6 +72,73 @@ class Table:
             schema = Schema(fields)
         cols = {f.name: _coerce(data[f.name], f) for f in schema}
         return cls(schema, cols)
+
+    @classmethod
+    def concat(cls, tables: Sequence["Table"]) -> "Table":
+        if not tables:
+            raise ValueError("concat of no tables")
+        schema = tables[0].schema
+        cols = {
+            n: np.concatenate([t.columns[n] for t in tables]) for n in schema.names
+        }
+        return cls(schema, cols)
+
+    @classmethod
+    def empty(cls, schema: Schema) -> "Table":
+        return cls(schema, {f.name: np.empty((0,), dtype=f.numpy_dtype) for f in schema})
+
+    def select(self, names: Sequence[str]) -> "Table":
+        return Table(self.schema.select(names), {n: self.columns[n] for n in names})
+
+    def mask(self, m: np.ndarray) -> "Table":
+        """Rows picked by a boolean mask or an index array."""
+        return Table(self.schema, {n: v[m] for n, v in self.columns.items()})
+
+    def with_column(self, name: str, values: Any, dtype: str | None = None) -> "Table":
+        """``DataFrame.withColumn``: add or replace a column; ``values``
+        may be an array or a callable of the table."""
+        if callable(values):
+            values = values(self)
+        arr = np.asarray(values)
+        if dtype is None:
+            if arr.dtype.kind in "USO":
+                dtype = STRING
+            elif arr.dtype.kind == "M":
+                dtype = TIMESTAMP
+            elif arr.dtype.kind in "iub":
+                dtype = INT
+            else:
+                dtype = FLOAT
+        f = Field(name, dtype)
+        if name in self.schema:
+            schema = Schema(tuple(f if g.name == name else g for g in self.schema))
+        else:
+            schema = self.schema.add(f)
+        cols = dict(self.columns)
+        cols[name] = _coerce(arr, f)
+        return Table(schema, cols)
+
+    def na_drop(self, subset: Sequence[str] | None = None) -> "Table":
+        """``DataFrame.na.drop()``: drop rows with a NaN, NaT or None."""
+        names = list(subset) if subset else self.schema.names
+        keep = np.ones(len(self), dtype=bool)
+        for n in names:
+            v = self.columns[n]
+            if v.dtype.kind == "f":
+                keep &= ~np.isnan(v)
+            elif v.dtype.kind == "M":
+                keep &= ~np.isnat(v)
+            elif v.dtype == object:
+                keep &= np.array([x is not None and x == x for x in v], dtype=bool)
+        return self.mask(keep)
+
+    def between(self, column: str, start: Any, end: Any) -> "Table":
+        """The training window: ``WHERE column BETWEEN start AND end``."""
+        v = self.columns[column]
+        if v.dtype.kind == "M":
+            start = np.datetime64(start)
+            end = np.datetime64(end)
+        return self.mask((v >= start) & (v <= end))
 
     def numeric_matrix(self, names: Sequence[str], dtype=np.float64) -> np.ndarray:
         for n in names:

@@ -1,1 +1,1 @@
-"""Feature stages: assembler and standard scaler."""
+"""Feature stages: assembler, standard scaler and binarizer."""

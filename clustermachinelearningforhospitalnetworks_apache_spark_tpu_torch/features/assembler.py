@@ -44,9 +44,27 @@ class AssembledTable:
     def __len__(self) -> int:
         return len(self.table)
 
-    def to_device(self, device=None):
+    def label(self, name: str) -> np.ndarray:
+        return self.table.column(name).astype(np.float64)
+
+    def to_device(self, label_col: str | None = None, device=None,
+                  weight_col: str | None = None):
         """The features as a padded :class:`~..data.DeviceDataset` on
-        ``device`` (default the card)."""
+        ``device`` (default the card).  The label comes from the source
+        table: ``label_col``, else the canonical LOS label when the table
+        has it; ``weight_col`` names non-negative sample weights."""
+        from ..core.schema import LABEL_COL
         from ..data import device_dataset
 
-        return device_dataset(self.features, device=device)
+        if label_col is None and LABEL_COL in self.table.schema:
+            label_col = LABEL_COL
+        y = self.label(label_col) if label_col else None
+        w = None
+        if weight_col:
+            if weight_col not in self.table.schema:
+                raise KeyError(
+                    f"weight_col {weight_col!r} is not a column of the "
+                    f"table; available: {self.table.schema.names}"
+                )
+            w = self.table.column(weight_col).astype(np.float64)
+        return device_dataset(self.features, y, device=device, weights=w)

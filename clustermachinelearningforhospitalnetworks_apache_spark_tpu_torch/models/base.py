@@ -1,11 +1,14 @@
 """Estimator / Model protocol (the JAX package's ``models/base.py``).
 
 Estimators consume a padded :class:`~..data.DeviceDataset` (or anything
-coercible to one) and models predict on the device the input lies on.
+coercible to one) and models predict on the device the input lies on;
+``Model.transform`` returns a :class:`PredictionResult` whose tensors stay
+on the device until an evaluator reduces them.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
@@ -16,14 +19,23 @@ from ..device import resolve_device
 from ..features.assembler import AssembledTable
 
 
-def as_device_dataset(data: Any, device=None) -> DeviceDataset:
+def as_device_dataset(data: Any, label_col: str | None = None, device=None,
+                      weight_col: str | None = None) -> DeviceDataset:
     """Coerce (DeviceDataset | AssembledTable | (X, y[, w]) | X) to a
     padded dataset on ``device`` (default the card).  A DeviceDataset is
-    returned as it is, on its own device."""
+    returned as it is, on its own device; an AssembledTable takes its
+    labels (``label_col``) and weights (``weight_col``) from its source
+    table."""
     if isinstance(data, DeviceDataset):
         return data
     if isinstance(data, AssembledTable):
-        return data.to_device(device=device)
+        return data.to_device(label_col=label_col, device=device, weight_col=weight_col)
+    if weight_col is not None:
+        raise ValueError(
+            f"weight_col={weight_col!r} needs a table input to resolve the "
+            f"column; got {type(data).__name__} — pass an AssembledTable, "
+            "an (x, y, weights) tuple, or a pre-weighted DeviceDataset"
+        )
     if isinstance(data, tuple) and len(data) == 3:
         return device_dataset(np.asarray(data[0]), np.asarray(data[1]),
                               device=device, weights=np.asarray(data[2]))
@@ -33,10 +45,29 @@ def as_device_dataset(data: Any, device=None) -> DeviceDataset:
     return device_dataset(np.asarray(data), None, device=device)
 
 
-class Estimator:
-    """Base: subclasses implement ``fit(dataset, device=...) -> Model``."""
+@dataclass
+class PredictionResult:
+    """Predictions, labels and validity weights (pad rows w = 0), as
+    tensors on the device the model ran on."""
 
-    def fit(self, data: Any, device=None):
+    prediction: torch.Tensor
+    label: torch.Tensor
+    weight: torch.Tensor
+
+    def to_numpy(self, n: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+        pred = self.prediction.cpu().numpy()
+        lab = self.label.cpu().numpy()
+        if n is None:
+            valid = self.weight.cpu().numpy() > 0
+            return pred[valid], lab[valid]
+        return pred[:n], lab[:n]
+
+
+class Estimator:
+    """Base: subclasses implement ``fit(data, label_col=None, device=None)
+    -> Model``."""
+
+    def fit(self, data: Any, label_col: str | None = None, device=None):
         raise NotImplementedError
 
 
@@ -66,9 +97,24 @@ class Model:
 
     @property
     def num_features(self) -> int | None:
-        """Feature width the model was trained on, when recoverable."""
-        centers = getattr(self, "cluster_centers", None)
-        return None if centers is None else int(np.asarray(centers).shape[1])
+        """Feature width the model was trained on, when recoverable from
+        its parameters — the serve registry sizes its buckets with it."""
+        for attr, axis in (
+            ("coefficients", -1),         # linear family
+            ("cluster_centers", 1),       # kmeans
+            ("feature_importances", -1),  # tree ensembles
+        ):
+            v = getattr(self, attr, None)
+            if v is not None and len(getattr(v, "shape", ())) >= 1:
+                return int(v.shape[axis])
+        return None
+
+    def transform(self, data: Any, label_col: str | None = None,
+                  device=None) -> PredictionResult:
+        """Predict on ``data`` (coerced as :func:`as_device_dataset`
+        does) → predictions beside its labels and weights."""
+        ds = as_device_dataset(data, label_col=label_col, device=device)
+        return PredictionResult(prediction=self.predict(ds.x), label=ds.y, weight=ds.w)
 
     def predict_numpy(self, x: np.ndarray, device=None) -> np.ndarray:
         """Host rows in, host predictions out; computed on ``device``

@@ -166,7 +166,7 @@ class KMeans(Estimator):
             sample_valid_rows(ds, self.init_sample_size, self.seed)
         )
 
-    def fit(self, data, device=None) -> KMeansModel:
+    def fit(self, data, label_col: str | None = None, device=None) -> KMeansModel:
         """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
         x), moved to ``device`` (default the card) unless it already is a
         DeviceDataset."""

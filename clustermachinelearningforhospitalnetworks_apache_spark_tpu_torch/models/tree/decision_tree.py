@@ -1,0 +1,138 @@
+"""DecisionTreeRegressor / DecisionTreeClassifier (the JAX package's
+``models/tree/decision_tree.py``, resident fits).
+
+A decision tree is the one-tree case of the level-order histogram engine
+(``engine.py``).  Spark defaults: maxDepth 5, maxBins 32,
+minInstancesPerNode 1, minInfoGain 0.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..base import Estimator, Model, as_device_dataset, check_features
+from .engine import GrownForest, grow_forest, predict_forest
+
+
+def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None = None,
+               **kw) -> GrownForest:
+    """Shared fit for every tree estimator: stage the data on ``device``
+    and grow.  ``subset_strategy`` (forests) resolves to a per-node
+    feature count once the dataset's width is known."""
+    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col)
+    if subset_strategy is not None:
+        from .random_forest import _subset_size
+
+        kw["feature_subset_size"] = _subset_size(subset_strategy, ds.n_features, kw["task"])
+    return grow_forest(ds, **kw)
+
+
+@dataclass
+class _TreeEnsembleModel(Model):
+    """Shared prediction for single trees and forests: host numpy heap
+    arrays, traversed on the device of the rows."""
+
+    split_feat: np.ndarray
+    threshold: np.ndarray
+    value: np.ndarray
+    feature_importances: np.ndarray
+    max_depth: int
+    task: str = "regression"
+    num_classes: int = 2
+    split_catmask: np.ndarray | None = None
+    cat_arities: np.ndarray | None = None
+
+    @property
+    def num_trees(self) -> int:
+        return self.split_feat.shape[0]
+
+    @property
+    def total_num_nodes(self) -> int:
+        """Count of populated nodes across trees (split nodes + their leaves)."""
+        splits = (self.split_feat >= 0).sum()
+        return int(2 * splits + self.num_trees)
+
+    def _tree_outputs(self, x: torch.Tensor) -> torch.Tensor:
+        check_features(x, self.feature_importances.shape[-1], type(self).__name__)
+        cat_mask = cat_flags = None
+        if self.split_catmask is not None:
+            cat_mask = self.split_catmask
+            cat_flags = np.asarray(self.cat_arities) > 0
+        return predict_forest(x, self.split_feat, self.threshold, self.value,
+                              cat_mask, cat_flags)  # (T, n, V)
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        out = self._tree_outputs(x).mean(dim=0)  # (n, V)
+        if self.task == "regression":
+            return out[:, 0]
+        return torch.argmax(out, dim=1).to(torch.float32)
+
+    def predict_proba(self, x: torch.Tensor) -> torch.Tensor:
+        if self.task != "classification":
+            raise ValueError("predict_proba is classification-only")
+        return self._tree_outputs(x).mean(dim=0)
+
+
+def _from_grown(cls, grown: GrownForest, task: str, num_classes: int):
+    imp = grown.importances.mean(axis=0)
+    s = imp.sum()
+    return cls(
+        split_feat=grown.split_feat,
+        threshold=grown.threshold,
+        value=grown.value,
+        feature_importances=imp / s if s > 0 else imp,
+        max_depth=grown.max_depth,
+        task=task,
+        num_classes=num_classes,
+        split_catmask=grown.split_catmask,
+        cat_arities=grown.cat_arities,
+    )
+
+
+@dataclass
+class DecisionTreeModel(_TreeEnsembleModel):
+    pass
+
+
+@dataclass(frozen=True)
+class _TreeParams:
+    max_depth: int = 5
+    max_bins: int = 32
+    min_instances_per_node: int = 1
+    min_info_gain: float = 0.0
+    seed: int = 0
+    label_col: str = "length_of_stay"
+    weight_col: str | None = None  # Spark's weightCol
+    # MLlib's categoricalFeaturesInfo: feature index → arity
+    categorical_features: dict[int, int] | None = None
+
+    def _grow_kw(self) -> dict:
+        return dict(
+            max_depth=self.max_depth, max_bins=self.max_bins,
+            min_instances_per_node=self.min_instances_per_node,
+            min_info_gain=self.min_info_gain, seed=self.seed,
+            categorical_features=self.categorical_features,
+        )
+
+
+@dataclass(frozen=True)
+class DecisionTreeRegressor(Estimator, _TreeParams):
+    def fit(self, data, label_col: str | None = None, device=None) -> DecisionTreeModel:
+        grown = _fit_grown(data, label_col or self.label_col, self.weight_col, device,
+                           task="regression", num_trees=1, **self._grow_kw())
+        return _from_grown(DecisionTreeModel, grown, "regression", 2)
+
+
+@dataclass(frozen=True)
+class DecisionTreeClassifier(Estimator, _TreeParams):
+    num_classes: int = 2
+    label_col: str = "LOS_binary"
+
+    def fit(self, data, label_col: str | None = None, device=None) -> DecisionTreeModel:
+        grown = _fit_grown(data, label_col or self.label_col, self.weight_col, device,
+                           task="classification", num_classes=self.num_classes,
+                           num_trees=1, **self._grow_kw())
+        return _from_grown(DecisionTreeModel, grown, "classification", self.num_classes)

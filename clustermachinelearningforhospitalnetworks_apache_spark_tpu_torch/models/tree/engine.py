@@ -1,0 +1,480 @@
+"""Level-order histogram tree growth (the JAX package's
+``models/tree/engine.py``, resident path).
+
+Every level of every tree is grown at once over a padded frontier of
+``2**depth`` heap slots: one K3 launch (``ops/tree_hist.py``) builds the
+(T, LN, d, B, S) stat histograms, the split of each node is selected on
+the device, and rows move to their child slots on the device.  The level
+loop makes no host sync: the winners of all levels are packed into one
+tensor and fetched once, after the last level.  The host then fills the
+flat heap arrays (``_ForestRecorder``, copied unchanged).
+
+Draws match the JAX package bit for bit (``prng.py``): the per-node
+feature subset is rank-of-uniform over ``fold_in(key(seed), depth)`` and
+the bootstrap is ``poisson(key(seed), rate, (T, n_pad))``.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ... import prng
+from ...data import DeviceDataset, sample_valid_rows
+from ...ops.tree_hist import fused_level_hist
+from .binning import digitize, quantile_thresholds
+
+
+# ------------------------------------------------------------- selection
+def select_splits(hist, feat_mask, min_inst: float, min_gain: float, task: str,
+                  is_cat=None):
+    """On-device split selection from a level's (T, LN, d, B, S) histogram
+    (the JAX ``_make_select_fn``).
+
+    ``feat_mask`` (T, LN, d) zero-masks features outside the node's
+    subset; ``is_cat`` (d,) bool tensor marks categorical features, whose
+    bins are sorted per node by label mean (regression) or mean class
+    index (classification), empty bins last, with a stable sort, before
+    the prefix scan; the winning prefix becomes a uint32 category mask
+    (held in int64).  Regression stats are (w, Σy, Σy²), classification
+    stats per-class weights.  Ties take the first (feature, bin), as
+    ``argmax`` does.  → (agg (T,LN,S), best_gain, best_feat, best_bin,
+    do_split, catmask), all (T, LN) but agg."""
+    T, LN, d, B, S = hist.shape
+    dev = hist.device
+    agg = hist[:, :, 0, :, :].sum(dim=2)                      # (T, LN, S)
+    order = None
+    if is_cat is not None:
+        if task == "regression":
+            w_bin, s_bin = hist[..., 0], hist[..., 1]
+        else:
+            cls = torch.arange(S, dtype=torch.float32, device=dev)
+            w_bin = hist.sum(-1)
+            s_bin = (hist * cls).sum(-1)
+        key = torch.where(w_bin > 0, s_bin / torch.clamp(w_bin, min=1e-12),
+                          torch.full_like(w_bin, float("inf")))
+        natural = torch.arange(B, dtype=torch.float32, device=dev).expand_as(key)
+        key = torch.where(is_cat[None, None, :, None], key, natural)
+        order = torch.sort(key, dim=3, stable=True).indices   # (T, LN, d, B)
+        hist = torch.take_along_dim(hist, order[..., None], dim=3)
+
+    cum = torch.cumsum(hist, dim=3)
+    total = cum[:, :, :, -1:, :]
+    if task == "regression":
+        wl, sl, ql = cum[..., 0], cum[..., 1], cum[..., 2]
+        wt, st, qt = total[..., 0], total[..., 1], total[..., 2]
+        wr, sr, qr = wt - wl, st - sl, qt - ql
+
+        def sse(w, s, q):
+            return torch.where(w > 0, q - s * s / torch.clamp(w, min=1e-12),
+                               torch.zeros_like(q))
+
+        gain = sse(wt, st, qt) - sse(wl, sl, ql) - sse(wr, sr, qr)
+        node_w = agg[..., 0]
+    else:
+        left, right = cum, total - cum
+        wl, wr = left.sum(-1), right.sum(-1)
+        wt = total.sum(-1)
+
+        def gini(counts, w):
+            return torch.where(w > 0, w - (counts * counts).sum(-1) / torch.clamp(w, min=1e-12),
+                               torch.zeros_like(w))
+
+        gain = gini(total, wt) - gini(left, wl) - gini(right, wr)
+        node_w = agg.sum(-1)
+
+    valid = (wl >= min_inst) & (wr >= min_inst) & (feat_mask[..., None] > 0)
+    gain = torch.where(valid, gain, torch.full_like(gain, float("-inf")))
+    gain[..., -1].fill_(float("-inf"))         # last bin: empty right child
+
+    flat = gain.reshape(T, LN, d * B)
+    best = torch.argmax(flat, dim=2)
+    best_gain = torch.take_along_dim(flat, best[..., None], dim=2)[..., 0]
+    do_split = torch.isfinite(best_gain) & (best_gain > min_gain) & (node_w >= 2.0 * min_inst)
+    best_feat = torch.div(best, B, rounding_mode="floor").to(torch.int32)
+    best_bin = (best % B).to(torch.int32)
+    if order is not None:
+        ord_win = torch.take_along_dim(
+            order, best_feat.to(torch.int64)[..., None, None], dim=2
+        )[:, :, 0, :]                                           # (T, LN, B)
+        take = torch.arange(B, device=dev)[None, None, :] <= best_bin[..., None]
+        bits = torch.where(take, torch.bitwise_left_shift(torch.ones_like(ord_win),
+                                                          torch.clamp(ord_win, max=31)),
+                           torch.zeros_like(ord_win))
+        catmask = bits.sum(-1)
+    else:
+        catmask = torch.zeros(best_bin.shape, dtype=torch.int64, device=dev)
+    return agg, best_gain, best_feat, best_bin, do_split, catmask
+
+
+def advance_level(binned_t, node_id, pos, feat, bin_, do_split, level_base: int,
+                  catmask=None, cat_flags=None):
+    """Move the rows on the current frontier to their child heap slots
+    (the JAX ``_advance_level``, with gathers where it unrolled selects).
+
+    A row goes right iff its bin in the node's split feature is above the
+    split bin — or, for a categorical split, iff its category's bit is
+    not in the node's mask (``cat_flags`` (d,) bool marks categorical
+    features; None on all-continuous fits).  Rows of unsplit nodes park
+    at −1."""
+    feat_eff = torch.where(do_split, feat, torch.full_like(feat, -1)).to(torch.int64)
+    active = pos >= 0
+    safe = torch.clamp(pos, min=0).to(torch.int64)
+    f = torch.where(active, torch.gather(feat_eff, 1, safe), torch.full_like(safe, -1))
+    b = torch.gather(bin_.to(torch.int64), 1, safe)
+    fb = torch.gather(binned_t, 0, torch.clamp(f, min=0)).to(torch.int64)
+    right = (fb > b).to(torch.int32)
+    if cat_flags is not None:
+        cm = torch.gather(catmask, 1, safe)
+        icat = cat_flags[torch.clamp(f, min=0)]
+        in_left = ((cm >> torch.clamp(fb, max=31)) & 1) > 0
+        right = torch.where(icat, (~in_left).to(torch.int32), right)
+    child = 2 * (level_base + pos) + 1 + right
+    moved = torch.where(active, torch.full_like(node_id, -1), node_id)
+    return torch.where(active & (f >= 0), child, moved)
+
+
+def subset_mask(seed: int, depth: int, T: int, level_nodes: int, d: int, k: int,
+                device) -> torch.Tensor:
+    """Exactly ``k`` of ``d`` features per (tree, node): feature f is in
+    iff the rank of ``u[t, p, f]`` among the node's uniforms is below k,
+    with ``u = uniform(fold_in(key(seed), depth), (T, LN, d))``."""
+    u = prng.uniform(prng.fold_in(prng.key(seed), depth), (T, level_nodes, d), device)
+    ranks = torch.argsort(torch.argsort(u, dim=-1, stable=True), dim=-1, stable=True)
+    return (ranks < k).to(torch.float32)
+
+
+def bootstrap_weights(seed: int, rate: float, T: int, n_pad: int, device) -> torch.Tensor:
+    """Poisson(rate) bootstrap counts per (tree, row) as float32."""
+    return prng.poisson(prng.key(seed), rate, (T, n_pad), device).to(torch.float32)
+
+
+def bin_feature_matrix(x: torch.Tensor, thr: np.ndarray, cat: dict[int, int] | None = None,
+                       w: torch.Tensor | None = None) -> torch.Tensor:
+    """(n, d) features → (d, n) int32 bin matrix (row axis last).
+
+    Continuous columns digitize against ``thr``; a categorical column's
+    bins are its category ids (rounded half to even).  A valid (w > 0)
+    row whose category falls outside [0, arity) raises, as Spark does."""
+    binned = digitize(x, thr)
+    if cat:
+        feats = sorted(cat)
+        idx = torch.as_tensor(feats, dtype=torch.int64, device=x.device)
+        hi = torch.as_tensor([cat[f] - 1 for f in feats], dtype=torch.int32, device=x.device)
+        xi = torch.round(x[:, idx].to(torch.float32)).to(torch.int32)
+        bad = (xi < 0) | (xi > hi[None, :])
+        if w is not None:
+            bad = bad & (w[:, None] > 0)
+        bad_feat = bad.any(dim=0).cpu().numpy()
+        if bad_feat.any():
+            f = feats[int(np.flatnonzero(bad_feat)[0])]
+            raise ValueError(
+                f"categorical feature {f} has values outside [0, "
+                f"{cat[f]}) — wrong arity in categorical_features, or the "
+                "column is not StringIndexer output"
+            )
+        binned[:, idx] = xi
+    return binned.T.contiguous()
+
+
+class _ForestRecorder:
+    """Host-side accumulation of per-level winners into the flat heap
+    arrays + the materialization tail (thresholds, leaf values, parent
+    propagation, importance normalization) — copied unchanged from the JAX
+    package so both emit identical :class:`GrownForest` artifacts from
+    identical winner tensors."""
+
+    def __init__(self, T: int, d: int, S: int, max_depth: int, is_cat: np.ndarray):
+        total = 2 ** (max_depth + 1) - 1
+        self.max_depth = max_depth
+        self.is_cat = is_cat
+        self.split_feat = np.full((T, total), -1, dtype=np.int32)
+        self.split_bin = np.zeros((T, total), dtype=np.int32)
+        self.split_catmask = np.zeros((T, total), dtype=np.uint32)
+        self.node_stats = np.zeros((T, total, S), dtype=np.float64)
+        self.importances = np.zeros((T, d), dtype=np.float64)
+
+    def record_level(self, depth: int, fetched) -> None:
+        agg, best_gain, best_feat, best_bin, do_split, catmask = (
+            np.asarray(fetched[0], np.float64),
+            np.asarray(fetched[1], np.float64),
+            np.asarray(fetched[2], np.int32),
+            np.asarray(fetched[3], np.int32),
+            np.asarray(fetched[4], bool),
+            np.asarray(fetched[5], np.uint32),
+        )
+        level_nodes = 1 << depth
+        level_base = level_nodes - 1
+        self.node_stats[:, level_base : level_base + level_nodes] = agg
+        if depth == self.max_depth:
+            return
+        sl = slice(level_base, level_base + level_nodes)
+        self.split_feat[:, sl] = np.where(do_split, best_feat, -1)
+        self.split_bin[:, sl] = np.where(do_split, best_bin, 0)
+        self.split_catmask[:, sl] = np.where(
+            do_split & self.is_cat[best_feat], catmask, np.uint32(0)
+        )
+        for t in range(best_feat.shape[0]):
+            np.add.at(
+                self.importances[t],
+                best_feat[t][do_split[t]],
+                best_gain[t][do_split[t]],
+            )
+
+    def materialize(
+        self, thr: np.ndarray, task: str, num_classes: int,
+        cat_arities: tuple[int, ...] | None, B: int,
+    ) -> "GrownForest":
+        T, total = self.split_feat.shape
+        threshold = np.zeros((T, total), dtype=np.float32)
+        valid_split = (self.split_feat >= 0) & ~self.is_cat[
+            np.maximum(self.split_feat, 0)
+        ]
+        f_idx = np.maximum(self.split_feat, 0)
+        b_idx = np.minimum(self.split_bin, B - 2)
+        threshold[valid_split] = thr[f_idx, b_idx][valid_split].astype(np.float32)
+
+        node_stats = self.node_stats
+        if task == "regression":
+            w = node_stats[..., 0]
+            with np.errstate(divide="ignore", invalid="ignore"):
+                mean = np.where(
+                    w > 0, node_stats[..., 1] / np.maximum(w, 1e-12), 0.0
+                )
+            value = mean[..., None].astype(np.float32)  # (T, total, 1)
+        else:
+            w = node_stats.sum(-1, keepdims=True)
+            value = np.where(
+                w > 0, node_stats / np.maximum(w, 1e-12), 1.0 / num_classes
+            ).astype(np.float32)  # (T, total, C) class probabilities
+
+        # propagate values down so un-populated heap slots predict their parent
+        for parent in range(total // 2):
+            for child in (2 * parent + 1, 2 * parent + 2):
+                empty = (
+                    node_stats[:, child].sum(-1) <= 0
+                    if task == "classification"
+                    else node_stats[:, child, 0] <= 0
+                )
+                value[:, child][empty] = value[:, parent][empty]
+
+        imp = self.importances
+        tot_imp = imp.sum(axis=1, keepdims=True)
+        imp = np.where(tot_imp > 0, imp / np.maximum(tot_imp, 1e-12), 0.0)
+        has_cat = cat_arities is not None and any(a > 0 for a in cat_arities)
+        return GrownForest(
+            split_feat=self.split_feat,
+            split_bin=self.split_bin,
+            threshold=threshold,
+            value=value,
+            importances=imp,
+            max_depth=self.max_depth,
+            bin_thresholds=thr,
+            split_catmask=self.split_catmask if has_cat else None,
+            cat_arities=(
+                np.asarray(cat_arities, dtype=np.int32) if has_cat else None
+            ),
+        )
+
+
+@dataclass
+class GrownForest:
+    """Flat heap-layout ensemble (T trees × (2^(depth+1)-1) nodes)."""
+
+    split_feat: np.ndarray      # (T, total) int32, -1 = leaf
+    split_bin: np.ndarray       # (T, total) int32
+    threshold: np.ndarray       # (T, total) float32 — real-valued split point
+    value: np.ndarray           # (T, total, V) float32 — leaf prediction stats
+    importances: np.ndarray     # (T, d)
+    max_depth: int
+    bin_thresholds: np.ndarray  # (d, B-1)
+    split_catmask: np.ndarray | None = None  # (T, total) uint32 — left-set
+    cat_arities: np.ndarray | None = None    # (d,) int32, 0 = continuous
+
+
+def _level_loop(binned_t, base_t, w_tree, T: int, d: int, B: int, task: str,
+                max_depth: int, seed: int, subset_k: int | None, min_inst: float,
+                min_gain: float, is_cat):
+    """Grow every level on the device without a host sync.  → one float64
+    tensor per level packing (agg, gain, feat, bin, do_split, catmask)
+    column-wise, (T, LN·(S+5))."""
+    dev = binned_t.device
+    n = binned_t.shape[1]
+    node_id = torch.zeros((T, n), dtype=torch.int32, device=dev)
+    packed = []
+    for depth in range(max_depth + 1):
+        level_nodes = 1 << depth
+        level_base = level_nodes - 1
+        pos = node_id - level_base
+        pos = torch.where((node_id >= 0) & (pos >= 0) & (pos < level_nodes), pos,
+                          torch.full_like(pos, -1))
+        if subset_k is not None:
+            mask = subset_mask(seed, depth, T, level_nodes, d, subset_k, dev)
+        else:
+            mask = torch.ones((T, level_nodes, d), dtype=torch.float32, device=dev)
+        hist = fused_level_hist(binned_t, base_t, w_tree, pos, level_nodes, B)
+        out = select_splits(hist, mask, min_inst, min_gain, task, is_cat)
+        agg, gain, feat, bin_, split, catmask = out
+        packed.append(torch.cat(
+            [agg.reshape(T, -1).to(torch.float64)]
+            + [v.to(torch.float64) for v in (gain, feat, bin_, split, catmask)], dim=1
+        ))
+        if depth < max_depth:
+            node_id = advance_level(binned_t, node_id, pos, feat, bin_, split, level_base,
+                                    catmask, is_cat)
+    return packed
+
+
+def _unpack_level(level: np.ndarray, T: int, LN: int, S: int):
+    agg = level[:, : LN * S].reshape(T, LN, S)
+    rest = level[:, LN * S :].reshape(T, 5, LN)
+    return (agg, rest[:, 0], rest[:, 1].astype(np.int32), rest[:, 2].astype(np.int32),
+            rest[:, 3] > 0, rest[:, 4].astype(np.uint32))
+
+
+def grow_forest(
+    ds: DeviceDataset,
+    *,
+    task: str,                      # "regression" | "classification"
+    num_classes: int = 2,
+    num_trees: int = 1,
+    max_depth: int = 5,
+    max_bins: int = 32,
+    min_instances_per_node: int = 1,
+    min_info_gain: float = 0.0,
+    feature_subset_size: int | None = None,   # per-node; None = all features
+    bootstrap: bool = False,
+    subsampling_rate: float = 1.0,
+    seed: int = 0,
+    init_sample_size: int = 65536,
+    categorical_features: dict[int, int] | None = None,
+    timings: dict | None = None,
+) -> GrownForest:
+    """Train ``num_trees`` trees level by level on the dataset's device.
+
+    Steps: quantile thresholds from a host sample of valid rows; the
+    (d, n) bin matrix on the device; per-tree weights (validity × Poisson
+    bootstrap when ``bootstrap``); per-row stats (w, y, y²) or class
+    one-hots; then ``max_depth + 1`` levels of K3 + selection + advance
+    with no host sync, and one fetch of every level's winners.
+
+    ``categorical_features`` maps feature index → arity (≤ min(32,
+    max_bins)); those columns hold category ids and split as unordered
+    sets.  ``timings``, when given, receives host seconds per step
+    (each step ends with a device sync, so only pass it when timing)."""
+    n_pad = ds.n_padded
+    d = ds.n_features
+    T = num_trees
+    B = max_bins
+    dev = ds.x.device
+
+    def tick(name, t0):
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+        return time.perf_counter()
+
+    cat = dict(categorical_features or {})
+    for f, arity in cat.items():
+        if not 0 <= f < d:
+            raise ValueError(f"categorical feature index {f} out of range [0, {d})")
+        if not 2 <= arity <= min(32, B):
+            raise ValueError(
+                f"categorical feature {f} arity {arity} must be in "
+                f"[2, min(32, max_bins={B})]"
+            )
+    cat_arities = tuple(cat.get(f, 0) for f in range(d)) if cat else None
+
+    t0 = time.perf_counter()
+    sample = sample_valid_rows(ds, init_sample_size, seed)
+    if sample.shape[0] == 0:
+        raise ValueError("tree fit on an empty dataset")
+    thr = quantile_thresholds(sample, B)
+    t0 = tick("thresholds", t0)
+    binned_t = bin_feature_matrix(ds.x, thr, cat, w=ds.w)
+    t0 = tick("digitize", t0)
+
+    w_valid = ds.w.to(torch.float32)
+    if bootstrap:
+        w_tree = bootstrap_weights(seed, float(subsampling_rate), T, n_pad, dev) * w_valid[None, :]
+    else:
+        w_tree = w_valid[None, :].expand(T, n_pad).contiguous()
+    if task == "regression":
+        S = 3
+        y = ds.y.to(torch.float32)
+        base_t = torch.stack([torch.ones_like(y), y, y * y], dim=0)
+    else:
+        S = num_classes
+        yi = ds.y.to(torch.int32)
+        base_t = (yi[None, :] == torch.arange(S, dtype=torch.int32, device=dev)[:, None]).to(
+            torch.float32)
+    base_t = base_t.contiguous()
+    is_cat_host = np.asarray([f in cat for f in range(d)], dtype=bool)
+    is_cat = torch.as_tensor(is_cat_host, device=dev) if cat else None
+    subset_k = (
+        feature_subset_size
+        if feature_subset_size is not None and feature_subset_size < d
+        else None
+    )
+    t0 = tick("draws", t0)
+
+    packed = _level_loop(binned_t, base_t, w_tree, T, d, B, task, max_depth, seed,
+                         subset_k, float(min_instances_per_node), float(min_info_gain),
+                         is_cat)
+    t0 = tick("level_loop", t0)
+
+    fetched = torch.cat(packed, dim=1).cpu().numpy()   # the one host fetch
+    rec = _ForestRecorder(T, d, S, max_depth, is_cat_host)
+    col = 0
+    for depth in range(max_depth + 1):
+        LN = 1 << depth
+        width = LN * (S + 5)
+        rec.record_level(depth, _unpack_level(fetched[:, col : col + width], T, LN, S))
+        col += width
+    grown = rec.materialize(thr, task, num_classes, cat_arities, B)
+    tick("fetch_materialize", t0)
+    return grown
+
+
+# ---------------------------------------------------------------- predict
+def predict_forest(x: torch.Tensor, split_feat, threshold, value, cat_mask=None,
+                   cat_flags=None) -> torch.Tensor:
+    """Ensemble traversal on ``x``'s device: every tree walks ``max_depth``
+    levels of gathers.  x (n, d); split_feat / threshold (T, total); value
+    (T, total, V) → (T, n, V) per-tree outputs (the caller aggregates).
+
+    ``cat_mask`` (T, total) + ``cat_flags`` (d,) route categorical split
+    nodes: left iff the row's rounded category has its bit in the mask
+    (unseen or out-of-range ids go right)."""
+    dev = x.device
+    x_t = x.to(torch.float32).T.contiguous()                      # (d, n)
+    sf = torch.as_tensor(split_feat, device=dev).to(torch.int64)
+    th = torch.as_tensor(threshold, device=dev).to(torch.float32)
+    val = torch.as_tensor(value, device=dev).to(torch.float32)
+    T, total = sf.shape
+    n = x_t.shape[1]
+    depth = int(np.log2(total + 1)) - 1
+    if cat_flags is not None:
+        cm = torch.as_tensor(np.asarray(cat_mask, dtype=np.int64), device=dev)
+        cflags = torch.as_tensor(np.asarray(cat_flags, dtype=bool), device=dev)
+    node = torch.zeros((T, n), dtype=torch.int64, device=dev)
+    for _ in range(depth):
+        f = torch.gather(sf, 1, node)
+        is_split = f >= 0
+        fs = torch.clamp(f, min=0)
+        xv = torch.gather(x_t, 0, fs)
+        right = (xv > torch.gather(th, 1, node)).to(torch.int64)
+        if cat_flags is not None:
+            icat = cflags[fs]
+            xr = torch.round(xv)
+            xi = torch.clamp(xr, 0, 31).to(torch.int64)
+            in_left = ((torch.gather(cm, 1, node) >> xi) & 1) > 0
+            in_left = in_left & (xr >= 0) & (xr < 32)
+            right = torch.where(icat, (~in_left).to(torch.int64), right)
+        node = torch.where(is_split, 2 * node + 1 + right, node)
+    V = val.shape[2]
+    return torch.gather(val, 1, node[..., None].expand(T, n, V))

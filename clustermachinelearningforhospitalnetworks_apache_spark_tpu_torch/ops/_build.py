@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 
 #: name -> source file under csrc/
-SOURCES = {"lloyd": "lloyd.cu"}
+SOURCES = {"lloyd": "lloyd.cu", "tree_hist": "tree_hist.cu"}
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",

@@ -13,6 +13,10 @@ import torch
 
 import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
 
+# the suite runs several worker processes on a few cores: one intra-op
+# thread per worker keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 PORT_DIR = Path(port.__file__).resolve().parent
 REPO = PORT_DIR.parent
 JAX_PKG = "clustermachinelearningforhospitalnetworks_apache_spark_tpu"
@@ -50,7 +54,13 @@ def test_no_port_source_names_the_jax_package():
 def test_every_module_is_walkable():
     names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
     for expected in ("ops.lloyd", "ops.distance", "models.kmeans", "serve.server",
-                     "evaluation.clustering", "features.scaler", "convert", "data"):
+                     "evaluation.clustering", "features.scaler", "convert", "data",
+                     "prng", "config", "core.split", "io.csv", "features.binarizer",
+                     "evaluation.regression", "evaluation.classification",
+                     "models.linear_regression", "models.tree.binning",
+                     "models.tree.engine", "models.tree.decision_tree",
+                     "models.tree.random_forest", "ops.tree_hist",
+                     "pipeline.hospital_pipeline"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -70,9 +80,23 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         lambda: model.predict_numpy(x),
         lambda: port.serve.InferenceServer(),
         lambda: port.serve.bulk_score(model, x),
+        lambda: port.LinearRegression().fit((x, x[:, 0])),
+        lambda: port.DecisionTreeRegressor(max_depth=2).fit((x, x[:, 0])),
+        lambda: port.RandomForestClassifier(num_trees=2).fit((x, x[:, 0] > 0)),
+        lambda: port.linear_regression_model_from_jax_arrays(np.ones(3), 0.0).transform(x),
+        lambda: port.run_model_stage(port.Table.from_dict(
+            {c: np.arange(16.0) for c in (*port.FEATURE_COLS, port.LABEL_COL)})),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asked explicitly, the CPU works
     assert port.KMeans(k=2).fit(x, device="cpu").n_iter >= 1
+
+
+def test_launch_counts_cover_every_kernel():
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {"fused_lloyd_stats": 0, "fused_assign": 0,
+                                   "fused_level_hist": 0}

@@ -38,6 +38,10 @@ from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.data impor
     device_dataset as port_device_dataset,
 )
 
+# the suite runs several worker processes on a few cores: one intra-op
+# thread per worker keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 FEATS = [f"f{i}" for i in range(5)]
 
 

@@ -35,6 +35,10 @@ from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops.distan
     assign_clusters as port_assign_clusters,
 )
 
+# the suite runs several worker processes on a few cores: one intra-op
+# thread per worker keeps torch from oversubscribing them
+torch.set_num_threads(1)
+
 K_CASES = [(3, 0), (8, 0), (16, 5)]  # (k, trailing invalid slots)
 
 

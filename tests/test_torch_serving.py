@@ -11,6 +11,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from clustermachinelearningforhospitalnetworks_apache_spark_tpu import KMeans as JaxKMeans
 import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
@@ -26,6 +27,10 @@ from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve impo
     ShardedScorer,
     bulk_score,
 )
+
+# the suite runs several worker processes on a few cores: one intra-op
+# thread per worker keeps torch from oversubscribing them
+torch.set_num_threads(1)
 
 BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
