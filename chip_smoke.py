@@ -30,6 +30,7 @@ times and the card's bound for the same work).
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -81,6 +82,38 @@ def gpu_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template args>`` of an Itanium-mangled kernel name."""
+    i, parts = (3 if mangled.startswith("_ZN") else 2), []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j : j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    name = parts[-1] if parts else mangled
+    return name + ("<" + ",".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">"
+                   if args else "")
+
+
+def ptxas_usage(log: str) -> list[tuple[str, str]]:
+    """(kernel, "registers, spills") per entry function of an ``nvcc
+    -Xptxas -v`` log."""
+    out, fn, spill = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(_Z\w+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line:
+            used = re.search(r"Used (\d+) registers", line)
+            out.append((fn, f"{used.group(1) if used else '?'} registers, {spill}"))
+            spill = ""
+    return out
 
 
 def bound_ms(n: int, d: int, k: int, stats: bool) -> tuple[float, str]:
@@ -202,13 +235,18 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
     }
     b1, b1_by = bound_ms(n, d, k, stats=True)
     b2, b2_by = bound_ms(n, d, k, stats=False)
+    plan = L.lloyd_plan(n, d, k, torch.cuda.get_device_properties(0).multi_processor_count,
+                        L._stats_occupancy(x.device, d, k))
     say(f"kernel vs plain n={n} d={d} k={k} ({k - n_invalid} valid"
         f"{', centers 0 and 1 equal' if dup else ''}): "
         f"K1 {t['k1']:.4f} ms (plain {t['k1_plain']:.4f}, library {t['k1_lib']:.4f}, "
         f"bound {b1:.4f} by {b1_by}; max_abs_err {k1_err:.3g}, cost rel err {cost_rel:.3g}) | "
         f"K2 {t['k2']:.4f} ms (plain {t['k2_plain']:.4f}, library {t['k2_lib']:.4f}, "
         f"bound {b2:.4f} by {b2_by}; max_abs_err {k2_err:.3g}, "
-        f"{flips} near-tie flips) — ok")
+        f"{flips} near-tie flips) | K1 - K2 (accumulation) {t['k1'] - t['k2']:.4f} ms; "
+        f"K1 plan: {plan['blocks']} blocks, {plan['n_ctiles']} center tile(s) of "
+        f"{plan['kt']}, accumulators in {'shared' if plan['acc_smem'] else 'global'} "
+        f"memory, {plan['smem']} shared bytes — ok")
     del x, w, x_sq
     torch.cuda.empty_cache()
     src = f"{PKG}/csrc/lloyd.cu"
@@ -227,7 +265,11 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
 def edge_cases(L) -> None:
     """Small odd shapes, fractional weights: every feature-width template
     (d = 1 … 128), one center, centers tiled with a remainder tile, rows
-    that end mid-tile, and n = 0."""
+    that end mid-tile, and n = 0.  Then the shapes of K1's accumulation:
+    every row in one cluster (segments of a whole tile), every row near
+    its own center at k=4096, d=128 (segments of one row, accumulators in
+    global memory), all weights zero, k=1, and a ragged last tile at
+    n = 10^6 + 1."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -245,6 +287,42 @@ def edge_cases(L) -> None:
         worst_cost_rel = max(worst_cost_rel, cost_rel)
     say(f"kernel vs plain, edge shapes {[sh[:3] for sh in shapes]}: ok "
         f"(largest K1 cost rel err {worst_cost_rel:.3g})")
+
+    accumulation = [  # (tag, n, d, k, kind)
+        ("every row in one cluster", 100_003, 8, 16, "one"),
+        ("every row near its own center", 16_384, 128, 4096, "own"),
+        ("all weights zero", 5000, 8, 37, "w0"),
+        ("k=1", 10_000, 5, 1, "rand"),
+        ("n=10^6+1, ragged last tile", 1_000_001, 8, 256, "rand"),
+    ]
+    for tag, n, d, k, kind in accumulation:
+        # noise 0.5 keeps d2 well above the x^2 - 2x.c + c^2 form's
+        # cancellation error, so the costs of kernel and plain agree
+        centers = torch.randn(k, d, device="cuda", generator=g) * (10.0 if kind == "one" else 3.0)
+        if kind == "one":
+            x = centers[5] + 0.5 * torch.randn(n, d, device="cuda", generator=g)
+        elif kind == "own":
+            own = torch.arange(n, device="cuda") % k
+            x = centers[own] + 0.5 * torch.randn(n, d, device="cuda", generator=g)
+        else:
+            x = torch.randn(n, d, device="cuda", generator=g) * 3.0
+        w = torch.rand(n, device="cuda", generator=g)
+        if kind == "w0":
+            w.zero_()
+        x = x.contiguous()
+        c_valid = torch.ones(k, device="cuda")
+        compare(L, x, w, centers, c_valid, f"edge {tag} (n={n} d={d} k={k})")
+        a, _ = L.fused_assign(x, centers, c_valid)
+        if kind == "one":
+            check(bool((a == 5).all()), f"K2 edge {tag}: a row left cluster 5")
+        if kind == "own":
+            check(torch.equal(a.long(), own), f"K2 edge {tag}: a row left its own center")
+        if kind == "w0":
+            s, c, cost = L.fused_lloyd_stats(x, w, centers, c_valid)
+            check(not bool(s.any()) and not bool(c.any()) and float(cost) == 0.0,
+                  f"K1 edge {tag}: expected all-zero statistics")
+    say(f"kernel vs plain, accumulation edge shapes {[e[0] for e in accumulation]}: ok "
+        f"(two K1 launches bit-identical at each)")
 
 
 def make_table_columns(n: int, d: int, k: int, seed: int):
@@ -665,9 +743,8 @@ def main() -> None:
     for name, path in libs.items():
         log = path.with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    say(f"  ptxas[{name}] {line.strip()}")
+            for fn, usage in ptxas_usage(log.read_text()):
+                say(f"  ptxas[{name}] {fn}: {usage}")
 
     # ------------------------------------------------- kernel vs plain
     records = kernel_case(L, N, D, K, 0, seed=1, reps=20)

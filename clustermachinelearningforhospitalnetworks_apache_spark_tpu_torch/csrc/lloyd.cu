@@ -29,10 +29,27 @@
 //   * The TPU kernel accumulated into one output block across a sequential
 //     grid.  Here blocks run in parallel, so each block writes one partial
 //     (sums, counts, cost) and a second kernel reduces the partials in block
-//     order, in float64.  Inside a block each cluster is owned by one thread,
-//     which adds its rows in row order: no atomics, so a run is bit-for-bit
-//     repeatable on one card.  The owner's accumulators sit in shared memory
-//     when they fit beside the centers, else in the block's own partial.
+//     order, in float64.  No atomics: a run is bit-for-bit repeatable on
+//     one card.
+//   * K1's accumulation uses every thread on work proportional to the rows,
+//     not to k x rows.  After a tile's argmin the block sorts the keys
+//     (cluster, row) of its kThreads rows (a bitonic network: shuffles
+//     below a warp, shared memory above), so each cluster's rows form one
+//     segment in row order; rows past n or of weight 0 sort last and add
+//     nothing.  The work items are the pairs (segment, feature) plus one
+//     count slot per segment, taken by the threads in a fixed stride with
+//     lanes on consecutive features, so reads of x and of the accumulators
+//     coalesce.  Item (c, j) loads acc[c][j] once, runs fmaf(w_r, x_rj, a)
+//     over the segment's rows in row order and stores it back: each
+//     (cluster, feature) of a block is one fmaf chain in row order from the
+//     block's running value, as an owner thread per cluster computes it.
+//   * The accumulators sit in shared memory when k*(d+1) floats fit beside
+//     the distance loop's buffers under the opt-in limit, else in the
+//     block's own partial (touched once per (segment, feature) per tile).
+//     The plan (center tile, accumulators' home, shared bytes, grid) comes
+//     from ops/lloyd.py::lloyd_plan; this file checks that the shared bytes
+//     agree with it.  At d=64, k=1024 the partial buffer is blocks x 66,561
+//     floats (266 KB a block); the plan keeps all partials under 256 MB.
 //   * Rows past n are masked inside the kernel; n == 0 is handled by the
 //     caller (nothing to launch).
 
@@ -42,13 +59,21 @@
 namespace {
 
 constexpr int kThreads = 256;           // rows per tile == threads per block
-constexpr int kSmemBudget = 48 * 1024;  // stays under the default opt-in limit
+constexpr int kRowBits = 8;             // kThreads == 1 << kRowBits
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSmemBudget = 48 * 1024;  // the center tile's budget
 constexpr float kBig = 1e30f;
+// K1 sort keys are (cluster << kRowBits | row) with cluster k for rows that
+// add nothing, so k stays below 2^(32 - kRowBits).
+constexpr int kMaxCenters = (1 << (32 - kRowBits)) - 1;
+// K1's words after the centers: sorted keys, weights, the cost reduce,
+// segment heads (kThreads + 1) and per-warp segment and row counts.
+constexpr int kStatsWords = 4 * kThreads + 1 + 2 * kWarps;
 
 struct Geometry {
   int dp;          // padded feature width (4, 8, 16, 32, 64 or 128)
   int kt;          // centers per shared-memory tile (== k when resident)
-  int acc_smem;    // K1: per-cluster accumulators in shared memory
   size_t smem;     // dynamic shared memory bytes
 };
 
@@ -62,25 +87,24 @@ int padded_width(int d) {
   return -1;
 }
 
-// Shared-memory plan for one (d, k) shape; stats selects K1's extra buffers.
-bool plan(int d, int k, bool stats, Geometry* g) {
+// K2's shared-memory plan for one (d, k) shape: all centers, or tiles of
+// them, in the 48 KB budget.
+bool plan(int d, int k, Geometry* g) {
   g->dp = padded_width(d);
   if (g->dp < 0 || k < 1) return false;
   const size_t per_center = (size_t)(g->dp + 2) * sizeof(float);
-  const size_t extra = stats ? 3 * kThreads * sizeof(float) : 0;
-  const size_t acc = ((size_t)k * d + k) * sizeof(float);
-  const size_t avail = kSmemBudget - extra;
-  if ((size_t)k * per_center <= avail) {
-    g->kt = k;
-    g->acc_smem = stats && (size_t)k * per_center + acc <= avail;
-  } else {
-    g->kt = (int)(avail / per_center) / 32 * 32;
-    g->acc_smem = 0;
-  }
+  g->kt = (size_t)k * per_center <= (size_t)kSmemBudget
+              ? k
+              : (int)(kSmemBudget / per_center) / 32 * 32;
   if (g->kt < 1) return false;
-  g->smem = (size_t)g->kt * per_center + extra +
-            (g->acc_smem ? acc : 0);
+  g->smem = (size_t)g->kt * per_center;
   return true;
+}
+
+// K1's dynamic shared memory for a plan (ops/lloyd.py::lloyd_plan).
+size_t stats_smem(int dp, int kt, int k, int d, int acc_smem) {
+  return ((size_t)kt * (dp + 2) + kStatsWords +
+          (acc_smem ? (size_t)k * d + k : 0)) * sizeof(float);
 }
 
 // Centers [c0, c0 + kh) into shared memory: rows zero-padded to DP, their
@@ -193,37 +217,74 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Sorts the block's kThreads keys ascending, one per thread: thread t
+// returns the key of rank t.  A bitonic network; strides below a warp go
+// through shuffles, wider ones through shared memory, alternating between
+// `buf0` and `buf1` (kThreads words each) so that each such stage takes one
+// barrier: a buffer is written again only after the next stage's barrier.
+// The loops stay rolled: unrolled, the compiler hoists every stage's thread
+// masks out of the caller's tile loop, where they spill beside the row.
+__device__ __forceinline__ unsigned block_sort(unsigned v, unsigned* buf0,
+                                               unsigned* buf1) {
+  const int t = threadIdx.x;
+  int wide = 0;
+#pragma unroll 1
+  for (int size = 2; size <= kThreads; size <<= 1) {
+#pragma unroll 1
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      unsigned o;
+      if (stride >= 32) {
+        unsigned* buf = (++wide & 1) ? buf0 : buf1;
+        buf[t] = v;
+        __syncthreads();
+        o = buf[t ^ stride];
+      } else {
+        o = __shfl_xor_sync(kFull, v, stride);
+      }
+      const bool up = (t & size) == 0;      // this run sorts ascending
+      const bool low = (t & stride) == 0;   // this thread holds the pair's lower slot
+      v = low == up ? min(v, o) : max(v, o);
+    }
+  }
+  return v;
+}
+
+// A block minimum of 0 leaves ptxas its own register choice: at DP <= 8
+// 48 registers, five blocks an SM, no spill.  Wider rows spill under that
+// choice; with a minimum of one block an SM they take the registers they
+// need.
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DP <= 8 ? 0 : 1)
     lloyd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ centers,
                  const float* __restrict__ c_valid, long long n, int d, int k,
-                 int kt, int acc_smem, float* __restrict__ partials) {
+                 int kt, int acc_smem, float* partials) {
   extern __shared__ float4 smem4[];
   float* cs = reinterpret_cast<float*>(smem4);
   float* csq = cs + (size_t)kt * DP;
   float* cval = csq + kt;
-  int* s_asg = reinterpret_cast<int*>(cval + kt);
-  float* s_w = reinterpret_cast<float*>(s_asg + kThreads);
+  unsigned* s_key = reinterpret_cast<unsigned*>(cval + kt);
+  float* s_w = reinterpret_cast<float*>(s_key + kThreads);
   float* s_red = s_w + kThreads;
+  int* s_head = reinterpret_cast<int*>(s_red + kThreads);  // kThreads + 1
+  int* s_wseg = s_head + kThreads + 1;                      // kWarps
+  int* s_wlive = s_wseg + kWarps;                           // kWarps
   const long long kd = (long long)k * d;
   const long long P = kd + k + 1;
   float* part = partials + (long long)blockIdx.x * P;
-  float* acc = acc_smem ? s_red + kThreads : part;
+  // written and read back by different threads across tiles: no
+  // __restrict__, no read-only loads; __syncthreads orders them
+  float* acc = acc_smem ? reinterpret_cast<float*>(s_wlive + kWarps) : part;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
 
-  // Each cluster's accumulators are touched only by its owner thread.
-  for (int c = threadIdx.x; c < k; c += kThreads) {
-    for (int j = 0; j < d; ++j) acc[(long long)c * d + j] = 0.f;
-    acc[kd + c] = 0.f;
-  }
-  if (kt >= k) {
-    load_centers<DP>(centers, c_valid, 0, k, d, cs, csq, cval);
-    __syncthreads();
-  }
+  for (long long i = threadIdx.x; i < kd + k; i += kThreads) acc[i] = 0.f;
+  if (kt >= k) load_centers<DP>(centers, c_valid, 0, k, d, cs, csq, cval);
 
   float cost = 0.f;
   for (long long base = (long long)blockIdx.x * kThreads; base < n;
        base += (long long)gridDim.x * kThreads) {
+    __syncthreads();  // centers staged; the previous tile's items are done
     const long long row = base + threadIdx.x;
     const bool valid = row < n;
     float xr[DP], xsq, best;
@@ -234,38 +295,59 @@ __global__ void __launch_bounds__(kThreads)
     const float wr = valid ? w[row] : 0.f;
     if (wr != 0.f) cost = fmaf(best, wr, cost);
 
-    __syncthreads();  // the previous tile's owners are done with s_asg/s_w
-    s_asg[threadIdx.x] = arg;
+    // Group the tile's rows by cluster, stably: sort (cluster, row).
     s_w[threadIdx.x] = wr;
+    const unsigned key =
+        ((unsigned)(wr != 0.f ? arg : k) << kRowBits) | (unsigned)threadIdx.x;
+    const unsigned sk =
+        block_sort(key, s_key, reinterpret_cast<unsigned*>(s_red));
+    // the sort's last shared stage read s_red: s_key is free
+    s_key[threadIdx.x] = sk;
+    __syncthreads();
+    const int c_me = (int)(sk >> kRowBits);
+    const bool live = c_me < k;
+    const bool head =
+        live && (threadIdx.x == 0 ||
+                 (int)(s_key[threadIdx.x - 1] >> kRowBits) != c_me);
+    const unsigned heads = __ballot_sync(kFull, head);
+    const unsigned lives = __ballot_sync(kFull, live);
+    if (lane == 0) {
+      s_wseg[warp] = __popc(heads);
+      s_wlive[warp] = __popc(lives);
+    }
+    __syncthreads();
+    int seg = __popc(heads & ((1u << lane) - 1)), nseg = 0, nlive = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      if (i < warp) seg += s_wseg[i];
+      nseg += s_wseg[i];
+      nlive += s_wlive[i];
+    }
+    if (head) s_head[seg] = threadIdx.x;
+    if (threadIdx.x == 0) s_head[nseg] = nlive;
     __syncthreads();
 
-    const long long left = n - base;
-    const int rows_here = left < kThreads ? (int)left : kThreads;
-    for (int c = threadIdx.x; c < k; c += kThreads) {
-      float a[DP], cnt = 0.f;
-      bool any = false;
-      for (int r = 0; r < rows_here; ++r) {
-        const float wv = s_w[r];
-        if (s_asg[r] != c || wv == 0.f) continue;
-        if (!any) {
-          any = true;
-#pragma unroll
-          for (int j = 0; j < DP; ++j)
-            a[j] = j < d ? acc[(long long)c * d + j] : 0.f;
-          cnt = acc[kd + c];
+    // Segmented sums: item (segment s, slot j), j < d a feature, j == d the
+    // count; each an fmaf chain (an add chain for the count) in row order
+    // from the block's running value.
+    const int dd = d + 1;
+    for (int i = threadIdx.x; i < nseg * dd; i += kThreads) {
+      const int s = i / dd;
+      const int j = i - s * dd;
+      const int p0 = s_head[s], p1 = s_head[s + 1];
+      const int c = (int)(s_key[p0] >> kRowBits);
+      float* slot = j < d ? acc + (long long)c * d + j : acc + kd + c;
+      float a = *slot;
+      if (j < d) {
+        const float* xj = x + base * d + j;
+        for (int p = p0; p < p1; ++p) {
+          const int r = (int)(s_key[p] & (kThreads - 1));
+          a = fmaf(s_w[r], __ldg(xj + (long long)r * d), a);
         }
-        const float* xrow = x + (base + r) * d;
-#pragma unroll
-        for (int j = 0; j < DP; ++j)
-          if (j < d) a[j] = fmaf(wv, __ldg(xrow + j), a[j]);
-        cnt += wv;
+      } else {
+        for (int p = p0; p < p1; ++p) a += s_w[s_key[p] & (kThreads - 1)];
       }
-      if (any) {
-#pragma unroll
-        for (int j = 0; j < DP; ++j)
-          if (j < d) acc[(long long)c * d + j] = a[j];
-        acc[kd + c] = cnt;
-      }
+      *slot = a;
     }
   }
 
@@ -276,13 +358,8 @@ __global__ void __launch_bounds__(kThreads)
     if (threadIdx.x < s) s_red[threadIdx.x] += s_red[threadIdx.x + s];
     __syncthreads();
   }
-  if (acc_smem) {
-    for (int c = threadIdx.x; c < k; c += kThreads) {
-      for (int j = 0; j < d; ++j)
-        part[(long long)c * d + j] = acc[(long long)c * d + j];
-      part[kd + c] = acc[kd + c];
-    }
-  }
+  if (acc_smem)
+    for (long long i = threadIdx.x; i < kd + k; i += kThreads) part[i] = acc[i];
   if (threadIdx.x == 0) part[P - 1] = s_red[0];
 }
 
@@ -328,34 +405,55 @@ int occupancy_blocks(F kernel, size_t smem, long long n, int* blocks) {
 
 extern "C" {
 
-// Grid size for one launch of K1 (stats != 0) or K2; the caller sizes K1's
-// partial buffer as blocks * (k*d + k + 1) floats.  Returns 0 or a
-// cudaError_t code.
-int lloyd_num_blocks(long long n, int d, int k, int stats, int* blocks) {
+// Grid size for one launch of K2.  Returns 0 or a cudaError_t code.
+int lloyd_assign_blocks(long long n, int d, int k, int* blocks) {
   Geometry g;
-  if (!plan(d, k, stats != 0, &g)) return (int)cudaErrorInvalidValue;
+  if (!plan(d, k, &g)) return (int)cudaErrorInvalidValue;
   int rc = 0;
-  if (stats) {
-    DISPATCH_DP(g.dp, rc = occupancy_blocks(lloyd_kernel<DP>, g.smem, n, blocks));
-  } else {
-    DISPATCH_DP(g.dp, rc = occupancy_blocks(assign_kernel<DP>, g.smem, n, blocks));
-  }
+  DISPATCH_DP(g.dp, rc = occupancy_blocks(assign_kernel<DP>, g.smem, n, blocks));
   return rc;
 }
 
-// K1: partials (blocks * P floats, scratch) -> out (P floats: sums (k, d),
-// counts (k,), cost).
+// K1 blocks resident on one SM at `smem` bytes of dynamic shared memory,
+// for ops/lloyd.py::lloyd_plan's grid.  Returns 0 or a cudaError_t code.
+int lloyd_stats_occupancy(int d, int smem, int* per_sm) {
+  cudaError_t e = cudaSuccess;
+  DISPATCH_DP(padded_width(d), {
+    const auto kernel = lloyd_kernel<DP>;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        kThreads, smem);
+  });
+  return (int)e;
+}
+
+// K1 with the plan of ops/lloyd.py::lloyd_plan (center tile kt, accumulators
+// in shared memory or not, shared bytes, grid): partials (blocks * P floats,
+// scratch) -> out (P floats: sums (k, d), counts (k,), cost).  Returns 0 or
+// a cudaError_t code; cudaErrorInvalidValue when the plan does not fit the
+// shape.
 int lloyd_stats_launch(const float* x, const float* w, const float* centers,
-                       const float* c_valid, long long n, int d, int k,
-                       int blocks, float* partials, float* out,
-                       void* stream) {
-  Geometry g;
-  if (!plan(d, k, true, &g) || blocks < 1) return (int)cudaErrorInvalidValue;
+                       const float* c_valid, long long n, int d, int k, int kt,
+                       int acc_smem, int smem, int blocks, float* partials,
+                       float* out, void* stream) {
+  const int dp = padded_width(d);
+  if (dp < 0 || k < 1 || k > kMaxCenters || kt < 1 || kt > k || blocks < 1 ||
+      (size_t)smem != stats_smem(dp, kt, k, d, acc_smem))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_DP(g.dp, lloyd_kernel<DP><<<blocks, kThreads, g.smem, s>>>(
-                        x, w, centers, c_valid, n, d, k, g.kt, g.acc_smem,
-                        partials));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaSuccess;
+  DISPATCH_DP(dp, {
+    const auto kernel = lloyd_kernel<DP>;
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      kernel<<<blocks, kThreads, smem, s>>>(x, w, centers, c_valid, n, d, k, kt,
+                                            acc_smem, partials);
+  });
+  if (e != cudaSuccess) return (int)e;
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const long long P = (long long)k * d + k + 1;
   const int rblocks = (int)((P + kThreads - 1) / kThreads);
@@ -369,7 +467,7 @@ int lloyd_assign_launch(const float* x, const float* centers,
                         int blocks, int* out_assign, float* out_d2,
                         void* stream) {
   Geometry g;
-  if (!plan(d, k, false, &g) || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (!plan(d, k, &g) || blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   DISPATCH_DP(g.dp, assign_kernel<DP><<<blocks, kThreads, g.smem, s>>>(
                         x, centers, c_valid, n, d, k, g.kt, out_assign,

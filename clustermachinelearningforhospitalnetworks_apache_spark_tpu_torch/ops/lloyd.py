@@ -21,6 +21,7 @@ import torch
 
 from ._build import load
 from .distance import ASSIGN_CHUNK, pairwise_sqdist
+from .tree_hist import _sm_count
 
 #: matches the JAX package: invalid (padding) centers score this
 BIG = 1e30
@@ -28,11 +29,34 @@ BIG = 1e30
 #: widest feature axis the kernels take (csrc/lloyd.cu padded_width)
 MAX_FEATURES = 128
 
+#: rows per tile == threads per block (``kThreads`` in csrc/lloyd.cu)
+THREADS = 256
+
+#: K1's center tile stays within this many bytes, as K2's does
+SMEM_BUDGET = 48 * 1024
+
+#: dynamic shared memory one block may opt into on an H100 (227 KB)
+SMEM_OPTIN = 232_448
+
+#: shared memory of one SM; each resident block also reserves 1 KB
+SM_SMEM = 233_472
+
+#: K1's words beside the centers (``kStatsWords``): sorted keys, weights,
+#: the cost reduce, segment heads and per-warp counts
+STATS_BYTES = 4 * (4 * THREADS + 1 + 2 * (THREADS // 32))
+
+#: K1 sorts keys (cluster << 8 | row) in 32 bits (``kMaxCenters``)
+MAX_CENTERS = (1 << 24) - 1
+
+#: cap on K1's partial buffer (blocks · (k·d + k + 1) floats)
+MAX_PARTIAL_BYTES = 256 << 20
+
 fused_lloyd_stats_launches = 0
 fused_assign_launches = 0
 _COUNT_LOCK = threading.Lock()  # serving threads launch K2 concurrently
 
 _LIB = None
+_OCCUPANCY: dict[tuple[int, int, int], int] = {}
 
 
 def launch_counts() -> dict[str, int]:
@@ -54,9 +78,11 @@ def _lib():
     if _LIB is None:
         lib = load("lloyd")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lloyd_num_blocks.argtypes = [ll, i, i, i, ctypes.POINTER(i)]
-        lib.lloyd_num_blocks.restype = i
-        lib.lloyd_stats_launch.argtypes = [p, p, p, p, ll, i, i, i, p, p, p]
+        lib.lloyd_assign_blocks.argtypes = [ll, i, i, ctypes.POINTER(i)]
+        lib.lloyd_assign_blocks.restype = i
+        lib.lloyd_stats_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.lloyd_stats_occupancy.restype = i
+        lib.lloyd_stats_launch.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, p, p]
         lib.lloyd_stats_launch.restype = i
         lib.lloyd_assign_launch.argtypes = [p, p, p, ll, i, i, i, p, p, p]
         lib.lloyd_assign_launch.restype = i
@@ -70,6 +96,52 @@ def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib().lloyd_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def _padded_width(d: int) -> int:
+    """The kernels' padded feature width: the next of 4, 8, 16, 32, 64, 128."""
+    if not 1 <= d <= MAX_FEATURES:
+        raise ValueError(f"the Lloyd kernels take 1..{MAX_FEATURES} features, got d={d}")
+    return next(dp for dp in (4, 8, 16, 32, 64, 128) if d <= dp)
+
+
+def _stats_geometry(d: int, k: int) -> dict:
+    """K1's shared-memory layout for one (d, k): padded width, center tile,
+    the accumulators' home and the shared bytes."""
+    if not 1 <= k <= MAX_CENTERS:
+        raise ValueError(f"fused_lloyd_stats takes 1..{MAX_CENTERS} centers, got k={k}")
+    dp = _padded_width(d)
+    per_center = (dp + 2) * 4
+    avail = SMEM_BUDGET - STATS_BYTES
+    kt = k if k * per_center <= avail else avail // per_center // 32 * 32
+    distance = kt * per_center + STATS_BYTES
+    acc = (k * d + k) * 4
+    acc_smem = distance + acc <= SMEM_OPTIN
+    return {"dp": dp, "kt": kt, "n_ctiles": -(-k // kt), "acc_smem": acc_smem,
+            "smem": distance + (acc if acc_smem else 0)}
+
+
+def lloyd_plan(n: int, d: int, k: int, sms: int, per_sm: int | None = None) -> dict:
+    """Launch plan for one K1 call — a pure function of the shapes, the
+    card's SM count and ``per_sm``, the K1 blocks resident on one SM at
+    the plan's shared bytes (the wrapper asks the CUDA occupancy API; by
+    default it is estimated from shared memory and threads alone).
+
+    The distance loop keeps its center tile (all k centers, or tiles of a
+    multiple of 32) within ``SMEM_BUDGET``, as K2 does.  The per-cluster
+    accumulators, k·(d+1) floats, go to shared memory exactly when they
+    fit beside it under ``SMEM_OPTIN``; else each block keeps them in its
+    own partial.  The grid is one wave of resident blocks, no more blocks
+    than row tiles, with the partial buffer under ``MAX_PARTIAL_BYTES``.
+    → dp, kt, n_ctiles, acc_smem, smem, blocks, partial_floats."""
+    plan = _stats_geometry(d, k)
+    if per_sm is None:
+        per_sm = min(2048 // THREADS, SM_SMEM // (plan["smem"] + 1024))
+    P = k * d + k + 1
+    tiles = -(-n // THREADS)
+    blocks = max(1, min(tiles, sms * max(per_sm, 1), MAX_PARTIAL_BYTES // (4 * P)))
+    plan.update(blocks=blocks, partial_floats=blocks * P)
+    return plan
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
@@ -156,27 +228,39 @@ def fused_lloyd_stats(x, w, centers, c_valid):
     if n == 0:
         z = torch.zeros((k * d + k + 1,), dtype=torch.float32, device=x.device)
         return z[: k * d].view(k, d), z[k * d : k * d + k], z[-1]
-    lib = _lib()
     with torch.cuda.device(x.device):
-        blocks = ctypes.c_int(0)
-        _raise_on(lib.lloyd_num_blocks(n, d, k, 1, ctypes.byref(blocks)),
-                  "fused_lloyd_stats grid query")
+        plan = lloyd_plan(n, d, k, _sm_count(x.device), _stats_occupancy(x.device, d, k))
         P = k * d + k + 1
-        partials = torch.empty((blocks.value * P,), dtype=torch.float32,
+        partials = torch.empty((plan["partial_floats"],), dtype=torch.float32,
                                device=x.device)
         out = torch.empty((P,), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         with _COUNT_LOCK:
             fused_lloyd_stats_launches += 1
         _raise_on(
-            lib.lloyd_stats_launch(
+            _lib().lloyd_stats_launch(
                 x.data_ptr(), w.data_ptr(), centers.data_ptr(),
-                c_valid.data_ptr(), n, d, k, blocks.value,
-                partials.data_ptr(), out.data_ptr(), stream,
+                c_valid.data_ptr(), n, d, k, plan["kt"], int(plan["acc_smem"]),
+                plan["smem"], plan["blocks"], partials.data_ptr(), out.data_ptr(),
+                stream,
             ),
             "fused_lloyd_stats launch",
         )
     return out[: k * d].view(k, d), out[k * d : k * d + k], out[-1]
+
+
+def _stats_occupancy(dev: torch.device, d: int, k: int) -> int:
+    """K1 blocks resident on one SM at the plan's shared bytes (CUDA
+    occupancy API, cached per device and layout)."""
+    geo = _stats_geometry(d, k)
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(),
+           geo["dp"], geo["smem"])
+    if key not in _OCCUPANCY:
+        per_sm = ctypes.c_int(0)
+        _raise_on(_lib().lloyd_stats_occupancy(d, geo["smem"], ctypes.byref(per_sm)),
+                  "fused_lloyd_stats occupancy query")
+        _OCCUPANCY[key] = per_sm.value
+    return _OCCUPANCY[key]
 
 
 def fused_assign(x, centers, c_valid):
@@ -192,7 +276,7 @@ def fused_assign(x, centers, c_valid):
     lib = _lib()
     with torch.cuda.device(x.device):
         blocks = ctypes.c_int(0)
-        _raise_on(lib.lloyd_num_blocks(n, d, k, 0, ctypes.byref(blocks)),
+        _raise_on(lib.lloyd_assign_blocks(n, d, k, ctypes.byref(blocks)),
                   "fused_assign grid query")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         with _COUNT_LOCK:

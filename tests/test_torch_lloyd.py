@@ -154,3 +154,59 @@ def test_exact_ties_go_to_the_first_index():
                                    torch.from_numpy(c_valid))
     assert int((assign == 1).sum()) == 0 and int((assign == 0).sum()) > 0
     np.testing.assert_array_equal(assign.numpy(), np.asarray(r_assign))
+
+
+# ------------------------------------------------------------- K1's plan
+SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("n", [0, 1, 257, 10**7])
+@pytest.mark.parametrize("k", [1, 16, 256, 1024, 4096])
+@pytest.mark.parametrize("d", [1, 8, 64, 128])
+def test_lloyd_plan_fits_the_card_and_covers_the_shape(n, d, k):
+    """K1's launch plan (``lloyd_plan``): shared bytes within the opt-in
+    limit, the center tile within the 48 KB budget and covering k, the
+    accumulators in shared memory exactly when k·(d+1) floats fit beside
+    the distance loop's buffers, and a grid that covers n within one wave
+    and the partial-buffer cap."""
+    plan = lloyd.lloyd_plan(n, d, k, SMS)
+    dp, kt = plan["dp"], plan["kt"]
+    assert dp in (4, 8, 16, 32, 64, 128) and d <= dp and (dp == 4 or d > dp // 2)
+    # the center tile: all k centers, or tiles of a multiple of 32
+    assert 1 <= kt <= k and (kt == k or kt % 32 == 0)
+    assert plan["n_ctiles"] * kt >= k > (plan["n_ctiles"] - 1) * kt
+    distance = kt * (dp + 2) * 4 + lloyd.STATS_BYTES
+    assert distance <= lloyd.SMEM_BUDGET
+    acc = k * (d + 1) * 4
+    assert plan["acc_smem"] == (acc <= lloyd.SMEM_OPTIN - distance)
+    assert plan["smem"] == distance + (acc if plan["acc_smem"] else 0)
+    assert plan["smem"] <= lloyd.SMEM_OPTIN
+    # the grid: at least one block, none without a row tile, at most one
+    # wave of resident blocks, and every row tile taken by a block's stride
+    tiles = -(-n // lloyd.THREADS)
+    blocks = plan["blocks"]
+    per_sm = min(2048 // lloyd.THREADS, lloyd.SM_SMEM // (plan["smem"] + 1024))
+    assert 1 <= blocks <= max(tiles, 1) and blocks <= SMS * per_sm
+    assert blocks * -(-tiles // blocks) * lloyd.THREADS >= n
+    P = k * d + k + 1
+    assert plan["partial_floats"] == blocks * P
+    assert plan["partial_floats"] * 4 <= lloyd.MAX_PARTIAL_BYTES
+
+
+def test_lloyd_plan_takes_the_occupancy_it_is_given():
+    """The wrapper hands the plan the CUDA occupancy API's blocks per SM;
+    the grid is one wave of them, cut to the row tiles."""
+    assert lloyd.lloyd_plan(10**7, 8, 256, SMS, per_sm=3)["blocks"] == 3 * SMS
+    assert lloyd.lloyd_plan(257, 8, 256, SMS, per_sm=3)["blocks"] == 2
+    assert lloyd.lloyd_plan(10**7, 64, 1024, SMS, per_sm=0)["blocks"] == SMS
+
+
+def test_lloyd_plan_rejects_shapes_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="features"):
+        lloyd.lloyd_plan(10, 129, 8, SMS)
+    with pytest.raises(ValueError, match="features"):
+        lloyd.lloyd_plan(10, 0, 8, SMS)
+    with pytest.raises(ValueError, match="centers"):
+        lloyd.lloyd_plan(10, 8, 0, SMS)
+    with pytest.raises(ValueError, match="centers"):
+        lloyd.lloyd_plan(10, 8, lloyd.MAX_CENTERS + 1, SMS)
