@@ -15,8 +15,9 @@ kernels:
   on the CPU, then 2M rows of the example generator's law: Binarizer →
   seed-42 split → VectorAssembler → LinearRegression, decision-tree and
   random-forest regressors and classifiers → RMSE / accuracy /
-  importances (K3), and the rf20 forest (2M x 8 rows, 20 trees) with its
-  fit breakdown and a check that its level loop makes no host sync.
+  importances (K3, each launch timed with CUDA events), and the rf20
+  forest (2M x 8 rows, 20 trees) with its fit breakdown and a check that
+  its level loop makes no host sync.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -443,15 +444,21 @@ def k3_phase(H) -> dict:
         ("classification", TREE_N, 4, 2, 20, 16),
     ]
     times = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
     for i, (tag, n, d, S, T, LN) in enumerate(main):
         ins = k3_inputs(n, d, S, T, LN, B, seed=10 + i)
         err, _ = k3_check(H, *ins, LN, B, tag)
         t = k3_time(H, *ins, LN, B, reps=10)
         times[tag] = (t, err)
+        per_sm = H.occupancy(torch.device(DEV), d, S, B, LN, T) if DEV == "cuda" else None
+        plan = H.hist_plan(n, d, S, B, LN, T, sms, per_sm)
         say(f"K3 {tag} (n={n} d={d} S={S} T={T} LN={LN} B={B}): {t['ms']:.4f} ms "
             f"(plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
-            f"{t['bound_ms']:.4f} by {t['bound_by']}); integer stats exact, two launches "
-            f"bit-identical — ok")
+            f"{t['bound_ms']:.4f} by {t['bound_by']}); plan: TB {plan['TB']}, blocks_x "
+            f"{plan['blocks_x']} x {plan['n_tgroups']} tree groups x "
+            f"{plan['n_ptiles'] * plan['n_ftiles']} tiles, {plan['warps']} warps, "
+            f"{plan['smem']} shared bytes, {plan['per_sm']} resident an SM, "
+            f"{plan['waves']} wave(s); integer stats exact, two launches bit-identical — ok")
         del ins
 
     # fractional weights and stats at rf20's root and in the edge shapes
@@ -469,6 +476,8 @@ def k3_phase(H) -> dict:
         ("B=2", 30_001, 8, 3, 4, 8, 2, "int"),
         ("S=5", 30_001, 8, 5, 4, 8, 32, "int"),
         ("LN=1024 (node tiles)", 200_000, 8, 3, 2, 1024, 32, "int"),
+        ("LN=1024, d=1, B=2, S=1, T=6 (TB=3)", 100_003, 1, 1, 6, 1024, 2, "frac"),
+        ("T=7 (TB=4, a last group of 3 trees)", 60_001, 8, 3, 7, 2, 32, "frac"),
         ("n=300,007 (ragged last tile), fractional", 300_007, 8, 3, 4, 8, 32, "frac"),
     ]
     for i, (tag, n, d, S, T, LN, b, kind) in enumerate(edges):
@@ -579,6 +588,39 @@ def hospital_events(n_per_hospital: int, seed: int = 7):
     return {k: np.concatenate(v) for k, v in cols.items()}
 
 
+class K3Events:
+    """CUDA events around every K3 launch the tree engine makes while the
+    context is open (``engine.fused_level_hist`` wrapped).  ``ms()`` →
+    each launch's device time, after a sync."""
+
+    def __enter__(self):
+        import torch
+
+        from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import (
+            engine,
+        )
+
+        self.engine, self.hist, self.events = engine, engine.fused_level_hist, []
+
+        def timed_hist(*a, **k):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self.hist(*a, **k)
+            e.record()
+            self.events.append((s, e))
+            return out
+
+        engine.fused_level_hist = timed_hist
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.fused_level_hist = self.hist
+
+    def ms(self) -> list[float]:
+        sync()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
 def stage_at_scale(port, H) -> int:
     """The model stage on 2M rows of the example generator's law, on the
     card: 6 K3 launches per depth-5 tree fit, 24 in the stage.  → the K3
@@ -595,10 +637,13 @@ def stage_at_scale(port, H) -> int:
         f"{time.perf_counter() - t0:.2f} s")
     H.reset_launch_counts()
     t0 = time.perf_counter()
-    res = port.run_model_stage(table, cfg, device=DEV)
+    with K3Events() as k3:
+        res = port.run_model_stage(table, cfg, device=DEV)
     stage_s = time.perf_counter() - t0
     launches = H.launch_counts()["fused_level_hist"]
     check(launches == 24, f"K3 launched {launches} times in the stage (expected 6 x 4 = 24)")
+    k3_ms = k3.ms()
+    check(len(k3_ms) == launches, f"{len(k3_ms)} K3 launches timed of {launches}")
     for v in (*res.regression_rmse.values(), *res.classification_accuracy.values()):
         check(np.isfinite(v) and v > 0, f"stage metric {v} not finite")
     check(res.regression_rmse["LinearRegression"] < 0.45,
@@ -610,6 +655,8 @@ def stage_at_scale(port, H) -> int:
         f"{launches}): {secs}")
     say(f"  RMSE {json.dumps(res.regression_rmse)}; accuracy "
         f"{json.dumps(res.classification_accuracy)}")
+    say(f"  K3 on the stage's data, {launches} launches (CUDA events; per tree fit, levels "
+        f"0-5): {[round(t, 4) for t in k3_ms]} ms = {sum(k3_ms):.3f} ms")
     return launches
 
 
@@ -643,25 +690,10 @@ def rf20(port) -> None:
     # the breakdown: each step of a timed fit ends with a sync, and CUDA
     # events around every K3 launch give K3's share of the level loop
     timings: dict = {}
-    events = []
-    hist = engine.fused_level_hist
-
-    def timed_hist(*a, **k):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = hist(*a, **k)
-        e.record()
-        events.append((s, e))
-        return out
-
-    engine.fused_level_hist = timed_hist
-    try:
+    with K3Events() as k3:
         engine.grow_forest(ds, task="regression", num_trees=20, max_depth=5, bootstrap=True,
                            seed=0, timings=timings)
-    finally:
-        engine.fused_level_hist = hist
-    sync()
-    k3_ms = [s.elapsed_time(e) for s, e in events]
+    k3_ms = k3.ms()
     total_ms = sum(timings.values()) * 1e3
     parts = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timings.items())
     parts += (f"; K3 {len(k3_ms)} launches {[round(t, 3) for t in k3_ms]} ms = "

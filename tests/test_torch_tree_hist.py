@@ -126,30 +126,95 @@ def test_wrapper_validates_its_inputs():
         tree_hist.fused_level_hist(b, s, w, p, 0, 4)
 
 
-@pytest.mark.parametrize("n,d,S,T,LN,B", [
-    (2_000_000, 8, 3, 20, 1, 32),       # rf20's root
-    (2_000_000, 8, 3, 20, 32, 32),      # rf20's last level: 96 KB tile
-    (1_400_000, 4, 2, 20, 16, 32),      # the pipeline's classifier forest
-    (200_000, 8, 3, 2, 1024, 32),       # depth 10: node tiles
-    (20_003, 100, 3, 3, 2, 32),
-    (1, 1, 1, 1, 1, 2),
-    (1000, 4000, 5, 1, 1, 64),          # one node does not fit: feature tiles
+@pytest.mark.parametrize("n,d,S,T,LN,B,per_sm", [
+    (2_000_000, 8, 3, 20, 1, 32, None),       # rf20's root
+    (2_000_000, 8, 3, 20, 32, 32, None),      # rf20's last level: 96 KB tile
+    (1_400_000, 4, 2, 20, 16, 32, None),      # the pipeline's classifier forest
+    (200_000, 8, 3, 2, 1024, 32, None),       # depth 10: node tiles
+    (20_003, 100, 3, 3, 2, 32, None),
+    (1, 1, 1, 1, 1, 2, None),
+    (1000, 4000, 5, 1, 1, 64, None),          # one node does not fit: feature tiles
+    (30_001, 8, 3, 3, 4, 32, None),           # T=3 over groups of TB=2
+    (60_001, 8, 3, 7, 2, 32, None),           # T=7 over groups of TB=4
+    (2_000_000, 8, 3, 20, 1, 32, 1),          # one resident block an SM
 ])
-def test_hist_plan_fits_and_covers(n, d, S, T, LN, B):
-    plan = tree_hist.hist_plan(n, d, S, B, LN, T, sms=132)
+def test_hist_plan_fits_and_covers(n, d, S, T, LN, B, per_sm):
+    sms = 132
+    plan = tree_hist.hist_plan(n, d, S, B, LN, T, sms, per_sm)
+    TB, G = plan["TB"], plan["n_tgroups"]
+    # TB tiles plus the staging ring fit the budget, and one more group's
+    # worth of trees a block would not
+    assert plan["smem"] == tree_hist.smem_bytes(plan["dt"], S, B, plan["LNt"], TB)
+    pad = 4 if S == 3 else S     # one vector load reads a row's stats
+    ring = tree_hist.RING
+    assert plan["smem"] == 4 * (tree_hist.ROW_TILE * (ring * (plan["dt"] + S + 2 * TB)
+                                                      + (ring - 1) * TB * pad)
+                                + TB * plan["LNt"] * plan["dt"] * B * S)
     assert plan["smem"] <= tree_hist.SMEM_BUDGET
-    assert plan["smem"] == (plan["LNt"] * plan["dt"] * B * S
-                            + plan["warps"] * tree_hist.UNROLL * 32 * S) * 4
+    if G > 1:
+        more = -(-T // (G - 1))
+        assert (tree_hist.smem_bytes(plan["dt"], S, B, plan["LNt"], more) > tree_hist.SMEM_BUDGET
+                or 4 * more * plan["LNt"] * plan["dt"] * B * S > tree_hist.TREE_TILES_BUDGET)
+    if TB > 1:
+        assert 4 * TB * plan["LNt"] * plan["dt"] * B * S <= tree_hist.TREE_TILES_BUDGET
+    # TB trees a block cover T, spread evenly over the groups
+    assert 1 <= TB <= T and G * TB >= T > (G - 1) * TB
     assert plan["n_ptiles"] * plan["LNt"] >= LN > (plan["n_ptiles"] - 1) * plan["LNt"]
     assert plan["n_ftiles"] * plan["dt"] >= d > (plan["n_ftiles"] - 1) * plan["dt"]
-    assert 1 <= plan["warps"] <= min(8, plan["dt"])
+    assert 1 <= plan["warps"] <= min(tree_hist.MAX_WARPS, TB * plan["dt"])
+    # n is covered, every block has rows
     assert plan["rows_per_block"] % 32 == 0
     assert plan["blocks_x"] * plan["rows_per_block"] >= n
     assert (plan["blocks_x"] - 1) * plan["rows_per_block"] < max(n, 1)
-    assert T * plan["blocks_x"] * LN * d * B * S * 4 <= max(
-        tree_hist.MAX_PARTIAL_BYTES, T * LN * d * B * S * 4)
-    if LN * d * B * S * 4 + min(8, d) * tree_hist.UNROLL * 32 * S * 4 <= tree_hist.SMEM_BUDGET:
+    # the partial cap holds
+    cap = max(tree_hist.MAX_PARTIAL_BYTES // (T * LN * d * B * S * 4), 1)
+    assert plan["blocks_x"] <= cap
+    # the grid is whole waves: never past `waves` waves of resident
+    # blocks, and the fewest waves that keep each block's rows under
+    # MAX_ROWS_PER_BLOCK (or the partial cap)
+    wave = sms * plan["per_sm"]
+    cols = G * plan["n_ptiles"] * plan["n_ftiles"]
+    total = plan["blocks_x"] * cols
+    assert plan["waves"] >= 1 and (plan["waves"] - 1) * wave < total <= plan["waves"] * wave
+    if plan["blocks_x"] < cap:
+        assert plan["rows_per_block"] <= max(tree_hist.MAX_ROWS_PER_BLOCK, 32)
+    if plan["waves"] > 1:
+        assert (plan["waves"] - 1) * wave // cols * tree_hist.MAX_ROWS_PER_BLOCK < n
+    # as many row blocks as fill the waves, up to the rows' 32-row rounding
+    b0 = min(plan["waves"] * wave // cols, cap, -(-max(n, 1) // 32))
+    assert b0 * (plan["rows_per_block"] - 32) < max(n, 1) + b0
+    if LN * d * B * S * 4 + tree_hist.smem_bytes(d, S, B, 0, 1) <= tree_hist.SMEM_BUDGET:
         assert plan["n_ptiles"] == plan["n_ftiles"] == 1
+    if per_sm is not None:
+        assert plan["per_sm"] == per_sm
+
+
+@pytest.mark.parametrize("n,d,S,T,LN,B,blocks_x,rows_per_block", [
+    # the one-tree-a-block kernel's partition at the four main shapes and
+    # two edge shapes (its hist_plan on 132 SMs)
+    (2_000_000, 8, 3, 20, 1, 32, 53, 37_760),
+    (2_000_000, 8, 3, 20, 32, 32, 53, 37_760),
+    (1_400_000, 4, 3, 20, 32, 32, 53, 26_432),
+    (2_000_000, 4, 2, 20, 16, 32, 53, 37_760),
+    (300_007, 8, 3, 4, 8, 32, 261, 1152),
+    (20_003, 100, 3, 3, 2, 32, 313, 64),
+])
+def test_hist_plan_forced_partition(n, d, S, T, LN, B, blocks_x, rows_per_block):
+    own = tree_hist.hist_plan(n, d, S, B, LN, T, sms=132)
+    plan = tree_hist.hist_plan(n, d, S, B, LN, T, 132, None, rows_per_block)
+    assert (plan["blocks_x"], plan["rows_per_block"]) == (blocks_x, rows_per_block)
+    # the partition alone is forced: tiles, trees a block and warps stay
+    for key in ("LNt", "dt", "TB", "n_tgroups", "n_ptiles", "n_ftiles", "warps", "smem"):
+        assert plan[key] == own[key]
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tree_hist.hist_plan(n, d, S, B, LN, T, 132, None, rows_per_block + 1)
+
+
+def test_planned_launch_takes_cuda_tensors_only():
+    b, s, w, p = (torch.from_numpy(a) for a in _inputs(50, 2, 3, 2, 2, 4))
+    plan = tree_hist.hist_plan(50, 2, 3, 4, 2, 2, 132)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tree_hist.fused_level_hist_planned(b, s, w, p, 2, 4, plan)
 
 
 def test_bound_at_rf20():
