@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from ``csrc/``, holds each against its plain
-PyTorch version on the card, then drives the port's two main paths at
+PyTorch version on the card (and K2, at every shape, with its own plan
+against itself at one row a thread, bit for bit, on rows of ±inf and NaN
+too), then drives the port's two main paths at
 full width and shows through the launch counters that each ran on its
 kernels:
 
@@ -130,15 +132,51 @@ def bound_ms(n: int, d: int, k: int, stats: bool) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def compare(L, x, w, centers, c_valid, tag: str):
-    """K2 and K1 against their plain versions on one input.  Assignments
-    may differ only at near ties (best two d² within 1e-5 relative); a
-    row flipped there moves between clusters in K1 too (both share the
-    argmin), so the sums/counts tolerance widens by that much.  Sums at
-    rtol 1e-4 (atol 1e-4 x the largest); counts exact under 0/1 weights,
-    else as the sums; cost at rtol 1e-6 (read 2.25e-7 at the main shape);
-    two K1 launches must agree bit for bit.  → (K1 max abs err, K2 max
-    abs err, K1 cost rel err, near-tie flips)."""
+def library_assign(x, centers, x_sq, c_sq):
+    """K2's library yardstick: ``addmm`` of the cross term with |c|², plus
+    |x|², then ``min`` over the centers."""
+    import torch
+
+    return torch.addmm(c_sq[None, :], x, centers.T, alpha=-2.0).add_(x_sq[:, None]).min(dim=1)
+
+
+def k2_plans(L, n: int, d: int, k: int) -> tuple[dict, dict]:
+    """K2's own plan on this card, and the same shape forced to one row a
+    thread (the loop of earlier builds)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    R = L.assign_rows_per_thread(n, d, sms)
+    own = L.assign_plan(n, d, k, sms, L._assign_occupancy(0, d, k, R), R)
+    one = L.assign_plan(n, d, k, sms, L._assign_occupancy(0, d, k, 1), 1)
+    return own, one
+
+
+def k2_equal_to_one_row(L, x, centers, c_valid, tag: str) -> str:
+    """K2 with its own plan against K2 forced to one row a thread: the
+    assignments ``torch.equal``, min d² equal as int32 bit patterns (so
+    NaN compares too).  → the plan, for the log."""
+    import torch
+
+    n, d = x.shape
+    own, one = k2_plans(L, n, d, centers.shape[0])
+    a, m = L.fused_assign_planned(x, centers, c_valid, own)
+    a1, m1 = L.fused_assign_planned(x, centers, c_valid, one)
+    torch.cuda.synchronize()
+    check(torch.equal(a, a1) and torch.equal(m.view(torch.int32), m1.view(torch.int32)),
+          f"K2 {tag}: R={own['rows_per_thread']} differs from one row a thread at "
+          f"{int((a != a1).sum())} assignments, "
+          f"{int((m.view(torch.int32) != m1.view(torch.int32)).sum())} min d2 bit patterns")
+    return (f"R {own['rows_per_thread']}, {own['blocks']} blocks, "
+            f"{L._assign_occupancy(0, d, centers.shape[0], own['rows_per_thread'])} "
+            f"resident an SM, kt {own['kt']} ({own['n_ctiles']} tile(s))")
+
+
+def compare_k2(L, x, centers, c_valid, tag: str):
+    """K2 against its plain version: assignments may differ only at near
+    ties (best two d² within 1e-5 relative), min d² at rtol 1e-4 / atol
+    1e-3; and K2's own plan bit-equal to one row a thread.  → (max abs
+    err, indices of the flipped rows)."""
     import torch
 
     a, m = L.fused_assign(x, centers, c_valid)
@@ -157,7 +195,22 @@ def compare(L, x, w, centers, c_valid, tag: str):
     check(hard == 0, f"K2 {tag}: {hard} assignments differ outside near ties")
     check(torch.allclose(m, mp, rtol=1e-4, atol=1e-3), f"K2 {tag}: min d2 disagrees")
     k2_err = float((m - mp).abs().max()) if m.numel() else 0.0
+    say(f"  K2 plan {tag}: {k2_equal_to_one_row(L, x, centers, c_valid, tag)}; "
+        f"== one row a thread bit for bit")
+    return k2_err, bad
 
+
+def compare(L, x, w, centers, c_valid, tag: str):
+    """K2 (``compare_k2``) and K1 against their plain versions on one
+    input.  A row that K2 flipped at a near tie moves between clusters in
+    K1 too (both share the argmin), so the sums/counts tolerance widens by
+    that much.  Sums at rtol 1e-4 (atol 1e-4 x the largest); counts exact
+    under 0/1 weights, else as the sums; cost at rtol 1e-6 (read 2.25e-7
+    at the main shape); two K1 launches must agree bit for bit.  → (K1
+    max abs err, K2 max abs err, K1 cost rel err, near-tie flips)."""
+    import torch
+
+    k2_err, bad = compare_k2(L, x, centers, c_valid, tag)
     s, c, cost = L.fused_lloyd_stats(x, w, centers, c_valid)
     sp, cp, costp = L.fused_lloyd_stats_plain(x, w, centers, c_valid)
     torch.cuda.synchronize()
@@ -215,21 +268,22 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
     c_sq = (centers * centers).sum(1)
     x_sq = (x * x).sum(1)
 
-    def lib_assign():
-        return torch.addmm(c_sq[None, :], x, centers.T, alpha=-2.0).add_(x_sq[:, None]).min(dim=1)
-
     def lib_stats():
-        mn, arg = lib_assign()
+        mn, arg = library_assign(x, centers, x_sq, c_sq)
         arg = arg.to(torch.int64)
         sums = torch.zeros(k, d, device="cuda").index_add_(0, arg, x * w[:, None])
         cnts = torch.zeros(k, device="cuda").index_add_(0, arg, w)
         return sums, cnts, (mn * w).sum()
 
     plain_reps = max(2, reps // 5)
+    one = k2_plans(L, n, d, k)[1]
     t = {
         "k2": gpu_ms(lambda: L.fused_assign(x, centers, c_valid), reps),
+        # K2 at one row a thread runs K1's distance loop: K1 minus it is
+        # K1's accumulation
+        "k2_one": gpu_ms(lambda: L.fused_assign_planned(x, centers, c_valid, one), reps),
         "k2_plain": gpu_ms(lambda: L.fused_assign_plain(x, centers, c_valid), plain_reps),
-        "k2_lib": gpu_ms(lib_assign, plain_reps),
+        "k2_lib": gpu_ms(lambda: library_assign(x, centers, x_sq, c_sq), plain_reps),
         "k1": gpu_ms(lambda: L.fused_lloyd_stats(x, w, centers, c_valid), reps),
         "k1_plain": gpu_ms(lambda: L.fused_lloyd_stats_plain(x, w, centers, c_valid), plain_reps),
         "k1_lib": gpu_ms(lib_stats, plain_reps),
@@ -244,7 +298,8 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
         f"bound {b1:.4f} by {b1_by}; max_abs_err {k1_err:.3g}, cost rel err {cost_rel:.3g}) | "
         f"K2 {t['k2']:.4f} ms (plain {t['k2_plain']:.4f}, library {t['k2_lib']:.4f}, "
         f"bound {b2:.4f} by {b2_by}; max_abs_err {k2_err:.3g}, "
-        f"{flips} near-tie flips) | K1 - K2 (accumulation) {t['k1'] - t['k2']:.4f} ms; "
+        f"{flips} near-tie flips) | K2 at one row a thread {t['k2_one']:.4f} ms, K1 minus "
+        f"it (K1's accumulation) {t['k1'] - t['k2_one']:.4f} ms; "
         f"K1 plan: {plan['blocks']} blocks, {plan['n_ctiles']} center tile(s) of "
         f"{plan['kt']}, accumulators in {'shared' if plan['acc_smem'] else 'global'} "
         f"memory, {plan['smem']} shared bytes — ok")
@@ -261,6 +316,59 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
          "ms": t["k2"], "plain_ms": t["k2_plain"], "bound_ms": b2,
          "bound_by": b2_by, "library_ms": t["k2_lib"]},
     ]
+
+
+def k2_case(L, n: int, d: int, k: int, seed: int, reps: int) -> dict:
+    """K2 alone against its plain version at one more shape of its main
+    path (a ``bulk_score`` chunk, a served batch), with its times.  → the
+    shape's record."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn(k, d, device="cuda", generator=g) * 3.0
+    x = (centers[torch.randint(0, k, (n,), device="cuda", generator=g)]
+         + torch.randn(n, d, device="cuda", generator=g)).contiguous()
+    c_valid = torch.ones(k, device="cuda")
+    tag = f"n={n} d={d} k={k}"
+    err, bad = compare_k2(L, x, centers, c_valid, tag)
+    c_sq, x_sq = (centers * centers).sum(1), (x * x).sum(1)
+    t = {
+        "ms": gpu_ms(lambda: L.fused_assign(x, centers, c_valid), reps),
+        "plain_ms": gpu_ms(lambda: L.fused_assign_plain(x, centers, c_valid), reps),
+        "library_ms": gpu_ms(lambda: library_assign(x, centers, x_sq, c_sq), reps),
+    }
+    b, by = bound_ms(n, d, k, stats=False)
+    say(f"K2 vs plain {tag}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library "
+        f"{t['library_ms']:.4f}, bound {b:.4f} by {by}; max_abs_err {err:.3g}, "
+        f"{bad.numel()} near-tie flips) — ok")
+    return {"n": n, "d": d, "k": k, "max_abs_err": err, **t, "bound_ms": b, "bound_by": by}
+
+
+def k2_non_finite(L) -> None:
+    """K2 on rows of +inf and NaN, with live centers and with every center
+    invalid, at R = 4 with center tiles, R = 2 with center tiles and R = 4
+    at d=8: bit-equal to one row a thread.  With every center invalid each
+    row scores 1e30 everywhere, so each goes to center 0 at 1e30."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shapes = [(300_007, 8, 37), (300_007, 16, 1000), (200_003, 32, 1000)]
+    for n, d, k in shapes:
+        x = torch.randn(n, d, device="cuda", generator=g) * 2.0
+        x[3] = float("inf")
+        x[5] = float("nan")
+        x[n - 2] = -float("inf")
+        x[n - 1, 0] = float("nan")
+        centers = torch.randn(k, d, device="cuda", generator=g) * 2.0
+        for valid in (True, False):
+            c_valid = torch.full((k,), 1.0 if valid else 0.0, device="cuda")
+            tag = f"n={n} d={d} k={k}, inf and NaN rows, {'live' if valid else 'no valid'} centers"
+            plan = k2_equal_to_one_row(L, x, centers, c_valid, tag)
+            if not valid:
+                a, m = L.fused_assign(x, centers, c_valid)
+                check(not bool(a.any()) and bool((m == L.BIG).all()),
+                      f"K2 {tag}: expected every row at center 0, d2 1e30")
+            say(f"  K2 {tag}: {plan}; == one row a thread bit for bit")
 
 
 def edge_cases(L) -> None:
@@ -324,6 +432,7 @@ def edge_cases(L) -> None:
                   f"K1 edge {tag}: expected all-zero statistics")
     say(f"kernel vs plain, accumulation edge shapes {[e[0] for e in accumulation]}: ok "
         f"(two K1 launches bit-identical at each)")
+    k2_non_finite(L)
 
 
 def make_table_columns(n: int, d: int, k: int, seed: int):
@@ -780,6 +889,9 @@ def main() -> None:
 
     # ------------------------------------------------- kernel vs plain
     records = kernel_case(L, N, D, K, 0, seed=1, reps=20)
+    # K2's other shapes on the main path: a bulk_score chunk, a served batch
+    records[1]["shapes"] = [k2_case(L, 262_144, D, K, seed=4, reps=20),
+                            k2_case(L, 200, D, K, seed=5, reps=200)]
     kernel_case(L, 1_000_003, D, 16, 3, seed=2, reps=10, dup=True)
     kernel_case(L, 1_000_000, 64, 1024, 0, seed=3, reps=5)
     edge_cases(L)

@@ -20,8 +20,9 @@
 // HBM (3.35 TB/s), until the cross term moves onto the tensor cores.
 //
 // Design:
-//   * One thread scores one row against every center; a block walks row tiles
-//     of kThreads rows in a grid-stride loop over an occupancy-sized grid.
+//   * One thread scores one row against every center (K2: R rows, below); a
+//     block walks row tiles in a grid-stride loop over an occupancy-sized
+//     grid.
 //   * Centers, |c|^2 and c_valid live in shared memory with rows padded to
 //     DP (a multiple of 4) so the inner product reads float4 broadcasts.  When
 //     all k centers do not fit in the 48 KB budget they are tiled through it;
@@ -52,6 +53,29 @@
 //     floats (266 KB a block); the plan keeps all partials under 256 MB.
 //   * Rows past n are masked inside the kernel; n == 0 is handled by the
 //     caller (nothing to launch).
+//
+// K2's distance loop.  The bound counts k(2d+3) = 19 f32 operations a (row,
+// center) pair at d=8, 9.5 FFMA slots; the loop is bound by the instructions
+// it dispatches.  One row a thread (scan_centers) dispatches about 23 a pair
+// (sm_90a SASS at DP = 8: 8 FFMAs; three FADDs and an FMNMX for the d2
+// epilogue; the compare and two selects; and, once a center, its shared
+// loads, the branch on c_valid and the loop), at about 1.3 scheduler cycles
+// an instruction on an H100.  So K2 gives a thread R rows
+// (assign_kernel<DP, R>, scan_centers_rows): a block tile is kThreads * R
+// rows, row r of thread t being base + r * kThreads + t so that loads and
+// stores stay coalesced, and each staged center is read from shared memory,
+// tested and looped over once for the R rows: about 19 instructions a pair
+// at R = 4.  Each row's d2 is scan_centers' expression, the same fmaf chain
+// in the same order, and its centers are walked in the same ascending order,
+// so K2's output is bit-for-bit that of one row a thread at every input.  R
+// by padded width (assign_rows_max, mirrored in ops/lloyd.py): the most rows
+// that ptxas keeps in registers without spills at two blocks an SM
+// (__launch_bounds__(kThreads, 2)): 4 up to DP = 16 (80 registers at DP = 8,
+// 121 at 16), 2 at DP = 32 (127), 1 from DP = 64 (R = 2 there takes 173
+// registers, one block an SM).  ops/lloyd.py::assign_plan takes R > 1 only
+// when the launch still has a tile of kThreads * R rows for every SM, so a
+// small request keeps R = 1, the one-row-a-thread loop.  K1 keeps
+// scan_centers: its accumulation sorts the tile's rows one a thread.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -187,8 +211,55 @@ __device__ __forceinline__ void row_argmin(
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+// K2's rows a thread at padded width DP (R_MAX; see the note at the top).
+constexpr int assign_rows_max(int dp) { return dp <= 16 ? 4 : dp <= 32 ? 2 : 1; }
+
+// K2: R rows of one thread scored against kh staged centers, ascending.
+// Each center's float4s, |c|^2 and c_valid are read from shared memory once
+// for the R rows; each row's cross term is scan_centers' fmaf chain (q
+// ascending; x, y, z, w) and its d2, validity and compare are scan_centers'
+// statements, so row r ends with the best and arg that scan_centers gives
+// it alone.
+template <int DP, int R>
+__device__ __forceinline__ void scan_centers_rows(
+    const float (&xr)[R][DP], const float (&xsq)[R], const float* cs,
+    const float* csq, const float* cval, int kh, int c0, float (&best)[R],
+    int (&arg)[R]) {
+  const float4* cs4 = reinterpret_cast<const float4*>(cs);
+  for (int c = 0; c < kh; ++c) {
+    float cross[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) cross[r] = 0.f;
+#pragma unroll
+    for (int q = 0; q < DP / 4; ++q) {
+      const float4 v = cs4[c * (DP / 4) + q];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cross[r] = fmaf(xr[r][4 * q + 0], v.x, cross[r]);
+        cross[r] = fmaf(xr[r][4 * q + 1], v.y, cross[r]);
+        cross[r] = fmaf(xr[r][4 * q + 2], v.z, cross[r]);
+        cross[r] = fmaf(xr[r][4 * q + 3], v.w, cross[r]);
+      }
+    }
+    const float sq = csq[c];
+    const float cv = cval[c];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float d2 = fmaxf(xsq[r] - 2.f * cross[r] + sq, 0.f);
+      if (!(cv > 0.f)) d2 = kBig;
+      if (d2 < best[r]) {
+        best[r] = d2;
+        arg[r] = c0 + c;
+      }
+    }
+  }
+}
+
+// A block minimum of 2 caps a thread at 128 registers, which the R rows
+// of assign_rows_max(DP) fit without spills; R = 1 leaves ptxas its own
+// choice, as one row a thread always had.
+template <int DP, int R>
+__global__ void __launch_bounds__(kThreads, R > 1 ? 2 : 0)
     assign_kernel(const float* __restrict__ x, const float* __restrict__ centers,
                   const float* __restrict__ c_valid, long long n, int d, int k,
                   int kt, int* __restrict__ out_assign,
@@ -201,20 +272,53 @@ __global__ void __launch_bounds__(kThreads)
     load_centers<DP>(centers, c_valid, 0, k, d, cs, csq, cval);
     __syncthreads();
   }
-  for (long long base = (long long)blockIdx.x * kThreads; base < n;
-       base += (long long)gridDim.x * kThreads) {
-    const long long row = base + threadIdx.x;
-    const bool valid = row < n;
-    float xr[DP], xsq, best;
-    int arg;
-    load_row<DP>(x, row, d, valid, xr, xsq);
-    row_argmin<DP>(xr, xsq, centers, c_valid, d, k, kt, cs, csq, cval, best,
-                   arg);
-    if (valid) {
-      out_assign[row] = arg;
-      out_d2[row] = best;
+  constexpr long long kTile = (long long)kThreads * R;
+  for (long long base = (long long)blockIdx.x * kTile; base < n;
+       base += (long long)gridDim.x * kTile) {
+    float xr[R][DP], xsq[R], best[R];
+    int arg[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row = base + r * kThreads + threadIdx.x;
+      load_row<DP>(x, row, d, row < n, xr[r], xsq[r]);
+      best[r] = INFINITY;
+      arg[r] = 0;
+    }
+    if (kt >= k) {
+      scan_centers_rows<DP, R>(xr, xsq, cs, csq, cval, k, 0, best, arg);
+    } else {
+      // every thread joins each tile's barriers, rows past n too
+      for (int c0 = 0; c0 < k; c0 += kt) {
+        const int kh = min(kt, k - c0);
+        __syncthreads();
+        load_centers<DP>(centers, c_valid, c0, kh, d, cs, csq, cval);
+        __syncthreads();
+        scan_centers_rows<DP, R>(xr, xsq, cs, csq, cval, kh, c0, best, arg);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row = base + r * kThreads + threadIdx.x;
+      if (row < n) {
+        out_assign[row] = arg[r];
+        out_d2[row] = best[r];
+      }
     }
   }
+}
+
+using AssignKernel = void (*)(const float*, const float*, const float*,
+                              long long, int, int, int, int*, float*);
+
+// assign_kernel<DP, rows>, or null for a rows count K2 does not take at DP.
+template <int DP>
+AssignKernel assign_kernel_for(int rows) {
+  if (rows == 1) return assign_kernel<DP, 1>;
+  if constexpr (assign_rows_max(DP) >= 2)
+    if (rows == 2) return assign_kernel<DP, 2>;
+  if constexpr (assign_rows_max(DP) >= 4)
+    if (rows == 4) return assign_kernel<DP, 4>;
+  return nullptr;
 }
 
 // Sorts the block's kThreads keys ascending, one per thread: thread t
@@ -374,22 +478,6 @@ __global__ void reduce_partials(const float* __restrict__ partials, int blocks,
   }
 }
 
-template <typename F>
-int occupancy_blocks(F kernel, size_t smem, long long n, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long tiles = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  *blocks = (int)(tiles < cap ? (tiles > 0 ? tiles : 1) : cap);
-  return 0;
-}
-
 #define DISPATCH_DP(dp, ...)                              \
   switch (dp) {                                           \
     case 4: { constexpr int DP = 4; __VA_ARGS__; } break;     \
@@ -405,13 +493,16 @@ int occupancy_blocks(F kernel, size_t smem, long long n, int* blocks) {
 
 extern "C" {
 
-// Grid size for one launch of K2.  Returns 0 or a cudaError_t code.
-int lloyd_assign_blocks(long long n, int d, int k, int* blocks) {
-  Geometry g;
-  if (!plan(d, k, &g)) return (int)cudaErrorInvalidValue;
-  int rc = 0;
-  DISPATCH_DP(g.dp, rc = occupancy_blocks(assign_kernel<DP>, g.smem, n, blocks));
-  return rc;
+// K2 blocks resident on one SM for assign_kernel<padded_width(d), rows> at
+// `smem` bytes of dynamic shared memory, for ops/lloyd.py::assign_plan's
+// grid.  Returns 0 or a cudaError_t code; cudaErrorInvalidValue for a rows
+// count K2 does not take at this width.
+int lloyd_assign_occupancy(int d, int rows, int smem, int* per_sm) {
+  AssignKernel kernel = nullptr;
+  DISPATCH_DP(padded_width(d), kernel = assign_kernel_for<DP>(rows));
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                            kThreads, smem);
 }
 
 // K1 blocks resident on one SM at `smem` bytes of dynamic shared memory,
@@ -461,17 +552,22 @@ int lloyd_stats_launch(const float* x, const float* w, const float* centers,
   return (int)cudaGetLastError();
 }
 
-// K2: out_assign (n,) int32, out_d2 (n,) float32.
+// K2 with the plan of ops/lloyd.py::assign_plan (rows a thread, shared
+// bytes, grid): out_assign (n,) int32, out_d2 (n,) float32.  Returns 0 or a
+// cudaError_t code; cudaErrorInvalidValue when the plan does not fit the
+// shape or `rows` is not taken at this width.
 int lloyd_assign_launch(const float* x, const float* centers,
                         const float* c_valid, long long n, int d, int k,
-                        int blocks, int* out_assign, float* out_d2,
-                        void* stream) {
+                        int rows, int smem, int blocks, int* out_assign,
+                        float* out_d2, void* stream) {
   Geometry g;
-  if (!plan(d, k, &g) || blocks < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DISPATCH_DP(g.dp, assign_kernel<DP><<<blocks, kThreads, g.smem, s>>>(
-                        x, centers, c_valid, n, d, k, g.kt, out_assign,
-                        out_d2));
+  if (!plan(d, k, &g) || blocks < 1 || (size_t)smem != g.smem)
+    return (int)cudaErrorInvalidValue;
+  AssignKernel kernel = nullptr;
+  DISPATCH_DP(g.dp, kernel = assign_kernel_for<DP>(rows));
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, kThreads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+      x, centers, c_valid, n, d, k, g.kt, out_assign, out_d2);
   return (int)cudaGetLastError();
 }
 

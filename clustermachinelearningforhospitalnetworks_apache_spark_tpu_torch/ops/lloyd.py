@@ -15,6 +15,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -51,12 +52,18 @@ MAX_CENTERS = (1 << 24) - 1
 #: cap on K1's partial buffer (blocks · (k·d + k + 1) floats)
 MAX_PARTIAL_BYTES = 256 << 20
 
+#: K2's rows a thread (R) that the kernel takes at each padded width, up to
+#: the most that ptxas keeps in registers without spills at two blocks an SM
+#: (``assign_rows_max`` in csrc/lloyd.cu)
+ASSIGN_ROWS_MAX = {4: 4, 8: 4, 16: 4, 32: 2, 64: 1, 128: 1}
+
 fused_lloyd_stats_launches = 0
 fused_assign_launches = 0
 _COUNT_LOCK = threading.Lock()  # serving threads launch K2 concurrently
 
 _LIB = None
 _OCCUPANCY: dict[tuple[int, int, int], int] = {}
+_ASSIGN_OCCUPANCY: dict[tuple[int, int, int, int], int] = {}
 
 
 def launch_counts() -> dict[str, int]:
@@ -78,13 +85,13 @@ def _lib():
     if _LIB is None:
         lib = load("lloyd")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.lloyd_assign_blocks.argtypes = [ll, i, i, ctypes.POINTER(i)]
-        lib.lloyd_assign_blocks.restype = i
+        lib.lloyd_assign_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.lloyd_assign_occupancy.restype = i
         lib.lloyd_stats_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
         lib.lloyd_stats_occupancy.restype = i
         lib.lloyd_stats_launch.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, p, p, p]
         lib.lloyd_stats_launch.restype = i
-        lib.lloyd_assign_launch.argtypes = [p, p, p, ll, i, i, i, p, p, p]
+        lib.lloyd_assign_launch.argtypes = [p, p, p, ll, i, i, i, i, i, p, p, p]
         lib.lloyd_assign_launch.restype = i
         lib.lloyd_error_string.argtypes = [i]
         lib.lloyd_error_string.restype = ctypes.c_char_p
@@ -141,6 +148,53 @@ def lloyd_plan(n: int, d: int, k: int, sms: int, per_sm: int | None = None) -> d
     tiles = -(-n // THREADS)
     blocks = max(1, min(tiles, sms * max(per_sm, 1), MAX_PARTIAL_BYTES // (4 * P)))
     plan.update(blocks=blocks, partial_floats=blocks * P)
+    return plan
+
+
+def _assign_geometry(d: int, k: int) -> dict:
+    """K2's shared-memory layout for one (d, k) (``plan`` in csrc/lloyd.cu):
+    padded width, and all k centers or tiles of a multiple of 32 of them in
+    ``SMEM_BUDGET``, each with its |c|² and validity."""
+    if k < 1:
+        raise ValueError(f"fused_assign takes at least one center, got k={k}")
+    dp = _padded_width(d)
+    per_center = (dp + 2) * 4
+    kt = k if k * per_center <= SMEM_BUDGET else SMEM_BUDGET // per_center // 32 * 32
+    return {"dp": dp, "kt": kt, "n_ctiles": -(-k // kt), "smem": kt * per_center}
+
+
+def assign_rows_per_thread(n: int, d: int, sms: int) -> int:
+    """K2's rows a thread for n rows: the largest R the kernel takes at this
+    width (``ASSIGN_ROWS_MAX``) for which the launch still has a tile of
+    ``THREADS`` · R rows for every SM, else 1 — so a small request keeps
+    the one-row-a-thread loop and its latency."""
+    top = ASSIGN_ROWS_MAX[_padded_width(d)]
+    return next((r for r in (4, 2) if r <= top and -(-n // (THREADS * r)) >= sms), 1)
+
+
+def assign_plan(n: int, d: int, k: int, sms: int, per_sm: int | None = None,
+                rows_per_thread: int | None = None) -> dict:
+    """Launch plan for one K2 call — a pure function of the shapes, the
+    card's SM count and ``per_sm``, the K2 blocks resident on one SM at
+    the plan's rows a thread and shared bytes (the wrapper asks the CUDA
+    occupancy API once per device, width, R and shared bytes; by default
+    it is estimated from shared memory and threads alone).
+
+    The center tile is ``_assign_geometry``'s.  R is
+    ``assign_rows_per_thread``'s unless ``rows_per_thread`` forces it (it
+    must be one the kernel takes at this width); the grid is one wave of
+    resident blocks, no more blocks than tiles of ``THREADS`` · R rows.
+    K2's output does not depend on the plan.
+    → dp, kt, n_ctiles, rows_per_thread, blocks, smem."""
+    plan = _assign_geometry(d, k)
+    R = assign_rows_per_thread(n, d, sms) if rows_per_thread is None else rows_per_thread
+    if R not in (1, 2, 4) or R > ASSIGN_ROWS_MAX[plan["dp"]]:
+        raise ValueError(f"fused_assign takes 1..{ASSIGN_ROWS_MAX[plan['dp']]} rows a "
+                         f"thread (1, 2 or 4) at d={d}, got {R}")
+    if per_sm is None:
+        per_sm = min(2048 // THREADS, SM_SMEM // (plan["smem"] + 1024))
+    tiles = -(-n // (THREADS * R))
+    plan.update(rows_per_thread=R, blocks=max(1, min(tiles, sms * max(per_sm, 1))))
     return plan
 
 
@@ -263,28 +317,67 @@ def _stats_occupancy(dev: torch.device, d: int, k: int) -> int:
     return _OCCUPANCY[key]
 
 
+def _assign_occupancy(idx: int, d: int, k: int, rows: int) -> int:
+    """K2 blocks resident on one SM of card ``idx`` at ``rows`` a thread
+    and the layout's shared bytes (CUDA occupancy API, cached per card,
+    width, rows and shared bytes)."""
+    geo = _assign_geometry(d, k)
+    key = (idx, geo["dp"], rows, geo["smem"])
+    if key not in _ASSIGN_OCCUPANCY:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _raise_on(_lib().lloyd_assign_occupancy(d, rows, geo["smem"],
+                                                    ctypes.byref(per_sm)),
+                      "fused_assign occupancy query")
+        _ASSIGN_OCCUPANCY[key] = per_sm.value
+    return _ASSIGN_OCCUPANCY[key]
+
+
+@functools.lru_cache(maxsize=4096)
+def _own_assign_plan(idx: int, n: int, d: int, k: int) -> dict:
+    """``fused_assign``'s plan on card ``idx``, made once per shape: a
+    served batch or a scoring chunk repeats its shape, and K2's host path
+    is most of a small launch's time."""
+    sms = _sm_count(torch.device("cuda", idx))
+    R = assign_rows_per_thread(n, d, sms)
+    return assign_plan(n, d, k, sms, _assign_occupancy(idx, d, k, R), R)
+
+
 def fused_assign(x, centers, c_valid):
     """K2: fused distance + argmin → (assign (n,) int32, min d² (n,))."""
-    global fused_assign_launches
     n, d, k = _validate(x, centers, c_valid)
     if x.device.type == "cpu":
         return fused_assign_plain(x, centers, c_valid)
+    return _launch_assign(x, centers, c_valid, n, d, k,
+                          _own_assign_plan(x.device.index, n, d, k))
+
+
+def fused_assign_planned(x, centers, c_valid, plan: dict):
+    """K2 with a given ``assign_plan`` (a caller may force its rows a
+    thread, as ``chip_smoke.py`` does to hold the plans to each other).
+    On CPU tensors it runs the plain version; on CUDA tensors it launches
+    the kernel or raises, and counts the launch."""
+    n, d, k = _validate(x, centers, c_valid)
+    if x.device.type == "cpu":
+        return fused_assign_plain(x, centers, c_valid)
+    return _launch_assign(x, centers, c_valid, n, d, k, plan)
+
+
+def _launch_assign(x, centers, c_valid, n: int, d: int, k: int, plan: dict):
+    global fused_assign_launches
     assign = torch.empty((n,), dtype=torch.int32, device=x.device)
     mind2 = torch.empty((n,), dtype=torch.float32, device=x.device)
     if n == 0:
         return assign, mind2
-    lib = _lib()
     with torch.cuda.device(x.device):
-        blocks = ctypes.c_int(0)
-        _raise_on(lib.lloyd_assign_blocks(n, d, k, ctypes.byref(blocks)),
-                  "fused_assign grid query")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         with _COUNT_LOCK:
             fused_assign_launches += 1
         _raise_on(
-            lib.lloyd_assign_launch(
+            _lib().lloyd_assign_launch(
                 x.data_ptr(), centers.data_ptr(), c_valid.data_ptr(), n, d, k,
-                blocks.value, assign.data_ptr(), mind2.data_ptr(), stream,
+                plan["rows_per_thread"], plan["smem"], plan["blocks"],
+                assign.data_ptr(), mind2.data_ptr(), stream,
             ),
             "fused_assign launch",
         )

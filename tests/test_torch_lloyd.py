@@ -210,3 +210,127 @@ def test_lloyd_plan_rejects_shapes_the_kernel_does_not_take():
         lloyd.lloyd_plan(10, 8, 0, SMS)
     with pytest.raises(ValueError, match="centers"):
         lloyd.lloyd_plan(10, 8, lloyd.MAX_CENTERS + 1, SMS)
+
+
+# ------------------------------------------------------------- K2's plan
+def _r_max(d):
+    dp = next(p for p in (4, 8, 16, 32, 64, 128) if d <= p)
+    return {4: 4, 8: 4, 16: 4, 32: 2, 64: 1, 128: 1}[dp], dp
+
+
+_ASSIGN_NS = sorted({1, 200, 256, 262_144, 10**7}
+                    | {(SMS - 1) * 256 * r + e for r in (2, 4) for e in (0, 1)})
+
+
+@pytest.mark.parametrize("n", _ASSIGN_NS)
+@pytest.mark.parametrize("k", [1, 16, 256, 1024, 4096])
+@pytest.mark.parametrize("d", [1, 3, 8, 16, 32, 64, 100, 128])
+def test_assign_plan_fits_the_card_and_covers_the_shape(n, d, k):
+    """K2's launch plan (``assign_plan``): rows a thread the kernel takes
+    at this width, the largest of them that still gives every SM a tile
+    (else 1), the center tile and shared bytes of the kernel's 48 KB
+    layout, and a grid that covers n within one wave of resident blocks."""
+    per_sm = 3
+    plan = lloyd.assign_plan(n, d, k, SMS, per_sm)
+    r_max, dp = _r_max(d)
+    R = plan["rows_per_thread"]
+    assert plan["dp"] == dp
+    assert R in (1, 2, 4) and R <= r_max
+    assert lloyd.ASSIGN_ROWS_MAX[dp] == r_max
+    # the largest allowed R whose tiles still cover every SM, else 1
+    fits = [r for r in (1, 2, 4) if r <= r_max and -(-n // (256 * r)) >= SMS]
+    assert R == (max(fits) if fits else 1)
+    if n <= (SMS - 1) * 512:
+        assert R == 1
+    if d == 8 and n == 10**7:
+        assert R == 4
+    # the center tile: all k centers in 48 KB, or tiles of a multiple of 32
+    per_center = (dp + 2) * 4
+    kt = plan["kt"]
+    assert kt == (k if k * per_center <= 48 * 1024 else 48 * 1024 // per_center // 32 * 32)
+    assert 1 <= kt <= k and (kt == k or kt % 32 == 0)
+    assert plan["n_ctiles"] * kt >= k > (plan["n_ctiles"] - 1) * kt
+    assert plan["smem"] == kt * per_center <= lloyd.SMEM_BUDGET
+    # the grid: at least one block; it covers n unless one wave caps it
+    blocks = plan["blocks"]
+    assert 1 <= blocks <= SMS * per_sm
+    assert blocks * 256 * R >= n or blocks == SMS * per_sm
+    assert blocks <= max(-(-n // (256 * R)), 1)
+
+
+@pytest.mark.parametrize("d", [1, 8, 16])
+def test_assign_plan_keeps_small_requests_on_one_row_a_thread(d):
+    """Every served batch (1..256 rows) and anything up to (sms − 1)·512
+    rows launches today's one-row-a-thread loop; one row above each
+    boundary takes the next R."""
+    for n in (1, 2, 7, 32, 200, 256, (SMS - 1) * 512):
+        assert lloyd.assign_plan(n, d, 256, SMS, 4)["rows_per_thread"] == 1
+    assert lloyd.assign_plan((SMS - 1) * 512 + 1, d, 256, SMS, 4)["rows_per_thread"] == 2
+    assert lloyd.assign_plan((SMS - 1) * 1024, d, 256, SMS, 4)["rows_per_thread"] == 2
+    assert lloyd.assign_plan((SMS - 1) * 1024 + 1, d, 256, SMS, 4)["rows_per_thread"] == 4
+    assert lloyd.assign_plan(262_144, d, 256, SMS, 4)["rows_per_thread"] == 4
+
+
+def test_assign_plan_takes_the_occupancy_and_rows_it_is_given():
+    assert lloyd.assign_plan(10**7, 8, 256, SMS, per_sm=3)["blocks"] == 3 * SMS
+    assert lloyd.assign_plan(10**7, 8, 256, SMS, per_sm=0)["blocks"] == SMS
+    assert lloyd.assign_plan(262_144, 8, 256, SMS, per_sm=8)["blocks"] == 256
+    assert lloyd.assign_plan(200, 8, 256, SMS, per_sm=8)["blocks"] == 1
+    forced = lloyd.assign_plan(10**7, 8, 256, SMS, per_sm=5, rows_per_thread=1)
+    assert forced["rows_per_thread"] == 1 and forced["blocks"] == 5 * SMS
+    assert lloyd.assign_plan(10**7, 32, 256, SMS, 2, rows_per_thread=2)["rows_per_thread"] == 2
+    for d, R in ((32, 4), (64, 2), (128, 2), (8, 3), (8, 0)):
+        with pytest.raises(ValueError, match="rows a thread"):
+            lloyd.assign_plan(10**7, d, 256, SMS, 2, rows_per_thread=R)
+
+
+def test_assign_plan_rejects_shapes_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="features"):
+        lloyd.assign_plan(10, 129, 8, SMS)
+    with pytest.raises(ValueError, match="features"):
+        lloyd.assign_plan(10, 0, 8, SMS)
+    with pytest.raises(ValueError, match="center"):
+        lloyd.assign_plan(10, 8, 0, SMS)
+
+
+@pytest.mark.parametrize("rows_per_thread", [1, 4])
+def test_cpu_planned_assign_runs_the_plain_version(rows_per_thread):
+    """``fused_assign_planned`` on CPU tensors runs the plain version
+    whatever the plan, and launches nothing."""
+    x, _, centers, c_valid = (torch.from_numpy(a) for a in _inputs(300, 8, 16, 3, seed=5))
+    plan = lloyd.assign_plan(300, 8, 16, SMS, 4, rows_per_thread=rows_per_thread)
+    before = lloyd.launch_counts()
+    got = lloyd.fused_assign_planned(x, centers, c_valid, plan)
+    want = lloyd.fused_assign_plain(x, centers, c_valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert lloyd.launch_counts() == before
+
+
+def test_own_assign_plan_asks_the_occupancy_once_per_width_and_rows(monkeypatch):
+    """``fused_assign``'s plan comes from a cache: the CUDA occupancy
+    query runs once per (card, width, rows a thread, shared bytes), not
+    on every launch.  A stand-in library counts the queries."""
+    import contextlib
+
+    asked = []
+
+    class FakeLib:
+        def lloyd_assign_occupancy(self, d, rows, smem, per_sm):
+            asked.append((d, rows, smem))
+            per_sm._obj.value = 3
+            return 0
+
+    monkeypatch.setattr(lloyd, "_lib", lambda: FakeLib())
+    monkeypatch.setattr(lloyd, "_sm_count", lambda dev: SMS)
+    monkeypatch.setattr(lloyd.torch.cuda, "device", lambda idx: contextlib.nullcontext())
+    monkeypatch.setattr(lloyd, "_ASSIGN_OCCUPANCY", {})
+    lloyd._own_assign_plan.cache_clear()
+    try:
+        for _ in range(3):
+            for n in (1, 7, 200, 262_144, 10**7, 100_003):
+                plan = lloyd._own_assign_plan(0, n, 8, 256)
+                assert plan == lloyd.assign_plan(n, 8, 256, SMS, 3)
+        # R = 1 (n <= 67,072), 4 (262,144 and 10**7) and 2 (100,003)
+        assert sorted(r for _, r, _ in asked) == [1, 2, 4]
+    finally:
+        lloyd._own_assign_plan.cache_clear()
