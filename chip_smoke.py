@@ -19,7 +19,12 @@ kernels:
   random-forest regressors and classifiers → RMSE / accuracy /
   importances (K3, each launch timed with CUDA events), and the rf20
   forest (2M x 8 rows, 20 trees) with its fit breakdown and a check that
-  its level loop makes no host sync.
+  its level loop makes no host sync;
+* model artifacts — the 2M-row stage's five models saved (``save_models``)
+  and loaded back, the KMeans k=256 model and its scaler saved and loaded,
+  the loaded model predicting the 10M rows, serving the same requests from
+  its directory and transforming a 1M-row Table (K2), a save killed at each
+  of the three save sites, and a flipped and a truncated payload.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -33,9 +38,11 @@ times and the card's bound for the same work).
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -52,6 +59,8 @@ SEED = 0
 MAX_ITER = 20
 BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 REQUEST_SIZES = (1, 7, 32, 200)
+TRANSFORM_N = 1_000_000     # rows of the KMeans table through transform
+SAVE_SITES = ("model_io.save.arrays", "model_io.save.meta", "model_io.save.swap")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -730,10 +739,11 @@ class K3Events:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def stage_at_scale(port, H) -> int:
+def stage_at_scale(port, H, save_dir: str):
     """The model stage on 2M rows of the example generator's law, on the
-    card: 6 K3 launches per depth-5 tree fit, 24 in the stage.  → the K3
-    launches of this run."""
+    card: 6 K3 launches per depth-5 tree fit, 24 in the stage; its models
+    saved under ``save_dir`` (§11).  → (the K3 launches of this run, the
+    stage's result, its test rows on the card)."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -747,8 +757,11 @@ def stage_at_scale(port, H) -> int:
     H.reset_launch_counts()
     t0 = time.perf_counter()
     with K3Events() as k3:
-        res = port.run_model_stage(table, cfg, device=DEV)
-    stage_s = time.perf_counter() - t0
+        res = port.run_model_stage(table, cfg.replace(model_save_path=save_dir),
+                                   device=DEV, save_models=True)
+    # the stage's own window, as before §11's saves: they are timed apart
+    save_s = sum(v for k, v in res.seconds.items() if k.startswith("save:"))
+    stage_s = time.perf_counter() - t0 - save_s
     launches = H.launch_counts()["fused_level_hist"]
     check(launches == 24, f"K3 launched {launches} times in the stage (expected 6 x 4 = 24)")
     k3_ms = k3.ms()
@@ -760,12 +773,186 @@ def stage_at_scale(port, H) -> int:
     for name, imp in res.feature_importances.items():
         check(abs(sum(imp.values()) - 1.0) < 1e-5, f"{name} importances do not sum to 1")
     secs = ", ".join(f"{k} {v:.3f} s" for k, v in res.seconds.items())
-    say(f"model stage at scale ({res.training_rows} rows, {stage_s:.2f} s, K3 launches "
-        f"{launches}): {secs}")
+    say(f"model stage at scale ({res.training_rows} rows, {stage_s:.2f} s, then its "
+        f"saves {save_s:.3f} s, K3 launches {launches}): {secs}")
     say(f"  RMSE {json.dumps(res.regression_rmse)}; accuracy "
         f"{json.dumps(res.classification_accuracy)}")
     say(f"  K3 on the stage's data, {launches} launches (CUDA events; per tree fit, levels "
         f"0-5): {[round(t, 4) for t in k3_ms]} ms = {sum(k3_ms):.3f} ms")
+    # the stage's own test rows: its Binarizer, seed-42 split and assembler
+    binarized = port.Binarizer(port.LABEL_COL, "LOS_binary", cfg.los_threshold).transform(table)
+    _, test_t = port.train_test_split(binarized, cfg.train_fraction, cfg.split_seed)
+    test_x = port.VectorAssembler(port.FEATURE_COLS).transform(test_t).to_device(device=DEV).x
+    return launches, res, test_x
+
+
+def serve_requests(srv, name: str, x_host, pred_h) -> dict:
+    """16 requests of ``REQUEST_SIZES`` rows from 4 client threads to a
+    started server; each answer must be ok and equal to ``pred_h`` on its
+    rows.  → the server's stats."""
+    import numpy as np
+
+    jobs, s = [], 0
+    for i in range(16):
+        m = REQUEST_SIZES[i % len(REQUEST_SIZES)]
+        jobs.append((s, m))
+        s += m
+    answers = {}
+
+    def client(ids):
+        for j in ids:
+            st, m = jobs[j]
+            answers[j] = srv.predict(name, x_host[st : st + m])
+
+    threads = [threading.Thread(target=client, args=(range(t, 16, 4),)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(60)
+    check(not any(th.is_alive() for th in threads), "serving clients did not finish")
+    for j, (st, m) in enumerate(jobs):
+        r = answers.get(j)
+        check(r is not None and r.status == "ok", f"request {j} answered {r and r.status}")
+        check(np.array_equal(r.value, pred_h[st : st + m]), f"request {j} disagrees with predict")
+    return srv.stats()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def artifacts(port, L, tmp: str, stage, model, scaler, ds, pred, head: dict, card: str) -> int:
+    """Model artifacts on the card, written under ``tmp``: the stage's
+    saved models loaded back and predicting ``torch.equal`` to the fitted
+    ones on the stage's test rows; the KMeans k=256 model and its scaler
+    saved and loaded, predicting the 10M rows, serving from the saved
+    directory and transforming a Table (K2); a save killed at each site
+    leaving the previous artifact; a flipped and a truncated payload
+    refused.  → K2's launches in this phase."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.io.model_io import (
+        save_model,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    _, res, test_x = stage
+    L.reset_launch_counts()
+    record = {}
+    for name, path in res.model_paths.items():
+        t0 = time.perf_counter()
+        loaded = port.load_model(path)
+        load_s = time.perf_counter() - t0
+        want, got = res.models[name].predict(test_x), loaded.predict(test_x)
+        sync()
+        check(got.device == test_x.device and torch.equal(got, want),
+              f"loaded {name} predicts otherwise than the fitted model on the test rows")
+        record[name] = {"save_s": res.seconds[f"save:{name}"], "load_s": load_s,
+                        "bytes": dir_bytes(path)}
+    say(f"artifacts: the stage's {len(record)} models saved and loaded back, each "
+        f"predicting torch.equal to the fitted model on {test_x.shape[0]} test rows")
+
+    km_dir, sc_dir = os.path.join(tmp, "kmeans256"), os.path.join(tmp, "scaler")
+    t0 = time.perf_counter()
+    model.write().overwrite().save(km_dir)
+    km_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_model(sc_dir, *scaler._artifacts())
+    sc_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    km = port.load_model(km_dir)
+    km_load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc = port.load_model(sc_dir)
+    sc_load_s = time.perf_counter() - t0
+    record[f"KMeansModel k={model.k}"] = {"save_s": km_save_s, "load_s": km_load_s,
+                                   "bytes": dir_bytes(km_dir)}
+    record["StandardScalerModel"] = {"save_s": sc_save_s, "load_s": sc_load_s,
+                                     "bytes": dir_bytes(sc_dir)}
+    check(np.array_equal(km.cluster_centers, model.cluster_centers)
+          and np.array_equal(km.cluster_sizes, model.cluster_sizes)
+          and (km.n_iter, km.training_cost) == (model.n_iter, model.training_cost),
+          "loaded KMeans model differs from the fitted one")
+    check(np.array_equal(sc.mean, scaler.mean) and np.array_equal(sc.std, scaler.std),
+          "loaded scaler differs from the fitted one")
+    t0 = time.perf_counter()
+    before = L.launch_counts()["fused_assign"]
+    again = km.predict(ds.x)
+    sync()
+    predict_s = time.perf_counter() - t0
+    check(L.launch_counts()["fused_assign"] > before, "the loaded model's predict did not launch K2")
+    check(torch.equal(again, pred), "the loaded model's predict differs from the fitted model's")
+    x_host, pred_h = ds.x[:1024].cpu().numpy(), pred[:1024].cpu().numpy()
+    before = L.launch_counts()["fused_assign"]
+    srv = port.serve.InferenceServer(device=DEV)
+    srv.add_model("kmeans256", km_dir, buckets=BUCKETS)   # ModelRegistry.load
+    with srv:
+        stats = serve_requests(srv, "kmeans256", x_host, pred_h)
+    check(L.launch_counts()["fused_assign"] > before, "serving the loaded model did not launch K2")
+    check(stats["recompiles"] == 0, "serving met a shape outside the warmed buckets")
+    say(f"artifacts: KMeans k={model.k} and its scaler saved and loaded; predict on "
+        f"{ds.x.shape[0]} rows {predict_s * 1e3:.2f} ms, torch.equal to the fitted model's; "
+        f"served from its directory: 16 requests equal to predict")
+
+    t0 = time.perf_counter()
+    table = port.Table.from_dict(head)
+    scaled = sc.transform(port.VectorAssembler(list(head)).transform(table))
+    before = L.launch_counts()["fused_assign"]
+    out = km.transform(scaled, device=DEV)
+    transform_s = time.perf_counter() - t0
+    check(L.launch_counts()["fused_assign"] > before, "transform did not launch K2")
+    check(isinstance(out, port.Table) and out.schema.names == [*table.schema.names, "prediction"]
+          and out.schema.field("prediction").dtype == "int",
+          f"transform gave {type(out).__name__} {getattr(out, 'schema', None)}")
+    rows = torch.from_numpy(scaled.features.astype(np.float32)).to(ds.x.device)
+    want = km.predict(rows).cpu().numpy()
+    check(np.array_equal(out["prediction"], want), "transform's prediction column differs from predict")
+    same = float((out["prediction"] == pred[: len(want)].cpu().numpy()).mean())
+    say(f"artifacts: Table of {table.num_rows} rows -> VectorAssembler -> loaded scaler -> "
+        f"loaded KMeansModel.transform: a Table with an int prediction column equal to "
+        f"predict, in {transform_s:.2f} s (host scaling; {same:.6f} of rows as the card-scaled "
+        f"predict)")
+
+    changed = port.KMeansModel(model.cluster_centers + np.float32(1.0), n_iter=model.n_iter)
+    sub = ds.x[:TRANSFORM_N]
+    for site in SAVE_SITES:
+        plan = faults.FaultPlan().crash(site)
+        crashed = None
+        with faults.active(plan):
+            try:
+                changed.write().overwrite().save(km_dir)
+            except faults.InjectedCrash as e:
+                crashed = e.site
+        check(crashed == site and plan.fired(site) == 1, f"the save did not die at {site}")
+        back = port.load_model(km_dir)
+        check(np.array_equal(back.cluster_centers, model.cluster_centers),
+              f"a save killed at {site} lost the previous artifact")
+        check(torch.equal(back.predict(sub), pred[:TRANSFORM_N]),
+              f"the artifact left by a save killed at {site} predicts otherwise")
+    say(f"artifacts: a save killed at each of {list(SAVE_SITES)} left the previous "
+        f"artifact, predicting as before on {sub.shape[0]} rows")
+
+    for kind, expect in (("bit flip", "crc32c mismatch"), ("truncation", "size mismatch")):
+        d = os.path.join(tmp, kind.replace(" ", "_"))
+        model.save(d)
+        f = os.path.join(d, "arrays.npz")
+        data = bytearray(Path(f).read_bytes())
+        if kind == "bit flip":
+            data[len(data) // 2] ^= 0xFF
+        else:
+            del data[len(data) // 2 :]
+        Path(f).write_bytes(bytes(data))
+        err = ""
+        try:
+            port.load_model(d)
+        except port.CorruptArtifactError as e:
+            err = str(e)
+        check(expect in err, f"a {kind} of arrays.npz was not refused ({err!r})")
+    say("artifacts: a bit flip and a truncation of arrays.npz each raise CorruptArtifactError")
+
+    launches = L.launch_counts()["fused_assign"]
+    say(f"artifacts on {card} (host seconds; K2 launches {launches}): {json.dumps(record)}")
     return launches
 
 
@@ -901,9 +1088,13 @@ def main() -> None:
     t0 = time.perf_counter()
     cols = make_table_columns(N, D, K, SEED)
     table = port.Table.from_dict(cols)
+    head = {k: v[:TRANSFORM_N].copy() for k, v in cols.items()}   # the artifacts phase
     del cols
     assembled = port.VectorAssembler([f"f{j}" for j in range(D)]).transform(table)
-    ds = port.StandardScaler().fit_transform(assembled, device="cuda")
+    on_card = assembled.to_device(device="cuda")
+    scaler = port.StandardScaler().fit(on_card)
+    ds = scaler.transform(on_card)
+    del on_card
     torch.cuda.synchronize()
     check(ds.x.is_cuda and tuple(ds.x.shape) == (N, D) and ds.x.dtype == torch.float32,
           "scaled features are not an (n, 8) float32 tensor on the card")
@@ -963,34 +1154,12 @@ def main() -> None:
     srv.add_model("kmeans256", model, buckets=BUCKETS)
     with srv:
         before_serve = L.launch_counts()["fused_assign"]
-        jobs, s = [], 0
-        for i in range(16):
-            m = REQUEST_SIZES[i % len(REQUEST_SIZES)]
-            jobs.append((s, m))
-            s += m
-        answers = {}
-
-        def client(ids):
-            for j in ids:
-                st, m = jobs[j]
-                answers[j] = srv.predict("kmeans256", x_host[st : st + m])
-
-        threads = [threading.Thread(target=client, args=(range(t, 16, 4),)) for t in range(4)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(60)
-        check(not any(th.is_alive() for th in threads), "serving clients did not finish")
-        stats = srv.stats()
-    for j, (st, m) in enumerate(jobs):
-        r = answers.get(j)
-        check(r is not None and r.status == "ok", f"request {j} answered {r and r.status}")
-        check(np.array_equal(r.value, pred_h[st : st + m]), f"request {j} disagrees with predict")
+        stats = serve_requests(srv, "kmeans256", x_host, pred_h)
     check(L.launch_counts()["fused_assign"] > before_serve, "serving did not launch K2")
     check(stats["recompiles"] == 0, "serving met a shape outside the warmed buckets")
-    say(f"serving: {len(jobs)} requests of {REQUEST_SIZES} rows from 4 clients, all ok and "
+    say(f"serving: 16 requests of {REQUEST_SIZES} rows from 4 clients, all ok and "
         f"equal to predict; p50 {stats['latency_p50_ms']} ms, p99 {stats['latency_p99_ms']} ms "
-        f"(of {len(jobs)} requests: a smoke reading, no tail), "
+        f"(of 16 requests: a smoke reading, no tail), "
         f"batch fill {stats['batch_fill_ratio']}")
 
     t0 = time.perf_counter()
@@ -1012,7 +1181,13 @@ def main() -> None:
 
     # ---------------------------------------------- the model stage (K3)
     stage_on_bundled_csv(port)
-    counts["fused_level_hist"] = stage_at_scale(port, H)
+    with tempfile.TemporaryDirectory() as tmp:
+        stage = stage_at_scale(port, H, os.path.join(tmp, "hospital"))
+        counts["fused_level_hist"] = stage[0]
+        # ------------------------------------------ model artifacts (K2)
+        counts["fused_assign"] += artifacts(port, L, tmp, stage, model, scaler, ds, pred,
+                                            head, card)
+        del stage
     rf20(port)
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")

@@ -6,7 +6,10 @@ fit/predict → silhouette, and the online server that answers requests
 with the fitted model.  Slice 2 covers the hospital pipeline's model
 stage: CSV → Binarizer → seed-42 split → VectorAssembler →
 LinearRegression, decision-tree and random-forest regressors and
-classifiers → RMSE, accuracy and feature importances.  Hand-written
+classifiers → RMSE, accuracy and feature importances.  Models save to
+and load from the JAX package's artifact layout (``io/model_io.py``:
+``model.write().overwrite().save(path)``, ``load_model(path)``), so a
+model fitted by either package serves from the other.  Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
@@ -32,6 +35,7 @@ from .features.assembler import AssembledTable, VectorAssembler
 from .features.binarizer import Binarizer
 from .features.scaler import StandardScaler, StandardScalerModel
 from .io.csv import read_csv, read_csv_dir
+from .io.model_io import CorruptArtifactError, load_model
 from .models.base import PredictionResult
 from .models.kmeans import KMeans, KMeansModel
 from .models.linear_regression import LinearRegression, LinearRegressionModel
@@ -47,7 +51,8 @@ from .pipeline.hospital_pipeline import StageResult, run_model_stage
 from .version import __version__
 
 __all__ = [
-    "AssembledTable", "Binarizer", "ClusteringEvaluator", "DecisionTreeClassifier",
+    "AssembledTable", "Binarizer", "ClusteringEvaluator", "CorruptArtifactError",
+    "DecisionTreeClassifier",
     "DecisionTreeModel", "DecisionTreeRegressor", "DeviceDataset", "FEATURE_COLS",
     "Field", "KMeans", "KMeansModel", "LABEL_COL", "LinearRegression",
     "LinearRegressionModel", "MulticlassClassificationEvaluator", "PipelineConfig",
@@ -56,7 +61,7 @@ __all__ = [
     "StandardScaler", "StandardScalerModel", "Table", "VectorAssembler",
     "__version__", "device_dataset", "hospital_event_schema",
     "kmeans_model_from_jax_arrays", "linear_regression_model_from_jax_arrays",
-    "random_split", "read_csv", "read_csv_dir", "resolve_device", "run_model_stage",
+    "load_model", "random_split", "read_csv", "read_csv_dir", "resolve_device", "run_model_stage",
     "scaler_model_from_jax_arrays", "serve", "split_indices", "train_test_split",
     "tree_model_from_jax_arrays",
 ]

@@ -1,9 +1,9 @@
 """Pipeline configuration: the ``PipelineConfig`` fields that the
-hospital pipeline's model stage and its caller's training window read
-(the JAX package's ``config.py``, which mirrors the reference script's
-``CONFIG`` dict).  Ingest, the streaming checkpoint, model save and
-plots read the other fields, which come with them in a later slice of
-the port."""
+hospital pipeline's model stage, its model save and its caller's
+training window read (the JAX package's ``config.py``, which mirrors the
+reference script's ``CONFIG`` dict).  Ingest, the streaming checkpoint
+and plots read the other fields, which come with them in a later slice
+of the port."""
 
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ class PipelineConfig:
     split_seed: int = 42
     tree_max_depth: int = 5               # Spark's DT/RF defaults
     rf_num_trees: int = 20
+    model_save_path: str = "./data/models/hospital"  # modelSavePath
 
     def replace(self, **kw: Any) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)

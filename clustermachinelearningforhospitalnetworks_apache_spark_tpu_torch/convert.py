@@ -1,18 +1,23 @@
-"""Carry fitted parameters across from the JAX package.
+"""Carry fitted parameters across from the JAX package in memory.
 
-Every function takes plain numpy arrays — exactly what the JAX models'
-``_artifacts()`` hold — so this module needs nothing of the JAX package:
+A saved JAX artifact directory loads directly with
+:func:`~.io.model_io.load_model` (one artifact format for both packages).
+These functions are the in-memory bridge beside it: each takes plain
+numpy arrays — exactly what the JAX models' ``_artifacts()`` hold — so
+this module needs nothing of the JAX package:
 
     name, params, arrays = jax_kmeans_model._artifacts()
     port_model = kmeans_model_from_jax_arrays(**arrays, **params)
 
-A model carried across predicts what it predicted in the JAX package.
+Each is one call of the model class's ``from_artifacts``, the body that
+``load_model`` also runs, so the in-memory bridge and the on-disk path
+build the same model.  A model carried across predicts what it predicted
+in the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .features.scaler import StandardScalerModel
 from .models.kmeans import KMeansModel
@@ -25,12 +30,10 @@ def kmeans_model_from_jax_arrays(
     cluster_sizes=None, distance_measure: str = "euclidean",
 ) -> KMeansModel:
     """A port :class:`KMeansModel` with the JAX model's parameters."""
-    return KMeansModel(
-        cluster_centers=np.asarray(cluster_centers, dtype=np.float32),
-        distance_measure=distance_measure,
-        training_cost=float(training_cost),
-        n_iter=int(n_iter),
-        cluster_sizes=None if cluster_sizes is None else np.asarray(cluster_sizes),
+    return KMeansModel.from_artifacts(
+        {"distance_measure": distance_measure, "training_cost": training_cost,
+         "n_iter": n_iter},
+        {"cluster_centers": cluster_centers, "cluster_sizes": cluster_sizes},
     )
 
 
@@ -38,17 +41,16 @@ def scaler_model_from_jax_arrays(
     mean, std, with_mean: bool = True, with_std: bool = True
 ) -> StandardScalerModel:
     """A port :class:`StandardScalerModel` with the JAX model's moments."""
-    return StandardScalerModel(
-        np.asarray(mean), np.asarray(std), bool(with_mean), bool(with_std)
+    return StandardScalerModel.from_artifacts(
+        {"with_mean": with_mean, "with_std": with_std}, {"mean": mean, "std": std}
     )
 
 
 def linear_regression_model_from_jax_arrays(coefficients, intercept) -> LinearRegressionModel:
     """A port :class:`LinearRegressionModel` (CPU float32 tensors; predict
     moves them to the rows' device)."""
-    return LinearRegressionModel(
-        coefficients=torch.tensor(np.asarray(coefficients, dtype=np.float32)),
-        intercept=torch.tensor(np.asarray(intercept, dtype=np.float32)),
+    return LinearRegressionModel.from_artifacts(
+        {}, {"coefficients": coefficients, "intercept": intercept}
     )
 
 
@@ -60,18 +62,12 @@ def tree_model_from_jax_arrays(
     """A port tree model with the JAX tree ensemble's heap arrays —
     ``DecisionTreeModel`` or ``RandomForestModel`` as ``name`` says (by
     default: one tree is a decision tree)."""
-    split_feat = np.asarray(split_feat, dtype=np.int32)
     if name is None:
-        name = "DecisionTreeModel" if split_feat.shape[0] == 1 else "RandomForestModel"
+        name = "DecisionTreeModel" if np.shape(split_feat)[0] == 1 else "RandomForestModel"
     cls = {"DecisionTreeModel": DecisionTreeModel, "RandomForestModel": RandomForestModel}[name]
-    return cls(
-        split_feat=split_feat,
-        threshold=np.asarray(threshold, dtype=np.float32),
-        value=np.asarray(value, dtype=np.float32),
-        feature_importances=np.asarray(feature_importances, dtype=np.float64),
-        max_depth=int(max_depth),
-        task=str(task),
-        num_classes=int(num_classes),
-        split_catmask=None if split_catmask is None else np.asarray(split_catmask, np.uint32),
-        cat_arities=None if cat_arities is None else np.asarray(cat_arities, np.int32),
+    return cls.from_artifacts(
+        {"max_depth": max_depth, "task": task, "num_classes": num_classes},
+        {"split_feat": split_feat, "threshold": threshold, "value": value,
+         "feature_importances": feature_importances,
+         "split_catmask": split_catmask, "cat_arities": cat_arities},
     )

@@ -15,6 +15,7 @@ import torch
 
 from ..data import DeviceDataset
 from ..device import resolve_device
+from ..io.model_io import register_model
 from .assembler import AssembledTable
 
 
@@ -28,12 +29,33 @@ def _moments(x: torch.Tensor, w: torch.Tensor):
     return mean, torch.sqrt(torch.clamp(var, min=0.0)), n
 
 
+@register_model("StandardScalerModel")
 @dataclass(frozen=True)
 class StandardScalerModel:
+    """Not a :class:`~..models.base.Model` (as in the JAX package): saved
+    with ``save_model(path, *scaler._artifacts())``, read back with
+    ``load_model``."""
+
     mean: np.ndarray
     std: np.ndarray
     with_mean: bool = True
     with_std: bool = True
+
+    def _artifacts(self):
+        return (
+            "StandardScalerModel",
+            {"with_mean": self.with_mean, "with_std": self.with_std},
+            {"mean": np.asarray(self.mean), "std": np.asarray(self.std)},
+        )
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        return cls(
+            np.asarray(arrays["mean"]),
+            np.asarray(arrays["std"]),
+            bool(params.get("with_mean", True)),
+            bool(params.get("with_std", True)),
+        )
 
     def transform(self, x):
         """AssembledTable → AssembledTable, DeviceDataset → DeviceDataset,

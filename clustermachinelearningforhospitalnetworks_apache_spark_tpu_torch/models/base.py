@@ -3,7 +3,9 @@
 Estimators consume a padded :class:`~..data.DeviceDataset` (or anything
 coercible to one) and models predict on the device the input lies on;
 ``Model.transform`` returns a :class:`PredictionResult` whose tensors stay
-on the device until an evaluator reduces them.
+on the device until an evaluator reduces them.  ``Model.save`` and the
+Spark-style ``model.write().overwrite().save(path)`` write the JAX
+package's artifact layout (``io/model_io.py``).
 """
 
 from __future__ import annotations
@@ -123,6 +125,44 @@ class Model:
         n = np.asarray(x).shape[0]
         return unpad(self.predict(ds.x), n)
 
+    # persistence sugar -------------------------------------------------
+    def save(self, path: str, overwrite: bool = True) -> None:
+        from ..io.model_io import save_model
+
+        name, meta, arrays = self._artifacts()
+        save_model(path, name, meta, arrays, overwrite=overwrite)
+
+    def write(self) -> "_Writer":
+        """Spark-style ``model.write().overwrite().save(path)`` chain."""
+        return _Writer(self)
+
+    def _artifacts(self) -> tuple[str, dict, dict[str, np.ndarray]]:
+        """→ (``model_class`` tag, JSON params, numpy payload arrays)."""
+        raise NotImplementedError
+
 
 class ClusteringModel(Model):
-    """Model base for the clustering family."""
+    """Model base for the clustering family, adding Spark's DataFrame-style
+    ``transform``: an :class:`AssembledTable` comes back as its source
+    :class:`Table` with an int ``prediction`` column appended (the
+    assignments, computed on ``device``, default the card).  Non-table
+    inputs keep the base behavior (:class:`PredictionResult`)."""
+
+    def transform(self, data: Any, label_col: str | None = None, device=None):
+        if isinstance(data, AssembledTable):
+            pred = self.predict_numpy(data.features, device=device).astype(np.int32)
+            return data.table.with_column("prediction", pred, dtype="int")
+        return super().transform(data, label_col=label_col, device=device)
+
+
+@dataclass
+class _Writer:
+    model: Model
+    _overwrite: bool = False
+
+    def overwrite(self) -> "_Writer":
+        self._overwrite = True
+        return self
+
+    def save(self, path: str) -> None:
+        self.model.save(path, overwrite=self._overwrite)

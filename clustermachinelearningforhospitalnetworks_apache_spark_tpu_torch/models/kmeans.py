@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data import DeviceDataset, pad_slots, padded_slots, sample_valid_rows, slot_mask
+from ..io.model_io import register_model
 from ..ops.lloyd import fused_assign, fused_lloyd_stats
 from .base import ClusteringModel, Estimator, as_device_dataset, check_features
 from .summary import ClusteringSummary
@@ -75,6 +76,7 @@ def _kmeans_pp_init(sample: np.ndarray, k: int, seed: int) -> np.ndarray:
     return centers
 
 
+@register_model("KMeansModel")
 @dataclass
 class KMeansModel(ClusteringModel):
     cluster_centers: np.ndarray          # (k, d)
@@ -134,6 +136,35 @@ class KMeansModel(ClusteringModel):
         c_valid = torch.ones((self.k,), dtype=torch.float32, device=ds.x.device)
         _, mind2 = fused_assign(ds.x, centers, c_valid)
         return float((mind2 * ds.w).sum())
+
+    def _artifacts(self):
+        return (
+            "KMeansModel",
+            {
+                "distance_measure": self.distance_measure,
+                "training_cost": self.training_cost,
+                "n_iter": self.n_iter,
+            },
+            {
+                "cluster_centers": np.asarray(self.cluster_centers),
+                "cluster_sizes": (
+                    np.asarray(self.cluster_sizes)
+                    if self.cluster_sizes is not None
+                    else np.zeros((self.k,))
+                ),
+            },
+        )
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        return cls(
+            cluster_centers=np.asarray(arrays["cluster_centers"], dtype=np.float32),
+            distance_measure=params.get("distance_measure", "euclidean"),
+            training_cost=float(params.get("training_cost", 0.0)),
+            n_iter=int(params.get("n_iter", 0)),
+            cluster_sizes=(None if arrays.get("cluster_sizes") is None
+                           else np.asarray(arrays["cluster_sizes"])),
+        )
 
 
 @dataclass(frozen=True)

@@ -16,9 +16,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..data import DeviceDataset
+from ..io.model_io import register_model
 from .base import Estimator, Model, as_device_dataset, check_features
 
 _LATER = "slice 3 or later of the port"
@@ -68,6 +70,7 @@ def _wls_fit(x, y, w, reg_param: float, fit_intercept: bool, standardize: bool):
     return coef, intercept
 
 
+@register_model("LinearRegressionModel")
 @dataclass
 class LinearRegressionModel(Model):
     """``coefficients`` (d,) and ``intercept`` () as float32 tensors."""
@@ -85,6 +88,24 @@ class LinearRegressionModel(Model):
         check_features(x, self.coefficients.shape[0], "LinearRegressionModel")
         coef = self.coefficients.to(x.device)
         return x.to(torch.float32) @ coef + self.intercept.to(x.device)
+
+    def _artifacts(self):
+        return (
+            "LinearRegressionModel",
+            {},
+            {
+                "coefficients": self.coefficients.detach().cpu().numpy(),
+                "intercept": self.intercept.detach().cpu().numpy(),
+            },
+        )
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        """CPU float32 tensors; ``predict`` moves them to the rows' device."""
+        return cls(
+            coefficients=torch.tensor(np.asarray(arrays["coefficients"], dtype=np.float32)),
+            intercept=torch.tensor(np.asarray(arrays["intercept"], dtype=np.float32)),
+        )
 
 
 @dataclass(frozen=True)

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ...io.model_io import register_model
 from ..base import Estimator, Model, as_device_dataset, check_features
 from .engine import GrownForest, grow_forest, predict_forest
 
@@ -75,6 +76,44 @@ class _TreeEnsembleModel(Model):
             raise ValueError("predict_proba is classification-only")
         return self._tree_outputs(x).mean(dim=0)
 
+    # persistence: the JAX package's keys, with the heap arrays' dtypes
+    def _meta(self) -> dict:
+        return {
+            "task": self.task,
+            "num_classes": self.num_classes,
+            "max_depth": self.max_depth,
+        }
+
+    def _arrays(self) -> dict:
+        arrays = {
+            "split_feat": np.asarray(self.split_feat, np.int32),
+            "threshold": np.asarray(self.threshold, np.float32),
+            "value": np.asarray(self.value, np.float32),
+            "feature_importances": np.asarray(self.feature_importances, np.float64),
+        }
+        if self.split_catmask is not None:
+            arrays["split_catmask"] = np.asarray(self.split_catmask, np.uint32)
+            arrays["cat_arities"] = np.asarray(self.cat_arities, np.int32)
+        return arrays
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        def arr(key, dtype):
+            v = arrays.get(key)
+            return None if v is None else np.asarray(v, dtype=dtype)
+
+        return cls(
+            split_feat=arr("split_feat", np.int32),
+            threshold=arr("threshold", np.float32),
+            value=arr("value", np.float32),
+            feature_importances=arr("feature_importances", np.float64),
+            max_depth=int(params["max_depth"]),
+            task=params["task"],
+            num_classes=int(params.get("num_classes", 2)),
+            split_catmask=arr("split_catmask", np.uint32),
+            cat_arities=arr("cat_arities", np.int32),
+        )
+
 
 def _from_grown(cls, grown: GrownForest, task: str, num_classes: int):
     imp = grown.importances.mean(axis=0)
@@ -92,9 +131,11 @@ def _from_grown(cls, grown: GrownForest, task: str, num_classes: int):
     )
 
 
+@register_model("DecisionTreeModel")
 @dataclass
 class DecisionTreeModel(_TreeEnsembleModel):
-    pass
+    def _artifacts(self):
+        return ("DecisionTreeModel", self._meta(), self._arrays())
 
 
 @dataclass(frozen=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+from ...io.model_io import register_model
 from ..base import Estimator
 from .decision_tree import _fit_grown, _from_grown, _TreeEnsembleModel, _TreeParams
 
@@ -30,9 +31,11 @@ def _subset_size(strategy: str, d: int, task: str) -> int | None:
     raise ValueError(f"unknown featureSubsetStrategy {strategy!r}")
 
 
+@register_model("RandomForestModel")
 @dataclass
 class RandomForestModel(_TreeEnsembleModel):
-    pass
+    def _artifacts(self):
+        return ("RandomForestModel", self._meta(), self._arrays())
 
 
 @dataclass(frozen=True)

@@ -5,15 +5,18 @@ From the windowed training table: the LOS_binary label (LOS > threshold),
 the seed-42 70/30 split, the assembled features; LinearRegression,
 DecisionTreeRegressor and RandomForestRegressor scored by RMSE;
 DecisionTreeClassifier and RandomForestClassifier scored by accuracy; and
-the feature importances.  Every fit and evaluation runs on ``device``
-(default the card); the trees grow through K3.
+the feature importances; with ``save_models``, §11: each model written
+with ``model.write().overwrite().save`` under ``cfg.model_save_path``.
+Every fit and evaluation runs on ``device`` (default the card); the trees
+grow through K3.
 
-Ingest, the SQL training window, model save, plots and the report wrap
-this stage into ``run_pipeline`` in a later slice of the port.
+Ingest, the SQL training window, plots and the report wrap this stage
+into ``run_pipeline`` in a later slice of the port.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any
@@ -40,12 +43,21 @@ from ..models.tree import (
 
 BINARY_LABEL = "LOS_binary"
 
+#: §11's artifact directory names under ``cfg.model_save_path``
+SAVE_NAMES = {
+    "LinearRegression": "lr",
+    "DecisionTreeRegressor": "dt",
+    "RandomForestRegressor": "rf",
+    "DecisionTreeClassifier": "dt_class",
+    "RandomForestClassifier": "rf_class",
+}
+
 
 @dataclass
 class StageResult:
     """What the model stage hands on — the same fields as the JAX
-    ``PipelineResult`` it fills, plus host seconds per fit and evaluation
-    (each ends with the device idle)."""
+    ``PipelineResult`` it fills, plus host seconds per fit, evaluation
+    and save (each ends with the device idle)."""
 
     regression_rmse: dict[str, float]
     classification_accuracy: dict[str, float]
@@ -53,6 +65,7 @@ class StageResult:
     training_rows: int
     models: dict[str, Any] = field(default_factory=dict)
     seconds: dict[str, float] = field(default_factory=dict)
+    model_paths: dict[str, str] = field(default_factory=dict)
 
 
 def _timed(seconds: dict, key: str, dev: torch.device, fn):
@@ -65,8 +78,9 @@ def _timed(seconds: dict, key: str, dev: torch.device, fn):
 
 
 def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
-                    device=None) -> StageResult:
-    """§6–§10 on the windowed training table (after ``na_drop``)."""
+                    device=None, save_models: bool = False) -> StageResult:
+    """§6–§10 on the windowed training table (after ``na_drop``), and
+    §11 when ``save_models``."""
     cfg = cfg or PipelineConfig()
     dev = resolve_device(device)
     n_rows = training_df.num_rows
@@ -124,6 +138,15 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
         for name, m in models.items()
         if hasattr(m, "feature_importances")
     }
+
+    # §11: persistence with overwrite, classifiers too
+    model_paths: dict[str, str] = {}
+    if save_models:
+        for name, model in models.items():
+            path = os.path.join(cfg.model_save_path, SAVE_NAMES[name])
+            _timed(seconds, f"save:{name}", dev,
+                   lambda: model.write().overwrite().save(path))
+            model_paths[name] = path
     return StageResult(
         regression_rmse=rmse,
         classification_accuracy=accuracy,
@@ -131,4 +154,5 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
         training_rows=n_rows,
         models=models,
         seconds=seconds,
+        model_paths=model_paths,
     )

@@ -1,6 +1,8 @@
-"""Model registry: fitted model → shape-bucketed predict on one device.
+"""Model registry: fitted model or saved artifact → shape-bucketed
+predict on one device.
 
-:class:`ServingModel` wraps a model's stable raw-tensor predict
+The online half of ``io/model_io.py``: ``load_model(path)`` rebuilds any
+registered family, and :class:`ServingModel` wraps a model's stable raw-tensor predict
 (``models/base.py::Model.serving_predict_fn``) behind a fixed ladder of
 batch shapes.  Warmup runs every bucket once before traffic — on the card
 that builds the kernels and fills the allocator's pools — and a request
@@ -17,7 +19,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io.model_io import load_model
 from ..models.base import Model
+from ..utils.logging import get_logger
 from .bucketing import (
     DEFAULT_BUCKETS,
     bucket_for,
@@ -26,6 +30,8 @@ from .bucketing import (
     validate_buckets,
 )
 from .metrics import ServingMetrics
+
+log = get_logger("serve")
 
 
 class ServingModel:
@@ -102,7 +108,8 @@ class ServingModel:
 
 
 class ModelRegistry:
-    """Name → :class:`ServingModel`."""
+    """Name → :class:`ServingModel`, loadable straight from saved artifact
+    directories (``model.save(path)`` → ``registry.load(name, path)``)."""
 
     def __init__(self, metrics: ServingMetrics | None = None):
         self.metrics = metrics or ServingMetrics()
@@ -115,12 +122,50 @@ class ModelRegistry:
         model: Model,
         n_features: int | None = None,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
+        warmup: bool = False,
         device=None,
     ) -> ServingModel:
+        """Wrap ``model`` on ``device`` (default the card) under ``name``;
+        ``warmup`` runs every bucket once before it is visible."""
         sm = ServingModel(model, n_features=n_features, buckets=buckets,
                           metrics=self.metrics, device=device)
+        if warmup:
+            sm.warmup()
         with self._lock:
             self._models[name] = sm
+        log.info(
+            "model registered", name=name, family=type(model).__name__,
+            n_features=sm.n_features, buckets=len(sm.buckets),
+        )
+        return sm
+
+    def load(
+        self,
+        name: str,
+        path: str,
+        n_features: int | None = None,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        warmup: bool = False,
+        device=None,
+    ) -> ServingModel:
+        """``io/model_io.load_model`` + :meth:`register`: any family the
+        persistence registry knows goes straight into serving."""
+        return self.register(
+            name, load_model(path), n_features=n_features,
+            buckets=buckets, warmup=warmup, device=device,
+        )
+
+    def install(self, name: str, sm: ServingModel) -> ServingModel:
+        """Install an already-built (e.g. pre-warmed) :class:`ServingModel`
+        under ``name`` — the hot-swap entry point: the previous model keeps
+        answering until this one atomic dict swap, so a promotion never
+        serves a cold or half-registered model."""
+        with self._lock:
+            self._models[name] = sm
+        log.info(
+            "model installed (hot swap)", name=name,
+            family=type(sm.model).__name__,
+        )
         return sm
 
     def get(self, name: str) -> ServingModel:

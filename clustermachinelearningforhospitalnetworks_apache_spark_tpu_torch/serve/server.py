@@ -53,18 +53,19 @@ class InferenceServer:
     def add_model(
         self,
         name: str,
-        model: Model,
+        model: Model | str,
         n_features: int | None = None,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         fallback: Fallback = None,
     ) -> ServingModel:
-        """Register a fitted model for serving; ``fallback`` answers this
-        model's degraded requests."""
-        sm = self.registry.register(name, model, n_features=n_features,
-                                    buckets=buckets, device=self.device)
+        """Register a fitted model (or a saved-artifact path) for serving;
+        ``fallback`` answers this model's degraded requests."""
+        # hot-add: warmed before it is registered, then given a batcher
+        add = self.registry.load if isinstance(model, str) else self.registry.register
+        sm = add(name, model, n_features=n_features, buckets=buckets,
+                 warmup=self._started, device=self.device)
         self._fallbacks[name] = fallback
-        if self._started:  # hot-add: warm and attach a batcher now
-            sm.warmup()
+        if self._started:
             self._batchers[name] = self._new_batcher(name, sm)
         return sm
 

@@ -60,14 +60,20 @@ def test_every_module_is_walkable():
                      "models.linear_regression", "models.tree.binning",
                      "models.tree.engine", "models.tree.decision_tree",
                      "models.tree.random_forest", "ops.tree_hist",
-                     "pipeline.hospital_pipeline"):
+                     "pipeline.hospital_pipeline", "utils.faults", "utils.logging",
+                     "io.integrity", "io.model_io"):
         assert f"{port.__name__}.{expected}" in names
 
 
-def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32)
     model = port.KMeansModel(x[:2].copy())
+    # saving and loading compute nothing, so they need no device
+    model.save(str(tmp_path / "km"))
+    loaded = port.load_model(str(tmp_path / "km"))
+    table = port.VectorAssembler(["a", "b", "c"]).transform(
+        port.Table.from_dict({"a": x[:, 0], "b": x[:, 1], "c": x[:, 2]}))
     calls = [
         lambda: port.KMeans(k=2).fit(x),
         lambda: port.device_dataset(x),
@@ -86,6 +92,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         lambda: port.linear_regression_model_from_jax_arrays(np.ones(3), 0.0).transform(x),
         lambda: port.run_model_stage(port.Table.from_dict(
             {c: np.arange(16.0) for c in (*port.FEATURE_COLS, port.LABEL_COL)})),
+        lambda: port.serve.ModelRegistry().load("km", str(tmp_path / "km")),
+        lambda: loaded.transform(table),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
