@@ -20,6 +20,13 @@ kernels:
   importances (K3, each launch timed with CUDA events), and the rf20
   forest (2M x 8 rows, 20 trees) with its fit breakdown and a check that
   its level loop makes no host sync;
+* the SQL training window — 10M rows of the example generator's law
+  spread over the whole day: the reference's window query compiled to
+  torch ops on the card (route ``compiled``, no fallback reasons), equal
+  to the interpreter on every column, with its first-run transfer, rerun,
+  on-card and ``to_table`` times; a per-hospital GROUP BY and a
+  whole-partition window against the interpreter; and the window feeding
+  the model stage below (``extract_training_window``);
 * model artifacts — the 2M-row stage's five models saved (``save_models``)
   and loaded back, the KMeans k=256 model and its scaler saved and loaded,
   the loaded model predicting the 10M rows, serving the same requests from
@@ -37,6 +44,7 @@ times and the card's bound for the same work).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -60,6 +68,9 @@ MAX_ITER = 20
 BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 REQUEST_SIZES = (1, 7, 32, 200)
 TRANSFORM_N = 1_000_000     # rows of the KMeans table through transform
+SQL_N = 10_000_000          # rows of the SQL window phase, over the whole day
+# the JAX package's SQL fuzz tolerance (core/sql_fuzz.py compare_tables)
+SQL_RTOL, SQL_ATOL = 1e-9, 1e-12
 SAVE_SITES = ("model_io.save.arrays", "model_io.save.meta", "model_io.save.swap")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 CUDA-core FLOP/s
@@ -622,6 +633,191 @@ def k3_phase(H) -> dict:
             "library_ms": t["library_ms"]}
 
 
+# ------------------------------------------------------------ SQL window
+def compiled_route(tag: str) -> None:
+    """The last SQL dispatch ran on the compiled route, with no reasons:
+    a runtime fall back to the interpreter cannot pass."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+
+    d = sql.last_dispatch()
+    check(d is not None and d.route == "compiled" and d.reasons == (),
+          f"{tag}: the query did not run compiled ({d})")
+
+
+def table_mismatch(got, want, exact: bool) -> str | None:
+    """None when two Tables agree: names, rows, dtypes, null masks, and
+    values — floats exactly, or within the JAX fuzz harness's rtol 1e-9,
+    atol 1e-12 when ``exact`` is false."""
+    import numpy as np
+
+    if list(got.columns) != list(want.columns):
+        return f"columns {list(got.columns)} != {list(want.columns)}"
+    if len(got) != len(want):
+        return f"{len(got)} rows != {len(want)}"
+    for c in want.columns:
+        x, y = got[c], want[c]
+        if x.dtype != y.dtype:
+            return f"{c}: dtype {x.dtype} != {y.dtype}"
+        if x.dtype.kind == "f":
+            if not np.array_equal(np.isnan(x), np.isnan(y)):
+                return f"{c}: null masks differ"
+            same = (np.array_equal(x, y, equal_nan=True) if exact else
+                    np.allclose(x, y, rtol=SQL_RTOL, atol=SQL_ATOL, equal_nan=True))
+        elif x.dtype.kind == "M":
+            same = np.array_equal(x.view(np.int64), y.view(np.int64))
+        else:
+            same = np.array_equal(x, y)
+        if not same:
+            return f"{c}: values differ"
+    return None
+
+
+class StageEvents:
+    """A clock for the compiled SQL runners: CUDA events around each stage
+    they open (``transfer``, ``sql``); ``ms()`` → device ms per stage."""
+
+    def __init__(self):
+        self.events = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        import torch
+
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        try:
+            yield
+        finally:
+            e.record()
+            self.events[name] = (s, e)
+
+    def ms(self) -> dict:
+        sync()
+        return {k: s.elapsed_time(e) for k, (s, e) in self.events.items()}
+
+
+def host_ms(fn):
+    """(result, host ms) of ``fn()``, ending with the card idle."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sql_window(port, card: str) -> None:
+    """The reference's window query (``SELECT * … WHERE event_time
+    BETWEEN …``) over 10M rows spread over the whole day, compiled on the
+    card: once with mode="compile" (the device column cache misses), once
+    in auto mode (it hits and transfers nothing), equal to the port's
+    interpreter on every column; its transfer, on-card and ``to_table``
+    times on a cold copy of the table.  Then a per-hospital GROUP BY and a
+    whole-partition window, compiled against the interpreter at the JAX
+    fuzz harness's tolerance."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import (
+        sql,
+        sql_compile,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_parse import parse
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_plan import (
+        plan_query,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.obs.registry import (
+        global_registry,
+    )
+
+    t0 = time.perf_counter()
+    table = port.Table.from_dict(hospital_events(SQL_N // 5, seed=11, whole_day=True),
+                                 port.hospital_event_schema())
+    cfg = port.PipelineConfig()
+    name = cfg.output_table
+
+    def resolve(_name):
+        return table
+
+    q = (f"SELECT * FROM {name} WHERE event_time BETWEEN "
+         f"'{cfg.training_window_start}' AND '{cfg.training_window_end}'")
+    say(f"sql_window data: {SQL_N} rows of the example generator's law over the whole day "
+        f"in {time.perf_counter() - t0:.2f} s")
+
+    def cache_counts():
+        c = global_registry().collect()["counters"]
+        return c.get("sql.cache.device.miss", 0), c.get("sql.cache.device.hit", 0)
+
+    miss0, hit0 = cache_counts()
+    compiled, first_ms = host_ms(lambda: sql.execute(q, resolve, mode="compile", device=DEV))
+    compiled_route("window query, mode=compile")
+    miss1, hit1 = cache_counts()
+    check((miss1 - miss0, hit1 - hit0) == (1, 0),
+          f"first run: {miss1 - miss0} cache misses, {hit1 - hit0} hits (expected 1, 0)")
+    again, rerun_ms = host_ms(lambda: sql.execute(q, resolve, device=DEV))
+    compiled_route("window query, auto mode")
+    miss2, hit2 = cache_counts()
+    check((miss2 - miss1, hit2 - hit1) == (0, 1),
+          f"rerun: {miss2 - miss1} cache misses, {hit2 - hit1} hits (expected 0, 1)")
+    interp, interp_ms = host_ms(lambda: sql.execute(q, resolve, mode="interpret"))
+    for out, tag in ((compiled, "mode=compile"), (again, "auto mode")):
+        bad = table_mismatch(out, interp, exact=True)
+        check(bad is None, f"window query {tag} vs the interpreter: {bad}")
+    share = len(compiled) / SQL_N
+    check(abs(share - 3601 / 86_400) < 0.02 * 3601 / 86_400,
+          f"the window kept {share:.5f} of the rows, not about 1/24")
+
+    # the breakdown, on a cold copy of the table (same columns, empty cache)
+    plan = plan_query(parse(q), resolve)
+    cold = port.Table(table.schema, dict(table.columns))
+    clock = StageEvents()
+    view = sql_compile.run_rowlevel(plan, cold, clock, device=DEV)
+    cold_ms = clock.ms()
+    host, to_table_ms = host_ms(view.to_table)
+    check(table_mismatch(host, interp, exact=True) is None, "to_table differs from the interpreter")
+    clock = StageEvents()
+    sql_compile.run_rowlevel(plan, cold, clock, device=DEV)
+    warm_ms = clock.ms()
+    ops_ms = gpu_ms(lambda: sql_compile.run_rowlevel(plan, cold, device=DEV), reps=20)
+    # the filter's least time: read the int64 column once, write the mask once
+    bound = (8 + 1) * SQL_N / HBM_BYTES_PER_S * 1e3
+    record = {
+        "rows": SQL_N, "window_rows": len(compiled),
+        "compile_first_ms": first_ms, "auto_rerun_ms": rerun_ms, "interpreter_ms": interp_ms,
+        "transfer_miss_ms": cold_ms["transfer"], "transfer_hit_ms": warm_ms["transfer"],
+        "torch_ops_ms": cold_ms["sql"], "torch_ops_mean_ms": ops_ms, "to_table_ms": to_table_ms,
+        "filter_bound_ms": bound,
+    }
+    say(f"sql_window: the window query over {SQL_N} rows compiled on the card (route compiled, "
+        f"no reasons; rerun hit the device column cache) == interpreter on every column, "
+        f"{len(compiled)} rows kept")
+    say(f"sql_window times on {card} (ms; CUDA events for transfer and torch ops, host clock "
+        f"otherwise): {json.dumps(record)}")
+
+    agg_q = (f"SELECT hospital_id, COUNT(*) AS n, SUM(length_of_stay) AS los_sum, "
+             f"AVG(length_of_stay) AS los_avg, MIN(current_occupancy) AS occ_min, "
+             f"MAX(current_occupancy) AS occ_max FROM {name} GROUP BY hospital_id")
+    win_q = (f"SELECT length_of_stay, AVG(length_of_stay) OVER (PARTITION BY emergency_visits) "
+             f"AS los_by_er FROM {name}")
+    for tag, qq, rows in (("per-hospital aggregate", agg_q, 5), ("whole-partition window", win_q, SQL_N)):
+        got, c_ms = host_ms(lambda: sql.execute(qq, resolve, mode="compile", device=DEV))
+        compiled_route(tag)
+        want, i_ms = host_ms(lambda: sql.execute(qq, resolve, mode="interpret"))
+        bad = table_mismatch(got, want, exact=False)
+        check(bad is None, f"{tag}, compiled vs interpreter: {bad}")
+        check(len(got) == rows, f"{tag}: {len(got)} rows, expected {rows}")
+        rel = max((float(np.max(np.abs(got[c] - want[c]) / np.maximum(np.abs(want[c]), 1e-300)))
+                   for c in want.columns if want[c].dtype.kind == "f"), default=0.0)
+        clock = StageEvents()
+        sql_compile.run_plan(plan_query(parse(qq), resolve), table, clock, device=DEV)
+        say(f"sql_window {tag} on {card}: compiled {c_ms:.1f} ms (rerun stages, CUDA events: "
+            f"{json.dumps(clock.ms())}), interpreter {i_ms:.1f} ms; largest relative "
+            f"difference {rel:.3g}")
+    ts_q = (f"SELECT hospital_id, MIN(event_time) AS first, MAX(event_time) AS last "
+            f"FROM {name} GROUP BY hospital_id")
+    ex = sql.explain(ts_q, resolve)
+    check(ex["route"] == "interpreter", "MIN/MAX over a timestamp planned as compiled")
+    say(f"sql_window: MIN/MAX(event_time) per hospital stays on the interpreter, as in the "
+        f"JAX planner: {ex['fallback']}")
+
+
 def stage_on_bundled_csv(port) -> None:
     """The model stage on the bundled 20,000-row CSV (the whole day) on the
     card and on the CPU: classifier trees equal; LR coefficients within
@@ -632,11 +828,12 @@ def stage_on_bundled_csv(port) -> None:
     every tree equal."""
     import numpy as np
 
-    table = port.read_csv(str(CSV), port.hospital_event_schema())
-    table = table.between("event_time", *WHOLE_DAY).na_drop()
-    check(table.num_rows == 20_000, f"bundled CSV read {table.num_rows} rows")
     cfg = port.PipelineConfig(training_window_start=WHOLE_DAY[0],
                               training_window_end=WHOLE_DAY[1])
+    table = port.extract_training_window(
+        port.read_csv(str(CSV), port.hospital_event_schema()), cfg, device=DEV)
+    compiled_route("bundled CSV window")
+    check(table.num_rows == 20_000, f"bundled CSV window holds {table.num_rows} rows")
     trees = ("DecisionTreeRegressor", "RandomForestRegressor",
              "DecisionTreeClassifier", "RandomForestClassifier")
 
@@ -679,14 +876,16 @@ def stage_on_bundled_csv(port) -> None:
             say(f"  feature importances {json.dumps(card.feature_importances)}")
 
 
-def hospital_events(n_per_hospital: int, seed: int = 7):
+def hospital_events(n_per_hospital: int, seed: int = 7, whole_day: bool = False):
     """The example generator's law (``examples/run_hospital_pipeline.py``
-    ``generate_events``): 5 hospitals, events in 22:00–23:00, LOS linear in
-    the 4 features plus noise — built in memory."""
+    ``generate_events``): 5 hospitals, events in 22:00–23:00 (or over the
+    whole day), LOS linear in the 4 features plus noise — built in
+    memory."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    base = np.datetime64("2025-03-31T22:00:00")
+    base = np.datetime64("2025-03-31T00:00:00" if whole_day else "2025-03-31T22:00:00")
+    span_s = 86_400 if whole_day else 3600
     cols = {k: [] for k in ("hospital_id", "event_time", "admission_count",
                             "current_occupancy", "emergency_visits",
                             "seasonality_index", "length_of_stay")}
@@ -698,7 +897,7 @@ def hospital_events(n_per_hospital: int, seed: int = 7):
         sea = rng.uniform(0.5, 1.5, n)
         los = 0.05 * adm + 0.008 * occ + 0.12 * emg + 2.0 * sea + rng.normal(0.0, 0.4, n)
         cols["hospital_id"].append(np.array([f"H{h:02d}"] * n, dtype=object))
-        cols["event_time"].append(base + rng.integers(0, 3600, n).astype("timedelta64[s]"))
+        cols["event_time"].append(base + rng.integers(0, span_s, n).astype("timedelta64[s]"))
         for k, v in (("admission_count", adm), ("current_occupancy", occ),
                      ("emergency_visits", emg), ("seasonality_index", sea),
                      ("length_of_stay", los)):
@@ -748,9 +947,10 @@ def stage_at_scale(port, H, save_dir: str):
 
     t0 = time.perf_counter()
     cfg = port.PipelineConfig()
-    table = port.Table.from_dict(hospital_events(TREE_N // 5), port.hospital_event_schema())
-    table = table.between("event_time", cfg.training_window_start,
-                          cfg.training_window_end).na_drop()
+    table = port.extract_training_window(
+        port.Table.from_dict(hospital_events(TREE_N // 5), port.hospital_event_schema()),
+        cfg, device=DEV)
+    compiled_route("stage window")
     check(table.num_rows == TREE_N, f"generator gave {table.num_rows} rows in the window")
     say(f"stage data: {TREE_N} rows of the example generator's law in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1179,14 +1379,20 @@ def main() -> None:
           "kernel fit centers disagree with the plain fit")
     say(f"small-input reference: card fit == CPU plain fit (n_iter {on_card.n_iter})")
 
+    # ------------------------------------- the SQL window on the card
+    sql_window(port, card)
+
     # ---------------------------------------------- the model stage (K3)
     stage_on_bundled_csv(port)
     with tempfile.TemporaryDirectory() as tmp:
         stage = stage_at_scale(port, H, os.path.join(tmp, "hospital"))
         counts["fused_level_hist"] = stage[0]
         # ------------------------------------------ model artifacts (K2)
+        # the injected crashes leave their postmortems in the temporary tree
+        os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
         counts["fused_assign"] += artifacts(port, L, tmp, stage, model, scaler, ds, pred,
                                             head, card)
+        os.environ.pop("CMLHN_FLIGHT_DIR")
         del stage
     rf20(port)
 

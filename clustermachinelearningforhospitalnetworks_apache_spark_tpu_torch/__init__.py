@@ -9,7 +9,12 @@ LinearRegression, decision-tree and random-forest regressors and
 classifiers → RMSE, accuracy and feature importances.  Models save to
 and load from the JAX package's artifact layout (``io/model_io.py``:
 ``model.write().overwrite().save(path)``, ``load_model(path)``), so a
-model fitted by either package serves from the other.  Hand-written
+model fitted by either package serves from the other.  Slice 3b covers
+the SQL training window: the parser, the planner and the numpy
+interpreter, with the compiled executor running fully supported
+single-table plans as torch ops over columns on the card
+(``sql_execute``, ``sql_explain``, ``extract_training_window``).
+Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
@@ -25,6 +30,8 @@ from .convert import (
 )
 from .core.schema import FEATURE_COLS, LABEL_COL, Field, Schema, hospital_event_schema
 from .core.split import random_split, split_indices, train_test_split
+from .core.sql import execute as sql_execute
+from .core.sql import explain as sql_explain
 from .core.table import Table
 from .data import DeviceDataset, device_dataset
 from .device import resolve_device
@@ -47,7 +54,7 @@ from .models.tree import (
     RandomForestModel,
     RandomForestRegressor,
 )
-from .pipeline.hospital_pipeline import StageResult, run_model_stage
+from .pipeline.hospital_pipeline import StageResult, extract_training_window, run_model_stage
 from .version import __version__
 
 __all__ = [
@@ -59,9 +66,10 @@ __all__ = [
     "PredictionResult", "RandomForestClassifier", "RandomForestModel",
     "RandomForestRegressor", "RegressionEvaluator", "Schema", "StageResult",
     "StandardScaler", "StandardScalerModel", "Table", "VectorAssembler",
-    "__version__", "device_dataset", "hospital_event_schema",
+    "__version__", "device_dataset", "extract_training_window", "hospital_event_schema",
     "kmeans_model_from_jax_arrays", "linear_regression_model_from_jax_arrays",
     "load_model", "random_split", "read_csv", "read_csv_dir", "resolve_device", "run_model_stage",
-    "scaler_model_from_jax_arrays", "serve", "split_indices", "train_test_split",
+    "scaler_model_from_jax_arrays", "serve", "split_indices", "sql_execute", "sql_explain",
+    "train_test_split",
     "tree_model_from_jax_arrays",
 ]

@@ -1,6 +1,6 @@
 """Pipeline configuration: the ``PipelineConfig`` fields that the
-hospital pipeline's model stage, its model save and its caller's
-training window read (the JAX package's ``config.py``, which mirrors the
+hospital pipeline's training window, its model stage and its model save
+read (the JAX package's ``config.py``, which mirrors the
 reference script's ``CONFIG`` dict).  Ingest, the streaming checkpoint
 and plots read the other fields, which come with them in a later slice
 of the port."""
@@ -14,6 +14,7 @@ from typing import Any
 
 @dataclass(frozen=True)
 class PipelineConfig:
+    output_table: str = "hospital_unbounded_table"  # the table the window query reads
     training_window_start: str = "2025-03-31 22:00:00"
     training_window_end: str = "2025-03-31 23:00:00"
     los_threshold: float = 5.0            # LOS_binary = LOS > threshold

@@ -1,1 +1,3 @@
-"""Host-side tables, schemas and the seeded split."""
+"""Host-side tables, schemas, the seeded split, and the SQL engine: the
+parser, the planner, the numpy interpreter and the compiled executor
+over columns on the card."""

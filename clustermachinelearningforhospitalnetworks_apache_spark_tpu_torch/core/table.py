@@ -1,16 +1,19 @@
 """Columnar in-memory table — the subset of the JAX package's
 ``core/table.py`` that the feature stages and the hospital pipeline's
-model stage need: construction, column access, the numeric matrix, and
-the relational steps concat / empty / select / mask / with_column /
-na_drop / between."""
+model stage and the SQL engine need: construction, column access, the
+numeric matrix, the relational steps concat / empty / select / mask /
+limit / with_column / na_drop / between, and the device-column cache the
+compiled SQL executor reads."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
+from ..obs.registry import global_registry
 from .schema import FLOAT, INT, STRING, TIMESTAMP, Field, Schema
 
 
@@ -30,6 +33,12 @@ def _coerce(values: Any, f: Field) -> np.ndarray:
 class Table:
     schema: Schema
     columns: dict[str, np.ndarray]
+    # device-column cache: (name, device) → tensor, filled lazily by the
+    # compiled SQL executor so repeated queries over the same snapshot
+    # never re-transfer a column.  Not part of the value (compare=False);
+    # sound because Table is immutable — every relational op builds a
+    # NEW Table.
+    _device_cache: dict = field(default_factory=dict, compare=False, repr=False)
 
     def __post_init__(self) -> None:
         lens = {len(v) for v in self.columns.values()}
@@ -94,6 +103,9 @@ class Table:
         """Rows picked by a boolean mask or an index array."""
         return Table(self.schema, {n: v[m] for n, v in self.columns.items()})
 
+    def limit(self, n: int) -> "Table":
+        return Table(self.schema, {k: v[:n] for k, v in self.columns.items()})
+
     def with_column(self, name: str, values: Any, dtype: str | None = None) -> "Table":
         """``DataFrame.withColumn``: add or replace a column; ``values``
         may be an array or a callable of the table."""
@@ -147,3 +159,48 @@ class Table:
         if not names:
             return np.empty((len(self), 0), dtype=dtype)
         return np.stack([self.columns[n].astype(dtype) for n in names], axis=1)
+
+    def device_column(self, name: str, device) -> torch.Tensor:
+        """The column as a tensor on ``device``, cached per (name, device)
+        so reruns of a query over this snapshot transfer nothing.
+
+        Device representation (the compiled SQL executor's contract):
+        float → float64 (NaN null), int/bool → int64 (null-free),
+        timestamp → int64 nanoseconds (NaT keeps its int64 sentinel).
+        String/object columns never transfer.
+        """
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (name, str(dev))
+        arr = self._device_cache.get(key)
+        # a miss is a fresh host→device transfer
+        global_registry().inc(
+            "sql.cache.device.hit" if arr is not None else "sql.cache.device.miss"
+        )
+        if arr is None:
+            col = self.columns[name]
+            k = col.dtype.kind
+            if k == "f":
+                host = col.astype(np.float64, copy=False)
+            elif k in "iub":
+                host = col.astype(np.int64, copy=False)
+            elif k == "M":
+                host = col.astype("datetime64[ns]", copy=False).view(np.int64)
+            else:
+                raise TypeError(
+                    f"column {name!r} ({col.dtype}) has no device "
+                    "representation — string columns stay on the host"
+                )
+            arr = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+            self._device_cache[key] = arr
+        return arr
+
+    def device_cache_info(self) -> dict:
+        """Cached (column, device) entries and their total device bytes —
+        the no-re-transfer evidence."""
+        return {
+            "entries": sorted(self._device_cache),
+            "bytes": int(sum(a.numel() * a.element_size()
+                             for a in self._device_cache.values())),
+        }

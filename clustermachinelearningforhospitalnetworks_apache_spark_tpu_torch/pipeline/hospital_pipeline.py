@@ -1,7 +1,10 @@
-"""The hospital pipeline's model stage: §6–§10 of the JAX package's
-``pipeline/hospital_pipeline.py::_run``.
+"""The hospital pipeline's training window and model stage: §5–§11 of the
+JAX package's ``pipeline/hospital_pipeline.py::_run``.
 
-From the windowed training table: the LOS_binary label (LOS > threshold),
+§5, ``extract_training_window``: the reference's window query
+(``SELECT * … WHERE event_time BETWEEN …``) through the SQL dispatcher,
+which compiles it to torch ops over the table's columns on ``device``,
+then ``na_drop``.  §6–§11, ``run_model_stage``, from the windowed table: the LOS_binary label (LOS > threshold),
 the seed-42 70/30 split, the assembled features; LinearRegression,
 DecisionTreeRegressor and RandomForestRegressor scored by RMSE;
 DecisionTreeClassifier and RandomForestClassifier scored by accuracy; and
@@ -10,8 +13,8 @@ with ``model.write().overwrite().save`` under ``cfg.model_save_path``.
 Every fit and evaluation runs on ``device`` (default the card); the trees
 grow through K3.
 
-Ingest, the SQL training window, plots and the report wrap this stage
-into ``run_pipeline`` in a later slice of the port.
+Ingest, plots and the report wrap these into ``run_pipeline`` in a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..core import sql as _sql
 from ..core.schema import FEATURE_COLS, LABEL_COL
 from ..core.split import train_test_split
 from ..core.table import Table
@@ -40,6 +44,9 @@ from ..models.tree import (
     RandomForestClassifier,
     RandomForestRegressor,
 )
+from ..utils.logging import get_logger
+
+log = get_logger("pipeline")
 
 BINARY_LABEL = "LOS_binary"
 
@@ -75,6 +82,35 @@ def _timed(seconds: dict, key: str, dev: torch.device, fn):
         torch.cuda.synchronize(dev)
     seconds[key] = time.perf_counter() - t0
     return out
+
+
+def extract_training_window(table: Table, cfg: PipelineConfig | None = None,
+                            device=None) -> Table:
+    """§5: the reference's window query over ``table`` (answering for
+    ``cfg.output_table``), compiled on ``device`` (default the card),
+    then ``na_drop``; the route taken is logged, so a fall back to the
+    interpreter is visible."""
+    cfg = cfg or PipelineConfig()
+    window_query = (
+        f"SELECT * FROM {cfg.output_table} WHERE event_time BETWEEN "
+        f"'{cfg.training_window_start}' AND '{cfg.training_window_end}'"
+    )
+    resolve = {cfg.output_table: table}.__getitem__
+    training_df = _sql.execute(window_query, resolve, device=device).na_drop()
+    n_rows = training_df.num_rows
+    disp = _sql.last_dispatch()
+    log.info(
+        "training window extracted",
+        rows=n_rows,
+        sql_route=disp.route if disp else "unknown",
+        sql_fallback=list(disp.reasons) if disp else [],
+    )
+    if n_rows < 10:
+        raise ValueError(
+            f"training window has only {n_rows} rows; check input_path/"
+            "training_window_start/end"
+        )
+    return training_df
 
 
 def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,

@@ -74,9 +74,7 @@ nothing.
 
 The site names and rule vocabulary are the JAX package's letter for
 letter (``utils/faults.py``), so one :class:`FaultPlan` drives the chaos
-tests of both packages.  The port has no flight recorder yet: a crash
-raises without a postmortem dump, and fired rules are not noted in a
-ring buffer.
+tests of both packages.
 """
 
 from __future__ import annotations
@@ -110,13 +108,26 @@ class InjectedCrash(BaseException):
 
     ``BaseException`` so no ``except Exception`` self-healing path can
     swallow it: code that survives an InjectedCrash by catching it would
-    also "survive" a power cut, which is a lie.  ``site`` names the
-    fault site that killed the process.
+    also "survive" a power cut, which is a lie.
+
+    Constructing one dumps the observability flight recorder:
+    a real ``kill -9`` is exactly the moment a postmortem ring buffer
+    exists for, so EVERY simulated death — fault-rule crashes, torn WAL
+    writes, crashes tests raise by hand — leaves a CRC-verified artifact
+    tagged with the killing ``site``, no matter which code path raised
+    it.  The dump is best-effort and can never mask or alter the crash.
     """
 
     def __init__(self, *args, site: str | None = None):
         super().__init__(*args)
         self.site = site
+        try:
+            from ..obs.flight_recorder import crash_dump
+
+            crash_dump(self)
+        except Exception:  # noqa: BLE001 — the postmortem must never
+            # change what the chaos test observes
+            pass
 
 
 #: rule actions that rewrite ingest data rather than raising/sleeping
@@ -277,6 +288,18 @@ class FaultPlan:
             burst_len=length, when=when,
         ))
 
+    @staticmethod
+    def _ring_note(site: str, action: str) -> None:
+        """A rule FIRED: drop it into the flight-recorder ring, so a
+        postmortem shows the faults leading up to the failure (fires are
+        rare by construction; the un-fired hook path pays nothing)."""
+        try:
+            from ..obs.flight_recorder import note
+
+            note("fault", site, action=action)
+        except Exception:  # noqa: BLE001 — observability never breaks work
+            pass
+
     # ------------------------------------------------------------ inspection
     def fired(self, site_pattern: str = "*") -> int:
         with self._lock:
@@ -302,9 +325,11 @@ class FaultPlan:
                     continue
                 if r.action == "disk_full":
                     self.log.append((site, "disk_full"))
+                    self._ring_note(site, "disk_full")
                     boom = enospc_error(site)
                     break
                 self.log.append((site, r.action))
+                self._ring_note(site, r.action)
                 if r.action == "delay":
                     delay += r.delay_s
                 elif r.action == "crash":
@@ -331,6 +356,7 @@ class FaultPlan:
                 if not (r.matches(site, ctx) and r.take()):
                     continue
                 self.log.append((site, "corrupt"))
+                self._ring_note(site, "corrupt")
                 if not data:
                     continue
                 i = min(r.at_byte or 0, len(data) - 1)
@@ -357,6 +383,7 @@ class FaultPlan:
             for i, r in enumerate(self.rules):
                 if r.action in DATA_ACTIONS and r.matches(site, ctx) and r.take():
                     self.log.append((site, r.action))
+                    self._ring_note(site, r.action)
                     # snapshot the fire count INSIDE the lock: concurrent
                     # callers must each get their own deterministic seed
                     fired_rules.append((i, r, r.fired))
@@ -375,6 +402,7 @@ class FaultPlan:
                 if not (r.matches(site, ctx) and r.take()):
                     continue
                 self.log.append((site, "tear"))
+                self._ring_note(site, "tear")
                 cut = r.at_byte or 0
                 if cut < 0:  # negative = from the end (-1: all but last byte)
                     cut += length
@@ -400,6 +428,7 @@ class FaultPlan:
                 if not r.take():
                     continue  # times exhausted: space was "freed"
                 self.log.append((site, "disk_full"))
+                self._ring_note(site, "disk_full")
                 return min(fit, length)
         return None
 

@@ -61,7 +61,10 @@ def test_every_module_is_walkable():
                      "models.tree.engine", "models.tree.decision_tree",
                      "models.tree.random_forest", "ops.tree_hist",
                      "pipeline.hospital_pipeline", "utils.faults", "utils.logging",
-                     "io.integrity", "io.model_io"):
+                     "io.integrity", "io.model_io", "obs.registry", "obs.trace",
+                     "obs.flight_recorder", "obs.export", "streaming.wal",
+                     "core.sql_parse", "core.sql_plan", "core.sql_views",
+                     "core.sql_compile", "core.sql"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -74,6 +77,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
     loaded = port.load_model(str(tmp_path / "km"))
     table = port.VectorAssembler(["a", "b", "c"]).transform(
         port.Table.from_dict({"a": x[:, 0], "b": x[:, 1], "c": x[:, 2]}))
+    sql_table = port.Table.from_dict({"a": x[:, 0]})
     calls = [
         lambda: port.KMeans(k=2).fit(x),
         lambda: port.device_dataset(x),
@@ -94,6 +98,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
             {c: np.arange(16.0) for c in (*port.FEATURE_COLS, port.LABEL_COL)})),
         lambda: port.serve.ModelRegistry().load("km", str(tmp_path / "km")),
         lambda: loaded.transform(table),
+        lambda: port.sql_execute("SELECT * FROM t WHERE a > 0", lambda _n: sql_table),
+        lambda: port.extract_training_window(sql_table),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
