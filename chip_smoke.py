@@ -31,7 +31,15 @@ kernels:
   and loaded back, the KMeans k=256 model and its scaler saved and loaded,
   the loaded model predicting the 10M rows, serving the same requests from
   its directory and transforming a 1M-row Table (K2), a save killed at each
-  of the three save sites, and a flipped and a truncated payload.
+  of the three save sites, and a flipped and a truncated payload;
+* ``run_pipeline`` end to end — 5 CSV files of 400,000 rows of the example
+  generator's law: killed at ``stream.after_sink`` and resumed exactly
+  once through the streaming ingest, the checkpointed unbounded table, the
+  compiled window and the model stage (K3), with the saves, the report and
+  the plots (when matplotlib is installed); equal to ``run_model_stage``
+  on the same rows; an idempotent rerun; a sixth file as batch 1, its late
+  rows counted against numpy, and the window rerun hitting the snapshot
+  memo and the device columns.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -876,11 +884,12 @@ def stage_on_bundled_csv(port) -> None:
             say(f"  feature importances {json.dumps(card.feature_importances)}")
 
 
-def hospital_events(n_per_hospital: int, seed: int = 7, whole_day: bool = False):
+def hospital_events(n_per_hospital: int, seed: int = 7, whole_day: bool = False,
+                    hospitals: int = 5):
     """The example generator's law (``examples/run_hospital_pipeline.py``
-    ``generate_events``): 5 hospitals, events in 22:00–23:00 (or over the
-    whole day), LOS linear in the 4 features plus noise — built in
-    memory."""
+    ``generate_events``): 5 hospitals (or more, the first 5 the same),
+    events in 22:00–23:00 (or over the whole day), LOS linear in the 4
+    features plus noise — built in memory."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -889,7 +898,7 @@ def hospital_events(n_per_hospital: int, seed: int = 7, whole_day: bool = False)
     cols = {k: [] for k in ("hospital_id", "event_time", "admission_count",
                             "current_occupancy", "emergency_visits",
                             "seasonality_index", "length_of_stay")}
-    for h in range(5):
+    for h in range(hospitals):
         n = n_per_hospital
         adm = rng.integers(0, 50, n)
         occ = rng.integers(20, 400, n)
@@ -1156,6 +1165,264 @@ def artifacts(port, L, tmp: str, stage, model, scaler, ds, pred, head: dict, car
     return launches
 
 
+EVENT_COLS = ("hospital_id", "event_time", "admission_count", "current_occupancy",
+              "emergency_visits", "seasonality_index", "length_of_stay")
+
+
+def write_events_csv(path: str, cols: dict, lo: int, hi: int) -> None:
+    """Rows ``lo:hi`` of ``hospital_events`` columns as a header CSV, byte
+    for byte what the port's ``write_csv`` writes for the same Table
+    (``str()`` of each value; checked on a prefix by the caller), without
+    its per-cell loop."""
+    import numpy as np
+
+    times = np.datetime_as_string(cols["event_time"][lo:hi].astype("datetime64[ns]"), unit="ns")
+    fields = [
+        cols["hospital_id"][lo:hi].tolist(),
+        [t.replace("T", " ") for t in times.tolist()],
+        *(cols[c][lo:hi].astype(str).tolist()
+          for c in ("admission_count", "current_occupancy", "emergency_visits")),
+        *(list(map(repr, cols[c][lo:hi].tolist()))
+          for c in ("seasonality_index", "length_of_stay")),
+    ]
+    with open(path, "w") as f:
+        f.write(",".join(EVENT_COLS) + "\n")
+        f.write("".join(",".join(row) + "\n" for row in zip(*fields)))
+
+
+def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N // 5) -> int:
+    """``run_pipeline`` end to end on the card over 5 CSV files of the
+    example generator's law (``n_per_hospital`` rows each, 2M in all):
+    killed at ``stream.after_sink`` (batch 0 in the table, its checkpoint
+    commit line not written), then resumed exactly once (route
+    ``compiled``, 24 K3 launches, 5 artifacts, the report, the plots when
+    matplotlib is installed); its results ``==`` to ``run_model_stage``
+    over ``read_csv_dir`` of the same files; an idempotent rerun; a sixth
+    file drained as batch 1, with its late rows counted against numpy, and
+    the window rerun hitting the snapshot memo and the device columns.
+    → K3's launches in the three ``run_pipeline`` runs."""
+    import importlib.util
+
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.obs.registry import (
+        global_registry,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.streaming import (
+        unbounded_table,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.streaming.wal import (
+        read_lines,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    n5 = 5 * n_per_hospital
+    schema = port.hospital_event_schema()
+    cols = hospital_events(n_per_hospital, hospitals=6)
+    incoming = os.path.join(tmp, "incoming")
+    os.makedirs(incoming)
+    files = [os.path.join(incoming, f"hospital_{h:02d}.csv") for h in range(6)]
+    t0 = time.perf_counter()
+    for h in range(5):
+        write_events_csv(files[h], cols, h * n_per_hospital, (h + 1) * n_per_hospital)
+    write_s = time.perf_counter() - t0
+    head = port.Table.from_dict({c: v[:2000] for c, v in cols.items()}, schema)
+    port.write_csv(head, os.path.join(tmp, "head.csv"))
+    with open(files[0]) as f, open(os.path.join(tmp, "head.csv")) as g:
+        check([next(f) for _ in range(2001)] == g.readlines(),
+              "the vectorized CSV writer differs from write_csv")
+    csv_bytes = sum(os.path.getsize(f) for f in files[:5])
+    say(f"run_pipeline input: 5 CSV files x {n_per_hospital} rows of the example generator's "
+        f"law (seed 7), {csv_bytes} bytes, written in {write_s:.2f} s (equal to write_csv "
+        "on a 2,000-row prefix)")
+
+    cfg = port.PipelineConfig(input_path=incoming,
+                              checkpoint_location=os.path.join(tmp, "checkpoint"),
+                              model_save_path=os.path.join(tmp, "models"),
+                              plot_dir=os.path.join(tmp, "plots"))
+    sink_dir = cfg.checkpoint_location + "_table_" + cfg.output_table
+    plots = importlib.util.find_spec("matplotlib") is not None
+    if not plots:
+        say("plots: not run (matplotlib is not installed on this machine)")
+
+    # killed: the part is written, its commit line is not
+    plan = faults.FaultPlan().crash("stream.after_sink")
+    t0 = time.perf_counter()
+    with faults.active(plan):
+        try:
+            port.run_pipeline(cfg, device=DEV, make_plots=plots)
+            killed = False
+        except faults.InjectedCrash:
+            killed = True
+    killed_s = time.perf_counter() - t0
+    sink = port.UnboundedTable(sink_dir, schema)
+    check(killed and plan.fired("stream.after_sink") == 1, "the run was not killed at stream.after_sink")
+    check(os.path.exists(os.path.join(sink_dir, "part-0000000000.parquet"))
+          and sink.max_batch_id() == 0
+          and read_lines(os.path.join(cfg.checkpoint_location, "commits.log")) == [],
+          "the killed run did not leave batch 0 in the table without its checkpoint commit")
+
+    # resumed: batch 0 replayed exactly once, its Parquet write timed
+    sink_cls = unbounded_table.UnboundedTable
+    write_part, part_s = sink_cls._write_parquet, []
+
+    def timed_write(self, table, path):
+        t0 = time.perf_counter()
+        write_part(self, table, path)
+        part_s.append(time.perf_counter() - t0)
+
+    sink_cls._write_parquet = timed_write
+    H.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with K3Events() as k3:
+            res = port.run_pipeline(cfg, device=DEV, make_plots=plots)
+    finally:
+        sink_cls._write_parquet = write_part
+    wall_s = time.perf_counter() - t0
+    launches = H.launch_counts()["fused_level_hist"]
+    compiled_route("run_pipeline window")
+    check(launches == 24, f"K3 launched {launches} times in run_pipeline (expected 24)")
+    k3_ms = k3.ms()
+    sink = port.UnboundedTable(sink_dir, schema)
+    check(res.training_rows == n5 and sink.read().num_rows == n5,
+          f"{res.training_rows} training rows, {sink.read().num_rows} in the table (expected {n5})")
+    check(sink.max_batch_id() == 0, f"max batch id {sink.max_batch_id()} after the resume")
+    check(port.StreamCheckpoint(cfg.checkpoint_location).quarantine_count() == 0,
+          "a batch was quarantined")
+    check(sorted(os.listdir(cfg.model_save_path)) == ["dt", "dt_class", "lr", "rf", "rf_class"]
+          and len(res.model_paths) == 5, "run_pipeline did not save the 5 models")
+    check(res.report.startswith("=" * 64) and "OPERATIONAL INSIGHTS" in res.report,
+          "the report is empty")
+    if plots:
+        check(all(os.path.getsize(p) > 0 for p in res.plot_paths.values())
+              and len(res.plot_paths) == 2, "the plots were not written")
+    for v in (*res.regression_rmse.values(), *res.classification_accuracy.values()):
+        check(np.isfinite(v) and v > 0, f"run_pipeline metric {v} not finite")
+    parquet_bytes = dir_bytes(sink_dir)
+    t0 = time.perf_counter()
+    port.UnboundedTable(sink_dir, schema).read()       # a cold snapshot: Parquet → Table
+    snapshot_s = time.perf_counter() - t0
+
+    # == run_model_stage on the same rows
+    t0 = time.perf_counter()
+    table = port.read_csv_dir(incoming, schema)
+    parse_s = time.perf_counter() - t0
+    stage = port.run_model_stage(port.extract_training_window(table, cfg, device=DEV), cfg,
+                                 device=DEV)
+    check(stage.training_rows == res.training_rows
+          and stage.regression_rmse == res.regression_rmse
+          and stage.classification_accuracy == res.classification_accuracy
+          and stage.feature_importances == res.feature_importances,
+          "run_pipeline's results differ from run_model_stage on the same rows: "
+          f"{res.regression_rmse} {res.classification_accuracy} vs "
+          f"{stage.regression_rmse} {stage.classification_accuracy}")
+    del table, stage
+
+    # idempotent rerun: no batch runs, the same results
+    offsets = read_lines(os.path.join(cfg.checkpoint_location, "offsets.log"))
+    H.reset_launch_counts()
+    rerun = port.run_pipeline(cfg, device=DEV, make_plots=False)
+    launches += H.launch_counts()["fused_level_hist"]
+    check(read_lines(os.path.join(cfg.checkpoint_location, "offsets.log")) == offsets
+          and port.UnboundedTable(sink_dir, schema).max_batch_id() == 0,
+          "the rerun ran a batch")
+    check((rerun.regression_rmse, rerun.classification_accuracy, rerun.feature_importances)
+          == (res.regression_rmse, res.classification_accuracy, res.feature_importances),
+          "the rerun's results differ")
+
+    # a sixth file, drained as batch 1 through a session whose window reruns
+    write_events_csv(files[5], cols, n5, n5 + n_per_hospital)
+    g = global_registry()
+
+    def caches():
+        return {k: g.counters.get(f"sql.cache.{k}", 0.0)
+                for k in ("snapshot.hit", "snapshot.miss", "device.hit", "device.miss")}
+
+    spark = port.Session(cfg, device=DEV)
+    try:
+        c0 = caches()
+        H.reset_launch_counts()
+        sixth = port.run_pipeline(session=spark, make_plots=False)
+        launches += H.launch_counts()["fused_level_hist"]
+        c1 = caches()
+        window = (f"SELECT * FROM {cfg.output_table} WHERE event_time BETWEEN "
+                  f"'{cfg.training_window_start}' AND '{cfg.training_window_end}'")
+        t0 = time.perf_counter()
+        spark.sql(window)
+        rerun_window_s = time.perf_counter() - t0
+        compiled_route("window rerun")
+        c2 = caches()
+    finally:
+        spark.stop()
+    check(c1["snapshot.miss"] - c0["snapshot.miss"] == 1,
+          f"the window after batch 1 counted {c1['snapshot.miss'] - c0['snapshot.miss']} "
+          "snapshot misses (expected 1)")
+    check(c2["snapshot.miss"] == c1["snapshot.miss"] and c2["snapshot.hit"] > c1["snapshot.hit"]
+          and c2["device.miss"] == c1["device.miss"] and c2["device.hit"] > c1["device.hit"],
+          f"the window rerun missed a cache: {c1} -> {c2}")
+    sink = port.UnboundedTable(sink_dir, schema)
+    entry = sink.committed_batches()[1]
+    intent = read_lines(os.path.join(cfg.checkpoint_location, "offsets.log"))[-1]
+    wm_state = intent["watermark"]["max_event_time"]
+    times6 = cols["event_time"][n5:].astype("datetime64[ns]")
+    late_np = 0 if wm_state is None else int(
+        (times6 < np.datetime64(wm_state) - np.timedelta64(10, "m")).sum())
+    late6 = n_per_hospital - entry["rows"]
+    check(sink.max_batch_id() == 1 and late6 == late_np,
+          f"batch 1: {late6} late rows, numpy counts {late_np} against the restored "
+          f"watermark {wm_state}")
+    check(sixth.training_rows == n5 + entry["rows"], "the window after batch 1 lost rows")
+
+    # the late-row drop within one process: batch 0 advances the watermark
+    src = port.FileStreamSource(incoming, schema, max_files_per_batch=5)
+    one = port.StreamExecution(
+        source=src, sink=port.UnboundedTable(os.path.join(tmp, "one_table"), schema),
+        checkpoint=port.StreamCheckpoint(os.path.join(tmp, "one_ckpt")),
+        watermark=port.WatermarkTracker("event_time", cfg.watermark_minutes), device=DEV)
+    b0, b1 = one.run_once(), one.run_once()
+    wm = cols["event_time"][:n5].astype("datetime64[ns]").max() - np.timedelta64(10, "m")
+    late_in = int((times6 < wm).sum())
+    check(b0.num_appended_rows == n5 and b1.num_late_rows == late_in
+          and b1.num_appended_rows == n_per_hospital - late_in and one.run_once() is None,
+          f"in one process, batch 1 dropped {b1.num_late_rows} late rows, numpy counts {late_in}")
+
+    # what the run cost
+    sec = res.seconds
+    ingest_s, window_s = sec["ingest"], sec["window"]
+    fits = {k: v for k, v in sec.items() if k.startswith("fit:")}
+    evals = {k: v for k, v in sec.items() if k.startswith("eval:")}
+    saves = {k: v for k, v in sec.items() if k.startswith("save:")}
+    on_card = window_s + sum(fits.values()) + sum(evals.values())
+    say(f"run_pipeline on {card}: killed at stream.after_sink after {killed_s:.2f} s; resumed "
+        f"run {wall_s:.2f} s wall, {res.training_rows} training rows, route compiled, "
+        f"K3 {len(k3_ms)} launches = {sum(k3_ms):.3f} ms (CUDA events)")
+    say(f"  ingest {ingest_s:.3f} s = {n5 / ingest_s:.4g} rows/s (CSV parse alone, read_csv_dir: "
+        f"{parse_s:.3f} s = {n5 / parse_s:.4g} rows/s; the Parquet part's write "
+        f"{sum(part_s):.3f} s); Parquet on disk {parquet_bytes} bytes ({csv_bytes} bytes of CSV)")
+    say(f"  window {window_s * 1e3:.1f} ms first run (a cold snapshot read, Parquet -> Table, "
+        f"alone: {snapshot_s * 1e3:.1f} ms), {rerun_window_s * 1e3:.1f} ms rerun "
+        "(snapshot and device-column hits)")
+    say("  stage: " + ", ".join(f"{k} {v:.3f} s" for k, v in {**fits, **evals}.items()))
+    say(f"  saves {sum(saves.values()):.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in saves.items())}); "
+        f"plots {sorted(res.plot_paths) if plots else 'not run (no matplotlib)'}; report "
+        f"{len(res.report.splitlines())} lines; the rest (the stage's host label, split and "
+        "assembly, plots, report, session) "
+        f"{wall_s - sum(sec.values()):.3f} s")
+    say(f"  card idle at least {100 * (1 - on_card / wall_s):.1f}% of run_pipeline's wall "
+        f"(host-only: ingest, the stage's host split and assembly, saves, plots, report; the "
+        f"window, fits and evaluations "
+        f"{on_card:.3f} s hold host work too); K3 busy {100 * sum(k3_ms) / 1e3 / wall_s:.3f}%")
+    say(f"  == run_model_stage over read_csv_dir of the same files; idempotent rerun ran no "
+        f"batch; RMSE {json.dumps(res.regression_rmse)}; accuracy "
+        f"{json.dumps(res.classification_accuracy)}")
+    say(f"  sixth file as batch 1 after a restart: {late6} late rows (numpy: {late_np}; the "
+        f"restored watermark state {wm_state}, as the JAX package restores it); in one "
+        f"process: {b1.num_late_rows} of {n_per_hospital} late (numpy: {late_in})")
+    return launches
+
+
 def rf20(port) -> None:
     """rf20: RandomForestRegressor(num_trees=20, max_depth=5, all features,
     seed 0) on bench.py's 2M x 8 generator: fit time and rows/s, the fit's
@@ -1394,6 +1661,11 @@ def main() -> None:
                                             head, card)
         os.environ.pop("CMLHN_FLIGHT_DIR")
         del stage
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---------------------------------------- run_pipeline end to end (K3)
+        os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+        counts["fused_level_hist"] += pipeline_phase(port, H, tmp, card)
+        os.environ.pop("CMLHN_FLIGHT_DIR")
     rf20(port)
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")

@@ -13,7 +13,12 @@ model fitted by either package serves from the other.  Slice 3b covers
 the SQL training window: the parser, the planner and the numpy
 interpreter, with the compiled executor running fully supported
 single-table plans as torch ops over columns on the card
-(``sql_execute``, ``sql_explain``, ``extract_training_window``).
+(``sql_execute``, ``sql_explain``, ``extract_training_window``).  Slice
+3c covers ingest and the whole job: CSV files streamed through the
+watermark into the checkpointed, exactly-once unbounded table
+(``Session``, ``read_stream … write_stream … table``, ``StreamExecution``),
+the window through ``Session.sql``, the model stage, plots, saves and the
+report (``run_pipeline``; the ``hospital-pipeline-torch`` console entry).
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
@@ -41,7 +46,7 @@ from .evaluation.regression import RegressionEvaluator
 from .features.assembler import AssembledTable, VectorAssembler
 from .features.binarizer import Binarizer
 from .features.scaler import StandardScaler, StandardScalerModel
-from .io.csv import read_csv, read_csv_dir
+from .io.csv import read_csv, read_csv_dir, write_csv
 from .io.model_io import CorruptArtifactError, load_model
 from .models.base import PredictionResult
 from .models.kmeans import KMeans, KMeansModel
@@ -54,7 +59,21 @@ from .models.tree import (
     RandomForestModel,
     RandomForestRegressor,
 )
-from .pipeline.hospital_pipeline import StageResult, extract_training_window, run_model_stage
+from .pipeline.hospital_pipeline import (
+    PipelineResult,
+    StageResult,
+    extract_training_window,
+    run_model_stage,
+    run_pipeline,
+)
+from .session import Session
+from .streaming import (
+    FileStreamSource,
+    StreamCheckpoint,
+    StreamExecution,
+    UnboundedTable,
+    WatermarkTracker,
+)
 from .version import __version__
 
 __all__ = [
@@ -63,12 +82,15 @@ __all__ = [
     "DecisionTreeModel", "DecisionTreeRegressor", "DeviceDataset", "FEATURE_COLS",
     "Field", "KMeans", "KMeansModel", "LABEL_COL", "LinearRegression",
     "LinearRegressionModel", "MulticlassClassificationEvaluator", "PipelineConfig",
+    "FileStreamSource", "PipelineResult",
     "PredictionResult", "RandomForestClassifier", "RandomForestModel",
-    "RandomForestRegressor", "RegressionEvaluator", "Schema", "StageResult",
-    "StandardScaler", "StandardScalerModel", "Table", "VectorAssembler",
+    "RandomForestRegressor", "RegressionEvaluator", "Schema", "Session", "StageResult",
+    "StandardScaler", "StandardScalerModel", "StreamCheckpoint", "StreamExecution",
+    "Table", "UnboundedTable", "VectorAssembler", "WatermarkTracker",
     "__version__", "device_dataset", "extract_training_window", "hospital_event_schema",
     "kmeans_model_from_jax_arrays", "linear_regression_model_from_jax_arrays",
     "load_model", "random_split", "read_csv", "read_csv_dir", "resolve_device", "run_model_stage",
+    "run_pipeline", "write_csv",
     "scaler_model_from_jax_arrays", "serve", "split_indices", "sql_execute", "sql_explain",
     "train_test_split",
     "tree_model_from_jax_arrays",

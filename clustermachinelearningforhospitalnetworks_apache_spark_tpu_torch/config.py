@@ -1,28 +1,95 @@
-"""Pipeline configuration: the ``PipelineConfig`` fields that the
-hospital pipeline's training window, its model stage and its model save
-read (the JAX package's ``config.py``, which mirrors the
-reference script's ``CONFIG`` dict).  Ingest, the streaming checkpoint
-and plots read the other fields, which come with them in a later slice
-of the port."""
+"""Pipeline configuration: the JAX package's ``config.py``, which mirrors
+the reference script's ``CONFIG`` dict (``mllearnforhospitalnetwork.py
+:40-50``) as a frozen dataclass loadable from JSON or command-line flags.
+
+The port runs on one device, so it has no ``MeshConfig``: a ``mesh`` key
+in a JSON config, and ``--mesh-data`` / ``--mesh-model`` on the command
+line, are accepted and ignored, so a JAX package config file loads
+unchanged.  The device is not a config field either: entry points take
+``device=`` (the console entry ``--device``), default the card.
+"""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Mapping, Sequence
+
+#: the reference's camelCase ``CONFIG`` keys, accepted by ``from_dict``
+_ALIASES = {
+    "appName": "app_name",
+    "hdfsInputPath": "input_path",
+    "checkpointLocation": "checkpoint_location",
+    "outputTable": "output_table",
+    "trainingWindowStart": "training_window_start",
+    "trainingWindowEnd": "training_window_end",
+    "modelSavePath": "model_save_path",
+    "losThreshold": "los_threshold",
+}
+
+#: keys of a JAX config that name the mesh, which one device does not have
+_MESH_KEYS = ("mesh", "hdfsMaster")
 
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    output_table: str = "hospital_unbounded_table"  # the table the window query reads
-    training_window_start: str = "2025-03-31 22:00:00"
-    training_window_end: str = "2025-03-31 23:00:00"
-    los_threshold: float = 5.0            # LOS_binary = LOS > threshold
-    train_fraction: float = 0.7           # randomSplit([0.7, 0.3], seed=42)
+    app_name: str = "HospitalResourceDemandPrediction"        # :41 appName
+    input_path: str = "./data/hospitals/incoming"             # :42 hdfsInputPath
+    checkpoint_location: str = "./data/checkpoints/hospital"  # :43 checkpointLocation
+    output_table: str = "hospital_unbounded_table"            # :44 the table the window query reads
+    training_window_start: str = "2025-03-31 22:00:00"        # :45
+    training_window_end: str = "2025-03-31 23:00:00"          # :46
+    model_save_path: str = "./data/models/hospital"           # :48 modelSavePath
+    los_threshold: float = 5.0            # :49 LOS_binary = LOS > threshold
+    watermark_minutes: float = 10.0       # withWatermark("event_time", "10 minutes") :81
+    train_fraction: float = 0.7           # randomSplit([0.7, 0.3], seed=42) :139
     split_seed: int = 42
+    plot_dir: str = "./data/plots"        # PNGs in place of plt.show() :215,:223
     tree_max_depth: int = 5               # Spark's DT/RF defaults
     rf_num_trees: int = 20
-    model_save_path: str = "./data/models/hospital"  # modelSavePath
 
     def replace(self, **kw: Any) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "PipelineConfig":
+        d = dict(d)
+        for old, new in _ALIASES.items():
+            if old in d:
+                d[new] = d.pop(old)
+        for k in _MESH_KEYS:
+            d.pop(k, None)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def from_json(cls, path: str) -> "PipelineConfig":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def save_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=2)
+
+    @classmethod
+    def from_flags(cls, argv: Sequence[str] | None = None) -> "PipelineConfig":
+        """``--key=value`` for every field, over ``--config`` (a JSON file)
+        when given; ``--mesh-data`` / ``--mesh-model`` are ignored."""
+        p = argparse.ArgumentParser(description="hospital pipeline config")
+        p.add_argument("--config", help="JSON config file", default=None)
+        p.add_argument("--mesh-data", type=int, default=None)
+        p.add_argument("--mesh-model", type=int, default=None)
+        for f in dataclasses.fields(cls):
+            p.add_argument("--" + f.name.replace("_", "-"), type=type(f.default), default=None)
+        ns = p.parse_args(argv)
+        base = cls.from_json(ns.config) if ns.config else cls()
+        over = {
+            k: v for k, v in vars(ns).items()
+            if v is not None and k not in ("config", "mesh_data", "mesh_model")
+        }
+        return base.replace(**over) if over else base

@@ -2,8 +2,9 @@
 ``core/table.py`` that the feature stages and the hospital pipeline's
 model stage and the SQL engine need: construction, column access, the
 numeric matrix, the relational steps concat / empty / select / mask /
-limit / with_column / na_drop / between, and the device-column cache the
-compiled SQL executor reads."""
+limit / with_column / na_drop / between, the Arrow hand-off the
+unbounded table's Parquet parts go through, and the device-column cache
+the compiled SQL executor reads."""
 
 from __future__ import annotations
 
@@ -81,6 +82,18 @@ class Table:
             schema = Schema(fields)
         cols = {f.name: _coerce(data[f.name], f) for f in schema}
         return cls(schema, cols)
+
+    @classmethod
+    def from_arrow(cls, batch) -> "Table":
+        """From a pyarrow Table or RecordBatch, the schema inferred:
+        strings come back as objects, timestamps as ``datetime64[ns]``."""
+        return cls.from_dict({name: batch.column(name).to_numpy(zero_copy_only=False)
+                              for name in batch.schema.names})
+
+    def to_arrow(self):
+        import pyarrow as pa
+
+        return pa.table({n: self.columns[n] for n in self.schema.names})
 
     @classmethod
     def concat(cls, tables: Sequence["Table"]) -> "Table":

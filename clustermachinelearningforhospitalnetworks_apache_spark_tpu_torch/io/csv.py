@@ -1,5 +1,5 @@
-"""Strict CSV ingest on the numpy engine (the JAX package's ``io/csv.py``
-``read_csv`` / ``read_csv_dir``).
+"""Strict CSV ingest on the numpy engine, and the table writer (the JAX
+package's ``io/csv.py`` ``read_csv`` / ``read_csv_dir`` / ``write_csv``).
 
 Every field of a header CSV is parsed into the schema's type: strings
 stay objects, timestamps become ``datetime64[ns]`` (NaT when empty),
@@ -70,3 +70,23 @@ def _from_string_columns(cols: Sequence[np.ndarray], schema: Schema) -> Table:
                     out[i] = np.nan
             data[f.name] = out
     return Table.from_dict(data, schema)
+
+
+def write_csv(table: Table, path: str, header: bool = True) -> None:
+    """One line per row, fields joined by commas, each value through
+    ``str()`` (floats round-trip exactly; timestamps as
+    ``YYYY-MM-DD HH:MM:SS.fffffffff``).  No durability of its own: a
+    caller that needs one stages and renames."""
+    with open(path, "w") as f:
+        if header:
+            f.write(",".join(table.schema.names) + "\n")
+        cols = [table.columns[n] for n in table.schema.names]
+        for i in range(len(table)):
+            row = []
+            for c in cols:
+                v = c[i]
+                if isinstance(v, np.datetime64):
+                    row.append(str(v).replace("T", " "))
+                else:
+                    row.append(str(v))
+            f.write(",".join(row) + "\n")

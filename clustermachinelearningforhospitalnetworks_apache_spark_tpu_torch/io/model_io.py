@@ -135,7 +135,10 @@ def register_model(name: str):
     return deco
 
 
-def _fsync_dir(path: str) -> None:
+def fsync_dir(path: str) -> None:
+    """fsync a directory, so that a rename inside it survives power loss
+    and not only a crash of the process: the one copy that the artifact
+    swap, the streaming checkpoint and the unbounded table's sink use."""
     fd = os.open(path, os.O_RDONLY)
     try:
         os.fsync(fd)
@@ -194,7 +197,7 @@ def finalize_artifact_dir(path: str) -> None:
     sentinel = os.path.join(path, INCOMPLETE_SENTINEL)
     if os.path.exists(sentinel):
         os.remove(sentinel)
-    _fsync_dir(path)
+    fsync_dir(path)
     shutil.rmtree(path + ".old", ignore_errors=True)
 
 
@@ -258,7 +261,7 @@ def save_model(
     if data_profile is not None:
         meta["data_profile"] = data_profile
     write_metadata(staging, meta)
-    _fsync_dir(staging)
+    fsync_dir(staging)
 
     # the swap: displace-then-install, each step atomic, recoverable from
     # any crash point by repair_artifact_dir
@@ -270,7 +273,7 @@ def save_model(
             shutil.rmtree(old)
         os.replace(path, old)
     os.replace(staging, path)
-    _fsync_dir(parent)
+    fsync_dir(parent)
     if old is not None:
         shutil.rmtree(old, ignore_errors=True)
 
@@ -291,7 +294,7 @@ def attach_data_profile(path: str, data_profile: dict) -> None:
         ) from e
     meta["data_profile"] = data_profile
     write_metadata(path, meta)
-    _fsync_dir(path)
+    fsync_dir(path)
 
 
 def load_data_profile(path: str) -> dict | None:

@@ -1,1 +1,2 @@
-"""The hospital pipeline: its model stage."""
+"""The hospital pipeline, end to end (``run_pipeline``), and its window
+and model stage alone."""

@@ -1,24 +1,30 @@
-"""The hospital pipeline's training window and model stage: §5–§11 of the
-JAX package's ``pipeline/hospital_pipeline.py::_run``.
+"""The end-to-end hospital pipeline — the reference script, working (the
+JAX package's ``pipeline/hospital_pipeline.py``), on one device, default
+the card:
 
-§5, ``extract_training_window``: the reference's window query
-(``SELECT * … WHERE event_time BETWEEN …``) through the SQL dispatcher,
-which compiles it to torch ops over the table's columns on ``device``,
-then ``na_drop``.  §6–§11, ``run_model_stage``, from the windowed table: the LOS_binary label (LOS > threshold),
-the seed-42 70/30 split, the assembled features; LinearRegression,
-DecisionTreeRegressor and RandomForestRegressor scored by RMSE;
-DecisionTreeClassifier and RandomForestClassifier scored by accuracy; and
-the feature importances; with ``save_models``, §11: each model written
-with ``model.write().overwrite().save`` under ``cfg.model_save_path``.
-Every fit and evaluation runs on ``device`` (default the card); the trees
-grow through K3.
+  §1-2  config + session                     (:40-58)   → PipelineConfig/Session
+  §3    schema + streaming ingest, watermark (:64-82)   → read_stream.csv + with_watermark
+  §4    stream → unbounded table + ckpt      (:111-118) → write_stream.table (exactly-once)
+  §5    training window extraction           (:123-128) → session.sql BETWEEN, compiled
+  §6    features + split                     (:134-139) → VectorAssembler + seed-42 split
+  §7    LR/DT/RF regression + RMSE           (:146-169)
+  §8    LOS binarization + DT/RF cls + acc   (:176-198)
+  §9    plots (files, not plt.show)          (:204-223)
+  §10   feature importances                  (:228-235)
+  §11   model save (overwrite)               (:241-243) — classifiers saved too
+  §12   insights report + stop               (:245-258)
 
-Ingest, plots and the report wrap these into ``run_pipeline`` in a later
-slice of the port.
+``run_pipeline`` runs them all.  Its parts are callable alone:
+``extract_training_window`` is §5 over a bare ``Table``, and
+``run_model_stage`` is §6–§11 over the windowed table (the trees grow
+through K3 on the card).
+
+Run: ``hospital-pipeline-torch --input-path ... [--device cuda] [--no-plots]``
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import time
 from dataclasses import dataclass, field
@@ -29,7 +35,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..core import sql as _sql
-from ..core.schema import FEATURE_COLS, LABEL_COL
+from ..core.schema import FEATURE_COLS, LABEL_COL, hospital_event_schema
 from ..core.split import train_test_split
 from ..core.table import Table
 from ..device import resolve_device
@@ -44,7 +50,11 @@ from ..models.tree import (
     RandomForestClassifier,
     RandomForestRegressor,
 )
+from ..obs.registry import StageTiming
+from ..session import Session
 from ..utils.logging import get_logger
+from ..utils.report import InsightsReport
+from ..viz import plots
 
 log = get_logger("pipeline")
 
@@ -62,9 +72,10 @@ SAVE_NAMES = {
 
 @dataclass
 class StageResult:
-    """What the model stage hands on — the same fields as the JAX
-    ``PipelineResult`` it fills, plus host seconds per fit, evaluation
-    and save (each ends with the device idle)."""
+    """What the model stage hands on to ``PipelineResult``, plus host
+    seconds per fit, evaluation and save (each ends with the device idle)
+    and LinearRegression's test predictions and labels as host arrays
+    (what §9 plots)."""
 
     regression_rmse: dict[str, float]
     classification_accuracy: dict[str, float]
@@ -73,30 +84,33 @@ class StageResult:
     models: dict[str, Any] = field(default_factory=dict)
     seconds: dict[str, float] = field(default_factory=dict)
     model_paths: dict[str, str] = field(default_factory=dict)
+    lr_predictions: tuple[np.ndarray, np.ndarray] | None = None
 
 
-def _timed(seconds: dict, key: str, dev: torch.device, fn):
-    t0 = time.perf_counter()
-    out = fn()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    seconds[key] = time.perf_counter() - t0
-    return out
+@dataclass
+class PipelineResult:
+    regression_rmse: dict[str, float]
+    classification_accuracy: dict[str, float]
+    feature_importances: dict[str, dict[str, float]]
+    model_paths: dict[str, str]
+    plot_paths: dict[str, str]
+    report: str
+    training_rows: int
+    models: dict[str, Any] = field(default_factory=dict)
+    #: this run's stage timings by name (``ingest``, ``window``,
+    #: ``fit:*``, ``eval:*``, ``save:*``), host seconds
+    seconds: dict[str, float] = field(default_factory=dict)
 
 
-def extract_training_window(table: Table, cfg: PipelineConfig | None = None,
-                            device=None) -> Table:
-    """§5: the reference's window query over ``table`` (answering for
-    ``cfg.output_table``), compiled on ``device`` (default the card),
-    then ``na_drop``; the route taken is logged, so a fall back to the
+def _window(run_sql, cfg: PipelineConfig) -> Table:
+    """§5 through ``run_sql``: the reference's window query, then
+    ``na_drop``; the route taken is logged, so a fall back to the
     interpreter is visible."""
-    cfg = cfg or PipelineConfig()
     window_query = (
         f"SELECT * FROM {cfg.output_table} WHERE event_time BETWEEN "
         f"'{cfg.training_window_start}' AND '{cfg.training_window_end}'"
     )
-    resolve = {cfg.output_table: table}.__getitem__
-    training_df = _sql.execute(window_query, resolve, device=device).na_drop()
+    training_df = run_sql(window_query).na_drop()
     n_rows = training_df.num_rows
     disp = _sql.last_dispatch()
     log.info(
@@ -113,6 +127,15 @@ def extract_training_window(table: Table, cfg: PipelineConfig | None = None,
     return training_df
 
 
+def extract_training_window(table: Table, cfg: PipelineConfig | None = None,
+                            device=None) -> Table:
+    """§5 over ``table`` (answering for ``cfg.output_table``): the window
+    query compiled on ``device`` (default the card), then ``na_drop``."""
+    cfg = cfg or PipelineConfig()
+    resolve = {cfg.output_table: table}.__getitem__
+    return _window(lambda q: _sql.execute(q, resolve, device=device), cfg)
+
+
 def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
                     device=None, save_models: bool = False) -> StageResult:
     """§6–§10 on the windowed training table (after ``na_drop``), and
@@ -126,6 +149,18 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
             "training_window_start/end"
         )
     seconds: dict[str, float] = {}
+
+    def timed(key: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    def scored(model, label: str, evaluator):
+        preds = model.transform(test, label_col=label, device=dev)
+        return preds, evaluator.evaluate(preds)
 
     # §6: the label is binarized before the split, so one split + one
     # assembly pass serves both the regressors and the classifiers
@@ -147,11 +182,11 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
     }
     models: dict[str, Any] = {}
     rmse: dict[str, float] = {}
+    preds = {}
     for name, est in regressors.items():
-        model = _timed(seconds, f"fit:{name}", dev,
-                       lambda: est.fit(train, label_col=LABEL_COL, device=dev))
-        rmse[name] = _timed(seconds, f"eval:{name}", dev, lambda: reg_eval.evaluate(
-            model.transform(test, label_col=LABEL_COL, device=dev)))
+        model = timed(f"fit:{name}", lambda: est.fit(train, label_col=LABEL_COL, device=dev))
+        preds[name], rmse[name] = timed(f"eval:{name}",
+                                        lambda: scored(model, LABEL_COL, reg_eval))
         models[name] = model
 
     # §8: two classifiers on the binarized label + accuracy
@@ -162,10 +197,8 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
     }
     accuracy: dict[str, float] = {}
     for name, est in classifiers.items():
-        model = _timed(seconds, f"fit:{name}", dev,
-                       lambda: est.fit(train, label_col=BINARY_LABEL, device=dev))
-        accuracy[name] = _timed(seconds, f"eval:{name}", dev, lambda: cls_eval.evaluate(
-            model.transform(test, label_col=BINARY_LABEL, device=dev)))
+        model = timed(f"fit:{name}", lambda: est.fit(train, label_col=BINARY_LABEL, device=dev))
+        _, accuracy[name] = timed(f"eval:{name}", lambda: scored(model, BINARY_LABEL, cls_eval))
         models[name] = model
 
     # §10: feature importances of the tree models
@@ -180,8 +213,7 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
     if save_models:
         for name, model in models.items():
             path = os.path.join(cfg.model_save_path, SAVE_NAMES[name])
-            _timed(seconds, f"save:{name}", dev,
-                   lambda: model.write().overwrite().save(path))
+            timed(f"save:{name}", lambda: model.write().overwrite().save(path))
             model_paths[name] = path
     return StageResult(
         regression_rmse=rmse,
@@ -191,4 +223,107 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
         models=models,
         seconds=seconds,
         model_paths=model_paths,
+        lr_predictions=preds["LinearRegression"].to_numpy(),
     )
+
+
+def run_pipeline(
+    config: PipelineConfig | None = None,
+    session: Session | None = None,
+    save_models: bool = True,
+    make_plots: bool = True,
+    device=None,
+) -> PipelineResult:
+    """The whole job, §1–§12, on ``device`` (default the card; raises
+    without one) or on ``session``'s device.  ``make_plots`` needs
+    matplotlib (the ``viz`` extra), checked before any work starts."""
+    cfg = config or (session.config if session is not None else PipelineConfig())
+    if make_plots:
+        plots.figure_class()
+    if session is not None and device is not None and resolve_device(device) != session.device:
+        raise ValueError(f"device {device!r} is not the session's ({session.device})")
+    owns_session = session is None
+    spark = session or Session(cfg, device=device)
+    try:
+        return _run(cfg, spark, save_models, make_plots)
+    finally:
+        # §12 "stop" (:258): release the active-session slot only for a
+        # session this call created — a caller's session stays theirs
+        if owns_session:
+            spark.stop()
+
+
+def _run(cfg: PipelineConfig, spark: Session, save_models: bool,
+         make_plots: bool) -> PipelineResult:
+    metrics = spark.metrics
+    first_timing = len(metrics.timings)
+
+    # §3-4: streaming ingest → watermarked, checkpointed unbounded table
+    with metrics.stage("ingest"):
+        sdf = (
+            spark.read_stream.schema(hospital_event_schema())
+            .csv(cfg.input_path)
+            .with_watermark("event_time", f"{cfg.watermark_minutes:g} minutes")
+        )
+        query = (
+            sdf.write_stream.output_mode("append")
+            .option("checkpointLocation", cfg.checkpoint_location)
+            .table(cfg.output_table)
+        )
+        query.process_available()
+
+    # §5: the training window, compiled on the session's device
+    with metrics.stage("window"):
+        training_df = _window(spark.sql, cfg)
+
+    # §6-§8, §10, §11
+    stage = run_model_stage(training_df, cfg, device=spark.device, save_models=save_models)
+    metrics.timings.extend(StageTiming(name=k, seconds=v) for k, v in stage.seconds.items())
+
+    # §9: plots → PNG files (:204-223)
+    plot_paths: dict[str, str] = {}
+    if make_plots:
+        lr_pred, lr_actual = stage.lr_predictions
+        plot_paths["predicted_vs_actual"] = plots.plot_predicted_vs_actual(
+            lr_actual, lr_pred, cfg.plot_dir
+        )
+        plot_paths["residuals"] = plots.plot_residuals(lr_actual, lr_pred, cfg.plot_dir)
+
+    # §12: insights report (:245-255)
+    report = InsightsReport(
+        app_name=cfg.app_name,
+        regression_rmse=stage.regression_rmse,
+        classification_accuracy=stage.classification_accuracy,
+        feature_importances=stage.feature_importances,
+        feature_cols=FEATURE_COLS,
+        los_threshold=cfg.los_threshold,
+    ).render()
+
+    return PipelineResult(
+        regression_rmse=stage.regression_rmse,
+        classification_accuracy=stage.classification_accuracy,
+        feature_importances=stage.feature_importances,
+        model_paths=stage.model_paths,
+        plot_paths=plot_paths,
+        report=report,
+        training_rows=stage.training_rows,
+        models=stage.models,
+        seconds={t.name: t.seconds for t in metrics.timings[first_timing:]},
+    )
+
+
+def main(argv=None) -> None:
+    """Console entry: ``--device`` (default the card), ``--no-plots``
+    (skip §9, for a machine without matplotlib), then every
+    ``PipelineConfig`` flag; prints the report."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--device", default=None)
+    p.add_argument("--no-plots", dest="make_plots", action="store_false")
+    ns, rest = p.parse_known_args(argv)
+    result = run_pipeline(PipelineConfig.from_flags(rest), device=ns.device,
+                          make_plots=ns.make_plots)
+    print(result.report)
+
+
+if __name__ == "__main__":
+    main()

@@ -64,7 +64,10 @@ def test_every_module_is_walkable():
                      "io.integrity", "io.model_io", "obs.registry", "obs.trace",
                      "obs.flight_recorder", "obs.export", "streaming.wal",
                      "core.sql_parse", "core.sql_plan", "core.sql_views",
-                     "core.sql_compile", "core.sql"):
+                     "core.sql_compile", "core.sql", "streaming.watermark",
+                     "streaming.checkpoint", "streaming.source",
+                     "streaming.unbounded_table", "streaming.microbatch", "session",
+                     "viz.plots", "utils.metrics", "utils.retry", "utils.report"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -100,6 +103,15 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
         lambda: loaded.transform(table),
         lambda: port.sql_execute("SELECT * FROM t WHERE a > 0", lambda _n: sql_table),
         lambda: port.extract_training_window(sql_table),
+        lambda: port.Session(),
+        lambda: port.Session.builder.app_name("x").get_or_create(),
+        lambda: port.run_pipeline(port.PipelineConfig(
+            input_path=str(tmp_path / "in"), checkpoint_location=str(tmp_path / "ck")),
+            make_plots=False),
+        lambda: port.StreamExecution(
+            source=port.FileStreamSource(str(tmp_path / "in"), port.hospital_event_schema()),
+            sink=port.UnboundedTable(str(tmp_path / "t"), port.hospital_event_schema()),
+            checkpoint=port.StreamCheckpoint(str(tmp_path / "ck2"))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
