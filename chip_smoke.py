@@ -39,7 +39,19 @@ kernels:
   the plots (when matplotlib is installed); equal to ``run_model_stage``
   on the same rows; an idempotent rerun; a sixth file as batch 1, its late
   rows counted against numpy, and the window rerun hitting the snapshot
-  memo and the device columns.
+  memo and the device columns; before it, the three CSV engines (native,
+  Arrow, numpy) on the same files, timed, native ``==`` numpy on every
+  column, and the resumed run's ingest read by the native engine on every
+  file (the per-engine file counts), with its ingest and window steps
+  timed apart;
+* BASELINE configs 5, 3 and 4 at bench.py's shapes — StreamingKMeans
+  k=16 over 12 micro-batches of 100,000 x 8 rows (one K1 launch a batch,
+  an update with no host sync, predict through K2), GaussianMixture k=32
+  on 10M x 8 rows for 10 EM iterations (non-decreasing log-likelihood,
+  peak device memory), BisectingKMeans k=8 on 2M x 8 rows (levels, host
+  syncs, predict through K2), each against the CPU route on the same
+  rows (a 200,000-row prefix for the last two) within limits that the
+  same run in TF32 (the control) fails.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -473,6 +485,42 @@ def make_table_columns(n: int, d: int, k: int, seed: int):
     assign = rng.integers(0, k, size=n)
     x = centers[assign] + rng.normal(0.0, 1.0, size=(n, d))
     return {f"f{j}": x[:, j] for j in range(d)}
+
+
+def make_data(n: int, d: int, k: int, seed: int = SEED):
+    """bench.py's ``_make_data``: the same law, standardized, float32."""
+    import numpy as np
+
+    cols = make_table_columns(n, d, k, seed)
+    x = np.stack([cols[f"f{j}"] for j in range(d)], axis=1)
+    del cols
+    return ((x - x.mean(axis=0)) / x.std(axis=0)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def timed_methods(spec: dict):
+    """Wrap ``{name: (owner, attribute)}`` so that every call adds its
+    seconds to ``totals[name]`` (calls nested inside one another count in
+    both); the originals come back on exit."""
+    totals = {name: 0.0 for name in spec}
+    saved = []
+    for name, (owner, attr) in spec.items():
+        orig = getattr(owner, attr)
+
+        def wrapper(*a, _orig=orig, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a, **kw)
+            finally:
+                totals[_name] += time.perf_counter() - t0
+
+        saved.append((owner, attr, orig))
+        setattr(owner, attr, wrapper)
+    try:
+        yield totals
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
 
 
 # ------------------------------------------------------------------- K3
@@ -1190,6 +1238,75 @@ def write_events_csv(path: str, cols: dict, lo: int, hi: int) -> None:
         f.write("".join(",".join(row) + "\n" for row in zip(*fields)))
 
 
+def columns_differ(a, b) -> bool:
+    """Two columns differ in dtype or in any value (NaN and NaT equal to
+    themselves)."""
+    import numpy as np
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return True
+    if a.dtype.kind == "M":
+        return not np.array_equal(a.view(np.int64), b.view(np.int64))
+    if a.dtype.kind == "f":
+        return not np.array_equal(a, b, equal_nan=True)
+    return not np.array_equal(a, b)
+
+
+def csv_engines(port, files: list, schema, card: str) -> None:
+    """Each CSV engine of the port on ``pipeline_phase``'s files: seconds
+    and rows/s; native's C scan and string column timed apart (the
+    vectorized column against the per-cell one, equal); native ``==``
+    numpy on every column; Arrow against numpy after casting to the
+    schema's dtypes, with the columns whose dtype differs named."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.schema import (
+        STRING, TIMESTAMP,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.io import native
+
+    check(native.native_available(), "the native CSV engine did not build on this machine")
+    tables, secs = {}, {}
+    for engine in ("native", "arrow", "numpy"):
+        t0 = time.perf_counter()
+        parts = [port.read_csv(f, schema, engine=engine) for f in files]
+        secs[engine] = time.perf_counter() - t0
+        tables[engine] = port.Table.concat(parts)
+        del parts
+    n = tables["numpy"].num_rows
+    kinds = [2 if f.dtype == STRING else (1 if f.dtype == TIMESTAMP else 0) for f in schema]
+    scan_s = vec_s = cell_s = 0.0
+    for f in files:
+        t0 = time.perf_counter()
+        _num, _ts, buf, off, rows = native.native_scan(f, kinds)
+        scan_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vec = native.string_columns(buf, off, rows, 1)
+        vec_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cell = native.string_columns_per_cell(buf, off, rows, 1)
+        cell_s += time.perf_counter() - t0
+        check(vec[0].dtype == cell[0].dtype == object and list(vec[0]) == list(cell[0]),
+              f"the vectorized string column differs from the per-cell one on {f}")
+    bad = [c for c in schema.names
+           if columns_differ(tables["native"][c], tables["numpy"][c])]
+    check(bad == [], f"the native engine differs from numpy on {bad}")
+    arrow_notes = []
+    for c in schema.names:
+        a, want = tables["arrow"][c], tables["numpy"][c]
+        if a.dtype != want.dtype:
+            arrow_notes.append(f"{c} ({a.dtype} against {want.dtype}: pyarrow infers "
+                               "integer columns as int64, the JAX package's Arrow engine "
+                               "keeps them so)")
+        check(not columns_differ(a.astype(want.dtype), want),
+              f"the Arrow engine differs from numpy on {c} after the cast")
+    say(f"CSV engines on {card}, the 5 files of run_pipeline ({n} rows): "
+        + "; ".join(f"{e} {secs[e]:.3f} s = {n / secs[e]:.4g} rows/s" for e in secs))
+    say(f"  native split: C scan (csv_size + csv_parse_table) {scan_s:.3f} s, string column "
+        f"{vec_s:.3f} s vectorized (per cell, as the JAX package decodes: {cell_s:.3f} s, "
+        "equal); native == numpy on every column; Arrow == numpy after the cast; Arrow's "
+        "dtypes differ on: " + ("; ".join(arrow_notes) or "none"))
+    del tables
+
+
 def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N // 5) -> int:
     """``run_pipeline`` end to end on the card over 5 CSV files of the
     example generator's law (``n_per_hospital`` rows each, 2M in all):
@@ -1206,8 +1323,16 @@ def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N //
     import numpy as np
 
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import (
+        sql_compile,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.io import csv as pcsv
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.io import native
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.obs.registry import (
         global_registry,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.streaming import (
+        checkpoint as ckpt_mod, source as source_mod, watermark as wm_mod,
     )
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.streaming import (
         unbounded_table,
@@ -1236,6 +1361,7 @@ def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N //
     say(f"run_pipeline input: 5 CSV files x {n_per_hospital} rows of the example generator's "
         f"law (seed 7), {csv_bytes} bytes, written in {write_s:.2f} s (equal to write_csv "
         "on a 2,000-row prefix)")
+    csv_engines(port, files[:5], schema, card)
 
     cfg = port.PipelineConfig(input_path=incoming,
                               checkpoint_location=os.path.join(tmp, "checkpoint"),
@@ -1248,6 +1374,7 @@ def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N //
 
     # killed: the part is written, its commit line is not
     plan = faults.FaultPlan().crash("stream.after_sink")
+    pcsv.reset_engine_counts()
     t0 = time.perf_counter()
     with faults.active(plan):
         try:
@@ -1258,30 +1385,43 @@ def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N //
     killed_s = time.perf_counter() - t0
     sink = port.UnboundedTable(sink_dir, schema)
     check(killed and plan.fired("stream.after_sink") == 1, "the run was not killed at stream.after_sink")
+    check(pcsv.engine_counts() == {"native": 5, "arrow": 0, "numpy": 0},
+          f"the killed run's ingest read {pcsv.engine_counts()} files by engine "
+          "(expected all 5 native)")
     check(os.path.exists(os.path.join(sink_dir, "part-0000000000.parquet"))
           and sink.max_batch_id() == 0
           and read_lines(os.path.join(cfg.checkpoint_location, "commits.log")) == [],
           "the killed run did not leave batch 0 in the table without its checkpoint commit")
 
-    # resumed: batch 0 replayed exactly once, its Parquet write timed
+    # resumed: batch 0 replayed exactly once, its ingest and window timed
+    # step by step
     sink_cls = unbounded_table.UnboundedTable
-    write_part, part_s = sink_cls._write_parquet, []
-
-    def timed_write(self, table, path):
-        t0 = time.perf_counter()
-        write_part(self, table, path)
-        part_s.append(time.perf_counter() - t0)
-
-    sink_cls._write_parquet = timed_write
+    steps = {
+        "read_files": (source_mod.FileStreamSource, "read_files"),
+        "native_scan": (native, "native_scan"),
+        "string_column": (native, "string_columns"),
+        "filter_late": (wm_mod.WatermarkTracker, "filter_late"),
+        "append_batch": (sink_cls, "append_batch"),
+        "write_parquet": (sink_cls, "_write_parquet"),
+        "checkpoint": (ckpt_mod.StreamCheckpoint, "write_commit"),
+        "attempt_log": (ckpt_mod.StreamCheckpoint, "record_attempt"),
+        "recover": (ckpt_mod.StreamCheckpoint, "recover"),
+        "snapshot_read": (sink_cls, "read"),
+        "device_column": (port.Table, "device_column"),
+        "to_table": (sql_compile.DeviceView, "to_table"),
+        "na_drop": (port.Table, "na_drop"),
+    }
     H.reset_launch_counts()
+    pcsv.reset_engine_counts()
     t0 = time.perf_counter()
-    try:
-        with K3Events() as k3:
-            res = port.run_pipeline(cfg, device=DEV, make_plots=plots)
-    finally:
-        sink_cls._write_parquet = write_part
+    with timed_methods(steps) as step_s, K3Events() as k3:
+        res = port.run_pipeline(cfg, device=DEV, make_plots=plots)
     wall_s = time.perf_counter() - t0
     launches = H.launch_counts()["fused_level_hist"]
+    engines = pcsv.engine_counts()
+    check(engines == {"native": 5, "arrow": 0, "numpy": 0},
+          f"run_pipeline's ingest read {engines} files by engine (expected all 5 native)")
+    part_s = [step_s["write_parquet"]]
     compiled_route("run_pipeline window")
     check(launches == 24, f"K3 launched {launches} times in run_pipeline (expected 24)")
     k3_ms = k3.ms()
@@ -1400,10 +1540,32 @@ def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N //
         f"K3 {len(k3_ms)} launches = {sum(k3_ms):.3f} ms (CUDA events)")
     say(f"  ingest {ingest_s:.3f} s = {n5 / ingest_s:.4g} rows/s (CSV parse alone, read_csv_dir: "
         f"{parse_s:.3f} s = {n5 / parse_s:.4g} rows/s; the Parquet part's write "
-        f"{sum(part_s):.3f} s); Parquet on disk {parquet_bytes} bytes ({csv_bytes} bytes of CSV)")
+        f"{sum(part_s):.3f} s); Parquet on disk {parquet_bytes} bytes ({csv_bytes} bytes of CSV); "
+        f"all 5 files read by the native engine")
+    ingest_parts = {
+        "read_files (native parse + concat)": step_s["read_files"],
+        "  of it the C scan": step_s["native_scan"],
+        "  of it the string column": step_s["string_column"],
+        "watermark filter": step_s["filter_late"],
+        "sink append_batch": step_s["append_batch"],
+        "  of it the Parquet write": step_s["write_parquet"],
+        "checkpoint commit and attempt log": step_s["checkpoint"] + step_s["attempt_log"],
+        "checkpoint recover": step_s["recover"],
+    }
+    timed_ingest = (step_s["read_files"] + step_s["filter_late"] + step_s["append_batch"]
+                    + step_s["checkpoint"] + step_s["attempt_log"] + step_s["recover"])
+    say("  ingest steps: " + "; ".join(f"{k} {v:.3f} s" for k, v in ingest_parts.items())
+        + f"; the rest (source listing, ingest_time column, session) "
+          f"{ingest_s - timed_ingest:.3f} s")
+    window_parts = {"snapshot read": step_s["snapshot_read"],
+                    "device_column transfers": step_s["device_column"],
+                    "to_table": step_s["to_table"], "na_drop": step_s["na_drop"]}
     say(f"  window {window_s * 1e3:.1f} ms first run (a cold snapshot read, Parquet -> Table, "
         f"alone: {snapshot_s * 1e3:.1f} ms), {rerun_window_s * 1e3:.1f} ms rerun "
-        "(snapshot and device-column hits)")
+        "(snapshot and device-column hits); first run: "
+        + "; ".join(f"{k} {v * 1e3:.1f} ms" for k, v in window_parts.items())
+        + f"; the rest (parse, plan, torch ops) "
+          f"{(window_s - sum(window_parts.values())) * 1e3:.1f} ms")
     say("  stage: " + ", ".join(f"{k} {v:.3f} s" for k, v in {**fits, **evals}.items()))
     say(f"  saves {sum(saves.values()):.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in saves.items())}); "
         f"plots {sorted(res.plot_paths) if plots else 'not run (no matplotlib)'}; report "
@@ -1421,6 +1583,265 @@ def pipeline_phase(port, H, tmp: str, card: str, n_per_hospital: int = TREE_N //
         f"restored watermark state {wm_state}, as the JAX package restores it); in one "
         f"process: {b1.num_late_rows} of {n_per_hospital} late (numpy: {late_in})")
     return launches
+
+
+STREAM_K, STREAM_BATCH, STREAM_BATCHES = 16, 100_000, 12   # bench.py config 5
+GMM_N, GMM_K, GMM_ITERS = 10_000_000, 32, 10                # bench.py config 3
+BISECT_N, BISECT_K = 2_000_000, 8                           # bench.py config 4
+PREFIX = 200_000                                            # card against CPU
+# card-vs-CPU limits, each about 10x the float32 gap the card showed and
+# at least 4x below the gap of the same run with TF32 products (the control
+# each phase also runs; NVIDIA H100 80GB HBM3, 700 W: streaming centers
+# 1.07e-6 against 4.79e-4, GMM weights 2.7e-8 / 4.79e-6, means 2.38e-6 /
+# 1.54e-4, covariances 5.72e-6 / 2.00e-4, bisecting centers 4.53e-6 /
+# 4.84e-3).  GMM's log-likelihood moves by 8.6e-8 relative under TF32,
+# about one float32 ulp, so its limit (16 ulp) guards the sum, not TF32.
+STREAM_CENTER_TOL = 1e-5
+GMM_TOL = {"ll_rel": 1e-6, "weights": 1e-6, "means": 3e-5, "covariances": 5e-5}
+GMM_TF32_CAUGHT = ("weights", "means", "covariances")
+BISECT_CENTER_TOL = 5e-5
+
+
+def tf32_round(a):
+    """float32 array → the same values rounded to TF32's 10-bit mantissa
+    (to nearest, ties to even): what a TF32 product sees of its inputs."""
+    import numpy as np
+
+    u = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x0FFF) + ((u >> np.uint32(13)) & np.uint32(1))) & np.uint32(0xFFFFE000)
+    return u.view(np.float32)
+
+
+@contextlib.contextmanager
+def tf32_matmuls():
+    """The card's float32 matmuls in TF32 for the block (the port turns
+    TF32 off): the control that each card-vs-CPU limit below must catch."""
+    import torch
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def streaming_phase(port, L, card: str) -> tuple[int, int]:
+    """BASELINE config 5 (bench.py ``_bench_streaming``): StreamingKMeans
+    k=16, half_life 5 batches, seed 0, on 12 micro-batches of 100,000 x 8
+    rows; ``update`` for two batches, ``update_many`` for ten, each batch
+    one K1 launch; the card's state against the CPU plain route on the same
+    batches, and that route on TF32-rounded batches as the control; a 13th
+    update under ``set_sync_debug_mode("error")`` (no host sync, one K1
+    launch); predict through K2.  → (K1, K2) launches."""
+    import numpy as np
+    import torch
+
+    x = make_data(STREAM_BATCH * STREAM_BATCHES, D, STREAM_K)
+    batches = [x[i * STREAM_BATCH:(i + 1) * STREAM_BATCH] for i in range(STREAM_BATCHES)]
+    L.reset_launch_counts()
+    sk = port.StreamingKMeans(k=STREAM_K, half_life=5.0, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[:2]:
+        sk.update(b)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk.update_many(batches[2:])
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    k1 = L.launch_counts()["fused_lloyd_stats"]
+    check(k1 == STREAM_BATCHES, f"K1 launched {k1} times over {STREAM_BATCHES} micro-batches")
+    model = sk.latest_model
+    check(np.isfinite(model.cluster_centers).all() and model.n_iter == STREAM_BATCHES
+          and np.isfinite(model.cluster_weights).all(), "streaming state not finite")
+
+    # the CPU plain route on the same batches (K1's plain version)
+    cpu = port.StreamingKMeans(k=STREAM_K, half_life=5.0, seed=SEED)
+    for b in batches:
+        cpu.update(b, device="cpu")
+    cm = cpu.latest_model
+    c_err = float(np.abs(model.cluster_centers - cm.cluster_centers).max())
+    w_rel = float(np.abs(model.cluster_weights / cm.cluster_weights - 1).max())
+    # the control: the plain route on batches rounded to TF32, as a K1 with
+    # TF32 products would see them; the centers' limit sits below its gap
+    ctl = port.StreamingKMeans(k=STREAM_K, half_life=5.0, seed=SEED)
+    for b in batches:
+        ctl.update(tf32_round(b), device="cpu")
+    c_ctl = float(np.abs(ctl.latest_model.cluster_centers - cm.cluster_centers).max())
+    # float32 sums in another order over 12 merges: centers within
+    # STREAM_CENTER_TOL, weights (sums of unit counts, decayed) within 1e-6
+    # relative
+    check(c_err <= STREAM_CENTER_TOL and w_rel <= 1e-6,
+          f"card streaming state differs from the CPU route: centers {c_err:.3g}, "
+          f"weights rel {w_rel:.3g}")
+    check(c_ctl > STREAM_CENTER_TOL,
+          f"the TF32 control's centers ({c_ctl:.3g}) pass the limit {STREAM_CENTER_TOL:g}")
+
+    # a 13th update, from rows already on the card, may not sync the host
+    ds = port.device_dataset(batches[0])
+    torch.cuda.synchronize()
+    before = L.launch_counts()["fused_lloyd_stats"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk.update(ds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    k1_sync = L.launch_counts()["fused_lloyd_stats"] - before
+    check(k1_sync == 1, f"the 13th update launched K1 {k1_sync} times (expected 1)")
+
+    xd = torch.from_numpy(x).cuda()
+    before = L.launch_counts()["fused_assign"]
+    pred = model.predict(xd).cpu().numpy()
+    k2 = L.launch_counts()["fused_assign"] - before
+    check(k2 == 1, f"predict launched K2 {k2} times (expected 1)")
+    ref = cm.predict_numpy(x, device="cpu")
+    flips = int((pred != ref).sum())
+    # the two models' centers differ by float32 rounding: a row may flip
+    # only at a near tie
+    check(flips <= 10, f"{flips} rows predicted differently by the card and CPU models")
+    say(f"streaming k={STREAM_K} on {card}: {STREAM_BATCHES} batches of {STREAM_BATCH} x {D}; "
+        f"update x2 {update_s:.3f} s ({2 * STREAM_BATCH / update_s:.4g} records/s, the lazy "
+        f"init included), update_many x10 {many_s:.3f} s "
+        f"({10 * STREAM_BATCH / many_s:.4g} records/s); K1 {k1} launches (one a batch); a "
+        f"13th update from the card made no host sync (K1 1 launch); card vs CPU route: "
+        f"centers max abs err {c_err:.3g} (limit {STREAM_CENTER_TOL:g}; the TF32 control "
+        f"{c_ctl:.3g}), weights max rel err {w_rel:.3g}; predict of {len(x)} rows through "
+        f"K2 ({flips} rows differ from the CPU model's)")
+    return k1 + k1_sync, k2
+
+
+def gmm_phase(port, card: str) -> None:
+    """BASELINE config 3 (bench.py ``_bench_gmm``): GaussianMixture k=32 on
+    10M x 8 rows, max_iter 10, tol 0, seed 0: the fit (EM records/s), the
+    ``on_iteration`` path (log-likelihood finite and non-decreasing, equal
+    to the fast path), peak device memory, and the card against the CPU on
+    a 200,000-row prefix, with the same fit in TF32 as the control."""
+    import numpy as np
+    import torch
+
+    x = make_data(GMM_N, D, GMM_K)
+    xd = port.device_dataset(x)
+    est = port.GaussianMixture(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = est.fit(xd)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(model.n_iter == GMM_ITERS and np.isfinite(model.log_likelihood),
+          f"GMM fit: n_iter {model.n_iter}, log-likelihood {model.log_likelihood}")
+    lls = []
+    t0 = time.perf_counter()
+    hooked = est.fit(xd, on_iteration=lambda it, ll: lls.append(ll))
+    hook_s = time.perf_counter() - t0
+    check(len(lls) == GMM_ITERS and all(np.isfinite(lls))
+          and all(b >= a for a, b in zip(lls, lls[1:])),
+          f"the log-likelihood over the on_iteration path is not finite and non-decreasing: {lls}")
+    check(hooked.log_likelihood == model.log_likelihood
+          and np.array_equal(hooked.means, model.means),
+          "the on_iteration path differs from the fast path")
+    t0 = time.perf_counter()
+    pred, prob = model.predict_assigned(xd.x)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    check(0 <= int(pred.min()) and int(pred.max()) < GMM_K
+          and bool(torch.isfinite(prob).all()), "GMM predictions out of range")
+    del xd, pred, prob
+
+    sub = x[:PREFIX]
+    on_card = port.GaussianMixture(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED).fit(sub)
+    t0 = time.perf_counter()
+    on_cpu = port.GaussianMixture(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED).fit(
+        sub, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    with tf32_matmuls():
+        on_tf32 = port.GaussianMixture(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED).fit(sub)
+
+    def gaps(m):
+        e = {a: float(np.abs(getattr(m, a) - getattr(on_cpu, a)).max())
+             for a in ("weights", "means", "covariances")}
+        e["ll_rel"] = abs(m.log_likelihood / on_cpu.log_likelihood - 1)
+        return e
+
+    errs, ctl = gaps(on_card), gaps(on_tf32)
+    # float32 EM statistics summed in another order, over 10 iterations:
+    # each within GMM_TOL; the same fit with TF32 matmuls fails each of
+    # GMM_TF32_CAUGHT
+    bad = {a: errs[a] for a, tol in GMM_TOL.items() if not errs[a] <= tol}
+    check(not bad, f"GMM card vs CPU on {PREFIX} rows: {errs} (limits {GMM_TOL})")
+    missed = {a: ctl[a] for a in GMM_TF32_CAUGHT if not ctl[a] > GMM_TOL[a]}
+    check(not missed, f"the TF32 control passes the GMM limits {missed} (limits {GMM_TOL})")
+    say(f"gmm k={GMM_K} on {card}: {GMM_N} x {D}, {GMM_ITERS} EM iterations, fit "
+        f"{fit_s:.3f} s = {GMM_N * model.n_iter / fit_s:.4g} EM records/s (on_iteration path "
+        f"{hook_s:.3f} s, equal); log-likelihood {model.log_likelihood:.8g}, non-decreasing "
+        f"over the iterations; peak device memory {peak / 2**20:.1f} MiB; predict_assigned "
+        f"{pred_s * 1e3:.1f} ms; card vs CPU on {PREFIX} rows (CPU fit {cpu_s:.2f} s): "
+        + ", ".join(f"{a} {errs[a]:.3g} (limit {GMM_TOL[a]:g}; TF32 control {ctl[a]:.3g})"
+                    for a in GMM_TOL))
+
+
+def bisecting_phase(port, L, card: str) -> int:
+    """BASELINE config 4 (bench.py ``_bench_bisecting``): BisectingKMeans
+    k=8, n_restarts 1, seed 0 on 2M x 8 rows: fit seconds, records/s,
+    levels and host syncs; predict through K2; the card against the CPU on
+    a 200,000-row prefix, with the same fit in TF32 as the control.
+    → K2 launches."""
+    import numpy as np
+    import torch
+
+    x = make_data(BISECT_N, D, BISECT_K)
+    xd = port.device_dataset(x)
+    est = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(xd)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    info = model.fit_info
+    check(model.cluster_centers.shape == (BISECT_K, D)
+          and np.isfinite(model.cluster_centers).all()
+          and float(model.cluster_sizes.sum()) == BISECT_N,
+          f"bisecting model: {model.cluster_centers.shape}, sizes {model.cluster_sizes}")
+    before = L.launch_counts()["fused_assign"]
+    t0 = time.perf_counter()
+    pred = model.predict(xd.x)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    k2 = L.launch_counts()["fused_assign"] - before
+    check(k2 == 1, f"predict launched K2 {k2} times (expected 1)")
+    sizes = np.bincount(pred.cpu().numpy(), minlength=BISECT_K)
+    moved = int(np.abs(sizes - model.cluster_sizes).sum()) // 2
+    del xd, pred
+
+    sub = x[:PREFIX]
+    on_card = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(sub)
+    on_cpu = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(sub, device="cpu")
+    with tf32_matmuls():
+        on_tf32 = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(sub)
+    c_err = float(np.abs(on_card.cluster_centers - on_cpu.cluster_centers).max())
+    c_ctl = float(np.abs(on_tf32.cluster_centers - on_cpu.cluster_centers).max())
+    s_diff = int(np.abs(on_card.cluster_sizes - on_cpu.cluster_sizes).sum())
+    # float32 sums in another order: the same tree, centers within
+    # BISECT_CENTER_TOL (the same fit with TF32 matmuls is not); a near-tie
+    # row may take the other child (0.01 % of the rows)
+    check(on_card.n_iter == on_cpu.n_iter and c_err <= BISECT_CENTER_TOL
+          and s_diff <= PREFIX // 10_000,
+          f"bisecting card vs CPU on {PREFIX} rows: centers {c_err:.3g}, sizes differ by "
+          f"{s_diff}")
+    check(c_ctl > BISECT_CENTER_TOL,
+          f"the TF32 control's centers ({c_ctl:.3g}) pass the limit {BISECT_CENTER_TOL:g}")
+    say(f"bisecting k={BISECT_K} on {card}: {BISECT_N} x {D}, fit {fit_s:.3f} s = "
+        f"{BISECT_N / fit_s:.4g} records/s, {len(info['levels'])} levels, Lloyd iterations a "
+        f"level {info['levels']}, {info['host_syncs']} host syncs (the JAX package: 1 a tree); "
+        f"training cost {model.training_cost:.8g}; predict {pred_s * 1e3:.2f} ms through K2 "
+        f"({moved} rows nearer another leaf than the fit's own split); card vs CPU on "
+        f"{PREFIX} rows: same splits, centers max abs err {c_err:.3g} (limit "
+        f"{BISECT_CENTER_TOL:g}; TF32 control {c_ctl:.3g}), sizes differ by {s_diff}")
+    return k2
 
 
 def rf20(port) -> None:
@@ -1535,6 +1956,12 @@ def main() -> None:
     libs = _build.build()
     say(f"kernel build: {time.perf_counter() - t0:.1f} s into {_build.build_dir()} "
         f"({', '.join(p.name for p in libs.values())})")
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+    check(gxx.returncode == 0, "g++ is missing: the native CSV engine cannot be built")
+    t0 = time.perf_counter()
+    host_lib = _build.build_host("csv_scan")
+    say(f"host build: {gxx.stdout.splitlines()[0]}; native/csv_scan.cpp -> {host_lib.name} "
+        f"in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         log = path.with_suffix(".log")
         if log.exists():
@@ -1546,6 +1973,16 @@ def main() -> None:
     # K2's other shapes on the main path: a bulk_score chunk, a served batch
     records[1]["shapes"] = [k2_case(L, 262_144, D, K, seed=4, reps=20),
                             k2_case(L, 200, D, K, seed=5, reps=200)]
+    # slice 4a's shapes: K1 on a streaming micro-batch (config 5), K2 in
+    # the bisecting (config 4) and streaming predicts
+    k1_stream = kernel_case(L, STREAM_BATCH, D, STREAM_K, 0, seed=6, reps=50)[0]
+    records[0]["shapes"] = [{"n": STREAM_BATCH, "d": D, "k": STREAM_K,
+                             **{key: k1_stream[key] for key in (
+                                 "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")}}]
+    records[1]["shapes"] += [k2_case(L, BISECT_N, D, BISECT_K, seed=7, reps=20),
+                             k2_case(L, STREAM_BATCH * STREAM_BATCHES, D, STREAM_K, seed=8,
+                                     reps=20)]
     kernel_case(L, 1_000_003, D, 16, 3, seed=2, reps=10, dup=True)
     kernel_case(L, 1_000_000, 64, 1024, 0, seed=3, reps=5)
     edge_cases(L)
@@ -1667,6 +2104,13 @@ def main() -> None:
         counts["fused_level_hist"] += pipeline_phase(port, H, tmp, card)
         os.environ.pop("CMLHN_FLIGHT_DIR")
     rf20(port)
+
+    # ------------------------- slice 4a: BASELINE configs 5, 3 and 4 (K1, K2)
+    k1, k2 = streaming_phase(port, L, card)
+    counts["fused_lloyd_stats"] += k1
+    counts["fused_assign"] += k2
+    gmm_phase(port, card)
+    counts["fused_assign"] += bisecting_phase(port, L, card)
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")

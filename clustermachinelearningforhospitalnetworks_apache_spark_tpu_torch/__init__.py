@@ -28,9 +28,12 @@ trees' level histograms on the card; entry points default to
 from . import serve
 from .config import PipelineConfig
 from .convert import (
+    bisecting_kmeans_model_from_jax_arrays,
+    gaussian_mixture_model_from_jax_arrays,
     kmeans_model_from_jax_arrays,
     linear_regression_model_from_jax_arrays,
     scaler_model_from_jax_arrays,
+    streaming_kmeans_model_from_jax_arrays,
     tree_model_from_jax_arrays,
 )
 from .core.schema import FEATURE_COLS, LABEL_COL, Field, Schema, hospital_event_schema
@@ -49,8 +52,11 @@ from .features.scaler import StandardScaler, StandardScalerModel
 from .io.csv import read_csv, read_csv_dir, write_csv
 from .io.model_io import CorruptArtifactError, load_model
 from .models.base import PredictionResult
+from .models.bisecting_kmeans import BisectingKMeans, BisectingKMeansModel
+from .models.gmm import GaussianMixture, GaussianMixtureModel
 from .models.kmeans import KMeans, KMeansModel
 from .models.linear_regression import LinearRegression, LinearRegressionModel
+from .models.streaming_kmeans import StreamingKMeans, StreamingKMeansModel
 from .models.tree import (
     DecisionTreeClassifier,
     DecisionTreeModel,
@@ -77,7 +83,11 @@ from .streaming import (
 from .version import __version__
 
 __all__ = [
-    "AssembledTable", "Binarizer", "ClusteringEvaluator", "CorruptArtifactError",
+    "AssembledTable", "Binarizer", "BisectingKMeans", "BisectingKMeansModel",
+    "ClusteringEvaluator", "GaussianMixture", "GaussianMixtureModel",
+    "StreamingKMeans", "StreamingKMeansModel",
+    "bisecting_kmeans_model_from_jax_arrays", "gaussian_mixture_model_from_jax_arrays",
+    "streaming_kmeans_model_from_jax_arrays", "CorruptArtifactError",
     "DecisionTreeClassifier",
     "DecisionTreeModel", "DecisionTreeRegressor", "DeviceDataset", "FEATURE_COLS",
     "Field", "KMeans", "KMeansModel", "LABEL_COL", "LinearRegression",

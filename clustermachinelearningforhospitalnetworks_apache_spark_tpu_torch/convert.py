@@ -20,8 +20,11 @@ from __future__ import annotations
 import numpy as np
 
 from .features.scaler import StandardScalerModel
+from .models.bisecting_kmeans import BisectingKMeansModel
+from .models.gmm import GaussianMixtureModel
 from .models.kmeans import KMeansModel
 from .models.linear_regression import LinearRegressionModel
+from .models.streaming_kmeans import StreamingKMeansModel
 from .models.tree import DecisionTreeModel, RandomForestModel
 
 
@@ -70,4 +73,49 @@ def tree_model_from_jax_arrays(
         {"split_feat": split_feat, "threshold": threshold, "value": value,
          "feature_importances": feature_importances,
          "split_catmask": split_catmask, "cat_arities": cat_arities},
+    )
+
+
+def gaussian_mixture_model_from_jax_arrays(
+    weights, means, covariances, *, log_likelihood: float = 0.0,
+    avg_log_likelihood: float = 0.0, n_iter: int = 0,
+) -> GaussianMixtureModel:
+    """A port :class:`GaussianMixtureModel` with the JAX mixture's weights
+    (k,), means (k, d) and covariances (k, d, d)."""
+    return GaussianMixtureModel.from_artifacts(
+        {"log_likelihood": log_likelihood, "avg_log_likelihood": avg_log_likelihood,
+         "n_iter": n_iter},
+        {"weights": weights, "means": means, "covariances": covariances},
+    )
+
+
+def bisecting_kmeans_model_from_jax_arrays(
+    cluster_centers, cluster_sizes=None, *, training_cost: float = 0.0,
+    n_iter: int = 0, distance_measure: str = "euclidean",
+) -> BisectingKMeansModel:
+    """A port :class:`BisectingKMeansModel` with the JAX tree's leaf
+    centers and sizes."""
+    return BisectingKMeansModel.from_artifacts(
+        {"distance_measure": distance_measure, "training_cost": training_cost,
+         "n_iter": n_iter},
+        {"cluster_centers": cluster_centers, "cluster_sizes": cluster_sizes},
+    )
+
+
+def streaming_kmeans_model_from_jax_arrays(
+    cluster_centers, cluster_weights, cluster_weights_lo=None, *, cluster_sizes=None,
+    training_cost: float = 0.0, n_iter: int = 0, distance_measure: str = "euclidean",
+) -> StreamingKMeansModel:
+    """A port :class:`StreamingKMeansModel` with the JAX stream's centers
+    and decayed weights.  Given the estimator's Kahan pair (its
+    ``_weights`` and ``_weights_lo``), the weights are their float64 sum,
+    as the JAX package's ``latest_model`` forms them."""
+    w = np.asarray(cluster_weights, dtype=np.float64)
+    if cluster_weights_lo is not None:
+        w = w + np.asarray(cluster_weights_lo, dtype=np.float64)
+    return StreamingKMeansModel.from_artifacts(
+        {"distance_measure": distance_measure, "training_cost": training_cost,
+         "n_iter": n_iter},
+        {"cluster_centers": cluster_centers, "cluster_sizes": cluster_sizes,
+         "cluster_weights": w},
     )

@@ -1,0 +1,342 @@
+"""GaussianMixture — EM with full covariances (BASELINE config 3: k=32),
+the JAX package's ``models/gmm.py`` on one CUDA device, in-core.
+
+Spark's ``GaussianMixture`` surface (``weights``, means and covariances,
+``summary.logLikelihood``; maxIter=100, tol=0.01, full covariance).  Each
+EM iteration is a row-chunked pass (``chunk_rows`` rows at a time, so only
+a (chunk, k) responsibility tile and a (chunk, d²) tile of row outer
+products exist at once) that accumulates Spark's sufficient statistics —
+(nk, Σr·x, Σr·xxᵀ, log-likelihood) — then the (k, d, d) refit.  All of it
+is torch ops in float32 on the data's device (TF32 off, ``device.py``):
+the per-component triangular solves are one batched
+``torch.linalg.solve_triangular`` over the k components, the moment
+contractions are ``torch.matmul``; the JAX package runs no Pallas kernel
+here either.
+
+Rows are recentered around the init sample's mean inside the pass: the
+covariance refit ``Σr·xxᵀ/nk − μμᵀ`` cancels catastrophically in float32
+when the data's mean dwarfs its spread.  The init (k-means++, ten host
+Lloyd steps, per-cluster diagonal covariances) is host numpy, copied
+unchanged, so it is bit-equal to the JAX package's.
+
+The fast path syncs the host once per iteration, on the log-likelihood
+that decides convergence.  Left to slice 4b of the port (they raise):
+``matmul_precision`` other than ``"highest"`` (the factor-form E-step),
+``checkpoint_dir``, ``warm_start_params``, ``weight_col``, the
+out-of-core ``HostDataset`` input and the partials protocol.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..data import sample_valid_rows
+from ..io.model_io import register_model
+from .base import ClusteringModel, Estimator, as_device_dataset, check_features
+from .kmeans import _kmeans_pp_init, _lloyd_refine
+from .summary import ClusteringSummary
+
+_SLICE_4B = "slice 4b of the port"
+
+
+def _log_pdf(x, means, chols):
+    """(n, d) rows → (n, k) log N(x; mean_j, L_j·L_jᵀ), the k triangular
+    solves batched."""
+    d = x.shape[1]
+    diff = x[None, :, :] - means[:, None, :]                       # (k, n, d)
+    sol = torch.linalg.solve_triangular(chols, diff.transpose(1, 2), upper=False)
+    maha = (sol * sol).sum(dim=1)                                   # (k, n)
+    logdet = 2.0 * torch.log(torch.diagonal(chols, dim1=1, dim2=2)).sum(dim=1)
+    return (-0.5 * (d * math.log(2.0 * math.pi) + logdet[:, None] + maha)).T
+
+
+def _chunks(n: int, chunk: int):
+    chunk = max(min(chunk, n), 1)
+    return range(0, max(n, 1), chunk), chunk
+
+
+def _e_step(x, w, log_weights, means, chols, chunk: int = 65536):
+    """Total weighted log-likelihood of the rows (model-side scoring)."""
+    starts, c = _chunks(x.shape[0], chunk)
+    ll = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s in starts:
+        lr = _log_pdf(x[s:s + c], means, chols) + log_weights[None, :]
+        ll = ll + (torch.logsumexp(lr, dim=1) * w[s:s + c]).sum()
+    return ll
+
+
+def _em_pass(x, w, shift, logw, means, chols, chunk: int):
+    """One E-step's sufficient statistics (nk, Σr·x, Σr·xxᵀ, ll) over row
+    chunks, rows recentered by ``shift``."""
+    k, d = means.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nk = torch.zeros((k,), **f32)
+    sums = torch.zeros((k, d), **f32)
+    outer = torch.zeros((k, d, d), **f32)
+    ll = torch.zeros((), **f32)
+    starts, c = _chunks(x.shape[0], chunk)
+    for s in starts:
+        xb = x[s:s + c] - shift[None, :]
+        wb = w[s:s + c]
+        log_resp_un = _log_pdf(xb, means, chols) + logw[None, :]
+        log_norm = torch.logsumexp(log_resp_un, dim=1)
+        resp = torch.exp(log_resp_un - log_norm[:, None]) * wb[:, None]    # (c, k)
+        nk = nk + resp.sum(dim=0)
+        sums = sums + resp.T @ xb
+        # (chunk, d·d) row outer products against (chunk, k) resp
+        xx = (xb[:, :, None] * xb[:, None, :]).reshape(-1, d * d)
+        outer = outer + (resp.T @ xx).reshape(k, d, d)
+        ll = ll + (log_norm * wb).sum()
+    return nk, sums, outer, ll
+
+
+def _m_step_rule(nk, sums, outer, reg_covar: float):
+    """The M-step refit: means, covariances and weights from the
+    accumulated statistics."""
+    d = sums.shape[1]
+    eye = torch.eye(d, dtype=torch.float32, device=sums.device)
+    nk = torch.clamp(nk, min=1e-6)
+    means = sums / nk[:, None]
+    covs = outer / nk[:, None, None] - torch.einsum("kd,ke->kde", means, means)
+    covs = covs + reg_covar * eye[None]
+    weights = nk / nk.sum()
+    return means, covs, weights
+
+
+def _gmm_chols(covs, reg_covar: float):
+    d = covs.shape[-1]
+    eye = torch.eye(d, dtype=torch.float32, device=covs.device)
+    return torch.linalg.cholesky(covs + reg_covar * eye[None])
+
+
+def _init_params(valid: np.ndarray, k: int, d: int, seed: int, reg_covar: float):
+    """EM init from a SHIFTED host sample → (means, covs, weights):
+    k-means++ and ten host Lloyd steps, then per-cluster diagonal
+    covariances and cluster-share weights from the init assignment."""
+    means64, assign0 = _lloyd_refine(
+        valid, _kmeans_pp_init(valid, k, seed), iters=10, return_assign=True
+    )
+    means = means64.astype(np.float32)
+    covs = np.empty((k, d, d), dtype=np.float32)
+    weights = np.empty((k,), dtype=np.float32)
+    global_var = np.maximum(valid.var(axis=0), reg_covar)
+    for j in range(k):
+        mask = assign0 == j
+        weights[j] = max(mask.mean(), 1e-6)
+        if mask.sum() >= 2:
+            covs[j] = np.diag(np.maximum(valid[mask].var(axis=0), reg_covar))
+        else:
+            covs[j] = np.diag(global_var)
+    return means, covs, weights / weights.sum()
+
+
+@register_model("GaussianMixtureModel")
+@dataclass
+class GaussianMixtureModel(ClusteringModel):
+    weights: np.ndarray      # (k,)
+    means: np.ndarray        # (k, d)
+    covariances: np.ndarray  # (k, d, d)
+    log_likelihood: float = 0.0      # TOTAL (Spark summary.logLikelihood)
+    avg_log_likelihood: float = 0.0  # per-row mean (sklearn .score parity)
+    n_iter: int = 0
+
+    @property
+    def k(self) -> int:
+        return self.means.shape[0]
+
+    @property
+    def num_features(self) -> int:
+        return int(np.shape(self.means)[1])
+
+    @property
+    def summary(self) -> ClusteringSummary:
+        """Spark's summary surface (logLikelihood / numIter); the sizes of
+        hard assignments are not stored, so ``cluster_sizes`` is None."""
+        return ClusteringSummary(k=self.k, num_iter=self.n_iter,
+                                 log_likelihood=float(self.log_likelihood))
+
+    def _device_params(self, device):
+        means = torch.tensor(np.asarray(self.means, np.float32), device=device)
+        covs = torch.tensor(np.asarray(self.covariances, np.float32), device=device)
+        logw = torch.log(torch.tensor(np.asarray(self.weights, np.float32), device=device))
+        return logw, means, torch.linalg.cholesky(covs)
+
+    def _log_resp(self, x, chunk: int = 65536):
+        """Per chunk of rows: (start, (c, k) log weight + log density)."""
+        check_features(x, self.means.shape[1], "GaussianMixtureModel")
+        logw, means, chols = self._device_params(x.device)
+        x = x.to(torch.float32)
+        starts, c = _chunks(x.shape[0], chunk)
+        for s in starts:
+            yield s, _log_pdf(x[s:s + c], means, chols) + logw[None, :]
+
+    def predict_proba(self, x: torch.Tensor) -> torch.Tensor:
+        """(n, d) → (n, k) posteriors on x's device."""
+        out = torch.empty((x.shape[0], self.k), dtype=torch.float32, device=x.device)
+        for s, lr in self._log_resp(x):
+            out[s:s + lr.shape[0]] = torch.exp(lr - torch.logsumexp(lr, dim=1)[:, None])
+        return out
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] * self.k > (1 << 24):
+            return self.predict_assigned(x)[0]
+        return torch.argmax(self.predict_proba(x), dim=1).to(torch.int32)
+
+    def predict_assigned(self, x: torch.Tensor, chunk: int = 65536):
+        """→ (component (n,) int32, assigned-component posterior (n,)):
+        ``argmax(predict_proba)`` one row chunk at a time, so no (n, k)
+        tensor exists."""
+        pred = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
+        prob = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+        for s, lr in self._log_resp(x, chunk):
+            top, arg = lr.max(dim=1)
+            pred[s:s + lr.shape[0]] = arg.to(torch.int32)
+            prob[s:s + lr.shape[0]] = torch.exp(top - torch.logsumexp(lr, dim=1))
+        return pred, prob
+
+    def score(self, data, device=None) -> float:
+        """Mean per-row log-likelihood."""
+        ds = as_device_dataset(data, device=device)
+        logw, means, chols = self._device_params(ds.x.device)
+        ll = _e_step(ds.x.to(torch.float32), ds.w, logw, means, chols)
+        return float(ll / torch.clamp(ds.w.sum(), min=1.0))
+
+    def transform(self, data, label_col: str | None = None, device=None):
+        """An AssembledTable comes back as its source Table with the
+        ``prediction`` column and the assigned component's posterior as
+        ``probability``; other inputs as :class:`PredictionResult`."""
+        from ..features.assembler import AssembledTable
+
+        if isinstance(data, AssembledTable):
+            n = len(data)
+            ds = as_device_dataset(data.features, device=device)
+            pred, prob = self.predict_assigned(ds.x)
+            out = data.table.with_column(
+                "prediction", pred[:n].cpu().numpy().astype(np.int32), dtype="int")
+            return out.with_column("probability", prob[:n].cpu().numpy(), dtype="float")
+        return super().transform(data, label_col=label_col, device=device)
+
+    def _artifacts(self):
+        return (
+            "GaussianMixtureModel",
+            {
+                "log_likelihood": self.log_likelihood,
+                "avg_log_likelihood": self.avg_log_likelihood,
+                "n_iter": self.n_iter,
+            },
+            {
+                "weights": np.asarray(self.weights),
+                "means": np.asarray(self.means),
+                "covariances": np.asarray(self.covariances),
+            },
+        )
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        return cls(
+            weights=arrays["weights"],
+            means=arrays["means"],
+            covariances=arrays["covariances"],
+            log_likelihood=float(params.get("log_likelihood", 0.0)),
+            avg_log_likelihood=float(params.get("avg_log_likelihood", 0.0)),
+            n_iter=int(params.get("n_iter", 0)),
+        )
+
+
+@dataclass(frozen=True)
+class GaussianMixture(Estimator):
+    k: int = 2
+    max_iter: int = 100        # Spark default
+    tol: float = 0.01          # Spark default (log-likelihood delta)
+    seed: int = 0
+    reg_covar: float = 1e-6
+    init_sample_size: int = 65536
+    #: rows per E-step chunk: bounds the (chunk, k) and (chunk, d²) tiles
+    chunk_rows: int = 65536
+    checkpoint_dir: str | None = None
+    weight_col: str | None = None
+    warm_start_params: tuple | None = None
+    matmul_precision: str = "highest"
+
+    def _refuse_unported(self, data) -> None:
+        if self.matmul_precision != "highest":
+            raise NotImplementedError(
+                f"matmul_precision={self.matmul_precision!r} (the factor-form E-step) "
+                f"comes with {_SLICE_4B}; the port runs 'highest'")
+        for name in ("checkpoint_dir", "warm_start_params", "weight_col"):
+            if getattr(self, name) is not None:
+                raise NotImplementedError(f"GaussianMixture {name}= comes with {_SLICE_4B}")
+        if type(data).__name__ == "HostDataset":
+            raise NotImplementedError(f"the out-of-core GaussianMixture fit comes with {_SLICE_4B}")
+
+    def fit(self, data, label_col: str | None = None, mesh=None, on_iteration=None,
+            device=None) -> GaussianMixtureModel:
+        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
+        x) on ``device`` (default the card).  ``on_iteration(it,
+        log_likelihood)`` (optional) fires after every EM step."""
+        self._refuse_unported(data)
+        ds = as_device_dataset(data, device=device)
+        x = ds.x.to(torch.float32).contiguous()
+        w = ds.w.to(torch.float32).contiguous()
+        d = x.shape[1]
+        n = float(w.sum())
+        if n == 0:
+            raise ValueError("GaussianMixture fit on an empty dataset")
+        # init on a bounded host sample, which also gives the recentering
+        # shift that keeps the float32 covariance refit stable
+        valid = sample_valid_rows(ds, self.init_sample_size, self.seed)
+        shift = valid.mean(axis=0).astype(np.float32) if valid.shape[0] else np.zeros(
+            (d,), np.float32)
+        means, covs, weights = _init_params(valid - shift, self.k, d, self.seed,
+                                            self.reg_covar)
+        dev = x.device
+        means_d = torch.from_numpy(means).to(dev)
+        covs_d = torch.from_numpy(covs).to(dev)
+        weights_d = torch.from_numpy(weights).to(dev)
+        shift_d = torch.from_numpy(shift).to(dev)
+
+        def step(means_d, covs_d, weights_d):
+            chols = _gmm_chols(covs_d, self.reg_covar)
+            nk, sums, outer, ll = _em_pass(x, w, shift_d, torch.log(weights_d), means_d,
+                                           chols, self.chunk_rows)
+            return (*_m_step_rule(nk, sums, outer, self.reg_covar), ll)
+
+        it = 0
+        if on_iteration is None:
+            # the JAX package's device loop: |ll − prev_ll| >= tol in float32
+            prev_ll, ll = np.float32(-np.inf), np.float32(np.inf)
+            tol = np.float32(self.tol)
+            while it < self.max_iter and np.abs(ll - prev_ll) >= tol:
+                means_d, covs_d, weights_d, ll_d = step(means_d, covs_d, weights_d)
+                prev_ll, ll = ll, np.float32(ll_d.item())
+                it += 1
+            ll = float(ll)
+        else:
+            prev_ll, ll = -np.inf, 0.0
+            for it in range(1, self.max_iter + 1):
+                means_d, covs_d, weights_d, ll_d = step(means_d, covs_d, weights_d)
+                ll = float(ll_d)  # TOTAL log-likelihood — Spark tol here
+                on_iteration(it, ll)
+                if abs(ll - prev_ll) < self.tol:
+                    break
+                prev_ll = ll
+
+        return GaussianMixtureModel(
+            weights=weights_d.cpu().numpy(),
+            means=means_d.cpu().numpy() + shift,
+            covariances=covs_d.cpu().numpy(),
+            log_likelihood=ll,
+            avg_log_likelihood=ll / max(n, 1.0),
+            n_iter=it,
+        )
+
+    # the JAX package's partials protocol (federated EM)
+    def _partials(self, *args, **kwargs):
+        raise NotImplementedError(f"the GaussianMixture partials protocol comes with {_SLICE_4B}")
+
+    init_partials_state = local_init_stats = init_state_from_merged = _partials
+    partial_fit_stats = apply_partials = fit_from_partials = _partials

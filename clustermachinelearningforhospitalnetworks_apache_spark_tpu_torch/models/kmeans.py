@@ -76,6 +76,33 @@ def _kmeans_pp_init(sample: np.ndarray, k: int, seed: int) -> np.ndarray:
     return centers
 
 
+def _host_sqdist(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(n, d), (k, d) → (n, k) squared distances on the host."""
+    return (
+        (a * a).sum(axis=1)[:, None]
+        - 2.0 * a @ b.T
+        + (b * b).sum(axis=1)[None, :]
+    )
+
+
+def _lloyd_refine(
+    sample: np.ndarray, centers: np.ndarray, iters: int = 10, return_assign: bool = False
+):
+    """A few host Lloyd iterations to polish an init (numpy, bounded
+    sample; copied unchanged so inits stay bit-equal)."""
+    centers = centers.copy()
+    assign = np.zeros(sample.shape[0], dtype=np.int64)
+    for _ in range(iters):
+        assign = np.argmin(_host_sqdist(sample, centers), axis=1)
+        for j in range(centers.shape[0]):
+            m = assign == j
+            if m.any():
+                centers[j] = sample[m].mean(axis=0)
+    if return_assign:
+        return centers, np.argmin(_host_sqdist(sample, centers), axis=1)
+    return centers
+
+
 @register_model("KMeansModel")
 @dataclass
 class KMeansModel(ClusteringModel):

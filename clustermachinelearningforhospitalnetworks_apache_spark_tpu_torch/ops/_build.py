@@ -1,10 +1,13 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's native sources at first use and load them with ctypes.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface — no PyTorch
-headers, so a build takes seconds, not minutes.  Libraries are cached in
-the build directory under a name that hashes the source and the flags, so
-an edited source rebuilds and an unchanged one loads straight away.
+headers, so a build takes seconds, not minutes.  The host CSV scan
+(``native/csv_scan.cpp`` at the repository root, the one source both
+packages parse with) is compiled by ``g++`` with the flags of
+``native/Makefile``.  Libraries are cached in the build directory under a
+name that hashes the source and the flags, so an edited source rebuilds
+and an unchanged one loads straight away.
 
 Nothing here runs at import: the CPU-only test machine imports every
 module but has no ``nvcc``.
@@ -36,6 +39,12 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
+
+#: name -> host C++ source (outside the package: shared with the JAX package)
+HOST_SOURCES = {"csv_scan": _PKG.parent / "native" / "csv_scan.cpp"}
+
+#: ``native/Makefile``'s flags
+GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -114,3 +123,37 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
         return lib
+
+
+def host_library_path(name: str) -> Path:
+    src = HOST_SOURCES[name].read_bytes()
+    h = hashlib.sha256(src + "\0".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{h}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile the host library ``name`` with ``g++`` unless it is built
+    already; the compiler's output is kept beside it as ``<lib>.log``.
+    Raises ``RuntimeError`` (with that output) when the source or the
+    compiler is missing or the build fails."""
+    src = HOST_SOURCES[name]
+    if not src.is_file():
+        raise RuntimeError(f"{src} is missing: the host library {name} cannot be built")
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    compiler = os.environ.get("CXX") or shutil.which("g++")
+    if not compiler:
+        raise RuntimeError(f"g++ not found: the host library {name} cannot be built")
+    build_dir().mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        r = subprocess.run([compiler, *GXX_FLAGS, "-o", str(tmp), str(src)],
+                           capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"g++ timed out building {name}") from e
+    out.with_suffix(".log").write_text(r.stdout + r.stderr)
+    if r.returncode != 0:
+        raise RuntimeError(f"g++ failed for {name}:\n{(r.stdout + r.stderr)[-4000:]}")
+    os.replace(tmp, out)
+    return out

@@ -10,10 +10,15 @@ the same seeds:
 * a key is a CPU ``int64`` tensor of shape ``(2,)`` holding two uint32
   words (``key(seed)`` = ``(0, seed mod 2**32)``, as jax without x64);
   ``fold_in`` and ``split`` are tiny and run on the host;
-* ``random_bits`` / ``uniform`` / ``permutation`` / ``poisson`` hash a
-  counter per output element on the ``device`` the caller names, with
-  the key words passed as Python scalars — so a draw on the card makes no
-  host round trip.
+* ``random_bits`` / ``uniform`` / ``normal`` / ``permutation`` /
+  ``poisson`` hash a counter per output element on the ``device`` the
+  caller names, with the key words passed as Python scalars — so a draw on
+  the card makes no host round trip.
+
+``normal`` is not bit-equal to ``jax.random.normal``: it follows XLA's
+``ErfInv32`` polynomial, but XLA's CPU ``log1p`` is its own approximation,
+which torch does not reproduce.  Over 10**6 draws the two differ on about
+1 % of the values, by at most 3 float32 ulp (``tests/test_torch_prng.py``).
 
 uint32 words are held in ``int64`` tensors masked to 32 bits: torch has
 no full uint32 arithmetic, and int64 holds every intermediate exactly.
@@ -104,6 +109,64 @@ def _to_unit(bits: torch.Tensor) -> torch.Tensor:
 def uniform(k: torch.Tensor, shape, device="cpu") -> torch.Tensor:
     """float32 uniforms in [0, 1) (``jax.random.uniform``)."""
     return _to_unit(random_bits(k, shape, device))
+
+
+#: XLA's ``ErfInv32`` coefficients (Giles), for w < 5 and w >= 5
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+_F32 = np.float32
+#: ``jax.random.normal`` draws its uniforms on [nextafter(-1, 0), 1)
+_NORMAL_LO = float(np.nextafter(_F32(-1.0), _F32(0.0)))
+_NORMAL_SCALE = float(_F32(1.0) - _F32(_NORMAL_LO))   # rounds to 2.0 in float32
+_SQRT2 = float(_F32(np.sqrt(2.0)))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function by XLA's ``ErfInv32``: Giles'
+    polynomial in ``w = -log1p(-x²)`` (``w - 2.5`` below 5, ``√w - 3``
+    above), evaluated by Horner with each step fused (computed in float64,
+    rounded once, as an FMA does), times x; ``|x| == 1`` maps to ±max."""
+    w = (-torch.log1p((-(x * x)).double())).float()
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):   # Python scalars: no host-to-device copy
+        return torch.where(small, _ERFINV_SMALL[i], _ERFINV_LARGE[i]).to(torch.float32)
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = (coef(i).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, p * x)
+
+
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    u = _to_unit(bits) * _NORMAL_SCALE + _NORMAL_LO
+    u = torch.clamp(u, min=_NORMAL_LO)
+    return _SQRT2 * erf_inv(u)
+
+
+def normal(k: torch.Tensor, shape, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """Standard normal float32 draws (``jax.random.normal``): uniforms on
+    ``[nextafter(-1, 1), 1)`` through :func:`erf_inv`, times √2."""
+    if dtype != torch.float32:
+        raise NotImplementedError(f"normal draws float32 only, not {dtype}")
+    return _normal_from_bits(random_bits(k, shape, device))
+
+
+def normal_each(keys: torch.Tensor, shape, device="cpu") -> torch.Tensor:
+    """One :func:`normal` draw of ``shape`` under each of the keys ``keys``
+    (m, 2), stacked → (m, *shape) float32 on ``device``: row ``i`` equals
+    ``normal(keys[i], shape)``, computed in one pass."""
+    shape = tuple(int(s) for s in shape)
+    kw = keys.reshape(-1, 2).to(torch.int64) & MASK32
+    if torch.device(device).type == "cuda":
+        # from pinned memory without blocking: no host sync
+        kw = kw.pin_memory().to(device, non_blocking=True)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)[None, :]
+    h1, h2 = threefry2x32(kw[:, :1], kw[:, 1:], idx >> 32, idx & MASK32)
+    return _normal_from_bits(h1 ^ h2).reshape((kw.shape[0], *shape))
 
 
 def permutation(k: torch.Tensor, n: int, device="cpu") -> torch.Tensor:

@@ -4,13 +4,20 @@ The reference ingests with Spark's streaming file source — a directory
 that accumulates CSV drops, re-listed every micro-batch
 (``spark.readStream...csv(hdfs://.../incoming)``,
 ``mllearnforhospitalnetwork.py:74-80``).  Same contract: ``poll()`` lists
-the directory with ``os.scandir``, diffs against the files already seen,
+the directory (the native listing of ``io/native.py`` when its library is
+available, else ``os.scandir``), diffs against the files already seen,
 and returns the new batch in deterministic (mtime, name) order.  Each
-file is read by the strict CSV reader behind a per-file retry and the
-``source.read_file`` fault site.
+file is read by the strict CSV reader (engine ``auto``) behind a per-file
+retry and the ``source.read_file`` fault site.
 
-The native directory listing and CSV engines come with slice 3d of the
-port; the data firewall's salvage reads with slice 7.
+Both listings are kept, as in the JAX package, because they are not the
+same list: the native one decodes a file name that is not UTF-8 with
+U+FFFD (so the path it returns names no file), where ``os.scandir``
+keeps the name's bytes; and a file removed between the directory read
+and its ``stat`` is skipped natively but raises under ``os.scandir``.
+The port lists as the JAX package does on the same host.
+
+The data firewall's salvage reads come with slice 7 of the port.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from dataclasses import dataclass, field
 from ..core.schema import Schema
 from ..core.table import Table
 from ..io.csv import read_csv
+from ..io.native import native_available, native_dir_list
 from ..utils.faults import fault_point
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsRegistry
@@ -53,11 +61,17 @@ class FileStreamSource:
     def list_files(self) -> list[str]:
         if not os.path.isdir(self.path):
             return []
-        entries = []
-        with os.scandir(self.path) as it:
-            for e in it:
-                if e.is_file() and e.name.endswith(".csv"):
-                    entries.append((e.stat().st_mtime_ns, e.name, e.path))
+        if native_available():
+            entries = [
+                (mtime_ns, name, os.path.join(self.path, name))
+                for mtime_ns, _size, name in native_dir_list(self.path, ".csv")
+            ]
+        else:
+            entries = []
+            with os.scandir(self.path) as it:
+                for e in it:
+                    if e.is_file() and e.name.endswith(".csv"):
+                        entries.append((e.stat().st_mtime_ns, e.name, e.path))
         entries.sort()
         return [p for _, _, p in entries]
 

@@ -88,8 +88,12 @@ def test_read_csv_equals_jax():
     for c in jt.schema.names:
         assert pt[c].dtype == jt[c].dtype, c
         np.testing.assert_array_equal(pt[c], jt[c], err_msg=c)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        P.read_csv(CSV, P.hospital_event_schema(), engine="arrow")
+    # the Arrow engine is ported too (slice 3d): equal to the JAX package's
+    ja = J.read_csv(CSV, J.hospital_event_schema(), engine="arrow")
+    pa = P.read_csv(CSV, P.hospital_event_schema(), engine="arrow")
+    for c in ja.schema.names:
+        assert pa[c].dtype == ja[c].dtype, c
+        np.testing.assert_array_equal(pa[c], ja[c], err_msg=c)
 
 
 def test_read_csv_dir_and_window(tmp_path):

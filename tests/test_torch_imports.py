@@ -67,7 +67,9 @@ def test_every_module_is_walkable():
                      "core.sql_compile", "core.sql", "streaming.watermark",
                      "streaming.checkpoint", "streaming.source",
                      "streaming.unbounded_table", "streaming.microbatch", "session",
-                     "viz.plots", "utils.metrics", "utils.retry", "utils.report"):
+                     "viz.plots", "utils.metrics", "utils.retry", "utils.report",
+                     "io.native", "models.streaming_kmeans", "models.gmm",
+                     "models.bisecting_kmeans"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -112,6 +114,12 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
             source=port.FileStreamSource(str(tmp_path / "in"), port.hospital_event_schema()),
             sink=port.UnboundedTable(str(tmp_path / "t"), port.hospital_event_schema()),
             checkpoint=port.StreamCheckpoint(str(tmp_path / "ck2"))),
+        lambda: port.StreamingKMeans(k=2).update(x),
+        lambda: port.StreamingKMeans(k=2).update_many([x, x]),
+        lambda: port.GaussianMixture(k=2).fit(x),
+        lambda: port.BisectingKMeans(k=2).fit(x),
+        lambda: port.gaussian_mixture_model_from_jax_arrays(
+            np.full(2, 0.5), x[:2], np.stack([np.eye(3)] * 2)).predict_numpy(x),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
