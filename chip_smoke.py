@@ -52,6 +52,18 @@ kernels:
   syncs, predict through K2), each against the CPU route on the same
   rows (a 200,000-row prefix for the last two) within limits that the
   same run in TF32 (the control) fails.
+* the out-of-core fits (slice 4b) — KMeans k=256 over the 10M rows
+  memory-mapped from disk and streamed as ``HostDataset`` blocks of 2**20
+  (K1 a block a Lloyd step) against the resident fit, with the epoch
+  beside the measured host-to-device rate, K1's share, the copy time the
+  double buffer hides and the peak device memory against its bound;
+  integer rows bit-equal out of core and resident, a fit preempted by
+  ``on_iteration`` and resumed from its checkpoint bit-equal, and one
+  64-block epoch equal to the resident K1 pass (the stream-reuse guard);
+  cosine KMeans (K2 in predict), GaussianMixture k=32 and
+  LinearRegression on 2M rows, and the rf20-shape forest in 8 blocks (K3
+  a block a level: splits against the resident forest, per-block
+  bootstrap draws against the CPU, a preempt at depth 2 resumed).
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -627,6 +639,9 @@ def k3_phase(H) -> dict:
         ("rf20 depth 5", TREE_N, 8, 3, 20, 32),
         ("pipeline RF regressor depth 5", 1_400_000, 4, 3, 20, 32),
         ("classification", TREE_N, 4, 2, 20, 16),
+        # slice 4b: one streamed block of the out-of-core rf20 forest
+        ("rf20 block root", FOREST_BLOCK, 8, 3, 20, 1),
+        ("rf20 block depth 5", FOREST_BLOCK, 8, 3, 20, 32),
     ]
     times = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
@@ -682,11 +697,14 @@ def k3_phase(H) -> dict:
         f"fractional bin against the float64 plain version {worst:.3g} (limit 1e-5)")
 
     t, err = times["pipeline RF regressor depth 5"]
+    shapes = [{"n": n, "d": d, "S": S, "T": T, "LN": LN, "B": B,
+               "max_abs_err": times[tag][1], **times[tag][0]}
+              for tag, n, d, S, T, LN in main if tag.startswith("rf20 block")]
     return {"name": "fused_level_hist", "route": "cuda",
             "source": f"{PKG}/csrc/tree_hist.cu", "replaces": f"{JAX_KERNELS}:335",
             "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"], "shapes": shapes}
 
 
 # ------------------------------------------------------------ SQL window
@@ -1921,6 +1939,394 @@ def rf20(port) -> None:
     say(f"Poisson(1) draw (20, 100000), card vs CPU: {int((a != b).sum())} entries differ")
 
 
+# ------------------------------------------------- slice 4b: out of core
+OOC_BLOCK = 1 << 20          # the flagship's max_device_rows: 10 blocks of 10M rows
+EXACT_N, EXACT_K, EXACT_BLOCK = 400_000, 16, 32_768   # examples/outofcore_categorical.py
+REUSE_BLOCK = EXACT_N // 64                            # 64 blocks: the stream-reuse guard
+GMM_OOC_N, GMM_OOC_BLOCK = 2_000_000, 1 << 19
+LR_OOC_BLOCK = 1 << 18
+FOREST_BLOCK = 1 << 18       # rf20's 2M rows as 8 blocks
+# out of core against resident on the card, each about 10x the gap this
+# phase measured on an NVIDIA H100 80GB HBM3 at 700 W: the
+# blocks sum the float32 statistics in another order than one pass, and 20
+# Lloyd steps carry that into the centers (k=256: 2.26e-4; cosine k=16 at
+# tol 0: 5.96e-8); the cost, a float32 sum, read 0 (limit 16 ulp)
+OOC_KMEANS_TOL = {"centers": 2e-3, "cost_rel": 1e-6}
+OOC_COSINE_TOL = 6e-7
+
+
+def ooc_rows(n: int, d: int, k: int, tmp: str, name: str):
+    """``make_data`` rows written to an ``.npy`` under ``tmp`` and opened
+    memory-mapped. → (the in-memory rows, the memmap)."""
+    import numpy as np
+
+    x = make_data(n, d, k)
+    path = os.path.join(tmp, f"{name}.npy")
+    np.save(path, x)
+    return x, np.load(path, mmap_mode="r")
+
+
+def link_and_fill(hd, b: int) -> tuple[float, float]:
+    """The link and the host fill alone: one staged block pinned -> card
+    (CUDA events), and one block from the memmap into pinned memory (host
+    clock).  → (copy ms, fill ms)."""
+    import torch
+
+    width = hd._width(b)
+    pinned = torch.empty((width,), dtype=torch.float32, pin_memory=True)
+    on_dev = torch.empty((width,), dtype=torch.float32, device="cuda")
+    copy_ms = gpu_ms(lambda: on_dev.copy_(pinned, non_blocking=True), 10)
+    t0 = time.perf_counter()
+    for i in range(3):
+        hd._fill(pinned.numpy(), i, b)
+    return copy_ms, (time.perf_counter() - t0) / 3 * 1e3
+
+
+def outofcore_phase(port, L, H, card: str, k1_ms: float) -> dict:
+    """Slice 4b, the out-of-core fits at full width: KMeans k=256 over the
+    10M x 8 rows memory-mapped from disk in blocks of 2**20 (K1 a block),
+    against the resident fit, with its epoch breakdown and peak device
+    memory; exact integer rows bit-equal out of core and resident, a
+    preempt at iteration 3 resumed bit-equal, and one 64-block epoch equal
+    to the resident K1 pass (the stream-reuse guard); cosine KMeans and
+    predict through K2; GMM k=32 (config 3's law, 2M x 8); LinearRegression
+    on 2M hospital rows; the rf20 forest shape in 8 blocks (K3 a block a
+    level).  ``k1_ms``: K1's time at the block shape (the kernel record).
+    → the K1, K2, K3 launches of the phase."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import prng
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import (
+        engine,
+    )
+
+    t_phase = time.perf_counter()
+    L.reset_launch_counts()
+    H.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="ooc-")
+    try:
+        # --------------------------------------------- flagship KMeans k=256
+        x, xm = ooc_rows(N, D, K, tmp, "kmeans")
+        hd = port.HostDataset(x=xm, max_device_rows=OOC_BLOCK)
+        n_blocks, b = hd.block_shape()
+        width = hd._width(b)
+        copy_ms, fill_ms = link_and_fill(hd, b)
+        h2d_gbs = width * 4 / copy_ms / 1e6
+        plan = L.lloyd_plan(b, D, K, torch.cuda.get_device_properties(0).multi_processor_count,
+                            L._stats_occupancy(torch.device(DEV), D, K))
+        sync()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stamps = []
+        k1_before = L.launch_counts()["fused_lloyd_stats"]
+        t_fit = time.perf_counter()
+        ooc = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER).fit(
+            hd, device=DEV, on_iteration=lambda it, c, m: stamps.append(time.perf_counter()))
+        sync()
+        t_end = time.perf_counter()
+        fit_s = t_end - t_fit
+        peak = torch.cuda.max_memory_allocated() - base
+        k1_fit = L.launch_counts()["fused_lloyd_stats"] - k1_before
+        check(k1_fit == (ooc.n_iter + 1) * n_blocks,
+              f"out-of-core KMeans launched K1 {k1_fit} times (expected (n_iter + 1) x "
+              f"{n_blocks} blocks = {(ooc.n_iter + 1) * n_blocks})")
+        k_state = 8 * (K * (D + 1) + 1) * 4
+        bound = 2 * width * 4 + k_state + plan["partial_floats"] * 4 + (1 << 20)
+        check(peak <= bound,
+              f"out-of-core KMeans peak device memory {peak} bytes above the bound {bound} = "
+              f"2 blocks x {width * 4} + k-state {k_state} + K1 workspace "
+              f"{plan['partial_floats'] * 4} + 1 MiB of small tensors and allocator rounding")
+        epoch_s = float(np.median(np.diff(stamps))) if len(stamps) > 1 else fit_s
+        ds = port.device_dataset(x, device=DEV)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER).fit(ds)
+        sync()
+        res_s = time.perf_counter() - t0
+        res_peak = torch.cuda.max_memory_allocated() - base + ds.x.numel() * 4 + ds.w.numel() * 4
+        check(peak * 4 < res_peak, f"out-of-core peak {peak} not well under the resident "
+                                   f"fit's {res_peak} bytes")
+        c_gap = float(np.abs(ooc.cluster_centers - res.cluster_centers).max())
+        cost_gap = abs(ooc.training_cost / res.training_cost - 1)
+        check(ooc.n_iter == res.n_iter and c_gap <= OOC_KMEANS_TOL["centers"]
+              and cost_gap <= OOC_KMEANS_TOL["cost_rel"],
+              f"out-of-core KMeans vs resident: n_iter {ooc.n_iter} / {res.n_iter}, centers "
+              f"{c_gap:.3g}, cost rel {cost_gap:.3g} (limits {OOC_KMEANS_TOL})")
+        k2_before = L.launch_counts()["fused_assign"]
+        pred = ooc.predict(ds.x)
+        agree = float((pred == res.predict(ds.x)).float().mean())
+        check(L.launch_counts()["fused_assign"] - k2_before == 2, "predict did not launch K2")
+        check(agree >= 0.9999, f"out-of-core and resident models agree on {agree:.6f} of rows")
+        del ds, pred
+        serial = n_blocks * (fill_ms + copy_ms + k1_ms) / 1e3
+        hidden = min(max((serial - epoch_s) / (n_blocks * copy_ms / 1e3), 0.0), 1.0)
+        link_s = N * (D + 1) * 4 / (h2d_gbs * 1e9)
+        say(f"outofcore kmeans k={K} on {card}: {N} x {D} memmapped rows in {n_blocks} blocks "
+            f"of {b}; fit {fit_s:.3f} s (resident {res_s:.3f} s), n_iter {ooc.n_iter}, "
+            f"{N * ooc.n_iter / fit_s:.4g} Lloyd records/s; K1 {k1_fit} launches; epoch "
+            f"{epoch_s * 1e3:.1f} ms (median of {len(stamps) - 1}) beside n(d+1)4 = "
+            f"{N * (D + 1) * 4 / 1e6:.0f} MB over the measured {h2d_gbs:.2f} GB/s = "
+            f"{link_s * 1e3:.1f} ms; per block: host fill {fill_ms:.2f} ms, copy {copy_ms:.3f} "
+            f"ms, K1 {k1_ms:.4f} ms; K1 {100 * n_blocks * k1_ms / 1e3 / epoch_s:.1f}% of an "
+            f"epoch; the double buffer hides {100 * hidden:.0f}% of the copy time "
+            f"((n_blocks (fill + copy + K1) - epoch) / (n_blocks copy), serial "
+            f"{serial * 1e3:.1f} ms); before the first step {(stamps[0] - t_fit) * 1e3:.0f} ms "
+            f"(host sample and k-means++ init, one epoch), after the last "
+            f"{(t_end - stamps[-1]) * 1e3:.0f} ms (the final cost epoch); peak device memory "
+            f"{peak / 2**20:.1f} MiB <= bound {bound / 2**20:.1f} MiB (2 blocks x {width * 4} B "
+            f"+ k-state {k_state} B + K1 workspace {plan['partial_floats'] * 4} B + 1 MiB), "
+            f"resident {res_peak / 2**20:.1f} MiB; vs resident: centers max abs {c_gap:.3g} (limit "
+            f"{OOC_KMEANS_TOL['centers']:g}), cost rel {cost_gap:.3g} (limit "
+            f"{OOC_KMEANS_TOL['cost_rel']:g}), predictions agree on {agree:.6f} of rows")
+        del x, xm, hd, ooc, res
+
+        # ------------------------------------- exact rows: bit-equal, resume
+        rng = np.random.default_rng(0)
+        cen = rng.integers(-30, 30, size=(EXACT_K, D))
+        xe = (cen[rng.integers(0, EXACT_K, size=EXACT_N)]
+              + rng.integers(-2, 3, size=(EXACT_N, D))).astype(np.float32)
+        np.save(os.path.join(tmp, "exact.npy"), xe)
+        xem = np.load(os.path.join(tmp, "exact.npy"), mmap_mode="r")
+        hde = port.HostDataset(x=xem, max_device_rows=EXACT_BLOCK)
+        est = dict(k=EXACT_K, seed=SEED)
+        oe = port.KMeans(**est).fit(hde, device=DEV)
+        re_ = port.KMeans(**est).fit(port.device_dataset(xe, device=DEV))
+        check(np.array_equal(oe.cluster_centers, re_.cluster_centers)
+              and np.array_equal(oe.cluster_sizes, re_.cluster_sizes) and oe.n_iter == re_.n_iter,
+              "exact rows: out-of-core centers are not bit-equal to the resident fit's")
+
+        class Preempt(RuntimeError):
+            pass
+
+        # the preempt lands at iteration 3, or at the last one if the fit
+        # converges sooner (the resumed fit then runs one no-op step)
+        kill_at = min(3, oe.n_iter)
+
+        def bomb(it, cost, move):
+            if it == kill_at:
+                raise Preempt()
+
+        ck = dict(checkpoint_dir=os.path.join(tmp, "ck"), checkpoint_every=1)
+        try:
+            port.KMeans(**est, **ck).fit(hde, device=DEV, on_iteration=bomb)
+            fail("the preempting on_iteration did not stop the fit")
+        except Preempt:
+            pass
+        seen = []
+        resumed = port.KMeans(**est, **ck).fit(hde, device=DEV,
+                                               on_iteration=lambda it, c, m: seen.append(it))
+        check(seen[:1] == [kill_at + 1]
+              and np.array_equal(resumed.cluster_centers, oe.cluster_centers)
+              and np.array_equal(resumed.cluster_sizes, oe.cluster_sizes),
+              f"the resumed fit (from iteration {seen[:1]}) is not bit-equal to the "
+              "uninterrupted one")
+
+        # the stream-reuse guard: 64 blocks, summed, == one resident K1 pass
+        hd64 = port.HostDataset(x=xem, max_device_rows=REUSE_BLOCK)
+        c0 = torch.from_numpy(oe.cluster_centers).to(DEV)
+        cv = torch.ones(EXACT_K, device=DEV)
+        tot = None
+        for blk in hd64.blocks(device=DEV):
+            st = L.fused_lloyd_stats(blk.x, blk.w, c0, cv)
+            tot = st if tot is None else port.parallel.add_stats(tot, st)
+        dse = port.device_dataset(xe, device=DEV)
+        ref = L.fused_lloyd_stats(dse.x, dse.w, c0, cv)
+        check(hd64.block_shape()[0] == 64 and torch.equal(tot[0], ref[0])
+              and torch.equal(tot[1], ref[1]),
+              "64 streamed blocks' K1 sums and counts differ from the resident pass")
+        say(f"outofcore exact rows ({EXACT_N} x {D}, k={EXACT_K}, blocks of {EXACT_BLOCK}): "
+            f"centers and sizes bit-equal to the resident fit (n_iter {oe.n_iter}); preempted "
+            f"at iteration {kill_at} and resumed from the commit: bit-equal; 64 streamed "
+            f"blocks' K1 "
+            f"sums and counts == the resident pass (cost {float(tot[2]):.8g} vs "
+            f"{float(ref[2]):.8g})")
+        del dse, xe, xem, hde, hd64
+
+        # ----------------------------------------- cosine KMeans, K2 predict
+        x, xm = ooc_rows(GMM_OOC_N, D, 16, tmp, "cosine")
+        est = dict(k=16, seed=SEED, max_iter=10, tol=0.0, distance_measure="cosine")
+        oc = port.KMeans(**est).fit(port.HostDataset(x=xm, max_device_rows=GMM_OOC_BLOCK),
+                                    device=DEV)
+        ds = port.device_dataset(x, device=DEV)
+        rc = port.KMeans(**est).fit(ds)
+        cos_gap = float(np.abs(oc.cluster_centers - rc.cluster_centers).max())
+        check(oc.n_iter == rc.n_iter and cos_gap <= OOC_COSINE_TOL,
+              f"cosine out of core vs resident: centers {cos_gap:.3g} (limit {OOC_COSINE_TOL})")
+        pc = oc.predict(ds.x)
+        cos_agree = float((pc == rc.predict(ds.x)).float().mean())
+        check(cos_agree >= 0.9999, f"cosine models agree on {cos_agree:.6f} of rows")
+        say(f"outofcore cosine k=16 ({GMM_OOC_N} x {D}, blocks of {GMM_OOC_BLOCK}): centers "
+            f"{cos_gap:.3g} from the resident fit (limit {OOC_COSINE_TOL:g}), unit norms, "
+            f"predictions agree on {cos_agree:.6f} of rows through K2")
+        del ds, pc, x, xm
+
+        # -------------------------------------------------- GMM k=32 (config 3)
+        x, xm = ooc_rows(GMM_OOC_N, D, GMM_K, tmp, "gmm")
+        gest = port.GaussianMixture(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED)
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        og = gest.fit(port.HostDataset(x=xm, max_device_rows=GMM_OOC_BLOCK), device=DEV)
+        sync()
+        g_s = time.perf_counter() - t0
+        g_peak = torch.cuda.max_memory_allocated() - base
+        rg = gest.fit(port.device_dataset(x, device=DEV))
+        errs = {a: float(np.abs(getattr(og, a) - getattr(rg, a)).max())
+                for a in ("weights", "means", "covariances")}
+        errs["ll_rel"] = abs(og.log_likelihood / rg.log_likelihood - 1)
+        bad = {a: errs[a] for a, tol in GMM_TOL.items() if not errs[a] <= tol}
+        check(og.n_iter == rg.n_iter == GMM_ITERS and not bad,
+              f"out-of-core GMM vs resident: {errs} (limits {GMM_TOL})")
+        say(f"outofcore gmm k={GMM_K} ({GMM_OOC_N} x {D}, blocks of {GMM_OOC_BLOCK}): fit "
+            f"{g_s:.3f} s = {GMM_OOC_N * og.n_iter / g_s:.4g} EM records/s, peak device memory "
+            f"{g_peak / 2**20:.1f} MiB; vs resident: "
+            + ", ".join(f"{a} {errs[a]:.3g} (limit {GMM_TOL[a]:g})" for a in GMM_TOL))
+        del x, xm
+
+        # ------------------------------------ LinearRegression, 2M hospital rows
+        cols = hospital_events(TREE_N // 5)
+        xl = np.stack([cols[c] for c in port.FEATURE_COLS], axis=1)
+        yl = cols[port.LABEL_COL]
+        del cols
+        t0 = time.perf_counter()
+        ol = port.LinearRegression().fit(
+            port.HostDataset(x=xl, y=yl, max_device_rows=LR_OOC_BLOCK), device=DEV)
+        sync()
+        lr_s = time.perf_counter() - t0
+        rl = port.LinearRegression().fit((xl, yl), device=DEV)
+        # the float64 solution of the same least squares, on the host
+        exact = np.linalg.lstsq(np.c_[xl, np.ones(len(yl))], yl, rcond=None)[0]
+        scale = float(np.abs(exact).max())
+
+        def gap(m):
+            got = np.r_[m.coefficients.cpu().numpy(), float(m.intercept)]
+            return float(np.abs(got - exact).max())
+
+        lr_ooc, lr_res = gap(ol), gap(rl)
+        lr_gap = max(float((ol.coefficients - rl.coefficients).abs().max()),
+                     abs(float(ol.intercept) - float(rl.intercept)))
+        # float32 normal equations: 1e-4 of the largest coefficient (ROADMAP
+        # queue 3), against the resident fit and against the float64 solution
+        check(lr_gap <= 1e-4 * scale and lr_ooc <= 1e-4 * scale,
+              f"out-of-core LinearRegression: {lr_gap:.3g} from the resident fit, "
+              f"{lr_ooc:.3g} from the float64 solution (limit 1e-4 x {scale:.3g})")
+        say(f"outofcore linear regression ({len(yl)} hospital rows, blocks of {LR_OOC_BLOCK}): "
+            f"{lr_s:.3f} s; coefficients and intercept within {lr_gap:.3g} of the resident fit "
+            f"and {lr_ooc:.3g} of the float64 solution (the resident fit: {lr_res:.3g}; limit "
+            f"1e-4 x {scale:.3g})")
+        del xl, yl
+
+        # ------------------------------------------- forest, rf20's shape
+        rng = np.random.default_rng(0)
+        cols = make_table_columns(TREE_N, D, 16, 0)
+        xf = np.stack([cols[f"f{j}"] for j in range(D)], axis=1)
+        del cols
+        xf = ((xf - xf.mean(axis=0)) / xf.std(axis=0)).astype(np.float32)
+        yf = (xf @ rng.normal(size=(D,)) + rng.normal(0.0, 0.3, size=TREE_N)).astype(np.float32)
+        yc = (yf > np.median(yf)).astype(np.float32)
+        np.save(os.path.join(tmp, "forest.npy"), xf)
+        xfm = np.load(os.path.join(tmp, "forest.npy"), mmap_mode="r")
+        hr = port.HostDataset(x=xfm, y=yf, max_device_rows=FOREST_BLOCK)
+        hc = port.HostDataset(x=xfm, y=yc, max_device_rows=FOREST_BLOCK)
+        fb, bf = hr.block_shape()
+        kw = dict(num_trees=20, max_depth=5, seed=0)
+        # the user's path: RandomForestRegressor on the HostDataset (bootstrap on)
+        est = port.RandomForestRegressor(feature_subset_strategy="all", **kw)
+        k3_before = H.launch_counts()["fused_level_hist"]
+        sync()
+        t0 = time.perf_counter()
+        with K3Events() as k3:
+            rf = est.fit(hr, device=DEV)
+        sync()
+        rf_s = time.perf_counter() - t0
+        k3_ms = k3.ms()
+        k3_fit = H.launch_counts()["fused_level_hist"] - k3_before
+        check(k3_fit == (kw["max_depth"] + 1) * fb,
+              f"out-of-core forest launched K3 {k3_fit} times (expected (max_depth + 1) x "
+              f"{fb} blocks = {(kw['max_depth'] + 1) * fb})")
+        dsf = port.device_dataset(xf, yf, device=DEV)
+        rf_res = est.fit(dsf)
+        ev = port.RegressionEvaluator()
+        rmse_o = ev.evaluate(port.PredictionResult(prediction=rf.predict(dsf.x), label=dsf.y,
+                                                   weight=dsf.w))
+        rmse_r = ev.evaluate(port.PredictionResult(prediction=rf_res.predict(dsf.x),
+                                                   label=dsf.y, weight=dsf.w))
+        check(abs(rmse_o / rmse_r - 1) < 0.05,
+              f"bootstrapped out-of-core forest RMSE {rmse_o} vs resident {rmse_r}")
+        # each block's Poisson draw on the card == the CPU's: an entry's count
+        # depends only on its key and flat index, so the CPU draws the first
+        # two trees' rows, (2, b), of the card's (20, b)
+        flips = 0
+        for i in range(fb):
+            on_card = engine.block_bootstrap(0, i, 1.0, 20, bf, DEV)[:2].cpu()
+            flips += int((on_card != engine.block_bootstrap(0, i, 1.0, 2, bf, "cpu")).sum())
+        check(flips == 0, f"{flips} per-block bootstrap counts differ between card and CPU")
+        # bootstrap off: splits against the resident grow_forest
+        dsc = port.device_dataset(xf, yc, device=DEV)
+        cls_o = engine.grow_forest_outofcore(hc, task="classification", bootstrap=False,
+                                             device=DEV, **kw)
+        cls_r = engine.grow_forest(dsc, task="classification", bootstrap=False, **kw)
+        check(all(np.array_equal(getattr(cls_o, a), getattr(cls_r, a))
+                  for a in ("split_feat", "split_bin", "threshold")),
+              "out-of-core classifier splits differ from the resident forest's")
+        reg_o = engine.grow_forest_outofcore(hr, task="regression", bootstrap=False,
+                                             device=DEV, **kw)
+        reg_r = engine.grow_forest(dsf, task="regression", bootstrap=False, **kw)
+
+        def rmse_of(grown):
+            out = engine.predict_forest(dsf.x, grown.split_feat, grown.threshold, grown.value)
+            return float(((out.mean(dim=0)[:, 0] - dsf.y) ** 2).mean().sqrt())
+
+        r_o, r_r = rmse_of(reg_o), rmse_of(reg_r)
+        same_reg = int((reg_o.split_feat != reg_r.split_feat).sum())
+        check(abs(r_o / r_r - 1) <= 1e-4,
+              f"out-of-core regressor RMSE {r_o} vs resident {r_r} (rtol 1e-4)")
+        # preempt at depth 2, resume from the level commit
+        ckf = os.path.join(tmp, "forest-ck")
+        fkw = dict(task="regression", bootstrap=True, device=DEV, **kw)
+
+        def stop(depth):
+            if depth == 2:
+                raise Preempt()
+
+        try:
+            engine.grow_forest_outofcore(hr, checkpoint_dir=ckf, on_level=stop, **fkw)
+            fail("the preempting on_level did not stop the forest")
+        except Preempt:
+            pass
+        levels = []
+        resumed_f = engine.grow_forest_outofcore(hr, checkpoint_dir=ckf, on_level=levels.append,
+                                                 **fkw)
+        full_f = engine.grow_forest_outofcore(hr, **fkw)
+        check(levels == [3, 4, 5] and all(
+            np.array_equal(getattr(resumed_f, a), getattr(full_f, a))
+            for a in ("split_feat", "split_bin", "threshold", "value")),
+              f"the resumed forest (levels {levels}) differs from the uninterrupted one")
+        check(all(np.array_equal(getattr(full_f, a), getattr(rf, a))
+                  for a in ("split_feat", "threshold")),
+              "the engine's bootstrapped forest differs from the estimator's")
+        say(f"outofcore forest rf20 shape ({TREE_N} x {D}, {fb} blocks of {bf}, T=20, depth 5):"
+            f" RandomForestRegressor.fit {rf_s:.3f} s = {TREE_N / rf_s:.4g} rows/s, K3 {k3_fit}"
+            f" launches = {sum(k3_ms):.1f} ms ({100 * sum(k3_ms) / 1e3 / rf_s:.1f}% of the fit);"
+            f" RMSE {rmse_o:.6f} (resident {rmse_r:.6f}); per-block draws == CPU; bootstrap "
+            f"off: classifier splits == resident, regressor RMSE {r_o:.8g} vs {r_r:.8g} "
+            f"({same_reg} split features differ); preempted at depth 2 and resumed: == "
+            f"uninterrupted")
+        del dsf, dsc, xf, xfm, hr, hc
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {**L.launch_counts(), **H.launch_counts()}
+    say(f"outofcore phase: {time.perf_counter() - t_phase:.1f} s, launches {json.dumps(counts)}")
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -1980,6 +2386,10 @@ def main() -> None:
                              **{key: k1_stream[key] for key in (
                                  "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
                                  "bound_by")}}]
+    # slice 4b: K1 at the out-of-core flagship's block shape
+    k1_block = kernel_case(L, OOC_BLOCK, D, K, 0, seed=9, reps=20)[0]
+    records[0]["shapes"].append({"n": OOC_BLOCK, "d": D, "k": K, **{key: k1_block[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
     records[1]["shapes"] += [k2_case(L, BISECT_N, D, BISECT_K, seed=7, reps=20),
                              k2_case(L, STREAM_BATCH * STREAM_BATCHES, D, STREAM_K, seed=8,
                                      reps=20)]
@@ -2111,6 +2521,10 @@ def main() -> None:
     counts["fused_assign"] += k2
     gmm_phase(port, card)
     counts["fused_assign"] += bisecting_phase(port, L, card)
+
+    # ------------------- slice 4b: the out-of-core fits (K1, K2, K3 a block)
+    for name, v in outofcore_phase(port, L, H, card, k1_block["ms"]).items():
+        counts[name] += v
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")

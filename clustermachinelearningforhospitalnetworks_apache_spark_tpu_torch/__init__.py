@@ -50,6 +50,7 @@ from .features.assembler import AssembledTable, VectorAssembler
 from .features.binarizer import Binarizer
 from .features.scaler import StandardScaler, StandardScalerModel
 from .io.csv import read_csv, read_csv_dir, write_csv
+from .io.fit_checkpoint import FitCheckpointer
 from .io.model_io import CorruptArtifactError, load_model
 from .models.base import PredictionResult
 from .models.bisecting_kmeans import BisectingKMeans, BisectingKMeansModel
@@ -65,6 +66,7 @@ from .models.tree import (
     RandomForestModel,
     RandomForestRegressor,
 )
+from .parallel.outofcore import HostDataset
 from .pipeline.hospital_pipeline import (
     PipelineResult,
     StageResult,
@@ -90,7 +92,8 @@ __all__ = [
     "streaming_kmeans_model_from_jax_arrays", "CorruptArtifactError",
     "DecisionTreeClassifier",
     "DecisionTreeModel", "DecisionTreeRegressor", "DeviceDataset", "FEATURE_COLS",
-    "Field", "KMeans", "KMeansModel", "LABEL_COL", "LinearRegression",
+    "Field", "FitCheckpointer", "HostDataset", "KMeans", "KMeansModel", "LABEL_COL",
+    "LinearRegression",
     "LinearRegressionModel", "MulticlassClassificationEvaluator", "PipelineConfig",
     "FileStreamSource", "PipelineResult",
     "PredictionResult", "RandomForestClassifier", "RandomForestModel",

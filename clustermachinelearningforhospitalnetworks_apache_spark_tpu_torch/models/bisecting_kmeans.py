@@ -29,7 +29,7 @@ makes one a tree.  ``model.fit_info`` counts them.
 
 The model is a :class:`KMeansModel`, so ``predict`` is the K2 kernel on
 the card.  ``distance_measure="cosine"``, ``weight_col`` and the
-out-of-core ``HostDataset`` input come with slice 4b of the port (they
+out-of-core ``HostDataset`` input come with slice 4c of the port (they
 raise).
 """
 
@@ -46,7 +46,7 @@ from .base import Estimator, as_device_dataset
 from .kmeans import KMeansModel
 
 _BIG = 1e30
-_SLICE_4B = "slice 4b of the port"
+_SLICE_4C = "slice 4c of the port"
 
 
 def _children_d2(xs, cen, pos, exact: bool):
@@ -110,12 +110,12 @@ class BisectingKMeans(Estimator):
         x) on ``device`` (default the card)."""
         if self.distance_measure != "euclidean":
             raise NotImplementedError(
-                f"distance_measure={self.distance_measure!r} comes with {_SLICE_4B}; "
+                f"distance_measure={self.distance_measure!r} comes with {_SLICE_4C}; "
                 "the port fits euclidean BisectingKMeans")
         if self.weight_col is not None:
-            raise NotImplementedError(f"BisectingKMeans weight_col= comes with {_SLICE_4B}")
+            raise NotImplementedError(f"BisectingKMeans weight_col= comes with {_SLICE_4C}")
         if type(data).__name__ == "HostDataset":
-            raise NotImplementedError(f"the out-of-core BisectingKMeans fit comes with {_SLICE_4B}")
+            raise NotImplementedError(f"the out-of-core BisectingKMeans fit comes with {_SLICE_4C}")
         if self.strategy not in ("level", "sequential"):
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.n_restarts < 1:

@@ -20,10 +20,16 @@ Lloyd steps, per-cluster diagonal covariances) is host numpy, copied
 unchanged, so it is bit-equal to the JAX package's.
 
 The fast path syncs the host once per iteration, on the log-likelihood
-that decides convergence.  Left to slice 4b of the port (they raise):
-``matmul_precision`` other than ``"highest"`` (the factor-form E-step),
-``checkpoint_dir``, ``warm_start_params``, ``weight_col``, the
-out-of-core ``HostDataset`` input and the partials protocol.
+that decides convergence (``|Δll| >= tol`` in float32, as the reference's
+device loop); a checkpoint or ``on_iteration`` takes the reference's host
+loop (Python floats).  A :class:`~..parallel.outofcore.HostDataset`
+streams its blocks through the same chunked E-step statistics, summed
+over blocks, then one M-step an iteration.  ``checkpoint_dir`` commits
+the parameters with **unshifted** means (``io/fit_checkpoint.py``), and a
+warm start (``warm_start_params``) runs unshifted.  ``matmul_precision``
+other than ``"highest"`` (the factor-form E-step) comes with slice 4c of
+the port, and the partials protocol with the slice that ports
+``federated/partials.py``; both raise.
 """
 
 from __future__ import annotations
@@ -34,13 +40,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..data import sample_valid_rows
+from ..data import DeviceDataset, sample_valid_rows
+from ..device import resolve_device
 from ..io.model_io import register_model
+from ..parallel.outofcore import HostDataset, add_stats
 from .base import ClusteringModel, Estimator, as_device_dataset, check_features
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
 
-_SLICE_4B = "slice 4b of the port"
+_SLICE_4C = "slice 4c of the port"
+_PARTIALS = "the slice of the port that ports federated/partials.py"
 
 
 def _log_pdf(x, means, chols):
@@ -257,74 +266,102 @@ class GaussianMixture(Estimator):
     init_sample_size: int = 65536
     #: rows per E-step chunk: bounds the (chunk, k) and (chunk, d²) tiles
     chunk_rows: int = 65536
+    #: commit the EM state every ``checkpoint_every`` iterations, so a
+    #: preempted fit resumes from the last commit
     checkpoint_dir: str | None = None
-    weight_col: str | None = None
+    checkpoint_every: int = 5
+    weight_col: str | None = None  # Spark's weightCol
+    #: begin EM from (weights (k,), means (k, d), covariances (k, d, d));
+    #: a warm fit runs unshifted
     warm_start_params: tuple | None = None
     matmul_precision: str = "highest"
 
-    def _refuse_unported(self, data) -> None:
-        if self.matmul_precision != "highest":
-            raise NotImplementedError(
-                f"matmul_precision={self.matmul_precision!r} (the factor-form E-step) "
-                f"comes with {_SLICE_4B}; the port runs 'highest'")
-        for name in ("checkpoint_dir", "warm_start_params", "weight_col"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"GaussianMixture {name}= comes with {_SLICE_4B}")
-        if type(data).__name__ == "HostDataset":
-            raise NotImplementedError(f"the out-of-core GaussianMixture fit comes with {_SLICE_4B}")
+    def _warm_params(self, d: int):
+        """Validated warm-start (weights, means, covs) as float32, or None."""
+        if self.warm_start_params is None:
+            return None
+        w, m, c = self.warm_start_params
+        w = np.asarray(w, np.float32)
+        m = np.asarray(m, np.float32)
+        c = np.asarray(c, np.float32)
+        if w.shape != (self.k,) or m.shape != (self.k, d) or c.shape != (self.k, d, d):
+            raise ValueError(
+                "warm_start_params must be (weights (k,), means (k, d), "
+                f"covariances (k, d, d)) for k={self.k}, d={d}; got "
+                f"{w.shape}, {m.shape}, {c.shape}"
+            )
+        return w, m, c
 
-    def fit(self, data, label_col: str | None = None, mesh=None, on_iteration=None,
-            device=None) -> GaussianMixtureModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
-        x) on ``device`` (default the card).  ``on_iteration(it,
-        log_likelihood)`` (optional) fires after every EM step."""
-        self._refuse_unported(data)
-        ds = as_device_dataset(data, device=device)
-        x = ds.x.to(torch.float32).contiguous()
-        w = ds.w.to(torch.float32).contiguous()
-        d = x.shape[1]
-        n = float(w.sum())
-        if n == 0:
-            raise ValueError("GaussianMixture fit on an empty dataset")
-        # init on a bounded host sample, which also gives the recentering
-        # shift that keeps the float32 covariance refit stable
-        valid = sample_valid_rows(ds, self.init_sample_size, self.seed)
-        shift = valid.mean(axis=0).astype(np.float32) if valid.shape[0] else np.zeros(
-            (d,), np.float32)
-        means, covs, weights = _init_params(valid - shift, self.k, d, self.seed,
-                                            self.reg_covar)
-        dev = x.device
-        means_d = torch.from_numpy(means).to(dev)
-        covs_d = torch.from_numpy(covs).to(dev)
-        weights_d = torch.from_numpy(weights).to(dev)
-        shift_d = torch.from_numpy(shift).to(dev)
+    def _warm_fingerprint(self) -> str | None:
+        """Warm-start identity for the checkpoint signature."""
+        if self.warm_start_params is None:
+            return None
+        from ..io.fit_checkpoint import array_fingerprint
 
-        def step(means_d, covs_d, weights_d):
-            chols = _gmm_chols(covs_d, self.reg_covar)
-            nk, sums, outer, ll = _em_pass(x, w, shift_d, torch.log(weights_d), means_d,
-                                           chols, self.chunk_rows)
-            return (*_m_step_rule(nk, sums, outer, self.reg_covar), ll)
+        return "|".join(array_fingerprint(np.asarray(a, dtype=np.float32))
+                        for a in self.warm_start_params)
 
-        it = 0
-        if on_iteration is None:
-            # the JAX package's device loop: |ll − prev_ll| >= tol in float32
-            prev_ll, ll = np.float32(-np.inf), np.float32(np.inf)
-            tol = np.float32(self.tol)
-            while it < self.max_iter and np.abs(ll - prev_ll) >= tol:
-                means_d, covs_d, weights_d, ll_d = step(means_d, covs_d, weights_d)
-                prev_ll, ll = ll, np.float32(ll_d.item())
-                it += 1
-            ll = float(ll)
+    def _start(self, signature, d: int, sample_fn):
+        """→ (checkpointer or None, shift, means, covs, weights, first
+        iteration, resumed prev_ll): the resumed commit (its unshifted
+        means moved by this fit's shift), else the warm start (unshifted),
+        else the init on the shifted host sample."""
+        ckpt = resumed = None
+        if signature is not None:
+            from ..io.fit_checkpoint import FitCheckpointer
+
+            ckpt = FitCheckpointer(self.checkpoint_dir, signature)
+            resumed = ckpt.resume()
+        warm = self._warm_params(d)
+        if warm is None:
+            valid = sample_fn()
+            shift = (valid.mean(axis=0).astype(np.float32) if valid.shape[0]
+                     else np.zeros((d,), np.float32))
         else:
-            prev_ll, ll = -np.inf, 0.0
-            for it in range(1, self.max_iter + 1):
-                means_d, covs_d, weights_d, ll_d = step(means_d, covs_d, weights_d)
-                ll = float(ll_d)  # TOTAL log-likelihood — Spark tol here
-                on_iteration(it, ll)
-                if abs(ll - prev_ll) < self.tol:
-                    break
-                prev_ll = ll
+            valid, shift = None, np.zeros((d,), np.float32)
+        if resumed is not None:
+            step0, arrays, extra = resumed
+            means = arrays["means"].astype(np.float32) - shift
+            covs = arrays["covariances"].astype(np.float32)
+            weights = arrays["weights"].astype(np.float32)
+            return ckpt, shift, means, covs, weights, step0 + 1, float(
+                extra.get("prev_ll", -np.inf))
+        if warm is not None:
+            weights, means, covs = warm
+        else:
+            means, covs, weights = _init_params(valid - shift, self.k, d, self.seed,
+                                                self.reg_covar)
+        return ckpt, shift, means, covs, weights, 1, -np.inf
 
+    def _host_loop(self, step, params, shift, start_it: int, prev_ll: float, ckpt,
+                   on_iteration):
+        """The reference's host loop: one EM iteration a ``step(params)``
+        → (params, ll tensor), a commit every ``checkpoint_every``
+        iterations (unshifted means), ``on_iteration(it, ll)``, and the stop
+        at ``|ll − prev_ll| < tol`` in Python floats.  → (params, ll, last
+        iteration)."""
+        ll = prev_ll if np.isfinite(prev_ll) else 0.0
+        it = start_it - 1
+        for it in range(start_it, self.max_iter + 1):
+            params, ll_d = step(params)
+            ll = float(ll_d)  # TOTAL log-likelihood — Spark tol here
+            if ckpt is not None and it % max(self.checkpoint_every, 1) == 0:
+                means_d, covs_d, weights_d = params
+                ckpt.save(
+                    it,
+                    {"means": means_d.cpu().numpy() + shift,
+                     "covariances": covs_d, "weights": weights_d},
+                    extra={"prev_ll": ll},
+                )
+            if on_iteration is not None:
+                on_iteration(it, ll)
+            if abs(ll - prev_ll) < self.tol:
+                break
+            prev_ll = ll
+        return params, ll, it
+
+    def _model(self, params, shift, ll: float, n: float, it: int) -> GaussianMixtureModel:
+        means_d, covs_d, weights_d = params
         return GaussianMixtureModel(
             weights=weights_d.cpu().numpy(),
             means=means_d.cpu().numpy() + shift,
@@ -334,9 +371,114 @@ class GaussianMixture(Estimator):
             n_iter=it,
         )
 
+    def fit(self, data, label_col: str | None = None, mesh=None, on_iteration=None,
+            device=None) -> GaussianMixtureModel:
+        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
+        x) on ``device`` (default the card); a :class:`HostDataset`
+        streams its blocks to ``device``.  ``on_iteration(it,
+        log_likelihood)`` (optional) fires after every EM step."""
+        if self.matmul_precision != "highest":
+            raise NotImplementedError(
+                f"matmul_precision={self.matmul_precision!r} (the factor-form E-step) "
+                f"comes with {_SLICE_4C}; the port runs 'highest'")
+        if isinstance(data, HostDataset):
+            return self._fit_outofcore(data, resolve_device(device), on_iteration)
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        x = ds.x.to(torch.float32).contiguous()
+        w = ds.w.to(torch.float32).contiguous()
+        d = x.shape[1]
+        n = float(w.sum())
+        if n == 0:
+            raise ValueError("GaussianMixture fit on an empty dataset")
+        signature = None
+        if self.checkpoint_dir:
+            from ..io.fit_checkpoint import data_fingerprint
+
+            signature = {
+                "estimator": "GaussianMixture", "k": self.k, "d": d,
+                "data": data_fingerprint(x, w),
+                "n_padded": ds.n_padded, "seed": self.seed,
+                "warm": self._warm_fingerprint(),
+                "reg_covar": self.reg_covar, "tol": self.tol,
+            }
+        # the init's bounded host sample also gives the recentering shift
+        # that keeps the float32 covariance refit stable
+        ckpt, shift, means, covs, weights, start_it, prev_ll = self._start(
+            signature, d,
+            lambda: sample_valid_rows(DeviceDataset(x, ds.y, w), self.init_sample_size,
+                                      self.seed))
+        dev = x.device
+        params = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (means, covs, weights))
+        shift_d = torch.from_numpy(shift).to(dev)
+
+        def step(params):
+            means_d, covs_d, weights_d = params
+            chols = _gmm_chols(covs_d, self.reg_covar)
+            nk, sums, outer, ll = _em_pass(x, w, shift_d, torch.log(weights_d), means_d,
+                                           chols, self.chunk_rows)
+            return _m_step_rule(nk, sums, outer, self.reg_covar), ll
+
+        if ckpt is None and on_iteration is None:
+            # the reference's device loop: |ll − prev_ll| >= tol in float32
+            it = 0
+            prev, ll = np.float32(-np.inf), np.float32(np.inf)
+            tol = np.float32(self.tol)
+            while it < self.max_iter and np.abs(ll - prev) >= tol:
+                params, ll_d = step(params)
+                prev, ll = ll, np.float32(ll_d.item())
+                it += 1
+            ll = float(ll)
+        else:
+            params, ll, it = self._host_loop(step, params, shift, start_it, prev_ll, ckpt,
+                                             on_iteration)
+        return self._model(params, shift, ll, n, it)
+
+    def _fit_outofcore(self, hd: HostDataset, dev, on_iteration=None) -> GaussianMixtureModel:
+        """Rows ≫ device memory: each EM iteration streams the blocks,
+        sums their chunked E-step statistics (nk, Σr·x, Σr·xxᵀ, ll) and
+        applies one M-step; device memory stays bounded by the block
+        size."""
+        d = hd.n_features
+        n = hd.count()
+        if n == 0:
+            raise ValueError("GaussianMixture fit on an empty dataset")
+        signature = None
+        if self.checkpoint_dir:
+            from ..io.fit_checkpoint import data_fingerprint
+
+            signature = {
+                "estimator": "GaussianMixture", "storage": "outofcore",
+                "k": self.k, "d": d,
+                "data": data_fingerprint(hd.x, hd.w),
+                "n": hd.n, "seed": self.seed,
+                "warm": self._warm_fingerprint(),
+                "reg_covar": self.reg_covar, "tol": self.tol,
+            }
+        ckpt, shift, means, covs, weights, start_it, prev_ll = self._start(
+            signature, d, lambda: hd.sample_rows(self.init_sample_size, self.seed))
+        params = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in (means, covs, weights))
+        shift_d = torch.from_numpy(shift).to(dev)
+
+        def step(params):
+            means_d, covs_d, weights_d = params
+            chols = _gmm_chols(covs_d, self.reg_covar)
+            logw = torch.log(weights_d)
+            tot = None
+            for blk in hd.blocks(device=dev):
+                s = _em_pass(blk.x, blk.w, shift_d, logw, means_d, chols, self.chunk_rows)
+                tot = s if tot is None else add_stats(tot, s)
+            nk, sums, outer, ll = tot
+            return _m_step_rule(nk, sums, outer, self.reg_covar), ll
+
+        params, ll, it = self._host_loop(step, params, shift, start_it, prev_ll, ckpt,
+                                         on_iteration)
+        return self._model(params, shift, ll, n, it)
+
     # the JAX package's partials protocol (federated EM)
     def _partials(self, *args, **kwargs):
-        raise NotImplementedError(f"the GaussianMixture partials protocol comes with {_SLICE_4B}")
+        raise NotImplementedError(f"the GaussianMixture partials protocol comes with {_PARTIALS}")
 
     init_partials_state = local_init_stats = init_state_from_merged = _partials
     partial_fit_stats = apply_partials = fit_from_partials = _partials

@@ -1,19 +1,32 @@
 """KMeans — the north-star workload: k=256 Lloyd on one CUDA device.
 
-The resident Euclidean fit of the JAX package's ``models/kmeans.py``,
-step for step:
+The JAX package's ``models/kmeans.py``, step for step:
 
 - k-means++ init on a host sample of valid rows, copied unchanged, so
-  the same seed gives bit-equal init centers;
+  the same seed gives bit-equal init centers (or ``warm_start_centers``);
 - each Lloyd step is one launch of the K1 kernel (``ops/lloyd.py``)
-  followed by the centroid rule: empty clusters keep their center, and
-  ``move`` is the largest squared shift over valid centers;
-- the loop stops when ``move <= tol²`` (a float32 comparison, as in the
-  reference's device loop) or after ``max_iter`` steps;
+  followed by the centroid rule: empty clusters keep their center, cosine
+  centers are re-normalized, and ``move`` is the largest squared shift
+  over valid centers;
 - one more exact stats pass on the returned centers gives
-  ``training_cost`` and ``cluster_sizes``.
+  ``training_cost`` (Σ w·min d², on unit rows in cosine mode) and
+  ``cluster_sizes``.
 
-The loop syncs the host on ``move`` once per step.
+``distance_measure="cosine"`` runs K1 and K2 unchanged on unit rows (pad
+rows zeroed by the 0/1 mask, never by the weight value).
+
+Two stopping rules, as in the reference.  Its device loop (no checkpoint,
+no ``on_iteration``) stops when ``move <= tol²`` compared in float32; its
+host loop (a checkpoint or ``on_iteration`` on the resident path, and
+every out-of-core fit) compares in Python floats.  A ``move`` between
+the two thresholds stops a step apart, so the port keeps each rule where
+the reference has it.
+
+A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core path:
+each Lloyd step is one K1 launch per streamed block, the statistics
+summed over blocks, then one centroid update.  ``checkpoint_dir`` commits
+the centers every ``checkpoint_every`` steps on both paths
+(``io/fit_checkpoint.py``, the reference's signatures key for key).
 """
 
 from __future__ import annotations
@@ -24,19 +37,39 @@ import numpy as np
 import torch
 
 from ..data import DeviceDataset, pad_slots, padded_slots, sample_valid_rows, slot_mask
+from ..device import resolve_device
 from ..io.model_io import register_model
 from ..ops.lloyd import fused_assign, fused_lloyd_stats
+from ..parallel.outofcore import HostDataset, add_stats
 from .base import ClusteringModel, Estimator, as_device_dataset, check_features
 from .summary import ClusteringSummary
 
+DISTANCE_MEASURES = ("euclidean", "cosine")
 
-def _centroid_rule(sums, counts, centers, c_valid):
-    """Empty clusters keep their previous center (Spark behavior)."""
+
+def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit rows: cosine distance is Euclidean distance on the sphere."""
+    return x / torch.sqrt(torch.clamp((x * x).sum(dim=-1), min=eps))[:, None]
+
+
+def _cosine_prep(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Unit rows with pad rows zeroed by the 0/1 mask: fractional weights
+    must not rescale the unit vectors (they enter through the weighted
+    statistics instead)."""
+    return (normalize_rows(x.to(torch.float32)) * (w[:, None] > 0)).contiguous()
+
+
+def _centroid_rule(sums, counts, centers, c_valid, cosine: bool = False):
+    """Empty clusters keep their previous center (Spark behavior); cosine
+    re-normalizes after every update, or the ||c||² term stops ordering by
+    cosine similarity.  → (new centers, move)."""
     new_centers = torch.where(
         (counts > 0)[:, None],
         sums / torch.clamp(counts, min=1.0)[:, None],
         centers,
     )
+    if cosine:
+        new_centers = normalize_rows(new_centers)
     move = (((new_centers - centers) ** 2).sum(dim=1) * c_valid).max()
     return new_centers, move
 
@@ -113,10 +146,10 @@ class KMeansModel(ClusteringModel):
     cluster_sizes: np.ndarray | None = None
 
     def __post_init__(self):
-        if self.distance_measure != "euclidean":
+        if self.distance_measure not in DISTANCE_MEASURES:
             raise ValueError(
-                f"distance_measure={self.distance_measure!r}: the port serves "
-                "euclidean KMeans only"
+                f"distance_measure={self.distance_measure!r}: KMeans measures are "
+                f"{DISTANCE_MEASURES}"
             )
         self._centers_on: dict[str, torch.Tensor] = {}
 
@@ -147,21 +180,25 @@ class KMeansModel(ClusteringModel):
             self._centers_on[key] = c
         return c
 
+    def _prep(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        x = normalize_rows(x) if self.distance_measure == "cosine" else x
+        return x.contiguous()
+
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """(n, d) tensor → (n,) int32 cluster indices on x's device (the K2
-        kernel on the card)."""
+        kernel on the card; unit rows in cosine mode)."""
         check_features(x, self.cluster_centers.shape[1], type(self).__name__)
         c_valid = torch.ones((self.k,), dtype=torch.float32, device=x.device)
-        return fused_assign(
-            x.to(torch.float32).contiguous(), self._centers(x.device), c_valid
-        )[0]
+        return fused_assign(self._prep(x), self._centers(x.device), c_valid)[0]
 
     def compute_cost(self, data, device=None) -> float:
-        """Sum of weighted squared distances to the nearest center."""
+        """Sum of weighted squared distances to the nearest center (Spark
+        computeCost; on unit rows in cosine mode)."""
         ds = as_device_dataset(data, device=device)
         centers = self._centers(ds.x.device)
         c_valid = torch.ones((self.k,), dtype=torch.float32, device=ds.x.device)
-        _, mind2 = fused_assign(ds.x, centers, c_valid)
+        _, mind2 = fused_assign(self._prep(ds.x), centers, c_valid)
         return float((mind2 * ds.w).sum())
 
     def _artifacts(self):
@@ -201,13 +238,25 @@ class KMeans(Estimator):
     tol: float = 1e-4             # Spark default
     seed: int = 0
     init_mode: str = "k-means++"  # or "random"
+    distance_measure: str = "euclidean"  # or "cosine"
+    #: begin Lloyd from these (k, d) centers instead of the init; the
+    #: checkpoint signature hashes them
+    warm_start_centers: np.ndarray | None = None
     init_sample_size: int = 65536
+    #: commit the centers every ``checkpoint_every`` Lloyd steps, so a
+    #: preempted fit resumes from the last commit
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 5
+    weight_col: str | None = None  # Spark's weightCol
 
     def _init_from_sample(self, valid: np.ndarray) -> np.ndarray:
         """(sample of valid rows) → (k, d) start centers."""
         if valid.shape[0] == 0:
             raise ValueError("k-means fit on an empty dataset")
         rng = np.random.default_rng(self.seed)
+        if self.distance_measure == "cosine":
+            norms = np.sqrt(np.maximum((valid * valid).sum(axis=1), 1e-12))
+            valid = valid / norms[:, None]
         if self.init_mode == "random":
             pick = rng.choice(valid.shape[0], size=min(self.k, valid.shape[0]),
                               replace=False)
@@ -219,38 +268,192 @@ class KMeans(Estimator):
             return centers
         return _kmeans_pp_init(valid, self.k, self.seed)
 
+    def _warm_centers(self, d: int) -> np.ndarray | None:
+        """Validated warm-start centers as float32 (unit rows in cosine
+        mode, the space the update keeps), or None without them."""
+        if self.warm_start_centers is None:
+            return None
+        c = np.asarray(self.warm_start_centers, dtype=np.float32)
+        if c.shape != (self.k, d):
+            raise ValueError(
+                f"warm_start_centers must be ({self.k}, {d}); got {tuple(c.shape)}"
+            )
+        if self.distance_measure == "cosine":
+            norms = np.sqrt(np.maximum((c * c).sum(axis=1), 1e-12))
+            c = c / norms[:, None]
+        return c
+
+    def _warm_fingerprint(self) -> str | None:
+        """Warm-start identity for the checkpoint signature."""
+        if self.warm_start_centers is None:
+            return None
+        from ..io.fit_checkpoint import array_fingerprint
+
+        return array_fingerprint(np.asarray(self.warm_start_centers, dtype=np.float32))
+
     def _init_centers(self, ds: DeviceDataset) -> np.ndarray:
         return self._init_from_sample(
             sample_valid_rows(ds, self.init_sample_size, self.seed)
         )
 
-    def fit(self, data, label_col: str | None = None, device=None) -> KMeansModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
-        x), moved to ``device`` (default the card) unless it already is a
-        DeviceDataset."""
-        if self.init_mode not in ("k-means++", "random"):
-            raise ValueError(f"unknown init_mode {self.init_mode!r}")
-        ds = as_device_dataset(data, device=device)
-        dev = ds.x.device
-        x = ds.x.to(torch.float32).contiguous()
-        w = ds.w.to(torch.float32).contiguous()
-        k_pad = padded_slots(self.k, 1)
-        centers0 = self._init_centers(DeviceDataset(x, ds.y, w))
-        centers = torch.from_numpy(pad_slots(centers0, k_pad)).to(dev)
-        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+    def _checkpointer(self, signature: dict):
+        """→ (FitCheckpointer or None, its resumed state or None)."""
+        if not self.checkpoint_dir:
+            return None, None
+        from ..io.fit_checkpoint import FitCheckpointer
 
-        tol_sq = float(np.float32(self.tol * self.tol))
-        it, move = 0, float("inf")
-        while it < self.max_iter and move > tol_sq:
-            sums, counts, _ = fused_lloyd_stats(x, w, centers, c_valid)
-            centers, move_t = _centroid_rule(sums, counts, centers, c_valid)
-            move = float(move_t)
-            it += 1
-        # final pass: cost/sizes describe the RETURNED centers
-        _, counts, cost = fused_lloyd_stats(x, w, centers, c_valid)
+        ckpt = FitCheckpointer(self.checkpoint_dir, signature)
+        return ckpt, ckpt.resume()
+
+    def _start(self, resumed, d: int, k_pad: int, sample_fn):
+        """→ (float32 (k_pad, d) start centers, first step): the resumed
+        commit, else the warm start, else the init on ``sample_fn()``."""
+        if resumed is not None:
+            step0, arrays, _ = resumed
+            cen = arrays["centers"].astype(np.float32)
+            if cen.shape != (k_pad, d):
+                raise ValueError(
+                    f"checkpointed centers shape {cen.shape} does not match "
+                    f"the padded layout {(k_pad, d)}"
+                )
+            return cen, step0 + 1
+        centers0 = self._warm_centers(d)
+        if centers0 is None:
+            centers0 = self._init_from_sample(sample_fn())
+        return pad_slots(centers0, k_pad), 1
+
+    def _host_loop(self, step, centers, start_it: int, ckpt, on_iteration):
+        """The reference's host loop: ``step(centers)`` → (new centers,
+        cost, move) per Lloyd step, a commit every ``checkpoint_every``
+        steps, ``on_iteration``, and the stop at ``move <= tol²`` in Python
+        floats.  → (centers, last step)."""
+        it = start_it - 1
+        for it in range(start_it, self.max_iter + 1):
+            centers, cost, move = step(centers)
+            if ckpt is not None and it % max(self.checkpoint_every, 1) == 0:
+                ckpt.save(it, {"centers": centers})
+            if on_iteration is not None:
+                on_iteration(it, float(cost), float(move))
+            if float(move) <= self.tol * self.tol:
+                break
+        return centers, it
+
+    def _model(self, centers, counts, cost, it: int) -> KMeansModel:
         return KMeansModel(
             cluster_centers=centers.cpu().numpy()[: self.k],
+            distance_measure=self.distance_measure,
             training_cost=float(cost),
             n_iter=it,
             cluster_sizes=counts.cpu().numpy()[: self.k],
         )
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            on_iteration=None) -> KMeansModel:
+        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
+        x), moved to ``device`` (default the card) unless it already is a
+        DeviceDataset; a :class:`HostDataset` streams its blocks to
+        ``device``.  ``on_iteration(it, cost, move)`` (optional) fires
+        after every Lloyd step."""
+        if self.init_mode not in ("k-means++", "random"):
+            raise ValueError(f"unknown init_mode {self.init_mode!r}")
+        if self.distance_measure not in DISTANCE_MEASURES:
+            raise ValueError(f"unknown distance_measure {self.distance_measure!r}")
+        if isinstance(data, HostDataset):
+            return self._fit_outofcore(data, resolve_device(device), on_iteration)
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        dev = ds.x.device
+        x = ds.x.to(torch.float32).contiguous()
+        w = ds.w.to(torch.float32).contiguous()
+        cosine = self.distance_measure == "cosine"
+        if cosine:
+            x = _cosine_prep(x, w)
+        d = x.shape[1]
+        k_pad = padded_slots(self.k, 1)
+
+        signature = None
+        if self.checkpoint_dir:
+            from ..io.fit_checkpoint import data_fingerprint
+
+            signature = {
+                "estimator": "KMeans", "k": self.k, "d": d,
+                "k_pad": k_pad,
+                "data": data_fingerprint(x, w),
+                "n_padded": ds.n_padded, "seed": self.seed,
+                "init_mode": self.init_mode,
+                "warm": self._warm_fingerprint(),
+                "distance_measure": self.distance_measure, "tol": self.tol,
+            }
+        ckpt, resumed = self._checkpointer(signature)
+        cen, start_it = self._start(resumed, d, k_pad,
+                                    lambda: sample_valid_rows(DeviceDataset(x, ds.y, w),
+                                                              self.init_sample_size, self.seed))
+        centers = torch.from_numpy(cen).to(dev)
+        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+
+        def step(cen):
+            sums, counts, cost = fused_lloyd_stats(x, w, cen, c_valid)
+            new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
+            return new, cost, move
+
+        if ckpt is None and on_iteration is None:
+            # the reference's device loop: move against tol² in float32
+            tol_sq = float(np.float32(self.tol * self.tol))
+            it, move = 0, float("inf")
+            while it < self.max_iter and move > tol_sq:
+                centers, _, move_t = step(centers)
+                move = float(move_t)
+                it += 1
+        else:
+            centers, it = self._host_loop(step, centers, start_it, ckpt, on_iteration)
+        # final pass: cost/sizes describe the RETURNED centers
+        _, counts, cost = fused_lloyd_stats(x, w, centers, c_valid)
+        return self._model(centers, counts, cost, it)
+
+    def _fit_outofcore(self, hd: HostDataset, dev, on_iteration=None) -> KMeansModel:
+        """Rows ≫ device memory: each Lloyd step streams the blocks, one K1
+        launch a block, sums the statistics over blocks and applies one
+        centroid update; device memory stays bounded by the block size.
+        The result matches the resident fit (bit-equal when the sums are
+        exact, e.g. on integer-valued features)."""
+        cosine = self.distance_measure == "cosine"
+        d = hd.n_features
+        k_pad = padded_slots(self.k, 1)
+
+        signature = None
+        if self.checkpoint_dir:
+            from ..io.fit_checkpoint import data_fingerprint
+
+            signature = {
+                "estimator": "KMeans", "storage": "outofcore",
+                "k": self.k, "d": d, "k_pad": k_pad,
+                "data": data_fingerprint(hd.x, hd.w),
+                "n": hd.n, "seed": self.seed,
+                "init_mode": self.init_mode,
+                "warm": self._warm_fingerprint(),
+                "distance_measure": self.distance_measure, "tol": self.tol,
+            }
+        ckpt, resumed = self._checkpointer(signature)
+        cen, start_it = self._start(
+            resumed, d, k_pad, lambda: hd.sample_rows(self.init_sample_size, self.seed))
+        centers = torch.from_numpy(cen).to(dev)
+        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+
+        def epoch(cen):
+            tot = None
+            for blk in hd.blocks(device=dev):
+                x = _cosine_prep(blk.x, blk.w) if cosine else blk.x
+                s = fused_lloyd_stats(x, blk.w, cen, c_valid)
+                tot = s if tot is None else add_stats(tot, s)
+            if tot is None:
+                raise ValueError("k-means fit on an empty dataset")
+            return tot
+
+        def step(cen):
+            sums, counts, cost = epoch(cen)
+            new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
+            return new, cost, move
+
+        centers, it = self._host_loop(step, centers, start_it, ckpt, on_iteration)
+        # final pass: cost/sizes describe the RETURNED centers
+        _, counts, cost = epoch(centers)
+        return self._model(centers, counts, cost, it)

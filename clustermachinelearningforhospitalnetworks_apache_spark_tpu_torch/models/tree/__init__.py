@@ -5,7 +5,7 @@ from .decision_tree import (
     DecisionTreeModel,
     DecisionTreeRegressor,
 )
-from .engine import GrownForest, grow_forest, predict_forest
+from .engine import GrownForest, grow_forest, grow_forest_outofcore, predict_forest
 from .random_forest import (
     RandomForestClassifier,
     RandomForestModel,
@@ -15,5 +15,5 @@ from .random_forest import (
 __all__ = [
     "DecisionTreeClassifier", "DecisionTreeModel", "DecisionTreeRegressor",
     "GrownForest", "RandomForestClassifier", "RandomForestModel",
-    "RandomForestRegressor", "grow_forest", "predict_forest",
+    "RandomForestRegressor", "grow_forest", "grow_forest_outofcore", "predict_forest",
 ]

@@ -3,7 +3,9 @@
 
 A decision tree is the one-tree case of the level-order histogram engine
 (``engine.py``).  Spark defaults: maxDepth 5, maxBins 32,
-minInstancesPerNode 1, minInfoGain 0.
+minInstancesPerNode 1, minInfoGain 0.  A
+:class:`~...parallel.outofcore.HostDataset` streams through the engine's
+out-of-core grower, which alone reads ``checkpoint_dir``.
 """
 
 from __future__ import annotations
@@ -14,21 +16,34 @@ import numpy as np
 import torch
 
 from ...io.model_io import register_model
+from ...parallel.outofcore import HostDataset
 from ..base import Estimator, Model, as_device_dataset, check_features
-from .engine import GrownForest, grow_forest, predict_forest
+from .engine import GrownForest, grow_forest, grow_forest_outofcore, predict_forest
 
 
 def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None = None,
                **kw) -> GrownForest:
-    """Shared fit for every tree estimator: stage the data on ``device``
-    and grow.  ``subset_strategy`` (forests) resolves to a per-node
+    """Shared fit for every tree estimator: a HostDataset streams through
+    ``grow_forest_outofcore``; anything else is staged on ``device`` and
+    grown resident.  ``subset_strategy`` (forests) resolves to a per-node
     feature count once the dataset's width is known."""
-    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col)
-    if subset_strategy is not None:
+    def subset_kw(d: int) -> dict:
+        if subset_strategy is None:
+            return {}
         from .random_forest import _subset_size
 
-        kw["feature_subset_size"] = _subset_size(subset_strategy, ds.n_features, kw["task"])
-    return grow_forest(ds, **kw)
+        return {"feature_subset_size": _subset_size(subset_strategy, d, kw["task"])}
+
+    if isinstance(data, HostDataset):
+        if data.y is None:
+            raise ValueError("tree fit needs labels: HostDataset(y=...)")
+        return grow_forest_outofcore(data, device=device, **subset_kw(data.n_features), **kw)
+    # checkpoints serve the long streaming fits; a resident fit is one
+    # device pass a level and restarts cheaply
+    kw.pop("checkpoint_dir", None)
+    kw.pop("checkpoint_every", None)
+    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col)
+    return grow_forest(ds, **subset_kw(ds.n_features), **kw)
 
 
 @dataclass
@@ -149,6 +164,11 @@ class _TreeParams:
     weight_col: str | None = None  # Spark's weightCol
     # MLlib's categoricalFeaturesInfo: feature index → arity
     categorical_features: dict[int, int] | None = None
+    # out-of-core (HostDataset) fits commit every `checkpoint_every` tree
+    # levels, so a preempted streaming fit resumes mid-growth; resident
+    # fits ignore both
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
 
     def _grow_kw(self) -> dict:
         return dict(
@@ -156,6 +176,7 @@ class _TreeParams:
             min_instances_per_node=self.min_instances_per_node,
             min_info_gain=self.min_info_gain, seed=self.seed,
             categorical_features=self.categorical_features,
+            checkpoint_dir=self.checkpoint_dir, checkpoint_every=self.checkpoint_every,
         )
 
 

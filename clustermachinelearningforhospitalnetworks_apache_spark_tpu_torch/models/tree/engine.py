@@ -12,6 +12,14 @@ flat heap arrays (``_ForestRecorder``, copied unchanged).
 Draws match the JAX package bit for bit (``prng.py``): the per-node
 feature subset is rank-of-uniform over ``fold_in(key(seed), depth)`` and
 the bootstrap is ``poisson(key(seed), rate, (T, n_pad))``.
+
+``grow_forest_outofcore`` grows from a :class:`~...parallel.outofcore.HostDataset`:
+each level streams the blocks, re-bins each one, replays the recorded
+splits to find its rows' nodes, and sums one K3 launch a block; the same
+selection then picks the winners.  Its bootstrap is drawn per block,
+``poisson(fold_in(key(seed), block), rate, (T, b))``, so every level's
+re-stream of a block draws the same weights.  A level is its checkpoint
+boundary (``io/fit_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 
 from ... import prng
 from ...data import DeviceDataset, sample_valid_rows
+from ...device import resolve_device
 from ...ops.tree_hist import fused_level_hist
 from .binning import digitize, quantile_thresholds
 
@@ -150,6 +159,17 @@ def subset_mask(seed: int, depth: int, T: int, level_nodes: int, d: int, k: int,
 def bootstrap_weights(seed: int, rate: float, T: int, n_pad: int, device) -> torch.Tensor:
     """Poisson(rate) bootstrap counts per (tree, row) as float32."""
     return prng.poisson(prng.key(seed), rate, (T, n_pad), device).to(torch.float32)
+
+
+def block_bootstrap(seed: int, block_idx: int, rate: float, T: int, b: int,
+                    device) -> torch.Tensor:
+    """One streamed block's Poisson(rate) bootstrap counts (T, b) as
+    float32, keyed by (seed, block index): every level's re-stream of the
+    block draws the same weights.  A stream of another shape than the
+    resident (T, n_pad) draw, so out-of-core and resident forests agree
+    only with ``bootstrap=False``."""
+    k = prng.fold_in(prng.key(seed), block_idx)
+    return prng.poisson(k, rate, (T, b), device).to(torch.float32)
 
 
 def bin_feature_matrix(x: torch.Tensor, thr: np.ndarray, cat: dict[int, int] | None = None,
@@ -295,6 +315,13 @@ class GrownForest:
     cat_arities: np.ndarray | None = None    # (d,) int32, 0 = continuous
 
 
+def _frontier(node_id, level_nodes: int) -> torch.Tensor:
+    """Each row's slot on the level's frontier, −1 for rows elsewhere."""
+    pos = node_id - (level_nodes - 1)
+    return torch.where((node_id >= 0) & (pos >= 0) & (pos < level_nodes), pos,
+                       torch.full_like(pos, -1))
+
+
 def _level_loop(binned_t, base_t, w_tree, T: int, d: int, B: int, task: str,
                 max_depth: int, seed: int, subset_k: int | None, min_inst: float,
                 min_gain: float, is_cat):
@@ -308,9 +335,7 @@ def _level_loop(binned_t, base_t, w_tree, T: int, d: int, B: int, task: str,
     for depth in range(max_depth + 1):
         level_nodes = 1 << depth
         level_base = level_nodes - 1
-        pos = node_id - level_base
-        pos = torch.where((node_id >= 0) & (pos >= 0) & (pos < level_nodes), pos,
-                          torch.full_like(pos, -1))
+        pos = _frontier(node_id, level_nodes)
         if subset_k is not None:
             mask = subset_mask(seed, depth, T, level_nodes, d, subset_k, dev)
         else:
@@ -379,15 +404,7 @@ def grow_forest(
         return time.perf_counter()
 
     cat = dict(categorical_features or {})
-    for f, arity in cat.items():
-        if not 0 <= f < d:
-            raise ValueError(f"categorical feature index {f} out of range [0, {d})")
-        if not 2 <= arity <= min(32, B):
-            raise ValueError(
-                f"categorical feature {f} arity {arity} must be in "
-                f"[2, min(32, max_bins={B})]"
-            )
-    cat_arities = tuple(cat.get(f, 0) for f in range(d)) if cat else None
+    cat_arities = _check_categorical(cat, d, B)
 
     t0 = time.perf_counter()
     sample = sample_valid_rows(ds, init_sample_size, seed)
@@ -438,6 +455,187 @@ def grow_forest(
     grown = rec.materialize(thr, task, num_classes, cat_arities, B)
     tick("fetch_materialize", t0)
     return grown
+
+
+def _check_categorical(cat: dict[int, int], d: int, B: int) -> tuple | None:
+    """Validate ``categorical_features`` → the per-feature arities, or
+    None on an all-continuous fit."""
+    for f, arity in cat.items():
+        if not 0 <= f < d:
+            raise ValueError(f"categorical feature index {f} out of range [0, {d})")
+        if not 2 <= arity <= min(32, B):
+            raise ValueError(
+                f"categorical feature {f} arity {arity} must be in "
+                f"[2, min(32, max_bins={B})]"
+            )
+    return tuple(cat.get(f, 0) for f in range(d)) if cat else None
+
+
+def grow_forest_outofcore(
+    hd,
+    *,
+    task: str,
+    num_classes: int = 2,
+    num_trees: int = 1,
+    max_depth: int = 5,
+    max_bins: int = 32,
+    min_instances_per_node: int = 1,
+    min_info_gain: float = 0.0,
+    feature_subset_size: int | None = None,
+    bootstrap: bool = False,
+    subsampling_rate: float = 1.0,
+    seed: int = 0,
+    device=None,
+    init_sample_size: int = 65536,
+    categorical_features: dict[int, int] | None = None,
+    bin_thresholds: np.ndarray | None = None,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 1,
+    on_level=None,
+) -> GrownForest:
+    """Grow from a HostDataset: every level is one more sufficient-stats
+    pass over the streamed blocks, so device memory stays bounded by
+    ``hd.max_device_rows``.
+
+    Per level, each block is re-binned against the fit-start thresholds
+    (from ``hd.sample_rows`` or the caller's ``bin_thresholds``), replayed
+    through the splits recorded so far (``advance_level``, the routing the
+    resident loop applies once per level) and given its (T, LN, d, B, S)
+    histogram by one K3 launch; the block histograms are summed and
+    ``select_splits`` picks the winners.  With float32-exact sums the
+    splits are the resident engine's.
+
+    ``checkpoint_dir`` commits the thresholds and the recorder's arrays
+    every ``checkpoint_every`` levels; a resumed fit rebuilds the recorded
+    levels' winners from them and goes on at the next level.
+    ``on_level(depth)`` fires after each level's commit."""
+    dev = resolve_device(device)
+    d = hd.n_features
+    T = num_trees
+    B = max_bins
+    cat = dict(categorical_features or {})
+    cat_arities = _check_categorical(cat, d, B)
+    is_cat_host = np.asarray([f in cat for f in range(d)], dtype=bool)
+    is_cat = torch.as_tensor(is_cat_host, device=dev) if cat else None
+
+    if bin_thresholds is not None:
+        thr = np.asarray(bin_thresholds, dtype=np.float64)
+        if thr.shape != (d, B - 1):
+            raise ValueError(f"bin_thresholds shape {thr.shape} != ({d}, {B - 1})")
+        if hd.count() == 0.0:
+            raise ValueError("tree fit on an empty dataset")
+    else:
+        sample = hd.sample_rows(init_sample_size, seed)
+        if sample.shape[0] == 0:
+            raise ValueError("tree fit on an empty dataset")
+        thr = quantile_thresholds(sample, B)
+
+    S = 3 if task == "regression" else num_classes
+    _, b = hd.block_shape()
+    subset_k = (feature_subset_size
+                if feature_subset_size is not None and feature_subset_size < d else None)
+    rec = _ForestRecorder(T, d, S, max_depth, is_cat_host)
+    winners: list[tuple] = []   # (feat, bin, do_split, catmask) per level, on the device
+
+    def winners_from_recorder(dep: int) -> tuple:
+        """One level's descend inputs from the recorded splits:
+        ``split_feat`` holds −1 where no split, ``advance_level``'s own
+        convention."""
+        sl = slice((1 << dep) - 1, (1 << dep) - 1 + (1 << dep))
+        feat = torch.as_tensor(rec.split_feat[:, sl], device=dev)
+        return (feat, torch.as_tensor(rec.split_bin[:, sl], device=dev), feat >= 0,
+                torch.as_tensor(rec.split_catmask[:, sl].astype(np.int64), device=dev))
+
+    ckpt = None
+    start_depth = 0
+    if checkpoint_dir:
+        from ...io.fit_checkpoint import FitCheckpointer, data_fingerprint
+
+        signature = {
+            "estimator": "forest", "storage": "outofcore",
+            "task": task, "num_classes": num_classes, "num_trees": T,
+            "max_depth": max_depth, "max_bins": B,
+            "min_instances_per_node": min_instances_per_node,
+            "min_info_gain": min_info_gain,
+            "feature_subset_size": feature_subset_size,
+            "bootstrap": bootstrap, "subsampling_rate": subsampling_rate,
+            # lists, not tuples: the committed signature is compared after
+            # a JSON round trip
+            "seed": seed, "cat": [list(t) for t in sorted(cat.items())],
+            "data": data_fingerprint(hd.x, hd.w),
+            "labels": data_fingerprint(np.asarray(hd.y)[:, None]),
+            "n": hd.n,
+        }
+        ckpt = FitCheckpointer(checkpoint_dir, signature)
+        resumed = ckpt.resume()
+        if resumed is not None:
+            step0, arrays, _ = resumed
+            thr = arrays["thr"]
+            rec.split_feat = arrays["split_feat"]
+            rec.split_bin = arrays["split_bin"]
+            rec.split_catmask = arrays["split_catmask"]
+            rec.node_stats = arrays["node_stats"]
+            rec.importances = arrays["importances"]
+            winners.extend(winners_from_recorder(dep) for dep in range(step0 + 1))
+            start_depth = step0 + 1
+
+    def block_arrays(blk, block_idx: int):
+        """(binned_t, base_t, w_tree) of one streamed block."""
+        binned_t = bin_feature_matrix(blk.x, thr, cat, w=blk.w)
+        if task == "regression":
+            y = blk.y
+            base_t = torch.stack([torch.ones_like(y), y, y * y], dim=0)
+        else:
+            yi = blk.y.to(torch.int32)
+            base_t = (yi[None, :] == torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+                      ).to(torch.float32)
+        if bootstrap:
+            w_tree = block_bootstrap(seed, block_idx, float(subsampling_rate), T, b, dev) \
+                * blk.w[None, :]
+        else:
+            w_tree = blk.w[None, :].expand(T, b).contiguous()
+        return binned_t, base_t.contiguous(), w_tree
+
+    def descend(binned_t, upto_depth: int):
+        """Rows → their heap node at ``upto_depth``, replaying the recorded
+        levels' splits."""
+        node_id = torch.zeros((T, b), dtype=torch.int32, device=dev)
+        for dep in range(upto_depth):
+            feat, bin_, split, catmask = winners[dep]
+            node_id = advance_level(binned_t, node_id, _frontier(node_id, 1 << dep), feat,
+                                    bin_, split, (1 << dep) - 1, catmask, is_cat)
+        return node_id
+
+    min_inst, min_gain = float(min_instances_per_node), float(min_info_gain)
+    for depth in range(start_depth, max_depth + 1):
+        level_nodes = 1 << depth
+        if subset_k is not None:
+            mask = subset_mask(seed, depth, T, level_nodes, d, subset_k, dev)
+        else:
+            mask = torch.ones((T, level_nodes, d), dtype=torch.float32, device=dev)
+        hist = None
+        for i, blk in enumerate(hd.blocks(device=dev)):
+            binned_t, base_t, w_tree = block_arrays(blk, i)
+            pos = _frontier(descend(binned_t, depth), level_nodes)
+            h = fused_level_hist(binned_t, base_t, w_tree, pos, level_nodes, B)
+            hist = h if hist is None else hist + h
+        agg, gain, feat, bin_, split, catmask = select_splits(
+            hist, mask, min_inst, min_gain, task, is_cat)
+        winners.append((feat, bin_, split, catmask))
+        rec.record_level(depth, tuple(v.cpu().numpy()
+                                      for v in (agg, gain, feat, bin_, split, catmask)))
+        if ckpt is not None and (depth + 1) % max(checkpoint_every, 1) == 0:
+            ckpt.save(depth, {
+                "thr": thr,
+                "split_feat": rec.split_feat,
+                "split_bin": rec.split_bin,
+                "split_catmask": rec.split_catmask,
+                "node_stats": rec.node_stats,
+                "importances": rec.importances,
+            })
+        if on_level is not None:
+            on_level(depth)   # after the commit: the preemption point tests use
+    return rec.materialize(thr, task, num_classes, cat_arities, B)
 
 
 # ---------------------------------------------------------------- predict

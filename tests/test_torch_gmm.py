@@ -151,13 +151,16 @@ def test_transform_adds_prediction_and_probability(fitted):
 
 
 @pytest.mark.parametrize("option", [
-    dict(matmul_precision="bf16"), dict(checkpoint_dir="ck"),
-    dict(warm_start_params=(1, 2, 3)), dict(weight_col="w"),
+    dict(matmul_precision="bf16"), dict(matmul_precision="high"),
+    dict(matmul_precision="default"), dict(matmul_precision="bf16", checkpoint_dir="ck"),
 ])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    # the factor-form E-step moved to slice 4c (checkpoint_dir, weight_col
+    # and warm_start_params came with slice 4b: tests/test_torch_outofcore.py,
+    # tests/test_torch_fit_checkpoint.py)
+    with pytest.raises(NotImplementedError, match="slice 4c"):
         port.GaussianMixture(k=2, **option).fit(_blobs(40), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    with pytest.raises(NotImplementedError, match="federated/partials.py"):
         port.GaussianMixture(k=2).partial_fit_stats(None)
 
 

@@ -69,7 +69,8 @@ def test_every_module_is_walkable():
                      "streaming.unbounded_table", "streaming.microbatch", "session",
                      "viz.plots", "utils.metrics", "utils.retry", "utils.report",
                      "io.native", "models.streaming_kmeans", "models.gmm",
-                     "models.bisecting_kmeans"):
+                     "models.bisecting_kmeans", "parallel", "parallel.outofcore",
+                     "io.fit_checkpoint"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -120,6 +121,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
         lambda: port.BisectingKMeans(k=2).fit(x),
         lambda: port.gaussian_mixture_model_from_jax_arrays(
             np.full(2, 0.5), x[:2], np.stack([np.eye(3)] * 2)).predict_numpy(x),
+        lambda: list(port.HostDataset(x).blocks()),
+        lambda: port.KMeans(k=2).fit(port.HostDataset(x)),
+        lambda: port.KMeans(k=2, distance_measure="cosine").fit(x),
+        lambda: port.LinearRegression().fit(port.HostDataset(x, x[:, 0])),
+        lambda: port.GaussianMixture(k=2).fit(port.HostDataset(x)),
+        lambda: port.DecisionTreeRegressor(max_depth=2).fit(port.HostDataset(x, x[:, 0])),
+        lambda: port.RandomForestClassifier(num_trees=2).fit(
+            port.HostDataset(x, (x[:, 0] > 0).astype(np.float32))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -198,7 +198,11 @@ def test_whole_slice_table_to_silhouette(mesh1):
 
 
 def test_fit_refuses_empty_and_cosine():
+    # cosine came with slice 4b (tests/test_torch_outofcore.py); a measure
+    # neither package knows is refused
     with pytest.raises(ValueError, match="empty"):
         port.KMeans(k=2).fit(np.zeros((0, 3), np.float32), device="cpu")
     with pytest.raises(ValueError, match="euclidean"):
-        port.KMeansModel(np.zeros((2, 3), np.float32), distance_measure="cosine")
+        port.KMeansModel(np.zeros((2, 3), np.float32), distance_measure="manhattan")
+    assert port.KMeansModel(np.zeros((2, 3), np.float32),
+                            distance_measure="cosine").distance_measure == "cosine"

@@ -190,6 +190,30 @@ def test_float64_payloads_build_the_float32_models_predict_needs():
     np.testing.assert_array_equal(km.predict(torch.eye(3)).numpy(), [0, 1, 2])
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cosine_kmeans_artifact_loads_across_packages_and_predicts_the_same(
+        writer, mesh1, tmp_path):
+    """A cosine KMeans saved by either package loads in the other, which
+    predicts on unit rows (K2's plain version here) as the writer does;
+    the cost at rtol 1e-5 (float32 sums in another order)."""
+    rng = np.random.default_rng(5)
+    x = (rng.normal(size=(600, 4)) + rng.integers(-3, 4, size=(600, 1))).astype(np.float32)
+    est = dict(k=4, seed=0, max_iter=5, distance_measure="cosine")
+    if writer == "jax":
+        fitted = J.KMeans(**est).fit(x, mesh=mesh1)
+        _save(j_io, fitted, str(tmp_path / "m"))
+        jm, pm = fitted, P.load_model(str(tmp_path / "m"))
+    else:
+        fitted = P.KMeans(**est).fit(x, device="cpu")
+        _save(p_io, fitted, str(tmp_path / "m"))
+        jm, pm = J.load_model(str(tmp_path / "m")), fitted
+    assert pm.distance_measure == jm.distance_measure == "cosine"
+    np.testing.assert_array_equal(pm.predict_numpy(x, device="cpu"),
+                                  np.asarray(jm.predict(jnp.asarray(x))))
+    np.testing.assert_allclose(pm.compute_cost(x, device="cpu"), jm.compute_cost(x),
+                               rtol=1e-5)
+
+
 # ---------------------------------------------------------- port → JAX
 @pytest.mark.parametrize("kind", KINDS)
 def test_port_artifact_loads_in_jax_and_predicts_the_same(kind, port_models, tmp_path):
