@@ -50,8 +50,9 @@ kernels:
   on 10M x 8 rows for 10 EM iterations (non-decreasing log-likelihood,
   peak device memory), BisectingKMeans k=8 on 2M x 8 rows (levels, host
   syncs, predict through K2), each against the CPU route on the same
-  rows (a 200,000-row prefix for the last two) within limits that the
-  same run in TF32 (the control) fails.
+  rows (a 200,000-row prefix for the last two) within limits that a
+  control fails: the same run in TF32, or for BisectingKMeans (float64
+  passes) the CPU route on TF32-rounded rows.
 * the out-of-core fits (slice 4b) — KMeans k=256 over the 10M rows
   memory-mapped from disk and streamed as ``HostDataset`` blocks of 2**20
   (K1 a block a Lloyd step) against the resident fit, with the epoch
@@ -64,6 +65,22 @@ kernels:
   LinearRegression on 2M rows, and the rf20-shape forest in 8 blocks (K3
   a block a level: splits against the resident forest, per-block
   bootstrap draws against the CPU, a preempt at depth 2 resumed).
+* slices 3e and 4c — GBTRegressor at bench.py's gbt20 shape (2M x 8, 20
+  rounds, depth 3: K3 at T = 1, 80 launches, timed with CUDA events), its
+  boost loop under ``set_sync_debug_mode("error")`` and the fit's host
+  syncs, against the CPU route on 200,000 rows (integer labels: the same
+  trees; float labels: predictions), GBTClassifier on the stage's
+  binarized LOS, a validation fit stopping where the CPU's stops, the boost
+  out of core in 8 blocks against resident and a preempted fit resumed;
+  LinearRegression's elastic net (resident and out of core) and training
+  summary against the CPU route, and its chunked Gram against float64;
+  KMeans k=256 on the 10M rows in bf16 (with and without ``fused_stats``)
+  and GaussianMixture k=32 in bf16 and "high" against "highest"; and
+  BisectingKMeans' cosine and weighted fits and its out-of-core fit in
+  blocks of 2^19 against resident and against the CPU (K2 in predict),
+  each comparison holding the split tree.  Every card-vs-CPU limit of
+  these slices must fail its control (TF32 products, or the route on
+  TF32-rounded rows).
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -642,6 +659,9 @@ def k3_phase(H) -> dict:
         # slice 4b: one streamed block of the out-of-core rf20 forest
         ("rf20 block root", FOREST_BLOCK, 8, 3, 20, 1),
         ("rf20 block depth 5", FOREST_BLOCK, 8, 3, 20, 32),
+        # slice 3e: one GBT round's tree at the gbt20 shape, root and depth 3
+        ("gbt20 T=1 root", TREE_N, 8, 3, 1, 1),
+        ("gbt20 T=1 depth 3", TREE_N, 8, 3, 1, 8),
     ]
     times = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
@@ -660,6 +680,12 @@ def k3_phase(H) -> dict:
             f"{plan['smem']} shared bytes, {plan['per_sm']} resident an SM, "
             f"{plan['waves']} wave(s); integer stats exact, two launches bit-identical — ok")
         del ins
+    for LN in (2, 4):     # the gbt20 levels between the two timed ones: plans only
+        per_sm = H.occupancy(torch.device(DEV), 8, 3, B, LN, 1) if DEV == "cuda" else None
+        plan = H.hist_plan(TREE_N, 8, 3, B, LN, 1, sms, per_sm)
+        say(f"K3 gbt20 T=1 LN={LN} plan: TB {plan['TB']}, blocks_x {plan['blocks_x']}, "
+            f"{plan['warps']} warps, {plan['smem']} shared bytes, {plan['per_sm']} resident an "
+            f"SM, {plan['waves']} wave(s)")
 
     # fractional weights and stats at rf20's root and in the edge shapes
     worst = 0.0
@@ -699,7 +725,7 @@ def k3_phase(H) -> dict:
     t, err = times["pipeline RF regressor depth 5"]
     shapes = [{"n": n, "d": d, "S": S, "T": T, "LN": LN, "B": B,
                "max_abs_err": times[tag][1], **times[tag][0]}
-              for tag, n, d, S, T, LN in main if tag.startswith("rf20 block")]
+              for tag, n, d, S, T, LN in main if tag.startswith(("rf20 block", "gbt20"))]
     return {"name": "fused_level_hist", "route": "cuda",
             "source": f"{PKG}/csrc/tree_hist.cu", "replaces": f"{JAX_KERNELS}:335",
             "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1614,6 +1640,8 @@ PREFIX = 200_000                                            # card against CPU
 # 1.54e-4, covariances 5.72e-6 / 2.00e-4, bisecting centers 4.53e-6 /
 # 4.84e-3).  GMM's log-likelihood moves by 8.6e-8 relative under TF32,
 # about one float32 ulp, so its limit (16 ulp) guards the sum, not TF32.
+# BisectingKMeans ranks and sums in float64 since PR 13, where TF32 does
+# not reach: its control is the CPU route on TF32-rounded rows.
 STREAM_CENTER_TOL = 1e-5
 GMM_TOL = {"ll_rel": 1e-6, "weights": 1e-6, "means": 3e-5, "covariances": 5e-5}
 GMM_TF32_CAUGHT = ("weights", "means", "covariances")
@@ -1806,8 +1834,8 @@ def bisecting_phase(port, L, card: str) -> int:
     """BASELINE config 4 (bench.py ``_bench_bisecting``): BisectingKMeans
     k=8, n_restarts 1, seed 0 on 2M x 8 rows: fit seconds, records/s,
     levels and host syncs; predict through K2; the card against the CPU on
-    a 200,000-row prefix, with the same fit in TF32 as the control.
-    → K2 launches."""
+    a 200,000-row prefix, with the CPU fit on TF32-rounded rows as the
+    control.  → K2 launches."""
     import numpy as np
     import torch
 
@@ -1838,27 +1866,30 @@ def bisecting_phase(port, L, card: str) -> int:
     sub = x[:PREFIX]
     on_card = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(sub)
     on_cpu = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(sub, device="cpu")
-    with tf32_matmuls():
-        on_tf32 = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(sub)
+    on_ctl = port.BisectingKMeans(k=BISECT_K, seed=SEED, n_restarts=1).fit(tf32_round(sub),
+                                                                          device="cpu")
     c_err = float(np.abs(on_card.cluster_centers - on_cpu.cluster_centers).max())
-    c_ctl = float(np.abs(on_tf32.cluster_centers - on_cpu.cluster_centers).max())
+    c_ctl = float(np.abs(on_ctl.cluster_centers - on_cpu.cluster_centers).max())
     s_diff = int(np.abs(on_card.cluster_sizes - on_cpu.cluster_sizes).sum())
-    # float32 sums in another order: the same tree, centers within
-    # BISECT_CENTER_TOL (the same fit with TF32 matmuls is not); a near-tie
+    # sums in another order: the same tree, centers within
+    # BISECT_CENTER_TOL (the fit on TF32-rounded rows is not); a near-tie
     # row may take the other child (0.01 % of the rows)
-    check(on_card.n_iter == on_cpu.n_iter and c_err <= BISECT_CENTER_TOL
+    check(on_card.fit_info["splits"] == on_cpu.fit_info["splits"]
+          and on_card.n_iter == on_cpu.n_iter and c_err <= BISECT_CENTER_TOL
           and s_diff <= PREFIX // 10_000,
           f"bisecting card vs CPU on {PREFIX} rows: centers {c_err:.3g}, sizes differ by "
           f"{s_diff}")
     check(c_ctl > BISECT_CENTER_TOL,
-          f"the TF32 control's centers ({c_ctl:.3g}) pass the limit {BISECT_CENTER_TOL:g}")
+          f"the TF32-rounded control's centers ({c_ctl:.3g}) pass the limit "
+          f"{BISECT_CENTER_TOL:g}")
     say(f"bisecting k={BISECT_K} on {card}: {BISECT_N} x {D}, fit {fit_s:.3f} s = "
         f"{BISECT_N / fit_s:.4g} records/s, {len(info['levels'])} levels, Lloyd iterations a "
         f"level {info['levels']}, {info['host_syncs']} host syncs (the JAX package: 1 a tree); "
         f"training cost {model.training_cost:.8g}; predict {pred_s * 1e3:.2f} ms through K2 "
         f"({moved} rows nearer another leaf than the fit's own split); card vs CPU on "
         f"{PREFIX} rows: same splits, centers max abs err {c_err:.3g} (limit "
-        f"{BISECT_CENTER_TOL:g}; TF32 control {c_ctl:.3g}), sizes differ by {s_diff}")
+        f"{BISECT_CENTER_TOL:g}; the control on TF32-rounded rows {c_ctl:.3g}), sizes differ "
+        f"by {s_diff}")
     return k2
 
 
@@ -2327,6 +2358,579 @@ def outofcore_phase(port, L, H, card: str, k1_ms: float) -> dict:
     return counts
 
 
+# ------------------------------- slice 3e: GBT (K3 at T = 1), LR, summary
+GBT_ROUNDS, GBT_DEPTH = 20, 3           # bench.py's gbt20 row
+GBT_BLOCK = 1 << 18                     # the out-of-core boost: 8 blocks of 2M rows
+GBT_VAL_N = 100_000                     # the validation fit, card against CPU
+# limits of this slice's card-vs-CPU and reduced-precision checks, each
+# about 10x the gap the first chip run showed (NVIDIA H100 80GB HBM3,
+# 700.00 W); the measured gaps are printed beside them.  Each card-vs-CPU
+# limit must also fail its control: the same fit with TF32 products, or
+# the CPU (or out-of-core) route on TF32-rounded rows
+GBT_VALUE_TOL = 1e-6                    # leaf values, integer labels (4.77e-7)
+GBT_PRED_RTOL = 1e-4                    # predictions, float labels (4.81e-5)
+GBT_VAL_VALUE_TOL = 5e-6                # the validation fit's leaf values (4.77e-7)
+GBT_OOC_VALUE_TOL = 2.4e-6              # out of core against resident (2.38e-7)
+# elastic net against the CPU, in units of the largest coefficient: card
+# (1.04e-5; TF32 control 9.5e-5), out of core (6.3e-6; control 3.6e-5)
+LR_COEF_TOL = {"card": 3e-5, "outofcore": 2e-5}
+# the summary against the CPU: each standard error relative, each t-value
+# relative where |t| >= 1 and absolute where |t| < 1 (the intercept's
+# 0.893), r2, RMSE relative, and g64, the resident fit's distance from
+# float64 over the largest coefficient (the Part A fix).  Gaps (TF32
+# control): 2.55e-6 (1.76e-4), 6.91e-6 (6.11e-4), 0.0148 (1.47), 0
+# (7.64e-8), 0 (6.84e-7), 1.05e-5 (1e-3).  TF32 moves r2 by about one
+# float32 ulp of 0.944 (5.96e-8), so its limit (2 ulp) guards the sums,
+# not TF32, as GMM's log-likelihood limit does
+LR_SUMMARY_TOL = {"se_rel": 2.5e-5, "t_rel": 7e-5, "t_abs": 0.15, "r2": 1.2e-7,
+                  "rmse_rel": 2e-7, "g64": 1e-4}
+LR_TF32_CAUGHT = ("se_rel", "t_rel", "t_abs", "rmse_rel", "g64")
+# the final cost against "highest" (2.36e-5, 9.54e-6)
+BF16_COST_RTOL = {"bf16": 2.5e-4, "bf16+fused_stats": 1e-4}
+# against "highest": bf16 (1.18e-4, 2.43e-3, 3.78e-4), high = TF32 on the
+# card (6.41e-6, 1.06e-3, 1.98e-4)
+GMM_PREC_TOL = {"bf16": {"ll_rel": 1e-3, "means": 2.5e-2, "covariances": 4e-3},
+                "high": {"ll_rel": 6e-5, "means": 1e-2, "covariances": 2e-3}}
+# bisecting card vs CPU on the 200,000-row prefix, the cosine resident fit
+# and the out-of-core route (in 4 blocks): PR 11's centers limit, and at
+# most 4 rows (sizes: the summed leaf-size gap; rows: rows whose
+# predicted leaf differs)
+BISECT_CARD_TOL = {"centers": BISECT_CENTER_TOL, "sizes": 4, "rows": 4}
+# out of core against resident on the 2M rows
+BISECT_OOC_TOL = {"centers": BISECT_CENTER_TOL, "sizes": 20, "rows": 40}
+BISECT_PREFIX_BLOCK = 1 << 16
+BISECT_OOC_BLOCK = 1 << 19
+
+
+def gbt_data():
+    """bench.py's gbt20 data: ``_make_data(2M, 8, 16)``, seed 0, and
+    ``y = x·β + N(0, 0.3)`` with β ~ N(0, 1) from a second seed-0 stream."""
+    import numpy as np
+
+    x = make_data(TREE_N, 8, 16)
+    rng = np.random.default_rng(0)
+    y = (x @ rng.normal(size=(8,)) + rng.normal(0.0, 0.3, size=TREE_N)).astype(np.float32)
+    return x, y
+
+
+def count_syncs(fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: → (its result, the
+    host syncs it made)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def tree_gap(a, b) -> float:
+    """Two GBT models' largest leaf-value gap over their common rounds;
+    inf when their split features differ (a control that splits elsewhere
+    fails every limit)."""
+    import numpy as np
+
+    t = min(a.num_trees, b.num_trees)
+    if not np.array_equal(a.split_feat[:t], b.split_feat[:t]):
+        return float("inf")
+    return float(np.abs(a.value[:t] - b.value[:t]).max())
+
+
+def same_trees(a, b, value_tol: float) -> float:
+    """Two GBT models with the same split features and thresholds; →
+    their largest leaf-value gap, checked against ``value_tol``."""
+    import numpy as np
+
+    check(np.array_equal(a.split_feat, b.split_feat)
+          and np.array_equal(a.threshold, b.threshold),
+          "the two GBT fits split differently")
+    gap = float(np.abs(a.value - b.value).max())
+    check(gap <= value_tol, f"GBT leaf values {gap:.3g} apart (limit {value_tol:g})")
+    return gap
+
+
+def gbt_phase(port, H, card: str, tmp: str) -> int:
+    """Slice 3e: GBTRegressor at bench.py's gbt20 shape (2M x 8, 20 rounds,
+    depth 3): the fit and predict, the boost loop under
+    ``set_sync_debug_mode("error")`` (no host sync between F0 and the final
+    fetch), the fit's host syncs, K3's launches (20 x 4) timed with CUDA
+    events; against the CPU route on a 200,000-row cut (integer labels:
+    the same trees; float labels: predictions); GBTClassifier on the
+    hospital stage's binarized LOS (2M rows) and its accuracy on the cut
+    against the CPU's; a validation fit stopping where the CPU's stops; the
+    boost out of core in 8 blocks against resident, and a preempted
+    out-of-core fit resumed.  → K3 launches."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import gbt
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    x, y = gbt_data()
+    ds = port.device_dataset(x, y, device=DEV)
+    est = port.GBTRegressor(max_iter=GBT_ROUNDS, max_depth=GBT_DEPTH, seed=0)
+    est.fit(ds)                                              # warm-up
+    H.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    model = est.fit(ds)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches = H.launch_counts()["fused_level_hist"]
+    check(launches == GBT_ROUNDS * (GBT_DEPTH + 1),
+          f"gbt20 launched K3 {launches} times (expected {GBT_ROUNDS} x {GBT_DEPTH + 1})")
+    check(model.num_trees == GBT_ROUNDS and np.isfinite(model.value).all(),
+          "gbt20 model not 20 finite trees")
+    t0 = time.perf_counter()
+    pred = model.predict(ds.x)
+    sync()
+    pred_ms = (time.perf_counter() - t0) * 1e3
+    rmse = port.RegressionEvaluator().evaluate(
+        port.PredictionResult(prediction=pred, label=ds.y, weight=ds.w))
+    check(np.isfinite(rmse) and rmse < float(y.std()), f"gbt20 RMSE {rmse} not below std(y)")
+
+    # the boost loop, F0 to the final fetch, makes no host sync
+    rounds = gbt._GBTParams._device_rounds
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return rounds(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    gbt._GBTParams._device_rounds = guarded
+    try:
+        again = est.fit(ds)
+    finally:
+        gbt._GBTParams._device_rounds = rounds
+    same_trees(again, model, 0.0)
+    _, syncs = count_syncs(lambda: est.fit(ds))
+    with K3Events() as k3:
+        est.fit(ds)
+    k3_ms = k3.ms()
+    say(f"gbt20 on {card}: GBTRegressor(max_iter={GBT_ROUNDS}, max_depth={GBT_DEPTH}) on "
+        f"{TREE_N} x 8, fit {fit_s:.3f} s = {TREE_N / fit_s:.4g} rows/s ("
+        f"{TREE_N * GBT_ROUNDS / fit_s:.4g} row-rounds/s); predict {pred_ms:.2f} ms, RMSE "
+        f"{rmse:.6f}; K3 {launches} launches, {sum(k3_ms):.2f} ms in all "
+        f"({100 * sum(k3_ms) / 1e3 / fit_s:.1f}% of the fit; per level, first round "
+        f"{[round(t, 4) for t in k3_ms[:GBT_DEPTH + 1]]} ms); the boost loop under "
+        f"set_sync_debug_mode('error'): no host sync; host syncs of the whole fit {syncs}")
+
+    # card against the CPU route on a 200,000-row cut
+    xs, ys = x[:PREFIX], y[:PREFIX]
+    yi = np.round(ys)
+    kw = dict(max_iter=GBT_ROUNDS, max_depth=GBT_DEPTH, seed=0)
+    c_int = port.GBTRegressor(**kw).fit((xs, yi), device=DEV)
+    t0 = time.perf_counter()
+    p_int = port.GBTRegressor(**kw).fit((xs, yi), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    v_gap = same_trees(c_int, p_int, GBT_VALUE_TOL)
+    c_flt = port.GBTRegressor(**kw).fit((xs, ys), device=DEV)
+    p_flt = port.GBTRegressor(**kw).fit((xs, ys), device="cpu")
+    b = p_flt.predict_numpy(xs, device="cpu")
+
+    def pred_gap(m, device):
+        a = m.predict_numpy(xs, device=device)
+        return float((np.abs(a - b) / np.maximum(np.abs(b), 1e-6)).max())
+
+    p_gap = pred_gap(c_flt, DEV)
+    check(p_gap <= GBT_PRED_RTOL,
+          f"gbt card vs CPU on float labels: predictions rel {p_gap:.3g} (limit {GBT_PRED_RTOL:g})")
+    flips = int((c_flt.split_feat != p_flt.split_feat).sum()
+                + (c_flt.threshold != p_flt.threshold).sum())
+    # the controls, the CPU route on TF32-rounded rows: the features for
+    # the integer labels (exact in TF32), the labels for the float ones
+    v_ctl = tree_gap(port.GBTRegressor(**kw).fit((tf32_round(xs), yi), device="cpu"), p_int)
+    p_ctl = pred_gap(port.GBTRegressor(**kw).fit((xs, tf32_round(ys)), device="cpu"), "cpu")
+    check(v_ctl > GBT_VALUE_TOL and p_ctl > GBT_PRED_RTOL,
+          f"the TF32-rounded controls pass the gbt limits: leaf values {v_ctl:.3g} (limit "
+          f"{GBT_VALUE_TOL:g}), predictions rel {p_ctl:.3g} (limit {GBT_PRED_RTOL:g})")
+    say(f"gbt card vs CPU on {PREFIX} rows (CPU fit {cpu_s:.2f} s): integer labels, the same "
+        f"trees, leaf values {v_gap:.3g} apart (limit {GBT_VALUE_TOL:g}; the control on "
+        f"TF32-rounded features {v_ctl:.3g}); float labels, predictions rel {p_gap:.3g} apart "
+        f"(limit {GBT_PRED_RTOL:g}; the control on TF32-rounded labels {p_ctl:.3g}), {flips} "
+        f"split entries differ (near ties)")
+
+    # GBTClassifier on the hospital stage's binarized LOS
+    cfg = port.PipelineConfig()
+    table = port.Table.from_dict(hospital_events(TREE_N // 5), port.hospital_event_schema())
+    table = port.Binarizer(port.LABEL_COL, "LOS_binary", cfg.los_threshold).transform(table)
+    assembled = port.VectorAssembler(port.FEATURE_COLS).transform(table)
+    cds = assembled.to_device(label_col="LOS_binary", device=DEV)
+    clf = port.GBTClassifier(**kw)
+    clf.fit(cds)
+    H.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    cm = clf.fit(cds)
+    sync()
+    clf_s = time.perf_counter() - t0
+    launches += H.launch_counts()["fused_level_hist"]
+    acc = port.MulticlassClassificationEvaluator().evaluate(cm.transform(cds))
+    xc = assembled.features[:PREFIX]
+    yc = assembled.label("LOS_binary")[:PREFIX]
+    acc_c = float((port.GBTClassifier(**kw).fit((xc, yc), device=DEV)
+                   .predict_numpy(xc, device=DEV) == yc).mean())
+    acc_p = float((port.GBTClassifier(**kw).fit((xc, yc), device="cpu")
+                   .predict_numpy(xc, device="cpu") == yc).mean())
+    check(acc_c == acc_p, f"gbt classifier accuracy on {PREFIX} rows: card {acc_c}, CPU {acc_p}")
+    say(f"gbt classifier on the stage's binarized LOS ({TREE_N} x 4): fit {clf_s:.3f} s = "
+        f"{TREE_N / clf_s:.4g} rows/s, accuracy {acc:.6f}; on {PREFIX} rows card {acc_c:.6f} "
+        f"== CPU {acc_p:.6f}")
+    del cds, table, assembled
+
+    # the validation early stop (integer LOS, 30 % held out), card and CPU
+    cols = hospital_events(GBT_VAL_N // 5, seed=11)
+    cols[port.LABEL_COL] = np.round(cols[port.LABEL_COL])
+    cols["is_val"] = (np.arange(GBT_VAL_N) % 10 < 3).astype(np.int64)
+    vt = port.VectorAssembler(port.FEATURE_COLS).transform(port.Table.from_dict(cols))
+    vkw = dict(max_iter=40, max_depth=5, step_size=0.5, seed=0, validation_indicator_col="is_val")
+    H.reset_launch_counts()
+    vc = port.GBTRegressor(**vkw).fit(vt, device=DEV)
+    launches += H.launch_counts()["fused_level_hist"]
+    vp = port.GBTRegressor(**vkw).fit(vt, device="cpu")
+    check(vc.num_trees == vp.num_trees < 40,
+          f"validation fit: the card kept {vc.num_trees} rounds, the CPU {vp.num_trees}")
+    val_gap = same_trees(vc, vp, GBT_VAL_VALUE_TOL)
+    # the control: the CPU fit on TF32-rounded features
+    vt_ctl = port.VectorAssembler(port.FEATURE_COLS).transform(port.Table.from_dict(
+        {c: tf32_round(v) if c in port.FEATURE_COLS else v for c, v in cols.items()}))
+    vp_ctl = port.GBTRegressor(**vkw).fit(vt_ctl, device="cpu")
+    val_ctl = tree_gap(vp_ctl, vp)
+    check(val_ctl > GBT_VAL_VALUE_TOL,
+          f"the TF32-rounded control passes the validation fit's limit: {vp_ctl.num_trees} "
+          f"rounds, leaf values {val_ctl:.3g} (limit {GBT_VAL_VALUE_TOL:g})")
+    say(f"gbt validation early stop ({GBT_VAL_N} rows, 30 % held out, max_iter 40): "
+        f"{vc.num_trees} rounds kept on the card, the same on the CPU, the same trees, leaf "
+        f"values {val_gap:.3g} apart (limit {GBT_VAL_VALUE_TOL:g}; the control on TF32-rounded "
+        f"features: {vp_ctl.num_trees} rounds, {val_ctl:.3g})")
+
+    # out of core in 8 blocks of 2^18, against resident; a preempt resumed
+    hd = port.HostDataset(x=x, y=y, max_device_rows=GBT_BLOCK)
+    H.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    ooc = est.fit(hd, device=DEV)
+    ooc_s = time.perf_counter() - t0
+    ooc_launches = H.launch_counts()["fused_level_hist"]
+    launches += ooc_launches
+    check(ooc_launches == GBT_ROUNDS * (GBT_DEPTH + 1) * hd.block_shape()[0],
+          f"out-of-core gbt launched K3 {ooc_launches} times")
+    o_gap = same_trees(ooc, model, GBT_OOC_VALUE_TOL)
+    # the control: out of core on TF32-rounded labels
+    o_ctl = tree_gap(est.fit(port.HostDataset(x=x, y=tf32_round(y), max_device_rows=GBT_BLOCK),
+                             device=DEV), model)
+    check(o_ctl > GBT_OOC_VALUE_TOL,
+          f"the TF32-rounded control passes the out-of-core gbt limit: leaf values {o_ctl:.3g} "
+          f"(limit {GBT_OOC_VALUE_TOL:g})")
+    ckpt_kw = dict(max_iter=5, max_depth=GBT_DEPTH, seed=0)
+    plain = port.GBTRegressor(**ckpt_kw).fit(hd, device=DEV)
+    ck = port.GBTRegressor(**ckpt_kw, checkpoint_dir=os.path.join(tmp, "gbt_ck"))
+    plan = faults.FaultPlan().crash("fit_ckpt.save.commit", after=2)
+    with faults.active(plan):
+        try:
+            ck.fit(hd, device=DEV)
+            fail("the preempted out-of-core gbt fit was not stopped")
+        except faults.InjectedCrash:
+            pass
+    resumed = ck.fit(hd, device=DEV)
+    same_trees(resumed, plain, 0.0)
+    say(f"gbt out of core ({hd.block_shape()[0]} blocks of {GBT_BLOCK}): fit {ooc_s:.3f} s = "
+        f"{TREE_N / ooc_s:.4g} rows/s, K3 {ooc_launches} launches; against resident the same "
+        f"trees, leaf values {o_gap:.3g} apart (limit {GBT_OOC_VALUE_TOL:g}; the control on "
+        f"TF32-rounded labels {o_ctl:.3g}); a fit preempted at round 2's commit resumed "
+        f"to the same trees")
+    return launches
+
+
+def lr_phase(port, card: str) -> None:
+    """Slice 3e: LinearRegression on the stage's 2M hospital rows — the
+    elastic net (reg 0.1, mix 0.5) resident and out of core against the
+    CPU route (n_iter equal, coefficients 1e-4 of the largest), the
+    training summary against the CPU's (each standard error and each
+    t-value on its own scale), and the resident fit's chunked Gram against
+    float64; every limit also faces the same fit with TF32 products, which
+    must fail it."""
+    import numpy as np
+
+    cols = hospital_events(TREE_N // 5)
+    xl = np.stack([cols[c] for c in port.FEATURE_COLS], axis=1)
+    yl = cols[port.LABEL_COL]
+    del cols
+    ds = port.device_dataset(xl, yl, device=DEV)
+    en = port.LinearRegression(reg_param=0.1, elastic_net_param=0.5)
+    en.fit(ds)
+    sync()
+    t0 = time.perf_counter()
+    m = en.fit(ds)
+    sync()
+    en_s = time.perf_counter() - t0
+    mc = en.fit((xl, yl), device="cpu")
+    hl = port.HostDataset(x=xl, y=yl, max_device_rows=LR_OOC_BLOCK)
+    mo = en.fit(hl, device=DEV)
+    with tf32_matmuls():
+        m_ctl, mo_ctl = en.fit(ds), en.fit(hl, device=DEV)
+
+    def coefs(model):
+        return np.r_[model.coefficients.cpu().numpy(), float(model.intercept)]
+
+    scale = float(np.abs(coefs(mc)).max())
+    g_cpu = float(np.abs(coefs(m) - coefs(mc)).max())
+    g_ooc = float(np.abs(coefs(mo) - coefs(mc)).max())
+    g_ctl = float(np.abs(coefs(m_ctl) - coefs(mc)).max())
+    g_ooc_ctl = float(np.abs(coefs(mo_ctl) - coefs(mc)).max())
+    # the gaps in units of the largest coefficient
+    g_cpu, g_ooc, g_ctl, g_ooc_ctl = (g / scale for g in (g_cpu, g_ooc, g_ctl, g_ooc_ctl))
+    lim_c, lim_o = LR_COEF_TOL["card"], LR_COEF_TOL["outofcore"]
+    check(m.fit_info["n_iter"] == mc.fit_info["n_iter"] == mo.fit_info["n_iter"],
+          f"elastic net n_iter: card {m.fit_info}, CPU {mc.fit_info}, out of core {mo.fit_info}")
+    check(g_cpu <= lim_c and g_ooc <= lim_o,
+          f"elastic net coefficients from the CPU route: card {g_cpu:.3g} (limit {lim_c:g}), "
+          f"out of core {g_ooc:.3g} (limit {lim_o:g}) of the largest")
+    check(g_ctl > lim_c and g_ooc_ctl > lim_o,
+          f"the TF32 controls pass the elastic net limits: card {g_ctl:.3g} (limit {lim_c:g}), "
+          f"out of core {g_ooc_ctl:.3g} (limit {lim_o:g})")
+    say(f"linear regression elastic net (reg 0.1, mix 0.5) on {len(yl)} hospital rows: fit "
+        f"{en_s * 1e3:.2f} ms, n_iter {m.fit_info['n_iter']} with {m.fit_info['host_syncs']} "
+        f"host syncs (CPU and out of core the same n_iter); coefficients {coefs(m)}; from the "
+        f"CPU route, in units of the largest ({scale:.3g}): card {g_cpu:.3g} (limit {lim_c:g}; "
+        f"TF32 control {g_ctl:.3g}), out of core {g_ooc:.3g} (limit {lim_o:g}; TF32 control "
+        f"{g_ooc_ctl:.3g})")
+
+    plain = port.LinearRegression()
+    t0 = time.perf_counter()
+    r = plain.fit(ds)
+    sync()
+    r_s = time.perf_counter() - t0
+    rc = plain.fit((xl, yl), device="cpu")
+    sc = rc.summary
+
+    def summary_gaps(s) -> dict:
+        # each standard error relative to the CPU's; each t-value on its
+        # own scale: relative where |t| >= 1, absolute where |t| < 1 (a
+        # coefficient within a standard error of 0, the intercept here,
+        # whose t is its coefficient's rounding over that error)
+        dt = np.abs(s.t_values - sc.t_values)
+        big = np.abs(sc.t_values) >= 1.0
+        return {"se_rel": float((np.abs(s.coefficient_standard_errors
+                                        - sc.coefficient_standard_errors)
+                                 / sc.coefficient_standard_errors).max()),
+                "t_rel": float((dt[big] / np.abs(sc.t_values[big])).max(initial=0.0)),
+                "t_abs": float(dt[~big].max(initial=0.0)),
+                "r2": abs(s.r2 - sc.r2),
+                "rmse_rel": abs(s.root_mean_squared_error / sc.root_mean_squared_error - 1)}
+
+    exact = np.linalg.lstsq(np.c_[xl.astype(np.float32).astype(np.float64), np.ones(len(yl))],
+                            yl.astype(np.float32).astype(np.float64), rcond=None)[0]
+    x_scale = float(np.abs(exact).max())
+    s = r.summary
+    gaps = summary_gaps(s)
+    gaps["g64"] = float(np.abs(coefs(r) - exact).max()) / x_scale
+    g64_cpu = float(np.abs(coefs(rc) - exact).max()) / x_scale
+    with tf32_matmuls():      # the summary is lazy: every metric read in here
+        r_ctl = plain.fit(ds)
+        ctl = summary_gaps(r_ctl.summary)
+    ctl["g64"] = float(np.abs(coefs(r_ctl) - exact).max()) / x_scale
+    over = {a: gaps[a] for a in LR_SUMMARY_TOL if not gaps[a] <= LR_SUMMARY_TOL[a]}
+    check(not over, f"summary card vs CPU over the limits: {over} (limits {LR_SUMMARY_TOL})")
+    missed = {a: ctl[a] for a in LR_TF32_CAUGHT if not ctl[a] > LR_SUMMARY_TOL[a]}
+    check(not missed, f"the TF32 control passes the summary limits {missed} "
+                      f"(limits {LR_SUMMARY_TOL})")
+    say(f"linear regression summary ({len(yl)} rows, fit {r_s * 1e3:.2f} ms): r2 {s.r2:.8f}, "
+        f"RMSE {s.root_mean_squared_error:.8f}, t-values {np.round(s.t_values, 3).tolist()}; "
+        f"card vs CPU: " + ", ".join(
+            f"{a} {gaps[a]:.3g} (limit {LR_SUMMARY_TOL[a]:g}; TF32 control {ctl[a]:.3g})"
+            for a in LR_SUMMARY_TOL)
+        + f"; g64 is the chunked Gram sum's distance from float64 in units of the largest "
+        f"coefficient ({g64_cpu:.3g} on the CPU)")
+
+
+# ---------------------------------------------- slice 4c: precision modes
+def precision_phase(port, ds, highest, card: str) -> None:
+    """Slice 4c: KMeans k=256 on the flagship 10M x 8 rows with
+    ``matmul_precision="bf16"``, with and without ``fused_stats``, against
+    the main path's "highest" fit (fit s, Lloyd records/s, n_iter, final
+    cost); GaussianMixture k=32 on config 3's law (2M rows) in "bf16" and
+    "high" against "highest" (EM records/s, ll, means, covariances)."""
+    import numpy as np
+    import torch
+
+    for tag, kw in (("bf16", dict(matmul_precision="bf16")),
+                    ("bf16+fused_stats", dict(matmul_precision="bf16", fused_stats=True))):
+        est = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER, **kw)
+        sync()
+        t0 = time.perf_counter()
+        m = est.fit(ds)
+        sync()
+        fit_s = time.perf_counter() - t0
+        rel = abs(m.training_cost / highest.training_cost - 1)
+        check(np.isfinite(m.training_cost) and rel <= BF16_COST_RTOL[tag],
+              f"KMeans {tag}: cost {m.training_cost} vs highest {highest.training_cost} "
+              f"(rel {rel:.3g}, limit {BF16_COST_RTOL[tag]:g})")
+        check(float(m.cluster_sizes.sum()) == N, f"KMeans {tag}: sizes do not sum to n")
+        say(f"kmeans k={K} {tag} on {card}: fit {fit_s:.3f} s, n_iter {m.n_iter}, "
+            f"{N * m.n_iter / fit_s:.4g} Lloyd records/s; final cost {m.training_cost:.8g} "
+            f"vs highest {highest.training_cost:.8g} (n_iter {highest.n_iter}): rel "
+            f"{rel:.3g} (limit {BF16_COST_RTOL[tag]:g})")
+
+    x = make_data(TREE_N, D, GMM_K)
+    xd = port.device_dataset(x, device=DEV)
+    fits = {}
+    for prec in ("highest", "bf16", "high"):
+        est = port.GaussianMixture(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED,
+                                   matmul_precision=prec)
+        sync()
+        t0 = time.perf_counter()
+        fits[prec] = (est.fit(xd), time.perf_counter() - t0)
+    ref = fits["highest"][0]
+    parts = [f"highest {TREE_N * ref.n_iter / fits['highest'][1]:.4g} EM records/s, ll "
+             f"{ref.log_likelihood:.8g}"]
+    for prec in ("bf16", "high"):
+        m, s = fits[prec]
+        gaps = {"ll_rel": abs(m.log_likelihood / ref.log_likelihood - 1),
+                "means": float(np.abs(m.means - ref.means).max()),
+                "covariances": float(np.abs(m.covariances - ref.covariances).max())}
+        lim = GMM_PREC_TOL[prec]
+        check(np.isfinite(m.log_likelihood) and all(gaps[a] <= lim[a] for a in lim),
+              f"GMM {prec} against highest: {gaps} (limits {lim})")
+        parts.append(f"{prec} {TREE_N * m.n_iter / s:.4g} EM records/s, ll "
+                     f"{m.log_likelihood:.8g}, against highest "
+                     + ", ".join(f"{a} {gaps[a]:.3g} (limit {lim[a]:g})" for a in lim))
+    say(f"gmm k={GMM_K} precision modes on {card} ({TREE_N} x {D}, {GMM_ITERS} EM "
+        f"iterations): " + "; ".join(parts))
+    del xd
+    torch.cuda.empty_cache()
+
+
+def tree_gaps(a, b, x) -> dict:
+    """Two BisectingKMeans models against each other: whether they made
+    the same splits (``fit_info["splits"]``, [level, parent, new leaf],
+    and n_iter), their largest center gap, the summed gap of their leaf
+    sizes, and the rows of ``x`` whose predicted leaf (K2) differs.  With
+    the same splits, a row predicted to the same leaf sits in the same
+    leaf at every level: its ancestors are that leaf's."""
+    import numpy as np
+
+    same = a.fit_info["splits"] == b.fit_info["splits"] and a.n_iter == b.n_iter
+    shaped = same and a.cluster_centers.shape == b.cluster_centers.shape
+    inf = float("inf")
+    return {
+        "same_splits": same,
+        "centers": float(np.abs(a.cluster_centers - b.cluster_centers).max()) if shaped else inf,
+        "sizes": float(np.abs(a.cluster_sizes - b.cluster_sizes).sum()) if shaped else inf,
+        "rows": int((a.predict_numpy(x, device=DEV) != b.predict_numpy(x, device=DEV)).sum())
+        if shaped else len(x),
+    }
+
+
+def held(gaps: dict, tol: dict) -> bool:
+    """The same splits and every gap within its limit."""
+    return gaps["same_splits"] and all(gaps[a] <= tol[a] for a in tol)
+
+
+def gaps_text(gaps: dict, tol: dict, ctl: dict) -> str:
+    return ", ".join(f"{a} {gaps[a]:.3g} (limit {tol[a]:g}; control {ctl[a]:.3g})"
+                     for a in tol)
+
+
+def bisecting_more(port, L, card: str) -> int:
+    """Slice 4c at config 4's shape (2M x 8, k=8): the cosine fit (card
+    against the CPU on the 200,000-row prefix, the CPU fit on TF32-rounded
+    rows as the control) and a weighted fit, each predicting through
+    K2, and the out-of-core fit in blocks of 2^19 against resident (the
+    control: out of core on TF32-rounded rows) and on the card against the
+    CPU on the prefix (the control: the CPU on TF32-rounded rows).  Each comparison holds the
+    split tree (``tree_gaps``); every limit must fail its control.
+    → K2 launches."""
+    import numpy as np
+
+    x = make_data(BISECT_N, D, BISECT_K)
+    kw = dict(k=BISECT_K, seed=SEED, n_restarts=1)
+    k2 = 0
+    est = port.BisectingKMeans(distance_measure="cosine", **kw)
+    sync()
+    t0 = time.perf_counter()
+    cos = est.fit(x, device=DEV)
+    cos_s = time.perf_counter() - t0
+    check(np.allclose(np.linalg.norm(cos.cluster_centers, axis=1), 1.0, atol=1e-5)
+          and float(cos.cluster_sizes.sum()) == BISECT_N, "cosine bisecting: centers not unit")
+    before = L.launch_counts()["fused_assign"]
+    cos.predict_numpy(x, device=DEV)
+    k2 += L.launch_counts()["fused_assign"] - before
+    sub = x[:PREFIX]
+    c_cpu = est.fit(sub, device="cpu")
+    c_gaps = tree_gaps(est.fit(sub, device=DEV), c_cpu, sub)
+    c_ctl = tree_gaps(est.fit(tf32_round(sub), device="cpu"), c_cpu, sub)
+    check(held(c_gaps, BISECT_CARD_TOL),
+          f"cosine bisecting card vs CPU: {c_gaps} (limits {BISECT_CARD_TOL})")
+    missed = [a for a in BISECT_CARD_TOL if not c_ctl[a] > BISECT_CARD_TOL[a]]
+    check(not missed, f"the TF32-rounded control passes the cosine bisecting limits {missed}: "
+                      f"{c_ctl}")
+    w = np.random.default_rng(3).integers(0, 4, BISECT_N).astype(np.float32)
+    t0 = time.perf_counter()
+    wm = port.BisectingKMeans(**kw).fit(port.device_dataset(x, weights=w, device=DEV))
+    w_s = time.perf_counter() - t0
+    check(float(wm.cluster_sizes.sum()) == float(w.sum()), "weighted bisecting: sizes != sum w")
+    say(f"bisecting k={BISECT_K} cosine on {card}: fit {cos_s:.3f} s = "
+        f"{BISECT_N / cos_s:.4g} records/s, {len(cos.fit_info['levels'])} levels; card vs CPU "
+        f"on {PREFIX} rows: the same splits {cos.fit_info['splits']}, "
+        f"{gaps_text(c_gaps, BISECT_CARD_TOL, c_ctl)} (the control on TF32-rounded rows: splits "
+        f"{'the same' if c_ctl['same_splits'] else 'differ'}); weighted (w in 0..3) fit "
+        f"{w_s:.3f} s, sizes sum to sum(w)")
+
+    res = port.BisectingKMeans(**kw).fit(x, device=DEV)
+    hd = port.HostDataset(x=x, max_device_rows=BISECT_OOC_BLOCK)
+    sync()
+    t0 = time.perf_counter()
+    ooc = port.BisectingKMeans(**kw).fit(hd, device=DEV)
+    ooc_s = time.perf_counter() - t0
+    before = L.launch_counts()["fused_assign"]
+    ooc.predict_numpy(x, device=DEV)
+    k2 += L.launch_counts()["fused_assign"] - before
+    o_gaps = tree_gaps(ooc, res, x)
+    o_ctl = tree_gaps(port.BisectingKMeans(**kw).fit(
+        port.HostDataset(x=tf32_round(x), max_device_rows=BISECT_OOC_BLOCK), device=DEV), res, x)
+    check(held(o_gaps, BISECT_OOC_TOL),
+          f"out-of-core bisecting against resident: {o_gaps} (limits {BISECT_OOC_TOL})")
+    missed = [a for a in BISECT_OOC_TOL if not o_ctl[a] > BISECT_OOC_TOL[a]]
+    check(not missed, f"the TF32-rounded control passes the out-of-core bisecting limits "
+                      f"{missed}: {o_ctl}")
+    # the out-of-core route on the card against itself on the CPU (one
+    # distance form): PR 11's card-vs-CPU limits; the control is the CPU
+    # route on TF32-rounded rows (the route's one product, the one-hot
+    # sums, barely moves under TF32)
+    est = port.BisectingKMeans(**kw)
+
+    def blocks(rows):
+        return port.HostDataset(x=rows, max_device_rows=BISECT_PREFIX_BLOCK)
+
+    s_cpu = est.fit(blocks(sub), device="cpu")
+    s_gaps = tree_gaps(est.fit(blocks(sub), device=DEV), s_cpu, sub)
+    s_ctl = tree_gaps(est.fit(blocks(tf32_round(sub)), device="cpu"), s_cpu, sub)
+    check(held(s_gaps, BISECT_CARD_TOL),
+          f"out-of-core bisecting card vs CPU: {s_gaps} (limits {BISECT_CARD_TOL})")
+    missed = [a for a in BISECT_CARD_TOL if not s_ctl[a] > BISECT_CARD_TOL[a]]
+    check(not missed, f"the TF32-rounded control passes the out-of-core card-vs-CPU limits "
+                      f"{missed}: {s_ctl}")
+    info = ooc.fit_info
+    say(f"bisecting out of core ({hd.block_shape()[0]} blocks of {BISECT_OOC_BLOCK}): fit "
+        f"{ooc_s:.3f} s = {BISECT_N / ooc_s:.4g} records/s, Lloyd iterations a level "
+        f"{info['levels']}, {info['host_syncs']} host syncs; against resident the same splits "
+        f"{info['splits']}, {gaps_text(o_gaps, BISECT_OOC_TOL, o_ctl)} (the control on "
+        f"TF32-rounded rows: splits {'the same' if o_ctl['same_splits'] else 'differ'}); "
+        f"card vs CPU out of core on {PREFIX} rows in blocks of {BISECT_PREFIX_BLOCK}: the same "
+        f"splits, {gaps_text(s_gaps, BISECT_CARD_TOL, s_ctl)} (the control on TF32-rounded rows: splits "
+        f"{'the same' if s_ctl['same_splits'] else 'differ'})")
+    return k2
+
+
 def main() -> None:
     try:
         import torch
@@ -2525,6 +3129,14 @@ def main() -> None:
     # ------------------- slice 4b: the out-of-core fits (K1, K2, K3 a block)
     for name, v in outofcore_phase(port, L, H, card, k1_block["ms"]).items():
         counts[name] += v
+
+    # -------------- slices 3e + 4c: GBT (K3 at T = 1), LinearRegression, the
+    # precision modes, BisectingKMeans' cosine, weights and out of core (K2)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts["fused_level_hist"] += gbt_phase(port, H, card, tmp)
+    lr_phase(port, card)
+    precision_phase(port, ds, model, card)
+    counts["fused_assign"] += bisecting_more(port, L, card)
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")

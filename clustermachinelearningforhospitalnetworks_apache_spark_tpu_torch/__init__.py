@@ -19,6 +19,11 @@ watermark into the checkpointed, exactly-once unbounded table
 (``Session``, ``read_stream … write_stream … table``, ``StreamExecution``),
 the window through ``Session.sql``, the model stage, plots, saves and the
 report (``run_pipeline``; the ``hospital-pipeline-torch`` console entry).
+Slices 4a–4c add the other clusterings (StreamingKMeans, GaussianMixture,
+BisectingKMeans), the out-of-core fits (``HostDataset``) and KMeans' and
+GaussianMixture's reduced-precision modes; slice 3e the gradient-boosted
+trees (``GBTRegressor``, ``GBTClassifier``) and LinearRegression's elastic
+net and training summary.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
@@ -30,6 +35,7 @@ from .config import PipelineConfig
 from .convert import (
     bisecting_kmeans_model_from_jax_arrays,
     gaussian_mixture_model_from_jax_arrays,
+    gbt_model_from_jax_arrays,
     kmeans_model_from_jax_arrays,
     linear_regression_model_from_jax_arrays,
     scaler_model_from_jax_arrays,
@@ -62,6 +68,9 @@ from .models.tree import (
     DecisionTreeClassifier,
     DecisionTreeModel,
     DecisionTreeRegressor,
+    GBTClassifier,
+    GBTModel,
+    GBTRegressor,
     RandomForestClassifier,
     RandomForestModel,
     RandomForestRegressor,
@@ -89,10 +98,12 @@ __all__ = [
     "ClusteringEvaluator", "GaussianMixture", "GaussianMixtureModel",
     "StreamingKMeans", "StreamingKMeansModel",
     "bisecting_kmeans_model_from_jax_arrays", "gaussian_mixture_model_from_jax_arrays",
+    "gbt_model_from_jax_arrays",
     "streaming_kmeans_model_from_jax_arrays", "CorruptArtifactError",
     "DecisionTreeClassifier",
     "DecisionTreeModel", "DecisionTreeRegressor", "DeviceDataset", "FEATURE_COLS",
-    "Field", "FitCheckpointer", "HostDataset", "KMeans", "KMeansModel", "LABEL_COL",
+    "Field", "FitCheckpointer", "GBTClassifier", "GBTModel", "GBTRegressor",
+    "HostDataset", "KMeans", "KMeansModel", "LABEL_COL",
     "LinearRegression",
     "LinearRegressionModel", "MulticlassClassificationEvaluator", "PipelineConfig",
     "FileStreamSource", "PipelineResult",

@@ -25,7 +25,7 @@ from .models.gmm import GaussianMixtureModel
 from .models.kmeans import KMeansModel
 from .models.linear_regression import LinearRegressionModel
 from .models.streaming_kmeans import StreamingKMeansModel
-from .models.tree import DecisionTreeModel, RandomForestModel
+from .models.tree import DecisionTreeModel, GBTModel, RandomForestModel
 
 
 def kmeans_model_from_jax_arrays(
@@ -70,6 +70,20 @@ def tree_model_from_jax_arrays(
     cls = {"DecisionTreeModel": DecisionTreeModel, "RandomForestModel": RandomForestModel}[name]
     return cls.from_artifacts(
         {"max_depth": max_depth, "task": task, "num_classes": num_classes},
+        {"split_feat": split_feat, "threshold": threshold, "value": value,
+         "feature_importances": feature_importances,
+         "split_catmask": split_catmask, "cat_arities": cat_arities},
+    )
+
+
+def gbt_model_from_jax_arrays(
+    split_feat, threshold, value, feature_importances, *, task: str, init: float,
+    learning_rate: float, max_depth: int, split_catmask=None, cat_arities=None,
+) -> GBTModel:
+    """A port :class:`GBTModel` with the JAX boosted trees' heap arrays,
+    prior margin and step size."""
+    return GBTModel.from_artifacts(
+        {"task": task, "init": init, "learning_rate": learning_rate, "max_depth": max_depth},
         {"split_feat": split_feat, "threshold": threshold, "value": value,
          "feature_importances": feature_importances,
          "split_catmask": split_catmask, "cat_arities": cat_arities},

@@ -1,6 +1,5 @@
 """BisectingKMeans — hierarchical divisive clustering (BASELINE config 4),
-the JAX package's ``models/bisecting_kmeans.py`` on one CUDA device,
-in-core and Euclidean.
+the JAX package's ``models/bisecting_kmeans.py`` on one CUDA device.
 
 Spark's ``BisectingKMeans`` (k, maxIter, seed, minDivisibleClusterSize)
 grows the tree level by level, larger clusters first when splitting every
@@ -20,17 +19,35 @@ algorithm as a host loop over levels with torch ops inside:
   and each row's side, and the rows' leaf ids are relabelled on the
   device.
 
-All cluster math runs on rows recentered around the global mean (the
-float32 cancellation argument of the JAX package); ``n_restarts`` whole
-trees are grown and the lowest final cost wins; empty leaves are compacted
-away.  The host syncs once a Lloyd iteration (its move), once a level (the
+The resident passes rank the children and sum the rows in float64 over
+float32 rows and centers (a product of two float32 numbers is exact
+there), then round the sums to float32: a fit decides its near-tie rows
+and rounds its centers alike on the card and on the CPU, with one-hot
+products summed per chunk of rows as the reference's scan sums them.
+Centers, sizes and SSE stay float32, as in the reference.
+
+All Euclidean cluster math runs on rows recentered around the global
+mean (the float32 cancellation argument of the JAX package);
+``distance_measure="cosine"`` trains on unit rows (pad rows zeroed by the
+0/1 mask) with no shift, the root and every child center renormalized, so
+the Euclidean argmin on the sphere orders by cosine distance.
+``weight_col`` weights every statistic.  ``n_restarts`` whole trees are
+grown and the lowest final cost wins; empty leaves are compacted away.
+The host syncs once a Lloyd iteration (its move), once a level (the
 children's sizes and SSE) and once a tree (the root); the JAX package
-makes one a tree.  ``model.fit_info`` counts them.
+makes one a tree.  ``model.fit_info`` counts them, and its ``splits``
+lists the winning tree's splits as ``[level, parent slot, new slot]``
+(leaf slots before empty leaves are compacted away).
+
+A :class:`~..parallel.outofcore.HostDataset` takes the reference's
+out-of-core fit: the per-row leaf lives on the host, every Lloyd
+iteration and every level's stats pass is a sweep over the streamed
+blocks (:func:`_bkm_lloyd_block`, :func:`_bkm_stats_block`), children are
+seeded from the same ``fold_in(key, level)`` draws and restarts, so both
+routes walk the same split tree up to the blocks' float32 sums.
 
 The model is a :class:`KMeansModel`, so ``predict`` is the K2 kernel on
-the card.  ``distance_measure="cosine"``, ``weight_col`` and the
-out-of-core ``HostDataset`` input come with slice 4c of the port (they
-raise).
+the card.
 """
 
 from __future__ import annotations
@@ -41,12 +58,14 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..device import resolve_device
 from ..io.model_io import register_model
+from ..parallel.outofcore import HostDataset, add_stats, block_moments
 from .base import Estimator, as_device_dataset
-from .kmeans import KMeansModel
+from .kmeans import KMeansModel, _cosine_prep, normalize_rows
+from .linear_regression import chunked_gram
 
 _BIG = 1e30
-_SLICE_4C = "slice 4c of the port"
 
 
 def _children_d2(xs, cen, pos, exact: bool):
@@ -62,23 +81,66 @@ def _children_d2(xs, cen, pos, exact: bool):
     return torch.where(child_leaf[None, :] == pos[:, None], d2, torch.full_like(d2, _BIG))
 
 
+def _weighted_onehot(arg, k2: int, wv):
+    return torch.nn.functional.one_hot(arg, k2).to(wv.dtype) * wv[:, None]
+
+
 def _lloyd_pass(xs, wv, pos, cen):
-    """One constrained 2-means iteration's child (sums, counts)."""
-    arg = torch.argmin(_children_d2(xs, cen, pos, exact=False), dim=1)
-    sums = torch.zeros_like(cen).index_add_(0, arg, xs * wv[:, None])
-    counts = torch.zeros((cen.shape[0],), dtype=xs.dtype, device=xs.device)
-    return sums, counts.index_add_(0, arg, wv)
+    """One constrained 2-means iteration's float32 child (sums, counts).
+    ``xs`` and ``wv`` are float64 (module docstring): one-hot products
+    summed per chunk of rows, as the reference's scan does."""
+    arg = torch.argmin(_children_d2(xs, cen.to(xs.dtype), pos, exact=False), dim=1)
+    oh = _weighted_onehot(arg, cen.shape[0], wv)
+    return chunked_gram(oh, xs).to(cen.dtype), oh.sum(dim=0).to(cen.dtype)
 
 
 def _stats_pass(xs, wv, pos, cen):
-    """Final pass on converged children: (counts, SSE, each row's side)."""
-    d2 = _children_d2(xs, cen, pos, exact=True)
+    """Final pass on converged children: float32 (counts, SSE) and each
+    row's side."""
+    d2 = _children_d2(xs, cen.to(xs.dtype), pos, exact=True)
     mind, arg = d2.min(dim=1)
     mind = torch.clamp(mind, min=0.0)
-    zero = torch.zeros((cen.shape[0],), dtype=xs.dtype, device=xs.device)
-    counts = zero.clone().index_add_(0, arg, wv)
-    sse = zero.index_add_(0, arg, wv * torch.where(wv > 0, mind, torch.zeros_like(mind)))
-    return counts, sse, (arg % 2).to(torch.int32)
+    oh = _weighted_onehot(arg, cen.shape[0], wv)
+    sse = chunked_gram(oh, torch.where(wv > 0, mind, torch.zeros_like(mind)))
+    return oh.sum(dim=0).to(cen.dtype), sse.to(cen.dtype), (arg % 2).to(torch.int32)
+
+
+def _block_children(x, pos, cen, shift):
+    """A streamed block's rows (shifted) and each row's nearer child of its
+    leaf's pair in ``cen`` (2L, d), by direct squared differences: →
+    (xb, child, d0, d1, bit)."""
+    L = cen.shape[0] // 2
+    xb = x.to(torch.float32) - shift[None, :]
+    safe = torch.clamp(pos, 0, L - 1).to(torch.int64)
+    d0 = ((xb - cen[2 * safe]) ** 2).sum(dim=1)
+    d1 = ((xb - cen[2 * safe + 1]) ** 2).sum(dim=1)
+    bit = (d1 < d0).to(torch.int64)
+    return xb, 2 * safe + bit, d0, d1, bit
+
+
+def _live_weights(pos, w):
+    return ((pos >= 0) & (w > 0)).to(torch.float32) * w
+
+
+def _bkm_lloyd_block(x, w, pos, cen, shift):
+    """One block's 2-means statistics (sums (2L, d), counts (2L,)) for
+    every splitting leaf at once: a row of leaf slot ``pos`` (−1: not
+    splitting) takes the nearer of its leaf's two children.  Euclidean on
+    (for cosine, unit) rows serves both measures."""
+    xb, child, _, _, _ = _block_children(x, pos, cen, shift)
+    oh = torch.nn.functional.one_hot(child, cen.shape[0]).to(torch.float32) * \
+        _live_weights(pos, w)[:, None]
+    return oh.T @ xb, oh.sum(dim=0)
+
+
+def _bkm_stats_block(x, w, pos, cen, shift):
+    """A level's last pass over a block: child (counts, SSE) and each
+    row's side bit."""
+    _, child, d0, d1, bit = _block_children(x, pos, cen, shift)
+    oh = torch.nn.functional.one_hot(child, cen.shape[0]).to(torch.float32) * \
+        _live_weights(pos, w)[:, None]
+    mind = torch.where(bit == 1, d1, d0)
+    return oh.sum(dim=0), (oh * mind[:, None]).sum(dim=0), bit.to(torch.int32)
 
 
 @register_model("BisectingKMeansModel")
@@ -107,51 +169,82 @@ class BisectingKMeans(Estimator):
     def fit(self, data, label_col: str | None = None, mesh=None,
             device=None) -> BisectingKMeansModel:
         """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
-        x) on ``device`` (default the card)."""
-        if self.distance_measure != "euclidean":
-            raise NotImplementedError(
-                f"distance_measure={self.distance_measure!r} comes with {_SLICE_4C}; "
-                "the port fits euclidean BisectingKMeans")
-        if self.weight_col is not None:
-            raise NotImplementedError(f"BisectingKMeans weight_col= comes with {_SLICE_4C}")
-        if type(data).__name__ == "HostDataset":
-            raise NotImplementedError(f"the out-of-core BisectingKMeans fit comes with {_SLICE_4C}")
+        x) on ``device`` (default the card); a :class:`HostDataset`
+        streams its blocks to ``device``."""
         if self.strategy not in ("level", "sequential"):
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.n_restarts < 1:
             raise ValueError(f"n_restarts must be >= 1, got {self.n_restarts}")
-        ds = as_device_dataset(data, device=device)
+        if isinstance(data, HostDataset):
+            return self._fit_outofcore(data, resolve_device(device))
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
         x = ds.x.to(torch.float32)
         w = ds.w.to(torch.float32)
+        cosine = self.distance_measure == "cosine"
+        if cosine:
+            # train in the geometry predict uses: the unit sphere
+            x = _cosine_prep(x, w)
         f32 = np.float32
 
-        # the root leaf: weighted mean (the recentering shift), then SSE
+        # the root leaf: weighted mean (the recentering shift; none on the
+        # sphere, where the root is the normalized mean), then its SSE
         s0_t = w.sum()
         mean_t = (w @ x) / torch.clamp(s0_t, min=1.0)
-        xs = x - mean_t[None, :]
-        root_sse_t = ((xs * xs).sum(dim=1) * w).sum()
+        if cosine:
+            shift_t = torch.zeros_like(mean_t)
+            root_t = mean_t / torch.clamp(torch.linalg.norm(mean_t), min=1e-12)
+        else:
+            shift_t, root_t = mean_t, torch.zeros_like(mean_t)
+        xs = x - shift_t[None, :]
+        diff = xs - root_t[None, :]
+        root_sse_t = ((diff * diff).sum(dim=1) * w).sum()
         s0, root_sse = (float(v) for v in torch.stack([s0_t, root_sse_t]).cpu())
-        shift = mean_t.cpu().numpy()
+        shift = shift_t.cpu().numpy()
+        root = root_t.cpu().numpy()
         if s0 == 0.0:
             raise ValueError("BisectingKMeans fit on an empty dataset")
-        min_div = f32(self.min_divisible_cluster_size)
-        min_size = max(min_div * f32(s0) if self.min_divisible_cluster_size < 1.0 else min_div,
-                       f32(2.0))
+        min_size = self._min_size(s0)
 
-        sequential = self.strategy == "sequential"
-        # at most ⌊k/2⌋ leaves split in one level; L is a power of two, as
-        # in the JAX package (sequential: one leaf a level)
-        L = 1 if sequential else 1 << (max(1, self.k // 2) - 1).bit_length()
-        base_key = prng.key(self.seed)
+        L = self._leaves_a_level()
         info = {"trees": self.n_restarts, "levels": [], "lloyd_iters": 0, "host_syncs": 1}
+
+        # the Lloyd passes in float64 (module docstring)
+        xs64, w64 = xs.to(torch.float64), w.to(torch.float64)
+        del xs, diff
+
+        def grow(key):
+            return self._grow_tree(xs64, w64, key, L, root, f32(s0), f32(root_sse), min_size,
+                                   cosine, info)
+
+        return self._best_tree(grow, shift, info)
+
+    def _min_size(self, s0: float):
+        """Spark's minDivisibleClusterSize: rows (≥ 1) or a fraction of the
+        weight (< 1), at least 2."""
+        f32 = np.float32
+        min_div = f32(self.min_divisible_cluster_size)
+        return max(min_div * f32(s0) if self.min_divisible_cluster_size < 1.0 else min_div,
+                   f32(2.0))
+
+    def _leaves_a_level(self) -> int:
+        """At most ⌊k/2⌋ leaves split in one level; L is a power of two, as
+        in the JAX package (sequential: one leaf a level)."""
+        if self.strategy == "sequential":
+            return 1
+        return 1 << (max(1, self.k // 2) - 1).bit_length()
+
+    def _best_tree(self, grow, shift: np.ndarray, info: dict) -> BisectingKMeansModel:
+        """``n_restarts`` whole trees (restart r from fold_in(key, r), r = 0
+        from the key) → the model of the lowest final cost, empty leaves
+        compacted away."""
+        base_key = prng.key(self.seed)
         best = None
         for r in range(self.n_restarts):
-            key_r = base_key if r == 0 else prng.fold_in(base_key, r)
-            out = self._grow_tree(xs, w, key_r, L, f32(s0), f32(root_sse), min_size,
-                                  sequential, info)
+            out = grow(base_key if r == 0 else prng.fold_in(base_key, r))
             if best is None or out[0] < best[0]:
                 best = out
-        _, centers, sizes, sse, n_splits = best
+        _, centers, sizes, sse, n_splits, splits = best
+        info["splits"] = splits
         keep = np.flatnonzero(sizes[: self.k] > 0)
         model = BisectingKMeansModel(
             cluster_centers=(centers[: self.k] + shift[None, :])[keep].astype(np.float32),
@@ -163,11 +256,64 @@ class BisectingKMeans(Estimator):
         model.fit_info = info
         return model
 
-    def _grow_tree(self, xs, w, key, L, s0, root_sse, min_size, sequential, info):
-        """One complete split tree → (cost, centers, sizes, sse, n_splits);
-        the leaf state has k + 1 slots, slot k a write-only dummy."""
+    def _schedule(self, centers, sizes, sse, divisible, n_leaves: int, min_size, L: int,
+                  key, level: int, cosine: bool):
+        """A level's split schedule and seeds, on the host: the leaves to
+        split (the priority: sizes for "level", SSE for "sequential"), each
+        leaf's slot, and the children at parent ± half an RMS-radius step
+        in a direction drawn by ``prng.normal(fold_in(key, level))`` (unit
+        rows in cosine mode).  → (sel, slot_valid, slot_of, cen (2L, d))
+        or None when no leaf is divisible."""
+        k, d = self.k, centers.shape[1]
+        cand = divisible[:k] & (sizes[:k] >= min_size)
+        if not cand.any():
+            return None
+        priority = sse[:k] if self.strategy == "sequential" else sizes[:k]
+        order = np.argsort(-np.where(cand, priority, np.float32(-1.0)), kind="stable")
+        sel = order[:L]
+        slot_valid = (np.arange(L) < (k - n_leaves)) & cand[sel]
+        slot_of = np.full((k + 1,), -1, np.int64)
+        slot_of[sel] = np.where(slot_valid, np.arange(L), -1)
+        radius = np.sqrt(np.maximum(sse[sel], np.float32(1e-12))
+                         / np.maximum(sizes[sel], np.float32(1.0)))
+        dirs = prng.normal(prng.fold_in(key, level), (L, d)).numpy()
+        dirs = dirs / np.maximum(np.sqrt((dirs * dirs).sum(axis=1, keepdims=True)),
+                                 np.float32(1e-12)) * radius[:, None]
+        parents = centers[sel]
+        cen = np.stack([parents + np.float32(0.5) * dirs, parents - np.float32(0.5) * dirs],
+                       axis=1).reshape(2 * L, d)
+        if cosine:
+            cen = normalize_rows(torch.from_numpy(cen)).numpy()
+        return sel, slot_valid, slot_of, cen
+
+    def _record_level(self, centers, sizes, sse, divisible, splits: list, level: int,
+                      n_leaves: int, sel, slot_valid, counts2, csse2, cen2):
+        """The level's bookkeeping, in place on the host leaf state
+        (centers, sizes, sse, divisible, the split log): a split succeeds
+        iff its new child got rows; the parent stays divisible iff it kept
+        rows (a failed split pins the leaf closed).  → (succ, new_id,
+        grown)."""
+        k = self.k
+        succ = slot_valid & (counts2[:, 1] > 0)
+        new_id = np.where(succ, n_leaves + np.cumsum(succ) - 1, k)
+        centers[sel] = np.where(succ[:, None], cen2[:, 0], centers[sel])
+        sizes[sel] = np.where(succ, counts2[:, 0], sizes[sel])
+        sse[sel] = np.where(succ, csse2[:, 0], sse[sel])
+        divisible[sel] = np.where(slot_valid, succ & (counts2[:, 0] > 0), divisible[sel])
+        centers[new_id] = np.where(succ[:, None], cen2[:, 1], centers[new_id])
+        sizes[new_id] = np.where(succ, counts2[:, 1], sizes[new_id])
+        sse[new_id] = np.where(succ, csse2[:, 1], sse[new_id])
+        divisible[new_id] = np.where(succ, True, divisible[new_id])
+        splits.extend([level, int(p), int(c)] for p, c in zip(sel[succ], new_id[succ]))
+        return succ, new_id, int(succ.sum())
+
+    def _grow_tree(self, xs, w, key, L, root, s0, root_sse, min_size, cosine, info):
+        """One complete split tree → (cost, centers, sizes, sse, n_splits,
+        splits); the leaf state has k + 1 slots, slot k a write-only
+        dummy."""
         k, d, dev = self.k, xs.shape[1], xs.device
-        centers = np.zeros((k + 1, d), np.float32)      # root = mean − shift = 0
+        centers = np.zeros((k + 1, d), np.float32)
+        centers[0] = root                    # mean − shift (0), or the unit mean
         sizes = np.zeros((k + 1,), np.float32)
         sizes[0] = s0
         sse = np.zeros((k + 1,), np.float32)
@@ -176,27 +322,14 @@ class BisectingKMeans(Estimator):
         divisible[0] = True
         assign = torch.zeros((xs.shape[0],), dtype=torch.int64, device=dev)
         tol_sq = np.float32(1e-8)
-        n_leaves, n_splits, level = 1, 0, 0
+        n_leaves, n_splits, level, splits = 1, 0, 0, []
         while n_leaves < k:
-            cand = divisible[:k] & (sizes[:k] >= min_size)
-            if not cand.any():
+            plan = self._schedule(centers, sizes, sse, divisible, n_leaves, min_size, L, key,
+                                  level, cosine)
+            if plan is None:
                 break
-            priority = sse[:k] if sequential else sizes[:k]
-            order = np.argsort(-np.where(cand, priority, np.float32(-1.0)), kind="stable")
-            sel = order[:L]
-            slot_valid = (np.arange(L) < (k - n_leaves)) & cand[sel]
-            slot_of = np.full((k + 1,), -1, np.int64)
-            slot_of[sel] = np.where(slot_valid, np.arange(L), -1)
-            # seed the children: parent ± half an RMS-radius step
-            radius = np.sqrt(np.maximum(sse[sel], np.float32(1e-12))
-                             / np.maximum(sizes[sel], np.float32(1.0)))
-            dirs = prng.normal(prng.fold_in(key, level), (L, d)).numpy()
-            dirs = dirs / np.maximum(np.sqrt((dirs * dirs).sum(axis=1, keepdims=True)),
-                                     np.float32(1e-12)) * radius[:, None]
-            parents = centers[sel]
-            cen = torch.from_numpy(np.stack([parents + np.float32(0.5) * dirs,
-                                             parents - np.float32(0.5) * dirs],
-                                            axis=1).reshape(2 * L, d)).to(dev)
+            sel, slot_valid, slot_of, cen_h = plan
+            cen = torch.from_numpy(cen_h).to(dev)
             pos = torch.from_numpy(slot_of).to(dev)[assign]
             pos = torch.where(w > 0, pos, torch.full_like(pos, -1))
             wv = torch.where(pos >= 0, w, torch.zeros_like(w))
@@ -208,6 +341,8 @@ class BisectingKMeans(Estimator):
                 sums, counts = _lloyd_pass(xs, wv, pos, cen)
                 new_cen = torch.where((counts > 0)[:, None],
                                       sums / torch.clamp(counts, min=1.0)[:, None], cen)
+                if cosine:
+                    new_cen = normalize_rows(new_cen)
                 move = np.float32((((new_cen - cen) ** 2).sum(dim=1) * valid2).max().item())
                 cen = new_cen
                 it += 1
@@ -219,26 +354,143 @@ class BisectingKMeans(Estimator):
             info["host_syncs"] += it + 1
             info["levels"].append(it)
 
-            # bookkeeping: a split succeeds iff the new child got rows
-            succ = slot_valid & (counts2[:, 1] > 0)
-            new_id = np.where(succ, n_leaves + np.cumsum(succ) - 1, k)
+            succ, new_id, grown = self._record_level(
+                centers, sizes, sse, divisible, splits, level, n_leaves, sel, slot_valid,
+                counts2, csse2, cen2)
             safe_p = torch.clamp(pos, 0, L - 1)
             relabel = (pos >= 0) & (bits == 1) & torch.from_numpy(succ).to(dev)[safe_p]
             assign = torch.where(relabel, torch.from_numpy(new_id).to(dev)[safe_p], assign)
-
-            centers[sel] = np.where(succ[:, None], cen2[:, 0], centers[sel])
-            sizes[sel] = np.where(succ, counts2[:, 0], sizes[sel])
-            sse[sel] = np.where(succ, csse2[:, 0], sse[sel])
-            # the parent stays divisible iff it kept rows; a failed split
-            # (the new child empty) pins the leaf closed
-            divisible[sel] = np.where(slot_valid, succ & (counts2[:, 0] > 0), divisible[sel])
-            centers[new_id] = np.where(succ[:, None], cen2[:, 1], centers[new_id])
-            sizes[new_id] = np.where(succ, counts2[:, 1], sizes[new_id])
-            sse[new_id] = np.where(succ, csse2[:, 1], sse[new_id])
-            divisible[new_id] = np.where(succ, True, divisible[new_id])
-            grown = int(succ.sum())
             n_leaves += grown
             n_splits += grown
             level += 1
         cost = float(sse[:k][sizes[:k] > 0].sum())
-        return cost, centers, sizes, sse, n_splits
+        return cost, centers, sizes, sse, n_splits, splits
+
+    def _fit_outofcore(self, hd: HostDataset, dev) -> BisectingKMeansModel:
+        """Rows ≫ device memory: the same level algorithm with each row's
+        leaf on the host (n int32) and every Lloyd iteration and stats
+        pass a sweep over the streamed blocks, recentered around the global
+        mean (no shift on the sphere), the same seeds and restarts, so the
+        split tree is the resident one up to block-sum rounding."""
+        k, d = self.k, hd.n_features
+        if hd.n == 0:
+            raise ValueError("BisectingKMeans fit on an empty dataset")
+        cosine = self.distance_measure == "cosine"
+        L = self._leaves_a_level()
+        n_blocks, b = hd.block_shape()
+
+        def prep(blk):
+            return _cosine_prep(blk.x, blk.w) if cosine else blk.x
+
+        # pass 0: the global mean → the shift and the root center
+        mom = None
+        for blk in hd.blocks(device=dev):
+            s = block_moments(prep(blk), blk.w, blk.w)
+            mom = s if mom is None else add_stats(mom, s)
+        sw = max(float(mom[0]), 0.0)
+        if sw == 0.0:
+            raise ValueError("BisectingKMeans fit on an empty dataset")
+        mean = mom[1].cpu().numpy() / max(sw, 1.0)
+        shift = np.zeros((d,), np.float32) if cosine else mean.astype(np.float32)
+        root = mean.astype(np.float32) - shift
+        if cosine:
+            root = root / max(np.linalg.norm(root), 1e-12)
+        shift_dev = torch.from_numpy(shift).to(dev)
+        # the mean and the root SSE: one fetch each
+        info = {"trees": self.n_restarts, "levels": [], "lloyd_iters": 0, "host_syncs": 2}
+
+        # pass 1: the root's SSE
+        root_cen = torch.from_numpy(np.broadcast_to(root, (2, d)).astype(np.float32)).to(dev)
+        tot = None
+        for blk in hd.blocks(device=dev):
+            pos0 = torch.zeros((blk.x.shape[0],), dtype=torch.int64, device=dev)
+            _, csse, _ = _bkm_stats_block(prep(blk), blk.w, pos0, root_cen, shift_dev)
+            tot = csse if tot is None else tot + csse
+        root_sse = float(tot.cpu().numpy().sum())
+        min_size = self._min_size(sw)
+
+        def block_pos(i: int, rows: int, assign, slot_of) -> np.ndarray:
+            s, e = i * b, min(i * b + b, hd.n)
+            p = np.full((rows,), -1, np.int64)
+            p[: e - s] = slot_of[np.clip(assign[s:e], 0, k)]
+            return p
+
+        def grow(key):
+            centers = np.zeros((k + 1, d), np.float32)
+            centers[0] = root
+            sizes = np.zeros((k + 1,), np.float32)
+            sizes[0] = sw
+            sse = np.zeros((k + 1,), np.float32)
+            sse[0] = root_sse
+            divisible = np.zeros((k + 1,), bool)
+            divisible[0] = True
+            assign = np.zeros((hd.n,), np.int32)
+            n_leaves, n_splits, level, splits = 1, 0, 0, []
+            while n_leaves < k:
+                plan = self._schedule(centers, sizes, sse, divisible, n_leaves, min_size, L,
+                                      key, level, cosine)
+                if plan is None:
+                    break
+                sel, slot_valid, slot_of, cen = plan
+                cen = cen.astype(np.float32)
+                valid2 = np.repeat(slot_valid, 2)
+                it = 0
+                for it in range(1, self.max_iter + 1):
+                    cen_dev = torch.from_numpy(cen).to(dev)
+                    tot = None
+                    for i, blk in enumerate(hd.blocks(device=dev)):
+                        pos_b = torch.from_numpy(
+                            block_pos(i, blk.x.shape[0], assign, slot_of)).to(dev)
+                        s2 = _bkm_lloyd_block(prep(blk), blk.w, pos_b, cen_dev, shift_dev)
+                        tot = s2 if tot is None else add_stats(tot, s2)
+                    sums, counts = (v.cpu().numpy() for v in tot)
+                    new_cen = np.where((counts > 0)[:, None],
+                                       sums / np.maximum(counts, 1.0)[:, None], cen)
+                    if cosine:
+                        new_cen = normalize_rows(torch.from_numpy(
+                            np.ascontiguousarray(new_cen, np.float32))).numpy()
+                    move = float(np.max(np.sum((new_cen - cen) ** 2, axis=1) * valid2))
+                    cen = new_cen.astype(np.float32)
+                    if move <= 1e-8:
+                        break
+                cen_dev = torch.from_numpy(cen).to(dev)
+                counts_t = sse_t = None
+                bits_blocks = []
+                for i, blk in enumerate(hd.blocks(device=dev)):
+                    pos_h = block_pos(i, blk.x.shape[0], assign, slot_of)
+                    c, cs, bit = _bkm_stats_block(prep(blk), blk.w,
+                                                  torch.from_numpy(pos_h).to(dev), cen_dev,
+                                                  shift_dev)
+                    counts_t = c if counts_t is None else counts_t + c
+                    sse_t = cs if sse_t is None else sse_t + cs
+                    # a block on the card lives until the iterator advances:
+                    # its bits come to the host now
+                    bits_blocks.append((i, pos_h, bit.cpu().numpy()))
+                counts2 = counts_t.cpu().numpy().reshape(L, 2)
+                csse2 = sse_t.cpu().numpy().reshape(L, 2)
+                info["lloyd_iters"] += it
+                # a fetch a Lloyd iteration, a bit vector a block, the level's sums
+                info["host_syncs"] += it + n_blocks + 1
+                info["levels"].append(it)
+
+                succ, new_id, grown = self._record_level(
+                    centers, sizes, sse, divisible, splits, level, n_leaves, sel, slot_valid,
+                    counts2, csse2, cen.reshape(L, 2, d))
+                for i, pos_h, bit in bits_blocks:
+                    s, e = i * b, min(i * b + b, hd.n)
+                    p = pos_h[: e - s]
+                    safe_p = np.clip(p, 0, L - 1)
+                    relabel = (p >= 0) & (bit[: e - s] == 1) & succ[safe_p]
+                    if relabel.any():
+                        seg = assign[s:e]
+                        seg[relabel] = new_id[safe_p[relabel]]
+                        assign[s:e] = seg
+                n_leaves += grown
+                n_splits += grown
+                level += 1
+                if grown == 0 and not divisible[:k].any():
+                    break
+            cost = float(sse[:k][sizes[:k] > 0].sum())
+            return cost, centers, sizes, sse, n_splits, splits
+
+        return self._best_tree(grow, shift, info)

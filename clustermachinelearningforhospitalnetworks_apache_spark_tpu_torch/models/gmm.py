@@ -26,10 +26,17 @@ loop (Python floats).  A :class:`~..parallel.outofcore.HostDataset`
 streams its blocks through the same chunked E-step statistics, summed
 over blocks, then one M-step an iteration.  ``checkpoint_dir`` commits
 the parameters with **unshifted** means (``io/fit_checkpoint.py``), and a
-warm start (``warm_start_params``) runs unshifted.  ``matmul_precision``
-other than ``"highest"`` (the factor-form E-step) comes with slice 4c of
-the port, and the partials protocol with the slice that ports
-``federated/partials.py``; both raise.
+warm start (``warm_start_params``) runs unshifted.
+
+``matmul_precision`` other than ``"highest"`` takes the reference's
+factor-form E-step: the k inverse Cholesky factors, stacked into one
+(d, k·d) matrix once an iteration (:func:`_pdf_factors`), turn the
+per-component triangular solves into one product a row chunk
+(:func:`_batched_log_pdf`), and that product and the two moment products
+run under the precision (``ops/distance.py::matmul_p``: TF32 on the card
+for "high" / "default", bf16 operands with float32 sums for "bf16").  The
+partials protocol comes with the slice that ports
+``federated/partials.py`` and raises.
 """
 
 from __future__ import annotations
@@ -43,12 +50,12 @@ import torch
 from ..data import DeviceDataset, sample_valid_rows
 from ..device import resolve_device
 from ..io.model_io import register_model
+from ..ops.distance import matmul_p, validate_matmul_precision
 from ..parallel.outofcore import HostDataset, add_stats
 from .base import ClusteringModel, Estimator, as_device_dataset, check_features
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
 
-_SLICE_4C = "slice 4c of the port"
 _PARTIALS = "the slice of the port that ports federated/partials.py"
 
 
@@ -61,6 +68,32 @@ def _log_pdf(x, means, chols):
     maha = (sol * sol).sum(dim=1)                                   # (k, n)
     logdet = 2.0 * torch.log(torch.diagonal(chols, dim1=1, dim2=2)).sum(dim=1)
     return (-0.5 * (d * math.log(2.0 * math.pi) + logdet[:, None] + maha)).T
+
+
+def _pdf_factors(means, chols):
+    """→ (W (d, k·d), offset (k, d), const (k,)) for the matmul E-step:
+    with L⁻¹ the inverse Cholesky factor, maha_k(x) = ‖x·L_k⁻ᵀ −
+    mean_k·L_k⁻ᵀ‖², so stacking the L⁻ᵀ over components makes the k
+    triangular solves of :func:`_log_pdf` one (chunk, d) @ (d, k·d)
+    product."""
+    k, d = means.shape
+    eye = torch.eye(d, dtype=torch.float32, device=means.device)
+    linv = torch.linalg.solve_triangular(chols, eye.expand(k, d, d), upper=False)  # L⁻¹
+    linv_t = linv.transpose(1, 2)                        # [k, i, j] = L⁻ᵀ entries
+    w_fac = linv_t.transpose(0, 1).reshape(d, k * d)
+    offset = torch.einsum("kd,kde->ke", means, linv_t)
+    logdet = 2.0 * torch.log(torch.diagonal(chols, dim1=1, dim2=2)).sum(dim=1)
+    const = -0.5 * (d * math.log(2.0 * math.pi) + logdet)
+    return w_fac, offset, const
+
+
+def _batched_log_pdf(xb, w_fac, offset, const, precision: str = "highest"):
+    """(chunk, k) log densities from :func:`_pdf_factors`: the values of
+    :func:`_log_pdf` up to the product's rounding, subtracting in the
+    transformed basis."""
+    k, d = offset.shape
+    y = matmul_p(xb, w_fac, precision).reshape(-1, k, d) - offset[None]
+    return const[None, :] - 0.5 * (y * y).sum(dim=-1)
 
 
 def _chunks(n: int, chunk: int):
@@ -78,10 +111,15 @@ def _e_step(x, w, log_weights, means, chols, chunk: int = 65536):
     return ll
 
 
-def _em_pass(x, w, shift, logw, means, chols, chunk: int):
+def _em_pass(x, w, shift, logw, means, chols, chunk: int, precision: str = "highest"):
     """One E-step's sufficient statistics (nk, Σr·x, Σr·xxᵀ, ll) over row
-    chunks, rows recentered by ``shift``."""
+    chunks, rows recentered by ``shift``.  "highest" solves per component
+    (diff first, stable when components sit far apart); the other
+    precisions take the factor form and run the log-density and moment
+    products under ``precision``."""
     k, d = means.shape
+    if precision != "highest":
+        w_fac, offset, const = _pdf_factors(means, chols)
     f32 = dict(dtype=torch.float32, device=x.device)
     nk = torch.zeros((k,), **f32)
     sums = torch.zeros((k, d), **f32)
@@ -91,14 +129,18 @@ def _em_pass(x, w, shift, logw, means, chols, chunk: int):
     for s in starts:
         xb = x[s:s + c] - shift[None, :]
         wb = w[s:s + c]
-        log_resp_un = _log_pdf(xb, means, chols) + logw[None, :]
+        if precision != "highest":
+            log_pdf = _batched_log_pdf(xb, w_fac, offset, const, precision)
+        else:
+            log_pdf = _log_pdf(xb, means, chols)
+        log_resp_un = log_pdf + logw[None, :]
         log_norm = torch.logsumexp(log_resp_un, dim=1)
         resp = torch.exp(log_resp_un - log_norm[:, None]) * wb[:, None]    # (c, k)
         nk = nk + resp.sum(dim=0)
-        sums = sums + resp.T @ xb
+        sums = sums + matmul_p(resp.T, xb, precision)
         # (chunk, d·d) row outer products against (chunk, k) resp
         xx = (xb[:, :, None] * xb[:, None, :]).reshape(-1, d * d)
-        outer = outer + (resp.T @ xx).reshape(k, d, d)
+        outer = outer + matmul_p(resp.T, xx, precision).reshape(k, d, d)
         ll = ll + (log_norm * wb).sum()
     return nk, sums, outer, ll
 
@@ -377,10 +419,7 @@ class GaussianMixture(Estimator):
         x) on ``device`` (default the card); a :class:`HostDataset`
         streams its blocks to ``device``.  ``on_iteration(it,
         log_likelihood)`` (optional) fires after every EM step."""
-        if self.matmul_precision != "highest":
-            raise NotImplementedError(
-                f"matmul_precision={self.matmul_precision!r} (the factor-form E-step) "
-                f"comes with {_SLICE_4C}; the port runs 'highest'")
+        validate_matmul_precision(self.matmul_precision)
         if isinstance(data, HostDataset):
             return self._fit_outofcore(data, resolve_device(device), on_iteration)
         ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
@@ -416,7 +455,7 @@ class GaussianMixture(Estimator):
             means_d, covs_d, weights_d = params
             chols = _gmm_chols(covs_d, self.reg_covar)
             nk, sums, outer, ll = _em_pass(x, w, shift_d, torch.log(weights_d), means_d,
-                                           chols, self.chunk_rows)
+                                           chols, self.chunk_rows, self.matmul_precision)
             return _m_step_rule(nk, sums, outer, self.reg_covar), ll
 
         if ckpt is None and on_iteration is None:
@@ -467,7 +506,8 @@ class GaussianMixture(Estimator):
             logw = torch.log(weights_d)
             tot = None
             for blk in hd.blocks(device=dev):
-                s = _em_pass(blk.x, blk.w, shift_d, logw, means_d, chols, self.chunk_rows)
+                s = _em_pass(blk.x, blk.w, shift_d, logw, means_d, chols, self.chunk_rows,
+                             self.matmul_precision)
                 tot = s if tot is None else add_stats(tot, s)
             nk, sums, outer, ll = tot
             return _m_step_rule(nk, sums, outer, self.reg_covar), ll

@@ -15,6 +15,15 @@ The JAX package's ``models/kmeans.py``, step for step:
 ``distance_measure="cosine"`` runs K1 and K2 unchanged on unit rows (pad
 rows zeroed by the 0/1 mask, never by the weight value).
 
+``matmul_precision`` other than ``"highest"`` runs the Lloyd steps'
+statistics as the reference's row-chunked XLA matmuls do, in torch ops
+(:func:`lloyd_stats_reduced`, ``ops/distance.py::matmul_p``): ``"bf16"``
+rounds the assignment product's operands to bfloat16 and sums in float32;
+``fused_stats`` (bf16 only) also takes the argmin on the x²-free basis
+``c_sq − 2·x·cᵀ`` and gets sums and counts from one bf16 one-hot product
+against ``[x | 1]``.  The final pass that gives ``training_cost`` and
+``cluster_sizes`` stays K1 (exact), as the reference keeps it.
+
 Two stopping rules, as in the reference.  Its device loop (no checkpoint,
 no ``on_iteration``) stops when ``move <= tol²`` compared in float32; its
 host loop (a checkpoint or ``on_iteration`` on the resident path, and
@@ -39,12 +48,16 @@ import torch
 from ..data import DeviceDataset, pad_slots, padded_slots, sample_valid_rows, slot_mask
 from ..device import resolve_device
 from ..io.model_io import register_model
+from ..ops.distance import matmul_p, pairwise_sqdist, sq_norms, validate_matmul_precision
 from ..ops.lloyd import fused_assign, fused_lloyd_stats
 from ..parallel.outofcore import HostDataset, add_stats
 from .base import ClusteringModel, Estimator, as_device_dataset, check_features
 from .summary import ClusteringSummary
 
 DISTANCE_MEASURES = ("euclidean", "cosine")
+
+#: invalid (k-padding) centers' distance in the reduced-precision steps
+_BIG = 1e30
 
 
 def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -72,6 +85,51 @@ def _centroid_rule(sums, counts, centers, c_valid, cosine: bool = False):
         new_centers = normalize_rows(new_centers)
     move = (((new_centers - centers) ** 2).sum(dim=1) * c_valid).max()
     return new_centers, move
+
+
+def lloyd_stats_reduced(x, w, centers, c_valid, precision: str, fuse_stats: bool,
+                        chunk: int):
+    """One Lloyd pass's (sums (k, d), counts (k,), cost ()) under a
+    reduced matmul precision, ``chunk`` rows at a time (the reference's
+    ``_lloyd_shard_stats`` on one device).
+
+    Plain: the assignment product under ``precision``, invalid centers at
+    +BIG, argmin, then a float32 one-hot product for the sums.
+    ``fuse_stats``: the argmin on ``c_sq − 2·x·cᵀ`` (bf16 product; x² is
+    constant along a row and is added back for the cost only), and sums
+    and counts from one bf16 one-hot product of the bf16-rounded weights
+    against ``[x | 1]``, summed in float32."""
+    if fuse_stats and precision != "bf16":
+        raise ValueError("fuse_stats requires matmul_precision='bf16'")
+    k, d = centers.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sums = torch.zeros((k, d), **f32)
+    counts = torch.zeros((k,), **f32)
+    cost = torch.zeros((), **f32)
+    c_sq = sq_norms(centers)
+    valid = (c_valid > 0)[None, :]
+    for s in range(0, x.shape[0], max(chunk, 1)):
+        xb, wb = x[s:s + chunk], w[s:s + chunk]
+        if fuse_stats:
+            basis = c_sq[None, :] - 2.0 * matmul_p(xb, centers.T, "bf16")
+            mn, arg = torch.where(valid, basis, torch.full_like(basis, _BIG)).min(dim=1)
+            g_min = torch.clamp(mn + sq_norms(xb), min=0.0)
+            wv = torch.where(wb > 0, wb, torch.zeros_like(wb)).to(torch.bfloat16)
+            oh = torch.nn.functional.one_hot(arg, k).to(torch.float32) * wv.to(
+                torch.float32)[:, None]
+            x1 = torch.cat([xb, torch.ones((xb.shape[0], 1), **f32)], dim=1)
+            sc = matmul_p(oh.T, x1, "bf16")
+            sums = sums + sc[:, :d]
+            counts = counts + sc[:, d]
+        else:
+            d2 = pairwise_sqdist(xb, centers, c_sq=c_sq, precision=precision)
+            g_min, arg = torch.where(valid, d2, torch.full_like(d2, _BIG)).min(dim=1)
+            oh = torch.nn.functional.one_hot(arg, k).to(torch.float32) * torch.where(
+                wb > 0, wb, torch.zeros_like(wb))[:, None]
+            sums = sums + oh.T @ xb
+            counts = counts + oh.sum(dim=0)
+        cost = cost + (g_min * wb).sum()
+    return sums, counts, cost
 
 
 def _kmeans_pp_init(sample: np.ndarray, k: int, seed: int) -> np.ndarray:
@@ -243,6 +301,17 @@ class KMeans(Estimator):
     #: checkpoint signature hashes them
     warm_start_centers: np.ndarray | None = None
     init_sample_size: int = 65536
+    #: rows a chunk of the reduced-precision steps (the reference's scan)
+    chunk_rows: int = 32768
+    #: the Lloyd steps' matmul precision (``ops/distance.MATMUL_PRECISIONS``);
+    #: "highest" is K1 on the card
+    matmul_precision: str = "highest"
+    #: bf16 only: the x²-free argmin and one bf16 one-hot product for the
+    #: sums and counts (``lloyd_stats_reduced``)
+    fused_stats: bool = False
+    #: the reference's switch for its Pallas kernel; K1 is the "highest"
+    #: step on the card whatever it says
+    use_pallas: bool | None = None
     #: commit the centers every ``checkpoint_every`` Lloyd steps, so a
     #: preempted fit resumes from the last commit
     checkpoint_dir: str | None = None
@@ -290,6 +359,20 @@ class KMeans(Estimator):
         from ..io.fit_checkpoint import array_fingerprint
 
         return array_fingerprint(np.asarray(self.warm_start_centers, dtype=np.float32))
+
+    def _stats_fn(self):
+        """The Lloyd steps' statistics: K1 at "highest", else the
+        reduced-precision torch pass."""
+        if self.matmul_precision == "highest":
+            if self.fused_stats:
+                raise ValueError("fuse_stats requires matmul_precision='bf16'")
+            return fused_lloyd_stats
+
+        def reduced(x, w, cen, c_valid):
+            return lloyd_stats_reduced(x, w, cen, c_valid, self.matmul_precision,
+                                       self.fused_stats, self.chunk_rows)
+
+        return reduced
 
     def _init_centers(self, ds: DeviceDataset) -> np.ndarray:
         return self._init_from_sample(
@@ -358,8 +441,10 @@ class KMeans(Estimator):
             raise ValueError(f"unknown init_mode {self.init_mode!r}")
         if self.distance_measure not in DISTANCE_MEASURES:
             raise ValueError(f"unknown distance_measure {self.distance_measure!r}")
+        validate_matmul_precision(self.matmul_precision)
+        stats = self._stats_fn()
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device), on_iteration)
+            return self._fit_outofcore(data, resolve_device(device), stats, on_iteration)
         ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
         dev = ds.x.device
         x = ds.x.to(torch.float32).contiguous()
@@ -391,7 +476,7 @@ class KMeans(Estimator):
         c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
 
         def step(cen):
-            sums, counts, cost = fused_lloyd_stats(x, w, cen, c_valid)
+            sums, counts, cost = stats(x, w, cen, c_valid)
             new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
             return new, cost, move
 
@@ -409,7 +494,7 @@ class KMeans(Estimator):
         _, counts, cost = fused_lloyd_stats(x, w, centers, c_valid)
         return self._model(centers, counts, cost, it)
 
-    def _fit_outofcore(self, hd: HostDataset, dev, on_iteration=None) -> KMeansModel:
+    def _fit_outofcore(self, hd: HostDataset, dev, stats, on_iteration=None) -> KMeansModel:
         """Rows ≫ device memory: each Lloyd step streams the blocks, one K1
         launch a block, sums the statistics over blocks and applies one
         centroid update; device memory stays bounded by the block size.
@@ -438,22 +523,22 @@ class KMeans(Estimator):
         centers = torch.from_numpy(cen).to(dev)
         c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
 
-        def epoch(cen):
+        def epoch(cen, stats_fn):
             tot = None
             for blk in hd.blocks(device=dev):
                 x = _cosine_prep(blk.x, blk.w) if cosine else blk.x
-                s = fused_lloyd_stats(x, blk.w, cen, c_valid)
+                s = stats_fn(x, blk.w, cen, c_valid)
                 tot = s if tot is None else add_stats(tot, s)
             if tot is None:
                 raise ValueError("k-means fit on an empty dataset")
             return tot
 
         def step(cen):
-            sums, counts, cost = epoch(cen)
+            sums, counts, cost = epoch(cen, stats)
             new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
             return new, cost, move
 
         centers, it = self._host_loop(step, centers, start_it, ckpt, on_iteration)
-        # final pass: cost/sizes describe the RETURNED centers
-        _, counts, cost = epoch(centers)
+        # final pass (exact, K1): cost/sizes describe the RETURNED centers
+        _, counts, cost = epoch(centers, fused_lloyd_stats)
         return self._model(centers, counts, cost, it)

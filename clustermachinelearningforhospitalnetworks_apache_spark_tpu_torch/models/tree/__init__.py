@@ -1,11 +1,20 @@
-"""Level-order histogram trees: decision trees and random forests."""
+"""Level-order histogram trees: decision trees, random forests and
+gradient-boosted trees."""
 
 from .decision_tree import (
     DecisionTreeClassifier,
     DecisionTreeModel,
     DecisionTreeRegressor,
 )
-from .engine import GrownForest, grow_forest, grow_forest_outofcore, predict_forest
+from .engine import (
+    DeferredForest,
+    GrownForest,
+    device_tree_arrays,
+    grow_forest,
+    grow_forest_outofcore,
+    predict_forest,
+)
+from .gbt import GBTClassifier, GBTModel, GBTRegressor
 from .random_forest import (
     RandomForestClassifier,
     RandomForestModel,
@@ -14,6 +23,7 @@ from .random_forest import (
 
 __all__ = [
     "DecisionTreeClassifier", "DecisionTreeModel", "DecisionTreeRegressor",
-    "GrownForest", "RandomForestClassifier", "RandomForestModel",
-    "RandomForestRegressor", "grow_forest", "grow_forest_outofcore", "predict_forest",
+    "DeferredForest", "GBTClassifier", "GBTModel", "GBTRegressor", "GrownForest", "RandomForestClassifier", "RandomForestModel",
+    "RandomForestRegressor", "device_tree_arrays", "grow_forest", "grow_forest_outofcore",
+    "predict_forest",
 ]

@@ -13,6 +13,14 @@ Draws match the JAX package bit for bit (``prng.py``): the per-node
 feature subset is rank-of-uniform over ``fold_in(key(seed), depth)`` and
 the bootstrap is ``poisson(key(seed), rate, (T, n_pad))``.
 
+``grow_forest(..., defer_fetch=True)`` returns a :class:`DeferredForest`
+whose winners stay on the device; :func:`device_tree_arrays` turns them
+into heap tensors that ``predict_forest`` walks, so the GBT boosting loop
+chains round t+1's residuals off round t's tree with no host sync and
+fetches every round's winners once, at the end.  ``bin_thresholds=`` and
+``binned_t=`` let a caller that grows many trees on one feature matrix
+bin it once.
+
 ``grow_forest_outofcore`` grows from a :class:`~...parallel.outofcore.HostDataset`:
 each level streams the blocks, re-bins each one, replays the recorded
 splits to find its rows' nodes, and sums one K3 launch a block; the same
@@ -325,13 +333,12 @@ def _frontier(node_id, level_nodes: int) -> torch.Tensor:
 def _level_loop(binned_t, base_t, w_tree, T: int, d: int, B: int, task: str,
                 max_depth: int, seed: int, subset_k: int | None, min_inst: float,
                 min_gain: float, is_cat):
-    """Grow every level on the device without a host sync.  → one float64
-    tensor per level packing (agg, gain, feat, bin, do_split, catmask)
-    column-wise, (T, LN·(S+5))."""
+    """Grow every level on the device without a host sync.  → per level
+    the device winners (agg, gain, feat, bin, do_split, catmask)."""
     dev = binned_t.device
     n = binned_t.shape[1]
     node_id = torch.zeros((T, n), dtype=torch.int32, device=dev)
-    packed = []
+    level_out = []
     for depth in range(max_depth + 1):
         level_nodes = 1 << depth
         level_base = level_nodes - 1
@@ -342,15 +349,34 @@ def _level_loop(binned_t, base_t, w_tree, T: int, d: int, B: int, task: str,
             mask = torch.ones((T, level_nodes, d), dtype=torch.float32, device=dev)
         hist = fused_level_hist(binned_t, base_t, w_tree, pos, level_nodes, B)
         out = select_splits(hist, mask, min_inst, min_gain, task, is_cat)
-        agg, gain, feat, bin_, split, catmask = out
-        packed.append(torch.cat(
-            [agg.reshape(T, -1).to(torch.float64)]
-            + [v.to(torch.float64) for v in (gain, feat, bin_, split, catmask)], dim=1
-        ))
+        level_out.append(out)
+        _, _, feat, bin_, split, catmask = out
         if depth < max_depth:
             node_id = advance_level(binned_t, node_id, pos, feat, bin_, split, level_base,
                                     catmask, is_cat)
-    return packed
+    return level_out
+
+
+def _pack_levels(level_out) -> torch.Tensor:
+    """Every level's winners in one float64 (T, Σ LN·(S+5)) tensor, packed
+    column-wise (exact: the ids, bins and masks fit float64), so one copy
+    fetches them."""
+    T = level_out[0][0].shape[0]
+    return torch.cat([torch.cat([agg.reshape(T, -1).to(torch.float64)]
+                                + [v.to(torch.float64) for v in rest], dim=1)
+                      for agg, *rest in level_out], dim=1)
+
+
+def _unpack_levels(row: np.ndarray, T: int, S: int, max_depth: int) -> list:
+    """:func:`_pack_levels`'s (T, W) block on the host → per level the
+    six winner arrays."""
+    out, col = [], 0
+    for depth in range(max_depth + 1):
+        LN = 1 << depth
+        width = LN * (S + 5)
+        out.append(_unpack_level(row[:, col : col + width], T, LN, S))
+        col += width
+    return out
 
 
 def _unpack_level(level: np.ndarray, T: int, LN: int, S: int):
@@ -358,6 +384,108 @@ def _unpack_level(level: np.ndarray, T: int, LN: int, S: int):
     rest = level[:, LN * S :].reshape(T, 5, LN)
     return (agg, rest[:, 0], rest[:, 1].astype(np.int32), rest[:, 2].astype(np.int32),
             rest[:, 3] > 0, rest[:, 4].astype(np.uint32))
+
+
+@dataclass
+class DeferredForest:
+    """:func:`grow_forest` output with the host fetch deferred: the
+    per-level winners are still device tensors (possibly still being
+    computed).  The GBT loop walks the tree on the device through
+    :func:`device_tree_arrays`, so round t+1's residuals chain off round t
+    with no host sync, and fetches every round's winners at once at the
+    end of the fit."""
+
+    level_out: list             # per level: the six winner tensors
+    thr: np.ndarray             # (d, B-1) float64 bin thresholds
+    task: str
+    num_classes: int
+    cat_arities: tuple[int, ...] | None
+    B: int
+    max_depth: int
+    is_cat_host: np.ndarray
+    T: int
+    d: int
+    S: int
+
+    def packed(self) -> torch.Tensor:
+        """The winners in one (T, W) float64 device tensor
+        (:func:`fetch_packed` reads it back)."""
+        return _pack_levels(self.level_out)
+
+    def fetch(self) -> GrownForest:
+        return self.fetch_packed(self.packed().cpu().numpy())
+
+    def fetch_packed(self, row: np.ndarray) -> GrownForest:
+        """Materialize from an already fetched :meth:`packed` block (batch
+        several rounds' blocks into one copy, then call this per round)."""
+        return self.fetch_from(_unpack_levels(row, self.T, self.S, self.max_depth))
+
+    def fetch_from(self, fetched_levels) -> GrownForest:
+        """Materialize from fetched per-level winner arrays."""
+        rec = _ForestRecorder(self.T, self.d, self.S, self.max_depth, self.is_cat_host)
+        for depth, fetched in enumerate(fetched_levels):
+            rec.record_level(depth, fetched)
+        return rec.materialize(self.thr, self.task, self.num_classes, self.cat_arities,
+                               self.B)
+
+
+def device_tree_arrays(level_out, thr_dev, is_cat_dev, B: int):
+    """→ (split_feat, threshold, value (T, total, 1), catmask) heap tensors
+    on the device from a :class:`DeferredForest`'s level winners: the
+    device mirror of ``_ForestRecorder.record_level`` + ``materialize`` for
+    regression trees (S = 3 stats (w, Σy, Σy²), the GBT path), so
+    ``predict_forest`` walks a just-grown tree without a host sync.  The
+    leaf division runs in float32 (the recorder's in float64); on
+    integer-exact sums both round alike.  ``thr_dev`` (d, B-1) float32,
+    ``is_cat_dev`` (d,) bool."""
+    max_depth = len(level_out) - 1
+    feats, bins, valids, masks, stats = [], [], [], [], []
+    for depth, (agg, _gain, feat, bin_, split, catmask) in enumerate(level_out):
+        stats.append(agg)
+        if depth == max_depth:                      # the deepest level: leaves
+            feats.append(torch.full_like(feat, -1))
+            bins.append(torch.zeros_like(bin_))
+            valids.append(torch.zeros_like(split))
+            masks.append(torch.zeros_like(catmask))
+        else:
+            feats.append(torch.where(split, feat, torch.full_like(feat, -1)))
+            bins.append(torch.where(split, bin_, torch.zeros_like(bin_)))
+            valids.append(split)
+            masks.append(torch.where(split & is_cat_dev[feat.to(torch.int64)], catmask,
+                                     torch.zeros_like(catmask)))
+    split_feat = torch.cat(feats, dim=1)            # (T, total)
+    split_bin = torch.cat(bins, dim=1)
+    do_split = torch.cat(valids, dim=1)
+    catmask = torch.cat(masks, dim=1)
+    node_stats = torch.cat(stats, dim=1)            # (T, total, 3)
+
+    w = node_stats[..., 0]
+    value = torch.where(w > 0, node_stats[..., 1] / torch.clamp(w, min=1e-12),
+                        torch.zeros_like(w))
+    # un-populated slots predict their parent: level by level, top down,
+    # which is the recorder's slot-order loop (a parent precedes its
+    # children)
+    for depth in range(1, max_depth + 1):
+        lo, hi = (1 << depth) - 1, (1 << (depth + 1)) - 1
+        parent = value[:, (lo - 1) // 2 : (hi - 1) // 2].repeat_interleave(2, dim=1)
+        value[:, lo:hi] = torch.where(w[:, lo:hi] <= 0, parent, value[:, lo:hi])
+
+    f_idx = torch.clamp(split_feat, min=0).to(torch.int64)
+    valid_split = do_split & ~is_cat_dev[f_idx]
+    thr_at = thr_dev[f_idx, torch.clamp(split_bin, max=B - 2).to(torch.int64)]
+    threshold = torch.where(valid_split, thr_at, torch.zeros_like(thr_at))
+    return split_feat, threshold, value[..., None].to(torch.float32), catmask
+
+
+def _stats_base(y: torch.Tensor, task: str, S: int) -> torch.Tensor:
+    """Per-row base stats (S, n): (1, y, y²) for regression, the class
+    one-hots for classification."""
+    if task == "regression":
+        y = y.to(torch.float32)
+        return torch.stack([torch.ones_like(y), y, y * y], dim=0).contiguous()
+    yi = y.to(torch.int32)
+    return (yi[None, :] == torch.arange(S, dtype=torch.int32, device=y.device)[:, None]).to(
+        torch.float32).contiguous()
 
 
 def grow_forest(
@@ -376,8 +504,13 @@ def grow_forest(
     seed: int = 0,
     init_sample_size: int = 65536,
     categorical_features: dict[int, int] | None = None,
+    bin_thresholds: np.ndarray | None = None,
+    binned_t: torch.Tensor | None = None,
+    defer_fetch: bool = False,
+    fused_levels: bool = True,
+    cat_flags: torch.Tensor | None = None,
     timings: dict | None = None,
-) -> GrownForest:
+) -> "GrownForest | DeferredForest":
     """Train ``num_trees`` trees level by level on the dataset's device.
 
     Steps: quantile thresholds from a host sample of valid rows; the
@@ -385,6 +518,17 @@ def grow_forest(
     bootstrap when ``bootstrap``); per-row stats (w, y, y²) or class
     one-hots; then ``max_depth + 1`` levels of K3 + selection + advance
     with no host sync, and one fetch of every level's winners.
+
+    ``bin_thresholds`` ((d, max_bins-1), from
+    ``binning.quantile_thresholds``) skips the sample and its quantiles;
+    ``binned_t`` ((d, n_pad) int32, with the matching ``bin_thresholds``)
+    skips the digitize too.  ``defer_fetch=True`` returns a
+    :class:`DeferredForest` and makes no host sync at all (not even the
+    empty-dataset check of the ``bin_thresholds`` route: the caller has
+    checked).  ``fused_levels`` is the reference's switch and changes
+    nothing here: the level loop already makes no host sync.
+    ``cat_flags``, the (d,) bool device tensor of ``categorical_features``,
+    skips its host-to-device copy (a boosting loop makes it once).
 
     ``categorical_features`` maps feature index → arity (≤ min(32,
     max_bins)); those columns hold category ids and split as unordered
@@ -407,12 +551,24 @@ def grow_forest(
     cat_arities = _check_categorical(cat, d, B)
 
     t0 = time.perf_counter()
-    sample = sample_valid_rows(ds, init_sample_size, seed)
-    if sample.shape[0] == 0:
-        raise ValueError("tree fit on an empty dataset")
-    thr = quantile_thresholds(sample, B)
+    if bin_thresholds is not None:
+        thr = np.asarray(bin_thresholds, dtype=np.float64)
+        if thr.shape != (d, B - 1):
+            raise ValueError(f"bin_thresholds shape {thr.shape} != ({d}, {B - 1})")
+        if not defer_fetch and float(ds.w.sum()) == 0.0:
+            raise ValueError("tree fit on an empty dataset")
+    else:
+        sample = sample_valid_rows(ds, init_sample_size, seed)
+        if sample.shape[0] == 0:
+            raise ValueError("tree fit on an empty dataset")
+        thr = quantile_thresholds(sample, B)
     t0 = tick("thresholds", t0)
-    binned_t = bin_feature_matrix(ds.x, thr, cat, w=ds.w)
+    if binned_t is None:
+        binned_t = bin_feature_matrix(ds.x, thr, cat, w=ds.w)
+    elif bin_thresholds is None:
+        raise ValueError("binned_t requires the matching bin_thresholds")
+    elif tuple(binned_t.shape) != (d, n_pad):
+        raise ValueError(f"binned_t shape {tuple(binned_t.shape)} != ({d}, {n_pad})")
     t0 = tick("digitize", t0)
 
     w_valid = ds.w.to(torch.float32)
@@ -420,18 +576,15 @@ def grow_forest(
         w_tree = bootstrap_weights(seed, float(subsampling_rate), T, n_pad, dev) * w_valid[None, :]
     else:
         w_tree = w_valid[None, :].expand(T, n_pad).contiguous()
-    if task == "regression":
-        S = 3
-        y = ds.y.to(torch.float32)
-        base_t = torch.stack([torch.ones_like(y), y, y * y], dim=0)
-    else:
-        S = num_classes
-        yi = ds.y.to(torch.int32)
-        base_t = (yi[None, :] == torch.arange(S, dtype=torch.int32, device=dev)[:, None]).to(
-            torch.float32)
-    base_t = base_t.contiguous()
+    S = 3 if task == "regression" else num_classes
+    base_t = _stats_base(ds.y, task, S)
     is_cat_host = np.asarray([f in cat for f in range(d)], dtype=bool)
-    is_cat = torch.as_tensor(is_cat_host, device=dev) if cat else None
+    if not cat:
+        is_cat = None
+    elif cat_flags is not None:
+        is_cat = cat_flags
+    else:
+        is_cat = torch.as_tensor(is_cat_host, device=dev)
     subset_k = (
         feature_subset_size
         if feature_subset_size is not None and feature_subset_size < d
@@ -439,20 +592,16 @@ def grow_forest(
     )
     t0 = tick("draws", t0)
 
-    packed = _level_loop(binned_t, base_t, w_tree, T, d, B, task, max_depth, seed,
-                         subset_k, float(min_instances_per_node), float(min_info_gain),
-                         is_cat)
+    level_out = _level_loop(binned_t, base_t, w_tree, T, d, B, task, max_depth, seed,
+                            subset_k, float(min_instances_per_node), float(min_info_gain),
+                            is_cat)
     t0 = tick("level_loop", t0)
-
-    fetched = torch.cat(packed, dim=1).cpu().numpy()   # the one host fetch
-    rec = _ForestRecorder(T, d, S, max_depth, is_cat_host)
-    col = 0
-    for depth in range(max_depth + 1):
-        LN = 1 << depth
-        width = LN * (S + 5)
-        rec.record_level(depth, _unpack_level(fetched[:, col : col + width], T, LN, S))
-        col += width
-    grown = rec.materialize(thr, task, num_classes, cat_arities, B)
+    deferred = DeferredForest(level_out=level_out, thr=thr, task=task,
+                              num_classes=num_classes, cat_arities=cat_arities, B=B,
+                              max_depth=max_depth, is_cat_host=is_cat_host, T=T, d=d, S=S)
+    if defer_fetch:
+        return deferred
+    grown = deferred.fetch()          # the one host fetch
     tick("fetch_materialize", t0)
     return grown
 
@@ -582,19 +731,13 @@ def grow_forest_outofcore(
     def block_arrays(blk, block_idx: int):
         """(binned_t, base_t, w_tree) of one streamed block."""
         binned_t = bin_feature_matrix(blk.x, thr, cat, w=blk.w)
-        if task == "regression":
-            y = blk.y
-            base_t = torch.stack([torch.ones_like(y), y, y * y], dim=0)
-        else:
-            yi = blk.y.to(torch.int32)
-            base_t = (yi[None, :] == torch.arange(S, dtype=torch.int32, device=dev)[:, None]
-                      ).to(torch.float32)
+        base_t = _stats_base(blk.y, task, S)
         if bootstrap:
             w_tree = block_bootstrap(seed, block_idx, float(subsampling_rate), T, b, dev) \
                 * blk.w[None, :]
         else:
             w_tree = blk.w[None, :].expand(T, b).contiguous()
-        return binned_t, base_t.contiguous(), w_tree
+        return binned_t, base_t, w_tree
 
     def descend(binned_t, upto_depth: int):
         """Rows → their heap node at ``upto_depth``, replaying the recorded
@@ -657,8 +800,12 @@ def predict_forest(x: torch.Tensor, split_feat, threshold, value, cat_mask=None,
     n = x_t.shape[1]
     depth = int(np.log2(total + 1)) - 1
     if cat_flags is not None:
-        cm = torch.as_tensor(np.asarray(cat_mask, dtype=np.int64), device=dev)
-        cflags = torch.as_tensor(np.asarray(cat_flags, dtype=bool), device=dev)
+        # host arrays (a model's uint32 masks) or the device tensors of
+        # ``device_tree_arrays``
+        cm = (cat_mask.to(dev, torch.int64) if isinstance(cat_mask, torch.Tensor)
+              else torch.as_tensor(np.asarray(cat_mask, dtype=np.int64), device=dev))
+        cflags = (cat_flags.to(dev) if isinstance(cat_flags, torch.Tensor)
+                  else torch.as_tensor(np.asarray(cat_flags, dtype=bool), device=dev))
     node = torch.zeros((T, n), dtype=torch.int64, device=dev)
     for _ in range(depth):
         f = torch.gather(sf, 1, node)

@@ -1,0 +1,513 @@
+"""Gradient-boosted trees — GBTRegressor / GBTClassifier (the JAX
+package's ``models/tree/gbt.py``).
+
+Spark's ``GBTRegressor`` (squared loss) and ``GBTClassifier`` (LogLoss on
+labels 0/1: F is half the log-odds, F₀ = ½ log(p/(1−p)), pseudo-residual
+4(y − σ(2F))).  Boosting is sequential in rounds; each round is one tree
+of the level-order engine (``engine.py``) on the pseudo-residuals, K3 at
+T = 1 once a level on the card:
+
+    residual (device) → grow one tree → its heap tensors on the device
+                      → F ← F + lr·tree(x)
+
+The quantile thresholds and the (d, n) bin matrix depend only on x, so
+both are computed once and reused by every round, and F never leaves the
+device.  Two routes:
+
+- the default: every round on the device with no host sync — each tree
+  is a ``grow_forest(..., defer_fetch=True)`` whose winners become heap
+  tensors (``engine.device_tree_arrays``) that the margin update walks —
+  and one copy of every round's winners at the end;
+- ``validation_indicator_col``: rows marked true train nothing and score
+  every round; the fit stops when their loss stops improving by
+  ``validation_tol`` (Spark's runWithValidation), one host sync a round
+  by design, and keeps the best prefix of rounds.
+
+A :class:`~...parallel.outofcore.HostDataset` boosts out of core: the
+margin column lives on the host, each round grows one out-of-core tree
+(``engine.grow_forest_outofcore``) and streams the blocks through it to
+advance F; ``checkpoint_dir`` commits the margin and the trees every
+``checkpoint_every`` rounds (``io/fit_checkpoint.py``, the reference's
+signature), so a preempted fit resumes at the next round.
+
+``use_pallas``, ``fused_levels`` and ``fused_rounds`` are accepted and
+change nothing: K3 is the histogram on the card, and in eager torch the
+reference's scanned rounds and its per-round deferred loop are one loop.
+``stage_clock`` takes None only; the stage clock comes with the slice
+that ports ``utils/profiling.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from ...data import DeviceDataset, sample_valid_rows
+from ...device import resolve_device
+from ...io.model_io import register_model
+from ...parallel.outofcore import HostDataset
+from ..base import Estimator, Model, as_device_dataset, check_features
+from . import engine
+from .binning import quantile_thresholds
+
+_PROFILING = "slice 7 of the port (utils/profiling.py)"
+
+
+@register_model("GBTModel")
+@dataclass
+class GBTModel(Model):
+    """Stacked boosted trees: prediction = init + lr · Σ_t tree_t(x)."""
+
+    task: str                    # "regression" | "classification"
+    split_feat: np.ndarray       # (T, total)
+    threshold: np.ndarray        # (T, total)
+    value: np.ndarray            # (T, total, 1)
+    init: float                  # F₀ (mean | half the base log-odds)
+    learning_rate: float
+    feature_importances: np.ndarray
+    max_depth: int
+    # categorical (unordered-set) splits; None for all-continuous fits
+    split_catmask: np.ndarray | None = None
+    cat_arities: np.ndarray | None = None
+
+    @property
+    def num_trees(self) -> int:
+        return self.split_feat.shape[0]
+
+    def _raw(self, x: torch.Tensor) -> torch.Tensor:
+        check_features(x, self.feature_importances.shape[-1], "GBTModel")
+        cat_mask = cat_flags = None
+        if self.split_catmask is not None:
+            cat_mask = self.split_catmask
+            cat_flags = np.asarray(self.cat_arities) > 0
+        out = engine.predict_forest(x.to(torch.float32), self.split_feat, self.threshold,
+                                    self.value, cat_mask, cat_flags)[:, :, 0]   # (T, n)
+        return self.init + self.learning_rate * out.sum(dim=0)
+
+    def predict_raw(self, x: torch.Tensor) -> torch.Tensor:
+        return self._raw(x)
+
+    def predict_proba(self, x: torch.Tensor) -> torch.Tensor:
+        if self.task != "classification":
+            raise ValueError("predict_proba is classification-only")
+        return torch.sigmoid(2.0 * self._raw(x))    # Spark's ±1 margin
+
+    def predict(self, x: torch.Tensor) -> torch.Tensor:
+        raw = self._raw(x)
+        if self.task == "regression":
+            return raw
+        return (raw > 0).to(torch.float32)
+
+    def _artifacts(self):
+        arrays = {
+            "split_feat": np.asarray(self.split_feat, np.int32),
+            "threshold": np.asarray(self.threshold, np.float32),
+            "value": np.asarray(self.value, np.float32),
+            "feature_importances": np.asarray(self.feature_importances, np.float64),
+        }
+        if self.split_catmask is not None:
+            arrays["split_catmask"] = np.asarray(self.split_catmask, np.uint32)
+            arrays["cat_arities"] = np.asarray(self.cat_arities)
+        return (
+            "GBTModel",
+            {
+                "task": self.task,
+                "init": float(self.init),
+                "learning_rate": float(self.learning_rate),
+                "max_depth": int(self.max_depth),
+            },
+            arrays,
+        )
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        def arr(key, dtype=None):
+            v = arrays.get(key)
+            return None if v is None else np.asarray(v, dtype=dtype)
+
+        return cls(
+            task=params["task"],
+            split_feat=arr("split_feat", np.int32),
+            threshold=arr("threshold", np.float32),
+            value=arr("value", np.float32),
+            init=float(params["init"]),
+            learning_rate=float(params["learning_rate"]),
+            feature_importances=arr("feature_importances"),
+            max_depth=int(params["max_depth"]),
+            split_catmask=arr("split_catmask", np.uint32),
+            cat_arities=arr("cat_arities"),
+        )
+
+
+def _prior_margin(ybar: float, loss: str) -> float:
+    """F₀: the label mean (squared loss) or half the base log-odds
+    (Spark's LogLoss prior)."""
+    if loss == "squared":
+        return ybar
+    p = min(max(ybar, 1e-6), 1.0 - 1e-6)
+    return 0.5 * float(np.log(p / (1.0 - p)))
+
+
+def _ensemble(trees: list, loss: str, f0: float, step_size: float, max_depth: int,
+              cat: dict | None) -> GBTModel:
+    """The boosted rounds' trees (one-tree ``GrownForest``s) → GBTModel."""
+    imp = np.sum([g.importances[0] for g in trees], axis=0)
+    s = imp.sum()
+    return GBTModel(
+        task="regression" if loss == "squared" else "classification",
+        split_feat=np.concatenate([g.split_feat for g in trees]),
+        threshold=np.concatenate([g.threshold for g in trees]),
+        value=np.concatenate([g.value for g in trees]),
+        init=f0,
+        learning_rate=step_size,
+        feature_importances=imp / s if s > 0 else imp,
+        max_depth=max_depth,
+        split_catmask=np.concatenate([g.split_catmask for g in trees]) if cat else None,
+        cat_arities=trees[0].cat_arities if cat else None,
+    )
+
+
+@dataclass(frozen=True)
+class _GBTParams:
+    max_iter: int = 20            # Spark's maxIter (number of trees)
+    max_depth: int = 5
+    max_bins: int = 32
+    step_size: float = 0.1        # Spark's stepSize (learning rate)
+    min_instances_per_node: int = 1
+    min_info_gain: float = 0.0
+    subsampling_rate: float = 1.0
+    seed: int = 0
+    label_col: str = "length_of_stay"
+    features_col: str = "features"
+    weight_col: str | None = None
+    init_sample_size: int = 65536     # the binning sample
+    #: MLlib's categoricalFeaturesInfo: feature index → arity
+    categorical_features: dict[int, int] | None = None
+    #: Spark's validationIndicatorCol / validationTol: rows where the named
+    #: boolean column is true are held out; boosting stops when their loss
+    #: stops improving
+    validation_indicator_col: str | None = None
+    validation_tol: float = 0.01      # Spark default
+    #: out-of-core (HostDataset) fits commit the margin and the trees every
+    #: ``checkpoint_every`` rounds; resident fits ignore it
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 1
+    #: the reference's switches; no effect here (module docstring)
+    fused_rounds: bool = True
+    fused_levels: bool = True
+    use_pallas: bool = False
+    stage_clock: Any = field(default=None, compare=False, repr=False)
+
+    def _check_clock(self) -> None:
+        if self.stage_clock is not None:
+            raise NotImplementedError(
+                f"GBT stage_clock= comes with {_PROFILING}; pass None")
+
+    def _resolve_validation(self, data, ds: DeviceDataset):
+        """validation_indicator_col → (n_pad,) float 0/1 tensor on the
+        dataset's device, or None."""
+        if self.validation_indicator_col is None:
+            return None
+        from ...features.assembler import AssembledTable
+
+        if not isinstance(data, AssembledTable):
+            raise ValueError(
+                f"validation_indicator_col={self.validation_indicator_col!r} "
+                "needs a table input to resolve the column; got "
+                f"{type(data).__name__} — pass an AssembledTable"
+            )
+        ind = np.asarray(data.table.column(self.validation_indicator_col)).astype(bool)
+        pad = np.zeros((ds.n_padded,), np.float32)
+        pad[: ind.shape[0]] = ind
+        return torch.from_numpy(pad).to(ds.x.device)
+
+    def _boost(self, ds: DeviceDataset, loss: str, val_ind=None) -> GBTModel:
+        self._check_clock()
+        x = ds.x.to(torch.float32)
+        y = ds.y.to(torch.float32)
+        w_all = ds.w.to(torch.float32)
+        dev = x.device
+        if val_ind is not None:
+            # held-out rows train nothing (weight 0) but score every round
+            w = w_all * (1.0 - val_ind)
+            w_val = w_all * val_ind
+            if float(w_val.sum()) == 0.0:
+                raise ValueError("validation_indicator_col selected no validation rows")
+        else:
+            w, w_val = w_all, None
+        n = torch.clamp(w.sum(), min=1.0)
+
+        # binning depends only on x: thresholds (from the training rows'
+        # sample) and the bin matrix, once for every round; the categorical
+        # range check covers every valid row, held-out ones too
+        sample = sample_valid_rows(DeviceDataset(x=x, y=y, w=w), self.init_sample_size,
+                                   self.seed)
+        if sample.shape[0] == 0:
+            raise ValueError("GBT fit on an empty dataset")
+        B = self.max_bins
+        cat = self.categorical_features
+        thr = quantile_thresholds(sample, B)
+        binned_t = engine.bin_feature_matrix(x, thr, cat, w=w_all)
+        f0 = _prior_margin(float((y * w).sum() / n), loss)
+
+        d = x.shape[1]
+        cat_arities = tuple(cat.get(f, 0) for f in range(d)) if cat else None
+        is_cat_host = np.asarray([f in cat for f in range(d)] if cat else np.zeros(d, bool))
+        is_cat = torch.as_tensor(is_cat_host, device=dev)
+        cat_flags = is_cat if cat else None
+        thr_dev = torch.as_tensor(thr, dtype=torch.float32, device=dev)
+        lr = float(np.float32(self.step_size))
+        f_cur = torch.full(y.shape, float(np.float32(f0)), dtype=torch.float32, device=dev)
+
+        def residual(f):
+            if loss == "squared":
+                return y - f
+            # Spark's LogLoss: loss 2·log(1 + e^(−2y±F)), so the
+            # pseudo-residual is 4(y01 − σ(2F)); the factor matters for
+            # stepSize parity with Spark
+            return 4.0 * (y - torch.sigmoid(2.0 * f))
+
+        def advance(f, sf, th, val, cm):
+            # categorical rounds route by the set mask here too: the later
+            # rounds' residuals depend on this prediction
+            return f + lr * engine.predict_forest(x, sf, th, val, cm, cat_flags)[0, :, 0]
+
+        def grow_round(t: int, f, defer: bool):
+            return engine.grow_forest(
+                DeviceDataset(x=x, y=residual(f), w=w),
+                task="regression",
+                num_trees=1,
+                max_depth=self.max_depth,
+                max_bins=B,
+                min_instances_per_node=self.min_instances_per_node,
+                min_info_gain=self.min_info_gain,
+                bootstrap=self.subsampling_rate < 1.0,
+                subsampling_rate=self.subsampling_rate,
+                seed=self.seed + t,
+                bin_thresholds=thr,
+                binned_t=binned_t,
+                categorical_features=cat,
+                defer_fetch=defer,
+                cat_flags=cat_flags,
+            )
+
+        template = engine.DeferredForest(
+            level_out=[], thr=thr, task="regression", num_classes=2,
+            cat_arities=cat_arities, B=B, max_depth=self.max_depth,
+            is_cat_host=is_cat_host, T=1, d=d, S=3)
+        if val_ind is None:
+            fetched = self._device_rounds(
+                f_cur, grow_round, advance, thr_dev, is_cat).cpu().numpy()  # the one bulk fetch
+            trees = [template.fetch_packed(fetched[t : t + 1]) for t in range(self.max_iter)]
+        else:
+            trees = self._boost_validated(grow_round, advance, f_cur, y, w_val, loss, dev)
+        return _ensemble(trees, loss, f0, self.step_size, self.max_depth, cat)
+
+    def _device_rounds(self, f_cur, grow_round, advance, thr_dev, is_cat) -> torch.Tensor:
+        """Every boosting round on the device with no host sync: the
+        pseudo-residual, one deferred tree (K3 a level), its heap tensors
+        and the margin update.  → every round's winners packed,
+        (max_iter, W), for one fetch."""
+        packed = []
+        for t in range(self.max_iter):
+            level_out = grow_round(t, f_cur, defer=True).level_out
+            f_cur = advance(f_cur, *engine.device_tree_arrays(level_out, thr_dev, is_cat,
+                                                              self.max_bins))
+            packed.append(engine._pack_levels(level_out))
+        return torch.cat(packed, dim=0)
+
+    def _boost_validated(self, grow_round, advance, f_cur, y, w_val, loss, dev):
+        """Spark's runWithValidation: each round grown and fetched, F
+        advanced by the host-materialized tree, the held-out loss read on
+        the host; stop when the best-so-far loss improves by less than
+        ``validation_tol`` (relative to max(err, 0.01)); keep the best
+        prefix."""
+        nv = torch.clamp(w_val.sum(), min=1.0)
+
+        def val_err(f):
+            if loss == "squared":
+                e = (y - f) ** 2
+            else:   # Spark's LogLoss 2·log(1 + e^(−2y±F))
+                ypm = 2.0 * y - 1.0
+                e = 2.0 * torch.log1p(torch.exp(-2.0 * ypm * f))
+            return (e * w_val).sum() / nv
+
+        trees = []
+        best_err, best_m = np.inf, 0
+        for t in range(self.max_iter):
+            grown = grow_round(t, f_cur, defer=False)
+            trees.append(grown)
+            cm = grown.split_catmask if grown.split_catmask is not None else None
+            f_cur = advance(f_cur, torch.as_tensor(grown.split_feat, device=dev),
+                            torch.as_tensor(grown.threshold, device=dev),
+                            torch.as_tensor(grown.value, device=dev), cm)
+            err = float(val_err(f_cur))
+            if best_err - err < self.validation_tol * max(err, 0.01):
+                break
+            if err < best_err:
+                best_err, best_m = err, t + 1
+        return trees[:best_m] if best_m > 0 else trees
+
+    def _boost_outofcore(self, hd: HostDataset, dev, loss: str) -> GBTModel:
+        """Rows ≫ device memory: the margin column F lives on the host,
+        each round grows one out-of-core tree on the host pseudo-residuals
+        and streams the blocks through it to advance F.  The thresholds
+        are computed once; ``validation_indicator_col`` needs a table and
+        is refused."""
+        self._check_clock()
+        if self.validation_indicator_col is not None:
+            raise ValueError(
+                "validation_indicator_col needs a table input to resolve "
+                "the column; out-of-core HostDataset fits train on all rows"
+            )
+        if hd.y is None:
+            raise ValueError("GBT fit needs labels: HostDataset(y=...)")
+        if hd.n == 0 or hd.count() == 0.0:
+            raise ValueError("GBT fit on an empty dataset")
+        y = np.asarray(hd.y, np.float32)
+        w = np.asarray(hd.w, np.float32) if hd.w is not None else np.ones((hd.n,), np.float32)
+        n = max(float(w.sum()), 1.0)
+        thr = quantile_thresholds(hd.sample_rows(self.init_sample_size, self.seed),
+                                  self.max_bins)
+        f0 = _prior_margin(float((y * w).sum() / n), loss)
+
+        def residual(f):
+            if loss == "squared":
+                return y - f
+            return 4.0 * (y - 1.0 / (1.0 + np.exp(-2.0 * f)))
+
+        cat = self.categorical_features
+        cat_flags = np.asarray([f in cat for f in range(hd.n_features)]) if cat else None
+        cat_arities = (np.asarray([cat.get(f, 0) for f in range(hd.n_features)], np.int32)
+                       if cat else None)
+        f_cur = np.full((hd.n,), np.float32(f0), np.float32)
+        trees: list = []
+
+        # the round boundary is the checkpoint: the host margin and the
+        # trees so far are the whole fit state
+        ckpt = None
+        start_t = 0
+        if self.checkpoint_dir:
+            from ...io.fit_checkpoint import FitCheckpointer, data_fingerprint
+
+            signature = {
+                "estimator": "GBT", "storage": "outofcore", "loss": loss,
+                "max_iter": self.max_iter, "max_depth": self.max_depth,
+                "max_bins": self.max_bins, "step_size": self.step_size,
+                "min_instances_per_node": self.min_instances_per_node,
+                "min_info_gain": self.min_info_gain,
+                "subsampling_rate": self.subsampling_rate,
+                # lists, not tuples: the committed signature is compared
+                # after a JSON round trip
+                "seed": self.seed,
+                "cat": [list(t) for t in sorted((cat or {}).items())],
+                "data": data_fingerprint(hd.x, hd.w),
+                "labels": data_fingerprint(y[:, None]),
+                "n": hd.n,
+            }
+            ckpt = FitCheckpointer(self.checkpoint_dir, signature)
+            resumed = ckpt.resume()
+            if resumed is not None:
+                step0, arrays, _ = resumed
+                thr = arrays["thr"]
+                f_cur = arrays["f_cur"].astype(np.float32)
+                for i in range(step0 + 1):
+                    sl = slice(i, i + 1)
+                    trees.append(engine.GrownForest(
+                        split_feat=arrays["split_feat"][sl],
+                        split_bin=np.zeros_like(arrays["split_feat"][sl]),
+                        threshold=arrays["threshold"][sl],
+                        value=arrays["value"][sl],
+                        importances=arrays["importances"][sl],
+                        max_depth=self.max_depth,
+                        bin_thresholds=thr,
+                        split_catmask=arrays["split_catmask"][sl] if cat else None,
+                        cat_arities=cat_arities,
+                    ))
+                start_t = step0 + 1
+
+        _, b = hd.block_shape()
+        for t in range(start_t, self.max_iter):
+            grown = engine.grow_forest_outofcore(
+                HostDataset(hd.x, residual(f_cur).astype(np.float32), hd.w,
+                            max_device_rows=hd.max_device_rows),
+                task="regression",
+                num_trees=1,
+                max_depth=self.max_depth,
+                max_bins=self.max_bins,
+                min_instances_per_node=self.min_instances_per_node,
+                min_info_gain=self.min_info_gain,
+                bootstrap=self.subsampling_rate < 1.0,
+                subsampling_rate=self.subsampling_rate,
+                seed=self.seed + t,
+                device=dev,
+                categorical_features=cat,
+                bin_thresholds=thr,
+            )
+            trees.append(grown)
+            # advance the host margin: stream the blocks through the new tree
+            sf = torch.as_tensor(grown.split_feat, device=dev)
+            th = torch.as_tensor(grown.threshold, device=dev)
+            val = torch.as_tensor(grown.value, device=dev)
+            for i, blk in enumerate(hd.blocks(device=dev)):
+                pred = engine.predict_forest(blk.x, sf, th, val, grown.split_catmask,
+                                             cat_flags)[0, :, 0]
+                s = i * b
+                e = min(s + b, hd.n)
+                f_cur[s:e] += self.step_size * pred.cpu().numpy()[: e - s]
+            if ckpt is not None and (t + 1) % max(self.checkpoint_every, 1) == 0:
+                arrays = {
+                    "thr": thr,
+                    "f_cur": f_cur,
+                    "split_feat": np.concatenate([g.split_feat for g in trees]),
+                    "threshold": np.concatenate([g.threshold for g in trees]),
+                    "value": np.concatenate([g.value for g in trees]),
+                    "importances": np.concatenate([g.importances for g in trees]),
+                }
+                if cat:
+                    arrays["split_catmask"] = np.concatenate([g.split_catmask for g in trees])
+                ckpt.save(t, arrays)
+        return _ensemble(trees, loss, f0, self.step_size, self.max_depth, cat)
+
+
+@dataclass(frozen=True)
+class GBTRegressor(Estimator, _GBTParams):
+    def fit(self, data, label_col: str | None = None, device=None) -> GBTModel:
+        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w])) on
+        ``device`` (default the card); a :class:`HostDataset` boosts out
+        of core, streaming its blocks to ``device``."""
+        if isinstance(data, HostDataset):
+            return self._boost_outofcore(data, resolve_device(device), loss="squared")
+        ds = as_device_dataset(data, label_col or self.label_col, device=device,
+                               weight_col=self.weight_col)
+        return self._boost(ds, loss="squared", val_ind=self._resolve_validation(data, ds))
+
+
+def _check_binary(y: np.ndarray) -> None:
+    uniq = np.unique(y)
+    if not np.all(np.isin(uniq, [0.0, 1.0])):
+        raise ValueError(f"GBTClassifier is binary (labels 0/1); got labels {uniq[:5]}")
+
+
+@dataclass(frozen=True)
+class GBTClassifier(Estimator, _GBTParams):
+    label_col: str = "LOS_binary"
+
+    def fit(self, data, label_col: str | None = None, device=None) -> GBTModel:
+        """As :meth:`GBTRegressor.fit`, on labels 0/1."""
+        if isinstance(data, HostDataset):
+            if data.y is None:
+                raise ValueError("GBT fit needs labels: HostDataset(y=...)")
+            yv = np.asarray(data.y)
+            _check_binary(yv[np.asarray(data.w) > 0] if data.w is not None else yv)
+            return self._boost_outofcore(data, resolve_device(device), loss="logistic")
+        ds = as_device_dataset(data, label_col or self.label_col, device=device,
+                               weight_col=self.weight_col)
+        _check_binary(ds.y[ds.w > 0].cpu().numpy())
+        return self._boost(ds, loss="logistic", val_ind=self._resolve_validation(data, ds))
+
+
+__all__ = ["GBTClassifier", "GBTModel", "GBTRegressor"]

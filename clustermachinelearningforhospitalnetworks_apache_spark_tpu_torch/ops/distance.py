@@ -6,11 +6,64 @@ one float32 product plus rank-1 corrections, clamped at 0.  TF32 is off
 
 These are the plain forms the K1/K2 kernels' plain versions are built
 from (``ops/lloyd.py``); on the card the assignment itself runs in K2.
+
+:func:`matmul_p` is the reference's matmul under a precision mode, for
+KMeans' and GaussianMixture's reduced-precision fits (XLA matmuls in the
+JAX package, not Pallas kernels, so ``torch.matmul`` serves them):
+
+- ``"highest"``: float32 (TF32 stays off, ``device.py``);
+- ``"high"`` / ``"default"``: float32 on the CPU, as XLA on the CPU; on the
+  card TF32, what XLA runs for these precisions on an NVIDIA GPU, turned on
+  for the one product and restored after it, also when it raises;
+- ``"bf16"``: both operands rounded to bfloat16, the products summed in
+  float32, float32 out.  On the card one ``torch.mm(..., out_dtype=
+  torch.float32)`` (cuBLAS on the tensor cores, bf16 in, float32 out); on
+  the CPU the float32 product of the bf16-rounded operands, which means
+  the same.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+#: matmul precision modes of the reduced-precision fits (the JAX package's
+#: ``ops/distance.py``)
+MATMUL_PRECISIONS = ("highest", "high", "default", "bf16")
+
+
+def validate_matmul_precision(value: str) -> None:
+    """Raise the reference's error for an unknown precision mode."""
+    if value not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be one of {MATMUL_PRECISIONS}, got "
+            f"{value!r}"
+        )
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 matmuls for the block, the flag restored after it."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def matmul_p(a: torch.Tensor, b: torch.Tensor, precision: str) -> torch.Tensor:
+    """2-D ``a @ b`` in float32 under a :data:`MATMUL_PRECISIONS` mode."""
+    if precision == "bf16":
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if a.is_cuda:
+            return torch.mm(a16, b16, out_dtype=torch.float32)
+        return a16.to(torch.float32) @ b16.to(torch.float32)
+    if precision != "highest" and a.is_cuda:
+        with _tf32():
+            return a @ b
+    return a @ b
 
 #: rows per tile of the plain chunked assignment (``fused_assign_plain``)
 #: — bounds the (chunk, k) tile
@@ -26,13 +79,15 @@ def pairwise_sqdist(
     centers: torch.Tensor,
     x_sq: torch.Tensor | None = None,
     c_sq: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> torch.Tensor:
-    """(n, d), (k, d) → (n, k) squared Euclidean distances (clamped ≥ 0)."""
+    """(n, d), (k, d) → (n, k) squared Euclidean distances (clamped ≥ 0);
+    the cross term under ``precision`` (:func:`matmul_p`)."""
     if x_sq is None:
         x_sq = sq_norms(x)
     if c_sq is None:
         c_sq = sq_norms(centers)
-    d2 = x_sq[:, None] - 2.0 * (x @ centers.T) + c_sq[None, :]
+    d2 = x_sq[:, None] - 2.0 * matmul_p(x, centers.T, precision) + c_sq[None, :]
     return torch.clamp(d2, min=0.0)
 
 

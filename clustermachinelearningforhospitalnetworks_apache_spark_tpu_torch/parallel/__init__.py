@@ -1,6 +1,6 @@
 """Data placement for the port's single device: out-of-core row streaming
 (``outofcore.py``)."""
 
-from .outofcore import HostDataset, add_stats
+from .outofcore import HostDataset, add_stats, block_moments
 
-__all__ = ["HostDataset", "add_stats"]
+__all__ = ["HostDataset", "add_stats", "block_moments"]

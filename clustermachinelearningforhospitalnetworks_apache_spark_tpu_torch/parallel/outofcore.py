@@ -41,6 +41,24 @@ def add_stats(a: tuple, b: tuple) -> tuple:
     return tuple(u + v for u, v in zip(a, b))
 
 
+def block_moments(x, y, w, extra: str = "none") -> tuple:
+    """One streamed block's standardization moments: (Σw, Σw·x, Σw·x²[,
+    extra]).  Features of w = 0 rows are masked before any product (pad
+    rows stay inert, NaN or not).  ``extra="ysum"`` appends Σw·y (summed
+    by ``add_stats``); ``"ymax"`` the largest valid y (the caller takes
+    the max over blocks, not the sum)."""
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    xm = torch.where(w[:, None] > 0, x, torch.zeros_like(x))
+    base = (w.sum(), (xm * w[:, None]).sum(dim=0), (xm * xm * w[:, None]).sum(dim=0))
+    if extra == "ysum":
+        return base + ((y.to(torch.float32) * w).sum(),)
+    if extra == "ymax":
+        yv = y.to(torch.float32)
+        return base + (torch.where(w > 0, yv, torch.zeros_like(yv)).max(),)
+    return base
+
+
 @dataclass
 class HostDataset:
     """A host-resident (possibly memory-mapped) design matrix streamed to
@@ -217,4 +235,4 @@ class HostDataset:
                     ev.synchronize()
 
 
-__all__ = ["HostDataset", "add_stats"]
+__all__ = ["HostDataset", "add_stats", "block_moments"]

@@ -154,12 +154,17 @@ def test_transform_adds_prediction_and_probability(fitted):
     dict(matmul_precision="bf16"), dict(matmul_precision="high"),
     dict(matmul_precision="default"), dict(matmul_precision="bf16", checkpoint_dir="ck"),
 ])
-def test_unported_options_raise(option):
-    # the factor-form E-step moved to slice 4c (checkpoint_dir, weight_col
-    # and warm_start_params came with slice 4b: tests/test_torch_outofcore.py,
-    # tests/test_torch_fit_checkpoint.py)
-    with pytest.raises(NotImplementedError, match="slice 4c"):
-        port.GaussianMixture(k=2, **option).fit(_blobs(40), device="cpu")
+def test_unported_options_raise(option, tmp_path):
+    # the factor-form E-step came with slice 4c (tests/test_torch_precision.py
+    # holds it to the JAX package); what still raises is the partials
+    # protocol, and an unknown precision
+    option = dict(option)
+    if "checkpoint_dir" in option:
+        option["checkpoint_dir"] = str(tmp_path / "ck")
+    m = port.GaussianMixture(k=2, max_iter=3, **option).fit(_blobs(40), device="cpu")
+    assert np.isfinite(m.log_likelihood) and m.n_iter >= 1
+    with pytest.raises(ValueError, match="matmul_precision"):
+        port.GaussianMixture(k=2, matmul_precision="fp8").fit(_blobs(40), device="cpu")
     with pytest.raises(NotImplementedError, match="federated/partials.py"):
         port.GaussianMixture(k=2).partial_fit_stats(None)
 

@@ -70,7 +70,7 @@ def test_every_module_is_walkable():
                      "viz.plots", "utils.metrics", "utils.retry", "utils.report",
                      "io.native", "models.streaming_kmeans", "models.gmm",
                      "models.bisecting_kmeans", "parallel", "parallel.outofcore",
-                     "io.fit_checkpoint"):
+                     "io.fit_checkpoint", "models.tree.gbt", "models.summary"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -129,6 +129,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
         lambda: port.DecisionTreeRegressor(max_depth=2).fit(port.HostDataset(x, x[:, 0])),
         lambda: port.RandomForestClassifier(num_trees=2).fit(
             port.HostDataset(x, (x[:, 0] > 0).astype(np.float32))),
+        lambda: port.GBTRegressor(max_iter=1).fit((x, x[:, 0])),
+        lambda: port.GBTClassifier(max_iter=1).fit((x, (x[:, 0] > 0).astype(np.float32))),
+        lambda: port.GBTRegressor(max_iter=1).fit(port.HostDataset(x, x[:, 0])),
+        lambda: port.gbt_model_from_jax_arrays(
+            -np.ones((1, 3), np.int32), np.zeros((1, 3)), np.zeros((1, 3, 1)), np.ones(3),
+            task="regression", init=0.0, learning_rate=0.1, max_depth=1).predict_numpy(x),
+        lambda: port.LinearRegression(reg_param=0.1, elastic_net_param=0.5).fit((x, x[:, 0])),
+        lambda: port.KMeans(k=2, matmul_precision="bf16").fit(x),
+        lambda: port.GaussianMixture(k=2, matmul_precision="bf16").fit(x),
+        lambda: port.BisectingKMeans(k=2, distance_measure="cosine").fit(x),
+        lambda: port.BisectingKMeans(k=2).fit(port.HostDataset(x)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

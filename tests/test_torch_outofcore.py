@@ -416,9 +416,14 @@ def test_linear_regression_outofcore_edge_cases(mesh8):
         P.LinearRegression().fit(P.HostDataset(x=x), device="cpu")
     with pytest.raises(ValueError, match="empty"):
         P.LinearRegression().fit(P.HostDataset(x=x[:0], y=y[:0]), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3e"):
-        P.LinearRegression(reg_param=0.1, elastic_net_param=0.5).fit(ph, device="cpu")
-    with pytest.raises(NotImplementedError, match="summary"):
+    # the elastic net out of core (slice 3e) on all-zero weights: finite
+    # zero coefficients, as the reference's
+    en = P.LinearRegression(reg_param=0.1, elastic_net_param=0.5).fit(ph, device="cpu")
+    jen = J.LinearRegression(reg_param=0.1, elastic_net_param=0.5).fit(jh, mesh=mesh8)
+    _assert_lr_close(en, jen, (np.zeros(3), 0.0, 1.0))
+    # no training summary out of core (it would pin the rows on the
+    # device), the reference's RuntimeError
+    with pytest.raises(RuntimeError, match="summary"):
         pm.summary
 
 
@@ -606,13 +611,13 @@ def _hospital_rows(n_per_hospital=80_000, seed=7):
 
 
 def test_linear_regression_recentred_stats_hold_at_scale(mesh8):
-    """ROADMAP queue 3: on 400,000 hospital rows (occupancy up to 400) the
-    port's resident float32 normal equations (unshifted, as the
-    reference's ``_wls_fit``, but summed in one float32 pass over the rows)
-    sit 1.7e-3 of the largest coefficient off the float64 solution with
-    one thread, the reference's (summed per device, then psum'd) 6.3e-6.
-    The out-of-core solve recentres on a sample mean and holds 1e-5 in
-    both packages."""
+    """On 400,000 hospital rows (occupancy up to 400) the resident float32
+    normal equations (unshifted, as the reference's ``_wls_fit``) summed
+    in one float32 pass over the rows sat 1.7e-3 of the largest
+    coefficient off the float64 solution with one thread, the reference's
+    (summed per device, then psum'd) 6.3e-6; the port now sums its Gram
+    per 4,096-row chunk.  The out-of-core solve recentres on a sample mean
+    and holds 1e-5 in both packages."""
     x, y = _hospital_rows()
     exact = np.linalg.lstsq(np.c_[x, np.ones(len(y))], y, rcond=None)[0]
     s = float(np.abs(exact).max())
@@ -624,7 +629,7 @@ def test_linear_regression_recentred_stats_hold_at_scale(mesh8):
     ph, jh = _both(x, y, mdr=1 << 16)
     assert err(P.LinearRegression().fit(ph, device="cpu")) <= 1e-5 * s
     assert err(J.LinearRegression().fit(jh, mesh=mesh8)) <= 1e-5 * s
-    assert err(J.LinearRegression().fit((x, y), mesh=mesh8)) <= 1e-4 * s
-    # the open fault: the port's resident solve, bounded at 10x its
-    # measured error until a chunked Gram sum closes it
-    assert err(P.LinearRegression().fit((x, y), device="cpu")) <= 2e-2 * s
+    ref = err(J.LinearRegression().fit((x, y), mesh=mesh8))
+    assert ref <= 1e-4 * s
+    # the port's resident solve, chunked: within 3x the reference's distance
+    assert err(P.LinearRegression().fit((x, y), device="cpu")) <= 3.0 * ref
