@@ -81,6 +81,17 @@ kernels:
   each comparison holding the split tree.  Every card-vs-CPU limit of
   these slices must fail its control (TF32 products, or the route on
   TF32-rounded rows).
+* slice 5a, the ``LOS_binary`` classifiers — on the stage's 2M hospital
+  rows, binomial LogisticRegression on the pipeline's Binarizer label and
+  multinomial on 3 triage tiers: resident (fit s, records/s, host syncs,
+  the training summary's AUC / AUPR / max-F1 threshold) and out of core in
+  8 blocks of 2^18, each against the CPU route on a 200,000-row cut and
+  against resident; NaiveBayes at bench.py's shape (10M x 32 Poisson(3),
+  k=8) beside its bytes bound and equal to the CPU on 1M rows, and its
+  gaussian type on the hospital rows; LinearSVC resident and out of core;
+  OneVsRest over three depth-5 decision trees (K3, 18 launches) growing
+  the CPU's trees; a Pipeline saved, loaded and predicting ``==``; and a
+  CrossValidator picking the CPU route's parameters.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -139,6 +150,17 @@ def check(cond: bool, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_S: dict[str, float] = {}       # host seconds of each phase, in order
+_LAP = [time.perf_counter()]
+
+
+def lap(name: str) -> None:
+    """Charge the host seconds since the previous ``lap`` to phase ``name``."""
+    now = time.perf_counter()
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + now - _LAP[0]
+    _LAP[0] = now
 
 
 def gpu_ms(fn, reps: int) -> float:
@@ -662,6 +684,10 @@ def k3_phase(H) -> dict:
         # slice 3e: one GBT round's tree at the gbt20 shape, root and depth 3
         ("gbt20 T=1 root", TREE_N, 8, 3, 1, 1),
         ("gbt20 T=1 depth 3", TREE_N, 8, 3, 1, 8),
+        # slice 5a: one OneVsRest tree (a depth-5 binary classifier: 2
+        # stats, 6 levels) on the 2M hospital rows, root and deepest level
+        ("one-vs-rest T=1 root", TREE_N, 4, 2, 1, 1),
+        ("one-vs-rest T=1 depth 5", TREE_N, 4, 2, 1, 32),
     ]
     times = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
@@ -725,7 +751,8 @@ def k3_phase(H) -> dict:
     t, err = times["pipeline RF regressor depth 5"]
     shapes = [{"n": n, "d": d, "S": S, "T": T, "LN": LN, "B": B,
                "max_abs_err": times[tag][1], **times[tag][0]}
-              for tag, n, d, S, T, LN in main if tag.startswith(("rf20 block", "gbt20"))]
+              for tag, n, d, S, T, LN in main
+              if tag.startswith(("rf20 block", "gbt20", "one-vs-rest"))]
     return {"name": "fused_level_hist", "route": "cuda",
             "source": f"{PKG}/csrc/tree_hist.cu", "replaces": f"{JAX_KERNELS}:335",
             "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2931,6 +2958,449 @@ def bisecting_more(port, L, card: str) -> int:
     return k2
 
 
+# ------------------------------ slice 5a: the LOS_binary classifiers (K3)
+# The binomial fits and LinearSVC stop at tol 1e-3: on the raw hospital
+# features (occupancy up to 400, with an intercept) the reference's Newton
+# step shrinks only linearly under its trace-scaled jitter, and near the
+# default tol (1e-6) the step is float32 rounding, so where a fit stops is
+# decided by rounding in either package (ROADMAP queue 3); at 1e-3
+# consecutive steps differ by a fifth, and the stop is the algorithm's.
+# The multinomial fit stops at the cap of examples/model_diagnostics.py
+# (max_iter 30), its step being the drift along its null direction; a small
+# ridge (0.01) keeps its other directions off that drift's rounding kicks,
+# which without it part the card's, the CPU's and the out-of-core
+# parameters by up to 3e-5 of the largest.  The example's own fits
+# (EXAMPLE_KW: the default tol, no ridge, 30 steps) run too, held where
+# that drift cannot reach: probabilities, predictions, accuracy, AUC.
+CLS_TOL = 1e-3
+MULTI_KW = {"family": "multinomial", "max_iter": 30, "reg_param": 0.01}
+EXAMPLE_KW = {"binomial_example": {"max_iter": 30},
+              "multinomial_example": {"family": "multinomial", "max_iter": 30}}
+CLS_BLOCK = 1 << 18                       # the out-of-core fits: 8 blocks of 2M rows
+NB_N, NB_D, NB_K = 10_000_000, 32, 8      # bench.py _bench_naive_bayes
+NB_PREFIX = 1_000_000                     # card against CPU
+# card-vs-CPU and out-of-core-vs-resident limits: about 10x the gap of the
+# first chip run (NVIDIA H100 80GB HBM3, 700 W), and one float32 ulp (1.2e-7
+# relative) where that gap was 0 or below an ulp.  A control must fail each
+# limit but the exact ones (CLS_EXACT: counts and integer sums held equal:
+# n_iter, the gaussian priors, the rows predicted otherwise, whose controls
+# are printed all the same).  The controls: the same route on TF32-rounded
+# rows for the binomial and SVC fits (TF32 does not reach their small
+# batched products), TF32 products for the multinomial fit and the gaussian
+# NaiveBayes; for the areas, the ROC and PR passes over the card's scores
+# rounded to bfloat16 (near scores tie or swap: a wrong score order); for
+# the example's fits also the fit one Newton step short.  "proba" is the
+# largest difference of a probability, "rows" the rows predicted otherwise.
+CLS_LIMITS = {
+    "binomial": {"n_iter": 0, "coef": 1.2e-7, "auc": 1.2e-7, "aupr": 1.2e-6, "accuracy": 1.2e-7,
+                 "weighted_f": 1.2e-7},
+    "binomial_ooc": {"n_iter": 0, "coef": 1.2e-7},
+    "multinomial": {"n_iter": 0, "coef": 1.4e-6, "accuracy": 1.2e-7, "weighted_f": 1.2e-7},
+    "multinomial_ooc": {"n_iter": 0, "coef": 1.4e-6},
+    "binomial_example": {"n_iter": 0, "proba": 9.2e-6, "rows": 0, "accuracy": 1.2e-7,
+                         "auc": 1.2e-7},
+    "multinomial_example": {"n_iter": 0, "proba": 1.9e-5, "rows": 0, "accuracy": 1.2e-7},
+    "gaussian_nb": {"pi": 0.0, "theta": 8.8e-6, "sigma": 3.3e-4},
+    "svc": {"n_iter": 0, "coef": 1.2e-7},
+    "svc_ooc": {"n_iter": 0, "coef": 6.6e-7},
+}
+CLS_EXACT = ("n_iter", "pi", "rows")
+
+
+def gated(name: str, gaps: dict, ctl: dict) -> str:
+    """Every gap within its ``CLS_LIMITS[name]`` limit, and the control over
+    each limit but the exact ones; → the gaps as text."""
+    tol = CLS_LIMITS[name]
+    over = {a: gaps[a] for a in tol if not gaps[a] <= tol[a]}
+    check(not over, f"{name}: over the limits {over} (limits {tol})")
+    missed = {a: ctl[a] for a in tol if a not in CLS_EXACT and not ctl[a] > tol[a]}
+    check(not missed, f"{name}: the control passes the limits {missed} (limits {tol})")
+    return ", ".join(f"{a} {gaps[a]:.3g} (limit {tol[a]:g}; control {ctl[a]:.3g})" for a in tol)
+
+
+def worst(*ctls: dict) -> dict:
+    """Several controls' gaps → each metric's largest."""
+    return {a: max(c[a] for c in ctls if a in c) for c in ctls for a in c}
+
+
+def as_text(gaps: dict) -> str:
+    return ", ".join(f"{a} {v:.3g}" for a, v in gaps.items())
+
+
+def area_control(port, m, x, y, want) -> dict:
+    """The areas' control: the ROC and PR passes on the card over ``m``'s
+    scores on ``x`` rounded to bfloat16, against ``want``'s areas."""
+    import torch
+
+    scores = m.predict_proba(torch.from_numpy(x).to(DEV)).bfloat16().float()
+    labels = torch.from_numpy(y).to(DEV)
+    return {a: abs(port.BinaryClassificationEvaluator(metric).evaluate(scores, labels) - ref)
+            for a, metric, ref in (("auc", "areaUnderROC", want.area_under_roc),
+                                   ("aupr", "areaUnderPR", want.area_under_pr))}
+
+
+def lr_theta(m):
+    """A fitted linear model's parameters as one float64 array: [coef |
+    intercept], the softmax's class-centred (its null direction, a vector
+    added to every class, is rounding in both packages)."""
+    import numpy as np
+
+    if hasattr(m, "coefficient_matrix"):
+        t = np.c_[m.coefficient_matrix.cpu().numpy(), m.intercept_vector.cpu().numpy()]
+        return (t - t.mean(axis=0)).astype(np.float64)
+    coef = m.coefficients.cpu().numpy() if hasattr(m.coefficients, "cpu") else m.coefficients
+    return np.r_[np.asarray(coef, np.float64), float(m.intercept)]
+
+
+def fit_gaps(a, b) -> dict:
+    """n_iter apart, and the parameters apart in units of ``b``'s largest."""
+    import numpy as np
+
+    ta, tb = lr_theta(a), lr_theta(b)
+    return {"n_iter": abs(a.n_iter - b.n_iter),
+            "coef": float(np.abs(ta - tb).max() / np.abs(tb).max())}
+
+
+def summary_gaps(a, b) -> dict:
+    """Two training summaries' metrics apart (the areas for the binary one)."""
+    gaps = {"accuracy": abs(a.accuracy - b.accuracy),
+            "weighted_f": abs(a.weighted_f_measure - b.weighted_f_measure)}
+    if hasattr(a, "area_under_roc"):
+        gaps["auc"] = abs(a.area_under_roc - b.area_under_roc)
+        gaps["aupr"] = abs(a.area_under_pr - b.area_under_pr)
+    return gaps
+
+
+def timed_fit(est, data):
+    """``est.fit(data)`` on the card after a warm-up → (model, seconds,
+    host syncs of a third fit)."""
+    est.fit(data, device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    model = est.fit(data, device=DEV)
+    sync()
+    fit_s = time.perf_counter() - t0
+    _, syncs = count_syncs(lambda: est.fit(data, device=DEV))
+    return model, fit_s, syncs
+
+
+def logistic_part(port, name: str, est, x, y, card: str, tf32_products: bool) -> None:
+    """One LogisticRegression family on the 2M hospital rows: resident fit
+    (s, records/s, host syncs) and its summary; the card against the CPU
+    route on the 200,000-row prefix (n_iter, parameters, summary metrics);
+    out of core in blocks of 2^18 against resident.  The controls: the
+    same fits with TF32 products (``tf32_products``) or on TF32-rounded
+    rows."""
+    import numpy as np
+
+    n = len(y)
+    ds = port.device_dataset(x, y, device=DEV)
+    m, fit_s, syncs = timed_fit(est, ds)
+    s = m.summary
+    check(np.isfinite(lr_theta(m)).all() and 0.0 < s.accuracy <= 1.0,
+          f"{name} LogisticRegression: parameters not finite or accuracy {s.accuracy}")
+    xp, yp = x[:PREFIX], y[:PREFIX]
+    mc = est.fit((xp, yp), device="cpu")
+    md = est.fit((xp, yp), device=DEV)
+    gaps = {**fit_gaps(md, mc), **summary_gaps(md.summary, mc.summary)}
+    hd = port.HostDataset(x=x, y=y, max_device_rows=CLS_BLOCK)
+    sync()
+    t0 = time.perf_counter()
+    mo = est.fit(hd, device=DEV)
+    sync()
+    ooc_s = time.perf_counter() - t0
+    _, ooc_syncs = count_syncs(lambda: est.fit(hd, device=DEV))
+    o_gaps = fit_gaps(mo, m)
+    with tf32_matmuls() if tf32_products else contextlib.nullcontext():
+        rows = xp if tf32_products else tf32_round(xp)
+        mt = est.fit((rows, yp), device=DEV)
+        # the summary is lazy: its metrics are read in here
+        ctl = {**fit_gaps(mt, mc), **summary_gaps(mt.summary, mc.summary)}
+    if name == "binomial":
+        ctl = worst(ctl, area_control(port, md, xp, yp, mc.summary))
+    with tf32_matmuls() if tf32_products else contextlib.nullcontext():
+        rows = x if tf32_products else tf32_round(x)
+        o_ctl = fit_gaps(est.fit(port.HostDataset(x=rows, y=y, max_device_rows=CLS_BLOCK),
+                                 device=DEV), m)
+    text = gated(name, gaps, ctl)
+    o_text = gated(f"{name}_ooc", o_gaps, o_ctl)
+    extra = (f"AUC {s.area_under_roc:.6f}, AUPR {s.area_under_pr:.6f}, max-F1 threshold "
+             f"{s.max_f_measure_threshold:.4f}, " if name == "binomial" else "")
+    say(f"{name} LogisticRegression(tol={est.tol:g}, max_iter={est.max_iter}, "
+        f"reg_param={est.reg_param:g}) on {card}, "
+        f"{n} hospital rows: fit "
+        f"{fit_s:.3f} s = {n / fit_s:.4g} records/s ({n * m.n_iter / fit_s:.4g} row-steps/s), "
+        f"n_iter {m.n_iter}, host syncs a fit {syncs}; summary {extra}accuracy "
+        f"{s.accuracy:.6f}, weighted precision {s.weighted_precision:.6f} recall "
+        f"{s.weighted_recall:.6f} F1 {s.weighted_f_measure:.6f}; card vs CPU on {PREFIX} rows: "
+        f"{text}; out of core ({hd.block_shape()[0]} blocks of {CLS_BLOCK}) {ooc_s:.3f} s = "
+        f"{n / ooc_s:.4g} records/s, {ooc_syncs} host syncs, against resident: {o_text}")
+
+
+def example_part(port, x, yb, tiers, card: str) -> None:
+    """``examples/model_diagnostics.py``'s own fits (``EXAMPLE_KW``: the
+    default tol, no ridge, 30 Newton steps) on the 2M hospital rows,
+    timed; the card against the CPU on the prefix where the parameters'
+    rounding drift cannot reach: n_iter, probabilities, predictions,
+    accuracy, and the binomial's AUC.  The controls: the fit on
+    TF32-rounded rows (binomial) or with TF32 products (multinomial), the
+    fit one Newton step short, and the AUC over bfloat16-rounded scores."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    def scored(m, rows, dev):
+        xt = torch.from_numpy(rows).to(dev)
+        return m.predict_proba(xt).cpu().numpy(), m.predict(xt).cpu().numpy()
+
+    xp = x[:PREFIX]
+    for name, y in (("binomial_example", yb), ("multinomial_example", tiers)):
+        binomial = name == "binomial_example"
+        est = port.LogisticRegression(**EXAMPLE_KW[name])
+        m, fit_s, syncs = timed_fit(est, port.device_dataset(x, y, device=DEV))
+        s = m.summary
+        check(np.isfinite(lr_theta(m)).all() and 0.0 < s.accuracy <= 1.0,
+              f"{name}: parameters not finite or accuracy {s.accuracy}")
+        yp = y[:PREFIX]
+        mc = est.fit((xp, yp), device="cpu")
+        pc, qc = scored(mc, xp, "cpu")
+
+        def gaps(m2) -> dict:
+            p, q = scored(m2, xp, DEV)
+            g = {"n_iter": abs(m2.n_iter - mc.n_iter), "proba": float(np.abs(p - pc).max()),
+                 "rows": int((q != qc).sum()),
+                 "accuracy": abs(m2.summary.accuracy - mc.summary.accuracy)}
+            if binomial:
+                g["auc"] = abs(m2.summary.area_under_roc - mc.summary.area_under_roc)
+            return g
+
+        md = est.fit((xp, yp), device=DEV)
+        got = gaps(md)
+        with contextlib.nullcontext() if binomial else tf32_matmuls():
+            c_round = gaps(est.fit((tf32_round(xp) if binomial else xp, yp), device=DEV))
+        c_short = gaps(dataclasses.replace(est, max_iter=mc.n_iter - 1).fit((xp, yp), device=DEV))
+        c_areas = area_control(port, md, xp, yp, mc.summary) if binomial else {}
+        text = gated(name, got, worst(c_round, c_short, c_areas))
+        shown = (f"AUC {s.area_under_roc:.6f}, AUPR {s.area_under_pr:.6f}, max-F1 threshold "
+                 f"{s.max_f_measure_threshold:.4f}, " if binomial else "")
+        say(f"{name}: LogisticRegression({EXAMPLE_KW[name]}) as examples/model_diagnostics.py "
+            f"on {card}, {len(y)} hospital rows: fit {fit_s:.3f} s = {len(y) / fit_s:.4g} "
+            f"records/s, n_iter {m.n_iter}, host syncs a fit {syncs}; summary {shown}accuracy "
+            f"{s.accuracy:.6f}, weighted F1 {s.weighted_f_measure:.6f}; card vs CPU on {PREFIX} "
+            f"rows: {text}; the controls apart: "
+            f"{'TF32-rounded rows' if binomial else 'TF32 products'} ({as_text(c_round)}), "
+            f"one step short ({as_text(c_short)}), bfloat16 scores ({as_text(c_areas)})")
+
+
+def naive_bayes_part(port, x, yb, card: str) -> None:
+    """NaiveBayes at bench.py's ``_bench_naive_bayes`` shape (10M x 32
+    Poisson(3) counts drawn on the card, k=8, multinomial, seed 0): fit
+    records/s and the fit's peak device memory beside the
+    bytes bound (4·(d+1) bytes a row at 3.35 TB/s); card against CPU on
+    1M rows, equal (integer sums below 2**24 are exact in any order; the
+    control moves one count by one); the gaussian type on the hospital
+    rows, card against CPU (TF32 control)."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=DEV).manual_seed(0)
+    xn = torch.poisson(torch.full((NB_N, NB_D), 3.0, device=DEV), generator=g)
+    yn = torch.randint(0, NB_K, (NB_N,), device=DEV, generator=g).to(torch.float32)
+    ds = port.DeviceDataset(x=xn, y=yn, w=torch.ones((NB_N,), device=DEV))
+    xp, yp = xn[:NB_PREFIX].cpu().numpy(), yn[:NB_PREFIX].cpu().numpy()
+    del xn, yn
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    est = port.NaiveBayes()
+    est.fit(ds)
+    sync()
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        m = est.fit(ds)
+    sync()
+    fit_s = (time.perf_counter() - t0) / reps
+    _, syncs = count_syncs(lambda: est.fit(ds))
+    check(np.isfinite(m.pi).all() and np.isfinite(m.theta).all() and m.theta.shape == (NB_K, NB_D),
+          "NaiveBayes: parameters not finite (8, 32)")
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    del ds
+    bound = HBM_BYTES_PER_S / (4 * (NB_D + 1))
+    mc = est.fit((xp, yp), device="cpu")
+    md = est.fit((xp, yp), device=DEV)
+    check(np.array_equal(md.pi, mc.pi) and np.array_equal(md.theta, mc.theta),
+          "NaiveBayes card vs CPU: pi or theta differ")
+    moved = xp.copy()
+    moved[0, 0] += 1.0
+    ctl = est.fit((moved, yp), device="cpu")
+    check(not np.array_equal(md.theta, ctl.theta), "NaiveBayes: one count moved by one went unseen")
+    del xp, yp, moved
+
+    g = port.NaiveBayes(model_type="gaussian")
+    gm, g_s, g_syncs = timed_fit(g, port.device_dataset(x, yb, device=DEV))
+    gc = g.fit((x, yb), device="cpu")
+
+    def nb_gaps(a):
+        return {"pi": float(np.abs(a.pi - gc.pi).max()),
+                "theta": float(np.abs(a.theta - gc.theta).max() / np.abs(gc.theta).max()),
+                "sigma": float((np.abs(a.sigma - gc.sigma) / gc.sigma).max())}
+
+    with tf32_matmuls():
+        g_ctl = nb_gaps(g.fit((x, yb), device=DEV))
+    text = gated("gaussian_nb", nb_gaps(gm), g_ctl)
+    say(f"NaiveBayes multinomial k={NB_K} on {card}, {NB_N} x {NB_D} Poisson(3) rows: fit "
+        f"{fit_s * 1e3:.2f} ms = {NB_N / fit_s:.4g} records/s against the bytes bound "
+        f"{bound:.4g} records/s (4*(d+1) B a row at 3.35 TB/s: {100 * NB_N / fit_s / bound:.1f}%), "
+        f"{syncs} host syncs a fit, peak device memory {peak / 2**30:.2f} GiB; card == CPU on "
+        f"{NB_PREFIX} rows (pi, theta equal; the control with one count moved differs); "
+        f"gaussian on {len(yb)} hospital rows: fit {g_s * 1e3:.2f} ms, {g_syncs} host syncs, "
+        f"card vs CPU {text}")
+
+
+def svc_part(port, x, yb, card: str) -> None:
+    """LinearSVC on the binary hospital rows: resident and out of core on
+    the card, the card against the CPU on the prefix, out of core against
+    resident, each with its control on TF32-rounded rows."""
+    est = port.LinearSVC(tol=CLS_TOL)
+    n = len(yb)
+    m, fit_s, syncs = timed_fit(est, port.device_dataset(x, yb, device=DEV))
+    xp, yp = x[:PREFIX], yb[:PREFIX]
+    mc = est.fit((xp, yp), device="cpu")
+    gaps = fit_gaps(est.fit((xp, yp), device=DEV), mc)
+    ctl = fit_gaps(est.fit((tf32_round(xp), yp), device=DEV), mc)
+    text = gated("svc", gaps, ctl)
+    hd = port.HostDataset(x=x, y=yb, max_device_rows=CLS_BLOCK)
+    sync()
+    t0 = time.perf_counter()
+    mo = est.fit(hd, device=DEV)
+    sync()
+    ooc_s = time.perf_counter() - t0
+    o_ctl = fit_gaps(est.fit(port.HostDataset(x=tf32_round(x), y=yb, max_device_rows=CLS_BLOCK),
+                             device=DEV), m)
+    o_text = gated("svc_ooc", fit_gaps(mo, m), o_ctl)
+    say(f"LinearSVC(tol={CLS_TOL:g}) on {card}, {n} hospital rows: fit {fit_s * 1e3:.2f} ms = "
+        f"{n / fit_s:.4g} records/s, n_iter {m.n_iter}, {syncs} host syncs; card vs CPU on "
+        f"{PREFIX} rows: {text}; out of core {ooc_s:.3f} s, against resident: {o_text}")
+
+
+def one_vs_rest_part(port, H, x, tiers, card: str) -> int:
+    """OneVsRest(DecisionTreeClassifier(max_depth=5)) on the 3 triage tiers:
+    3 one-vs-all trees, K3 at each of 6 levels (counted), and the card
+    against the CPU on the prefix: the same trees (0/1 labels: every
+    histogram sum is exact); the control, the CPU on TF32-rounded
+    features, grows others.  → K3 launches of the 2M-row fit."""
+    import numpy as np
+
+    est = port.OneVsRest(port.DecisionTreeClassifier(max_depth=5))
+    ds = port.device_dataset(x, tiers, device=DEV)
+    H.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    m = est.fit(ds)
+    sync()
+    fit_s = time.perf_counter() - t0
+    k3 = H.launch_counts()["fused_level_hist"]
+    check(k3 == 3 * 6, f"OneVsRest over 3 depth-5 trees launched K3 {k3} times (expected 18)")
+    acc = port.MulticlassClassificationEvaluator(num_classes=3).evaluate(m.transform(ds))
+    check(0.5 < acc <= 1.0, f"OneVsRest accuracy {acc}")
+    xp, tp = x[:PREFIX], tiers[:PREFIX]
+
+    def same(a, b) -> bool:
+        return all(np.array_equal(u.split_feat, v.split_feat)
+                   and np.array_equal(u.threshold, v.threshold)
+                   and np.array_equal(u.value, v.value) for u, v in zip(a.models, b.models))
+
+    mc = est.fit((xp, tp), device="cpu")
+    check(same(est.fit((xp, tp), device=DEV), mc), "OneVsRest card vs CPU: the trees differ")
+    check(not same(est.fit((tf32_round(xp), tp), device="cpu"), mc),
+          "OneVsRest: the TF32-rounded control grows the same trees")
+    say(f"OneVsRest(DecisionTreeClassifier(max_depth=5)) on {card}, {len(tiers)} rows, 3 tiers: "
+        f"fit {fit_s:.3f} s, K3 launched {k3} times (3 trees x 6 levels), accuracy {acc:.6f}; "
+        f"card vs CPU on {PREFIX} rows: the same trees (the TF32-rounded control: others)")
+    return k3
+
+
+def composites_part(port, x, yb, card: str) -> None:
+    """Pipeline([VectorAssembler, StandardScaler, LogisticRegression]) fit,
+    saved, loaded and transforming == before and after; CrossValidator over
+    reg_param {0, 0.01, 0.1}, 3 folds, areaUnderROC, on the prefix: the same
+    best index as the CPU route."""
+    import numpy as np
+
+    cols = {c: x[:, j] for j, c in enumerate(port.FEATURE_COLS)}
+    table = port.Table.from_dict({**cols, "LOS_binary": yb.astype(np.int64)})
+    pipe = port.Pipeline([port.VectorAssembler(list(port.FEATURE_COLS)), port.StandardScaler(),
+                          port.LogisticRegression(tol=CLS_TOL)])
+    sync()
+    t0 = time.perf_counter()
+    pm = pipe.fit(table, device=DEV)
+    sync()
+    fit_s = time.perf_counter() - t0
+    before = pm.transform(table, device=DEV).prediction.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pipeline")
+        pm.write().overwrite().save(path)
+        loaded = port.load_model(path)
+        check(type(loaded) is port.PipelineModel, "load_model did not give a PipelineModel")
+        after = loaded.transform(table, device=DEV).prediction.cpu().numpy()
+    check(np.array_equal(before, after), "the PipelineModel predicts otherwise after its round trip")
+    grid = port.ParamGridBuilder().add_grid("reg_param", [0.0, 0.01, 0.1]).build()
+    cv = port.CrossValidator(port.LogisticRegression(tol=CLS_TOL), grid,
+                             port.BinaryClassificationEvaluator(), num_folds=3)
+    xp, yp = x[:PREFIX], yb[:PREFIX]
+    sync()
+    t0 = time.perf_counter()
+    cvd = cv.fit((xp, yp), device=DEV)
+    sync()
+    cv_s = time.perf_counter() - t0
+    cvc = cv.fit((xp, yp), device="cpu")
+    check(cvd.best_index == cvc.best_index,
+          f"CrossValidator best index: card {cvd.best_index}, CPU {cvc.best_index}")
+    say(f"Pipeline(VectorAssembler, StandardScaler, LogisticRegression) on {card}, "
+        f"{len(yb)} rows: fit {fit_s:.3f} s, saved, loaded, predictions == before and after; "
+        f"CrossValidator (reg_param {[g['reg_param'] for g in grid]}, 3 folds, areaUnderROC) on "
+        f"{PREFIX} rows: {cv_s:.3f} s, best index {cvd.best_index} (CPU the same), average "
+        f"metrics card {np.round(cvd.avg_metrics, 6).tolist()} CPU "
+        f"{np.round(cvc.avg_metrics, 6).tolist()}")
+
+
+def classification_phase(port, H, card: str) -> int:
+    """Slice 5a at full width: the stage's 2M hospital rows (the 4 features,
+    ``LOS_binary`` from the pipeline's Binarizer, and 3 triage tiers at the
+    LOS quantiles [0.5, 0.85], ``examples/model_diagnostics.py``) through
+    binomial and multinomial LogisticRegression (resident and out of
+    core; also as the example fits them), LinearSVC, OneVsRest over
+    decision trees (K3), Pipeline and CrossValidator, and NaiveBayes at
+    bench.py's shape.  → K3 launches."""
+    import numpy as np
+
+    cols = hospital_events(TREE_N // 5)
+    x = np.stack([cols[c] for c in port.FEATURE_COLS], axis=1)
+    los = cols[port.LABEL_COL]
+    del cols
+    thr = port.PipelineConfig().los_threshold
+    yb = port.Binarizer(port.LABEL_COL, "LOS_binary", thr).transform(
+        port.Table.from_dict({port.LABEL_COL: los})).column("LOS_binary").astype(np.float32)
+    tiers = np.digitize(los, np.quantile(los, [0.5, 0.85])).astype(np.float32)
+    lap("cls data")
+    logistic_part(port, "binomial", port.LogisticRegression(tol=CLS_TOL), x, yb, card, False)
+    lap("cls binomial")
+    logistic_part(port, "multinomial", port.LogisticRegression(**MULTI_KW), x, tiers, card, True)
+    lap("cls multinomial")
+    example_part(port, x, yb, tiers, card)
+    lap("cls the example's fits")
+    naive_bayes_part(port, x, yb, card)
+    lap("cls NaiveBayes")
+    svc_part(port, x, yb, card)
+    lap("cls LinearSVC")
+    k3 = one_vs_rest_part(port, H, x, tiers, card)
+    lap("cls OneVsRest")
+    composites_part(port, x, yb, card)
+    lap("cls Pipeline and CrossValidator")
+    return k3
+
+
 def main() -> None:
     try:
         import torch
@@ -2941,6 +3411,7 @@ def main() -> None:
     if not (ROOT / PKG / "csrc" / "lloyd.cu").is_file():
         fail(f"the port package {PKG}/ is not beside this script")
     sys.path.insert(0, str(ROOT))
+    lap("start")
     import numpy as np
 
     import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
@@ -2977,6 +3448,7 @@ def main() -> None:
         if log.exists():
             for fn, usage in ptxas_usage(log.read_text()):
                 say(f"  ptxas[{name}] {fn}: {usage}")
+    lap("build")
 
     # ------------------------------------------------- kernel vs plain
     records = kernel_case(L, N, D, K, 0, seed=1, reps=20)
@@ -3000,7 +3472,9 @@ def main() -> None:
     kernel_case(L, 1_000_003, D, 16, 3, seed=2, reps=10, dup=True)
     kernel_case(L, 1_000_000, 64, 1024, 0, seed=3, reps=5)
     edge_cases(L)
+    lap("K1 and K2 against their plain versions")
     records.append(k3_phase(H))
+    lap("K3 against its plain version")
 
     # ----------------------------------------------------------- main path
     t0 = time.perf_counter()
@@ -3096,9 +3570,11 @@ def main() -> None:
     check(np.allclose(on_card.cluster_centers, on_cpu.cluster_centers, rtol=1e-5, atol=1e-5),
           "kernel fit centers disagree with the plain fit")
     say(f"small-input reference: card fit == CPU plain fit (n_iter {on_card.n_iter})")
+    lap("KMeans path")
 
     # ------------------------------------- the SQL window on the card
     sql_window(port, card)
+    lap("sql_window")
 
     # ---------------------------------------------- the model stage (K3)
     stage_on_bundled_csv(port)
@@ -3112,12 +3588,15 @@ def main() -> None:
                                             head, card)
         os.environ.pop("CMLHN_FLIGHT_DIR")
         del stage
+    lap("model stage and artifacts")
     with tempfile.TemporaryDirectory() as tmp:
         # ---------------------------------------- run_pipeline end to end (K3)
         os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
         counts["fused_level_hist"] += pipeline_phase(port, H, tmp, card)
         os.environ.pop("CMLHN_FLIGHT_DIR")
+    lap("pipeline_phase")
     rf20(port)
+    lap("rf20")
 
     # ------------------------- slice 4a: BASELINE configs 5, 3 and 4 (K1, K2)
     k1, k2 = streaming_phase(port, L, card)
@@ -3125,10 +3604,12 @@ def main() -> None:
     counts["fused_assign"] += k2
     gmm_phase(port, card)
     counts["fused_assign"] += bisecting_phase(port, L, card)
+    lap("configs 5, 3, 4")
 
     # ------------------- slice 4b: the out-of-core fits (K1, K2, K3 a block)
     for name, v in outofcore_phase(port, L, H, card, k1_block["ms"]).items():
         counts[name] += v
+    lap("outofcore_phase")
 
     # -------------- slices 3e + 4c: GBT (K3 at T = 1), LinearRegression, the
     # precision modes, BisectingKMeans' cosine, weights and out of core (K2)
@@ -3137,8 +3618,15 @@ def main() -> None:
     lr_phase(port, card)
     precision_phase(port, ds, model, card)
     counts["fused_assign"] += bisecting_more(port, L, card)
+    lap("gbt, lr, precision, bisecting_more")
+
+    # ------- slice 5a: the LOS_binary classifiers (K3 through OneVsRest)
+    counts["fused_level_hist"] += classification_phase(port, H, card)
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
+    say(f"phase seconds (host clock): "
+        f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
+        f"classification_phase {sum(v for k, v in PHASE_S.items() if k.startswith('cls ')):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:
         rec["launches"] = counts[rec["name"]]

@@ -23,14 +23,19 @@ Slices 4a–4c add the other clusterings (StreamingKMeans, GaussianMixture,
 BisectingKMeans), the out-of-core fits (``HostDataset``) and KMeans' and
 GaussianMixture's reduced-precision modes; slice 3e the gradient-boosted
 trees (``GBTRegressor``, ``GBTClassifier``) and LinearRegression's elastic
-net and training summary.
+net and training summary.  Slice 5a adds the ``LOS_binary`` classifiers:
+LogisticRegression (binomial and multinomial, resident and out of core)
+with its training summaries and ROC / PR curves,
+BinaryClassificationEvaluator, LinearSVC, NaiveBayes, OneVsRest, and the
+composites ``Pipeline`` / ``PipelineModel``, ``CrossValidator`` and
+``TrainValidationSplit``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import serve
+from . import serve, viz
 from .config import PipelineConfig
 from .convert import (
     bisecting_kmeans_model_from_jax_arrays,
@@ -38,6 +43,10 @@ from .convert import (
     gbt_model_from_jax_arrays,
     kmeans_model_from_jax_arrays,
     linear_regression_model_from_jax_arrays,
+    linear_svc_model_from_jax_arrays,
+    logistic_regression_model_from_jax_arrays,
+    multinomial_logistic_regression_model_from_jax_arrays,
+    naive_bayes_model_from_jax_arrays,
     scaler_model_from_jax_arrays,
     streaming_kmeans_model_from_jax_arrays,
     tree_model_from_jax_arrays,
@@ -49,6 +58,7 @@ from .core.sql import explain as sql_explain
 from .core.table import Table
 from .data import DeviceDataset, device_dataset
 from .device import resolve_device
+from .evaluation.binary import BinaryClassificationEvaluator, binary_curves
 from .evaluation.classification import MulticlassClassificationEvaluator
 from .evaluation.clustering import ClusteringEvaluator
 from .evaluation.regression import RegressionEvaluator
@@ -63,6 +73,18 @@ from .models.bisecting_kmeans import BisectingKMeans, BisectingKMeansModel
 from .models.gmm import GaussianMixture, GaussianMixtureModel
 from .models.kmeans import KMeans, KMeansModel
 from .models.linear_regression import LinearRegression, LinearRegressionModel
+from .models.linear_svc import LinearSVC, LinearSVCModel
+from .models.logistic_regression import (
+    LogisticRegression,
+    LogisticRegressionModel,
+    MultinomialLogisticRegressionModel,
+)
+from .models.naive_bayes import NaiveBayes, NaiveBayesModel
+from .models.one_vs_rest import OneVsRest, OneVsRestModel
+from .models.summary import (
+    BinaryLogisticRegressionTrainingSummary,
+    MulticlassLogisticRegressionTrainingSummary,
+)
 from .models.streaming_kmeans import StreamingKMeans, StreamingKMeansModel
 from .models.tree import (
     DecisionTreeClassifier,
@@ -76,6 +98,7 @@ from .models.tree import (
     RandomForestRegressor,
 )
 from .parallel.outofcore import HostDataset
+from .pipeline.ml_pipeline import Pipeline, PipelineModel, load_pipeline_model
 from .pipeline.hospital_pipeline import (
     PipelineResult,
     StageResult,
@@ -90,6 +113,13 @@ from .streaming import (
     StreamExecution,
     UnboundedTable,
     WatermarkTracker,
+)
+from .tuning import (
+    CrossValidator,
+    CrossValidatorModel,
+    ParamGridBuilder,
+    TrainValidationSplit,
+    TrainValidationSplitModel,
 )
 from .version import __version__
 
@@ -118,4 +148,15 @@ __all__ = [
     "scaler_model_from_jax_arrays", "serve", "split_indices", "sql_execute", "sql_explain",
     "train_test_split",
     "tree_model_from_jax_arrays",
+    # slice 5a
+    "BinaryClassificationEvaluator", "BinaryLogisticRegressionTrainingSummary",
+    "CrossValidator", "CrossValidatorModel", "LinearSVC", "LinearSVCModel",
+    "LogisticRegression", "LogisticRegressionModel",
+    "MulticlassLogisticRegressionTrainingSummary", "MultinomialLogisticRegressionModel",
+    "NaiveBayes", "NaiveBayesModel", "OneVsRest", "OneVsRestModel", "ParamGridBuilder",
+    "Pipeline", "PipelineModel", "TrainValidationSplit", "TrainValidationSplitModel",
+    "binary_curves", "linear_svc_model_from_jax_arrays",
+    "load_pipeline_model", "logistic_regression_model_from_jax_arrays",
+    "multinomial_logistic_regression_model_from_jax_arrays",
+    "naive_bayes_model_from_jax_arrays", "viz",
 ]

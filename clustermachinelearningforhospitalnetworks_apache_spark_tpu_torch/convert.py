@@ -24,6 +24,12 @@ from .models.bisecting_kmeans import BisectingKMeansModel
 from .models.gmm import GaussianMixtureModel
 from .models.kmeans import KMeansModel
 from .models.linear_regression import LinearRegressionModel
+from .models.linear_svc import LinearSVCModel
+from .models.logistic_regression import (
+    LogisticRegressionModel,
+    MultinomialLogisticRegressionModel,
+)
+from .models.naive_bayes import NaiveBayesModel
 from .models.streaming_kmeans import StreamingKMeansModel
 from .models.tree import DecisionTreeModel, GBTModel, RandomForestModel
 
@@ -133,3 +139,45 @@ def streaming_kmeans_model_from_jax_arrays(
         {"cluster_centers": cluster_centers, "cluster_sizes": cluster_sizes,
          "cluster_weights": w},
     )
+
+
+def logistic_regression_model_from_jax_arrays(
+    coefficients, intercept, *, threshold: float = 0.5, n_iter: int = 0,
+) -> LogisticRegressionModel:
+    """A port binomial :class:`LogisticRegressionModel` (CPU float32
+    tensors; predict moves them to the rows' device)."""
+    return LogisticRegressionModel.from_artifacts(
+        {"threshold": threshold, "n_iter": n_iter},
+        {"coefficients": coefficients, "intercept": intercept},
+    )
+
+
+def multinomial_logistic_regression_model_from_jax_arrays(
+    coefficient_matrix, intercept_vector, *, n_iter: int = 0,
+) -> MultinomialLogisticRegressionModel:
+    """A port :class:`MultinomialLogisticRegressionModel` with the JAX
+    model's (K, d) coefficient matrix and (K,) intercepts."""
+    return MultinomialLogisticRegressionModel.from_artifacts(
+        {"n_iter": n_iter},
+        {"coefficient_matrix": coefficient_matrix, "intercept_vector": intercept_vector},
+    )
+
+
+def linear_svc_model_from_jax_arrays(coefficients, *, intercept: float,
+                                     n_iter: int = 0) -> LinearSVCModel:
+    """A port :class:`LinearSVCModel` with the JAX model's coefficients
+    and intercept."""
+    return LinearSVCModel.from_artifacts({"intercept": intercept, "n_iter": n_iter},
+                                         {"coefficients": coefficients})
+
+
+def naive_bayes_model_from_jax_arrays(pi, theta, sigma=None, theta2=None, *,
+                                      model_type: str) -> NaiveBayesModel:
+    """A port :class:`NaiveBayesModel` with the JAX model's log priors,
+    per-class parameters and, by type, variances or log(1 − p)."""
+    arrays = {"pi": pi, "theta": theta}
+    if sigma is not None:
+        arrays["sigma"] = sigma
+    if theta2 is not None:
+        arrays["theta2"] = theta2
+    return NaiveBayesModel.from_artifacts({"model_type": model_type}, arrays)

@@ -12,12 +12,23 @@ from typing import Sequence
 import numpy as np
 
 from ..core.table import Table
+from ..io.model_io import register_model
 
 
+@register_model("VectorAssembler")
 @dataclass(frozen=True)
 class VectorAssembler:
     input_cols: Sequence[str]
     output_col: str = "features"
+
+    def _artifacts(self):
+        """A Pipeline stage saves as the JAX package's: params, no arrays."""
+        return ("VectorAssembler",
+                {"input_cols": list(self.input_cols), "output_col": self.output_col}, {})
+
+    @classmethod
+    def from_artifacts(cls, params, arrays):
+        return cls(tuple(params["input_cols"]), params.get("output_col", "features"))
 
     def transform_matrix(self, table: Table, dtype=np.float64) -> np.ndarray:
         """The matrix itself — the form every estimator consumes."""

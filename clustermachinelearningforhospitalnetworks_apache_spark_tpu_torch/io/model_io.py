@@ -72,8 +72,8 @@ PIPELINE_CLASS = "PipelineModel"
 #: ``(path, meta) -> model`` loader here so ``load_model`` dispatches them
 #: uniformly.  Values are import-path strings resolved lazily to avoid
 #: module cycles: "pkg.module:ClassName" → ClassName.load(path, _meta=meta).
-#: The port's ``pipeline/ml_pipeline.py`` comes in a later slice; until
-#: then loading a PipelineModel artifact raises ModuleNotFoundError.
+#: OneVsRest and the tuning models register themselves where they are
+#: defined (``register_composite``).
 _COMPOSITE_LOADERS: dict[str, str] = {
     PIPELINE_CLASS: "clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.pipeline.ml_pipeline:PipelineModel",
 }
@@ -110,16 +110,7 @@ def _load_composite(name: str, path: str, meta: dict) -> Any:
     import importlib
 
     mod_name, cls_name = _COMPOSITE_LOADERS[name].split(":")
-    try:
-        module = importlib.import_module(mod_name)
-    except ModuleNotFoundError as e:
-        if e.name != mod_name:
-            raise
-        raise ModuleNotFoundError(
-            f"artifact {path!r} is a {name}, whose loader {mod_name} is not "
-            "in the port yet", name=mod_name,
-        ) from e
-    cls = getattr(module, cls_name)
+    cls = getattr(importlib.import_module(mod_name), cls_name)
     return cls.load(path, _meta=meta)
 
 

@@ -104,6 +104,7 @@ class Model:
         for attr, axis in (
             ("coefficients", -1),         # linear family
             ("cluster_centers", 1),       # kmeans
+            ("theta", 1),                 # naive bayes
             ("feature_importances", -1),  # tree ensembles
         ):
             v = getattr(self, attr, None)

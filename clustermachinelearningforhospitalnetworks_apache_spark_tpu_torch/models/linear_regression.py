@@ -46,6 +46,7 @@ from ..device import resolve_device
 from ..io.model_io import register_model
 from ..parallel.outofcore import HostDataset, add_stats
 from .base import Estimator, Model, as_device_dataset, check_features
+from .summary import SummaryMixin
 
 #: rows summed by one partial product of :func:`chunked_gram`
 GRAM_CHUNK = 4096
@@ -255,31 +256,12 @@ def _lr_solve_from_stats(stats, shift, reg_param: float, fit_intercept: bool,
 
 @register_model("LinearRegressionModel")
 @dataclass
-class LinearRegressionModel(Model):
+class LinearRegressionModel(SummaryMixin, Model):
     """``coefficients`` (d,) and ``intercept`` () as float32 tensors."""
 
     coefficients: torch.Tensor
     intercept: torch.Tensor
     _summary: object | None = field(default=None, repr=False, compare=False)
-
-    @property
-    def has_summary(self) -> bool:
-        return self._summary is not None
-
-    def release_summary(self) -> None:
-        """Drop the summary's reference to the training dataset, freeing
-        its device memory (``models/summary.py``)."""
-        self._summary = None
-
-    @property
-    def summary(self):
-        """Training summary (rmse, r2, residuals, t-values …): fresh
-        resident fits only, like Spark's ``hasSummary``."""
-        if self._summary is None:
-            from .summary import summary_unavailable
-
-            raise summary_unavailable("LinearRegressionModel")
-        return self._summary
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         check_features(x, self.coefficients.shape[0], "LinearRegressionModel")

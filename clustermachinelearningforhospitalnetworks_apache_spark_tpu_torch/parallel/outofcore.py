@@ -59,6 +59,54 @@ def block_moments(x, y, w, extra: str = "none") -> tuple:
     return base
 
 
+def streamed_standardization(hd, device, extra: str = "none"):
+    """The moments pre-pass over ``hd``'s blocks on ``device`` → (n, mean,
+    std, extra), host numpy in float32 as the JAX package forms them.
+
+    The one copy of the out-of-core standardization (the logistic and SVC
+    fits consume it), with ``weighted_moments``' degenerate-variance rule:
+    a (near-)constant feature gets std 1.0, so the L2 penalty applies at
+    full strength.  ``extra``: "ysum" → Σw·y, "ymax" → the largest valid
+    y (a running max on the device, read once with the sums), "none" →
+    None."""
+    tot = None
+    ymax = None
+    for blk in hd.blocks(device=device):
+        s = block_moments(blk.x, blk.y, blk.w, extra=extra)
+        if extra == "ymax":
+            ymax = s[3] if ymax is None else torch.maximum(ymax, s[3])
+            s = s[:3]
+        tot = s if tot is None else add_stats(tot, s)
+    if extra == "ymax":
+        tot = tot + (ymax,)
+    # one copy to the host: the sums (and y's) flattened into one tensor
+    d = hd.n_features
+    flat = torch.cat([v.reshape(-1) for v in tot]).cpu().numpy()
+    parts = [flat[0], flat[1:1 + d], flat[1 + d:1 + 2 * d], *flat[1 + 2 * d:]]
+    sw, sx, sxx = parts[0], parts[1], parts[2]
+    n = max(float(sw), 1.0)
+    mean = sx / n
+    var = np.maximum(sxx / n - mean * mean, 0.0)
+    std = np.where(var > 1e-12, np.sqrt(np.maximum(var, 1e-12)), 1.0)
+    if extra == "ymax":
+        return n, mean, std, max(float(parts[3]), 0.0)
+    if extra == "ysum":
+        return n, mean, std, float(parts[3])
+    return n, mean, std, None
+
+
+def standardized_ridge(n: float, std: np.ndarray, reg_param: float, nfeat: int,
+                       fit_intercept: bool, standardize: bool) -> np.ndarray:
+    """Spark's standardized-L2 ridge vector (intercept unpenalized) from the
+    streamed moments: the out-of-core counterpart of
+    ``standardized_design``'s ridge."""
+    scale = std if standardize else np.ones_like(std)
+    dd = nfeat + (1 if fit_intercept else 0)
+    ridge = np.zeros((dd,), np.float32)
+    ridge[:nfeat] = reg_param * n * scale * scale
+    return ridge
+
+
 @dataclass
 class HostDataset:
     """A host-resident (possibly memory-mapped) design matrix streamed to
@@ -235,4 +283,5 @@ class HostDataset:
                     ev.synchronize()
 
 
-__all__ = ["HostDataset", "add_stats", "block_moments"]
+__all__ = ["HostDataset", "add_stats", "block_moments", "standardized_ridge",
+           "streamed_standardization"]

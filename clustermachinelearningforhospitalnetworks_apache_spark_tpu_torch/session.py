@@ -18,7 +18,7 @@ the builder chain, so reference code ports line for line::
                       "'2025-03-31 22:00:00' AND '2025-03-31 23:00:00'")
 
 Materialized views (``create_view``) come with slice 6 of the port, the
-fused SQL-to-device path (``sql_to_device``) with slice 5.
+fused SQL-to-device path (``sql_to_device``) with slice 5c.
 """
 
 from __future__ import annotations

@@ -1,3 +1,3 @@
-from .plots import plot_predicted_vs_actual, plot_residuals
+from .plots import plot_pr, plot_predicted_vs_actual, plot_residuals, plot_roc
 
-__all__ = ["plot_predicted_vs_actual", "plot_residuals"]
+__all__ = ["plot_pr", "plot_predicted_vs_actual", "plot_residuals", "plot_roc"]

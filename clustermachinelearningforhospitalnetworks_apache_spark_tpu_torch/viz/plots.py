@@ -7,8 +7,8 @@ output directory instead of ``plt.show()``.
 
 matplotlib is the optional ``viz`` extra: it is imported when a plot is
 drawn, and a missing one raises an ``ImportError`` that names the extra.
-The ROC and PR curves need LogisticRegression's training summary, which
-comes with slice 5 of the port.
+The ROC and PR curves come from a binary LogisticRegression training
+summary (``plot_roc``, ``plot_pr``).
 """
 
 from __future__ import annotations
@@ -74,4 +74,32 @@ def plot_residuals(
     ax.set_xlabel("predicted")
     ax.set_ylabel("residual (actual − predicted)")
     ax.set_title("Residuals")
+    return _save(fig, out_dir, filename)
+
+
+def plot_roc(summary, out_dir: str, filename: str = "roc.png") -> str:
+    """The ROC curve of a ``BinaryLogisticRegressionTrainingSummary`` (its
+    ``roc`` points come from one tie-exact device pass): the
+    classification counterpart of the reference's regression plots."""
+    curve = summary.roc
+    fig = figure_class()(figsize=(6, 5))
+    ax = fig.add_subplot(111)
+    ax.plot(curve[:, 0], curve[:, 1], linewidth=1.5)
+    ax.plot([0, 1], [0, 1], "r--", linewidth=1.0)
+    ax.set_xlabel("false positive rate")
+    ax.set_ylabel("true positive rate")
+    ax.set_title(f"ROC (AUC = {summary.area_under_roc:.4f})")
+    return _save(fig, out_dir, filename)
+
+
+def plot_pr(summary, out_dir: str, filename: str = "pr.png") -> str:
+    """The precision-recall curve of the binary training summary."""
+    curve = summary.pr
+    fig = figure_class()(figsize=(6, 5))
+    ax = fig.add_subplot(111)
+    ax.plot(curve[:, 0], curve[:, 1], linewidth=1.5)
+    ax.set_xlabel("recall")
+    ax.set_ylabel("precision")
+    ax.set_title(f"PR (AUC = {summary.area_under_pr:.4f})")
+    ax.set_ylim(0.0, 1.05)
     return _save(fig, out_dir, filename)

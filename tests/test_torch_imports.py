@@ -70,13 +70,17 @@ def test_every_module_is_walkable():
                      "viz.plots", "utils.metrics", "utils.retry", "utils.report",
                      "io.native", "models.streaming_kmeans", "models.gmm",
                      "models.bisecting_kmeans", "parallel", "parallel.outofcore",
-                     "io.fit_checkpoint", "models.tree.gbt", "models.summary"):
+                     "io.fit_checkpoint", "models.tree.gbt", "models.summary",
+                     "models.logistic_regression", "models.linear_svc", "models.naive_bayes",
+                     "models.one_vs_rest", "evaluation.binary", "pipeline.ml_pipeline",
+                     "tuning", "tuning.tuning"):
         assert f"{port.__name__}.{expected}" in names
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x = np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32)
+    y01 = (x[:, 0] > 0).astype(np.float32)
     model = port.KMeansModel(x[:2].copy())
     # saving and loading compute nothing, so they need no device
     model.save(str(tmp_path / "km"))
@@ -140,6 +144,25 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
         lambda: port.GaussianMixture(k=2, matmul_precision="bf16").fit(x),
         lambda: port.BisectingKMeans(k=2, distance_measure="cosine").fit(x),
         lambda: port.BisectingKMeans(k=2).fit(port.HostDataset(x)),
+        # slice 5a
+        lambda: port.LogisticRegression().fit((x, y01)),
+        lambda: port.LogisticRegression(family="multinomial").fit((x, y01)),
+        lambda: port.LogisticRegression().fit(port.HostDataset(x, y01)),
+        lambda: port.BinaryClassificationEvaluator().evaluate(x[:, 0], y01),
+        lambda: port.binary_curves(x[:, 0], y01),
+        lambda: port.LinearSVC().fit((x, y01)),
+        lambda: port.LinearSVC(reg_param=0.1).fit(port.HostDataset(x, y01)),
+        lambda: port.NaiveBayes().fit((np.abs(x), y01)),
+        lambda: port.NaiveBayes(model_type="gaussian").fit(port.HostDataset(x, y01)),
+        lambda: port.OneVsRest(port.DecisionTreeClassifier(max_depth=2)).fit((x, y01)),
+        lambda: port.Pipeline([port.VectorAssembler(["a", "b", "c"]),
+                               port.LogisticRegression(label_col="y")]).fit(
+            port.Table.from_dict({"a": x[:, 0], "b": x[:, 1], "c": x[:, 2], "y": y01})),
+        lambda: port.CrossValidator(port.LogisticRegression(), [{"reg_param": 0.0}],
+                                    port.BinaryClassificationEvaluator()).fit((x, y01)),
+        lambda: port.TrainValidationSplit(port.LinearSVC(), [{"reg_param": 0.0}],
+                                          port.MulticlassClassificationEvaluator()).fit((x, y01)),
+        lambda: port.logistic_regression_model_from_jax_arrays(np.ones(3), 0.0).predict_numpy(x),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -416,12 +416,16 @@ def test_torn_metadata_and_undecodable_payload_are_corrupt(tmp_path):
 
 # ---------------------------------------------------------- the registry of classes
 def test_pipeline_model_tag_names_the_missing_port_module(tmp_path):
+    """The PipelineModel tag resolves to the port's own
+    ``pipeline/ml_pipeline.py`` (it raised ModuleNotFoundError until the
+    port had that module)."""
     path = str(tmp_path / "pipe")
     p_io.prepare_artifact_dir(path, overwrite=True)
-    p_io.write_metadata(path, {"model_class": "PipelineModel", "stages": []})
+    p_io.write_metadata(path, {"model_class": "PipelineModel", "stage_dirs": []})
     p_io.finalize_artifact_dir(path)
-    with pytest.raises(ModuleNotFoundError, match=rf"{P.__name__}\.pipeline\.ml_pipeline"):
-        P.load_model(path)
+    loaded = P.load_model(path)
+    assert type(loaded) is P.PipelineModel and loaded.stages == ()
+    assert type(loaded).__module__ == f"{P.__name__}.pipeline.ml_pipeline"
     assert p_io.is_composite(object()) is False
 
 
