@@ -25,7 +25,8 @@ import time
 PHASES = ["kernel_case", "k2_case", "edge_cases", "k3_phase", "sql_window",
           "stage_on_bundled_csv", "stage_at_scale", "artifacts", "pipeline_phase", "rf20",
           "streaming_phase", "gmm_phase", "bisecting_phase", "outofcore_phase", "gbt_phase",
-          "lr_phase", "precision_phase", "bisecting_more", "classification_phase"]
+          "lr_phase", "precision_phase", "bisecting_more", "classification_phase",
+          "families_phase"]
 
 
 def main() -> None:

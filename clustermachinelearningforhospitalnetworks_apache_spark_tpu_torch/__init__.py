@@ -28,16 +28,29 @@ LogisticRegression (binomial and multinomial, resident and out of core)
 with its training summaries and ROC / PR curves,
 BinaryClassificationEvaluator, LinearSVC, NaiveBayes, OneVsRest, and the
 composites ``Pipeline`` / ``PipelineModel``, ``CrossValidator`` and
-``TrainValidationSplit``.
+``TrainValidationSplit``.  Slice 5b adds the L-BFGS, Adam and IRLS
+families: GeneralizedLinearRegression (five families, its training
+summary, out of core), MultilayerPerceptronClassifier and
+AFTSurvivalRegression on the port's own ``optax.lbfgs`` steps
+(``models/_opt.py``), FMRegressor / FMClassifier, IsotonicRegression,
+StreamingLinearRegression / StreamingLogisticRegression, and ``stat``
+(``pyspark.ml.stat``).
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import serve, viz
+from . import serve, stat, viz
 from .config import PipelineConfig
 from .convert import (
+    aft_model_from_jax_arrays,
+    fm_model_from_jax_arrays,
+    glm_model_from_jax_arrays,
+    isotonic_model_from_jax_arrays,
+    mlp_model_from_jax_arrays,
+    streaming_linear_regression_from_jax_arrays,
+    streaming_logistic_regression_from_jax_arrays,
     bisecting_kmeans_model_from_jax_arrays,
     gaussian_mixture_model_from_jax_arrays,
     gbt_model_from_jax_arrays,
@@ -68,9 +81,17 @@ from .features.scaler import StandardScaler, StandardScalerModel
 from .io.csv import read_csv, read_csv_dir, write_csv
 from .io.fit_checkpoint import FitCheckpointer
 from .io.model_io import CorruptArtifactError, load_model
+from .models.aft import AFTSurvivalRegression, AFTSurvivalRegressionModel
 from .models.base import PredictionResult
 from .models.bisecting_kmeans import BisectingKMeans, BisectingKMeansModel
+from .models.fm import FMClassifier, FMModel, FMRegressor
+from .models.glm import (
+    GeneralizedLinearRegression,
+    GeneralizedLinearRegressionModel,
+    GeneralizedLinearRegressionTrainingSummary,
+)
 from .models.gmm import GaussianMixture, GaussianMixtureModel
+from .models.isotonic import IsotonicRegression, IsotonicRegressionModel
 from .models.kmeans import KMeans, KMeansModel
 from .models.linear_regression import LinearRegression, LinearRegressionModel
 from .models.linear_svc import LinearSVC, LinearSVCModel
@@ -79,6 +100,7 @@ from .models.logistic_regression import (
     LogisticRegressionModel,
     MultinomialLogisticRegressionModel,
 )
+from .models.mlp import MultilayerPerceptronClassifier, MultilayerPerceptronModel
 from .models.naive_bayes import NaiveBayes, NaiveBayesModel
 from .models.one_vs_rest import OneVsRest, OneVsRestModel
 from .models.summary import (
@@ -86,6 +108,7 @@ from .models.summary import (
     MulticlassLogisticRegressionTrainingSummary,
 )
 from .models.streaming_kmeans import StreamingKMeans, StreamingKMeansModel
+from .models.streaming_linear import StreamingLinearRegression, StreamingLogisticRegression
 from .models.tree import (
     DecisionTreeClassifier,
     DecisionTreeModel,
@@ -159,4 +182,13 @@ __all__ = [
     "load_pipeline_model", "logistic_regression_model_from_jax_arrays",
     "multinomial_logistic_regression_model_from_jax_arrays",
     "naive_bayes_model_from_jax_arrays", "viz",
+    # slice 5b
+    "AFTSurvivalRegression", "AFTSurvivalRegressionModel", "FMClassifier", "FMModel",
+    "FMRegressor", "GeneralizedLinearRegression", "GeneralizedLinearRegressionModel",
+    "GeneralizedLinearRegressionTrainingSummary", "IsotonicRegression",
+    "IsotonicRegressionModel", "MultilayerPerceptronClassifier", "MultilayerPerceptronModel",
+    "StreamingLinearRegression", "StreamingLogisticRegression", "aft_model_from_jax_arrays",
+    "fm_model_from_jax_arrays", "glm_model_from_jax_arrays", "isotonic_model_from_jax_arrays",
+    "mlp_model_from_jax_arrays", "stat", "streaming_linear_regression_from_jax_arrays",
+    "streaming_logistic_regression_from_jax_arrays",
 ]

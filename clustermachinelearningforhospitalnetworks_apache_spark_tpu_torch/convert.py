@@ -18,10 +18,15 @@ in the JAX package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .features.scaler import StandardScalerModel
+from .models.aft import AFTSurvivalRegressionModel
 from .models.bisecting_kmeans import BisectingKMeansModel
+from .models.fm import FMModel
+from .models.glm import GeneralizedLinearRegressionModel
 from .models.gmm import GaussianMixtureModel
+from .models.isotonic import IsotonicRegressionModel
 from .models.kmeans import KMeansModel
 from .models.linear_regression import LinearRegressionModel
 from .models.linear_svc import LinearSVCModel
@@ -29,8 +34,10 @@ from .models.logistic_regression import (
     LogisticRegressionModel,
     MultinomialLogisticRegressionModel,
 )
+from .models.mlp import MultilayerPerceptronModel
 from .models.naive_bayes import NaiveBayesModel
 from .models.streaming_kmeans import StreamingKMeansModel
+from .models.streaming_linear import StreamingLinearRegression, StreamingLogisticRegression
 from .models.tree import DecisionTreeModel, GBTModel, RandomForestModel
 
 
@@ -181,3 +188,80 @@ def naive_bayes_model_from_jax_arrays(pi, theta, sigma=None, theta2=None, *,
     if theta2 is not None:
         arrays["theta2"] = theta2
     return NaiveBayesModel.from_artifacts({"model_type": model_type}, arrays)
+
+
+def glm_model_from_jax_arrays(
+    coefficients, *, intercept: float, family: str, link: str, n_iter: int = 0,
+    deviance: float = 0.0, variance_power: float = 0.0, link_power: float = 0.0,
+) -> GeneralizedLinearRegressionModel:
+    """A port :class:`GeneralizedLinearRegressionModel` with the JAX
+    model's coefficients, family and link (tweedie's powers too)."""
+    return GeneralizedLinearRegressionModel.from_artifacts(
+        {"intercept": intercept, "family": family, "link": link, "n_iter": n_iter,
+         "deviance": deviance, "variance_power": variance_power, "link_power": link_power},
+        {"coefficients": coefficients})
+
+
+def mlp_model_from_jax_arrays(*, layers, **arrays) -> MultilayerPerceptronModel:
+    """A port :class:`MultilayerPerceptronModel` from the JAX model's
+    ``w0, b0, w1, b1, …`` arrays and its ``layers``."""
+    return MultilayerPerceptronModel.from_artifacts({"layers": list(layers)}, arrays)
+
+
+def fm_model_from_jax_arrays(linear, factors, *, intercept: float,
+                             task: str = "regression") -> FMModel:
+    """A port :class:`FMModel` (regressor or classifier, by ``task``)."""
+    return FMModel.from_artifacts({"intercept": intercept, "task": task},
+                                  {"linear": linear, "factors": factors})
+
+
+def aft_model_from_jax_arrays(coefficients, *, intercept: float, scale: float,
+                              quantile_probabilities=()) -> AFTSurvivalRegressionModel:
+    """A port :class:`AFTSurvivalRegressionModel` with the JAX model's
+    coefficients, intercept and σ."""
+    return AFTSurvivalRegressionModel.from_artifacts(
+        {"intercept": intercept, "scale": scale,
+         "quantile_probabilities": list(quantile_probabilities)},
+        {"coefficients": coefficients})
+
+
+def isotonic_model_from_jax_arrays(boundaries, predictions, *, isotonic: bool = True,
+                                   feature_index: int = 0) -> IsotonicRegressionModel:
+    """A port :class:`IsotonicRegressionModel` with the JAX model's
+    boundary table."""
+    return IsotonicRegressionModel.from_artifacts(
+        {"isotonic": isotonic, "feature_index": feature_index},
+        {"boundaries": boundaries, "predictions": predictions})
+
+
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def streaming_linear_regression_from_jax_arrays(
+    gram, mom, wsum, *, n_batches: int, decay_factor: float = 1.0, reg_param: float = 0.0,
+    label_col: str = "length_of_stay",
+) -> StreamingLinearRegression:
+    """A port :class:`StreamingLinearRegression` holding the JAX stream's
+    decayed (XᵀWX, XᵀWy, Σw) state (the JAX object's ``_gram``, ``_mom``,
+    ``_wsum``); it moves to the device of the next batch."""
+    s = StreamingLinearRegression(decay_factor=decay_factor, reg_param=reg_param,
+                                  label_col=label_col)
+    s._gram, s._mom, s._wsum, s._n_batches = _f32(gram), _f32(mom), _f32(wsum), int(n_batches)
+    return s
+
+
+def streaming_logistic_regression_from_jax_arrays(
+    theta, grad_hist, hess_hist, *, wsum: float, n_batches: int, decay_factor: float = 1.0,
+    reg_param: float = 0.0, newton_steps_per_batch: int = 1, label_col: str = "LOS_binary",
+    threshold: float = 0.5,
+) -> StreamingLogisticRegression:
+    """A port :class:`StreamingLogisticRegression` holding the JAX stream's
+    θ and decayed Newton history (``_theta``, ``_grad_hist``,
+    ``_hess_hist``, ``_wsum``)."""
+    s = StreamingLogisticRegression(decay_factor=decay_factor, reg_param=reg_param,
+                                    newton_steps_per_batch=newton_steps_per_batch,
+                                    label_col=label_col, threshold=threshold)
+    s._theta, s._grad_hist, s._hess_hist = _f32(theta), _f32(grad_hist), _f32(hess_hist)
+    s._wsum, s._n_batches = float(wsum), int(n_batches)
+    return s

@@ -177,3 +177,66 @@ def test_launch_counts_cover_every_kernel():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"fused_lloyd_stats": 0, "fused_assign": 0,
                                    "fused_level_hist": 0}
+
+
+SLICE_5B = ("ops.reductions", "stat", "stat.stat", "models.glm", "models.isotonic",
+            "models.streaming_linear", "models._opt", "models.aft", "models.mlp", "models.fm")
+
+_IMPORT_5B = f"""
+import sys, importlib
+sys.modules["jax"] = None          # any `import jax` or `import optax` now raises
+sys.modules["optax"] = None
+for m in {SLICE_5B!r}:
+    importlib.import_module("{port.__name__}." + m)
+bad = sorted(k for k in sys.modules
+             if k == "{JAX_PKG}" or k.startswith("{JAX_PKG}.")
+             or (k.split(".")[0] in ("jax", "optax") and sys.modules[k] is not None))
+print("LEAKED", bad)
+"""
+
+
+def test_slice_5b_modules_import_neither_jax_nor_optax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_5B], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+    names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+    for expected in SLICE_5B:
+        assert f"{port.__name__}.{expected}" in names
+    pat = re.compile(r"^\s*(import|from)\s+optax\b", re.M)
+    assert not [p for p in PORT_DIR.rglob("*.py") if pat.search(p.read_text())]
+
+
+def test_slice_5b_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(16, 3)).astype(np.float32)
+    y01 = (x[:, 0] > 0).astype(np.float32)
+    pos = np.exp(x[:, 0]).astype(np.float32)
+    cen = np.ones(16, np.float32)
+    calls = [
+        lambda: port.GeneralizedLinearRegression(family="poisson").fit((x, pos)),
+        lambda: port.GeneralizedLinearRegression().fit(port.HostDataset(x, pos)),
+        lambda: port.IsotonicRegression().fit((x, pos)),
+        lambda: port.StreamingLinearRegression().update((x, pos)),
+        lambda: port.StreamingLogisticRegression().update((x, y01)),
+        lambda: port.AFTSurvivalRegression().fit((x, pos), censor=cen),
+        lambda: port.AFTSurvivalRegression().fit(port.HostDataset(x, pos), censor=cen),
+        lambda: port.MultilayerPerceptronClassifier(layers=(3, 2)).fit((x, y01)),
+        lambda: port.MultilayerPerceptronClassifier(layers=(3, 2)).fit(port.HostDataset(x, y01)),
+        lambda: port.FMRegressor().fit((x, pos)),
+        lambda: port.FMClassifier().fit(port.HostDataset(x, y01)),
+        lambda: port.stat.Summarizer.summary(x),
+        lambda: port.stat.Correlation.corr(x),
+        lambda: port.stat.Correlation.corr(x, "spearman"),
+        lambda: port.stat.ChiSquareTest.test(np.round(x), y01),
+        lambda: port.stat.KolmogorovSmirnovTest.test(x[:, :1]),
+        lambda: port.stat.ANOVATest.test(x, y01),
+        lambda: port.stat.FValueTest.test(x, pos),
+        lambda: port.isotonic_model_from_jax_arrays(np.ones(2), np.ones(2)).predict_numpy(x),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

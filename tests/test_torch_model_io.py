@@ -688,3 +688,58 @@ def test_stage_does_not_save_by_default(tmp_path):
     res = P.run_model_stage(table, cfg, device="cpu")
     assert res.model_paths == {} and not (tmp_path / "hospital").exists()
     assert P.PipelineConfig().model_save_path == J.PipelineConfig().model_save_path
+
+
+# ------------------------------------------ slice 5b: the five new classes
+
+def _fit_5b(pkg, kind: str):
+    """A small slice-5b model of ``kind`` fitted by ``pkg`` (P on the CPU)."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(160, 3)).astype(np.float32)
+    on = {} if pkg is J else {"device": "cpu"}
+    if kind == "GeneralizedLinearRegressionModel":
+        y = rng.poisson(np.exp(x @ [0.3, -0.2, 0.1] + 0.5)).astype(np.float32)
+        return pkg.GeneralizedLinearRegression(family="poisson", tol=1e-4).fit((x, y), **on)
+    if kind == "MultilayerPerceptronModel":
+        y = (x[:, 0] + x[:, 1] > 0).astype(np.float32)
+        return pkg.MultilayerPerceptronClassifier(layers=(3, 4, 2), max_iter=5).fit((x, y), **on)
+    if kind == "FMModel":
+        y = (x @ [1.0, 0.5, -0.3]).astype(np.float32)
+        return pkg.FMRegressor(max_iter=5, factor_size=2).fit((x, y), **on)
+    if kind == "AFTSurvivalRegressionModel":
+        t = np.exp(x @ [0.2, 0.1, -0.1] + 1.0).astype(np.float32)
+        cen = (rng.random(160) < 0.7).astype(np.float32)
+        return pkg.AFTSurvivalRegression(max_iter=5).fit((x, t), censor=cen, **on)
+    y = (x[:, 1] + rng.normal(size=160) * 0.2).astype(np.float32)
+    return pkg.IsotonicRegression(feature_index=1).fit((x, y), **on)
+
+
+KINDS_5B = ["GeneralizedLinearRegressionModel", "MultilayerPerceptronModel", "FMModel",
+            "AFTSurvivalRegressionModel", "IsotonicRegressionModel"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("kind", KINDS_5B)
+def test_slice_5b_artifacts_cross_and_resave_to_the_same_bytes(kind, writer, tmp_path):
+    first, other = (J, P) if writer == "jax" else (P, J)
+    model = _fit_5b(first, kind)
+    model.save(str(tmp_path / "a"))
+    loaded = other.load_model(str(tmp_path / "a"))
+    assert type(loaded).__name__ == kind
+    loaded.save(str(tmp_path / "b"))
+    _assert_same_files(str(tmp_path / "a"), str(tmp_path / "b"))
+    x = np.random.default_rng(22).normal(size=(40, 3)).astype(np.float32)
+    jm, pm = (model, loaded) if writer == "jax" else (loaded, model)
+    got = pm.predict(torch.from_numpy(x)).numpy()
+    # the same parameters; exp, sigmoid and the lerp differ in the last bit
+    np.testing.assert_allclose(got, np.asarray(jm.predict(x)), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", KINDS_5B)
+def test_slice_5b_port_artifacts_have_the_reference_keys_dtypes_and_types(kind):
+    jname, jparams, jarrays = _fit_5b(J, kind)._artifacts()
+    pname, pparams, parrays = _fit_5b(P, kind)._artifacts()
+    assert pname == jname == kind
+    assert {k: type(v) for k, v in pparams.items()} == {k: type(v) for k, v in jparams.items()}
+    assert {k: (v.dtype, v.shape) for k, v in parrays.items()} == \
+        {k: (np.asarray(v).dtype, np.asarray(v).shape) for k, v in jarrays.items()}
