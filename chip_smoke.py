@@ -104,6 +104,20 @@ kernels:
   the CPU route on the 200,000-row prefix (or all rows) within limits
   that a control fails, and against float64 numpy / scipy.  No kernel:
   the launch counts do not move.
+* slice 5c, the feature stages and the fused SQL-to-device path — at
+  bench.py's sql_device shape (4M rows, 8 hospitals over 2 h) the paper's
+  window with its CASE / abs / ratio features compiled with no fallback
+  node, ``Session.sql_to_device`` against the host route on the card
+  (interpreter, ``na_drop``, VectorAssembler, ``device_dataset``): the
+  valid rows ``==``, LinearRegression and a depth-5 tree (K3) on each
+  within ROADMAP queue 3's bounds, ``compact=True`` keeping the rows, and
+  each route's times; then on the stage's 2M hospital rows MinMax, MaxAbs
+  and Robust scalers, PCA(3), Normalizer, PolynomialExpansion(2) and
+  ElementwiseProduct, each on the card against the CPU route; PCA(3) →
+  KMeans(k=16) (K1, K2); StringIndexer → OneHotEncoder and → a
+  categorical tree (K3); an Imputer over NaN in 1 % of two columns; and
+  RFormula → LinearRegression, the table stages ``==`` across the routes
+  and the device statistics within limits that a control fails.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -700,6 +714,13 @@ def k3_phase(H) -> dict:
         # stats, 6 levels) on the 2M hospital rows, root and deepest level
         ("one-vs-rest T=1 root", TREE_N, 4, 2, 1, 1),
         ("one-vs-rest T=1 depth 5", TREE_N, 4, 2, 1, 32),
+        # slice 5c: the depth-5 regression trees of features_phase, on the
+        # fused sql_device rows (7 features) and on StringIndexer's code
+        # beside the 4 hospital features, root and deepest level
+        ("fused sql_device tree T=1 root", FEAT_N, 7, 3, 1, 1),
+        ("fused sql_device tree T=1 depth 5", FEAT_N, 7, 3, 1, 32),
+        ("categorical tree T=1 root", TREE_N, 5, 3, 1, 1),
+        ("categorical tree T=1 depth 5", TREE_N, 5, 3, 1, 32),
     ]
     times = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
@@ -764,7 +785,8 @@ def k3_phase(H) -> dict:
     shapes = [{"n": n, "d": d, "S": S, "T": T, "LN": LN, "B": B,
                "max_abs_err": times[tag][1], **times[tag][0]}
               for tag, n, d, S, T, LN in main
-              if tag.startswith(("rf20 block", "gbt20", "one-vs-rest"))]
+              if tag.startswith(("rf20 block", "gbt20", "one-vs-rest", "fused sql_device",
+                                 "categorical"))]
     return {"name": "fused_level_hist", "route": "cuda",
             "source": f"{PKG}/csrc/tree_hist.cu", "replaces": f"{JAX_KERNELS}:335",
             "launches": 0, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4075,6 +4097,390 @@ def families_phase(port, H, card: str) -> None:
     lap("fam stat")
 
 
+FEAT_N = 4_000_000                        # bench.py _bench_sql_device
+FEAT_QUERY = (
+    "SELECT admission_count, current_occupancy, emergency_visits, seasonality_index,"
+    " CASE WHEN seasonality_index > 0.5 THEN 1.0 ELSE 0.0 END AS peak_season,"
+    " abs(current_occupancy - 250) AS occ_dev,"
+    " (emergency_visits / (admission_count + 1)) AS er_ratio,"
+    " length_of_stay"
+    " FROM events WHERE event_time BETWEEN"
+    " '2025-03-31 22:00:00' AND '2025-03-31 23:55:00'"
+)
+FEAT_COLS = ("admission_count", "current_occupancy", "emergency_visits", "seasonality_index",
+             "peak_season", "occ_dev", "er_ratio")
+FEAT_NAN_SEED = 5                         # the Imputer's NaN draw: 1 % of two columns
+FEAT_SCALING = (1.0, 0.5, 2.0, 0.25)      # ElementwiseProduct's scaling vector
+FORMULA = ("length_of_stay ~ hospital_id + admission_count + current_occupancy + "
+           "emergency_visits + seasonality_index")
+# card-vs-CPU (and fused-vs-host-route) limits of slice 5c: about 10x the
+# gap of the first chip run (NVIDIA H100 80GB HBM3, 700 W), one float32
+# ulp (1.2e-7 relative) where that gap was 0, and the geometric mean of
+# the gap and its control where the control sat within 10x of the gap
+# (PCA's variances, RFormula's and the fused rows' LinearRegression); the
+# fused fits' limits sit inside ROADMAP queue 3's bounds (1e-4 of the
+# largest coefficient, RMSE rtol 1e-4).  KMeans on the PCA projection
+# (coordinates up to ±200, not standardized) parts at near ties: the plain
+# version's float32 |x|² − 2x·c + |c|² is off the kernels' d² by up to
+# 2^-8 there, a few rows a step go to the other center (40 after one step),
+# and 20 unconverged Lloyd steps compound them (457 rows, centers 1.26e-3
+# apart); K1 and K2 themselves are held to their plain versions at this
+# shape in ``kernel_case``.  Each must fail its control but the exact ones
+# (FEAT_EXACT: the fused rows, the extremes and quantiles, which no
+# arithmetic produces, and KMeans' n_iter, which max_iter caps in every
+# route): the route on bfloat16-rounded rows (``bf16_round``; TF32 does not
+# reach the stages' products, which are elementwise or batched 4x4096 Gram
+# chunks), or for the fused tree bfloat16-rounded labels.
+FEAT_LIMITS = {
+    "fused": {"valid_rows": 0, "lr_coef": 1.01e-5, "dt_rmse": 1.2e-7},
+    "minmax": {"extremes": 0, "transform": 1.2e-7},
+    "maxabs": {"extremes": 0, "transform": 1.2e-7},
+    "robust": {"quantiles": 0, "transform": 1.2e-7},
+    "pca": {"components": 2.2e-7, "variance": 1.21e-5, "mean": 1.2e-7, "transform": 2.5e-7},
+    "normalizer": {"transform": 1.2e-6},
+    "polynomial": {"transform": 1.5e-11},
+    "product": {"transform": 1.2e-7},
+    "kmeans": {"n_iter": 0, "centers": 1.3e-2, "cost": 8.2e-4, "rows": 4600},
+    "categorical_tree": {"rmse": 1.2e-7},
+    "rformula_lr": {"coef": 3.2e-5},
+}
+FEAT_EXACT = ("valid_rows", "extremes", "quantiles", "n_iter")
+# no limit goes without a control here
+FEAT_NO_CONTROL: dict = {}
+
+
+def feat_gated(name: str, gaps: dict, ctl: dict) -> str:
+    return gated(FEAT_LIMITS, name, gaps, ctl, exact=FEAT_EXACT, no_control=FEAT_NO_CONTROL)
+
+
+def sql_device_events(n: int, seed: int = 0) -> dict:
+    """bench.py's ``_bench_sql_device`` table: 8 hospitals, events over the
+    2 h from 22:00, the 4 features and a gamma LOS, from seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    names = np.array([f"H{i:02d}" for i in range(8)], dtype=object)
+    return {
+        "hospital_id": names[np.arange(n) % 8],
+        "event_time": (np.datetime64("2025-03-31T22:00:00")
+                       + rng.integers(0, 7200, n).astype("timedelta64[s]")
+                       ).astype("datetime64[ns]"),
+        "admission_count": rng.integers(0, 50, n),
+        "current_occupancy": rng.integers(10, 500, n),
+        "emergency_visits": rng.integers(0, 30, n),
+        "seasonality_index": rng.random(n),
+        "length_of_stay": rng.gamma(3.0, 1.5, n),
+    }
+
+
+def bf16_ds(ds, rows: bool):
+    """``ds`` with its rows (or its labels) rounded to bfloat16: the fused
+    fits' controls."""
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.data import (
+        DeviceDataset,
+    )
+
+    def rounded(t):
+        return torch.from_numpy(bf16_round(t.cpu().numpy())).to(t.device)
+
+    return DeviceDataset(x=rounded(ds.x) if rows else ds.x, y=ds.y if rows else rounded(ds.y),
+                         w=ds.w)
+
+
+def fit_rmse(port, est, ds) -> tuple:
+    """(model, RMSE over its own rows) of ``est`` fit on ``ds``."""
+    m = est.fit(ds)
+    return m, port.RegressionEvaluator("rmse").evaluate(m.transform(ds))
+
+
+def fused_part(port, H, card: str) -> int:
+    """The fused path at bench.py's sql_device shape: 4M rows, the paper's
+    window with the CASE / abs / ratio features, compiled (no fallback
+    node), ``sql_to_device`` against the host route on the card
+    (interpreter, ``na_drop``, VectorAssembler, ``device_dataset``): the
+    valid rows ``==``, LinearRegression and a depth-5 tree (K3) on each;
+    ``compact=True`` keeping the rows.  → K3 launches of the fused fit."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_compile import (
+        compile_rowlevel,
+    )
+
+    t0 = time.perf_counter()
+    session = port.Session(device=DEV)
+    session.register_table("events", port.Table.from_dict(sql_device_events(FEAT_N)))
+    say(f"features_phase data: {FEAT_N} rows of bench.py's sql_device table in "
+        f"{time.perf_counter() - t0:.2f} s")
+    label = port.LABEL_COL
+    try:
+        ex = session.sql_explain(FEAT_QUERY)
+        check(ex["route"] == "compiled" and not ex["fallback"],
+              f"the sql_device query does not compile: {ex['route']}, {ex['fallback']}")
+
+        def fused(clock=None):
+            return session.sql_to_device(FEAT_QUERY, feature_cols=FEAT_COLS, label_col=label,
+                                         clock=clock)
+
+        stages = {}
+        for run in ("cold", "warm"):
+            clock = StageEvents()
+            ds, ms = host_ms(lambda: fused(clock))
+            compiled_route(f"sql_to_device ({run})")
+            stages[run] = {"host_ms": ms, **clock.ms()}
+        _, syncs = count_syncs(fused)
+
+        def host_route():
+            t = {}
+            tab, t["sql"] = host_ms(lambda: sql.execute(FEAT_QUERY, session.table,
+                                                        mode="interpret"))
+            asm, t["assemble"] = host_ms(lambda: port.VectorAssembler(FEAT_COLS).transform(
+                tab.na_drop(subset=[*FEAT_COLS, label])))
+            hds, t["transfer"] = host_ms(lambda: asm.to_device(label_col=label, device=DEV))
+            return hds, t
+
+        (hds, host_parts), host_total = host_ms(host_route)
+        valid = ds.w > 0
+        n_valid = int(valid.sum())
+        fx, fy = ds.x[valid], ds.y[valid]
+        rows_gap = 0 if (n_valid == hds.n_padded and torch.equal(fx, hds.x)
+                         and torch.equal(fy, hds.y)) else 1
+        # the window holds 22:00:00-23:55:00 of the 2 h: 6,901 of 7,200 seconds
+        share, want = n_valid / FEAT_N, 6901 / 7200
+        check(abs(share - want) < 0.01 * want,
+              f"the window kept {share:.4f} of the rows, not about {want:.4f}")
+        check(ds.n_padded == FEAT_N and float(ds.count()) == n_valid,
+              "the fused dataset is not at the view's row count")
+        view = compile_rowlevel(FEAT_QUERY, session.table, device=DEV)
+        small, compact_ms = host_ms(lambda: port.VectorAssembler(FEAT_COLS).transform_device(
+            view, label_col=label, compact=True))
+        check(small.n_padded == n_valid and torch.equal(small.x, fx) and torch.equal(small.y, fy)
+              and torch.equal(small.w, ds.w[valid]), "compact=True lost or moved rows")
+        # LinearRegression and a depth-5 tree on each route (K3)
+        lr_f = port.LinearRegression().fit(ds)
+        lr_h = port.LinearRegression().fit(hds)
+        lr_c = port.LinearRegression().fit(bf16_ds(ds, rows=True))
+        before = H.launch_counts()["fused_level_hist"]
+        (dt_f, rmse_f), dt_s = host_ms(lambda: fit_rmse(port, port.DecisionTreeRegressor(
+            max_depth=5), ds))
+        k3 = H.launch_counts()["fused_level_hist"] - before
+        check(k3 == 6, f"the fused dataset's tree launched K3 {k3} times (expected 6)")
+        _, rmse_h = fit_rmse(port, port.DecisionTreeRegressor(max_depth=5), hds)
+        _, rmse_c = fit_rmse(port, port.DecisionTreeRegressor(max_depth=5), bf16_ds(ds, rows=False))
+        gaps = {"valid_rows": rows_gap, "lr_coef": rel(lr_theta(lr_f), lr_theta(lr_h)),
+                "dt_rmse": abs(rmse_f - rmse_h) / rmse_h}
+        ctl = {"lr_coef": rel(lr_theta(lr_c), lr_theta(lr_h)), "dt_rmse": abs(rmse_c - rmse_h) / rmse_h}
+        text = feat_gated("fused", gaps, ctl)
+        say(f"features_phase fused path: the sql_device query compiled (route compiled, no "
+            f"fallback), {n_valid} of {FEAT_N} rows valid ({share:.4f}); fused vs host route "
+            f"on the card: {text}; compact=True kept the {n_valid} rows in order "
+            f"({compact_ms:.1f} ms); the fused tree fit {dt_s:.1f} ms, RMSE {rmse_f:.6f}")
+        say(f"features_phase times on {card} (ms; stages by CUDA events, totals by host clock): "
+            f"sql_to_device {json.dumps(stages)}; host route {host_total:.1f} "
+            f"{json.dumps(host_parts)}; host syncs of a warm sql_to_device: {syncs}")
+        return k3
+    finally:
+        session.stop()
+
+
+def stage_gaps(card_out, cpu_out, ctl_out) -> tuple[dict, dict]:
+    """({"transform": gap}, {"transform": control}) of a stage's outputs,
+    relative to the CPU route's largest |value|."""
+    return ({"transform": rel(card_out, cpu_out)}, {"transform": rel(ctl_out, cpu_out)})
+
+
+def stages_part(port, L, H, card: str) -> dict:
+    """The feature stages on the stage's 2M hospital rows (seed 7), each
+    on the card against the CPU route, the control being the card route on
+    bfloat16-rounded rows; PCA(3) → KMeans(k=16) on the card (K1, K2),
+    StringIndexer → a categorical tree (K3), StringIndexer →
+    OneHotEncoder, an Imputer over NaN in 1 % of two columns and
+    RFormula → LinearRegression.  → the launches of the card's main-path
+    fits."""
+    import numpy as np
+    import torch
+
+    x, los, _ = stage_rows()
+    xf, y = x.astype(np.float32), los.astype(np.float32)
+    n = len(xf)
+    # the rows' table: hospital_events gives each of the 5 hospitals a
+    # block of n / 5 rows, and its first 3 features are integers
+    names = np.array([f"H{h:02d}" for h in range(5)], dtype=object)
+    cols = {"hospital_id": np.repeat(names, n // 5), port.LABEL_COL: los}
+    for j, c in enumerate(port.FEATURE_COLS):
+        cols[c] = x[:, j].astype(np.int64) if j < 3 else x[:, j]
+    ds = {dev: port.device_dataset(xf, y, device=dev) for dev in (DEV, "cpu")}
+    ctl_ds = port.device_dataset(bf16_round(xf), y, device=DEV)
+
+    def out(d):
+        return d.x.cpu().numpy()[:n] if hasattr(d, "x") else np.asarray(d)
+
+    lines = []
+    # the fits on a DeviceDataset, and their transforms
+    for name, est, stat in (("minmax", port.MinMaxScaler(), ("data_min", "data_max")),
+                            ("maxabs", port.MaxAbsScaler(), ("max_abs",)),
+                            ("robust", port.RobustScaler(with_centering=True),
+                             ("median", "iqr"))):
+        t0 = time.perf_counter()
+        m = {dev: est.fit(ds[dev]) for dev in (DEV, "cpu")}
+        fit_s = time.perf_counter() - t0
+        mc = est.fit(ctl_ds)
+        key = "quantiles" if name == "robust" else "extremes"
+        same = all(np.array_equal(getattr(m[DEV], a), getattr(m["cpu"], a)) for a in stat)
+        gaps, ctl = stage_gaps(out(m[DEV].transform(ds[DEV])), out(m["cpu"].transform(
+            ds["cpu"])), out(mc.transform(ctl_ds)))
+        gaps[key] = 0 if same else 1
+        ctl[key] = max(rel(getattr(mc, a), getattr(m["cpu"], a)) for a in stat)
+        lines.append(f"{name} (both fits {fit_s:.2f} s): {feat_gated(name, gaps, ctl)}")
+    pca = {dev: port.PCA(3).fit(ds[dev]) for dev in (DEV, "cpu")}
+    pca_c = port.PCA(3).fit(ctl_ds)
+
+    def pca_gaps(a, b):
+        return {"components": float(np.abs(a.components - b.components).max()),
+                "variance": rel_each(a.explained_variance, b.explained_variance),
+                "mean": rel_each(a.mean, b.mean),
+                "transform": rel(out(a.transform(ds[DEV])), out(b.transform(ds["cpu"])))}
+
+    pca_text = feat_gated("pca", pca_gaps(pca[DEV], pca["cpu"]), pca_gaps(pca_c, pca["cpu"]))
+    lines.append(f"pca: {pca_text}")
+    for name, st in (("normalizer", port.Normalizer()),
+                     ("polynomial", port.PolynomialExpansion(2)),
+                     ("product", port.ElementwiseProduct(FEAT_SCALING))):
+        gaps, ctl = stage_gaps(out(st.transform(ds[DEV])), out(st.transform(ds["cpu"])),
+                               out(st.transform(ctl_ds)))
+        lines.append(f"{name}: {feat_gated(name, gaps, ctl)}")
+    say(f"features_phase stages on {card}, {n} hospital rows, card vs CPU: " + "; ".join(lines))
+
+    # PCA(3) → KMeans(k=16): K1 a Lloyd step, K2 in predict, on all rows on
+    # the card; card against CPU on the prefix's projection by the card,
+    # the same rows on both (a one-ulp difference of the rows, as the two
+    # routes' projections differ, moves this 20-step fit by about 1e-3)
+    counts = {"fused_lloyd_stats": 0, "fused_assign": 0, "fused_level_hist": 0}
+    z = pca[DEV].transform(ds[DEV])
+    before = L.launch_counts()
+    (km, fit_s) = host_ms(lambda: port.KMeans(k=16, seed=0).fit(z))
+    pred = km.predict(z.x)
+    after = L.launch_counts()
+    counts["fused_lloyd_stats"] = after["fused_lloyd_stats"] - before["fused_lloyd_stats"]
+    counts["fused_assign"] = after["fused_assign"] - before["fused_assign"]
+    check(counts["fused_lloyd_stats"] == km.n_iter + 1 and counts["fused_assign"] >= 1,
+          f"PCA → KMeans launched K1 {counts['fused_lloyd_stats']} times over {km.n_iter} "
+          f"steps and K2 {counts['fused_assign']} times")
+    check(int(torch.bincount(pred.to(torch.int64), minlength=16).max()) > 0, "no prediction")
+    zrows = pca[DEV].transform(port.device_dataset(xf[:PREFIX], device=DEV)).x.cpu().numpy()
+    zp = {dev: port.device_dataset(zrows, device=dev) for dev in (DEV, "cpu")}
+    kmp = {dev: port.KMeans(k=16, seed=0).fit(zp[dev]) for dev in (DEV, "cpu")}
+    zc = port.device_dataset(bf16_round(zrows), device=DEV)
+    kmc = port.KMeans(k=16, seed=0).fit(zc)
+
+    def km_gaps(a, b, za):
+        return {"n_iter": abs(a.n_iter - b.n_iter),
+                "centers": rel(a.cluster_centers, b.cluster_centers),
+                "cost": abs(a.training_cost - b.training_cost) / b.training_cost,
+                "rows": int((a.predict(za.x).cpu() != b.predict(zp["cpu"].x)).sum())}
+
+    text = feat_gated("kmeans", km_gaps(kmp[DEV], kmp["cpu"], zp[DEV]),
+                      km_gaps(kmc, kmp["cpu"], zc))
+    say(f"features_phase PCA(3) → KMeans(k=16) on {n} rows on the card: {fit_s / 1e3:.3f} s, "
+        f"n_iter {km.n_iter}, K1 {counts['fused_lloyd_stats']}, K2 {counts['fused_assign']}; "
+        f"card vs CPU on {PREFIX} rows: {text}")
+
+    # the table stages on each route: StringIndexer → OneHotEncoder, an
+    # Imputer over NaN, then the assembler and a MinMaxScaler fit there
+    rng = np.random.default_rng(FEAT_NAN_SEED)
+    tcols = {c: cols[c] for c in ("hospital_id", *port.FEATURE_COLS, port.LABEL_COL)}
+    for c in ("seasonality_index", "current_occupancy"):
+        v = tcols[c].astype(np.float64).copy()
+        v[rng.random(n) < 0.01] = np.nan
+        tcols[c] = v
+    table = port.Table.from_dict(tcols)
+    imputed = ("seasonality_index_f", "current_occupancy_f")
+    pipe = port.Pipeline([
+        port.StringIndexer("hospital_id", "hid"), port.OneHotEncoder(["hid"]),
+        port.Imputer(["seasonality_index", "current_occupancy"], list(imputed)),
+        port.VectorAssembler(["hid_vec_0", "hid_vec_1", "hid_vec_2", "hid_vec_3",
+                              "admission_count", "emergency_visits", *imputed]),
+        port.MinMaxScaler()])
+    fitted = {}
+    for dev in (DEV, "cpu"):
+        fitted[dev], fitted[dev + "_s"] = host_ms(lambda: pipe.fit(table, device=dev))
+    same = all(a._artifacts()[1] == b._artifacts()[1] for a, b in
+               zip(fitted[DEV].stages[:3], fitted["cpu"].stages[:3]))
+    mm = [m.stages[4] for m in (fitted[DEV], fitted["cpu"])]
+    check(same and np.array_equal(mm[0].data_min, mm[1].data_min)
+          and np.array_equal(mm[0].data_max, mm[1].data_max),
+          "StringIndexer / OneHotEncoder / Imputer / MinMaxScaler differ across the routes")
+    labels = fitted[DEV].stages[0].labels
+    surrogates = fitted[DEV].stages[2].surrogates
+    nan_x = table.numeric_matrix(["seasonality_index", "current_occupancy"]).astype(np.float32)
+    ma = {dev: port.MaxAbsScaler().fit(port.device_dataset(nan_x, device=dev)).max_abs
+          for dev in (DEV, "cpu")}
+    check(np.array_equal(ma[DEV], ma["cpu"])
+          and np.array_equal(ma[DEV], np.nanmax(np.abs(nan_x), axis=0)),
+          "the NaN-aware MaxAbsScaler differs across the routes or from numpy")
+    say(f"features_phase table stages, card route vs CPU route ==: StringIndexer {labels}, "
+        f"OneHotEncoder {fitted[DEV].stages[1].category_sizes}, Imputer surrogates "
+        f"{surrogates} (NaN in {int(np.isnan(nan_x).sum())} cells), MinMaxScaler extremes; "
+        f"the pipeline fit {fitted[DEV + '_s'] / 1e3:.2f} s (card) / "
+        f"{fitted['cpu_s'] / 1e3:.2f} s (CPU); MaxAbsScaler over the NaN rows == numpy")
+
+    # StringIndexer → a categorical tree (K3) on all rows on the card;
+    # card against CPU on the prefix
+    hid = fitted[DEV].stages[0].transform(table.select(["hospital_id"])).column("hid")
+    xd = np.c_[hid, xf].astype(np.float32)
+    tree = port.DecisionTreeRegressor(max_depth=5, categorical_features={0: 5})
+    dds = port.device_dataset(xd, y, device=DEV)
+    before = H.launch_counts()["fused_level_hist"]
+    (_, rmse), dt_ms = host_ms(lambda: fit_rmse(port, tree, dds))
+    counts["fused_level_hist"] = H.launch_counts()["fused_level_hist"] - before
+    check(counts["fused_level_hist"] == 6,
+          f"the categorical tree launched K3 {counts['fused_level_hist']} times (expected 6)")
+    rm = {dev: fit_rmse(port, tree, port.device_dataset(xd[:PREFIX], y[:PREFIX], device=dev))[1]
+          for dev in (DEV, "cpu")}
+    rc = fit_rmse(port, tree, port.device_dataset(xd[:PREFIX], bf16_round(y[:PREFIX]),
+                                                  device=DEV))[1]
+    text = feat_gated("categorical_tree", {"rmse": abs(rm[DEV] - rm["cpu"]) / rm["cpu"]},
+                      {"rmse": abs(rc - rm["cpu"]) / rm["cpu"]})
+    say(f"features_phase StringIndexer → DecisionTreeRegressor(categorical_features={{0: 5}}) "
+        f"on {n} rows: {dt_ms:.1f} ms, K3 {counts['fused_level_hist']}, RMSE {rmse:.6f}; card "
+        f"vs CPU on {PREFIX} rows: {text}")
+
+    # RFormula (hospital_id a factor, every column named) → LinearRegression
+    fcols = {c: cols[c] for c in ("hospital_id", *port.FEATURE_COLS, port.LABEL_COL)}
+    ftable = port.Table.from_dict(fcols)
+    rf, rf_ms = host_ms(lambda: port.RFormula(FORMULA).fit(ftable))
+    check(rf._artifacts() == port.RFormula(FORMULA).fit(ftable)._artifacts(),
+          "RFormula fits differ")
+    asm, tr_ms = host_ms(lambda: rf.transform(ftable))
+    rds = {dev: asm.to_device(label_col=port.LABEL_COL, device=dev) for dev in (DEV, "cpu")}
+    check(torch.equal(rds[DEV].x.cpu(), rds["cpu"].x), "RFormula's rows differ on the card")
+    lrs = {dev: port.LinearRegression().fit(rds[dev]) for dev in (DEV, "cpu")}
+    lr_c = port.LinearRegression().fit(port.device_dataset(bf16_round(asm.features),
+                                                           asm.label(port.LABEL_COL),
+                                                           device=DEV))
+    text = feat_gated("rformula_lr", {"coef": rel(lr_theta(lrs[DEV]), lr_theta(lrs["cpu"]))},
+                      {"coef": rel(lr_theta(lr_c), lr_theta(lrs["cpu"]))})
+    say(f"features_phase RFormula {rf.feature_names} (fit {rf_ms:.0f} ms, transform "
+        f"{tr_ms:.0f} ms) → LinearRegression card vs CPU: {text}")
+    return counts
+
+
+def features_phase(port, L, H, card: str) -> dict:
+    """Slice 5c at full width: the fused SQL-to-device path at bench.py's
+    sql_device shape against the host route, then the feature stages on
+    the stage's 2M hospital rows against the CPU route, feeding KMeans (K1,
+    K2) and trees (K3).  → the launches of its main path."""
+    k3 = fused_part(port, H, card)
+    lap("feat fused path")
+    counts = stages_part(port, L, H, card)
+    lap("feat stages")
+    counts["fused_level_hist"] += k3
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -4143,6 +4549,11 @@ def main() -> None:
     records[1]["shapes"] += [k2_case(L, BISECT_N, D, BISECT_K, seed=7, reps=20),
                              k2_case(L, STREAM_BATCH * STREAM_BATCHES, D, STREAM_K, seed=8,
                                      reps=20)]
+    # slice 5c: K1 and K2 at features_phase's PCA(3) → KMeans(k=16) shape
+    k_pca = kernel_case(L, TREE_N, 3, 16, 0, seed=12, reps=20)
+    for rec, kr in zip(records[:2], k_pca):
+        rec["shapes"].append({"n": TREE_N, "d": 3, "k": 16, **{key: kr[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
     kernel_case(L, 1_000_003, D, 16, 3, seed=2, reps=10, dup=True)
     kernel_case(L, 1_000_000, 64, 1024, 0, seed=3, reps=5)
     edge_cases(L)
@@ -4303,11 +4714,17 @@ def main() -> None:
     families_phase(port, H, card)
     check(ops.launch_counts() == before, "families_phase launched a kernel")
 
+    # ------- slice 5c: the feature stages and the fused SQL-to-device path,
+    # feeding KMeans (K1, K2) and trees (K3)
+    for name, v in features_phase(port, L, H, card).items():
+        counts[name] += v
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
         f"classification_phase {sum(v for k, v in PHASE_S.items() if k.startswith('cls ')):.2f}; "
-        f"families_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fam ')):.2f}")
+        f"families_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fam ')):.2f}; "
+        f"features_phase {sum(v for k, v in PHASE_S.items() if k.startswith('feat ')):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:
         rec["launches"] = counts[rec["name"]]

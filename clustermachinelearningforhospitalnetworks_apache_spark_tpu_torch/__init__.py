@@ -34,16 +34,41 @@ summary, out of core), MultilayerPerceptronClassifier and
 AFTSurvivalRegression on the port's own ``optax.lbfgs`` steps
 (``models/_opt.py``), FMRegressor / FMClassifier, IsotonicRegression,
 StreamingLinearRegression / StreamingLogisticRegression, and ``stat``
-(``pyspark.ml.stat``).
+(``pyspark.ml.stat``).  Slice 5c adds the tabular feature stages
+(Bucketizer, QuantileDiscretizer, StringIndexer, OneHotEncoder, Imputer,
+MinMax / MaxAbs / Robust scalers, PCA, Normalizer, PolynomialExpansion,
+IndexToString, VectorSlicer, ElementwiseProduct, Interaction, RFormula,
+VectorSizeHint, SQLTransformer), LIBSVM files, and the fused
+SQL-to-device path: ``Session.sql_to_device`` runs a compiled window
+query as torch ops and stacks its columns into a ``DeviceDataset`` on the
+card with no host round trip (``VectorAssembler.transform_device``,
+``compact=True`` for exactly the valid rows).  Every subpackage re-exports
+its public names as the JAX package's does, but for the modules still to
+port.  Its CPU tests: ``python -m pytest tests/test_torch_feature_stages.py
+tests/test_torch_rformula.py tests/test_torch_libsvm.py
+tests/test_torch_sql_device.py tests/test_torch_imports.py``; they hold
+the fused path to the JAX package's host route (interpreter, ``na_drop``,
+``VectorAssembler``), because the JAX package's own fused assembly
+imports ``jax.experimental.enable_x64``, which some jax versions lack.
+On a card, ``chip_smoke.features_phase(port, L, H, card)`` runs the slice
+alone after ``ops._build.build()``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import serve, stat, viz
+from . import models, pipeline, serve, stat, streaming, tuning, utils, viz
 from .config import PipelineConfig
 from .convert import (
+    imputer_model_from_jax_arrays,
+    maxabs_scaler_model_from_jax_arrays,
+    minmax_scaler_model_from_jax_arrays,
+    one_hot_encoder_model_from_jax_arrays,
+    pca_model_from_jax_arrays,
+    rformula_model_from_jax_arrays,
+    robust_scaler_model_from_jax_arrays,
+    string_indexer_model_from_jax_arrays,
     aft_model_from_jax_arrays,
     fm_model_from_jax_arrays,
     glm_model_from_jax_arrays,
@@ -75,10 +100,41 @@ from .evaluation.binary import BinaryClassificationEvaluator, binary_curves
 from .evaluation.classification import MulticlassClassificationEvaluator
 from .evaluation.clustering import ClusteringEvaluator
 from .evaluation.regression import RegressionEvaluator
-from .features.assembler import AssembledTable, VectorAssembler
-from .features.binarizer import Binarizer
-from .features.scaler import StandardScaler, StandardScalerModel
+from .features import (
+    PCA,
+    AssembledTable,
+    Binarizer,
+    Bucketizer,
+    ElementwiseProduct,
+    Imputer,
+    ImputerModel,
+    IndexToString,
+    Interaction,
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Normalizer,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    PCAModel,
+    PolynomialExpansion,
+    QuantileDiscretizer,
+    RFormula,
+    RFormulaModel,
+    RobustScaler,
+    RobustScalerModel,
+    SQLTransformer,
+    StandardScaler,
+    StandardScalerModel,
+    StringIndexer,
+    StringIndexerModel,
+    VectorAssembler,
+    VectorSizeHint,
+    VectorSlicer,
+)
 from .io.csv import read_csv, read_csv_dir, write_csv
+from .io.libsvm import read_libsvm, write_libsvm
 from .io.fit_checkpoint import FitCheckpointer
 from .io.model_io import CorruptArtifactError, load_model
 from .models.aft import AFTSurvivalRegression, AFTSurvivalRegressionModel
@@ -130,6 +186,18 @@ from .pipeline.hospital_pipeline import (
     run_pipeline,
 )
 from .session import Session
+from .stat import (
+    ANOVATest,
+    ChiSquareTest,
+    ChiSquareTestResult,
+    Correlation,
+    FTestResult,
+    FValueTest,
+    KolmogorovSmirnovTest,
+    KolmogorovSmirnovTestResult,
+    Summarizer,
+    SummaryStats,
+)
 from .streaming import (
     FileStreamSource,
     StreamCheckpoint,
@@ -191,4 +259,19 @@ __all__ = [
     "fm_model_from_jax_arrays", "glm_model_from_jax_arrays", "isotonic_model_from_jax_arrays",
     "mlp_model_from_jax_arrays", "stat", "streaming_linear_regression_from_jax_arrays",
     "streaming_logistic_regression_from_jax_arrays",
+    # the package surfaces: the stat names and the subpackages
+    "ANOVATest", "ChiSquareTest", "ChiSquareTestResult", "Correlation", "FTestResult",
+    "FValueTest", "KolmogorovSmirnovTest", "KolmogorovSmirnovTestResult", "Summarizer",
+    "SummaryStats", "models", "pipeline", "streaming", "tuning", "utils",
+    # slice 5c
+    "Bucketizer", "ElementwiseProduct", "Imputer", "ImputerModel", "IndexToString",
+    "Interaction", "MaxAbsScaler", "MaxAbsScalerModel", "MinMaxScaler", "MinMaxScalerModel",
+    "Normalizer", "OneHotEncoder", "OneHotEncoderModel", "PCA", "PCAModel",
+    "PolynomialExpansion", "QuantileDiscretizer", "RFormula", "RFormulaModel", "RobustScaler",
+    "RobustScalerModel", "SQLTransformer", "StringIndexer", "StringIndexerModel",
+    "VectorSizeHint", "VectorSlicer", "imputer_model_from_jax_arrays",
+    "maxabs_scaler_model_from_jax_arrays", "minmax_scaler_model_from_jax_arrays",
+    "one_hot_encoder_model_from_jax_arrays", "pca_model_from_jax_arrays", "read_libsvm",
+    "rformula_model_from_jax_arrays", "robust_scaler_model_from_jax_arrays",
+    "string_indexer_model_from_jax_arrays", "write_libsvm",
 ]

@@ -20,6 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .features.imputer import ImputerModel
+from .features.indexer import StringIndexerModel
+from .features.minmax import MinMaxScalerModel
+from .features.onehot import OneHotEncoderModel
+from .features.pca import PCAModel
+from .features.rformula import RFormulaModel
+from .features.robust import MaxAbsScalerModel, RobustScalerModel
 from .features.scaler import StandardScalerModel
 from .models.aft import AFTSurvivalRegressionModel
 from .models.bisecting_kmeans import BisectingKMeansModel
@@ -265,3 +272,70 @@ def streaming_logistic_regression_from_jax_arrays(
     s._theta, s._grad_hist, s._hess_hist = _f32(theta), _f32(grad_hist), _f32(hess_hist)
     s._wsum, s._n_batches = float(wsum), int(n_batches)
     return s
+
+
+# --------------------------------------------- slice 5c: the feature stages
+
+def minmax_scaler_model_from_jax_arrays(data_min, data_max, *, min_out: float = 0.0,
+                                        max_out: float = 1.0) -> MinMaxScalerModel:
+    """A port :class:`MinMaxScalerModel` with the JAX model's extremes."""
+    return MinMaxScalerModel.from_artifacts({"min_out": min_out, "max_out": max_out},
+                                            {"data_min": data_min, "data_max": data_max})
+
+
+def maxabs_scaler_model_from_jax_arrays(max_abs) -> MaxAbsScalerModel:
+    """A port :class:`MaxAbsScalerModel` with the JAX model's |x| maxima."""
+    return MaxAbsScalerModel.from_artifacts({}, {"max_abs": max_abs})
+
+
+def robust_scaler_model_from_jax_arrays(median, iqr, *, with_centering: bool = False,
+                                        with_scaling: bool = True) -> RobustScalerModel:
+    """A port :class:`RobustScalerModel` with the JAX model's quantiles."""
+    return RobustScalerModel.from_artifacts(
+        {"with_centering": with_centering, "with_scaling": with_scaling},
+        {"median": median, "iqr": iqr})
+
+
+def pca_model_from_jax_arrays(components, explained_variance, mean) -> PCAModel:
+    """A port :class:`PCAModel` with the JAX model's axes, variances and mean."""
+    return PCAModel.from_artifacts({}, {"components": components,
+                                        "explained_variance": explained_variance,
+                                        "mean": mean})
+
+
+def imputer_model_from_jax_arrays(*, input_cols, output_cols, surrogates,
+                                  missing_value="nan") -> ImputerModel:
+    """A port :class:`ImputerModel` with the JAX model's surrogates (its
+    ``_artifacts()`` params; ``missing_value`` as saved: ``"nan"`` or a
+    float)."""
+    return ImputerModel.from_artifacts(
+        {"input_cols": input_cols, "output_cols": output_cols, "surrogates": surrogates,
+         "missing_value": missing_value}, {})
+
+
+def string_indexer_model_from_jax_arrays(*, input_col: str, output_col: str, labels,
+                                         handle_invalid: str = "error") -> StringIndexerModel:
+    """A port :class:`StringIndexerModel` with the JAX model's labels."""
+    return StringIndexerModel.from_artifacts(
+        {"input_col": input_col, "output_col": output_col, "labels": labels,
+         "handle_invalid": handle_invalid}, {})
+
+
+def one_hot_encoder_model_from_jax_arrays(*, input_cols, output_cols, category_sizes,
+                                          drop_last: bool = True,
+                                          handle_invalid: str = "error") -> OneHotEncoderModel:
+    """A port :class:`OneHotEncoderModel` with the JAX model's category
+    sizes."""
+    return OneHotEncoderModel.from_artifacts(
+        {"input_cols": input_cols, "output_cols": output_cols,
+         "category_sizes": category_sizes, "drop_last": drop_last,
+         "handle_invalid": handle_invalid}, {})
+
+
+def rformula_model_from_jax_arrays(*, label: str, terms, levels, label_levels=(),
+                                   feature_names=()) -> RFormulaModel:
+    """A port :class:`RFormulaModel` with the JAX model's resolved terms and
+    factor levels."""
+    return RFormulaModel.from_artifacts(
+        {"label": label, "terms": terms, "levels": levels, "label_levels": label_levels,
+         "feature_names": feature_names}, {})

@@ -527,6 +527,63 @@ class DeviceView:
                 cols[alias] = comp_h[alias][idx]
         return Table.from_dict(cols)
 
+    def assemble(self, feature_cols, label_col: str | None = None, na_drop: bool = True):
+        """Fused feature assembly: the feature columns stacked into a
+        float32 design matrix on the device, validity = the filter mask
+        and, with ``na_drop``, no NaN in a float feature or a float label
+        (an integer column has no null on the device).  Invalid rows stay
+        in place, zeroed, with weight 0 — the training contract — so no
+        row leaves the device.  Integer columns cast to float32 as the JAX
+        package casts them (under ``enable_x64``).  → (x[n, d] f32,
+        y[n] f32, w[n] f32) at the view's row count (the port keeps no
+        row buckets)."""
+        feature_cols = tuple(feature_cols)
+        chars = tuple(self.out_char(c) for c in feature_cols)
+        for c, ch in zip(feature_cols, chars):
+            if ch not in ("i", "f"):
+                raise TypeError(f"feature column {c!r} is not numeric")
+        lab_ch = None
+        if label_col is not None:
+            lab_ch = self.out_char(label_col)
+            if lab_ch not in ("i", "f"):
+                raise TypeError(f"label column {label_col!r} is not numeric")
+        feats = [self.device_array(c) for c in feature_cols]
+        lab = self.device_array(label_col) if label_col is not None else None
+        w = self.mask
+        if na_drop:
+            for a, ch in zip(feats, chars):
+                if ch == "f":
+                    w = w & ~torch.isnan(a)
+            if lab is not None and lab_ch == "f":
+                w = w & ~torch.isnan(lab)
+        x = torch.stack([a.to(torch.float32) for a in feats], dim=1)
+        x = torch.where(w[:, None], x, 0.0)
+        if lab is None:
+            y = torch.zeros(self.n_rows, dtype=torch.float32, device=self.device)
+        else:
+            y = torch.where(w, lab.to(torch.float32), 0.0)
+        return x, y, w.to(torch.float32)
+
+
+def compact_dataset(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
+    """The valid rows (w > 0) of an assembled (x, y, w) triple gathered on
+    the device, in source order, into exactly as many rows — one row of
+    weight 0 when none is valid, as ``data.device_dataset`` pads an empty
+    input.  The JAX package gathers into the power-of-two bucket that
+    holds them; the port keeps no buckets.  Reading the valid count is
+    the one host sync."""
+    idx = torch.nonzero(w > 0).squeeze(1)
+    if idx.numel() == 0:
+        return one_empty_row(x)
+    return x[idx], y[idx], w[idx]
+
+
+def one_empty_row(x: torch.Tensor):
+    """(x, y, w) of one zero row of weight 0 on ``x``'s device: an empty
+    dataset keeps one pad row."""
+    zero = torch.zeros(1, dtype=torch.float32, device=x.device)
+    return torch.zeros((1, x.shape[1]), dtype=torch.float32, device=x.device), zero, zero.clone()
+
 
 # ------------------------------------------------------------ execution
 def _stage(clock):

@@ -56,6 +56,10 @@ class DeviceDataset:
     def n_features(self) -> int:
         return self.x.shape[1]
 
+    def count(self) -> torch.Tensor:
+        """Σw, the valid rows' weight, as a 0-d tensor on the device."""
+        return torch.sum(self.w)
+
 
 def device_dataset(
     x: np.ndarray,

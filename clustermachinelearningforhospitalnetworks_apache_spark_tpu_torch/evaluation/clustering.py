@@ -60,6 +60,14 @@ def _silhouette(x, assign, w, k: int):
     return float(s_sum), float(w.sum(dtype=torch.float64))
 
 
+def inertia(x: torch.Tensor, centers: torch.Tensor, assign: torch.Tensor,
+            w: torch.Tensor) -> torch.Tensor:
+    """The weighted within-cluster sum of squared distances (KMeans'
+    ``trainingCost``), as a 0-d tensor on x's device."""
+    d = x - centers[assign.to(torch.int64)]
+    return torch.sum(torch.sum(d * d, dim=1) * w)
+
+
 @dataclass(frozen=True)
 class ClusteringEvaluator:
     """metricName="silhouette", distanceMeasure="squaredEuclidean"."""

@@ -1,7 +1,9 @@
 """VectorAssembler — column list → dense feature matrix.
 
 Parity with ``pyspark.ml.feature.VectorAssembler``: "a vector column" is
-a column-stacked host matrix, which reaches the device in one transfer.
+a column-stacked host matrix, which reaches the device in one transfer —
+or, from a compiled query's :class:`~..core.sql_compile.DeviceView`
+(``transform_device``), a matrix stacked on the device itself.
 """
 
 from __future__ import annotations
@@ -41,6 +43,29 @@ class VectorAssembler:
             features=self.transform_matrix(table),
             output_col=self.output_col,
         )
+
+    def transform_device(self, view, label_col: str | None = None, na_drop: bool = True,
+                         compact: bool = False):
+        """Fused assembly: a compiled row-level query's result
+        (:class:`~..core.sql_compile.DeviceView`) → a
+        :class:`~..data.DeviceDataset` on the view's device, with no row
+        passing through the host.  The filter mask becomes the weight
+        column and ``na_drop`` folds Spark's ``na.drop()`` over the feature
+        and label columns into it: invalid rows stay in place, zeroed,
+        with weight 0.  ``compact=True`` gathers the valid rows, in source
+        order, into exactly as many rows (one host sync: their count)."""
+        from ..core.schema import LABEL_COL
+        from ..core.sql_compile import compact_dataset, one_empty_row
+        from ..data import DeviceDataset
+
+        if label_col is None and LABEL_COL in view.out_names:
+            label_col = LABEL_COL
+        x, y, w = view.assemble(self.input_cols, label_col=label_col, na_drop=na_drop)
+        if compact:
+            x, y, w = compact_dataset(x, y, w)
+        elif x.shape[0] == 0:
+            x, y, w = one_empty_row(x)
+        return DeviceDataset(x=x, y=y, w=w)
 
 
 @dataclass(frozen=True)

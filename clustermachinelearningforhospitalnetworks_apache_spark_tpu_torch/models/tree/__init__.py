@@ -14,6 +14,7 @@ from .engine import (
     grow_forest_outofcore,
     predict_forest,
 )
+from .binning import digitize, quantile_thresholds
 from .gbt import GBTClassifier, GBTModel, GBTRegressor
 from .random_forest import (
     RandomForestClassifier,
@@ -25,5 +26,5 @@ __all__ = [
     "DecisionTreeClassifier", "DecisionTreeModel", "DecisionTreeRegressor",
     "DeferredForest", "GBTClassifier", "GBTModel", "GBTRegressor", "GrownForest", "RandomForestClassifier", "RandomForestModel",
     "RandomForestRegressor", "device_tree_arrays", "grow_forest", "grow_forest_outofcore",
-    "predict_forest",
+    "predict_forest", "digitize", "quantile_thresholds",
 ]

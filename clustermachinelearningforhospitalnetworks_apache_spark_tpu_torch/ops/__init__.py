@@ -1,6 +1,11 @@
-"""Hand-written CUDA kernels of the port and their plain PyTorch versions."""
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions,
+and the distance helpers (``distance.py``)."""
 
 from . import lloyd, tree_hist
+from .distance import assign_clusters, normalize_rows, pairwise_sqdist, sq_norms
+
+__all__ = ["assign_clusters", "launch_counts", "lloyd", "normalize_rows", "pairwise_sqdist",
+           "reset_launch_counts", "sq_norms", "tree_hist"]
 
 
 def launch_counts() -> dict[str, int]:

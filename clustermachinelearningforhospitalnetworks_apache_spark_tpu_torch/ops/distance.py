@@ -91,6 +91,12 @@ def pairwise_sqdist(
     return torch.clamp(d2, min=0.0)
 
 
+def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Unit-normalize rows: cosine distance is then Euclidean on the sphere
+    (Spark's ``distanceMeasure="cosine"``)."""
+    return x / torch.sqrt(torch.clamp(sq_norms(x), min=eps))[:, None]
+
+
 def assign_clusters(x: torch.Tensor, centers: torch.Tensor, c_sq=None):
     """→ (argmin index (n,) int32, min squared distance (n,))."""
     d2 = pairwise_sqdist(x, centers, c_sq=c_sq)

@@ -2,6 +2,8 @@
 and model stage alone; and ``Pipeline`` / ``PipelineModel``, the
 composable stage chains."""
 
+from .hospital_pipeline import PipelineResult, run_pipeline
 from .ml_pipeline import Pipeline, PipelineModel, load_pipeline_model
 
-__all__ = ["Pipeline", "PipelineModel", "load_pipeline_model"]
+__all__ = ["Pipeline", "PipelineModel", "PipelineResult", "load_pipeline_model",
+           "run_pipeline"]

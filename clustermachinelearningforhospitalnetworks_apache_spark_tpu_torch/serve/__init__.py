@@ -2,10 +2,11 @@
 bulk scoring."""
 
 from .batcher import DEFAULT_MAX_WAIT_S, MicroBatcher
-from .bucketing import DEFAULT_BUCKETS
+from .bucketing import DEFAULT_BUCKETS, bucket_for, fill_ratio, pad_to_bucket
 from .metrics import ServingMetrics
 from .queue import (
     DEFAULT_MAX_QUEUE_ROWS,
+    DEGRADED_STATUSES,
     STATUS_DEADLINE_EXCEEDED,
     STATUS_OK,
     STATUS_REJECTED,
@@ -18,3 +19,11 @@ from .queue import (
 from .registry import ModelRegistry, ServingModel
 from .scoring import ShardedScorer, bulk_score
 from .server import InferenceServer
+
+__all__ = [
+    "DEFAULT_BUCKETS", "DEFAULT_MAX_QUEUE_ROWS", "DEFAULT_MAX_WAIT_S", "DEGRADED_STATUSES",
+    "InferenceServer", "MicroBatcher", "ModelRegistry", "Request", "RequestQueue",
+    "STATUS_DEADLINE_EXCEEDED", "STATUS_OK", "STATUS_REJECTED", "STATUS_SHUTDOWN",
+    "STATUS_UNAVAILABLE", "ServeResult", "ServingMetrics", "ServingModel", "ShardedScorer",
+    "bucket_for", "bulk_score", "fill_ratio", "pad_to_bucket",
+]

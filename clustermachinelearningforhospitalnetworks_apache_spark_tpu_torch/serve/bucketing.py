@@ -42,6 +42,12 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
     return buckets[i]
 
 
+def fill_ratio(n_valid: int, bucket: int) -> float:
+    """The share of a padded batch that is real rows; the batcher's
+    coalescing pushes it toward 1.0."""
+    return n_valid / bucket if bucket else 0.0
+
+
 def pad_to_bucket(x: np.ndarray, bucket: int) -> np.ndarray:
     """Zero-pad rows up to ``bucket`` (no-op view when already full)."""
     n = x.shape[0]

@@ -17,8 +17,10 @@ the builder chain, so reference code ports line for line::
     train = spark.sql("SELECT * FROM events WHERE event_time BETWEEN "
                       "'2025-03-31 22:00:00' AND '2025-03-31 23:00:00'")
 
-Materialized views (``create_view``) come with slice 6 of the port, the
-fused SQL-to-device path (``sql_to_device``) with slice 5c.
+``sql_to_device`` is the fused training path: the SQL window, feature
+assembly and a ``DeviceDataset`` on the session's device, with no row
+passing through the host when the plan compiles.  Materialized views
+(``create_view``) come with slice 6 of the port.
 """
 
 from __future__ import annotations
@@ -129,6 +131,46 @@ class Session:
         from .core.sql import explain
 
         return explain(query, self.table)
+
+    def sql_to_device(self, query: str, feature_cols=None, label_col: str | None = None,
+                      na_drop: bool = True, clock=None, mode: str = "auto"):
+        """The fused training path: SQL window → feature assembly → a
+        :class:`~.data.DeviceDataset` on the session's device.  When the
+        plan compiles (a fully supported row-level query without LIMIT),
+        the query runs as torch ops over the device column cache and the
+        assembly stacks its result there (``DeviceView.assemble``): no row
+        reaches the host.  Otherwise the interpreter (or the compiled
+        aggregate) builds a host Table, ``na_drop`` and ``VectorAssembler``
+        run on the host and the matrix transfers once; ``mode="compile"``
+        raises :class:`~.core.sql.SqlCompileUnsupported` instead, and
+        ``core.sql.last_dispatch()`` records the route.  ``na_drop``
+        mirrors the reference's ``na.drop()`` over the feature and label
+        columns.  ``clock``: anything with a ``stage(name)`` context
+        manager, opened around ``transfer``, ``sql`` and ``assemble``."""
+        from contextlib import nullcontext
+
+        from .core.schema import FEATURE_COLS, LABEL_COL
+        from .core.sql import execute
+        from .core.sql_compile import compile_rowlevel
+        from .features.assembler import VectorAssembler
+
+        feature_cols = tuple(feature_cols or FEATURE_COLS)
+        assembler = VectorAssembler(feature_cols)
+        view = compile_rowlevel(query, self.table, mode=mode, clock=clock, device=self.device)
+        stage = clock.stage if clock is not None else (lambda _: nullcontext())
+        if view is not None:
+            with stage("assemble"):
+                return assembler.transform_device(view, label_col=label_col, na_drop=na_drop)
+        # the host route: one transfer, at to_device (views come with
+        # slice 6, so the Table comes from the query itself)
+        with stage("sql"):
+            t = execute(query, self.table, device=self.device)
+        if label_col is None and LABEL_COL in t.schema:
+            label_col = LABEL_COL
+        if na_drop:
+            t = t.na_drop(subset=list(feature_cols) + ([label_col] if label_col else []))
+        with stage("assemble"):
+            return assembler.transform(t).to_device(label_col=label_col, device=self.device)
 
     # streaming read ----------------------------------------------------
     @property

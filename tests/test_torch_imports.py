@@ -73,7 +73,11 @@ def test_every_module_is_walkable():
                      "io.fit_checkpoint", "models.tree.gbt", "models.summary",
                      "models.logistic_regression", "models.linear_svc", "models.naive_bayes",
                      "models.one_vs_rest", "evaluation.binary", "pipeline.ml_pipeline",
-                     "tuning", "tuning.tuning"):
+                     "tuning", "tuning.tuning", "features.bucketizer", "features.discretizer",
+                     "features.indexer", "features.onehot", "features.imputer",
+                     "features.normalizer", "features.minmax", "features.robust", "features.pca",
+                     "features.vector_ops", "features.rformula", "features.sql_transformer",
+                     "io.libsvm"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -240,3 +244,179 @@ def test_slice_5b_entry_points_default_to_the_card_and_raise_without_one(monkeyp
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_slice_5c_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_compile import (
+        compile_rowlevel,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32)
+    table = port.Table.from_dict({"a": x[:, 0], "b": x[:, 1], "c": x[:, 2]})
+    asm = port.VectorAssembler(["a", "b", "c"]).transform(table)
+    calls = [lambda: port.SQLTransformer("SELECT *, a + b AS s FROM __THIS__").transform(table),
+             lambda: compile_rowlevel("SELECT a, b FROM t WHERE a > 0", lambda _n: table),
+             lambda: port.Session().sql_to_device("SELECT a, b FROM t", feature_cols=("a",)),
+             lambda: port.Pipeline([port.VectorAssembler(["a", "b"]), port.MinMaxScaler()]).fit(
+                 table)]
+    for est in (port.MinMaxScaler(), port.MaxAbsScaler(), port.RobustScaler(), port.PCA(2)):
+        calls += [lambda est=est: est.fit(x), lambda est=est: est.fit(asm),
+                  lambda est=est: est.fit(torch.from_numpy(x)),
+                  lambda est=est: est.fit_transform(x)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked explicitly, the CPU works
+    assert port.PCA(2).fit(x, device="cpu").k == 2
+
+
+def test_table_stages_are_host_work_and_need_no_card(monkeypatch):
+    """The table stages compute in numpy on a host Table, as in the JAX
+    package (and as Binarizer and VectorAssembler do): nothing of theirs
+    runs on a device, so they run without one; the card starts at the
+    matrix stages, ``to_device`` or ``device_dataset``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(1)
+    t = port.Table.from_dict({"h": np.array(["a", "b", "a", "c"] * 4, dtype=object),
+                              "v": rng.normal(size=16), "y": rng.normal(size=16)})
+    t = port.StringIndexer("h", "hi").fit(t).transform(t)
+    t = port.OneHotEncoder(["hi"]).fit(t).transform(t)
+    t = port.Imputer(["v"], ["vi"]).fit(t).transform(t)
+    t = port.QuantileDiscretizer(3, "v", "vb").fit(t).transform(t)
+    t = port.IndexToString("hi", "h2", ("a", "b", "c")).transform(t)
+    a = port.RFormula("y ~ h + v").fit_transform(t)
+    assert a.features.shape == (16, 3) and list(t.column("h2")) == list(t.column("h"))
+    for stage in (port.Normalizer(), port.PolynomialExpansion(2), port.VectorSlicer((0,)),
+                  port.ElementwiseProduct((1.0, 2.0, 3.0)), port.Interaction((0,), (1,)),
+                  port.VectorSizeHint(3)):
+        assert isinstance(stage.transform(a), port.AssembledTable)
+
+
+# The reference's public names that the port does not have yet, by the
+# subpackage whose ``__all__`` lists them, each with the slice of ROADMAP
+# queue 1 that ports its module.  Every other name of the reference's
+# ``__all__`` must be in the port's.
+_5D = ("ChiSqSelector", "UnivariateFeatureSelector", "UnivariateFeatureSelectorModel",
+       "VectorIndexer", "VectorIndexerModel", "VarianceThresholdSelector",
+       "VarianceThresholdSelectorModel", "BucketedRandomProjectionLSH",
+       "BucketedRandomProjectionLSHModel", "MinHashLSH", "MinHashLSHModel", "CountVectorizer",
+       "CountVectorizerModel", "DCT", "HashingTF", "IDF", "IDFModel", "NGram", "RegexTokenizer",
+       "StopWordsRemover", "Tokenizer", "FeatureHasher", "Word2Vec", "Word2VecModel")
+_5E_MODELS = ("ALS", "ALSModel", "LDA", "LDAModel", "PowerIterationClustering", "FPGrowth",
+              "FPGrowthModel", "PrefixSpan")
+_5E_EVAL = ("MultilabelClassificationEvaluator", "RankingEvaluator")
+_7_QUALITY = ("ConstraintSet", "DataFirewall", "DataProfile", "DriftMonitor", "InputGuard",
+              "RowValidator", "hospital_constraints", "farm", "quality")
+_8_MESH = ("MeshConfig", "build_mesh", "build_hybrid_mesh", "default_mesh", "use_mesh",
+           "FederatedDataset", "federated_dataset")
+
+
+def _tagged(slice_: str, names) -> dict:
+    return {n: slice_ for n in names}
+
+
+EXPECTED_GAPS = {
+    "": {**_tagged("5d", _5D), **_tagged("5e", _5E_MODELS + _5E_EVAL),
+         **_tagged("7", _7_QUALITY), **_tagged("8", _8_MESH)},
+    "models": _tagged("5e", _5E_MODELS),
+    "models.tree": {},
+    "features": _tagged("5d", _5D),
+    "io": _tagged("7", ("RowReject", "SalvageResult", "read_csv_salvage",
+                        "read_csv_dir_salvage")),
+    "core": {},
+    "parallel": _tagged("8", ("DATA_AXIS", "MODEL_AXIS", "build_mesh", "build_hybrid_mesh",
+                              "default_mesh", "set_default_mesh", "single_device_mesh",
+                              "use_mesh", "FederatedDataset", "federated_dataset",
+                              "place_hospitals", "pad_rows", "replicate", "row_sharding",
+                              "shard_rows", "global_sum", "tree_aggregate", "distributed")),
+    "serve": _tagged("7", ("CircuitBreaker", "STATE_CLOSED", "STATE_HALF_OPEN", "STATE_OPEN",
+                           "NotRoutableError", "fleet", "STATUS_CANARY", "STATUS_ERROR",
+                           "STATUS_INVALID_INPUT")),
+    "ops": {},
+    "utils": _tagged("7", ("block_until_ready", "device_fence", "capture_trace",
+                           "trace_annotation")),
+    "pipeline": {},
+    "evaluation": _tagged("5e", _5E_EVAL),
+    "streaming": _tagged("7", ("PipelinedStreamExecution", "ModelUpdateConsumer",
+                               "Prefetched")),
+    "stat": {},
+    "tuning": {},
+    "obs": {},
+    "viz": {},
+}
+
+
+@pytest.mark.parametrize("sub", sorted(EXPECTED_GAPS))
+def test_package_surfaces_cover_the_reference(sub):
+    """Each subpackage's ``__all__`` holds every name of the reference's
+    whose module the port has, and each of its names resolves; the rest
+    are the expected gaps, each tagged with the slice that ports it."""
+    import importlib
+
+    ref = importlib.import_module(JAX_PKG + (f".{sub}" if sub else ""))
+    mine = importlib.import_module(port.__name__ + (f".{sub}" if sub else ""))
+    missing = set(ref.__all__) - set(mine.__all__)
+    assert missing == set(EXPECTED_GAPS[sub]), (
+        f"unexpected gaps {sorted(missing - set(EXPECTED_GAPS[sub]))}; "
+        f"filled gaps still listed {sorted(set(EXPECTED_GAPS[sub]) - missing)}")
+    assert set(EXPECTED_GAPS[sub].values()) <= {"5d", "5e", "7", "8"}
+    for name in mine.__all__:
+        assert getattr(mine, name) is not None, name
+
+
+def test_the_surface_imports_of_a_line_for_line_port():
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import (  # noqa: F401
+        Correlation,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import (  # noqa
+        Table,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.features import (  # noqa
+        Imputer,
+        VectorAssembler,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.io import (  # noqa
+        load_model,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models import (  # noqa
+        KMeans,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import (  # noqa
+        assign_clusters,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import (  # noqa
+        DeviceDataset,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.pipeline import (  # noqa
+        run_pipeline,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import (  # noqa
+        MetricsRegistry,
+    )
+
+    assert DeviceDataset is port.DeviceDataset and KMeans is port.KMeans
+
+
+def test_surface_helpers_match_the_reference():
+    """The three helpers added to complete the surfaces: ``normalize_rows``,
+    ``inertia`` (float32 sums in another order: rtol 1e-6) and
+    ``fill_ratio`` (equal)."""
+    import jax.numpy as jnp
+
+    import clustermachinelearningforhospitalnetworks_apache_spark_tpu as J
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(50, 4)).astype(np.float32)
+    x[0] = 0.0
+    c = rng.normal(size=(3, 4)).astype(np.float32)
+    a = rng.integers(0, 3, 50)
+    w = rng.uniform(0, 1, 50).astype(np.float32)
+    np.testing.assert_allclose(port.ops.normalize_rows(torch.from_numpy(x)).numpy(),
+                               np.asarray(J.ops.normalize_rows(jnp.asarray(x))), rtol=2.4e-7)
+    got = port.evaluation.inertia(torch.from_numpy(x), torch.from_numpy(c),
+                                  torch.from_numpy(a), torch.from_numpy(w))
+    want = J.evaluation.inertia(jnp.asarray(x), jnp.asarray(c), jnp.asarray(a), jnp.asarray(w))
+    assert float(got) == pytest.approx(float(want), rel=1e-6)
+    for n, b in ((3, 8), (0, 0), (8, 8)):
+        assert port.serve.fill_ratio(n, b) == J.serve.fill_ratio(n, b)

@@ -743,3 +743,174 @@ def test_slice_5b_port_artifacts_have_the_reference_keys_dtypes_and_types(kind):
     assert {k: type(v) for k, v in pparams.items()} == {k: type(v) for k, v in jparams.items()}
     assert {k: (v.dtype, v.shape) for k, v in parrays.items()} == \
         {k: (np.asarray(v).dtype, np.asarray(v).shape) for k, v in jarrays.items()}
+
+
+# --------------------------------------- slice 5c: the feature stages' tags
+
+FEATURE_COLS_5C = ("admission_count", "current_occupancy", "emergency_visits",
+                   "seasonality_index")
+
+
+def _rows_5c(n=240, seed=31):
+    rng = np.random.default_rng(seed)
+    cols = {"hospital_id": np.array([f"H{i:02d}" for i in rng.choice(4, n, p=[.4, .3, .2, .1])],
+                                    dtype=object),
+            "admission_count": rng.integers(0, 50, n).astype(np.float64),
+            "current_occupancy": rng.integers(20, 400, n).astype(np.float64),
+            "emergency_visits": rng.integers(0, 30, n).astype(np.float64),
+            "seasonality_index": rng.uniform(0.5, 1.5, n)}
+    cols["seasonality_index"][::17] = np.nan
+    x = np.stack([cols[c] for c in FEATURE_COLS_5C], axis=1)
+    cols["length_of_stay"] = np.nan_to_num(x) @ [0.05, 0.008, 0.12, 2.0] + rng.normal(0, 1, n)
+    return cols
+
+
+def _stage_5c(pkg, kind: str):
+    """A slice-5c stage of ``kind`` built (and fitted) by ``pkg``."""
+    on = {} if pkg is J else {"device": "cpu"}
+    t = pkg.Table.from_dict(_rows_5c())
+    x = np.nan_to_num(np.stack([_rows_5c()[c] for c in FEATURE_COLS_5C], 1)).astype(np.float32)
+    return {
+        "Bucketizer": lambda: pkg.QuantileDiscretizer(4, "admission_count", "b").fit(t),
+        "StringIndexerModel": lambda: pkg.StringIndexer("hospital_id", "hid", "keep").fit(t),
+        "OneHotEncoderModel": lambda: pkg.OneHotEncoder(["emergency_visits"], drop_last=False,
+                                                        handle_invalid="keep").fit(t),
+        "ImputerModel": lambda: pkg.Imputer(["seasonality_index"], ["s"], "median").fit(t),
+        "IndexToString": lambda: pkg.IndexToString("admission_count", "a",
+                                                   tuple(str(i) for i in range(50))),
+        "RFormulaModel": lambda: pkg.RFormula(
+            "length_of_stay ~ hospital_id + admission_count").fit(t),
+        "SQLTransformer": lambda: pkg.SQLTransformer(
+            "SELECT *, (admission_count + emergency_visits) AS ae FROM __THIS__"),
+        "MinMaxScalerModel": lambda: pkg.MinMaxScaler(-1.0, 1.0).fit(x, **on),
+        "MaxAbsScalerModel": lambda: pkg.MaxAbsScaler().fit(x, **on),
+        "RobustScalerModel": lambda: pkg.RobustScaler(with_centering=True).fit(x, **on),
+        "PCAModel": lambda: pkg.PCA(2).fit(x, **on),
+        "Normalizer": lambda: pkg.Normalizer(1.0),
+        "PolynomialExpansion": lambda: pkg.PolynomialExpansion(3),
+        "VectorSlicer": lambda: pkg.VectorSlicer((3, 1)),
+        "ElementwiseProduct": lambda: pkg.ElementwiseProduct((1.0, -2.0, 0.5, 4.0)),
+        "Interaction": lambda: pkg.Interaction((0,), (2, 3)),
+        "VectorSizeHint": lambda: pkg.VectorSizeHint(4),
+    }[kind]()
+
+
+KINDS_5C = ["Bucketizer", "StringIndexerModel", "OneHotEncoderModel", "ImputerModel",
+            "IndexToString", "RFormulaModel", "SQLTransformer", "MinMaxScalerModel",
+            "MaxAbsScalerModel", "RobustScalerModel", "PCAModel", "Normalizer",
+            "PolynomialExpansion", "VectorSlicer", "ElementwiseProduct", "Interaction",
+            "VectorSizeHint"]
+TABLE_KINDS_5C = ("Bucketizer", "StringIndexerModel", "OneHotEncoderModel", "ImputerModel",
+                  "IndexToString", "RFormulaModel", "SQLTransformer")
+
+
+def _same_output_5c(kind: str, pm, jm):
+    """The port stage ``pm`` and the JAX stage ``jm`` give equal outputs:
+    the same host numpy on a Table, the same numpy on a matrix."""
+    cols = _rows_5c(80, seed=32)
+    if kind in TABLE_KINDS_5C:
+        kw = {"device": "cpu"} if kind == "SQLTransformer" else {}
+        got = pm.transform(P.Table.from_dict(cols), **kw)
+        want = jm.transform(J.Table.from_dict(cols))
+        if kind == "RFormulaModel":
+            assert got.feature_cols == want.feature_cols
+            got, want = got.table, want.table
+        assert list(got.columns) == list(want.columns)
+        for c in want.columns:
+            np.testing.assert_array_equal(np.asarray(got.column(c)), np.asarray(want.column(c)))
+        return
+    x = np.nan_to_num(np.stack([cols[c] for c in FEATURE_COLS_5C], 1)).astype(np.float32)
+    np.testing.assert_array_equal(pm.transform(x), jm.transform(x))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("kind", KINDS_5C)
+def test_slice_5c_artifacts_cross_and_resave_to_the_same_bytes(kind, writer, tmp_path):
+    first, other = (J, P) if writer == "jax" else (P, J)
+    model = _stage_5c(first, kind)
+    (j_io if first is J else p_io).save_model(str(tmp_path / "a"), *model._artifacts())
+    loaded = other.load_model(str(tmp_path / "a"))
+    assert type(loaded).__name__ == type(model).__name__
+    (p_io if other is P else j_io).save_model(str(tmp_path / "b"), *loaded._artifacts())
+    _assert_same_files(str(tmp_path / "a"), str(tmp_path / "b"))
+    pm, jm = (loaded, model) if writer == "jax" else (model, loaded)
+    _same_output_5c(kind, pm, jm)
+
+
+@pytest.mark.parametrize("kind", KINDS_5C)
+def test_slice_5c_port_artifacts_have_the_reference_keys_dtypes_and_types(kind):
+    jname, jparams, jarrays = _stage_5c(J, kind)._artifacts()
+    pname, pparams, parrays = _stage_5c(P, kind)._artifacts()
+    assert pname == jname
+    assert pparams == jparams
+    assert {k: (v.dtype, v.shape) for k, v in parrays.items()} == \
+        {k: (np.asarray(v).dtype, np.asarray(v).shape) for k, v in jarrays.items()}
+
+
+BRIDGES_5C = {
+    "MinMaxScalerModel": P.minmax_scaler_model_from_jax_arrays,
+    "MaxAbsScalerModel": P.maxabs_scaler_model_from_jax_arrays,
+    "RobustScalerModel": P.robust_scaler_model_from_jax_arrays,
+    "PCAModel": P.pca_model_from_jax_arrays,
+    "ImputerModel": P.imputer_model_from_jax_arrays,
+    "StringIndexerModel": P.string_indexer_model_from_jax_arrays,
+    "OneHotEncoderModel": P.one_hot_encoder_model_from_jax_arrays,
+    "RFormulaModel": P.rformula_model_from_jax_arrays,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BRIDGES_5C))
+def test_slice_5c_in_memory_bridge_carries_the_jax_model(kind, tmp_path):
+    jm = _stage_5c(J, kind)
+    _, params, arrays = jm._artifacts()
+    pm = BRIDGES_5C[kind](**arrays, **params)
+    assert type(pm).__name__ == kind
+    assert pm._artifacts()[1] == params
+    _same_output_5c(kind, pm, jm)
+    # the bridge builds what load_model builds from the JAX artifact
+    j_io.save_model(str(tmp_path / "j"), *jm._artifacts())
+    p_io.save_model(str(tmp_path / "p"), *pm._artifacts())
+    _assert_same_files(str(tmp_path / "j"), str(tmp_path / "p"))
+
+
+def _feature_pipeline(pkg):
+    """StringIndexer → OneHotEncoder → VectorAssembler → MinMaxScaler →
+    LogisticRegression on the hospital rows."""
+    return pkg.Pipeline([
+        pkg.Binarizer("length_of_stay", "LOS_binary", 4.0),
+        pkg.StringIndexer("hospital_id", "hid"),
+        pkg.OneHotEncoder(["hid"]),
+        pkg.VectorAssembler(["hid_vec_0", "hid_vec_1", "hid_vec_2", *FEATURE_COLS_5C]),
+        pkg.MinMaxScaler(),
+        pkg.LogisticRegression(max_iter=30, tol=1e-3),
+    ])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_slice_5c_pipeline_crosses_packages(writer, tmp_path):
+    cols = _rows_5c(600, seed=33)
+    cols["seasonality_index"] = np.nan_to_num(cols["seasonality_index"], nan=1.0)
+    jt, pt_ = J.Table.from_dict(cols), P.Table.from_dict(cols)
+    jm = _feature_pipeline(J).fit(jt)
+    pm = _feature_pipeline(P).fit(pt_, device="cpu")
+    # the table stages and the extremes are equal; the fit within the
+    # binomial parity limit (tests/test_torch_logistic_regression.py)
+    for s in (1, 2):
+        assert pm.stages[s]._artifacts() == jm.stages[s]._artifacts()
+    np.testing.assert_array_equal(pm.stages[4].data_min, jm.stages[4].data_min)
+    np.testing.assert_array_equal(pm.stages[4].data_max, jm.stages[4].data_max)
+    want = np.r_[np.asarray(jm.stages[5].coefficients), float(jm.stages[5].intercept)]
+    got = np.r_[pm.stages[5].coefficients.numpy(), float(pm.stages[5].intercept)]
+    np.testing.assert_allclose(got, want, atol=2e-5 * np.abs(want).max())
+    saved, other = (jm, P) if writer == "jax" else (pm, J)
+    saved.save(str(tmp_path / "pipe"))
+    loaded = other.load_model(str(tmp_path / "pipe"))
+    assert [type(s).__name__ for s in loaded.stages] == \
+        [type(s).__name__ for s in saved.stages]
+    if other is P:
+        got = loaded.transform(pt_, device="cpu").to_numpy()[0]
+        want = np.asarray(jm.transform(jt).to_numpy()[0])
+    else:
+        got = np.asarray(loaded.transform(jt).to_numpy()[0])
+        want = pm.transform(pt_, device="cpu").to_numpy()[0]
+    np.testing.assert_array_equal(got, want)
