@@ -26,7 +26,7 @@ PHASES = ["kernel_case", "k2_case", "edge_cases", "k3_phase", "sql_window",
           "stage_on_bundled_csv", "stage_at_scale", "artifacts", "pipeline_phase", "rf20",
           "streaming_phase", "gmm_phase", "bisecting_phase", "outofcore_phase", "gbt_phase",
           "lr_phase", "precision_phase", "bisecting_more", "classification_phase",
-          "families_phase", "features_phase"]
+          "families_phase", "features_phase", "beyond_phase"]
 
 
 def main() -> None:

@@ -25,7 +25,8 @@ kernels:
   torch ops on the card (route ``compiled``, no fallback reasons), equal
   to the interpreter on every column, with its first-run transfer, rerun,
   on-card and ``to_table`` times; a per-hospital GROUP BY and a
-  whole-partition window against the interpreter; and the window feeding
+  whole-partition window against the interpreter on every 4th row; and the
+  window feeding
   the model stage below (``extract_training_window``);
 * model artifacts — the 2M-row stage's five models saved (``save_models``)
   and loaded back, the KMeans k=256 model and its scaler saved and loaded,
@@ -118,6 +119,20 @@ kernels:
   categorical tree (K3); an Imputer over NaN in 1 % of two columns; and
   RFormula → LinearRegression, the table stages ``==`` across the routes
   and the device statistics within limits that a control fails.
+* slices 5d and 5e (``beyond_phase``) — on the stage's 2M hospital rows
+  (and a seeded noise column) UnivariateFeatureSelector (ANOVA on
+  ``LOS_binary``, F-value on LOS), ChiSqSelector on quantile bins against 3
+  LOS tiers, VarianceThresholdSelector, and VectorIndexer(8) → a depth-5
+  categorical tree (K3); 100,000 seeded clinical notes through Tokenizer,
+  StopWordsRemover and CountVectorizer into LDA(k=10) on the card (resident
+  and in 8 HostDataset blocks), HashingTF(2048) → IDF on the card tensor,
+  Word2Vec on 10,000 notes twice (bit-equal), DCT on the 2M rows; ALS(rank
+  10) on 10M synthetic ratings of 200,000 patients × 5,000 services with
+  recommend_for_all_users(10) and the RankingEvaluator on a held-out 10 %,
+  the implicit and NNLS fits on a 1M-rating cut; PowerIterationClustering
+  (k=8) on the bundled CSV's 10-nearest-neighbour graph (K1 and K2 at
+  d = 1); each fit's seconds, records/s, torch ops and host syncs, and card
+  against CPU within limits that a control fails.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -155,6 +170,7 @@ BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 REQUEST_SIZES = (1, 7, 32, 200)
 TRANSFORM_N = 1_000_000     # rows of the KMeans table through transform
 SQL_N = 10_000_000          # rows of the SQL window phase, over the whole day
+SQL_CMP_EVERY = 4           # its GROUP BY and window against the interpreter: every 4th row
 # the JAX package's SQL fuzz tolerance (core/sql_fuzz.py compare_tables)
 SQL_RTOL, SQL_ATOL = 1e-9, 1e-12
 SAVE_SITES = ("model_io.save.arrays", "model_io.save.meta", "model_io.save.swap")
@@ -716,7 +732,8 @@ def k3_phase(H) -> dict:
         ("one-vs-rest T=1 depth 5", TREE_N, 4, 2, 1, 32),
         # slice 5c: the depth-5 regression trees of features_phase, on the
         # fused sql_device rows (7 features) and on StringIndexer's code
-        # beside the 4 hospital features, root and deepest level
+        # beside the 4 hospital features, root and deepest level (the shape
+        # of beyond_phase's VectorIndexer → tree too)
         ("fused sql_device tree T=1 root", FEAT_N, 7, 3, 1, 1),
         ("fused sql_device tree T=1 depth 5", FEAT_N, 7, 3, 1, 32),
         ("categorical tree T=1 root", TREE_N, 5, 3, 1, 1),
@@ -872,8 +889,8 @@ def sql_window(port, card: str) -> None:
     in auto mode (it hits and transfers nothing), equal to the port's
     interpreter on every column; its transfer, on-card and ``to_table``
     times on a cold copy of the table.  Then a per-hospital GROUP BY and a
-    whole-partition window, compiled against the interpreter at the JAX
-    fuzz harness's tolerance."""
+    whole-partition window on every 4th row, compiled against the
+    interpreter at the JAX fuzz harness's tolerance."""
     import numpy as np
 
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import (
@@ -957,18 +974,28 @@ def sql_window(port, card: str) -> None:
              f"MAX(current_occupancy) AS occ_max FROM {name} GROUP BY hospital_id")
     win_q = (f"SELECT length_of_stay, AVG(length_of_stay) OVER (PARTITION BY emergency_visits) "
              f"AS los_by_er FROM {name}")
-    for tag, qq, rows in (("per-hospital aggregate", agg_q, 5), ("whole-partition window", win_q, SQL_N)):
-        got, c_ms = host_ms(lambda: sql.execute(qq, resolve, mode="compile", device=DEV))
+    # the GROUP BY and the whole-partition window run against the
+    # interpreter on every 4th row (all five hospitals): its passes over all
+    # 10M rows took about 35 s of the script's clock
+    cmp_table = table.mask(np.arange(SQL_N) % SQL_CMP_EVERY == 0)
+
+    def resolve_cmp(_name):
+        return cmp_table
+
+    for tag, qq, rows in (("per-hospital aggregate", agg_q, 5),
+                          ("whole-partition window", win_q, len(cmp_table))):
+        got, c_ms = host_ms(lambda: sql.execute(qq, resolve_cmp, mode="compile", device=DEV))
         compiled_route(tag)
-        want, i_ms = host_ms(lambda: sql.execute(qq, resolve, mode="interpret"))
+        want, i_ms = host_ms(lambda: sql.execute(qq, resolve_cmp, mode="interpret"))
         bad = table_mismatch(got, want, exact=False)
         check(bad is None, f"{tag}, compiled vs interpreter: {bad}")
         check(len(got) == rows, f"{tag}: {len(got)} rows, expected {rows}")
         rel = max((float(np.max(np.abs(got[c] - want[c]) / np.maximum(np.abs(want[c]), 1e-300)))
                    for c in want.columns if want[c].dtype.kind == "f"), default=0.0)
         clock = StageEvents()
-        sql_compile.run_plan(plan_query(parse(qq), resolve), table, clock, device=DEV)
-        say(f"sql_window {tag} on {card}: compiled {c_ms:.1f} ms (rerun stages, CUDA events: "
+        sql_compile.run_plan(plan_query(parse(qq), resolve_cmp), cmp_table, clock, device=DEV)
+        say(f"sql_window {tag} on {card}, {len(cmp_table)} rows: compiled {c_ms:.1f} ms "
+            f"(rerun stages, CUDA events: "
             f"{json.dumps(clock.ms())}), interpreter {i_ms:.1f} ms; largest relative "
             f"difference {rel:.3g}")
     ts_q = (f"SELECT hospital_id, MIN(event_time) AS first, MAX(event_time) AS last "
@@ -4481,6 +4508,638 @@ def features_phase(port, L, H, card: str) -> dict:
     return counts
 
 
+BEYOND_CUT = PREFIX                       # the selectors' and the tree's card-vs-CPU rows
+SELECT_NOISE_SEED = 24                    # the selectors' seeded N(0, 1) noise column
+SELECT_BINS = 10                          # QuantileDiscretizer buckets before chi-square
+NOTES = 100_000                           # clinical notes: 10 topics over 1,000 terms
+NOTE_VOCAB = 1_000
+NOTE_TOPICS = 10
+NOTE_LEN = 40                             # content tokens a note
+NOTE_STOP = 8                             # English stop words a note
+NOTE_SEED = 17
+HASH_FEATURES = 2048                      # the widest power of two under 2^28 / NOTES
+LDA_BLOCKS = 8                            # the out-of-core LDA's HostDataset blocks
+LDA_CUT = 5_000                           # LDA card against CPU
+W2V_NOTES = 10_000                        # Word2Vec's notes: about 3.7M pairs
+W2V_CUT = 500                             # Word2Vec card against CPU
+ALS_USERS = 200_000
+ALS_ITEMS = 5_000
+ALS_RATINGS = 10_000_000
+ALS_RANK = 10
+ALS_SEED = 19
+ALS_CUT_USERS = 20_000                    # about 1M ratings: implicit, NNLS, card vs CPU
+PIC_K = 8
+PIC_NEIGHBOURS = 10
+# card-vs-CPU limits of slices 5d + 5e: about 10x the gap of the first chip
+# run (NVIDIA H100 80GB HBM3, 700 W), one float32 ulp (1.2e-7) where that
+# gap was 0 (DCT); Word2Vec's 1 − cos in float64 (4.4e-16: the cut's
+# vectors agree to the last bits).  ALS's NNLS is rounding-sensitive:
+# which coordinates sit at 0 moves with the rounding, and on another draw
+# of the ratings its gap was 2.28e-4 (ROADMAP queue 3).
+# Each must fail its control (BEYOND_EXACT aside): the route on
+# bfloat16-rounded rows, ratings or weights (``bf16_round``); the card
+# route with TF32 products (``tf32_matmuls``) where its products are float32
+# matmuls and the inputs are small integers that bfloat16 rounds exactly
+# (LDA's counts, DCT); for Word2Vec, whose batched products TF32 left
+# unchanged, the fit with its step size one bfloat16 ulp larger.
+BEYOND_LIMITS = {
+    "selectors": {"selected": 0, "anova_p": 2.3e-5, "fvalue_p": 1.6e-7, "chi2_p": 0,
+                  "variance": 9.4e-6, "tree_splits": 0},
+    "lda": {"lam": 7.4e-5, "mixtures": 7.2e-4, "perplexity": 7.8e-7, "top_terms": 0},
+    "word2vec": {"cosine": 4.4e-15, "synonyms": 0},
+    "dct": {"forward": 1.2e-7, "inverse": 1.2e-7},
+    "als": {"pred": 8.0e-5, "subspace": 1.9e-4, "recs_rows": 0},
+    "als_implicit": {"pred": 3.7e-5, "subspace": 6.1e-5, "recs_rows": 0},
+    "als_nonnegative": {"pred": 8.0e-5, "subspace": 1.4e-4, "recs_rows": 0},
+    "pic": {"embedding": 2.5e-6, "rows": 60},
+}
+BEYOND_EXACT = ("selected", "chi2_p", "tree_splits", "top_terms", "synonyms", "recs_rows")
+BEYOND_NO_CONTROL: dict = {}
+
+
+def beyond_gated(name: str, gaps: dict, ctl: dict) -> str:
+    return gated(BEYOND_LIMITS, name, gaps, ctl, exact=BEYOND_EXACT,
+                 no_control=BEYOND_NO_CONTROL)
+
+
+def count_ops(fn):
+    """``fn()`` with its torch ops counted (on the card each op is one or
+    more kernel launches; views included) and its host syncs → (result,
+    ops, host syncs)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    n = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    def run():
+        with Count():
+            return fn()
+
+    out, syncs = count_syncs(run)
+    return out, n[0], syncs
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn()``, ending with the card idle."""
+    out, ms = host_ms(fn)
+    return out, ms / 1e3
+
+
+def fit_line(name: str, seconds: float, records: float, unit: str, ops: int, syncs: int) -> str:
+    return (f"{name} {seconds:.3f} s, {records / seconds:.4g} {unit}/s, {ops} device ops, "
+            f"{syncs} host syncs")
+
+
+def subspace_gap(a, b) -> float:
+    """sin of the largest principal angle between the column spaces of two
+    (n, r) factor matrices (0 when they span the same subspace)."""
+    import numpy as np
+
+    qa, _ = np.linalg.qr(np.asarray(a, np.float64))
+    qb, _ = np.linalg.qr(np.asarray(b, np.float64))
+    s = np.linalg.svd(qa.T @ qb, compute_uv=False)
+    return float(np.sqrt(max(0.0, 1.0 - float(s.min()) ** 2)))
+
+
+def relabelled_rows(a, b) -> int:
+    """Rows whose clusters differ once ``b``'s labels are matched to
+    ``a``'s (the assignment that maximizes agreement)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    k = int(max(a.max(), b.max())) + 1
+    table = np.zeros((k, k), np.int64)
+    np.add.at(table, (a, b), 1)
+    r, c = linear_sum_assignment(-table)
+    return int(len(a) - table[r, c].sum())
+
+
+def selectors_part(port, H, card: str) -> int:
+    """Slice 5d's selectors on the stage's 2M hospital rows (seed 7), with a
+    seeded N(0, 1) noise column so the p-values can move (every hospital
+    feature's is 0): UnivariateFeatureSelector ANOVA on ``LOS_binary`` and
+    F-value on LOS (numTopFeatures 2), ChiSqSelector on QuantileDiscretizer
+    bins against the 3 LOS tiers, VarianceThresholdSelector, and
+    VectorIndexer(max_categories=8) over the features and the hospital's
+    StringIndexer index → DecisionTreeRegressor(max_depth=5) with its
+    ``categorical_features`` (K3).  Card against CPU on a cut of every
+    10th row (all five hospitals), the tree on integer LOS (exact sums:
+    the same splits).  → K3 launches."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops.reductions import (
+        host_moments,
+    )
+
+    x, los, yb = stage_rows()
+    n = len(los)
+    names = np.array([f"H{h:02d}" for h in range(5)], dtype=object)
+    noise = np.random.default_rng(SELECT_NOISE_SEED).normal(size=n)
+    tiers = np.digitize(los, np.quantile(los, [0.5, 0.85])).astype(np.float64)
+    cols = {"hospital_id": np.repeat(names, n // 5), "noise": noise, port.LABEL_COL: los,
+            "LOS_binary": yb.astype(np.float64), "tier": tiers}
+    for j, c in enumerate(port.FEATURE_COLS):
+        cols[c] = x[:, j]
+    feats = [*port.FEATURE_COLS, "noise"]
+    t0 = time.perf_counter()
+    table = port.Table.from_dict(cols)
+    for c in port.FEATURE_COLS:
+        table = port.QuantileDiscretizer(SELECT_BINS, c, c + "_bin").fit(table).transform(table)
+    table = port.StringIndexer("hospital_id", "hid").fit(table).transform(table)
+    build_s = time.perf_counter() - t0
+
+    def views(tab):
+        return (port.VectorAssembler(feats).transform(tab),
+                port.VectorAssembler([c + "_bin" for c in port.FEATURE_COLS]).transform(tab))
+
+    def select(asm, binned, device):
+        anova = port.UnivariateFeatureSelector(selection_threshold=2, label_col="LOS_binary")
+        fval = port.UnivariateFeatureSelector("continuous", "continuous",
+                                              selection_threshold=2, label_col=port.LABEL_COL)
+        chi = port.ChiSqSelector(num_top_features=2, label_col="tier")
+        out = {}
+        for name, est, a in (("anova", anova, asm), ("fvalue", fval, asm), ("chi2", chi, binned)):
+            out[name] = est.fit(a, device=device).selected
+            lab = a.label(est.label_col)
+            inner = est if name != "chi2" else port.UnivariateFeatureSelector(
+                "categorical", "categorical", label_col="tier")
+            out[name + "_p"] = np.asarray(inner._p_values(a.features, lab, device))
+        vt = port.VarianceThresholdSelector(1.0).fit(asm, device=device)
+        ds = asm.to_device(device=device)
+        s = host_moments(ds.x, ds.w)
+        out["variance"] = s["s2"] / s["n"] - (s["s1"] / s["n"]) ** 2
+        out["variance_sel"] = vt.selected
+        return out
+
+    asm, binned = views(table)
+    (full, full_s) = timed(lambda: select(asm, binned, DEV))
+    check(all(len(full[k]) == 2 for k in ("anova", "fvalue", "chi2")),
+          "a selector did not keep 2 features")
+    # the hospitals are blocks of rows: every 10th row holds all five
+    cut = np.arange(0, n, n // BEYOND_CUT)
+    pre = table.mask(np.isin(np.arange(n), cut))
+    pa, pb = views(pre)
+    route = {dev: select(pa, pb, dev) for dev in (DEV, "cpu")}
+    ctl_tab = port.Table.from_dict({**{c: pre.column(c) for c in pre.columns},
+                                    **{c: bf16_round(pre.column(c).astype(np.float32))
+                                       .astype(np.float64) for c in feats}})
+    ctl = select(*views(ctl_tab), DEV)
+
+    def p_gap(a, b):
+        keep = b > 0          # the p-values that are 0 in both are compared as equal
+        same_zero = bool(np.array_equal(a <= 0, b <= 0))
+        return rel_each(a[keep], b[keep]) if same_zero and keep.any() else float("inf")
+
+    c, g = route[DEV], route["cpu"]
+    gaps = {"selected": int(any(c[k] != g[k] for k in ("anova", "fvalue", "chi2",
+                                                       "variance_sel"))),
+            "anova_p": p_gap(c["anova_p"], g["anova_p"]),
+            "fvalue_p": p_gap(c["fvalue_p"], g["fvalue_p"]),
+            "chi2_p": 0 if np.array_equal(c["chi2_p"], g["chi2_p"]) else 1,
+            "variance": rel_each(c["variance"], g["variance"])}
+    ctlg = {"anova_p": p_gap(ctl["anova_p"], g["anova_p"]),
+            "fvalue_p": p_gap(ctl["fvalue_p"], g["fvalue_p"]),
+            "variance": rel_each(ctl["variance"], g["variance"])}
+
+    # VectorIndexer → the categorical tree (K3) on all rows on the card
+    asm5 = port.VectorAssembler([*port.FEATURE_COLS, "hid"]).transform(table)
+    vi, vi_s = timed(lambda: port.VectorIndexer(max_categories=8).fit(asm5))
+    check(vi.categorical_features == {4: 5},
+          f"VectorIndexer found {vi.categorical_features}, not the hospital index {{4: 5}}")
+    indexed = vi.transform(asm5)
+    tree = port.DecisionTreeRegressor(max_depth=5, categorical_features=vi.categorical_features)
+    before = H.launch_counts()["fused_level_hist"]
+    (dt, dt_s) = timed(lambda: tree.fit(indexed, device=DEV))
+    k3 = H.launch_counts()["fused_level_hist"] - before
+    check(k3 == 6, f"the indexed tree launched K3 {k3} times (expected 6)")
+    check(dt.split_catmask is not None, "the indexed tree did not take the categorical spec")
+    xp = indexed.features[cut].astype(np.float32)
+    yp = np.round(los[cut]).astype(np.float32)
+    trees = {dev: tree.fit(port.device_dataset(xp, yp, device=dev)) for dev in (DEV, "cpu")}
+    a, b = trees[DEV]._arrays(), trees["cpu"]._arrays()
+    gaps["tree_splits"] = int(any(not np.array_equal(a[k], b[k]) for k in a
+                                  if k not in ("value", "feature_importances")))
+    text = beyond_gated("selectors", gaps, ctlg)
+    say(f"beyond_phase selectors on {card}, {n} hospital rows + a noise column (table, bins "
+        f"and index {build_s:.2f} s): ANOVA on LOS_binary → {full['anova']}, F-value on LOS → "
+        f"{full['fvalue']}, ChiSqSelector on {SELECT_BINS} bins vs 3 tiers → {full['chi2']}, "
+        f"VarianceThreshold(1.0) → {full['variance_sel']} ({full_s:.2f} s on the card); "
+        f"VectorIndexer(8) {vi.categorical_features} in {vi_s:.2f} s → "
+        f"DecisionTreeRegressor(5) {dt_s:.2f} s, K3 {k3}, "
+        f"{int((dt.split_feat == 4).sum())} splits on the hospital index; card vs CPU on {len(cut)} "
+        f"rows (every 10th): {text}")
+    return k3
+
+
+def clinical_notes(n: int, stop_words, seed: int = NOTE_SEED) -> list:
+    """``n`` notes of a seeded 10-topic law over 1,000 terms: each note a
+    Dirichlet(0.2) topic mixture, each topic a Dirichlet(0.05) term law
+    mixed with 10 % uniform (so every term is drawn), 40 content tokens and
+    8 English stop words in a random order, the first letter capitalized."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"term{i:04d}" for i in range(NOTE_VOCAB)], dtype=object)
+    beta = 0.9 * rng.dirichlet(np.full(NOTE_VOCAB, 0.05), size=NOTE_TOPICS) + 0.1 / NOTE_VOCAB
+    theta = rng.dirichlet(np.full(NOTE_TOPICS, 0.2), size=n)
+    z = (rng.random((n, NOTE_LEN, 1)) > np.cumsum(theta, 1)[:, None, :]).sum(-1)
+    z = np.minimum(z, NOTE_TOPICS - 1)
+    words = np.empty((n, NOTE_LEN), np.int64)
+    cb = np.cumsum(beta, 1)
+    for t in range(NOTE_TOPICS):
+        m = z == t
+        words[m] = np.minimum(np.searchsorted(cb[t], rng.random(int(m.sum()))), NOTE_VOCAB - 1)
+    stop = np.asarray(sorted(stop_words), dtype=object)
+    toks = np.concatenate([vocab[words], stop[rng.integers(0, len(stop), (n, NOTE_STOP))]], 1)
+    toks = np.take_along_axis(toks, np.argsort(rng.random(toks.shape), axis=1), 1)
+    return [" ".join(r).capitalize() for r in toks]
+
+
+def top_terms(m, k: int = 5) -> list:
+    return [list(idx[:k]) for idx, _ in m.describe_topics(k)]
+
+
+def text_part(port, card: str) -> None:
+    """Slice 5d's text stages and slice 5e's LDA at full width: 100,000
+    seeded notes → Tokenizer → StopWordsRemover → CountVectorizer(min_df=2)
+    → LDA(k=10, max_iter=20) on the card, its transform and perplexity, and
+    out of core in 8 HostDataset blocks; HashingTF(2048) → IDF on the card
+    tensor; Word2Vec (Spark's defaults) on the first 10,000 notes twice on
+    the card (bit-equal) and against the CPU on a cut; DCT forward and
+    inverse on the 2M hospital rows.  Card against CPU within limits that a
+    control fails."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    texts = clinical_notes(NOTES, port.StopWordsRemover().stop_words)
+    gen_s = time.perf_counter() - t0
+    (toks, tok_s) = timed(lambda: port.Tokenizer().transform(texts))
+    (clean, stop_s) = timed(lambda: port.StopWordsRemover().transform(toks))
+    check(all(len(r) == NOTE_LEN for r in clean[:1000]),
+          "StopWordsRemover's default list left stop words in (or took terms out)")
+    (cvm, cv_fit_s) = timed(lambda: port.CountVectorizer(min_df=2).fit(clean))
+    (counts, cv_s) = timed(lambda: cvm.transform(clean))
+    v = len(cvm.vocabulary)
+    check(counts.shape == (NOTES, v) and float(counts.sum()) == NOTES * NOTE_LEN,
+          "the count matrix does not hold every content token")
+    say(f"beyond_phase notes: {NOTES} notes generated in {gen_s:.2f} s; Tokenizer {tok_s:.2f} s, "
+        f"StopWordsRemover {stop_s:.2f} s, CountVectorizer(min_df=2) fit {cv_fit_s:.2f} s + "
+        f"transform {cv_s:.2f} s → ({NOTES}, {v}) float32, {counts.nbytes / 1e6:.0f} MB")
+
+    # LDA on the card: resident, transform, perplexity, out of core; first a
+    # one-iteration fit on 100 notes takes the first use of its CUDA ops
+    # (digamma is compiled at run time)
+    (_, first_s) = timed(lambda: port.LDA(k=NOTE_TOPICS, max_iter=1).fit(counts[:100],
+                                                                         device=DEV))
+    lda = port.LDA(k=NOTE_TOPICS, max_iter=20)
+    (dev_counts, _) = timed(lambda: torch.from_numpy(counts).to(DEV))
+    (m, fit_s) = timed(lambda: lda.fit(dev_counts))
+    # ops and host syncs of one iteration (the counter costs about 13 µs an op)
+    _, ops, syncs = count_ops(lambda: port.LDA(k=NOTE_TOPICS, max_iter=1).fit(dev_counts))
+    check(np.isfinite(m.lam).all() and m.lam.shape == (NOTE_TOPICS, v), "LDA's λ is not finite")
+    (mix, tr_s) = timed(lambda: m.transform(dev_counts))
+    check(np.allclose(mix.sum(1), 1.0), "LDA's topic mixtures do not sum to 1")
+    (perp, perp_s) = timed(lambda: m.log_perplexity(dev_counts))
+    check(np.isfinite(perp) and perp > 0, f"LDA's perplexity bound {perp} is not finite")
+    del dev_counts
+    hd = port.HostDataset(x=counts, max_device_rows=NOTES // LDA_BLOCKS)
+    check(hd.block_shape()[0] == LDA_BLOCKS, "the notes do not cut into 8 blocks")
+    (mo, ooc_s) = timed(lambda: port.LDA(k=NOTE_TOPICS, max_iter=20).fit(hd, device=DEV))
+    check(np.isfinite(mo.lam).all(), "the out-of-core LDA's λ is not finite")
+    say(f"beyond_phase LDA(k=10, max_iter=20) on {card}: first use of its ops {first_s:.2f} s; "
+        f"resident fit {fit_s:.3f} s, {NOTES * 20 / fit_s:.4g} docs·iterations/s "
+        f"({ops} torch ops and {syncs} host syncs in a one-iteration fit); transform "
+        f"{tr_s:.2f} s, log_perplexity {perp:.6f} in {perp_s:.2f} s; out of core in "
+        f"{LDA_BLOCKS} blocks: fit {ooc_s:.3f} s, "
+        f"{NOTES // LDA_BLOCKS * 20 / ooc_s:.4g} docs·iterations/s, perplexity "
+        f"{mo.log_perplexity(counts, device=DEV):.6f}")
+    cut = counts[:LDA_CUT]
+    fits = {dev: port.LDA(k=NOTE_TOPICS, max_iter=20).fit(cut, device=dev)
+            for dev in (DEV, "cpu")}
+    with tf32_matmuls():
+        ctl_m = port.LDA(k=NOTE_TOPICS, max_iter=20).fit(cut, device=DEV)
+        ctl_mix = ctl_m.transform(cut, device=DEV)
+        ctl_perp = ctl_m.log_perplexity(cut, device=DEV)
+
+    b = fits["cpu"]
+    bmix, bperp = b.transform(cut, device="cpu"), b.log_perplexity(cut, device="cpu")
+
+    def lda_gaps(a, amix, aperp):
+        return {"lam": rel(a.lam, b.lam), "mixtures": rel(amix, bmix),
+                "perplexity": abs(aperp - bperp) / abs(bperp),
+                "top_terms": int(top_terms(a) != top_terms(b))}
+
+    a = fits[DEV]
+    gaps = lda_gaps(a, a.transform(cut, device=DEV), a.log_perplexity(cut, device=DEV))
+    ctl = lda_gaps(ctl_m, ctl_mix, ctl_perp)
+    say(f"beyond_phase LDA card vs CPU on {LDA_CUT} notes: {beyond_gated('lda', gaps, ctl)}")
+
+    # HashingTF(2048) → IDF on the card tensor
+    (tf, tf_s) = timed(lambda: port.HashingTF(HASH_FEATURES).transform(clean))
+    (tf_dev, _) = timed(lambda: torch.from_numpy(tf).to(DEV))
+    (idf, idf_s) = timed(lambda: port.IDF().fit(tf_dev))
+    (tfidf, tfidf_s) = timed(lambda: idf.transform(tf_dev))
+    check(tfidf.device == tf_dev.device and torch.equal(tfidf.cpu(), torch.from_numpy(idf.transform(tf))),
+          "TF-IDF on the card differs from numpy")
+    say(f"beyond_phase HashingTF({HASH_FEATURES}) {tf_s:.2f} s → IDF fit on the card tensor "
+        f"{idf_s:.2f} s, transform {tfidf_s * 1e3:.1f} ms on the card == numpy")
+    del tf_dev, tfidf
+
+    # Word2Vec (Spark's defaults) on the first 10,000 notes: two card fits
+    w2v = port.Word2Vec()
+    docs = clean[:W2V_NOTES]
+    (w1, w_s) = timed(lambda: w2v.fit(docs, device=DEV))
+    known = set(w1.vocabulary)
+    lens = np.asarray([sum(t in known for t in r) for r in docs])
+    win = w2v.window_size
+
+    def n_pairs(m: int) -> int:
+        # each position pairs with its window: 2·win neighbours, fewer at the ends
+        return sum(min(m, i + win + 1) - max(0, i - win) - 1 for i in range(m))
+
+    pairs = int(sum(n_pairs(int(m)) * int(c)
+                    for m, c in zip(*np.unique(lens, return_counts=True))))
+    (w2, w_ops, w_syncs), w2_s = timed(lambda: count_ops(lambda: w2v.fit(docs, device=DEV)))
+    check(np.array_equal(w1.vectors, w2.vectors) and w1.vocabulary == w2.vocabulary,
+          "two Word2Vec fits of one seed on the card differ")
+    steps = -(-pairs // w2v.batch_size)
+    say(f"beyond_phase Word2Vec on {card}, {W2V_NOTES} notes, {pairs} pairs, {steps} steps "
+        f"of {w2v.batch_size}: {fit_line('fit', w_s, pairs, 'pairs', w_ops, w_syncs)} "
+        f"({steps / w_s:.0f} steps/s; ops and syncs of the second fit, {w2_s:.2f} s under the "
+        f"counter); two fits bit-equal")
+    wc = clean[:W2V_CUT]
+    wm = {dev: w2v.fit(wc, device=dev) for dev in (DEV, "cpu")}
+    wctl = port.Word2Vec(step_size=w2v.step_size * (1 + 2 ** -7)).fit(wc, device=DEV)
+
+    def w2v_gaps(x):
+        # cosines in float64: in float32 1 − cos resolves no finer than 6e-8
+        a, ref = x.vectors.astype(np.float64), wm["cpu"]
+        b = ref.vectors.astype(np.float64)
+        cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+        words = ref.vocabulary[:20]
+        return {"cosine": float(1.0 - cos.min()),
+                "synonyms": int(any([t for t, _ in x.find_synonyms(w, 5)]
+                                    != [t for t, _ in ref.find_synonyms(w, 5)] for w in words))}
+
+    say(f"beyond_phase Word2Vec card vs CPU on {W2V_CUT} notes: "
+        f"{beyond_gated('word2vec', w2v_gaps(wm[DEV]), w2v_gaps(wctl))}")
+
+    # DCT forward and inverse on the 2M hospital rows
+    x = stage_rows()[0].astype(np.float32)
+    xd = torch.from_numpy(x).to(DEV)
+    (fwd, dct_s) = timed(lambda: port.DCT().transform(xd))
+    back = port.DCT(inverse=True).transform(fwd)
+    cpu_f = port.DCT().transform(x, device="cpu")
+    cpu_b = port.DCT(inverse=True).transform(cpu_f)
+    with tf32_matmuls():
+        ctl_f = port.DCT().transform(xd)
+        ctl_b = port.DCT(inverse=True).transform(ctl_f)
+    gaps = {"forward": rel(fwd.cpu().numpy(), cpu_f.numpy()),
+            "inverse": rel(back.cpu().numpy(), cpu_b.numpy())}
+    ctl = {"forward": rel(ctl_f.cpu().numpy(), cpu_f.numpy()),
+           "inverse": rel(ctl_b.cpu().numpy(), cpu_b.numpy())}
+    trip = rel(back.cpu().numpy(), x)
+    check(trip <= 1e-6, f"DCT's round trip is {trip:.3g} off the rows")
+    say(f"beyond_phase DCT on {len(x)} rows on the card {dct_s * 1e3:.1f} ms, round trip "
+        f"{trip:.3g}; card vs CPU: {beyond_gated('dct', gaps, ctl)}")
+
+
+def als_ratings():
+    """Synthetic utilisation ratings: 200,000 patients × 5,000 services,
+    10M distinct (patient, service) pairs, service popularity a seeded Zipf
+    law (exponent 1.1), ratings 3 + a rank-10 product + N(0, 0.3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(ALS_SEED)
+    p = 1.0 / np.arange(1, ALS_ITEMS + 1) ** 1.1
+    p /= p.sum()
+    # the popular services saturate (nearly every patient uses the top few):
+    # 1.7x the pairs draw about 10.7M distinct ones, of which 10M are kept
+    pairs = np.empty(0, np.int64)
+    while len(pairs) < ALS_RATINGS:
+        draw = int((ALS_RATINGS - len(pairs)) * 1.7) + 1000
+        pairs = np.unique(np.r_[pairs, rng.integers(0, ALS_USERS, draw) * ALS_ITEMS
+                                + rng.choice(ALS_ITEMS, draw, p=p)])
+    pairs = pairs[np.sort(rng.choice(len(pairs), ALS_RATINGS, replace=False))]
+    uu, ii = pairs // ALS_ITEMS, pairs % ALS_ITEMS
+    u = rng.normal(0, 1 / np.sqrt(ALS_RANK), (ALS_USERS, ALS_RANK))
+    v = rng.normal(0, 1, (ALS_ITEMS, ALS_RANK))
+    r = 3.0 + np.einsum("nf,nf->n", u[uu], v[ii]) + rng.normal(0, 0.3, len(uu))
+    return uu, ii, r.astype(np.float32)
+
+
+def held_out(uu, seed: int = ALS_SEED + 1):
+    """A mask of 10 % of each patient's ratings (rounded down, at least
+    one of a patient's ratings stays in training)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    order = np.argsort(uu + rng.random(len(uu)))       # patients' ratings shuffled
+    counts = np.bincount(uu)
+    starts = np.r_[0, np.cumsum(counts)[:-1]]
+    pos = np.empty(len(uu), np.int64)
+    pos[order] = np.arange(len(uu)) - starts[uu[order]]
+    return pos < (counts[uu] // 10)
+
+
+def recs_rows(a, b, sa, sb) -> int:
+    """Rows whose top-k ids differ between two routes where the routes'
+    k-th and (k+1)-th scores are further apart than their score gap."""
+    import numpy as np
+
+    gap = float(np.abs(sa - sb).max())
+    diff = np.flatnonzero((a != b).any(axis=1))
+    if diff.size == 0:
+        return 0
+    close = np.abs(np.diff(sb[diff], axis=1)).min(axis=1) <= 2 * gap
+    return int((~close).sum())
+
+
+def als_part(port, card: str) -> None:
+    """Slice 5e's ALS at MovieLens-20M's order of size: 200,000 patients ×
+    5,000 services, 10M ratings, 10 % of each patient's held out; ALS(rank
+    10, max_iter 10, reg 0.1) on the card, recommend_for_all_users(10) (one
+    200,000 × 5,000 product) and the RankingEvaluator on the held-out
+    services; the implicit and NNLS fits on a 1M-rating cut, each card
+    against CPU within limits that the card route on bfloat16-rounded
+    ratings fails."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    uu, ii, rr = als_ratings()
+    hold = held_out(uu)
+    gen_s = time.perf_counter() - t0
+    train = (uu[~hold], ii[~hold], rr[~hold])
+    n_train = int((~hold).sum())
+    als = port.ALS(rank=ALS_RANK, max_iter=10, reg_param=0.1)
+    (m, ops, syncs), fit_s = timed(lambda: count_ops(lambda: als.fit(train, device=DEV)))
+    check(np.isfinite(m.user_factors).all() and np.isfinite(m.item_factors).all(),
+          "ALS factors are not finite")
+    rmse = float(np.sqrt(np.mean((m.predict(uu[hold], ii[hold]) - rr[hold]) ** 2)))
+    spread = float(rr[hold].std())
+    check(rmse < 0.6 * spread, f"ALS held-out RMSE {rmse:.4f} against the ratings' spread "
+          f"{spread:.4f} (the noise is 0.3)")
+    ((ids, scores), rec_s) = timed(lambda: m.recommend_for_all_users(10, device=DEV))
+    check(ids.shape == (ALS_USERS, 10) and np.all(np.diff(scores, axis=1) <= 0),
+          "recommendations are not (200000, 10) in descending order")
+    truth_order = np.argsort(uu[hold], kind="stable")
+    hu, hi = uu[hold][truth_order], ii[hold][truth_order]
+    bounds = np.r_[0, np.cumsum(np.bincount(hu, minlength=ALS_USERS))]
+    truth = [hi[bounds[u]:bounds[u + 1]].tolist() for u in range(ALS_USERS)]
+    preds = ids.tolist()
+    t0 = time.perf_counter()
+    metrics = {name: port.RankingEvaluator(name, k=10).evaluate(preds, truth)
+               for name in ("precisionAtK", "ndcgAtK", "meanAveragePrecision")}
+    eval_s = time.perf_counter() - t0
+    say(f"beyond_phase ALS on {card}: {len(uu)} ratings of {ALS_USERS} patients × {ALS_ITEMS} "
+        f"services ({gen_s:.2f} s to draw), {n_train} in training; "
+        f"{fit_line('fit', fit_s, n_train * 10, 'ratings·iterations', ops, syncs)}; held-out "
+        f"RMSE {rmse:.4f}; recommend_for_all_users(10) {rec_s:.2f} s; RankingEvaluator "
+        f"{json.dumps({k: round(v, 6) for k, v in metrics.items()})} in {eval_s:.2f} s")
+
+    cut = uu < ALS_CUT_USERS
+    cu, ci, cr = uu[cut], ii[cut], rr[cut]
+    lines = []
+    for name, kw, r in (("als", {}, cr), ("als_implicit", {"implicit_prefs": True},
+                                          np.maximum(cr, 0.0)),
+                        ("als_nonnegative", {"nonnegative": True}, cr)):
+        est = port.ALS(rank=ALS_RANK, max_iter=10, reg_param=0.1, **kw)
+        (mc, c_s) = timed(lambda: est.fit((cu, ci, r), device=DEV))
+        # ops and host syncs of one iteration: NNLS runs about 120,000 ops an
+        # iteration, and the counter (about 13 µs an op) would slow a timed fit
+        one = port.ALS(rank=ALS_RANK, max_iter=1, reg_param=0.1, **kw)
+        _, c_ops, c_syncs = count_ops(lambda: one.fit((cu, ci, r), device=DEV))
+        mh = est.fit((cu, ci, r), device="cpu")
+        ml = est.fit((cu, ci, bf16_round(r)), device=DEV)
+        want = mh.predict(cu, ci)
+        ri = {dev: mc.recommend_for_all_users(10, device=dev) for dev in (DEV, "cpu")}
+
+        def gaps_of(x):
+            return {"pred": rel(x.predict(cu, ci), want),
+                    "subspace": subspace_gap(x.user_factors[:ALS_CUT_USERS],
+                                             mh.user_factors[:ALS_CUT_USERS])}
+
+        gaps = {**gaps_of(mc), "recs_rows": recs_rows(ri[DEV][0], ri["cpu"][0], ri[DEV][1],
+                                                      ri["cpu"][1])}
+        text = beyond_gated(name, gaps, gaps_of(ml))
+        lines.append(f"{name} (card fit {c_s:.3f} s, {len(cu) * 10 / c_s:.4g} "
+                     f"ratings·iterations/s; one iteration {c_ops} torch ops, {c_syncs} host "
+                     f"syncs): {text}")
+    say(f"beyond_phase ALS card vs CPU on {int(cut.sum())} ratings of {ALS_CUT_USERS} patients: "
+        + "; ".join(lines))
+
+
+def knn_graph(x, k: int):
+    """(src, dst, weight) of the ``k``-nearest-neighbour graph of the rows
+    ``x`` on the card (squared distances in float64, chunks of rows), with
+    Gaussian weights exp(−d²/2σ²), σ the median neighbour distance."""
+    import numpy as np
+    import torch
+
+    xd = torch.from_numpy(np.asarray(x, np.float64)).to(DEV)
+    sq = (xd * xd).sum(1)
+    nbr, dist = [], []
+    for s in range(0, len(x), 4096):
+        d2 = sq[s:s + 4096, None] - 2 * xd[s:s + 4096] @ xd.T + sq[None, :]
+        d2[torch.arange(d2.shape[0]), torch.arange(s, s + d2.shape[0])] = float("inf")
+        val, idx = torch.sort(d2, dim=1, stable=True)
+        nbr.append(idx[:, :k].cpu().numpy())
+        dist.append(torch.sqrt(torch.clamp(val[:, :k], min=0)).cpu().numpy())
+    dst = np.concatenate(nbr).ravel()
+    d = np.concatenate(dist).ravel()
+    src = np.repeat(np.arange(len(x)), k)
+    sigma = float(np.median(d))
+    return src, dst, np.exp(-(d * d) / (2 * sigma * sigma)).astype(np.float32)
+
+
+def pic_part(port, L, card: str) -> dict:
+    """Slice 5e's PowerIterationClustering: the bundled CSV's 20,000
+    standardized rows as a 10-nearest-neighbour graph (about 200,000 edges),
+    k = 8, 20 iterations; the dense affinity (1.6 GB) on the card, then
+    KMeans on the (20,000, 1) embedding (K1 a Lloyd step, K2 in predict),
+    held to their plain versions at the fit's centers; against the CPU
+    route on the same edges.  → K1 and K2 launches."""
+    import numpy as np
+    import torch
+
+    table = port.read_csv(str(CSV), port.hospital_event_schema())
+    x = table.numeric_matrix(port.FEATURE_COLS)
+    x = (x - x.mean(0)) / x.std(0)
+    (edges, knn_s) = timed(lambda: knn_graph(x, PIC_NEIGHBOURS))
+    src, dst, w = edges
+    pic = port.PowerIterationClustering(k=PIC_K, max_iter=20)
+    before = L.launch_counts()
+    (labels, ops, syncs), fit_s = timed(lambda: count_ops(
+        lambda: pic.assign_clusters(src, dst, w, device=DEV)))
+    after = L.launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    check(launches["fused_lloyd_stats"] >= 2 and launches["fused_assign"] >= 1,
+          f"PIC's KMeans launched {launches} (K1 a Lloyd step, K2 in predict)")
+    emb = {dev: pic.embed(src, dst, w, device=dev) for dev in (DEV, "cpu")}
+    ctl_emb = pic.embed(src, dst, bf16_round(w), device="cpu")
+
+    def cpu_labels_of(v):
+        # assign_clusters' k-means step (Lin & Cohen step 3) on the CPU route
+        ev = v[:, None].astype(np.float32)
+        km = port.KMeans(k=PIC_K, seed=pic.seed, max_iter=40).fit(ev, device="cpu")
+        return km.predict_numpy(ev, device="cpu").astype(np.int64)
+
+    cpu_labels, ctl_labels = cpu_labels_of(emb["cpu"]), cpu_labels_of(ctl_emb)
+    gaps = {"embedding": rel(emb[DEV], emb["cpu"]), "rows": relabelled_rows(cpu_labels, labels)}
+    ctl = {"embedding": rel(ctl_emb, emb["cpu"]), "rows": relabelled_rows(cpu_labels, ctl_labels)}
+    # K1 and K2 against their plain versions on the embedding at the fit's
+    # centers (the same 1-D KMeans, refit on the card)
+    e = emb[DEV][:, None].astype(np.float32)
+    km = port.KMeans(k=PIC_K, seed=pic.seed, max_iter=40).fit(e, device=DEV)
+    xe = torch.from_numpy(e).to(DEV)
+    we = torch.ones(len(e), device=DEV)
+    cen = torch.from_numpy(km.cluster_centers).to(DEV)
+    cv = torch.ones(PIC_K, device=DEV)
+    a, m2 = L.fused_assign(xe, cen, cv)
+    ap, mp = L.fused_assign_plain(xe, cen, cv)
+    s, c, cost = L.fused_lloyd_stats(xe, we, cen, cv)
+    sp, cp, costp = L.fused_lloyd_stats_plain(xe, we, cen, cv)
+    flips = int((a != ap).sum())
+    k1 = {"sums": rel(s.cpu().numpy(), sp.cpu().numpy()),
+          "counts": float((c - cp).abs().sum()), "cost": abs(float(cost) / float(costp) - 1)}
+    check(flips <= len(e) // 1000 and k1["counts"] <= 2 * flips,
+          f"K1/K2 on the PIC embedding: {flips} assignments and counts {k1['counts']} apart")
+    say(f"beyond_phase PIC on {card}: {len(x)} bundled rows → {len(src)} edges of a "
+        f"{PIC_NEIGHBOURS}-NN graph ({knn_s:.2f} s); "
+        f"{fit_line('assign_clusters', fit_s, len(x) * 20, 'node·iterations', ops, syncs)}, "
+        f"K1 {launches['fused_lloyd_stats']}, K2 {launches['fused_assign']}; cluster sizes "
+        f"{np.bincount(labels, minlength=PIC_K).tolist()}; card vs CPU: "
+        f"{beyond_gated('pic', gaps, ctl)}; K2 vs plain at the fit's centers: {flips} "
+        f"assignments differ (min d² {float((m2 - mp).abs().max()):.3g} apart), K1 vs plain: "
+        f"{as_text(k1)}")
+    return {"fused_lloyd_stats": launches["fused_lloyd_stats"],
+            "fused_assign": launches["fused_assign"]}
+
+
+def beyond_phase(port, L, H, card: str) -> dict:
+    """Slices 5d + 5e at full width: the selectors and the indexed
+    categorical tree (K3) on the 2M hospital rows, the clinical-note text
+    stages into LDA, Word2Vec and HashingTF → IDF, DCT, ALS with the
+    ranking evaluators, and PowerIterationClustering (K1, K2 at d = 1).
+    → the launches of its main path."""
+    counts = {"fused_lloyd_stats": 0, "fused_assign": 0, "fused_level_hist": 0}
+    counts["fused_level_hist"] += selectors_part(port, H, card)
+    lap("beyond selectors")
+    text_part(port, card)
+    lap("beyond text")
+    als_part(port, card)
+    lap("beyond als")
+    for k, v in pic_part(port, L, card).items():
+        counts[k] += v
+    lap("beyond pic")
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -4553,6 +5212,11 @@ def main() -> None:
     k_pca = kernel_case(L, TREE_N, 3, 16, 0, seed=12, reps=20)
     for rec, kr in zip(records[:2], k_pca):
         rec["shapes"].append({"n": TREE_N, "d": 3, "k": 16, **{key: kr[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+    # slices 5d + 5e: K1 and K2 at PowerIterationClustering's 1-D KMeans
+    k_pic = kernel_case(L, 20_000, 1, PIC_K, 0, seed=13, reps=50)
+    for rec, kr in zip(records[:2], k_pic):
+        rec["shapes"].append({"n": 20_000, "d": 1, "k": PIC_K, **{key: kr[key] for key in (
             "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
     kernel_case(L, 1_000_003, D, 16, 3, seed=2, reps=10, dup=True)
     kernel_case(L, 1_000_000, 64, 1024, 0, seed=3, reps=5)
@@ -4719,12 +5383,18 @@ def main() -> None:
     for name, v in features_phase(port, L, H, card).items():
         counts[name] += v
 
+    # ------- slices 5d + 5e: selectors, text, LDA, Word2Vec, ALS, PIC,
+    # feeding a categorical tree (K3) and PIC's 1-D KMeans (K1, K2)
+    for name, v in beyond_phase(port, L, H, card).items():
+        counts[name] += v
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
         f"classification_phase {sum(v for k, v in PHASE_S.items() if k.startswith('cls ')):.2f}; "
         f"families_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fam ')):.2f}; "
-        f"features_phase {sum(v for k, v in PHASE_S.items() if k.startswith('feat ')):.2f}")
+        f"features_phase {sum(v for k, v in PHASE_S.items() if k.startswith('feat ')):.2f}; "
+        f"beyond_phase {sum(v for k, v in PHASE_S.items() if k.startswith('beyond ')):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:
         rec["launches"] = counts[rec["name"]]

@@ -51,7 +51,20 @@ the fused path to the JAX package's host route (interpreter, ``na_drop``,
 ``VectorAssembler``), because the JAX package's own fused assembly
 imports ``jax.experimental.enable_x64``, which some jax versions lack.
 On a card, ``chip_smoke.features_phase(port, L, H, card)`` runs the slice
-alone after ``ops._build.build()``.
+alone after ``ops._build.build()``.  Slices 5d and 5e add the selectors
+(VectorIndexer, UnivariateFeatureSelector, ChiSqSelector,
+VarianceThresholdSelector), the LSH families, the text stages (Tokenizer
+… CountVectorizer, HashingTF, IDF, DCT), Word2Vec and FeatureHasher, ALS
+with RankingEvaluator and MultilabelClassificationEvaluator, LDA,
+PowerIterationClustering, FPGrowth and PrefixSpan.  Where the JAX package
+computes in numpy the port does too and takes no ``device=``; the fits and
+transforms it computes in jax run on ``device=`` here (default the card).
+Their CPU tests: ``python -m pytest tests/test_torch_selectors.py
+tests/test_torch_lsh.py tests/test_torch_text.py tests/test_torch_word2vec.py
+tests/test_torch_als.py tests/test_torch_lda_pic.py tests/test_torch_fpm.py
+tests/test_torch_ranking_eval.py``; on a card,
+``chip_smoke.beyond_phase(port, L, H, card)`` runs them alone after
+``ops._build.build()``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
@@ -69,6 +82,16 @@ from .convert import (
     rformula_model_from_jax_arrays,
     robust_scaler_model_from_jax_arrays,
     string_indexer_model_from_jax_arrays,
+    als_model_from_jax_arrays,
+    bucketed_random_projection_lsh_model_from_jax_arrays,
+    count_vectorizer_model_from_jax_arrays,
+    idf_model_from_jax_arrays,
+    lda_model_from_jax_arrays,
+    minhash_lsh_model_from_jax_arrays,
+    univariate_feature_selector_model_from_jax_arrays,
+    variance_threshold_selector_model_from_jax_arrays,
+    vector_indexer_model_from_jax_arrays,
+    word2vec_model_from_jax_arrays,
     aft_model_from_jax_arrays,
     fm_model_from_jax_arrays,
     glm_model_from_jax_arrays,
@@ -99,13 +122,24 @@ from .device import resolve_device
 from .evaluation.binary import BinaryClassificationEvaluator, binary_curves
 from .evaluation.classification import MulticlassClassificationEvaluator
 from .evaluation.clustering import ClusteringEvaluator
+from .evaluation.ranking import MultilabelClassificationEvaluator, RankingEvaluator
 from .evaluation.regression import RegressionEvaluator
 from .features import (
+    DCT,
+    IDF,
     PCA,
     AssembledTable,
     Binarizer,
     Bucketizer,
+    BucketedRandomProjectionLSH,
+    BucketedRandomProjectionLSHModel,
+    ChiSqSelector,
+    CountVectorizer,
+    CountVectorizerModel,
     ElementwiseProduct,
+    FeatureHasher,
+    HashingTF,
+    IDFModel,
     Imputer,
     ImputerModel,
     IndexToString,
@@ -113,13 +147,17 @@ from .features import (
     MaxAbsScaler,
     MaxAbsScalerModel,
     MinMaxScaler,
+    MinHashLSH,
+    MinHashLSHModel,
     MinMaxScalerModel,
+    NGram,
     Normalizer,
     OneHotEncoder,
     OneHotEncoderModel,
     PCAModel,
     PolynomialExpansion,
     QuantileDiscretizer,
+    RegexTokenizer,
     RFormula,
     RFormulaModel,
     RobustScaler,
@@ -127,20 +165,32 @@ from .features import (
     SQLTransformer,
     StandardScaler,
     StandardScalerModel,
+    StopWordsRemover,
     StringIndexer,
     StringIndexerModel,
+    Tokenizer,
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
     VectorAssembler,
+    VectorIndexer,
+    VectorIndexerModel,
     VectorSizeHint,
     VectorSlicer,
+    Word2Vec,
+    Word2VecModel,
 )
 from .io.csv import read_csv, read_csv_dir, write_csv
 from .io.libsvm import read_libsvm, write_libsvm
 from .io.fit_checkpoint import FitCheckpointer
 from .io.model_io import CorruptArtifactError, load_model
 from .models.aft import AFTSurvivalRegression, AFTSurvivalRegressionModel
+from .models.als import ALS, ALSModel
 from .models.base import PredictionResult
 from .models.bisecting_kmeans import BisectingKMeans, BisectingKMeansModel
 from .models.fm import FMClassifier, FMModel, FMRegressor
+from .models.fpm import FPGrowth, FPGrowthModel, PrefixSpan
 from .models.glm import (
     GeneralizedLinearRegression,
     GeneralizedLinearRegressionModel,
@@ -149,6 +199,7 @@ from .models.glm import (
 from .models.gmm import GaussianMixture, GaussianMixtureModel
 from .models.isotonic import IsotonicRegression, IsotonicRegressionModel
 from .models.kmeans import KMeans, KMeansModel
+from .models.lda import LDA, LDAModel
 from .models.linear_regression import LinearRegression, LinearRegressionModel
 from .models.linear_svc import LinearSVC, LinearSVCModel
 from .models.logistic_regression import (
@@ -159,6 +210,7 @@ from .models.logistic_regression import (
 from .models.mlp import MultilayerPerceptronClassifier, MultilayerPerceptronModel
 from .models.naive_bayes import NaiveBayes, NaiveBayesModel
 from .models.one_vs_rest import OneVsRest, OneVsRestModel
+from .models.pic import PowerIterationClustering
 from .models.summary import (
     BinaryLogisticRegressionTrainingSummary,
     MulticlassLogisticRegressionTrainingSummary,
@@ -274,4 +326,20 @@ __all__ = [
     "one_hot_encoder_model_from_jax_arrays", "pca_model_from_jax_arrays", "read_libsvm",
     "rformula_model_from_jax_arrays", "robust_scaler_model_from_jax_arrays",
     "string_indexer_model_from_jax_arrays", "write_libsvm",
+    # slices 5d + 5e
+    "ALS", "ALSModel", "BucketedRandomProjectionLSH", "BucketedRandomProjectionLSHModel",
+    "ChiSqSelector", "CountVectorizer", "CountVectorizerModel", "DCT", "FPGrowth",
+    "FPGrowthModel", "FeatureHasher", "HashingTF", "IDF", "IDFModel", "LDA", "LDAModel",
+    "MinHashLSH", "MinHashLSHModel", "MultilabelClassificationEvaluator", "NGram",
+    "PowerIterationClustering", "PrefixSpan", "RankingEvaluator", "RegexTokenizer",
+    "StopWordsRemover", "Tokenizer", "UnivariateFeatureSelector",
+    "UnivariateFeatureSelectorModel", "VarianceThresholdSelector",
+    "VarianceThresholdSelectorModel", "VectorIndexer", "VectorIndexerModel", "Word2Vec",
+    "Word2VecModel", "als_model_from_jax_arrays",
+    "bucketed_random_projection_lsh_model_from_jax_arrays",
+    "count_vectorizer_model_from_jax_arrays", "idf_model_from_jax_arrays",
+    "lda_model_from_jax_arrays", "minhash_lsh_model_from_jax_arrays",
+    "univariate_feature_selector_model_from_jax_arrays",
+    "variance_threshold_selector_model_from_jax_arrays",
+    "vector_indexer_model_from_jax_arrays", "word2vec_model_from_jax_arrays",
 ]

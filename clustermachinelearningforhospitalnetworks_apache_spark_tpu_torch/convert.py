@@ -22,19 +22,29 @@ import torch
 
 from .features.imputer import ImputerModel
 from .features.indexer import StringIndexerModel
+from .features.lsh import BucketedRandomProjectionLSHModel, MinHashLSHModel
 from .features.minmax import MinMaxScalerModel
 from .features.onehot import OneHotEncoderModel
 from .features.pca import PCAModel
 from .features.rformula import RFormulaModel
 from .features.robust import MaxAbsScalerModel, RobustScalerModel
 from .features.scaler import StandardScalerModel
+from .features.selector import (
+    UnivariateFeatureSelectorModel,
+    VarianceThresholdSelectorModel,
+    VectorIndexerModel,
+)
+from .features.text import CountVectorizerModel, IDFModel
+from .features.word2vec import Word2VecModel
 from .models.aft import AFTSurvivalRegressionModel
+from .models.als import ALSModel
 from .models.bisecting_kmeans import BisectingKMeansModel
 from .models.fm import FMModel
 from .models.glm import GeneralizedLinearRegressionModel
 from .models.gmm import GaussianMixtureModel
 from .models.isotonic import IsotonicRegressionModel
 from .models.kmeans import KMeansModel
+from .models.lda import LDAModel
 from .models.linear_regression import LinearRegressionModel
 from .models.linear_svc import LinearSVCModel
 from .models.logistic_regression import (
@@ -339,3 +349,77 @@ def rformula_model_from_jax_arrays(*, label: str, terms, levels, label_levels=()
     return RFormulaModel.from_artifacts(
         {"label": label, "terms": terms, "levels": levels, "label_levels": label_levels,
          "feature_names": feature_names}, {})
+
+
+# ------------------------- slices 5d + 5e: selectors, LSH, text, ALS, LDA
+
+def vector_indexer_model_from_jax_arrays(*, num_features: int, category_maps,
+                                         handle_invalid: str = "error") -> VectorIndexerModel:
+    """A port :class:`VectorIndexerModel` with the JAX model's category maps
+    (its ``_artifacts()`` params: string feature keys, value lists)."""
+    return VectorIndexerModel.from_artifacts(
+        {"num_features": num_features, "category_maps": category_maps,
+         "handle_invalid": handle_invalid}, {})
+
+
+def univariate_feature_selector_model_from_jax_arrays(*, selected
+                                                      ) -> UnivariateFeatureSelectorModel:
+    """A port :class:`UnivariateFeatureSelectorModel` with the JAX model's
+    selected feature indices."""
+    return UnivariateFeatureSelectorModel.from_artifacts({"selected": selected}, {})
+
+
+def variance_threshold_selector_model_from_jax_arrays(*, selected
+                                                      ) -> VarianceThresholdSelectorModel:
+    """A port :class:`VarianceThresholdSelectorModel` with the JAX model's
+    selected feature indices."""
+    return VarianceThresholdSelectorModel.from_artifacts({"selected": selected}, {})
+
+
+def bucketed_random_projection_lsh_model_from_jax_arrays(
+        projections, *, bucket_length: float) -> BucketedRandomProjectionLSHModel:
+    """A port :class:`BucketedRandomProjectionLSHModel` with the JAX model's
+    projections (as saved: float32, widened to float64 as a load does)."""
+    return BucketedRandomProjectionLSHModel.from_artifacts(
+        {"bucket_length": bucket_length}, {"projections": projections})
+
+
+def minhash_lsh_model_from_jax_arrays(coef_a, coef_b) -> MinHashLSHModel:
+    """A port :class:`MinHashLSHModel` with the JAX model's hash
+    coefficients."""
+    return MinHashLSHModel.from_artifacts({}, {"coef_a": coef_a, "coef_b": coef_b})
+
+
+def count_vectorizer_model_from_jax_arrays(*, vocabulary, binary: bool = False,
+                                           min_tf: float = 1.0) -> CountVectorizerModel:
+    """A port :class:`CountVectorizerModel` with the JAX model's vocabulary."""
+    return CountVectorizerModel.from_artifacts(
+        {"vocabulary": vocabulary, "binary": binary, "min_tf": min_tf}, {})
+
+
+def idf_model_from_jax_arrays(idf) -> IDFModel:
+    """A port :class:`IDFModel` with the JAX model's idf weights."""
+    return IDFModel.from_artifacts({}, {"idf": np.asarray(idf)})
+
+
+def word2vec_model_from_jax_arrays(vectors, *, vocabulary) -> Word2VecModel:
+    """A port :class:`Word2VecModel` with the JAX model's vocabulary and
+    vectors."""
+    return Word2VecModel.from_artifacts({"vocabulary": vocabulary},
+                                        {"vectors": np.asarray(vectors)})
+
+
+def als_model_from_jax_arrays(user_factors, item_factors, *,
+                              cold_start_strategy: str = "nan") -> ALSModel:
+    """A port :class:`ALSModel` with the JAX model's factors."""
+    return ALSModel.from_artifacts({"cold_start_strategy": cold_start_strategy},
+                                   {"user_factors": np.asarray(user_factors),
+                                    "item_factors": np.asarray(item_factors)})
+
+
+def lda_model_from_jax_arrays(lam, *, alpha: float, eta: float, n_docs_trained: float = 0.0,
+                              e_step_sweeps: int = 50) -> LDAModel:
+    """A port :class:`LDAModel` with the JAX model's topic-word λ."""
+    return LDAModel.from_artifacts(
+        {"alpha": alpha, "eta": eta, "n_docs_trained": n_docs_trained,
+         "e_step_sweeps": e_step_sweeps}, {"lam": np.asarray(lam)})

@@ -3,9 +3,11 @@
 from .binary import BinaryClassificationEvaluator, binary_curves
 from .classification import MulticlassClassificationEvaluator
 from .clustering import ClusteringEvaluator, inertia
+from .ranking import MultilabelClassificationEvaluator, RankingEvaluator
 from .regression import RegressionEvaluator
 
 __all__ = [
     "BinaryClassificationEvaluator", "ClusteringEvaluator", "MulticlassClassificationEvaluator",
-    "RegressionEvaluator", "binary_curves", "inertia",
+    "MultilabelClassificationEvaluator", "RankingEvaluator", "RegressionEvaluator",
+    "binary_curves", "inertia",
 ]

@@ -10,7 +10,10 @@ OneHotEncoder, Imputer, IndexToString, RFormula, VectorSizeHint) are host
 numpy over a host Table, as in the JAX package; SQLTransformer runs its
 statement through ``core.sql.execute``.  ``VectorAssembler`` stacks a
 Table's columns on the host, or a compiled query's columns on the device
-(``transform_device``)."""
+(``transform_device``).  VectorIndexer, the LSH families, the text stages
+(Tokenizer … CountVectorizer, HashingTF, IDF's fit) and FeatureHasher are
+host numpy and take no ``device=``; the selectors' fits, IDFModel on a
+tensor, DCT and Word2Vec's fit run on ``device`` (default the card)."""
 
 from .assembler import AssembledTable, VectorAssembler
 from .binarizer import Binarizer
@@ -18,6 +21,12 @@ from .bucketizer import Bucketizer
 from .discretizer import QuantileDiscretizer
 from .imputer import Imputer, ImputerModel
 from .indexer import StringIndexer, StringIndexerModel
+from .lsh import (
+    BucketedRandomProjectionLSH,
+    BucketedRandomProjectionLSHModel,
+    MinHashLSH,
+    MinHashLSHModel,
+)
 from .minmax import MinMaxScaler, MinMaxScalerModel
 from .normalizer import IndexToString, Normalizer, PolynomialExpansion
 from .onehot import OneHotEncoder, OneHotEncoderModel
@@ -25,8 +34,30 @@ from .pca import PCA, PCAModel
 from .rformula import RFormula, RFormulaModel, VectorSizeHint
 from .robust import MaxAbsScaler, MaxAbsScalerModel, RobustScaler, RobustScalerModel
 from .scaler import StandardScaler, StandardScalerModel
+from .selector import (
+    ChiSqSelector,
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+    VectorIndexer,
+    VectorIndexerModel,
+)
 from .sql_transformer import SQLTransformer
+from .text import (
+    DCT,
+    IDF,
+    CountVectorizer,
+    CountVectorizerModel,
+    HashingTF,
+    IDFModel,
+    NGram,
+    RegexTokenizer,
+    StopWordsRemover,
+    Tokenizer,
+)
 from .vector_ops import ElementwiseProduct, Interaction, VectorSlicer
+from .word2vec import FeatureHasher, Word2Vec, Word2VecModel
 
 __all__ = [
     "AssembledTable", "Binarizer", "Bucketizer", "ElementwiseProduct", "Imputer",
@@ -36,4 +67,11 @@ __all__ = [
     "RFormulaModel", "RobustScaler", "RobustScalerModel", "SQLTransformer", "StandardScaler",
     "StandardScalerModel", "StringIndexer", "StringIndexerModel", "VectorAssembler",
     "VectorSizeHint", "VectorSlicer",
+    # slice 5d
+    "BucketedRandomProjectionLSH", "BucketedRandomProjectionLSHModel", "ChiSqSelector",
+    "CountVectorizer", "CountVectorizerModel", "DCT", "FeatureHasher", "HashingTF", "IDF",
+    "IDFModel", "MinHashLSH", "MinHashLSHModel", "NGram", "RegexTokenizer", "StopWordsRemover",
+    "Tokenizer", "UnivariateFeatureSelector", "UnivariateFeatureSelectorModel",
+    "VarianceThresholdSelector", "VarianceThresholdSelectorModel", "VectorIndexer",
+    "VectorIndexerModel", "Word2Vec", "Word2VecModel",
 ]

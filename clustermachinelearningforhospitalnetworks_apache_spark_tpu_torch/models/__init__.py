@@ -1,9 +1,11 @@
 """Estimators and models."""
 
 from .aft import AFTSurvivalRegression, AFTSurvivalRegressionModel
+from .als import ALS, ALSModel
 from .base import Estimator, Model, PredictionResult, as_device_dataset
 from .bisecting_kmeans import BisectingKMeans, BisectingKMeansModel
 from .fm import FMClassifier, FMModel, FMRegressor
+from .fpm import FPGrowth, FPGrowthModel, PrefixSpan
 from .glm import (
     GeneralizedLinearRegression,
     GeneralizedLinearRegressionModel,
@@ -12,6 +14,7 @@ from .glm import (
 from .gmm import GaussianMixture, GaussianMixtureModel
 from .isotonic import IsotonicRegression, IsotonicRegressionModel
 from .kmeans import KMeans, KMeansModel
+from .lda import LDA, LDAModel
 from .linear_regression import LinearRegression, LinearRegressionModel
 from .linear_svc import LinearSVC, LinearSVCModel
 from .logistic_regression import (
@@ -22,6 +25,7 @@ from .logistic_regression import (
 from .mlp import MultilayerPerceptronClassifier, MultilayerPerceptronModel
 from .naive_bayes import NaiveBayes, NaiveBayesModel
 from .one_vs_rest import OneVsRest, OneVsRestModel
+from .pic import PowerIterationClustering
 from .streaming_kmeans import StreamingKMeans, StreamingKMeansModel
 from .streaming_linear import StreamingLinearRegression, StreamingLogisticRegression
 from .summary import (
@@ -56,4 +60,7 @@ __all__ = [
     "RandomForestClassifier", "RandomForestModel", "RandomForestRegressor", "StreamingKMeans",
     "StreamingKMeansModel", "StreamingLinearRegression", "StreamingLogisticRegression",
     "as_device_dataset",
+    # slice 5e
+    "ALS", "ALSModel", "FPGrowth", "FPGrowthModel", "LDA", "LDAModel",
+    "PowerIterationClustering", "PrefixSpan",
 ]

@@ -914,3 +914,157 @@ def test_slice_5c_pipeline_crosses_packages(writer, tmp_path):
         got = np.asarray(loaded.transform(jt).to_numpy()[0])
         want = pm.transform(pt_, device="cpu").to_numpy()[0]
     np.testing.assert_array_equal(got, want)
+
+
+# ------------------------------------------- slices 5d + 5e: the new tags
+
+def _docs_5de(n=120, seed=41):
+    rng = np.random.default_rng(seed)
+    topics = [[f"t{t}w{i}" for i in range(10)] for t in range(3)]
+    return [list(rng.choice(topics[int(rng.integers(3))], 12)) + ["the", "of"]
+            for _ in range(n)]
+
+
+def _ratings_5de(seed=42):
+    rng = np.random.default_rng(seed)
+    mask = rng.uniform(size=(30, 20)) < 0.4
+    uu, ii = np.nonzero(mask)
+    return uu, ii, rng.normal(3.0, 1.0, len(uu)).astype(np.float32)
+
+
+def _stage_5de(pkg, kind: str):
+    """A slice-5d/5e stage or model of ``kind`` built (and fitted) by
+    ``pkg``."""
+    on = {} if pkg is J else {"device": "cpu"}
+    cols = _rows_5c()
+    x = np.nan_to_num(np.stack([cols[c] for c in FEATURE_COLS_5C], 1))
+    cols["LOS_binary"] = (cols["length_of_stay"] > 4.0).astype(np.float64)
+    asm = pkg.VectorAssembler(list(FEATURE_COLS_5C)).transform(
+        pkg.Table.from_dict({**cols, "seasonality_index": x[:, 3]}))
+    docs = _docs_5de()
+    counts = J.CountVectorizer().fit(docs).transform(docs)
+    return {
+        "VectorIndexerModel": lambda: pkg.VectorIndexer(30, "keep").fit(asm),
+        "UnivariateFeatureSelectorModel": lambda: pkg.UnivariateFeatureSelector(
+            selection_threshold=2).fit(asm, **on),
+        "VarianceThresholdSelectorModel": lambda: pkg.VarianceThresholdSelector(1.0).fit(x),
+        "BucketedRandomProjectionLSHModel": lambda: pkg.BucketedRandomProjectionLSH(
+            4.0, 3, seed=5).fit(x),
+        "MinHashLSHModel": lambda: pkg.MinHashLSH(3, seed=5).fit((x > 20).astype(float) + 0),
+        "Tokenizer": lambda: pkg.Tokenizer(),
+        "RegexTokenizer": lambda: pkg.RegexTokenizer(r"\w+", gaps=False, min_token_length=2),
+        "StopWordsRemover": lambda: pkg.StopWordsRemover(("the", "Of"), case_sensitive=True),
+        "NGram": lambda: pkg.NGram(3),
+        "CountVectorizerModel": lambda: pkg.CountVectorizer(min_df=2.0, min_tf=0.1).fit(docs),
+        "HashingTF": lambda: pkg.HashingTF(64, binary=True),
+        "IDFModel": lambda: pkg.IDF(2).fit(counts),
+        "DCT": lambda: pkg.DCT(inverse=True),
+        "Word2VecModel": lambda: pkg.Word2Vec(vector_size=8, min_count=2, batch_size=128).fit(
+            docs, **on),
+        "FeatureHasher": lambda: pkg.FeatureHasher(32),
+        "ALSModel": lambda: pkg.ALS(rank=3, max_iter=3, cold_start_strategy="drop").fit(
+            _ratings_5de(), **on),
+        "LDAModel": lambda: pkg.LDA(k=3, max_iter=3, e_step_sweeps=20).fit(counts, **on),
+        "FPGrowthModel": lambda: pkg.FPGrowth(0.2, 0.5).fit([d[:4] for d in docs]),
+    }[kind]()
+
+
+KINDS_5DE = ["VectorIndexerModel", "UnivariateFeatureSelectorModel",
+             "VarianceThresholdSelectorModel", "BucketedRandomProjectionLSHModel",
+             "MinHashLSHModel", "Tokenizer", "RegexTokenizer", "StopWordsRemover", "NGram",
+             "CountVectorizerModel", "HashingTF", "IDFModel", "DCT", "Word2VecModel",
+             "FeatureHasher", "ALSModel", "LDAModel", "FPGrowthModel"]
+
+
+def _same_output_5de(kind: str, pm, jm):
+    """The port stage ``pm`` and the JAX stage ``jm`` give equal outputs
+    (within the parity tests' limits where a device computes)."""
+    docs = _docs_5de(30, seed=43)
+    x = np.nan_to_num(np.stack([_rows_5c(60, 44)[c] for c in FEATURE_COLS_5C], 1))
+    if kind in ("Tokenizer", "RegexTokenizer"):
+        texts = np.asarray([" ".join(d) + " The, OF!" for d in docs], dtype=object)
+        assert [list(r) for r in pm.transform(texts)] == [list(r) for r in jm.transform(texts)]
+    elif kind in ("StopWordsRemover", "NGram"):
+        assert [list(r) for r in pm.transform(docs)] == [list(r) for r in jm.transform(docs)]
+    elif kind in ("CountVectorizerModel", "HashingTF", "Word2VecModel"):
+        np.testing.assert_array_equal(pm.transform(docs), jm.transform(docs))
+    elif kind == "FeatureHasher":
+        rows = [{"h": f"H{i % 3}", "v": float(i)} for i in range(10)]
+        np.testing.assert_array_equal(pm.transform(rows), jm.transform(rows))
+    elif kind == "IDFModel":
+        tf = np.abs(np.round(np.random.default_rng(1).normal(size=(5, len(pm.idf)))))
+        np.testing.assert_array_equal(pm.transform(tf), np.asarray(jm.transform(tf)))
+    elif kind == "DCT":
+        np.testing.assert_allclose(pm.transform(x, device="cpu").numpy(),
+                                   np.asarray(jm.transform(x)), atol=2e-6 * np.abs(x).max())
+    elif kind in ("BucketedRandomProjectionLSHModel", "MinHashLSHModel"):
+        xs = (x > 20).astype(float) if kind == "MinHashLSHModel" else x
+        np.testing.assert_array_equal(pm.hash_matrix(xs), jm.hash_matrix(xs))
+    elif kind == "ALSModel":
+        uu, ii, _ = _ratings_5de()
+        np.testing.assert_array_equal(pm.predict(uu, ii), jm.predict(uu, ii))
+        for g, w in zip(pm.recommend_for_all_users(4, device="cpu"),
+                        jm.recommend_for_all_users(4)):
+            np.testing.assert_array_equal(g, np.asarray(w))
+    elif kind == "LDAModel":
+        counts = J.CountVectorizer().fit(_docs_5de()).transform(docs)
+        np.testing.assert_allclose(pm.transform(counts, device="cpu"), jm.transform(counts),
+                                   atol=1e-6)
+        assert [list(i) for i, _ in pm.describe_topics(5)] == \
+            [list(i) for i, _ in jm.describe_topics(5)]
+    elif kind == "FPGrowthModel":
+        assert pm.transform(docs) == jm.transform(docs)
+        assert pm.association_rules == jm.association_rules
+    else:   # the indexer and the selectors: host numpy on a matrix
+        np.testing.assert_array_equal(pm.transform(x), jm.transform(x))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("kind", KINDS_5DE)
+def test_slice_5de_artifacts_cross_and_resave_to_the_same_bytes(kind, writer, tmp_path):
+    first, other = (J, P) if writer == "jax" else (P, J)
+    model = _stage_5de(first, kind)
+    (j_io if first is J else p_io).save_model(str(tmp_path / "a"), *model._artifacts())
+    loaded = other.load_model(str(tmp_path / "a"))
+    assert type(loaded).__name__ == type(model).__name__
+    (p_io if other is P else j_io).save_model(str(tmp_path / "b"), *loaded._artifacts())
+    _assert_same_files(str(tmp_path / "a"), str(tmp_path / "b"))
+    pm, jm = (loaded, model) if writer == "jax" else (model, loaded)
+    _same_output_5de(kind, pm, jm)
+
+
+@pytest.mark.parametrize("kind", KINDS_5DE)
+def test_slice_5de_port_artifacts_have_the_reference_keys_dtypes_and_types(kind):
+    jname, jparams, jarrays = _stage_5de(J, kind)._artifacts()
+    pname, pparams, parrays = _stage_5de(P, kind)._artifacts()
+    assert pname == jname
+    assert pparams == jparams
+    assert {k: (v.dtype, v.shape) for k, v in parrays.items()} == \
+        {k: (np.asarray(v).dtype, np.asarray(v).shape) for k, v in jarrays.items()}
+
+
+BRIDGES_5DE = {
+    "VectorIndexerModel": P.vector_indexer_model_from_jax_arrays,
+    "UnivariateFeatureSelectorModel": P.univariate_feature_selector_model_from_jax_arrays,
+    "VarianceThresholdSelectorModel": P.variance_threshold_selector_model_from_jax_arrays,
+    "BucketedRandomProjectionLSHModel": P.bucketed_random_projection_lsh_model_from_jax_arrays,
+    "MinHashLSHModel": P.minhash_lsh_model_from_jax_arrays,
+    "CountVectorizerModel": P.count_vectorizer_model_from_jax_arrays,
+    "IDFModel": P.idf_model_from_jax_arrays,
+    "Word2VecModel": P.word2vec_model_from_jax_arrays,
+    "ALSModel": P.als_model_from_jax_arrays,
+    "LDAModel": P.lda_model_from_jax_arrays,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BRIDGES_5DE))
+def test_slice_5de_in_memory_bridge_carries_the_jax_model(kind, tmp_path):
+    jm = _stage_5de(J, kind)
+    _, params, arrays = jm._artifacts()
+    pm = BRIDGES_5DE[kind](**arrays, **params)
+    assert type(pm).__name__ == kind
+    assert pm._artifacts()[1] == params
+    _same_output_5de(kind, pm, jm)
+    j_io.save_model(str(tmp_path / "j"), *jm._artifacts())
+    p_io.save_model(str(tmp_path / "p"), *pm._artifacts())
+    _assert_same_files(str(tmp_path / "j"), str(tmp_path / "p"))
