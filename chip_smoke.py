@@ -5140,6 +5140,417 @@ def beyond_phase(port, L, H, card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------ slice 6: views and history
+VIEW_N = 400_000                          # rows a hospital: 2M rows over the whole day
+VIEW_BATCHES = 40                         # bench.py _bench_sql_incremental: 50,000 rows a drop
+VIEW_KILL_BATCHES = 8                     # the kill-and-resume leg's fresh table
+VIEW_KILL_AT = 5
+WINDOW_SPAN = ("2025-03-31 12:00:00", "2025-03-31 18:00:00")
+HIST_BATCHES = 400                        # bench.py _bench_sql_history: 4 → 400 hourly batches
+HIST_ROWS = 5_000                         # bench's 256 rows a batch, raised: 2M rows in all
+HIST_REPS = 9
+FUZZ_SEEDS = (0, 1, 2)
+HOSP_Q = ("SELECT hospital_id, count(*) AS n, sum(admission_count) AS adm, "
+          "avg(current_occupancy) AS occ, max(length_of_stay) AS los_max "
+          "FROM events GROUP BY hospital_id")
+WINDOW_Q = (f"SELECT * FROM events WHERE event_time BETWEEN '{WINDOW_SPAN[0]}' "
+            f"AND '{WINDOW_SPAN[1]}'")
+
+
+def first_unequal_column(x, y) -> str | None:
+    """The first column in which two tables differ in dtype or in any byte
+    (object columns by value), else None."""
+    for c in x.columns:
+        a, b = x.column(c), y.column(c)
+        same = a.tolist() == b.tolist() if a.dtype == object else a.tobytes() == b.tobytes()
+        if a.dtype != b.dtype or not same:
+            return c
+    return None
+
+
+def median_p90(xs) -> str:
+    import numpy as np
+
+    return f"median {np.median(xs):.2f} / p90 {np.percentile(xs, 90):.2f}"
+
+
+def view_stream(port, root: str, views):
+    """A StreamExecution over ``root`` with a 2-hour watermark on
+    ``event_time`` and the registry ``views``, fed by the caller one CSV
+    drop at a time (``drop``)."""
+    os.makedirs(os.path.join(root, "incoming"), exist_ok=True)
+    return port.StreamExecution(
+        source=port.FileStreamSource(os.path.join(root, "incoming"),
+                                     port.hospital_event_schema()),
+        sink=port.UnboundedTable(os.path.join(root, "table"), port.hospital_event_schema(),
+                                 name="events"),
+        checkpoint=port.StreamCheckpoint(os.path.join(root, "ckpt")),
+        watermark=port.WatermarkTracker("event_time", 120.0),
+        views=views, device=DEV)
+
+
+def drop(drops: str, root: str, b: int) -> None:
+    """Drop ``b`` (written once into ``drops``) into ``root``'s incoming
+    directory: a hard link, so the two streams below read one file."""
+    name = f"drop-{b:03d}.csv"
+    os.link(os.path.join(drops, name), os.path.join(root, "incoming", name))
+
+
+def views_part(port, tmp: str, drops: str, bounds) -> dict:
+    """The two views over the stream: 40 drops through ``Session.read_stream``
+    with a 2-hour watermark; each view against the port's interpreter on
+    the same snapshot after batches 0-3, every 10th and the last; both
+    queries served by route "view"; the compaction; per-batch maintain,
+    serve and full-recompute times.  → the session's last snapshot and
+    the train_window view's rows."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_fuzz import (
+        compare_tables,
+    )
+
+    os.makedirs(os.path.join(tmp, "incoming"))
+    s = port.Session(device=DEV)
+    try:
+        sdf = (s.read_stream.schema(port.hospital_event_schema())
+               .csv(os.path.join(tmp, "incoming")).with_watermark("event_time", "2 hours"))
+        q = sdf.write_stream.option("checkpointLocation", os.path.join(tmp, "ckpt")).table(
+            "events")
+        views = {"hospital_stats": s.create_view("hospital_stats", HOSP_Q,
+                                                 watermark=sdf.watermark),
+                 "train_window": s.create_view("train_window", WINDOW_Q)}
+        maintain = s.views.maintain
+        maintain_ms: list[float] = []
+
+        def timed_maintain(*a, **k):
+            t0 = time.perf_counter()
+            out = maintain(*a, **k)
+            sync()
+            maintain_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        s.views.maintain = timed_maintain
+        checked = []
+        for b, (lo, hi) in enumerate(bounds):
+            drop(drops, tmp, b)
+            infos = q.process_available()
+            check(len(infos) == 1 and infos[0].num_late_rows == 0
+                  and infos[0].num_appended_rows == hi - lo,
+                  f"drop {b}: {[(i.num_appended_rows, i.num_late_rows) for i in infos]}")
+            if b < 4 or (b + 1) % 10 == 0 or b == len(bounds) - 1:
+                snap = s.table("events")
+                for name, v in views.items():
+                    want = sql.execute(v.query, lambda _n, t=snap: t, mode="interpret")
+                    bad = compare_tables(want, v.read())
+                    check(bad is None, f"view {name} after batch {b}: {bad}")
+                checked.append(b)
+        check(len(maintain_ms) == len(bounds), f"{len(maintain_ms)} maintenances timed")
+        s.views.maintain = maintain
+        snap = s.table("events")
+        serve_ms = {}
+        for name, v in views.items():
+            ms = []
+            for _ in range(3):
+                out, t = host_ms(lambda: s.sql(v.query))
+                ms.append(t)
+                d = sql.last_dispatch()
+                check(d.route == "view", f"Session.sql of {name} took route {d.route}")
+            serve_ms[name] = float(np.median(ms))
+        full_ms = {}
+        for name, v in views.items():
+            cold = snap.mask(np.ones(len(snap), dtype=bool))   # no device columns yet
+            out1, first = host_ms(lambda: sql.execute(v.query, lambda _n: cold,
+                                                      mode="compile", device=DEV))
+            out2, again = host_ms(lambda: sql.execute(v.query, lambda _n: cold,
+                                                      mode="compile", device=DEV))
+            full_ms[name] = (first, again)
+            c = first_unequal_column(out1, out2)
+            check(c is None, f"two compiled runs of {name} on the card differ in {c}")
+        d = views["hospital_stats"].describe()
+        check(d["incremental"] and d["compacted_upto"] is not None,
+              f"hospital_stats was not compacted: {d}")
+        check(views["train_window"].describe()["incremental"], "train_window is not incremental")
+        errs = q.execution.metrics.snapshot()["counters"].get("stream.view_maintain_errors", 0)
+        check(errs == 0, f"stream.view_maintain_errors {errs}")
+        early, late = maintain_ms[:8], maintain_ms[-8:]
+        say(f"views: {len(bounds)} drops x {bounds[0][1] - bounds[0][0]} rows through "
+            f"Session.read_stream (2-hour watermark) into {len(snap)} rows; hospital_stats and "
+            f"train_window == the interpreter (rtol 1e-9) after batches {checked}; maintain "
+            f"ms a batch (host clock, both views, first 8) {median_p90(early)}, (last 8) "
+            f"{median_p90(late)}; Session.sql served by view: "
+            f"{json.dumps({k: round(v, 3) for k, v in serve_ms.items()})} ms; a full compiled "
+            f"recompute over the last snapshot (cold, warm; byte-equal): "
+            f"{json.dumps({k: [round(x, 3) for x in v] for k, v in full_ms.items()})} ms; "
+            f"hospital_stats compacted up to batch {d['compacted_upto']}, "
+            f"{d['batches_retained']} partials retained")
+        window = views["train_window"].read()
+    finally:
+        s.stop()
+    return {"snapshot": snap, "window": window}
+
+
+def kill_part(port, tmp: str, drops: str) -> None:
+    """The first 8 drops in a fresh table, once straight through and once
+    killed at ``sql.view.maintain`` on batch 5 and resumed in a new
+    registry: hospital_stats reads byte for byte the same."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_views import (
+        ViewRegistry,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    def run(root: str, kill_at=None):
+        reg = ViewRegistry(device=DEV)
+        ex = view_stream(port, root, reg)
+        view = reg.register("hospital_stats", HOSP_Q, ex.sink, watermark=ex.watermark)
+        for b in range(VIEW_KILL_BATCHES):
+            drop(drops, root, b)
+            if b == kill_at:
+                plan = faults.FaultPlan().crash("sql.view.maintain")
+                with faults.active(plan):
+                    try:
+                        ex.run_once()
+                        fail("the kill at sql.view.maintain did not fire")
+                    except faults.InjectedCrash:
+                        pass
+                check(plan.fired("sql.view.maintain") == 1, "the view kill fired wrongly")
+                reg = ViewRegistry(device=DEV)              # the restart
+                ex = view_stream(port, root, reg)
+                view = reg.register("hospital_stats", HOSP_Q, ex.sink, watermark=ex.watermark)
+                check(ex.run_once() is None, "the killed batch was not committed")
+            else:
+                check(ex.run_once() is not None, f"drop {b} made no batch")
+        return view.read()
+
+    clean = run(os.path.join(tmp, "clean"))
+    killed = run(os.path.join(tmp, "killed"), kill_at=VIEW_KILL_AT)
+    c = first_unequal_column(clean, killed)
+    check(c is None, f"resumed hospital_stats differs in {c}")
+    say(f"views: killed at sql.view.maintain on batch {VIEW_KILL_AT} of "
+        f"{VIEW_KILL_BATCHES} and resumed in a new registry: hospital_stats byte-equal "
+        f"(tobytes) to the uninterrupted run's ({len(clean)} groups)")
+
+
+def window_part(port, H, window, snap) -> dict:
+    """train_window's rows into the stage's RandomForestRegressor (20
+    trees, depth 5) on the card, and the interpreter's window the same
+    way: the rows, the trees and the RMSE ``==``; K3 at the fit's shape
+    against its plain version.  → the view fit's K3 launches and the
+    shape's record."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+
+    want = sql.execute(WINDOW_Q, lambda _n: snap, mode="interpret")
+    bad = table_mismatch(window, want, exact=True)
+    check(bad is None, f"train_window rows differ from the interpreter's: {bad}")
+    cfg = port.PipelineConfig()
+
+    def fit(tab):
+        t = port.Binarizer(port.LABEL_COL, "LOS_binary", cfg.los_threshold).transform(
+            tab.na_drop())
+        train_t, test_t = port.train_test_split(t, cfg.train_fraction, cfg.split_seed)
+        asm = port.VectorAssembler(port.FEATURE_COLS)
+        train, test = asm.transform(train_t), asm.transform(test_t)
+        model = port.RandomForestRegressor(max_depth=cfg.tree_max_depth,
+                                           num_trees=cfg.rf_num_trees).fit(
+            train, label_col=port.LABEL_COL, device=DEV)
+        preds = model.transform(test, label_col=port.LABEL_COL, device=DEV)
+        rmse = port.RegressionEvaluator("rmse", label_col=port.LABEL_COL).evaluate(preds)
+        return model, rmse, len(train_t)
+
+    H.reset_launch_counts()
+    (model, rmse, n_train), fit_s = timed(lambda: fit(window))
+    launches = H.launch_counts()["fused_level_hist"]
+    check(launches == cfg.tree_max_depth + 1,
+          f"the window forest launched K3 {launches} times (expected {cfg.tree_max_depth + 1})")
+    ref, ref_rmse, _ = fit(want)
+    for a in ("split_feat", "threshold", "value", "feature_importances"):
+        check(np.array_equal(getattr(model, a), getattr(ref, a)),
+              f"the view window's forest differs from the interpreter window's in {a}")
+    check(rmse == ref_rmse and np.isfinite(rmse), f"RMSE {rmse} != {ref_rmse}")
+    B, LN = 32, 2 ** cfg.tree_max_depth
+    ins = k3_inputs(n_train, len(port.FEATURE_COLS), 3, cfg.rf_num_trees, LN, B, seed=41)
+    err, _ = k3_check(H, *ins, LN, B, "train_window forest depth 5")
+    t = k3_time(H, *ins, LN, B, reps=10)
+    del ins
+    say(f"views: train_window's {len(window)} rows == the interpreter's; RandomForestRegressor("
+        f"{cfg.rf_num_trees} trees, depth {cfg.tree_max_depth}) on its {n_train} training rows "
+        f"in {fit_s:.3f} s ({launches} K3 launches), trees and RMSE {rmse:.6f} == the "
+        f"interpreter window's; K3 at (n={n_train} d=4 S=3 T={cfg.rf_num_trees} LN={LN} B={B}) "
+        f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+        f"{t['bound_ms']:.4f} by {t['bound_by']}), integer stats exact")
+    return {"launches": launches,
+            "shape": {"n": n_train, "d": 4, "S": 3, "T": cfg.rf_num_trees, "LN": LN, "B": B,
+                      "max_abs_err": err, **t}}
+
+
+def history_part(port, tmp: str) -> None:
+    """bench.py's history legs at 5,000 rows a batch: 4 then 400 hourly
+    batches under bench's seal/retire policy; the "last two hours" query
+    compiled and pruned on the card ``==`` the interpreter and an unpruned
+    compiled scan; its medians of 9 at 4 and 400 batches; a flipped byte
+    scrubbed and rebuilt with the answers unchanged."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.table_lifecycle import (  # noqa: E501
+        RetentionPolicy,
+        TableLifecycle,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.obs.registry import (
+        global_registry,
+    )
+
+    rng = np.random.default_rng(0)
+    base = np.datetime64("2025-03-31T00:00:00")
+
+    def make_batch(b: int):
+        t = (base + (b * 3600 + rng.integers(0, 3600, HIST_ROWS)).astype("timedelta64[s]")
+             ).astype("datetime64[ns]")
+        return port.Table.from_dict({"hospital": rng.integers(0, 16, HIST_ROWS), "event_time": t,
+                                     "admissions": rng.integers(0, 50, HIST_ROWS),
+                                     "occupancy": rng.normal(250.0, 40.0, HIST_ROWS)})
+
+    def recent(n_batches: int, hours: int = 2) -> str:
+        cut = str((base + np.timedelta64(n_batches - hours, "h")).astype("datetime64[s]"))
+        return ("SELECT hospital, admissions, occupancy FROM events"
+                f" WHERE event_time >= '{cut.replace('T', ' ')}'")
+
+    def median_ms(q, resolve):
+        sql.execute(q, resolve, device=DEV)
+        xs = [host_ms(lambda: sql.execute(q, resolve, device=DEV))[1] for _ in range(HIST_REPS)]
+        return float(np.median(xs))
+
+    policy = RetentionPolicy(min_seal_batches=4, hot_batches=2, max_segment_batches=32)
+    sink = port.UnboundedTable(os.path.join(tmp, "history"), make_batch(0).schema, name="events")
+    resolve = lambda _n: sink.read()  # noqa: E731
+    t0 = time.perf_counter()
+    for b in range(4):
+        sink.append_batch(make_batch(b), b)
+    TableLifecycle(sink, policy).tick()
+    small_ms = median_ms(recent(4), resolve)
+    for b in range(4, HIST_BATCHES):
+        sink.append_batch(make_batch(b), b)
+    ingest_s = time.perf_counter() - t0
+    (lc, tick_s) = timed(lambda: TableLifecycle(sink, policy).tick())
+    q = recent(HIST_BATCHES)
+    skipped0 = global_registry().counters.get("table.segments_prune_skipped", 0)
+    large_ms = median_ms(q, resolve)
+    check(global_registry().counters.get("table.segments_prune_skipped", 0) > skipped0,
+          "table.segments_prune_skipped did not move")
+    got = sql.execute(q, resolve, device=DEV)
+    d = sql.last_dispatch()
+    check(d.route == "compiled" and d.reasons == (), f"the recent query ran {d}")
+    bad = table_mismatch(got, sql.execute(q, resolve, mode="interpret"), exact=True)
+    check(bad is None, f"pruned compiled scan != the interpreter: {bad}")
+    snap = sink.read()
+    detached = snap.mask(np.ones(len(snap), dtype=bool))   # no origin: nothing to prune
+    bad = table_mismatch(got, sql.execute(q, lambda _n: detached, device=DEV), exact=True)
+    check(bad is None, f"pruned compiled scan != the unpruned compiled scan: {bad}")
+    unpruned_ms = median_ms(q, lambda _n: detached)
+    prune = sql.explain(q, resolve)["prune"]
+    check(prune["segments_pruned"] == prune["segments"] > 0
+          and prune["rows_pruned"] == (HIST_BATCHES - 2) * HIST_ROWS,
+          f"explain's prune {prune}")
+    say(f"history: {HIST_BATCHES} hourly batches x {HIST_ROWS} rows ({len(snap)} rows) appended "
+        f"in {ingest_s:.2f} s; tick {lc} in {tick_s:.2f} s; explain prune {json.dumps(prune)}; "
+        f"the last-two-hours query ({len(got)} rows) compiled + pruned == the interpreter == "
+        f"the unpruned compiled scan; median of {HIST_REPS} (host ms): at 4 batches "
+        f"{small_ms:.3f}, at {HIST_BATCHES} {large_ms:.3f} (ratio {large_ms / small_ms:.3f}), "
+        f"unpruned at {HIST_BATCHES} {unpruned_ms:.3f}")
+
+    # a sealed segment whose parts survive, one byte of it flipped
+    n = HIST_BATCHES
+    for b in range(n, n + 6):
+        sink.append_batch(make_batch(b), b)
+    keep = RetentionPolicy(min_seal_batches=4, hot_batches=2, max_segment_batches=32,
+                           retire_parts=False)
+    check(TableLifecycle(sink, keep).seal() == 1, "the kept segment did not seal")
+    q6 = recent(n + 6, hours=6)
+    count_q = "SELECT count(*) AS n, sum(admissions) AS adm FROM events"
+    before = [sql.execute(x, resolve, device=DEV) for x in (q6, count_q)]
+    newest = max(sink._committed_state()[1], key=lambda e: e["_seq"])
+    seg = os.path.join(sink.segments_dir, newest["file"])
+    blob = bytearray(open(seg, "rb").read())
+    blob[len(blob) // 2] ^= 0x01
+    with open(seg, "wb") as f:
+        f.write(bytes(blob))
+    out, scrub_s = timed(lambda: TableLifecycle(sink, keep).scrub())
+    check(out["repaired"] == 1 and out["quarantined"] == 0, f"scrub {out}")
+    after = [sql.execute(x, resolve, device=DEV) for x in (q6, count_q)]
+    for x, a, b in zip((q6, count_q), before, after):
+        bad = table_mismatch(b, a, exact=True)
+        check(bad is None, f"after the scrub {x!r} changed: {bad}")
+    check(int(after[1]["n"][0]) == (n + 6) * HIST_ROWS, "count(*) lost rows")
+    say(f"history: one byte of {os.path.basename(seg)} flipped; scrub {json.dumps(out)} in "
+        f"{scrub_s:.2f} s; the last-six-hours query and count(*) == before")
+
+
+def fuzz_part(port) -> None:
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql_fuzz
+
+    t0 = time.perf_counter()
+    for s in FUZZ_SEEDS:
+        bad = sql_fuzz.run_fuzz(n_queries=40, seed=s, device=DEV)
+        check(bad == [], f"run_fuzz seed {s} on the card: {bad}")
+    bad = sql_fuzz.run_fuzz_incremental(n_queries=10, seed=0, device=DEV)
+    check(bad == [], f"run_fuzz_incremental on the card: {bad}")
+    say(f"fuzz on the card: run_fuzz(40) for seeds {list(FUZZ_SEEDS)} and "
+        f"run_fuzz_incremental(10, seed 0) find no failure in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def history_phase(port, H, card: str) -> dict:
+    """Slice 6 at full width: the materialized views over the stream
+    (2M rows in 40 drops), a kill at view maintenance resumed byte-equal,
+    the train_window view into the stage's forest (K3), the table
+    lifecycle over 400 hourly batches with zone-map pruning and a
+    scrubbed flipped byte, and the fuzz harness on the card.  No fallback
+    route may be taken: the counters of view errors, rebuilds, full
+    recomputes and failed prunes stay at 0.  → the view fit's K3
+    launches and the K3 record at its shape."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.obs.registry import (
+        global_registry,
+    )
+
+    watched = ("sql.view.serve_errors", "sql.view.rebuilds", "sql.view.full_recompute",
+               "table.prune_errors")
+    counters0 = {k: global_registry().counters.get(k, 0) for k in watched}
+    cols = hospital_events(VIEW_N, whole_day=True)
+    order = np.argsort(cols["event_time"], kind="stable")
+    cols = {k: v[order] for k, v in cols.items()}
+    n = len(order)
+    edges = np.linspace(0, n, VIEW_BATCHES + 1).astype(int)
+    bounds = list(zip(edges[:-1].tolist(), edges[1:].tolist()))
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+        drops = os.path.join(tmp, "drops")
+        os.makedirs(drops)
+        for b, (lo, hi) in enumerate(bounds):
+            write_events_csv(os.path.join(drops, f"drop-{b:03d}.csv"), cols, lo, hi)
+        del cols
+        lap("history drops")
+        views = views_part(port, os.path.join(tmp, "views"), drops, bounds)
+        lap("history views")
+        kill_part(port, os.path.join(tmp, "kill"), drops)
+        lap("history kill")
+        k3 = window_part(port, H, views["window"], views["snapshot"])
+        del views
+        lap("history window")
+        history_part(port, tmp)
+        lap("history lifecycle")
+        os.environ.pop("CMLHN_FLIGHT_DIR")
+    moved = {k: global_registry().counters.get(k, 0) - v for k, v in counters0.items()}
+    check(not any(moved.values()), f"a fallback route was taken: {moved}")
+    fuzz_part(port)
+    lap("history fuzz")
+    say(f"history_phase counters (must all be 0): {json.dumps(moved)}")
+    return k3
+
+
 def main() -> None:
     try:
         import torch
@@ -5388,13 +5799,20 @@ def main() -> None:
     for name, v in beyond_phase(port, L, H, card).items():
         counts[name] += v
 
+    # ------- slice 6: materialized views over the stream, sealed history
+    # and the fuzz harness; the train_window view feeds the forest (K3)
+    hist = history_phase(port, H, card)
+    counts["fused_level_hist"] += hist["launches"]
+    records[-1]["shapes"].append(hist["shape"])
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
         f"classification_phase {sum(v for k, v in PHASE_S.items() if k.startswith('cls ')):.2f}; "
         f"families_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fam ')):.2f}; "
         f"features_phase {sum(v for k, v in PHASE_S.items() if k.startswith('feat ')):.2f}; "
-        f"beyond_phase {sum(v for k, v in PHASE_S.items() if k.startswith('beyond ')):.2f}")
+        f"beyond_phase {sum(v for k, v in PHASE_S.items() if k.startswith('beyond ')):.2f}; "
+        f"history_phase {sum(v for k, v in PHASE_S.items() if k.startswith('history ')):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:
         rec["launches"] = counts[rec["name"]]

@@ -64,6 +64,17 @@ tests/test_torch_lsh.py tests/test_torch_text.py tests/test_torch_word2vec.py
 tests/test_torch_als.py tests/test_torch_lda_pic.py tests/test_torch_fpm.py
 tests/test_torch_ranking_eval.py``; on a card,
 ``chip_smoke.beyond_phase(port, L, H, card)`` runs them alone after
+``ops._build.build()``.  Slice 6 adds the table's history: materialized
+views (``Session.create_view``; ``core/sql_views.py``) folded per
+committed batch on the card and served by ``Session.sql`` (route
+``"view"``), sealed segments with CRC32C records and zone maps
+(``core/segments.py``) that the compiled scan prunes by, the seal /
+retire / scrub lifecycle (``core/table_lifecycle.py``, host work), and
+the fuzz harness (``core/sql_fuzz.py``: ``run_fuzz``,
+``run_fuzz_incremental`` on ``device=``).  Its CPU tests: ``python -m
+pytest tests/test_torch_segments.py tests/test_torch_table_lifecycle.py
+tests/test_torch_sql_views.py tests/test_torch_sql_fuzz.py``; on a card,
+``chip_smoke.history_phase(port, H, card)`` runs it alone after
 ``ops._build.build()``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the

@@ -1,6 +1,7 @@
 """Host-side tables, schemas, the seeded split, and the SQL engine: the
 parser, the planner, the numpy interpreter and the compiled executor
-over columns on the card."""
+over columns on the card, with the materialized views, the sealed
+segments and their lifecycle, and the fuzz harness."""
 
 from .schema import (
     FEATURE_COLS,

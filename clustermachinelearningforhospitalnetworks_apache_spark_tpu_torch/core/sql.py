@@ -790,9 +790,9 @@ class SqlCompileUnsupported(ValueError):
 class DispatchRecord:
     """One ``execute`` decision: which executor ran and, on a fallback,
     the per-plan-node reasons — the observability surface that records
-    fallback decisions per plan node.  The ``"view"`` route (a query
-    answered from a fresh materialized view matched by plan fingerprint)
-    comes with the views."""
+    fallback decisions per plan node.  The ``"view"`` route: the query
+    was answered from a fresh materialized view matched by plan
+    fingerprint."""
 
     query: str
     route: str                     # "compiled" | "interpreter" | "view"
@@ -890,6 +890,18 @@ def explain(query: str, resolve_table) -> dict:
         "fallback": fallback,
         "view_maintenance": "incremental" if inc_ok else inc_reasons,
     }
+    # zone-map prune preview: when the snapshot came from an unbounded
+    # table and the plan has a WHERE, the planner says — from manifests
+    # alone, no data read — how much of history the compiled scan would
+    # skip.  The key is present only then, so plain-table explains stay
+    # what they were.
+    origin = getattr(plan.source, "_unbounded_origin", None)
+    if origin is not None and plan.filter is not None:
+        try:
+            out["prune"] = origin.prune_stats(
+                plan.filter, getattr(plan.source, "_origin_upto", None))
+        except Exception:
+            pass  # a broken manifest must not break explain
     return out
 
 
@@ -905,8 +917,14 @@ def execute(query: str, resolve_table, mode: str = "auto", views=None,
     windows, the long tail — runs on the numpy interpreter below, with
     the per-node fallback reasons recorded in :func:`last_dispatch`.
 
-    ``views``: materialized views come with a later slice of the port;
-    passing a registry raises ``NotImplementedError``.
+    ``views``: a ``core.sql_views.ViewRegistry`` — when a registered
+    materialized view matches the plan's fingerprint and is fresh (its
+    delta-maintained state covers exactly the snapshot's rows), the query
+    is answered from the view instead of re-executing over history (route
+    ``"view"``; ``sql.view.{hit,miss}`` counters; a view that fails to
+    serve counts ``sql.view.serve_errors`` and the executors answer).
+    Only ``mode="auto"`` consults views — "interpret"/"compile" force a
+    real recompute, which is what the parity harnesses compare against.
 
     ``mode``: "auto" (default) picks per the plan; "interpret" forces the
     numpy interpreter; "compile" requires the compiled path and raises
@@ -916,14 +934,9 @@ def execute(query: str, resolve_table, mode: str = "auto", views=None,
     ``sql.query`` span carrying the route taken and the plan fingerprint
     — the link between a streaming batch's trace and the fit it feeds.
     """
-    if views is not None:
-        raise NotImplementedError(
-            "materialized views (execute(views=...)) come with slice 6 of "
-            "the port"
-        )
     sp = _trace.span("sql.query")
     with sp:
-        out = _execute_dispatched(query, resolve_table, mode, device)
+        out = _execute_dispatched(query, resolve_table, mode, views, device)
         if sp.trace_id is not None:
             d = last_dispatch()
             if d is not None and d.query == query:
@@ -934,16 +947,38 @@ def execute(query: str, resolve_table, mode: str = "auto", views=None,
 
 
 def _source_pruned(plan) -> Table:
-    """The compiled scan's source: the plan's pinned snapshot.  A
-    snapshot of an unbounded table with sealed segments would be swapped
-    for its segment-pruned twin; the port has no such origin until the
-    segments come (slice 6), so only plain snapshots reach here."""
-    if getattr(plan.source, "_unbounded_origin", None) is not None:
-        raise NotImplementedError("segment pruning comes with slice 6 of the port")
-    return plan.source
+    """The compiled scan's source: the plan's pinned snapshot, or its
+    segment-pruned twin when the snapshot came from an unbounded table
+    whose sealed zone maps prove some segments cannot satisfy the WHERE
+    (``core/segments.py``, data skipping).  Pruning is conservative — a
+    pruned segment holds no row the filter accepts — so the result rows
+    and their order are identical.  No filter or no origin scans the full
+    snapshot; so does a prune that fails, counted in
+    ``table.prune_errors`` and logged."""
+    if plan.filter is None:
+        return plan.source
+    origin = getattr(plan.source, "_unbounded_origin", None)
+    if origin is None:
+        return plan.source
+    try:
+        pruned, _stats = origin.scan_pruned(getattr(plan.source, "_origin_upto", None),
+                                            plan.filter)
+    except Exception as e:  # pruning is an optimization, never a risk
+        from ..utils.logging import get_logger
+
+        _global_registry().inc("table.prune_errors")
+        get_logger("sql").warning(
+            "segment pruning failed; scanning the whole snapshot", error=repr(e))
+        return plan.source
+    if pruned is None:
+        # every batch pruned: an empty slice of the snapshot keeps the
+        # derived-column schema the lowered signature was typed against
+        return plan.source.mask(np.zeros(len(plan.source), dtype=bool))
+    return pruned
 
 
-def _execute_dispatched(query: str, resolve_table, mode: str, device=None) -> Table:
+def _execute_dispatched(query: str, resolve_table, mode: str, views=None,
+                        device=None) -> Table:
     if mode not in ("auto", "interpret", "compile"):
         raise ValueError(f"execute mode must be auto|interpret|compile, got {mode!r}")
     q = parse(query)
@@ -957,6 +992,22 @@ def _execute_dispatched(query: str, resolve_table, mode: str, device=None) -> Ta
             from .sql_plan import plan_query
 
             plan = plan_query(q, resolve_table)
+        if views is not None and mode == "auto" and plan is not None and plan.fully_supported:
+            try:
+                served = views.serve_for(plan)
+            except Exception as e:  # the compiled branch's contract: a
+                # view-layer runtime failure (corrupt persisted state, a
+                # rotten segment) degrades to the real executors, visibly
+                from ..utils.logging import get_logger
+
+                served = None
+                _global_registry().inc("sql.view.serve_errors")
+                get_logger("sql").warning(
+                    "materialized-view serve failed; falling through to "
+                    "the compiled/interpreter path", error=repr(e))
+            if served is not None:
+                record_dispatch(query, "view", (), plan.fingerprint)
+                return served
         if plan is not None and plan.fully_supported:
             from .sql_compile import run_plan
 
@@ -964,7 +1015,9 @@ def _execute_dispatched(query: str, resolve_table, mode: str, device=None) -> Ta
                 # plan.source, NOT resolve_table(...) again: re-resolving
                 # could hand the kernel a DIFFERENT snapshot (a streaming
                 # commit between plan and run) whose dtypes no longer
-                # match the lowered signature.
+                # match the lowered signature.  _source_pruned may swap
+                # in the segment-pruned twin of that same snapshot, which
+                # is provably filter-equivalent.
                 out = run_plan(plan, _source_pruned(plan), device=dev)
             except Exception as e:  # defensive: a compiled-path runtime
                 # failure must degrade to the interpreter, visibly (the

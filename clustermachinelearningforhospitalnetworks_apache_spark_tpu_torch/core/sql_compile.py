@@ -24,16 +24,24 @@ Execution contract
 Null semantics are the interpreter's, pinned by the fuzz harness (the JAX
 package's ``core/sql_fuzz.py``): NaN/NaT are null, nulls never match
 predicates (SQL 3VL), aggregates skip nulls, all-null groups yield null.
-Float64 sums on CUDA (``index_add_``) add in atomic order, so they agree
-with the interpreter to the harness's rtol 1e-9, not bit for bit.
+Per-group float64 sums, on every device, reduce each group's rows in row
+order (``segment_reduce`` over the grouping's sort, no atomics), so one
+batch's sums
+are bit-equal from run to run — what a materialized view resumed after a
+kill needs to equal an uninterrupted one — and agree with the
+interpreter's to the harness's rtol 1e-9.
+
+The incremental partials (:func:`partial_plan_outputs`,
+:func:`run_partial_aggregate`) rewrite an aggregate into mergeable
+accumulators for the views (``core/sql_views.py``).
 """
 
 from __future__ import annotations
 
 from contextlib import nullcontext
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from functools import reduce
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +55,28 @@ NAT_SENTINEL = int(np.datetime64("NaT", "ns").view(np.int64))
 
 _F64, _I64 = torch.float64, torch.int64
 _INF, _NAN = float("inf"), float("nan")
+
+
+#: largest fixed-width unicode copy (rows x longest value x 4 bytes) that
+#: string_group_codes makes to sort a column in C
+_UNICODE_SORT_BYTES = 1 << 28
+
+
+def _as_unicode(vals: np.ndarray) -> np.ndarray:
+    """``vals`` as fixed-width unicode when every value is a str and the
+    copy fits ``_UNICODE_SORT_BYTES``, else ``vals`` itself.  np.unique
+    sorts the unicode copy in C and an object array by Python compares,
+    in the same order, so both give the same codes and distinct values."""
+    if vals.dtype.kind != "O":
+        return vals
+    try:
+        longest = max(map(len, vals), default=0)
+    except TypeError:  # a value with no length is no str
+        return vals
+    if len(vals) * max(longest, 1) * 4 > _UNICODE_SORT_BYTES:
+        return vals
+    text = vals.astype("U")
+    return text if bool((text == vals).all()) else vals
 
 
 def string_group_codes(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -63,12 +93,13 @@ def string_group_codes(col: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     factorization shared by the interpreter's grouping identity
     (``sql._group_codes``) and the compiled executor.
     """
-    null = np.fromiter(
-        (v is None or (isinstance(v, float) and v != v) for v in col),
-        bool,
-        count=len(col),
-    )
-    uniq, inv = np.unique(col[~null], return_inverse=True)
+    if col.dtype.kind == "O":
+        # elementwise in C: ``v == None`` finds None, ``v != v`` float NaN
+        null = np.asarray((col == None) | (col != col), dtype=bool)  # noqa: E711
+    else:
+        null = np.zeros(len(col), dtype=bool)
+    vals = col[~null]
+    uniq, inv = np.unique(_as_unicode(vals), return_inverse=True)
     codes = np.full(len(col), len(uniq), dtype=np.int64)
     codes[~null] = inv
     return codes, uniq
@@ -296,19 +327,33 @@ def _lexsort(comps):
     return perm
 
 
-def _segments(keys, keep):
+class _Segs(NamedTuple):
+    """One grouping of the rows: ``seg[i]`` is row i's slot; ``perm`` lists
+    the rows by slot (each slot's rows in row order); slot j's rows are
+    ``perm[offsets[j]:offsets[j + 1]]``; ``n_groups`` is a 0-d tensor."""
+    seg: torch.Tensor
+    n_groups: torch.Tensor
+    perm: torch.Tensor
+    offsets: torch.Tensor
+
+
+def _segments(keys, keep) -> _Segs:
     """Group/partition machinery shared by GROUP BY and whole-partition
     windows: rows with ``keep`` False (filtered out) never form groups.
 
-    → (seg, n_groups) where ``seg[i]`` is row i's 0-based group id in
-    the interpreter's group order (keys ascending, float nulls last,
-    NaT first via the raw int64 sentinel) and non-keep rows point at the
-    dump slot ``n - 1`` (unused by real groups: when any row is dropped
-    there are at most n - 1 groups).  ``n_groups`` is a 0-d tensor.
+    Row i's slot ``seg[i]`` is its 0-based group id in the interpreter's
+    group order (keys ascending, float nulls last, NaT first via the raw
+    int64 sentinel); non-keep rows point at the dump slot ``n - 1``
+    (unused by real groups: when any row is dropped there are at most
+    n - 1 groups).  The sort puts keep rows first and is stable, so the
+    slots of the sorted rows never decrease and ``offsets`` (n + 1 of
+    them) bound each slot's run.
     """
     n = keep.shape[0]
     if n == 0:
-        return keep.new_zeros(0, dtype=_I64), keep.new_zeros((), dtype=_I64)
+        empty = keep.new_zeros(0, dtype=_I64)
+        return _Segs(empty, keep.new_zeros((), dtype=_I64), empty,
+                     keep.new_zeros(1, dtype=_I64))
     comps = []  # _lexsort: LAST component is the primary key
     for arr, ch in reversed(keys):  # minor keys first
         if ch == "f":
@@ -331,12 +376,24 @@ def _segments(keys, keep):
     seg_sorted = torch.cumsum(newgrp, 0, dtype=_I64) - 1
     seg_sorted = seg_sorted.clamp(0, n - 1).masked_fill(~keep_s, n - 1)
     seg = torch.empty_like(seg_sorted).scatter_(0, perm, seg_sorted)
-    return seg, newgrp.sum(dtype=_I64)
+    offsets = torch.searchsorted(seg_sorted, torch.arange(n + 1, device=keep.device))
+    return _Segs(seg, newgrp.sum(dtype=_I64), perm, offsets)
 
 
-def _segment_agg(agg, v, ch, keep, seg, num):
+def _segment_sum(segs: _Segs, vals):
+    """Float64 sums of ``vals`` into the slots of ``segs``: each slot's rows
+    reduced in row order by ``segment_reduce``, with no atomics, so the
+    sums are bit-equal from run to run on the card (what a view resumed
+    after a kill needs to equal an uninterrupted one).  The int64 counts
+    are exact in any order and keep ``index_add_``."""
+    return torch.segment_reduce(vals[segs.perm], "sum", offsets=segs.offsets,
+                                unsafe=True)
+
+
+def _segment_agg(agg, v, ch, keep, segs: _Segs, num):
     """One per-group aggregate over ORIGINAL-order values (segment ids
     carry the ordering) with interpreter null semantics; ``num`` slots."""
+    seg = segs.seg
     null = _null_mask(v, ch)
     w = keep & ~null
     nn = torch.zeros(num, dtype=_I64, device=v.device).index_add_(0, seg, w.to(_I64))
@@ -345,8 +402,7 @@ def _segment_agg(agg, v, ch, keep, seg, num):
     vf = v.to(_F64)
     empty = nn == 0
     if agg in ("sum", "avg"):
-        s = torch.zeros(num, dtype=_F64, device=v.device).index_add_(
-            0, seg, vf.masked_fill(~w, 0.0))
+        s = _segment_sum(segs, vf.masked_fill(~w, 0.0))
         if agg == "avg":
             s = s / nn.clamp(min=1)
         return s.masked_fill(empty, _NAN)
@@ -395,10 +451,10 @@ def _rowlevel(sig: tuple, n: int, cols: tuple, dev):
     for _, agg, src, parts, alias, _ch in (o for o in outputs if o[0] == "win"):
         if parts not in seg_cache:
             seg_cache[parts] = _segments([(env[p], types[p]) for p in parts], keep)
-        seg, _ng = seg_cache[parts]
+        segs = seg_cache[parts]
         v = env[src] if src is not None else torch.ones(n, dtype=_F64, device=dev)
         vch = types[src] if src is not None else "f"
-        win_vals[alias] = _segment_agg(agg, v, vch, keep, seg, n)[seg]
+        win_vals[alias] = _segment_agg(agg, v, vch, keep, segs, n)[segs.seg]
     comp = []
     for o in outputs:
         if o[0] == "expr":
@@ -427,7 +483,8 @@ def _aggregate(sig: tuple, n: int, cols: tuple, dev):
                 outs.append(_whole_agg(agg, env[src], types[src], keep))
         return torch.ones((), dtype=_I64, device=dev), tuple(outs)
     key_arrs = [(env[src], ch) for src, ch in group_keys]
-    seg, n_groups = _segments(key_arrs, keep)
+    segs = _segments(key_arrs, keep)
+    seg = segs.seg
     outs = []
     for o in outputs:
         if o[0] == "key":
@@ -438,8 +495,8 @@ def _aggregate(sig: tuple, n: int, cols: tuple, dev):
             outs.append(torch.zeros(n, dtype=_I64, device=dev).index_add_(0, seg, keep.to(_I64)))
         else:
             _, agg, src, _alias = o
-            outs.append(_segment_agg(agg, env[src], types[src], keep, seg, n))
-    return n_groups, tuple(outs)
+            outs.append(_segment_agg(agg, env[src], types[src], keep, segs, n))
+    return segs.n_groups, tuple(outs)
 
 
 _NP_DTYPE = {torch.bool: np.bool_, torch.int64: np.int64, torch.float64: np.float64}
@@ -659,6 +716,103 @@ def _run_aggregate(plan, table: Table, clock=None, device=None) -> Table:
                 vals.astype(np.int64) if o[1] == "count" else vals
             )
     return Table.from_dict(cols_out)
+
+
+# --------------------------------------------------- incremental partials
+def partial_plan_outputs(outputs: tuple, group_keys: tuple):
+    """Aggregate outputs → the mergeable-partials rewrite that the
+    incremental views (``core/sql_views.py``) maintain per committed
+    batch.
+
+    The original count/sum/avg/min/max outputs are rewritten to raw
+    **accumulators** — per-source non-null count + sum (avg = sum/count
+    at finalize), min, max, and the row count: every accumulator merges
+    across batches by addition (or monotone min/max), so a view's state
+    folds exactly once per batch instead of re-scanning history.
+
+    → ``(partial_outputs, accs, finalize)``:
+
+    * ``partial_outputs`` — the derived plan's output spec: one ``("key",
+      i, "__k<i>")`` per group key plus one aggregate per accumulator
+      (aliases ``__a<j>``), run by the same segment machinery as a full
+      aggregate;
+    * ``accs`` — ordered accumulator ids: ``("rows",)`` | ``("n", src)``
+      | ``("s", src)`` | ``("min", src)`` | ``("max", src)``;
+    * ``finalize`` — per original output, how to read the answer back out
+      of merged accumulators: ``("key", idx, alias)`` | ``("rows", j,
+      alias)`` | ``("count", j, alias)`` | ``("sum"|"avg", s_j, n_j,
+      alias)`` | ``("min"|"max", m_j, n_j, alias)``.
+    """
+    accs: list[tuple] = []
+
+    def acc(key: tuple) -> int:
+        if key not in accs:
+            accs.append(key)
+        return accs.index(key)
+
+    finalize: list[tuple] = []
+    for o in outputs:
+        if o[0] == "key":
+            finalize.append(("key", o[1], o[2]))
+        elif o[0] == "count_star":
+            finalize.append(("rows", acc(("rows",)), o[1]))
+        else:
+            _, agg, src, alias = o
+            if agg == "count":
+                finalize.append(("count", acc(("n", src)), alias))
+            elif agg in ("sum", "avg"):
+                finalize.append((agg, acc(("s", src)), acc(("n", src)), alias))
+            else:  # min | max need the non-null count for the all-null gate
+                finalize.append((agg, acc((agg, src)), acc(("n", src)), alias))
+    partial: list[tuple] = [("key", i, f"__k{i}") for i in range(len(group_keys))]
+    for j, a in enumerate(accs):
+        alias = f"__a{j}"
+        if a[0] == "rows":
+            partial.append(("count_star", alias))
+        elif a[0] == "n":
+            partial.append(("agg", "count", a[1], alias))
+        elif a[0] == "s":
+            partial.append(("agg", "sum", a[1], alias))
+        else:
+            partial.append(("agg", a[0], a[1], alias))
+    return tuple(partial), tuple(accs), tuple(finalize)
+
+
+def run_partial_aggregate(plan, table: Table, clock=None, device=None):
+    """One committed batch's mergeable partial of an aggregate plan — the
+    delta half of the views' delta-merge: the accumulator rewrite of
+    :func:`partial_plan_outputs` run on ``device`` (default the card)
+    over only the batch's rows; the merge is O(groups) host work in
+    ``sql_views``.
+
+    → ``(key_arrays, acc_matrix, accs)`` where ``key_arrays`` holds one
+    raw host array per group key (float64 with NaN nulls for ``f``;
+    int64 for ``i``; int64 nanoseconds with the NaT sentinel for ``t``;
+    object values with None nulls for ``s``) and ``acc_matrix`` is
+    float64 ``[n_groups, len(accs)]`` (sums of all-null groups come back
+    NaN — the caller zero-gates them on the matching count before
+    folding).
+    """
+    p_out, accs, _fin = partial_plan_outputs(plan.outputs, plan.group_keys)
+    dplan = replace(plan, outputs=p_out, limit=None, source=None)
+    out = _run_aggregate(dplan, table, clock, device)
+    keys = []
+    for i, (_src, ch) in enumerate(plan.group_keys):
+        col = out.column(f"__k{i}")
+        if ch == "t":
+            keys.append(col.astype("datetime64[ns]").view(np.int64))
+        elif ch == "f":
+            keys.append(np.asarray(col, dtype=np.float64))
+        elif ch == "s":
+            keys.append(np.asarray(col, dtype=object))   # values, None for null
+        else:
+            keys.append(np.asarray(col, dtype=np.int64))
+    if accs:
+        mat = np.stack([np.asarray(out.column(f"__a{j}"), dtype=np.float64)
+                        for j in range(len(accs))], axis=1)
+    else:  # pure GROUP BY keys, no aggregates: group existence only
+        mat = np.zeros((len(out), 0), dtype=np.float64)
+    return keys, mat, accs
 
 
 def run_plan(plan, table: Table, clock=None, device=None) -> Table:

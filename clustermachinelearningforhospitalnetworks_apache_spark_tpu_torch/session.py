@@ -19,8 +19,10 @@ the builder chain, so reference code ports line for line::
 
 ``sql_to_device`` is the fused training path: the SQL window, feature
 assembly and a ``DeviceDataset`` on the session's device, with no row
-passing through the host when the plan compiles.  Materialized views
-(``create_view``) come with slice 6 of the port.
+passing through the host when the plan compiles.  ``create_view``
+registers a materialized view over a streamed table: the stream folds
+each committed batch into it, and ``Session.sql`` answers a matching
+query from it.
 """
 
 from __future__ import annotations
@@ -70,6 +72,12 @@ class Session:
         self.metrics = MetricsRegistry()
         self._tables: dict[str, Any] = {}
         self._streams: list[StreamExecution] = []
+        # materialized views: one registry per session, on its device; the
+        # streaming commit path maintains them, Session.sql serves from
+        # them when a plan fingerprint matches a fresh view
+        from .core.sql_views import ViewRegistry
+
+        self.views = ViewRegistry(device=self.device)
         _ACTIVE_SESSION = self
 
     # builder ----------------------------------------------------------
@@ -119,18 +127,51 @@ class Session:
         single-table plans run compiled, as torch ops over the table's
         columns on the session's device; the rest runs on the numpy
         interpreter (``sql_explain`` shows which, and why, per plan
-        node)."""
+        node).  When a registered materialized view matches the plan's
+        fingerprint and is fresh, the answer comes from the view's
+        delta-maintained state instead of re-executing over the table's
+        history (route ``"view"``)."""
         from .core.sql import execute
 
-        return execute(query, self.table, device=self.device)
+        return execute(query, self.table, views=self.views, device=self.device)
 
     def sql_explain(self, query: str) -> dict:
         """Planner view of ``query`` without running it: the route
-        (compiled | interpreter), the plan fingerprint and every plan
-        node's supported/fallback decision."""
+        (compiled | interpreter), the plan fingerprint, every plan node's
+        supported/fallback decision and its incremental decision
+        (``incremental`` vs ``full-recompute:<reason>``), and, over an
+        unbounded table with sealed segments, the ``prune`` preview."""
         from .core.sql import explain
 
         return explain(query, self.table)
+
+    def create_view(self, name: str, query: str, watermark=None) -> Any:
+        """Register a materialized view over a registered
+        :class:`~.streaming.unbounded_table.UnboundedTable`: it is
+        maintained per committed batch (mergeable aggregate partials or
+        per-batch row deltas, computed on the session's device) and
+        ``Session.sql`` answers matching queries from it.  ``watermark``
+        (a ``WatermarkTracker``, typically the stream's) enables the
+        compaction of aggregate partials sealed below the event-time
+        watermark.  Queries outside the incremental subset still register
+        but serve loud full recomputes (``sql_explain`` shows why per
+        node)."""
+        from .core.sql_parse import _Query, parse
+
+        node = parse(query)
+        if not isinstance(node, _Query) or not isinstance(node.table[0], str) or node.joins:
+            raise ValueError(
+                "a materialized view needs a single-table SELECT over a "
+                "registered unbounded table"
+            )
+        source = self._tables.get(node.table[0])
+        if not isinstance(source, UnboundedTable):
+            raise ValueError(
+                f"view {name!r}: {node.table[0]!r} is not a registered "
+                "UnboundedTable (views materialize over the streaming "
+                "sink; plain tables are already in memory)"
+            )
+        return self.views.register(name, query, source, watermark=watermark)
 
     def sql_to_device(self, query: str, feature_cols=None, label_col: str | None = None,
                       na_drop: bool = True, clock=None, mode: str = "auto"):
@@ -161,10 +202,13 @@ class Session:
         if view is not None:
             with stage("assemble"):
                 return assembler.transform_device(view, label_col=label_col, na_drop=na_drop)
-        # the host route: one transfer, at to_device (views come with
-        # slice 6, so the Table comes from the query itself)
+        # the host route: one transfer, at to_device.  A fresh
+        # fingerprint-matched materialized view answers here too (the
+        # fused device route above stays view-free: it never
+        # materializes), so the Table may come from folded view state
+        # instead of a history re-scan
         with stage("sql"):
-            t = execute(query, self.table, device=self.device)
+            t = execute(query, self.table, views=self.views, device=self.device)
         if label_col is None and LABEL_COL in t.schema:
             label_col = LABEL_COL
         if na_drop:
@@ -274,6 +318,9 @@ class StreamWriter:
             watermark=self.frame.watermark,
             foreach_batch=self._foreach,
             device=session.device,
+            # the session's materialized views fold each committed
+            # batch's delta in on the commit path
+            views=session.views,
         )
         session.register_table(name, sink)
         session._streams.append(execution)

@@ -26,9 +26,10 @@ Named fault sites bracket every WAL boundary — ``stream.after_offsets`` /
 ``after_read`` / ``after_foreach`` / ``after_sink`` / ``after_commit`` —
 so a test can kill the run at each one and resume.
 
-The data firewall (row quarantine) and the pipelined loop's prefetched
-batches come with slice 7 of the port, the materialized views with
-slice 6.
+With ``views`` set, the materialized views over the sink fold each
+committed batch in on the commit path (``core/sql_views.py``).  The data
+firewall (row quarantine) and the pipelined loop's prefetched batches
+come with slice 7 of the port.
 """
 
 from __future__ import annotations
@@ -86,6 +87,12 @@ class StreamExecution:
     #: resolved at start, so a stream meant for a missing card fails
     #: before it commits a batch, not at the first query
     device: Any = None
+    #: materialized-view registry (``core/sql_views.py``): when set, every
+    #: view over this sink folds the batch's delta in right after the
+    #: commit record lands — exactly once per committed batch (the view's
+    #: high-water mark skips replays; a crash mid-maintenance is healed by
+    #: the next refresh from the commit log)
+    views: Any = None
     history: list[BatchInfo] = field(default_factory=list)
     #: trace id of the most recent batch attempt (None when tracing off)
     last_trace_id: str | None = None
@@ -265,6 +272,22 @@ class StreamExecution:
         fault_point("stream.after_sink", batch_id=batch_id)
         self.checkpoint.write_commit(batch_id)
         fault_point("stream.after_commit", batch_id=batch_id)
+        if self.views is not None:
+            # view maintenance rides the commit: the batch is durable, so
+            # a crash inside (the sql.view.maintain fault site) replays
+            # nothing — the next refresh folds the committed delta in
+            # exactly once.  A non-crash failure must not fail the
+            # attempt either (the batch already committed; replaying it
+            # would re-run foreach): views heal lazily instead.
+            try:
+                self.views.maintain(self.sink, batch_id)
+            except Exception as e:  # noqa: BLE001 — InjectedCrash
+                # (a BaseException) still propagates like a real kill
+                self.metrics.inc("stream.view_maintain_errors")
+                log.warning(
+                    "view maintenance failed; views catch up lazily",
+                    batch_id=batch_id, error=repr(e),
+                )
         self.source.commit_files(files)
         self.metrics.inc("stream.batches")
 

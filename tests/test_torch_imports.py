@@ -79,7 +79,8 @@ def test_every_module_is_walkable():
                      "features.vector_ops", "features.rformula", "features.sql_transformer",
                      "io.libsvm", "features.selector", "features.lsh", "features.text",
                      "features.word2vec", "evaluation.ranking", "models.als", "models.lda",
-                     "models.pic", "models.fpm"):
+                     "models.pic", "models.fpm", "core.segments", "core.table_lifecycle",
+                     "core.sql_fuzz"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -379,6 +380,89 @@ def test_slices_5d_5e_host_stages_take_no_device_and_need_no_card(monkeypatch):
                 fn = getattr(obj, name, None)
                 if callable(fn):
                     assert "device" not in inspect.signature(fn).parameters, (obj, name)
+
+def test_slice_6_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp_path):
+    """The views, the incremental partials and the fuzz checkers compute
+    on ``device=`` (default the card); asked for the CPU, they run."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import sql_fuzz
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_compile import (
+        run_partial_aggregate,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_parse import (
+        parse,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_plan import (
+        plan_query,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_views import (
+        MaterializedView,
+        ViewRegistry,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    table = sql_fuzz.random_table(rng, 30)
+    sink = port.UnboundedTable(str(tmp_path / "t"), table.schema, name="fuzz")
+    sink.append_batch(table, 0)
+    q = "SELECT i1, count(*) AS c, sum(f1) AS s FROM fuzz GROUP BY i1"
+    plan = plan_query(parse(q), lambda _n: table)
+    spec = sql_fuzz.random_query(rng)
+    seq = sql_fuzz.ReplaySeq((table,))
+    calls = [
+        lambda: ViewRegistry(),
+        lambda: MaterializedView("v", q, sink),
+        lambda: run_partial_aggregate(plan, table),
+        lambda: sql_fuzz.check_spec(spec, table),
+        lambda: sql_fuzz.check_view_spec(spec, seq),
+        lambda: sql_fuzz.run_fuzz(2),
+        lambda: sql_fuzz.run_fuzz_incremental(1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    view = ViewRegistry(device="cpu").register("v", q, sink)
+    assert view.device.type == "cpu" and len(view.read()) == len(set(table.column("i1")))
+    assert run_partial_aggregate(plan, table, device="cpu")[1].shape[1] == 3
+
+
+def test_slice_6_host_entry_points_take_no_device_and_need_no_card(monkeypatch, tmp_path):
+    """Segments, the lifecycle, the table's reads and pruning, the partial
+    rewrite and the fuzz generators compute in numpy and pyarrow, as in
+    the JAX package: none takes ``device=`` and none needs a card."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import (
+        segments,
+        sql_fuzz,
+        table_lifecycle,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.sql_compile import (
+        partial_plan_outputs,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [segments.zone_maps, segments.write_segment, segments.read_segment,
+           segments.load_manifest, segments.quarantine_segment, segments.segment_may_match,
+           table_lifecycle.RetentionPolicy, table_lifecycle.TableLifecycle,
+           table_lifecycle.TableLifecycle.seal, table_lifecycle.TableLifecycle.retire,
+           table_lifecycle.TableLifecycle.scrub, table_lifecycle.TableLifecycle.tick,
+           port.UnboundedTable.read, port.UnboundedTable.prune_stats,
+           port.UnboundedTable.scan_pruned, port.UnboundedTable.read_sealed_batch,
+           partial_plan_outputs, sql_fuzz.random_table, sql_fuzz.random_query,
+           sql_fuzz.mergeable_query, sql_fuzz.compare_tables, sql_fuzz.shrink]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    rng = np.random.default_rng(1)
+    sink = port.UnboundedTable(str(tmp_path / "t"), sql_fuzz.random_table(rng, 1).schema)
+    for bid in range(6):
+        sink.append_batch(sql_fuzz.random_table(rng, 20), bid)
+    out = table_lifecycle.TableLifecycle(sink, table_lifecycle.RetentionPolicy(
+        min_seal_batches=2, hot_batches=1, max_segment_batches=2)).tick()
+    assert out == {"sealed": 2, "retired": 4}
+    assert len(sink.read()) == 120 and len(sink.read_sealed_batch(0)) == 20
+    assert sink.prune_stats(("cmp", "i2", ">", 1000))["segments_pruned"] == 2
+    assert sql_fuzz.compare_tables(sink.read(), sink.read()) is None
+
 
 # The reference's public names that the port does not have yet, by the
 # subpackage whose ``__all__`` lists them, each with the slice of ROADMAP

@@ -423,12 +423,6 @@ def test_runtime_failure_degrades_visibly_in_auto_and_raises_in_compile(csv_tabl
         Psql.execute(q, lambda _n: pt, mode="compile", device="cpu")
 
 
-def test_views_are_a_later_slice(csv_tables):
-    _, pt = csv_tables
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Psql.execute(window_query(DEFAULT_WINDOW), lambda _n: pt, views=object(), device="cpu")
-
-
 def test_dispatch_counters_match_the_reference(interp_tables):
     """The interpreter route (a join) moves the same counters by the same
     amounts in both packages; the compiled route counts under

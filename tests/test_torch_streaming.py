@@ -330,24 +330,35 @@ def test_port_reads_a_jax_snapshot_with_ingest_time(tmp_path):
 
 def test_seal_entries_raise_and_audit_entries_are_skipped(tmp_path):
     """Audit entries (retire, scrub) change no content and are skipped; a
-    seal entry moves rows into a segment the port cannot read yet, so
-    ``read()`` raises instead of answering without them."""
+    seal entry moves rows into a sealed segment, and ``read()`` serves
+    them from it, in both packages alike."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core import segments
+
     schema = P.Schema([P.Field("a", "float")])
     ut = PS.UnboundedTable(str(tmp_path / "ut"), schema)
     ut.append_batch(P.Table.from_dict({"a": np.arange(4.0)}, schema), 0)
+    ut.append_batch(P.Table.from_dict({"a": np.arange(3.0) + 10}, schema), 1)
     log = str(tmp_path / "ut" / "_commits.log")
     append_line(log, {"retire": {"files": []}})
     append_line(log, {"scrub": {"checked": 1}})
-    assert ut.read().num_rows == 4 and ut.num_rows() == 4
-    append_line(log, {"seal": {"first": 0, "last": 0, "file": "seg.parquet",
-                               "batches": [{"batch_id": 0, "rows": 4}]}})
-    with pytest.raises(PS.SealedSegmentsNotPorted, match="slice 6"):
-        ut.read()
-    assert ut.num_rows() == 4 and ut.max_batch_id() == 0
+    assert ut.read().num_rows == 7 and ut.num_rows() == 7
+    # seal batch 0 by hand: the segment holds other rows than its part, so
+    # the answer shows which copy the read plan served
+    sealed = P.Table.from_dict({"a": np.arange(4.0) + 100}, schema)
+    m = segments.write_segment(ut.segments_dir, 0, 0, sealed, [{"batch_id": 0, "rows": 4}])
+    append_line(log, {"seal": {"first": 0, "last": 0, "file": m["file"],
+                               "manifest": segments.manifest_name(m["file"]), "rows": 4,
+                               "batches": [{"batch_id": 0, "rows": 4}],
+                               "crc32c": m["data"]["crc32c"], "size": m["data"]["size"]}})
+    for pkg in (PS, JS):
+        got = pkg.UnboundedTable(str(tmp_path / "ut"), schema if pkg is PS else
+                                 J.Schema([J.Field("a", "float")])).read()
+        np.testing.assert_array_equal(got["a"], [100.0, 101.0, 102.0, 103.0, 10.0, 11.0, 12.0])
+    assert ut.num_rows() == 7 and ut.max_batch_id() == 1
 
 
 def test_missing_committed_part_raises(tmp_path):
-    """Without sealed segments a committed part has no other copy: a
+    """A committed part that no sealed segment serves has no other copy: a
     missing one is data loss, and ``read()`` says so."""
     schema = P.Schema([P.Field("a", "float")])
     ut = PS.UnboundedTable(str(tmp_path / "ut"), schema)
@@ -356,6 +367,28 @@ def test_missing_committed_part_raises(tmp_path):
     os.remove(tmp_path / "ut" / "part-0000000000.parquet")
     with pytest.raises(FileNotFoundError, match="part-0000000000.parquet"):
         PS.UnboundedTable(str(tmp_path / "ut"), schema).read()
+
+
+def test_a_retired_part_served_by_its_segment_reads(tmp_path):
+    """The other side of the missing-part rule: a part retired into a
+    sealed segment is gone from disk and reads from the segment."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.core.table_lifecycle import (  # noqa: E501
+        RetentionPolicy,
+        TableLifecycle,
+    )
+
+    schema = P.Schema([P.Field("a", "float")])
+    ut = PS.UnboundedTable(str(tmp_path / "ut"), schema)
+    for bid in range(4):
+        ut.append_batch(P.Table.from_dict({"a": np.arange(3.0) + 10 * bid}, schema), bid)
+    before = ut.read()
+    pol = RetentionPolicy(min_seal_batches=2, hot_batches=1, max_segment_batches=8)
+    assert TableLifecycle(ut, pol).tick() == {"sealed": 1, "retired": 3}
+    assert not (tmp_path / "ut" / "part-0000000000.parquet").exists()
+    got = PS.UnboundedTable(str(tmp_path / "ut"), schema).read()
+    np.testing.assert_array_equal(got["a"], before["a"])
+    np.testing.assert_array_equal(ut.read_sealed_batch(1)["a"], [10.0, 11.0, 12.0])
+    assert ut.read_sealed_batch(3) is None and ut.sealed_rows(0) == 3
 
 
 def test_reads_without_pyarrow_need_it_only_for_parts(tmp_path, monkeypatch):
