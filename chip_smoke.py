@@ -133,6 +133,23 @@ kernels:
   (k=8) on the bundled CSV's 10-nearest-neighbour graph (K1 and K2 at
   d = 1); each fit's seconds, records/s, torch ops and host syncs, and card
   against CPU within limits that a control fails.
+* slice 6 (``history_phase``) — 2M hospital rows in 40 drops streamed into
+  two materialized views, a kill at view maintenance, the train_window
+  view into the 20-tree forest (K3), 400 sealed hourly batches pruned and
+  scrubbed, and the fuzz harness on the card.
+* slice 7a (``front_door_phase``) — the k=256 model saved with its 10M-row
+  profile and served behind a k=16 fallback: 4,000 requests from 16
+  clients with 1 % planted bad rows to an impute and a reject name (every
+  answer ``==`` predict on the imputed rows, K2 in every primary batch and
+  a served batch held to its plain version), a 2-std drift opening the
+  breaker at the request that closes the 3rd hot window (then fallback
+  answers only, no primary K2 launch), a refit on 2M drifted rows (K1, held
+  to its plain version at that shape) hot-swapped under 8 threads with no
+  request refused, a failing primary through open / half open / closed
+  against ``metrics_text()``, 2M hospital rows through a firewalled stream
+  (0.1 % planted bad rows, a renamed header) killed and resumed, and
+  ``serve.microbatch.max_wait_ms`` measured over its domain into a trial
+  store that a ``Selector`` then resolves.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -5551,6 +5568,818 @@ def history_phase(port, H, card: str) -> dict:
     return k3
 
 
+# ------------------------------------------------------------- slice 7a
+FRONT_CLIENTS = 16                        # the in-distribution traffic's client threads
+FRONT_REQUESTS = 4_000                    # requests of 1-256 rows each
+FRONT_PLANT = 0.01                        # share of rows with a planted NaN, ±inf or far value
+FRONT_WINDOW, FRONT_TRIP_AFTER = 4096, 3  # the drift monitor
+FRONT_DRIFT_REQUESTS = 2_000              # one feature shifted by FRONT_SHIFT_SIGMA stds
+FRONT_DRIFT_COL, FRONT_SHIFT_SIGMA = 2, 2.0
+FRONT_REFIT_N = 2_000_000                 # the hot swap's refit on drifted rows
+FRONT_SWAP_THREADS, FRONT_SWAP_POST = 8, 200   # load threads; requests each after the commit
+FRONT_SWAP_MAX_ROWS = 16                  # rows a swap-load request (1-16)
+FRONT_FAILURES, FRONT_RECOVERY_S = 3, 0.5  # the breaker's threshold and recovery
+FRONT_DROPS, FRONT_DROP_ROWS = 40, 50_000  # the ingest firewall: 2M hospital rows
+FRONT_BAD = 0.001                         # share of planted bad rows
+FRONT_KILL_BATCH = 19                     # the stream killed after this batch's read
+FRONT_KNOB_REQUESTS = 500                 # requests a max_wait_ms value, 16 clients
+FRONT_SEED = 31
+FRONT_ALIASES = {"admits": "admission_count", "los": "length_of_stay"}
+FRONT_RENAMED = ("event_time", "hospital_id", "admits", "current_occupancy", "emergency_visits",
+                 "seasonality_index", "los")
+#: the planted bad rows: kind → (the edit, its reject reasons)
+FRONT_PLANTS = {
+    "malformed": ("admission_count", "x#!corrupt", ("parse:admission_count",)),
+    "ragged": (None, None, ("field_count",)),
+    "out_of_range": ("admission_count", "20000", ("range:admission_count",)),
+    "negative_los": ("length_of_stay", "-1.0", ("range:length_of_stay",)),
+    "null_id": ("hospital_id", "", ("null:hospital_id",)),
+    "inf_season": ("seasonality_index", "inf",
+                   ("range:seasonality_index", "non_finite:seasonality_index")),
+}
+
+
+class LaunchLedger:
+    """The K1 / K2 launches of a phase's main path: everything since the
+    ledger opened, less what ran inside ``aside`` (references and
+    kernel-against-plain comparisons)."""
+
+    def __init__(self, L):
+        self.L = L
+        self.start = L.launch_counts()
+        self.excluded = {k: 0 for k in self.start}
+
+    @contextlib.contextmanager
+    def aside(self):
+        before = self.L.launch_counts()
+        try:
+            yield
+        finally:
+            after = self.L.launch_counts()
+            for k in self.excluded:
+                self.excluded[k] += after[k] - before[k]
+
+    def main_path(self) -> dict:
+        now = self.L.launch_counts()
+        return {k: now[k] - self.start[k] - self.excluded[k] for k in now}
+
+
+def count_runs(sm) -> list:
+    """Count the device calls of one ServingModel (each is one K2 launch):
+    its ``_run`` wrapped on the instance.  → the one-element counter."""
+    box, run = [0], sm._run
+
+    def counted(x):
+        box[0] += 1
+        return run(x)
+
+    sm._run = counted
+    return box
+
+
+def front_requests(rng, n: int, lo: int, hi: int) -> list:
+    """``n`` request sizes in ``lo..hi`` → (start, stop) slices of one
+    concatenated row block."""
+    import numpy as np
+
+    sizes = rng.integers(lo, hi + 1, n)
+    ends = np.cumsum(sizes)
+    return list(zip((ends - sizes).tolist(), ends.tolist()))
+
+
+def run_clients(n_threads: int, jobs: list, send) -> tuple[dict, float]:
+    """``send(j)`` for every job index, from ``n_threads`` threads taking
+    jobs round-robin.  → ({j: (result, seconds)}, wall seconds)."""
+    answers = {}
+
+    def client(ids):
+        for j in ids:
+            t0 = time.perf_counter()
+            r = send(j)
+            answers[j] = (r, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=client, args=(range(t, len(jobs), n_threads),))
+               for t in range(n_threads)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    check(not any(th.is_alive() for th in threads), "serving clients did not finish")
+    return answers, time.perf_counter() - t0
+
+
+def predict_rows(model, rows) -> "np.ndarray":
+    import numpy as np
+    import torch
+
+    return model.predict(torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
+                         .to(DEV)).cpu().numpy()
+
+
+def front_profiled_artifact(port, L, model, x_host, tmp: str, ledger):
+    """Step 1: the training profile over the 10M rows, the model saved
+    with it, and the k=16 fallback fitted on the card on the same rows
+    (K1, K2 held to their plain versions at its shapes).  → (path,
+    profile, fallback ServingModel)."""
+    import numpy as np
+    import torch
+
+    names = [f"f{j}" for j in range(x_host.shape[1])]
+    t0 = time.perf_counter()
+    profile = port.DataProfile.from_matrix(x_host, names)
+    prof_s = time.perf_counter() - t0
+    check(profile.total_rows == len(x_host), "the profile missed rows")
+    path = os.path.join(tmp, "primary")
+    t0 = time.perf_counter()
+    model.save(path)
+    port.io.attach_data_profile(path, profile.to_dict())
+    save_s = time.perf_counter() - t0
+    check(port.io.load_data_profile(path) == profile.to_dict(), "the saved profile differs")
+    t0 = time.perf_counter()
+    ds = port.device_dataset(x_host, device=DEV)
+    fb_model = port.KMeans(k=16, seed=SEED, max_iter=MAX_ITER).fit(ds)
+    fb = port.serve.ServingModel(fb_model, buckets=BUCKETS, device=DEV).warmup()
+    fb_s = time.perf_counter() - t0
+    with ledger.aside():
+        # K1 and K2 at the fallback's shapes: its fit, and a batch it serves
+        cen = torch.from_numpy(np.asarray(fb_model.cluster_centers, np.float32)).to(DEV)
+        valid = torch.ones(len(cen), device=DEV)
+        k1_err, k2_err, cost_rel, flips = compare(L, ds.x, ds.w, cen, valid,
+                                                  f"fallback n={len(x_host)} k=16")
+        batch_err, _ = compare_k2(L, ds.x[:BUCKETS[-1]].contiguous(), cen, valid,
+                                  f"fallback batch n={BUCKETS[-1]} k=16")
+    del ds
+    say(f"front door: DataProfile.from_matrix over {len(x_host)} x {len(names)} rows "
+        f"{prof_s:.2f} s ({len(x_host) / prof_s:.4g} rows/s); saved with its profile "
+        f"{save_s:.2f} s; fallback KMeans(k=16) fitted on the card {fb_s:.2f} s "
+        f"(n_iter {fb_model.n_iter}); K1 / K2 at its shape == their plain versions "
+        f"(max_abs_err {k1_err:.3g} / {k2_err:.3g}, cost rel err {cost_rel:.3g}, {flips} "
+        f"near-tie flips), K2 on a {BUCKETS[-1]}-row batch (max_abs_err {batch_err:.3g})")
+    return path, profile, fb
+
+
+def front_in_distribution(port, L, srv, model, x_host, profile, prim, ledger) -> int:
+    """Step 2: 16 clients, 4,000 requests to the impute name and the same
+    to the reject name; 1 % of the rows carry a planted NaN, ±inf or a
+    value 10 spans out.  → requests sent."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(FRONT_SEED)
+    jobs = front_requests(rng, FRONT_REQUESTS, 1, 256)
+    n = jobs[-1][1]
+    rows = x_host[rng.integers(0, len(x_host), n)].copy()
+    bad = np.flatnonzero(rng.random(n) < FRONT_PLANT)
+    cols = rng.integers(0, rows.shape[1], bad.size)
+    kinds = rng.integers(0, 4, bad.size)
+    span = np.array([profile.sketches[k].max - profile.sketches[k].min for k in profile.names])
+    far = np.array([profile.sketches[k].max for k in profile.names]) + 10 * span
+    rows[bad, cols] = np.where(kinds == 0, np.nan, np.where(
+        kinds == 1, np.inf, np.where(kinds == 2, -np.inf, far[cols]))).astype(np.float32)
+    guard = port.InputGuard(profile, policy="impute")
+    fixed, n_bad, _ = guard.inspect(rows)
+    check(n_bad == bad.size, f"the guard flags {n_bad} cells of {bad.size} planted")
+    with ledger.aside():
+        want = predict_rows(model, fixed)
+    planted = np.zeros(n, dtype=bool)
+    planted[bad] = True
+    jobs_bad = [bool(planted[a:b].any()) for a, b in jobs]
+    c0 = dict(srv.metrics.registry.counters)
+    rej = count_runs(srv.registry.get("primary_reject"))
+    runs0, k2_0 = prim[0], L.launch_counts()["fused_assign"]
+
+    def send(j):
+        a, b = jobs[j]
+        return srv.predict("primary", rows[a:b]), srv.predict("primary_reject", rows[a:b])
+
+    answers, wall = run_clients(FRONT_CLIENTS, jobs, send)
+    lat = []
+    for j, (a, b) in enumerate(jobs):
+        (r, r2), sec = answers[j]
+        lat.append(sec)
+        check(r.status == "ok" and np.array_equal(r.value, want[a:b]),
+              f"request {j}: {r.status}, or labels differ from predict on the imputed rows")
+        if jobs_bad[j]:
+            check(r2.status == "invalid_input", f"reject name: request {j} answered {r2.status}")
+        else:
+            check(r2.status == "ok" and np.array_equal(r2.value, want[a:b]),
+                  f"reject name: request {j} answered {r2.status}")
+    c1 = srv.metrics.registry.counters
+    imputed = c1.get("serve.inputs_imputed", 0) - c0.get("serve.inputs_imputed", 0)
+    refused = c1.get("serve.inputs_rejected", 0) - c0.get("serve.inputs_rejected", 0)
+    check(imputed == bad.size, f"serve.inputs_imputed {imputed}, planted {bad.size}")
+    check(refused == sum(jobs_bad), f"serve.inputs_rejected {refused}, planted {sum(jobs_bad)}")
+    check(c1.get("serve.drift_trips", 0) == 0, "in-distribution traffic tripped the breaker")
+    check(srv.health()["status"] == "ok", "the server is not ok after in-distribution traffic")
+    k2 = L.launch_counts()["fused_assign"] - k2_0
+    check(prim[0] > runs0 and k2 == prim[0] - runs0 + rej[0],
+          f"K2 +{k2} against {prim[0] - runs0} + {rej[0]} served batches")
+    # a served batch against K2's plain version
+    j = int(np.argmax([b - a for a, b in jobs]))
+    a, b = jobs[j]
+    bucket = port.serve.bucket_for(b - a, BUCKETS)
+    batch = port.serve.pad_to_bucket(np.ascontiguousarray(fixed[a:b], dtype=np.float32), bucket)
+    with ledger.aside():
+        xt = torch.from_numpy(batch).to(DEV)
+        centers = torch.from_numpy(np.asarray(model.cluster_centers, np.float32)).to(DEV)
+        err, flips = compare_k2(L, xt, centers, torch.ones(len(centers), device=DEV),
+                                f"served batch n={bucket}")
+    lat_ms = np.asarray(lat) * 1e3
+    say(f"front door, in-distribution: {FRONT_REQUESTS} requests x 2 names from "
+        f"{FRONT_CLIENTS} clients ({n} rows, {bad.size} planted cells in "
+        f"{sum(jobs_bad)} requests): every answer == predict on the guard's imputed rows; "
+        f"the reject name refused exactly the {sum(jobs_bad)} planted requests; "
+        f"serve.inputs_imputed {imputed}; K2 +{k2}, one a served batch ({prim[0] - runs0} "
+        f"primary, {rej[0]} reject-name); "
+        f"client latency (both names) p50 {np.percentile(lat_ms, 50):.3f} ms, "
+        f"p99 {np.percentile(lat_ms, 99):.3f} ms; {2 * FRONT_REQUESTS / wall:.1f} requests/s, "
+        f"{2 * n / wall:.4g} rows/s over {wall:.2f} s; served batch n={bucket} == K2's plain "
+        f"version (max_abs_err {err:.3g}, {flips.numel()} near-tie flips)")
+    return 2 * FRONT_REQUESTS
+
+
+def window_fill(srv, name: str) -> int:
+    """Rows in the drift monitor's open window (its window-size bookkeeping)."""
+    return srv._monitors[name]._window_seen
+
+
+def close_window(srv, name: str, rows, rng) -> int:
+    """Requests of at most 256 rows from ``rows`` that close the open window
+    exactly.  → requests sent."""
+    need, sent = FRONT_WINDOW - window_fill(srv, name), 0
+    while need > 0:
+        m = min(need, 256)
+        srv.predict(name, rows[rng.integers(0, len(rows), m)])
+        need, sent = need - m, sent + 1
+    check(window_fill(srv, name) == 0, "the drift window did not close at its size")
+    return sent
+
+
+def front_drift(port, L, srv, model, x_host, fb, prim, fbr, shift, ledger) -> int:
+    """Step 3: 2,000 requests, one at a time, with one feature shifted by 2
+    training stds.  The breaker opens at the request that closes the
+    ``trip_after``-th hot window, counted from the window sizes; every
+    answer from there on is the fallback's, with no primary K2 launch.
+    A lone client has no followers to wait for, so the step serves at
+    ``max_wait_s = 0`` (the batcher's worker reads the attribute each
+    batch, as ``tune.LiveRetuner`` applies it) and restores the linger
+    after.  → requests sent."""
+    import numpy as np
+
+    batcher = srv._batcher("primary")
+    linger, batcher.max_wait_s = batcher.max_wait_s, 0.0
+    try:
+        return front_drift_one_client(port, L, srv, model, x_host, fb, prim, fbr, shift,
+                                      ledger)
+    finally:
+        batcher.max_wait_s = linger
+
+
+def front_drift_one_client(port, L, srv, model, x_host, fb, prim, fbr, shift, ledger) -> int:
+    import numpy as np
+
+    rng = np.random.default_rng(FRONT_SEED + 1)
+    sent = close_window(srv, "primary", x_host, rng)    # drift starts at a window boundary
+    snap0 = srv._monitors["primary"].snapshot()
+    check(snap0["hot_windows"] == 0, f"hot windows before the drift: {snap0}")
+    jobs = front_requests(rng, FRONT_DRIFT_REQUESTS, 1, 256)
+    rows = x_host[rng.integers(0, len(x_host), jobs[-1][1])] + shift
+    with ledger.aside():
+        want, want_fb = predict_rows(model, rows), predict_rows(fb.model, rows)
+    # the window closes, from the sizes alone: the trip_after-th is the trip
+    seen, closes = 0, []
+    for j, (a, b) in enumerate(jobs):
+        seen += b - a
+        if seen >= FRONT_WINDOW:
+            closes.append(j)
+            seen = 0
+    trip_at = closes[FRONT_TRIP_AFTER - 1]
+    imputed0 = srv.metrics.registry.counters.get("serve.inputs_imputed", 0)
+    k2_0 = L.launch_counts()["fused_assign"]
+    for j, (a, b) in enumerate(jobs):
+        if j == trip_at:
+            prim_runs, fb_runs, k2_at = prim[0], fbr[0], L.launch_counts()["fused_assign"]
+        r = srv.predict("primary", rows[a:b])
+        if j < trip_at:
+            check(r.status == "ok" and np.array_equal(r.value, want[a:b]),
+                  f"drift request {j} (before the trip at {trip_at}): {r.status}")
+        else:
+            check(r.status == "unavailable" and r.degraded
+                  and np.array_equal(r.value, want_fb[a:b]),
+                  f"drift request {j} (trip at {trip_at}): {r.status}, not the fallback's")
+    snap = srv._monitors["primary"].snapshot()
+    check(snap["windows"] - snap0["windows"] == len(closes), f"windows {snap} vs {len(closes)}")
+    check(srv.metrics.registry.counters.get("serve.inputs_imputed", 0) == imputed0,
+          "the shifted rows were imputed")
+    check(prim[0] == prim_runs, f"the primary ran {prim[0] - prim_runs} batches while open")
+    k2_open = L.launch_counts()["fused_assign"] - k2_at
+    check(k2_open == fbr[0] - fb_runs, f"K2 +{k2_open} while open, fallback batches "
+          f"{fbr[0] - fb_runs}: the primary launched")
+    h = srv.health()
+    check(h["status"] == "degraded" and h["breakers"]["primary"]["state"] == "open",
+          f"health after the drift: {h['status']}, {h['breakers']['primary']}")
+    sent += close_window(srv, "primary", rows, rng)     # the swap starts at a boundary
+    say(f"front door, drift: {FRONT_DRIFT_REQUESTS} requests with f{FRONT_DRIFT_COL} shifted "
+        f"{FRONT_SHIFT_SIGMA} stds; windows of {FRONT_WINDOW} rows closed at requests "
+        f"{closes[:FRONT_TRIP_AFTER + 1]}...; the breaker opened at request {trip_at}, the "
+        f"{FRONT_TRIP_AFTER}rd hot window (max PSI {snap['max_psi']}); after it every answer "
+        f"was the k=16 fallback's, primary K2 +0, fallback K2 +{k2_open}; "
+        f"health {h['status']}; K2 +{L.launch_counts()['fused_assign'] - k2_0} in all")
+    return sent + FRONT_DRIFT_REQUESTS
+
+
+def front_swap(port, L, srv, model, x_host, fb, shift, ledger) -> tuple:
+    """Step 4: KMeans k=256 refit on 2M drifted rows, warm-started from the
+    serving model's centers (K1, held to its plain version at that
+    shape), then ``prepare_swap`` while 8 threads submit and
+    ``commit_swap``.  → (new model, the refit's K1 shape record,
+    requests sent)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(FRONT_SEED + 2)
+    drifted = x_host[rng.integers(0, len(x_host), FRONT_REFIT_N)] + shift
+    t0 = time.perf_counter()
+    ds = port.device_dataset(drifted, device=DEV)
+    on_dev = ds.x
+    k1_0 = L.launch_counts()["fused_lloyd_stats"]
+    new = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER,
+                      warm_start_centers=np.asarray(model.cluster_centers, np.float32)).fit(ds)
+    sync()
+    refit_s = time.perf_counter() - t0
+    k1 = L.launch_counts()["fused_lloyd_stats"] - k1_0
+    check(k1 == new.n_iter + 1, f"the refit launched K1 {k1} times over {new.n_iter} steps")
+    t0 = time.perf_counter()
+    profile = port.DataProfile.from_matrix(drifted, [f"f{j}" for j in range(drifted.shape[1])])
+    prof_s = time.perf_counter() - t0
+    with ledger.aside():
+        centers = torch.from_numpy(np.asarray(new.cluster_centers, np.float32)).to(DEV)
+        w = torch.ones(len(on_dev), device=DEV)
+        c_valid = torch.ones(K, device=DEV)
+        tag = f"refit n={FRONT_REFIT_N} d={D} k={K}"
+        k1_err, k2_err, cost_rel, flips = compare(L, on_dev, w, centers, c_valid, tag)
+        c_sq, x_sq = (centers * centers).sum(1), (on_dev * on_dev).sum(1)
+
+        def lib_stats():
+            mn, arg = library_assign(on_dev, centers, x_sq, c_sq)
+            arg = arg.to(torch.int64)
+            sums = torch.zeros(K, D, device=DEV).index_add_(0, arg, on_dev * w[:, None])
+            return sums, torch.zeros(K, device=DEV).index_add_(0, arg, w), (mn * w).sum()
+
+        k1t = {"ms": gpu_ms(lambda: L.fused_lloyd_stats(on_dev, w, centers, c_valid), 20),
+             "plain_ms": gpu_ms(lambda: L.fused_lloyd_stats_plain(on_dev, w, centers, c_valid),
+                                4),
+             "library_ms": gpu_ms(lib_stats, 4)}
+    k1_bound, by = bound_ms(FRONT_REFIT_N, D, K, stats=True)
+    shape = {"n": FRONT_REFIT_N, "d": D, "k": K, "max_abs_err": k1_err, **k1t,
+             "bound_ms": k1_bound, "bound_by": by}
+    del ds, on_dev, w, x_sq
+    # the load: 8 threads of 1-16 drifted rows; before the commit they may
+    # observe fewer rows than close a window (no trip can land mid-swap)
+    jobs = [front_requests(rng, 4 * FRONT_SWAP_POST, 1, FRONT_SWAP_MAX_ROWS)
+            for _ in range(FRONT_SWAP_THREADS)]
+    rows = [drifted[rng.integers(0, len(drifted), j[-1][1])] for j in jobs]
+    with ledger.aside():
+        old_want = [predict_rows(model, r) for r in rows]
+        new_want = [predict_rows(new, r) for r in rows]
+    deadline = time.perf_counter() + FRONT_RECOVERY_S + 5
+    while srv.stats()["models"]["primary"]["breaker"] != "half_open" \
+            and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    check(srv.stats()["models"]["primary"]["breaker"] == "half_open",
+          "the breaker is not half open before the swap")
+    budget = [FRONT_WINDOW - 1 - window_fill(srv, "primary")]
+    lock, committed = threading.Lock(), threading.Event()
+    answers = [[] for _ in jobs]        # (after the commit returned, answer) per request
+
+    def load(t):
+        post = 0
+        for j, (a, b) in enumerate(jobs[t]):
+            after = committed.is_set()
+            if not after:
+                with lock:
+                    ok = budget[0] >= b - a
+                    if ok:
+                        budget[0] -= b - a
+                if not ok:
+                    committed.wait(60)
+                    after = True
+            r = srv.predict("primary", rows[t][a:b])
+            answers[t].append((j, after, r))
+            post += after
+            if post >= FRONT_SWAP_POST:
+                return
+
+    threads = [threading.Thread(target=load, args=(t,)) for t in range(FRONT_SWAP_THREADS)]
+    for th in threads:
+        th.start()
+    deadline = time.perf_counter() + 30
+    while sum(len(a) for a in answers) < 64 and budget[0] >= FRONT_SWAP_MAX_ROWS \
+            and time.perf_counter() < deadline:
+        time.sleep(0.001)
+    pre = sum(len(a) for a in answers)
+    t0 = time.perf_counter()
+    prepared = srv.prepare_swap("primary", new, data_profile=profile.to_dict())
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    srv.commit_swap(prepared)
+    commit_ms = (time.perf_counter() - t0) * 1e3
+    committed.set()
+    windows_at_commit = srv._monitors["primary"].snapshot()["windows"]
+    for th in threads:
+        th.join(120)
+    check(not any(th.is_alive() for th in threads), "the swap's load threads did not finish")
+    n_old = n_new = n_req = 0
+    for t, got in enumerate(answers):
+        for j, after, r in got:
+            a, b = jobs[t][j]
+            n_req += 1
+            check(r.status == "ok", f"swap load request {t}/{j} answered {r.status} "
+                  f"({r.detail})")
+            is_new = np.array_equal(r.value, new_want[t][a:b])
+            is_old = np.array_equal(r.value, old_want[t][a:b])
+            check(is_new or (is_old and not after),
+                  f"swap load request {t}/{j} (after the commit: {after}) got neither model's")
+            n_new += is_new and not is_old
+            n_old += is_old and not is_new
+    check(n_old > 0 and n_new > 0, f"{n_old} old-model and {n_new} new-model answers")
+    mon = srv._monitors["primary"].snapshot()
+    h = srv.health()
+    check(h["status"] == "ok" and h["breakers"]["primary"]["state"] == "closed",
+          f"health after the swap: {h['status']} {h['breakers']['primary']}")
+    post_windows = mon["windows"] - windows_at_commit
+    check(post_windows >= 1 and mon["hot_windows"] == 0 and not mon["drifting"]
+          and mon["rebases"] == 1, f"post-swap drift windows: {mon}")
+    say(f"front door, hot swap: refit KMeans(k={K}) on {FRONT_REFIT_N} drifted rows from "
+        f"the serving model's centers "
+        f"{refit_s:.2f} s "
+        f"(n_iter {new.n_iter}, K1 +{k1}; K1 at the refit shape {k1t['ms']:.4f} ms, plain "
+        f"{k1t['plain_ms']:.4f}, library {k1t['library_ms']:.4f}, bound {k1_bound:.4f} by {by}, "
+        f"max_abs_err {k1_err:.3g}, cost rel err {cost_rel:.3g}, {flips} near-tie flips); "
+        f"its profile {prof_s:.2f} s; prepare_swap {prep_ms:.2f} ms after {pre} answers, "
+        f"commit_swap {commit_ms:.3f} ms, under {FRONT_SWAP_THREADS} threads: {n_req} requests "
+        f"all ok, {n_old} old-model answers, {n_new} new-model answers, none rejected or "
+        f"lost; after: breaker closed, {post_windows} post-swap windows, max PSI "
+        f"{mon['max_psi']} (noise floor {mon['noise_floor']}), health {h['status']}")
+    return new, shape, n_req
+
+
+def front_failure(port, srv, x_host, shift) -> tuple:
+    """Step 5: the primary raises for a planted run of batches; the breaker
+    opens after the threshold, goes half open after the recovery time and
+    closes on the next success; the transitions equal ``metrics_text()``'s
+    counter and the state gauge.  → (requests sent, the parsed text)."""
+    import numpy as np
+
+    rng = np.random.default_rng(FRONT_SEED + 3)
+    sm = srv.registry.get("primary")
+    calls, planted = [0], range(2, 2 + FRONT_FAILURES)
+    orig = sm.predict_bucketed
+
+    def flaky(x):
+        calls[0] += 1
+        if calls[0] - 1 in planted:
+            raise RuntimeError("planted primary failure")
+        return orig(x)
+
+    sm.predict_bucketed = flaky
+    c = srv.metrics.registry.counters
+    moves0 = {s: c.get(f"serve.breaker.to_{s}", 0) for s in ("open", "half_open", "closed")}
+
+    def gauge() -> float:
+        return srv.obs_fragment()["gauges"]['serve.breaker_state{model="primary"}']
+
+    statuses, seq = [], []
+    for j in range(2 + FRONT_FAILURES + 3 + 3):
+        if j == 2 + FRONT_FAILURES + 3:
+            check(gauge() == 2.0, f"state gauge {gauge()} while open")
+            time.sleep(FRONT_RECOVERY_S + 0.05)
+            seq.append(srv.stats()["models"]["primary"]["breaker"])
+            check(gauge() == 1.0, f"state gauge {gauge()} past the recovery time")
+        r = srv.predict("primary", x_host[rng.integers(0, len(x_host), 8)] + shift)
+        statuses.append(r.status)
+        seq.append(srv.stats()["models"]["primary"]["breaker"])
+    sm.predict_bucketed = orig
+    want = (["ok"] * 2 + ["unavailable"] * FRONT_FAILURES + ["unavailable"] * 3 + ["ok"] * 3)
+    check(statuses == want, f"statuses {statuses}")
+    moves = {s: c.get(f"serve.breaker.to_{s}", 0) - v for s, v in moves0.items()}
+    check(moves == {"open": 1, "half_open": 1, "closed": 1}, f"transitions {moves}")
+    check(seq[FRONT_FAILURES + 1] == "open" and seq[-1] == "closed" and gauge() == 0.0,
+          f"breaker states {seq}")
+    text = srv.metrics_text()
+    metric = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            metric[key] = float(val)
+    opened = srv.health()["breakers"]["primary"]["opened_count"]
+    check(metric['cmlhn_serve_breaker_opened_total{model="primary"}'] == opened
+          == c.get("serve.breaker.to_open", 0), f"opened {opened} vs the text and counters")
+    check(metric['cmlhn_serve_breaker_state{model="primary"}'] == 0.0, "state gauge not closed")
+    say(f"front door, failing primary: {FRONT_FAILURES} planted failures opened the breaker "
+        f"(states {seq}); half open after {FRONT_RECOVERY_S} s, closed on the next success; "
+        f"transitions {moves} == metrics_text's breaker counters and state gauge; "
+        f"opened {opened} times in all")
+    return len(statuses), metric
+
+
+def write_drop(path: str, cols: dict, plants: dict, renamed: bool) -> dict:
+    """One drop's CSV text written to ``path`` (a worker process's job).
+    → its planted rows' raw lines."""
+    text, raw = firewall_drop_text(cols, 0, len(cols["hospital_id"]), plants, renamed)
+    with open(path, "w") as f:
+        f.write(text)
+    return raw
+
+
+def firewall_drop_text(cols, lo: int, hi: int, plants: dict, renamed: bool) -> tuple:
+    """Rows ``lo:hi`` as CSV text with the planted rows edited, in the
+    renamed and reordered header when ``renamed``.  → (text, {row: raw
+    line})."""
+    import numpy as np
+
+    times = np.datetime_as_string(cols["event_time"][lo:hi].astype("datetime64[ns]"), unit="ns")
+    fields = {
+        "hospital_id": cols["hospital_id"][lo:hi].tolist(),
+        "event_time": [t.replace("T", " ") for t in times.tolist()],
+        **{c: cols[c][lo:hi].astype(str).tolist()
+           for c in ("admission_count", "current_occupancy", "emergency_visits")},
+        **{c: list(map(repr, cols[c][lo:hi].tolist()))
+           for c in ("seasonality_index", "length_of_stay")},
+    }
+    order = [FRONT_ALIASES.get(c, c) for c in FRONT_RENAMED] if renamed else list(EVENT_COLS)
+    head = FRONT_RENAMED if renamed else EVENT_COLS
+    lines = [",".join(row) for row in zip(*(fields[c] for c in order))]
+    raw = {}
+    for i, kind in plants.items():
+        col, value, _ = FRONT_PLANTS[kind]
+        parts = [fields[c][i] for c in order]
+        if kind == "ragged":
+            parts = parts[:5]
+        else:
+            parts[order.index(col)] = value
+        lines[i] = raw[i] = ",".join(parts)
+    return ",".join(head) + "\n" + "".join(line + "\n" for line in lines), raw
+
+
+def front_firewall(port, tmp: str, card: str) -> dict:
+    """Step 6: 40 drops of 50,000 hospital rows through a firewalled stream,
+    0.1 % planted bad rows and one renamed, reordered header; killed after
+    a batch's read and resumed.  → the stream's metrics registry."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    t_all = time.perf_counter()
+    cols = hospital_events(FRONT_DROPS * FRONT_DROP_ROWS // 5, seed=FRONT_SEED, whole_day=True)
+    order = np.argsort(cols["event_time"], kind="stable")
+    cols = {k: v[order] for k, v in cols.items()}
+    n = len(order)
+    rng = np.random.default_rng(FRONT_SEED + 4)
+    bad = np.sort(rng.choice(n, int(n * FRONT_BAD), replace=False))
+    kinds = list(FRONT_PLANTS)
+    bad_kind = {int(i): kinds[k] for i, k in zip(bad, rng.integers(0, len(kinds), bad.size))}
+    renamed_drop = FRONT_DROPS // 2
+    incoming = os.path.join(tmp, "incoming")
+    os.makedirs(incoming)
+    want_rejects = {}                                 # batch → (histogram, raw lines)
+    t0 = time.perf_counter()
+    drops = []
+    for b in range(FRONT_DROPS):
+        lo, hi = b * FRONT_DROP_ROWS, (b + 1) * FRONT_DROP_ROWS
+        drops.append((os.path.join(incoming, f"drop-{b:03d}.csv"),
+                      {k: v[lo:hi] for k, v in cols.items()},
+                      {i - lo: k for i, k in bad_kind.items() if lo <= i < hi},
+                      b == renamed_drop))
+    # the text is Python string formatting: a process a core writes it
+    # (spawned, not forked, since this process holds the card and threads)
+    with ProcessPoolExecutor(min(FRONT_DROPS, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        raws = list(pool.map(write_drop, *zip(*drops)))
+    # the source takes files in (mtime, name) order: the drops arrive in turn
+    stamp = time.time_ns()
+    for b, (path, _, _, _) in enumerate(drops):
+        os.utime(path, ns=(stamp + b * 1_000_000,) * 2)
+    for b, ((_, _, plants, _), raw) in enumerate(zip(drops, raws)):
+        hist = {}
+        for k in plants.values():
+            for reason in FRONT_PLANTS[k][2]:
+                hist[reason] = hist.get(reason, 0) + 1
+        want_rejects[b] = (hist, {raw[i] for i, k in plants.items()
+                                  if k in ("malformed", "ragged")}, len(plants))
+    write_s = time.perf_counter() - t0
+    keep = np.ones(n, dtype=bool)
+    keep[bad] = False
+    # a parsed integer column stays float64 (NaN-capable), as every CSV
+    # engine of both packages keeps it
+    good = port.Table.from_dict({k: v[keep].astype(np.float64) if v.dtype.kind in "iu"
+                                 else v[keep] for k, v in cols.items()},
+                                port.hospital_event_schema())
+    names = ("admission_count", "current_occupancy", "emergency_visits", "seasonality_index")
+    reference = port.DataProfile.from_matrix(good.numeric_matrix(list(names)), names)
+    metrics = port.utils.MetricsRegistry()
+    firewalls = []
+
+    def stream():
+        fw = port.DataFirewall(port.hospital_event_schema(), port.hospital_constraints(),
+                               aliases=FRONT_ALIASES, monitor=port.DriftMonitor(reference))
+        firewalls.append(fw)
+        return port.StreamExecution(
+            source=port.FileStreamSource(incoming, port.hospital_event_schema(),
+                                         max_files_per_batch=1),
+            sink=port.UnboundedTable(os.path.join(tmp, "table"), port.hospital_event_schema()),
+            checkpoint=port.StreamCheckpoint(os.path.join(tmp, "ckpt")),
+            firewall=fw, metrics=metrics, device=DEV)
+
+    t0 = time.perf_counter()
+    plan = faults.FaultPlan().crash("stream.after_read", after=FRONT_KILL_BATCH)
+    ex = stream()
+    with faults.active(plan):
+        try:
+            while ex.run_once() is not None:
+                pass
+            fail("the stream was not killed")
+        except faults.InjectedCrash:
+            pass
+    check(len(ex.history) == FRONT_KILL_BATCH, f"killed after {len(ex.history)} batches")
+    ex = stream()
+    while ex.run_once() is not None:
+        pass
+    stream_s = time.perf_counter() - t0
+    got = ex.sink.read()
+    check(len(got) == keep.sum(), f"{len(got)} rows committed, {int(keep.sum())} planted good")
+    c = first_unequal_column(got.select(list(EVENT_COLS)), good)
+    check(c is None, f"the committed rows differ from the planted good rows in {c}")
+    recs = {e["batch_id"]: e for e in ex.checkpoint.quarantined_rows()}
+    check(sorted(recs) == list(range(FRONT_DROPS)), f"row quarantine of batches {sorted(recs)}")
+    for b, (hist, raws, n_bad) in want_rejects.items():
+        e = recs[b]
+        got_raw = {r["raw"] for r in e["rejects"] if "raw" in r}
+        check(e["n_rejected"] == n_bad and e["reason_histogram"] == hist and got_raw == raws,
+              f"batch {b}: quarantine {e['n_rejected']} {e['reason_histogram']} vs the plan "
+              f"{n_bad} {hist}")
+        events = [(d["kind"], d["target"], d["source"]) for d in e["drift_events"]]
+        want_events = ([("column_renamed", "admission_count", "admits"),
+                        ("column_renamed", "length_of_stay", "los"),
+                        ("column_reordered", None, None)] if b == renamed_drop else [])
+        check(events == want_events, f"batch {b}: drift events {events}")
+    total = {}
+    for hist, _, _ in want_rejects.values():
+        for k, v in hist.items():
+            total[k] = total.get(k, 0) + v
+    check(ex.checkpoint.row_reason_histogram() == total
+          and ex.checkpoint.quarantined_row_count() == bad.size,
+          f"reject histogram {ex.checkpoint.row_reason_histogram()} vs the plan {total}")
+    mc = metrics.counters
+    check(mc.get("stream.rows_rejected") == bad.size and mc.get("stream.drift_events") == 3
+          and mc.get("stream.batches") == FRONT_DROPS, f"stream counters {mc}")
+    health = port.serve.InferenceServer(device=DEV, ingest_metrics=metrics).health()
+    check(health["quarantined_rows"] == bad.size and health["drift_events"] == 3,
+          f"health() quarantined_rows {health['quarantined_rows']}")
+    parse = sum(f.stage_seconds["parse"] for f in firewalls)
+    validate = sum(f.stage_seconds["validate"] for f in firewalls)
+    rows_in = sum(f.rows_in for f in firewalls)
+    say(f"front door, ingest firewall: {FRONT_DROPS} drops x {FRONT_DROP_ROWS} rows ({n}), "
+        f"{bad.size} planted bad rows ({total}), drop {renamed_drop} renamed and reordered; "
+        f"killed after batch {FRONT_KILL_BATCH}'s read and resumed: the committed rows == the "
+        f"planted good rows, quarantine and histogram == the plan, 3 drift events; health() "
+        f"quarantined_rows {health['quarantined_rows']}; firewall parse {parse:.2f} s, "
+        f"validate {validate:.2f} s, {rows_in / (parse + validate):.4g} rows/s "
+        f"({rows_in} rows in, the replayed batch twice); stream {stream_s:.2f} s "
+        f"({n / stream_s:.4g} rows/s), drops written {write_s:.2f} s; "
+        f"step {time.perf_counter() - t_all:.2f} s")
+    return metrics
+
+
+def front_knobs(port, model, x_host, tmp: str, card: str, ledger) -> None:
+    """Step 7: ``serve.microbatch.max_wait_ms`` over its domain on served
+    traffic (16 clients, 500 requests a value) into a TrialStore; a
+    Selector then moves a new server's ``max_wait_s`` to the best value,
+    and inside ``ab_fence()`` leaves the declared default."""
+    import numpy as np
+
+    name = "serve.microbatch.max_wait_ms"
+    knob = port.tune.REGISTRY.get(name)
+    rng = np.random.default_rng(FRONT_SEED + 5)
+    jobs = front_requests(rng, FRONT_KNOB_REQUESTS, 1, 256)
+    rows = x_host[rng.integers(0, len(x_host), jobs[-1][1])]
+    with ledger.aside():
+        want = predict_rows(model, rows)
+    fingerprint = re.sub(r"[^A-Za-z0-9]+", "-", card).strip("-")
+    trials, scores = [], {}
+    for v in knob.domain:
+        with port.serve.InferenceServer(device=DEV, max_wait_s=v / 1e3) as srv:
+            srv.add_model("knob", model, buckets=BUCKETS)
+
+            def send(j):
+                a, b = jobs[j]
+                return srv.predict("knob", rows[a:b])
+
+            answers, wall = run_clients(FRONT_CLIENTS, jobs, send)
+            for j, (a, b) in enumerate(jobs):
+                r = answers[j][0]
+                check(r.ok and np.array_equal(r.value, want[a:b]), f"knob {v}: request {j}")
+            st = srv.stats()
+        scores[v] = FRONT_KNOB_REQUESTS / wall
+        trials.append(port.tune.make_trial(
+            knob=name, value=v, score=scores[v], platform="gpu", fingerprint=fingerprint,
+            shape_rows=jobs[-1][1] // len(jobs), metric=knob.metric, source="sweep",
+            meta={"p50_ms": st["latency_p50_ms"], "p99_ms": st["latency_p99_ms"],
+                  "batch_fill": st["batch_fill_ratio"], "card": card}))
+    store = port.tune.TrialStore(os.path.join(tmp, "trials.json"))
+    check(store.add(trials) == len(trials), "trials merged away")
+    best = max(knob.domain, key=lambda v: (scores[v], repr(v)))
+    sel = port.tune.Selector(port.tune.TrialStore(store.path), platform="gpu",
+                             fingerprint=fingerprint)
+    with port.tune.active(sel):
+        with port.tune.ab_fence():
+            fenced = port.serve.InferenceServer(device=DEV).max_wait_s
+            fenced_reason = sel.explain(name)["reason"]
+        tuned = port.serve.InferenceServer(device=DEV).max_wait_s
+        reason = sel.explain(name)["reason"]
+    check(fenced == knob.default / 1e3 and fenced_reason == port.tune.REASON_FROZEN_FENCED,
+          f"inside ab_fence: {fenced} ({fenced_reason})")
+    check(tuned == best / 1e3 and reason.startswith(port.tune.REASON_TUNED_PREFIX),
+          f"the selector chose {tuned} ({reason}), the best measured is {best}")
+    check(port.tune.installed() is None and port.serve.InferenceServer(device=DEV).max_wait_s
+          == knob.default / 1e3, "the selector stayed installed")
+    say(f"front door, knobs ({card}): {name} over {list(knob.domain)} at {FRONT_CLIENTS} "
+        f"clients, {FRONT_KNOB_REQUESTS} requests a value: requests/s "
+        f"{json.dumps({str(v): round(s, 1) for v, s in scores.items()})}; p99 ms "
+        f"{json.dumps({str(t['value']): t['meta']['p99_ms'] for t in trials})}; the selector "
+        f"resolves max_wait_s = {tuned} ({reason}); inside ab_fence() {fenced} "
+        f"({fenced_reason})")
+
+
+def front_door_phase(port, L, card: str, model=None, x_host=None) -> dict:
+    """Slice 7a at full width: the KMeans k=256 server behind its data
+    guards (a profiled artifact, in-distribution traffic with planted bad
+    rows, a drift trip, a hot swap under load, a failing primary), the
+    ingest firewall over 2M hospital rows, and the batcher's deadline
+    tuned from the card's traffic.  No fallback hides the card: a primary
+    failure, a fallback answer or an open breaker outside the planted
+    windows fails the run.  ``model`` / ``x_host`` are the main path's
+    KMeans model and its 10M standardized rows (fitted here when not
+    given).  → {"launches": the main path's K1 / K2 launches, "shape":
+    K1's record at the refit shape}."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    if model is None:
+        x_host = make_data(N, D, K)
+        model = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER).fit(
+            port.device_dataset(x_host, device=DEV))
+    ledger = LaunchLedger(L)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+        path, profile, fb = front_profiled_artifact(port, L, model, x_host, tmp, ledger)
+        fbr = count_runs(fb)
+        lap("front artifact")
+        srv = port.serve.InferenceServer(device=DEV, breaker_failure_threshold=FRONT_FAILURES,
+                                         breaker_recovery_s=FRONT_RECOVERY_S)
+        srv.add_model("primary", path, buckets=BUCKETS, fallback=fb, input_policy="impute",
+                      drift_window_rows=FRONT_WINDOW, drift_trip_after=FRONT_TRIP_AFTER)
+        srv.add_model("primary_reject", path, buckets=BUCKETS, input_policy="reject",
+                      drift_window_rows=FRONT_WINDOW, drift_trip_after=FRONT_TRIP_AFTER)
+        check(srv._monitors["primary"].reference.to_dict() == profile.to_dict(),
+              "add_model did not load the artifact's profile")
+        sent = 0
+        with srv:
+            prim = count_runs(srv.registry.get("primary"))
+            sent += front_in_distribution(port, L, srv, model, x_host, profile, prim, ledger)
+            lap("front traffic")
+            std = profile.sketches[f"f{FRONT_DRIFT_COL}"].std
+            shift = np.zeros(D, dtype=np.float32)
+            shift[FRONT_DRIFT_COL] = FRONT_SHIFT_SIGMA * std
+            sent += front_drift(port, L, srv, model, x_host, fb, prim, fbr, shift, ledger)
+            lap("front drift")
+            new, shape, n = front_swap(port, L, srv, model, x_host, fb, shift, ledger)
+            sent += n
+            lap("front swap")
+            n, metric = front_failure(port, srv, x_host, shift)
+            sent += n
+            check(metric["cmlhn_serve_requests_total"] == sent
+                  == sum(v for k, v in metric.items() if k.startswith("cmlhn_serve_status_")),
+                  f"metrics_text requests {metric['cmlhn_serve_requests_total']}, sent {sent}")
+            lap("front failure")
+        front_firewall(port, os.path.join(tmp, "ingest"), card)
+        lap("front firewall")
+        front_knobs(port, model, x_host, tmp, card, ledger)
+        lap("front knobs")
+        os.environ.pop("CMLHN_FLIGHT_DIR")
+    launches = ledger.main_path()
+    check(launches["fused_lloyd_stats"] > 0 and launches["fused_assign"] > 0,
+          f"front_door_phase launches {launches}")
+    secs = time.perf_counter() - t_phase
+    say(f"front_door_phase: {secs:.2f} s of host clock ({card}); {sent} requests to the "
+        f"guarded server == metrics_text; main-path launches {json.dumps(launches)}")
+    return {"launches": launches, "shape": shape}
+
+
 def main() -> None:
     try:
         import torch
@@ -5805,6 +6634,14 @@ def main() -> None:
     counts["fused_level_hist"] += hist["launches"]
     records[-1]["shapes"].append(hist["shape"])
 
+    # ------- slice 7a: the serving front door (K2 in every served batch of
+    # the primary, K1 in the fallback's fit and the hot swap's refit) and
+    # the ingest firewall
+    front = front_door_phase(port, L, card, model, x_host)
+    for name, v in front["launches"].items():
+        counts[name] += v
+    records[0]["shapes"].append(front["shape"])
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -5812,7 +6649,9 @@ def main() -> None:
         f"families_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fam ')):.2f}; "
         f"features_phase {sum(v for k, v in PHASE_S.items() if k.startswith('feat ')):.2f}; "
         f"beyond_phase {sum(v for k, v in PHASE_S.items() if k.startswith('beyond ')):.2f}; "
-        f"history_phase {sum(v for k, v in PHASE_S.items() if k.startswith('history ')):.2f}")
+        f"history_phase {sum(v for k, v in PHASE_S.items() if k.startswith('history ')):.2f}; "
+        f"front_door_phase {sum(v for k, v in PHASE_S.items() if k.startswith('front ')):.2f}; "
+        f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:
         rec["launches"] = counts[rec["name"]]

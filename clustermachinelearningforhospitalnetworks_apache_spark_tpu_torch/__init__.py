@@ -75,6 +75,19 @@ the fuzz harness (``core/sql_fuzz.py``: ``run_fuzz``,
 pytest tests/test_torch_segments.py tests/test_torch_table_lifecycle.py
 tests/test_torch_sql_views.py tests/test_torch_sql_fuzz.py``; on a card,
 ``chip_smoke.history_phase(port, H, card)`` runs it alone after
+``ops._build.build()``.  Slice 7a adds the serving front door and its host
+subsystems: ``tune/`` (the knob registry, the durable trial store, the
+selector with its A/B fence, the journaled live retuner), ``quality/``
+(sketches and PSI, row validators, header reconciliation, the drift
+monitor and input guard, the ``DataFirewall`` with the salvage CSV parser
+and the stream's row quarantine), and the server's circuit breaker, input
+and drift guards, hot swaps, ``health()`` and ``metrics_text()``.  The
+quality stages, the firewall and the tuner are host code and take no
+``device=``; the server takes its device as before.  Its CPU tests:
+``python -m pytest tests/test_torch_quality.py tests/test_torch_autotune.py
+tests/test_torch_breaker.py tests/test_torch_firewall.py
+tests/test_torch_serving.py``; on a card,
+``chip_smoke.front_door_phase(port, L, card)`` runs it alone after
 ``ops._build.build()``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
@@ -82,7 +95,7 @@ trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import models, pipeline, serve, stat, streaming, tuning, utils, viz
+from . import models, pipeline, quality, serve, stat, streaming, tune, tuning, utils, viz
 from .config import PipelineConfig
 from .convert import (
     imputer_model_from_jax_arrays,
@@ -248,6 +261,15 @@ from .pipeline.hospital_pipeline import (
     run_model_stage,
     run_pipeline,
 )
+from .quality import (
+    ConstraintSet,
+    DataFirewall,
+    DataProfile,
+    DriftMonitor,
+    InputGuard,
+    RowValidator,
+    hospital_constraints,
+)
 from .session import Session
 from .stat import (
     ANOVATest,
@@ -353,4 +375,7 @@ __all__ = [
     "univariate_feature_selector_model_from_jax_arrays",
     "variance_threshold_selector_model_from_jax_arrays",
     "vector_indexer_model_from_jax_arrays", "word2vec_model_from_jax_arrays",
+    # slice 7a
+    "ConstraintSet", "DataFirewall", "DataProfile", "DriftMonitor", "InputGuard",
+    "RowValidator", "hospital_constraints", "quality",
 ]

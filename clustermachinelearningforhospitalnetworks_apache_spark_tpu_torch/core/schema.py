@@ -27,6 +27,8 @@ _NUMERIC = {INT, FLOAT}
 class Field:
     name: str
     dtype: str
+    #: False compiles to a not-null check in ``quality.RowValidator``
+    nullable: bool = True
 
     def __post_init__(self) -> None:
         if self.dtype not in _NUMPY_DTYPES:

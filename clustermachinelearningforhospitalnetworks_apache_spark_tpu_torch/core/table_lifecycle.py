@@ -40,6 +40,7 @@ from ..io.integrity import verify_bytes
 from ..io.model_io import fsync_dir
 from ..obs.registry import global_registry
 from ..obs.trace import span
+from ..tune import knob
 from ..utils.faults import fault_point
 from .segments import (
     SegmentCorruptError,
@@ -49,13 +50,6 @@ from .segments import (
     write_segment,
 )
 from .table import Table
-
-#: the declared defaults of the JAX package's ``table.seal.min_batches``
-#: and ``table.seal.max_segment_batches`` tuning knobs, which the port
-#: has no tuner to move
-DEFAULT_MIN_SEAL_BATCHES = 4
-DEFAULT_MAX_SEGMENT_BATCHES = 64
-
 
 @dataclass(frozen=True)
 class RetentionPolicy:
@@ -68,11 +62,11 @@ class RetentionPolicy:
     ``retire_parts=False`` keeps part files forever (segments as pure
     acceleration).
 
-    ``None`` in the two seal-chunk fields resolves, when the policy is
-    built, to :data:`DEFAULT_MIN_SEAL_BATCHES` and
-    :data:`DEFAULT_MAX_SEGMENT_BATCHES`, so a frozen policy pins one
-    value for its lifetime — segment boundaries never move between two
-    passes of the same policy.
+    The seal chunk knobs (``table.seal.min_batches`` /
+    ``table.seal.max_segment_batches``) are registry-owned: ``None``
+    resolves through :func:`tune.knob` when the policy is built, so a
+    frozen policy pins one value for its lifetime — segment boundaries
+    never move between two passes of the same policy.
     """
 
     min_seal_batches: int | None = None
@@ -84,10 +78,13 @@ class RetentionPolicy:
     watermark_column: str | None = None
 
     def __post_init__(self) -> None:
+        # frozen dataclass: resolve the knob-owned fields once, at build
         if self.min_seal_batches is None:
-            object.__setattr__(self, "min_seal_batches", DEFAULT_MIN_SEAL_BATCHES)
+            object.__setattr__(
+                self, "min_seal_batches", int(knob("table.seal.min_batches")))
         if self.max_segment_batches is None:
-            object.__setattr__(self, "max_segment_batches", DEFAULT_MAX_SEGMENT_BATCHES)
+            object.__setattr__(
+                self, "max_segment_batches", int(knob("table.seal.max_segment_batches")))
 
 
 def _as_ns(watermark) -> int:

@@ -11,22 +11,24 @@ milliseconds, so the coalescing window adapts:
 
 Every admitted request is answered exactly once (see ``queue.py``); the
 degradation ladder (shed at admission, drop at deadline, fallback answer
-when configured) lives here because only the batcher knows *when* a
-request finally reaches the device.
+when configured, a circuit breaker around the primary) lives here because
+only the batcher knows *when* a request finally reaches the device.
 """
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from typing import Callable, Union
 
 import numpy as np
 
+from ..tune import default as knob_default
+from ..tune import knob
+from ..utils.logging import get_logger
+from .breaker import CircuitBreaker
 from .metrics import ServingMetrics
 from .queue import (
-    DEFAULT_MAX_QUEUE_ROWS,
     DEGRADED_STATUSES,
     Request,
     RequestQueue,
@@ -39,11 +41,14 @@ from .queue import (
 )
 from .registry import ServingModel
 
-log = logging.getLogger(__name__)
+log = get_logger("serve")
 
 #: default linger for followers when the queue is shallow — 2 ms buys
-#: coalescing at realistic arrival rates without a visible latency bump
-DEFAULT_MAX_WAIT_S = 0.002
+#: coalescing at realistic arrival rates without a visible latency bump.
+#: Owned by the knob registry (``serve.microbatch.max_wait_ms``); this
+#: constant is the DECLARED default — ``max_wait_s=None`` resolves
+#: through the installed selector instead.
+DEFAULT_MAX_WAIT_S = knob_default("serve.microbatch.max_wait_ms") / 1e3
 
 Fallback = Union["ServingModel", Callable[[np.ndarray], np.ndarray], None]
 
@@ -58,21 +63,31 @@ class MicroBatcher:
     refusal.  The fallback runs on the CALLER's thread — it must be cheap
     by construction, and a saturated main queue must not serialize sheds
     behind itself.
+
+    ``breaker`` wraps the primary: repeated failures OPEN it, and while it
+    is open a batch is answered by the fallback with no device launch.
     """
 
     def __init__(
         self,
         model: ServingModel,
-        max_queue_rows: int = DEFAULT_MAX_QUEUE_ROWS,
-        max_wait_s: float = DEFAULT_MAX_WAIT_S,
+        max_queue_rows: int | None = None,
+        max_wait_s: float | None = None,
         fallback: Fallback = None,
         metrics: ServingMetrics | None = None,
+        breaker: CircuitBreaker | None = None,
     ):
         self.model = model
         self.metrics = metrics or model.metrics
+        # None → resolved through the knob registry (the declared default
+        # when no selector is installed — bit-identical to the literals)
         self.queue = RequestQueue(max_rows=max_queue_rows)
-        self.max_wait_s = float(max_wait_s)
+        self.max_wait_s = (
+            knob("serve.microbatch.max_wait_ms") / 1e3
+            if max_wait_s is None else float(max_wait_s)
+        )
         self.fallback = fallback
+        self.breaker = breaker
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -172,16 +187,26 @@ class MicroBatcher:
             self._execute(live)
 
     def _execute(self, live: list[Request]) -> None:
+        if self.breaker is not None and not self.breaker.allow():
+            # circuit open: the primary does not see the batch — every
+            # waiter gets a fallback answer at once, with no device launch
+            for r in live:
+                self._answer_degraded(r, STATUS_UNAVAILABLE, "circuit open")
+            return
         rows = np.concatenate([r.x for r in live], axis=0)
         try:
             preds = self.model.predict_bucketed(rows)
         except Exception as e:  # noqa: BLE001 — a poisoned batch must
             # answer every waiter, not kill the worker thread
+            if self.breaker is not None:
+                self.breaker.record_failure()
             self.metrics.record_primary_failure()
-            log.error("batch predict failed (%d rows): %r", rows.shape[0], e)
+            log.error("batch predict failed", error=repr(e), rows=rows.shape[0])
             for r in live:
                 self._answer_degraded(r, STATUS_UNAVAILABLE, repr(e))
             return
+        if self.breaker is not None:
+            self.breaker.record_success()
         s = 0
         for r in live:
             r.complete(ServeResult(preds[s : s + r.rows], STATUS_OK))
@@ -203,7 +228,7 @@ class MicroBatcher:
                 )
                 degraded = True
             except Exception as e:  # noqa: BLE001 — degradation must not raise
-                log.warning("fallback failed: %r", e)
+                log.warning("fallback failed", error=repr(e))
         if degraded:
             self.metrics.record_fallback_answer()
         req.complete(

@@ -23,15 +23,29 @@ from typing import Optional
 
 import numpy as np
 
-#: default bound on queued rows per batcher
-DEFAULT_MAX_QUEUE_ROWS = 4096
+from ..tune import default as knob_default
+from ..tune import knob
+
+#: the declared default of the ``serve.queue.max_rows`` knob; a queue
+#: built with ``max_rows=None`` resolves the knob instead
+DEFAULT_MAX_QUEUE_ROWS = knob_default("serve.queue.max_rows")
 
 #: result statuses, 503-analogue semantics
 STATUS_OK = "ok"
 STATUS_REJECTED = "rejected"             # queue saturated at admission
 STATUS_DEADLINE_EXCEEDED = "deadline_exceeded"
-STATUS_UNAVAILABLE = "unavailable"       # the primary model failed
+#: never answered here (a primary failure answers ``unavailable``);
+#: exported for clients that branch on it
+STATUS_ERROR = "error"
+STATUS_UNAVAILABLE = "unavailable"       # primary failed / circuit open
 STATUS_SHUTDOWN = "shutdown"
+#: input guard refusal: non-finite / wildly out-of-range features under
+#: the ``reject`` policy — a 400, not a 503, so NOT a degraded status (a
+#: made-up answer to a garbage question helps nobody)
+STATUS_INVALID_INPUT = "invalid_input"
+#: a full-quality answer scored by a CANDIDATE model during a canary
+#: traffic split — ``ok`` is True; the tag attributes the answer
+STATUS_CANARY = "canary"
 
 #: statuses answered by the fallback path (degraded but not failed)
 DEGRADED_STATUSES = (
@@ -52,7 +66,9 @@ class ServeResult:
 
     @property
     def ok(self) -> bool:
-        return self.status == STATUS_OK
+        # canary answers are full-quality predictions (attributed to the
+        # candidate model), not a degradation
+        return self.status in (STATUS_OK, STATUS_CANARY)
 
 
 @dataclass
@@ -92,7 +108,10 @@ class Request:
 class RequestQueue:
     """Row-bounded FIFO with shed-at-admission semantics."""
 
-    def __init__(self, max_rows: int = DEFAULT_MAX_QUEUE_ROWS):
+    def __init__(self, max_rows: int | None = None):
+        # None → the registry's serve.queue.max_rows
+        if max_rows is None:
+            max_rows = int(knob("serve.queue.max_rows"))
         if max_rows < 1:
             raise ValueError("max_rows must be positive")
         self.max_rows = max_rows

@@ -21,6 +21,7 @@ import torch
 from ..device import resolve_device
 from ..io.model_io import load_model
 from ..models.base import Model
+from ..utils.faults import fault_point
 from ..utils.logging import get_logger
 from .bucketing import (
     DEFAULT_BUCKETS,
@@ -76,6 +77,11 @@ class ServingModel:
             self._run(np.zeros((b, self.n_features), dtype=np.float32))
         return self
 
+    def jit_cache_size(self) -> None:
+        """Always None: eager torch keeps no compiled executables to count
+        (the JAX package reports its jit cache here)."""
+        return None
+
     def predict_bucketed(self, x: np.ndarray) -> np.ndarray:
         """One padded device call: pick the bucket, pad, predict, slice.
         ``x`` must fit the largest bucket; :meth:`predict` splits larger
@@ -84,6 +90,9 @@ class ServingModel:
         if x.ndim == 1:
             x = x[None, :]
         n = x.shape[0]
+        # the primary-model fault site: a fault plan fails the model here
+        # to drive the batcher's circuit breaker
+        fault_point("serve.predict", model=type(self.model).__name__, rows=n)
         b = bucket_for(n, self.buckets)
         with self._lock:
             cold = b not in self._warmed

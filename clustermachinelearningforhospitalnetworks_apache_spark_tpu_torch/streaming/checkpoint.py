@@ -14,8 +14,10 @@ poison batch that kills the process on every replay is recognized across
 restarts and quarantined — written to ``<ckpt>/quarantine/batch-<id>.json``
 and committed as skipped — instead of wedging the stream forever.
 
-The rung below batch quarantine (rows the data firewall rejects, under
-``quarantine/rows/``) comes with the firewall, in slice 7 of the port.
+The rung below batch quarantine is **row quarantine**: rows the data
+firewall rejects (malformed / out-of-range / constraint-violating) land in
+``<ckpt>/quarantine/rows/batch-<id>.json`` with their raw evidence and a
+per-reason histogram, while the rest of the batch commits normally.
 """
 
 from __future__ import annotations
@@ -29,6 +31,40 @@ from ..io.model_io import fsync_dir
 from .wal import append_line, read_lines
 
 QUARANTINE_DIR = "quarantine"
+ROW_QUARANTINE_DIR = os.path.join("quarantine", "rows")
+
+
+def _read_quarantine_dir(qdir: str) -> list[dict]:
+    """Every ``batch-*.json`` evidence record, in batch order; torn or
+    unreadable files are skipped, never fatal."""
+    if not os.path.isdir(qdir):
+        return []
+    out = []
+    for name in sorted(os.listdir(qdir)):
+        if not (name.startswith("batch-") and name.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(qdir, name)) as f:
+                out.append(json.load(f))
+        except (OSError, json.JSONDecodeError):
+            continue
+    return out
+
+
+def _write_evidence(qdir: str, batch_id: int, record: dict) -> str:
+    """One batch's evidence file, atomically (tmp → fsync → rename →
+    directory fsync): a quarantine record is never torn, and it justifies
+    an fsync'd commit line, so its rename is directory-durable too."""
+    os.makedirs(qdir, exist_ok=True)
+    p = os.path.join(qdir, f"batch-{batch_id:010d}.json")
+    tmp = p + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(record, f, indent=2)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, p)
+    fsync_dir(qdir)
+    return p
 
 
 @dataclass
@@ -111,48 +147,57 @@ class StreamCheckpoint:
         ``reason``: ``"poison"`` (the batch itself kept failing) or
         ``"disk:budget"`` (the table's disk budget is spent — the data is
         fine to reprocess once space is freed)."""
-        qdir = os.path.join(self.path, QUARANTINE_DIR)
-        os.makedirs(qdir, exist_ok=True)
-        p = os.path.join(qdir, f"batch-{batch_id:010d}.json")
-        tmp = p + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(
-                {
-                    "batch_id": batch_id,
-                    "files": files,
-                    "attempts": attempts,
-                    "error": error,
-                    "reason": reason,
-                    "sink_rows_visible": sink_rows_visible,
-                    "quarantined_at": time.time(),
-                },
-                f,
-                indent=2,
-            )
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, p)
-        # the evidence justifies the fsync'd commit-as-skipped line, so
-        # its rename must be directory-durable too
-        fsync_dir(qdir)
-        return p
+        return _write_evidence(os.path.join(self.path, QUARANTINE_DIR), batch_id, {
+            "batch_id": batch_id,
+            "files": files,
+            "attempts": attempts,
+            "error": error,
+            "reason": reason,
+            "sink_rows_visible": sink_rows_visible,
+            "quarantined_at": time.time(),
+        })
+
+    def quarantine_rows(
+        self, batch_id: int, rejects: list[dict], drift_events: list | None = None
+    ) -> str:
+        """Persist one batch's rejected ROWS (atomically, idempotent on
+        replay — the same batch id overwrites the same file) and return
+        the path.  ``rejects`` are firewall records: context + raw/row +
+        machine-readable reasons."""
+        histogram: dict[str, int] = {}
+        for r in rejects:
+            for reason in r.get("reasons", ()):
+                histogram[reason] = histogram.get(reason, 0) + 1
+        return _write_evidence(os.path.join(self.path, ROW_QUARANTINE_DIR), batch_id, {
+            "batch_id": batch_id,
+            "n_rejected": len(rejects),
+            "reason_histogram": histogram,
+            "drift_events": [
+                e.to_dict() if hasattr(e, "to_dict") else e
+                for e in (drift_events or [])
+            ],
+            "rejects": rejects,
+            "quarantined_at": time.time(),
+        })
+
+    def quarantined_rows(self) -> list[dict]:
+        """All row-quarantine records, batch order."""
+        return _read_quarantine_dir(os.path.join(self.path, ROW_QUARANTINE_DIR))
+
+    def quarantined_row_count(self) -> int:
+        return sum(int(e.get("n_rejected", 0)) for e in self.quarantined_rows())
+
+    def row_reason_histogram(self) -> dict[str, int]:
+        """Aggregate reason histogram across every row-quarantine file."""
+        agg: dict[str, int] = {}
+        for e in self.quarantined_rows():
+            for k, v in (e.get("reason_histogram") or {}).items():
+                agg[k] = agg.get(k, 0) + int(v)
+        return agg
 
     def quarantined(self) -> list[dict]:
-        """Every ``batch-*.json`` evidence record, in batch order; torn or
-        unreadable files are skipped, never fatal."""
-        qdir = os.path.join(self.path, QUARANTINE_DIR)
-        if not os.path.isdir(qdir):
-            return []
-        out = []
-        for name in sorted(os.listdir(qdir)):
-            if not (name.startswith("batch-") and name.endswith(".json")):
-                continue
-            try:
-                with open(os.path.join(qdir, name)) as f:
-                    out.append(json.load(f))
-            except (OSError, json.JSONDecodeError):
-                continue
-        return out
+        """Every batch-quarantine evidence record, in batch order."""
+        return _read_quarantine_dir(os.path.join(self.path, QUARANTINE_DIR))
 
     def quarantine_count(self) -> int:
         return len(self.quarantined())

@@ -21,15 +21,21 @@ Self-healing: every attempt at a batch is durably counted
 replay — is **quarantined** (evidence under ``<ckpt>/quarantine/``, the
 batch committed as skipped); transient failures back off with jitter
 between replays; per-file source reads retry on their own (``source.py``).
+With a :class:`~..quality.firewall.DataFirewall`, the rung BELOW batch
+quarantine is on: malformed / constraint-violating rows are split out per
+row (salvage parse + vectorized validation), written to
+``<ckpt>/quarantine/rows/`` with reasons, and the rest of the batch goes
+on — a bad row costs a row, not a batch (``stream.rows_rejected`` /
+``stream.drift_events`` count them; the firewall's drift monitor feeds
+the ``stream.drift_psi`` gauge).
 
 Named fault sites bracket every WAL boundary — ``stream.after_offsets`` /
 ``after_read`` / ``after_foreach`` / ``after_sink`` / ``after_commit`` —
 so a test can kill the run at each one and resume.
 
 With ``views`` set, the materialized views over the sink fold each
-committed batch in on the commit path (``core/sql_views.py``).  The data
-firewall (row quarantine) and the pipelined loop's prefetched batches
-come with slice 7 of the port.
+committed batch in on the commit path (``core/sql_views.py``).  The
+pipelined loop's prefetched batches come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from __future__ import annotations
 import random
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
 
@@ -55,6 +61,9 @@ from .source import FileStreamSource
 from .unbounded_table import DiskBudgetExceeded, UnboundedTable
 from .watermark import WatermarkTracker
 
+if TYPE_CHECKING:  # typing only
+    from ..quality.firewall import DataFirewall
+
 log = get_logger("streaming")
 
 BATCH_OK = "ok"
@@ -69,6 +78,8 @@ class BatchInfo:
     num_appended_rows: int
     files: list[str]
     status: str = BATCH_OK
+    num_rejected_rows: int = 0     # rows the data firewall quarantined
+    num_drift_events: int = 0      # schema-drift reconciliations observed
 
 
 @dataclass
@@ -93,11 +104,18 @@ class StreamExecution:
     #: high-water mark skips replays; a crash mid-maintenance is healed by
     #: the next refresh from the commit log)
     views: Any = None
+    #: data-quality firewall: when set, source reads salvage + validate
+    #: per row and rejects land in ``<ckpt>/quarantine/rows/``
+    firewall: "DataFirewall | None" = None
     history: list[BatchInfo] = field(default_factory=list)
     #: trace id of the most recent batch attempt (None when tracing off)
     last_trace_id: str | None = None
     _next_batch_id: int = 0
     _pending: dict | None = None
+    #: batches whose row-quarantine metrics were already counted — a
+    #: replayed attempt re-produces the same rejects, and the counters
+    #: must match the (idempotent) quarantine files, not the attempt count
+    _quarantine_counted: set = field(default_factory=set, repr=False)
     # entropy-seeded on purpose: replaying streams must not back off in
     # lockstep; jitter affects timing only, never data
     _rng: random.Random = field(default_factory=random.Random, repr=False)
@@ -108,6 +126,8 @@ class StreamExecution:
                 f"max_batch_replays must be >= 1, got {self.max_batch_replays}"
             )
         self.device = resolve_device(self.device)
+        if self.firewall is not None and self.source.firewall is None:
+            self.source.firewall = self.firewall
         state = self.checkpoint.recover()
         self._next_batch_id = state["next_batch_id"]
         self.source.restore(state["processed_files"])
@@ -252,9 +272,13 @@ class StreamExecution:
         # must see the state the original attempt saw)
         if self.watermark is not None and wm_state:
             self.watermark.restore(wm_state)
-        table = self.source.read_files(files)
+        if self.firewall is not None:
+            table, row_rejects, drift_events = self.source.read_files_audited(files)
+        else:
+            table = self.source.read_files(files)
+            row_rejects, drift_events = [], []
         fault_point("stream.after_read", batch_id=batch_id)
-        n_in = len(table)
+        n_in = len(table) + len(row_rejects)
         # parity with withColumn("ingest_time", current_timestamp()) :82
         now = np.datetime64(int(time.time_ns()), "ns")
         table = table.with_column(
@@ -263,6 +287,25 @@ class StreamExecution:
         dropped = 0
         if self.watermark is not None:
             table, dropped = self.watermark.filter_late(table)
+        if row_rejects or drift_events:
+            # row quarantine: idempotent on replay (same batch id, same
+            # file), written before the sink so the evidence survives a
+            # failing foreach / sink attempt too; the counters gate on the
+            # batch id so a replayed attempt does not count the rows twice
+            self.checkpoint.quarantine_rows(batch_id, row_rejects, drift_events)
+            if batch_id not in self._quarantine_counted:
+                self._quarantine_counted.add(batch_id)
+                if row_rejects:
+                    self.metrics.inc("stream.rows_rejected", len(row_rejects))
+                if drift_events:
+                    self.metrics.inc("stream.drift_events", len(drift_events))
+            log.warning(
+                "rows quarantined",
+                batch_id=batch_id, rejected=len(row_rejects),
+                drift_events=len(drift_events),
+            )
+        if self.firewall is not None and self.firewall.monitor is not None:
+            self.metrics.set("stream.drift_psi", self.firewall.monitor.max_psi)
 
         if self.foreach_batch is not None:
             self.foreach_batch(table, batch_id)
@@ -297,10 +340,13 @@ class StreamExecution:
             num_late_rows=dropped,
             num_appended_rows=len(table),
             files=files,
+            num_rejected_rows=len(row_rejects),
+            num_drift_events=len(drift_events),
         )
         log.info(
             "batch committed",
             batch_id=batch_id, rows=info.num_appended_rows, late=dropped,
+            rejected=info.num_rejected_rows,
         )
         return info
 

@@ -17,7 +17,9 @@ keeps the name's bytes; and a file removed between the directory read
 and its ``stat`` is skipped natively but raises under ``os.scandir``.
 The port lists as the JAX package does on the same host.
 
-The data firewall's salvage reads come with slice 7 of the port.
+With a data firewall (``quality/firewall.py``) the source reads in
+salvage mode through :meth:`FileStreamSource.read_files_audited`: one bad
+row rejects one row, and a drifted header is reconciled.
 """
 
 from __future__ import annotations
@@ -25,17 +27,23 @@ from __future__ import annotations
 import os
 import random
 from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Callable
 
 from ..core.schema import Schema
 from ..core.table import Table
 from ..io.csv import read_csv
 from ..io.native import native_available, native_dir_list
+from ..tune import knob
 from ..utils.faults import fault_point
 from ..utils.logging import get_logger
 from ..utils.metrics import MetricsRegistry
 from ..utils.retry import DEFAULT_IO_RETRY, RetryPolicy, call_with_retry
 
+if TYPE_CHECKING:  # typing only
+    from ..quality.firewall import DataFirewall
+
 log = get_logger("streaming")
+
 
 @dataclass
 class FileStreamSource:
@@ -43,9 +51,9 @@ class FileStreamSource:
     schema: Schema
     header: bool = True
     #: Spark's ``maxFilesPerTrigger``: cap how many new files one
-    #: micro-batch takes (0 = unbounded, the JAX package's knob default;
-    #: the knob registry that may set it comes with slice 7)
-    max_files_per_batch: int = 0
+    #: micro-batch takes (0 = unbounded).  None → the registry's
+    #: ``stream.source.max_files_per_batch`` knob, resolved at each poll.
+    max_files_per_batch: int | None = None
     #: per-file read retry (exponential backoff + jitter): a flaky
     #: hospital-source mount answers after a beat instead of failing the
     #: whole micro-batch; a persistent failure still surfaces (and the
@@ -53,6 +61,9 @@ class FileStreamSource:
     retry: RetryPolicy = DEFAULT_IO_RETRY
     retries: int = 0
     metrics: MetricsRegistry | None = None
+    #: optional data-quality firewall: :meth:`read_files_audited` reads in
+    #: salvage mode through it; without one, reads stay strict
+    firewall: "DataFirewall | None" = None
     _seen: set[str] = field(default_factory=set)
     # entropy-seeded on purpose: a fleet of sources must not retry-jitter
     # in lockstep; jitter affects timing only, never data
@@ -81,8 +92,14 @@ class FileStreamSource:
         between poll and commit replays the same files), capped at the
         per-batch file cap when that is positive."""
         new = [f for f in self.list_files() if f not in self._seen]
-        cap = self.max_files_per_batch
+        cap = self.files_cap()
         return new[:cap] if cap > 0 else new
+
+    def files_cap(self) -> int:
+        """The resolved per-batch file cap (0 = unbounded)."""
+        if self.max_files_per_batch is None:
+            return int(knob("stream.source.max_files_per_batch"))
+        return self.max_files_per_batch
 
     def commit_files(self, files: list[str]) -> None:
         self._seen.update(files)
@@ -91,10 +108,13 @@ class FileStreamSource:
         """Re-mark files as seen when resuming from a checkpoint."""
         self.commit_files(files)
 
-    def _read_one(self, f: str) -> Table:
-        def attempt() -> Table:
+    def _retried(self, f: str, read: Callable):
+        """``read(f)`` behind the per-file retry and the
+        ``source.read_file`` fault site."""
+
+        def attempt():
             fault_point("source.read_file", file=f)
-            return read_csv(f, self.schema, header=self.header)
+            return read(f)
 
         def on_retry(n: int, exc: Exception, delay: float) -> None:
             self.retries += 1
@@ -107,7 +127,29 @@ class FileStreamSource:
 
         return call_with_retry(attempt, self.retry, rng=self._rng, on_retry=on_retry)
 
+    def _read_one(self, f: str) -> Table:
+        return self._retried(f, lambda p: read_csv(p, self.schema, header=self.header))
+
     def read_files(self, files: list[str]) -> Table:
         if not files:
             return Table.empty(self.schema)
         return Table.concat([self._read_one(f) for f in files])
+
+    def _ingest_one(self, f: str):
+        """Firewalled read of one file → ``quality.FirewallResult``."""
+        return self._retried(f, lambda p: self.firewall.ingest_file(p, header=self.header))
+
+    def read_files_audited(self, files: list[str]) -> tuple[Table, list[dict], list]:
+        """Salvage-mode batch read through the firewall: → (accepted
+        table, per-row reject records, schema-drift events).  Without a
+        firewall it is the strict read (no rejects possible)."""
+        if not files:
+            return Table.empty(self.schema), [], []
+        if self.firewall is None:
+            return self.read_files(files), [], []
+        results = [self._ingest_one(f) for f in files]
+        return (
+            Table.concat([r.table for r in results]),
+            [rej for r in results for rej in r.rejects],
+            [ev for r in results for ev in r.drift_events],
+        )

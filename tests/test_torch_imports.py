@@ -80,7 +80,10 @@ def test_every_module_is_walkable():
                      "io.libsvm", "features.selector", "features.lsh", "features.text",
                      "features.word2vec", "evaluation.ranking", "models.als", "models.lda",
                      "models.pic", "models.fpm", "core.segments", "core.table_lifecycle",
-                     "core.sql_fuzz"):
+                     "core.sql_fuzz", "tune", "tune.knobs", "tune.store", "tune.select",
+                     "tune.live", "quality", "quality.sketches", "quality.validators",
+                     "quality.reconcile", "quality.drift", "quality.firewall",
+                     "serve.breaker"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -464,12 +467,83 @@ def test_slice_6_host_entry_points_take_no_device_and_need_no_card(monkeypatch, 
     assert sql_fuzz.compare_tables(sink.read(), sink.read()) is None
 
 
+def test_slice_7a_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                                         tmp_path):
+    """The server takes ``device=`` (default the card) and raises without
+    one; ``add_model`` and ``prepare_swap`` build on the server's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(4).normal(size=(16, 3)).astype(np.float32)
+    model = port.KMeansModel(x[:2].copy())
+    model.save(str(tmp_path / "km"))
+    calls = [
+        lambda: port.serve.InferenceServer(),
+        lambda: port.serve.InferenceServer(breaker_failure_threshold=2, breaker_recovery_s=0.5,
+                                           ingest_metrics=port.utils.MetricsRegistry()),
+        lambda: port.serve.InferenceServer(max_wait_s=None, max_queue_rows=None),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    srv = port.serve.InferenceServer(device="cpu")
+    profile = port.DataProfile.from_matrix(x.astype(np.float64), ["a", "b", "c"])
+    assert srv.add_model("km", str(tmp_path / "km"), input_policy="impute",
+                         data_profile=profile.to_dict()).device.type == "cpu"
+    assert srv.prepare_swap("km", model).sm.device.type == "cpu"
+    assert srv.prepare_swap("km", str(tmp_path / "km")).sm.device.type == "cpu"
+
+
+def test_slice_7a_host_entry_points_take_no_device_and_need_no_card(monkeypatch, tmp_path):
+    """The quality stages, the firewall and its salvage parser, the knob
+    registry, the trial store, the selector, the live retuner and the
+    circuit breaker are host code, as in the JAX package: none takes
+    ``device=`` and none needs a card."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import io, quality, tune
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve import (
+        CircuitBreaker,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [quality.FeatureSketch, quality.FeatureSketch.update, quality.DataProfile.from_matrix,
+           quality.DataProfile.update_matrix, quality.DataProfile.psi_against,
+           quality.population_stability_index, quality.ConstraintSet, quality.RowValidator,
+           quality.RowValidator.validate, quality.hospital_constraints,
+           quality.reconcile_columns, quality.DriftMonitor, quality.DriftMonitor.observe,
+           quality.InputGuard, quality.InputGuard.inspect, quality.DataFirewall,
+           quality.DataFirewall.ingest_file, quality.DataFirewall.ingest_table,
+           io.read_csv_salvage, io.read_csv_dir_salvage, io.csv.salvage_from_text,
+           tune.knob, tune.default, tune.TrialStore, tune.make_trial, tune.Selector,
+           tune.Selector.resolve, tune.LiveRetuner, tune.LiveRetuner.retune, CircuitBreaker,
+           port.FileStreamSource.read_files_audited, port.StreamCheckpoint.quarantine_rows]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    schema = port.hospital_event_schema()
+    rows = ["hospital_id,event_time,admission_count,current_occupancy,emergency_visits,"
+            "seasonality_index,length_of_stay",
+            "H1,2025-03-31 10:00:00,5,100,3,1.0,4.0",
+            "H1,2025-03-31 10:01:00,oops,100,3,1.0,4.0",
+            "H2,2025-03-31 10:02:00,5,-1,3,1.0,4.0"]
+    (tmp_path / "a.csv").write_text("\n".join(rows) + "\n")
+    fw = port.DataFirewall(schema, port.hospital_constraints())
+    res = fw.ingest_file(str(tmp_path / "a.csv"))
+    assert len(res.table) == 1 and res.histogram == {"parse:admission_count": 1,
+                                                      "range:current_occupancy": 1}
+    store = tune.TrialStore(str(tmp_path / "trials.json"))
+    store.add([tune.make_trial(knob="serve.queue.max_rows", value=v, score=s)
+               for v, s in ((1024, 1.0), (8192, 2.0))])
+    with tune.active(tune.Selector(store)):
+        assert tune.knob("serve.queue.max_rows") == 8192
+    assert tune.knob("serve.queue.max_rows") == 4096
+    b = CircuitBreaker(failure_threshold=1)
+    b.record_failure()
+    assert b.state == "open"
+
+
 # The reference's public names that the port does not have yet, by the
 # subpackage whose ``__all__`` lists them, each with the slice of ROADMAP
 # queue 1 that ports its module.  Every other name of the reference's
 # ``__all__`` must be in the port's.
-_7_QUALITY = ("ConstraintSet", "DataFirewall", "DataProfile", "DriftMonitor", "InputGuard",
-              "RowValidator", "hospital_constraints", "farm", "quality")
 _8_MESH = ("MeshConfig", "build_mesh", "build_hybrid_mesh", "default_mesh", "use_mesh",
            "FederatedDataset", "federated_dataset")
 
@@ -479,32 +553,31 @@ def _tagged(slice_: str, names) -> dict:
 
 
 EXPECTED_GAPS = {
-    "": {**_tagged("7", _7_QUALITY), **_tagged("8", _8_MESH)},
+    "": {**_tagged("7b", ("farm",)), **_tagged("8", _8_MESH)},
     "models": {},
     "models.tree": {},
     "features": {},
-    "io": _tagged("7", ("RowReject", "SalvageResult", "read_csv_salvage",
-                        "read_csv_dir_salvage")),
+    "io": {},
     "core": {},
     "parallel": _tagged("8", ("DATA_AXIS", "MODEL_AXIS", "build_mesh", "build_hybrid_mesh",
                               "default_mesh", "set_default_mesh", "single_device_mesh",
                               "use_mesh", "FederatedDataset", "federated_dataset",
                               "place_hospitals", "pad_rows", "replicate", "row_sharding",
                               "shard_rows", "global_sum", "tree_aggregate", "distributed")),
-    "serve": _tagged("7", ("CircuitBreaker", "STATE_CLOSED", "STATE_HALF_OPEN", "STATE_OPEN",
-                           "NotRoutableError", "fleet", "STATUS_CANARY", "STATUS_ERROR",
-                           "STATUS_INVALID_INPUT")),
+    "serve": {**_tagged("7b", ("NotRoutableError",)), **_tagged("7c", ("fleet",))},
     "ops": {},
-    "utils": _tagged("7", ("block_until_ready", "device_fence", "capture_trace",
-                           "trace_annotation")),
+    "utils": _tagged("7d", ("block_until_ready", "device_fence", "capture_trace",
+                            "trace_annotation")),
     "pipeline": {},
     "evaluation": {},
-    "streaming": _tagged("7", ("PipelinedStreamExecution", "ModelUpdateConsumer",
-                               "Prefetched")),
+    "streaming": _tagged("7d", ("PipelinedStreamExecution", "ModelUpdateConsumer",
+                                "Prefetched")),
     "stat": {},
     "tuning": {},
     "obs": {},
     "viz": {},
+    "quality": {},
+    "tune": {},
 }
 
 
@@ -521,7 +594,7 @@ def test_package_surfaces_cover_the_reference(sub):
     assert missing == set(EXPECTED_GAPS[sub]), (
         f"unexpected gaps {sorted(missing - set(EXPECTED_GAPS[sub]))}; "
         f"filled gaps still listed {sorted(set(EXPECTED_GAPS[sub]) - missing)}")
-    assert set(EXPECTED_GAPS[sub].values()) <= {"7", "8"}
+    assert set(EXPECTED_GAPS[sub].values()) <= {"7b", "7c", "7d", "8"}
     for name in mine.__all__:
         assert getattr(mine, name) is not None, name
 
