@@ -138,7 +138,7 @@ kernels:
   view into the 20-tree forest (K3), 400 sealed hourly batches pruned and
   scrubbed, and the fuzz harness on the card.
 * slice 7a (``front_door_phase``) — the k=256 model saved with its 10M-row
-  profile and served behind a k=16 fallback: 4,000 requests from 16
+  profile and served behind a k=16 fallback: 2,000 requests from 16
   clients with 1 % planted bad rows to an impute and a reject name (every
   answer ``==`` predict on the imputed rows, K2 in every primary batch and
   a served batch held to its plain version), a 2-std drift opening the
@@ -146,10 +146,26 @@ kernels:
   answers only, no primary K2 launch), a refit on 2M drifted rows (K1, held
   to its plain version at that shape) hot-swapped under 8 threads with no
   request refused, a failing primary through open / half open / closed
-  against ``metrics_text()``, 2M hospital rows through a firewalled stream
+  against ``metrics_text()``, 1M hospital rows through a firewalled stream
   (0.1 % planted bad rows, a renamed header) killed and resumed, and
   ``serve.microbatch.max_wait_ms`` measured over its domain into a trial
   store that a ``Selector`` then resolves.
+* slice 7b (``farm_lifecycle_phase``) — bench.py's farm: 4,096 hospitals of
+  4-48 rows, d = 8, fitted by ``FarmLinearRegression`` (with and without
+  pooling) and ``FarmKMeans(k=4)`` on the card, each ``==`` its looped
+  baseline on 64 sampled hospitals and within limits of the CPU route
+  (each failing a TF32-rounded control); 1,600 ``predict_tenant`` requests
+  from 8 clients ``==`` ``ModelFarmModel.predict``, unknown hospitals on
+  the GLOBAL slot, a KMeans name refused; 5 % of the hospitals shifted and
+  refit by ``retrain_drifted``, swapped in under traffic with every other
+  hospital byte-identical; a checkpointed farm fit killed and resumed
+  bit-identical.  Then bench.py's lifecycle: the warm against the cold
+  retrain at 400,000 x 8, k = 16 (K1); one full cycle over 400,000 drifted
+  rows in 8 CSV drops (journal SERVING → … → PROMOTED → SERVING, every
+  canary answer ``==`` the candidate's predict, health and
+  ``metrics_text()`` against the journal; K2 in the served, shadow and
+  canary batches); the retrain out of core in blocks of 131,072; and a kill
+  at each of the five promotion-path sites resuming to the same artifact.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -163,6 +179,7 @@ times and the card's bound for the same work).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -5570,7 +5587,7 @@ def history_phase(port, H, card: str) -> dict:
 
 # ------------------------------------------------------------- slice 7a
 FRONT_CLIENTS = 16                        # the in-distribution traffic's client threads
-FRONT_REQUESTS = 4_000                    # requests of 1-256 rows each
+FRONT_REQUESTS = 2_000                    # requests of 1-256 rows each (4,000 until slice 7b)
 FRONT_PLANT = 0.01                        # share of rows with a planted NaN, ±inf or far value
 FRONT_WINDOW, FRONT_TRIP_AFTER = 4096, 3  # the drift monitor
 FRONT_DRIFT_REQUESTS = 2_000              # one feature shifted by FRONT_SHIFT_SIGMA stds
@@ -5579,7 +5596,7 @@ FRONT_REFIT_N = 2_000_000                 # the hot swap's refit on drifted rows
 FRONT_SWAP_THREADS, FRONT_SWAP_POST = 8, 200   # load threads; requests each after the commit
 FRONT_SWAP_MAX_ROWS = 16                  # rows a swap-load request (1-16)
 FRONT_FAILURES, FRONT_RECOVERY_S = 3, 0.5  # the breaker's threshold and recovery
-FRONT_DROPS, FRONT_DROP_ROWS = 40, 50_000  # the ingest firewall: 2M hospital rows
+FRONT_DROPS, FRONT_DROP_ROWS = 40, 25_000  # the ingest firewall: 1M hospital rows (2M until 7b)
 FRONT_BAD = 0.001                         # share of planted bad rows
 FRONT_KILL_BATCH = 19                     # the stream killed after this batch's read
 FRONT_KNOB_REQUESTS = 500                 # requests a max_wait_ms value, 16 clients
@@ -5720,7 +5737,7 @@ def front_profiled_artifact(port, L, model, x_host, tmp: str, ledger):
 
 
 def front_in_distribution(port, L, srv, model, x_host, profile, prim, ledger) -> int:
-    """Step 2: 16 clients, 4,000 requests to the impute name and the same
+    """Step 2: 16 clients, 2,000 requests to the impute name and the same
     to the reject name; 1 % of the rows carry a planted NaN, ±inf or a
     value 10 spans out.  → requests sent."""
     import numpy as np
@@ -6124,7 +6141,7 @@ def firewall_drop_text(cols, lo: int, hi: int, plants: dict, renamed: bool) -> t
 
 
 def front_firewall(port, tmp: str, card: str) -> dict:
-    """Step 6: 40 drops of 50,000 hospital rows through a firewalled stream,
+    """Step 6: 40 drops of 25,000 hospital rows through a firewalled stream,
     0.1 % planted bad rows and one renamed, reordered header; killed after
     a batch's read and resumed.  → the stream's metrics registry."""
     import multiprocessing
@@ -6318,7 +6335,7 @@ def front_door_phase(port, L, card: str, model=None, x_host=None) -> dict:
     """Slice 7a at full width: the KMeans k=256 server behind its data
     guards (a profiled artifact, in-distribution traffic with planted bad
     rows, a drift trip, a hot swap under load, a failing primary), the
-    ingest firewall over 2M hospital rows, and the batcher's deadline
+    ingest firewall over 1M hospital rows, and the batcher's deadline
     tuned from the card's traffic.  No fallback hides the card: a primary
     failure, a fallback answer or an open breaker outside the planted
     windows fails the run.  ``model`` / ``x_host`` are the main path's
@@ -6378,6 +6395,693 @@ def front_door_phase(port, L, card: str, model=None, x_host=None) -> dict:
     say(f"front_door_phase: {secs:.2f} s of host clock ({card}); {sent} requests to the "
         f"guarded server == metrics_text; main-path launches {json.dumps(launches)}")
     return {"launches": launches, "shape": shape}
+
+
+# ------------------------------------------------------------------------
+# slice 7b: the model farm and the continuous-learning lifecycle
+# ------------------------------------------------------------------------
+FARM_TENANTS = 4_096                      # bench.py _bench_model_farm: hospitals of 4-48 rows
+FARM_D = 8
+FARM_SAMPLE = 64                          # tenants of the looped baselines (bench.py's parity set)
+FARM_CPU_CUT = 512                        # the first hospitals, fitted again on the CPU route
+FARM_REG, FARM_POOL = 0.1, 5.0            # ridge; the partial-pooling fit's pseudo-rows
+FARM_KM = {"k": 4, "max_iter": 10}
+FARM_CLIENTS = 8
+FARM_REQUESTS = 1_600                     # predict_tenant requests of 1-64 rows
+FARM_UNKNOWN = 0.02                       # share of requests naming no hospital of the farm
+FARM_DRIFT = 0.05                         # share of hospitals shifted (those of >= 16 rows)
+FARM_SHIFT = 4.0                          # the shift, in feature stds
+# card against the CPU route, relative to the largest |value|: the first run
+# read 0 for all three (every op of the farm's fits is one IEEE elementwise
+# operation or an exact min, on either device), so the limits are equality;
+# each fails its control (the CPU route on TF32-rounded rows: 3.5e-4, 1.5e-4,
+# 0.12 in that run)
+FARM_LIMITS = {"theta": 0.0, "theta_pool": 0.0, "centers": 0.0}
+LC_N, LC_K, LC_D = 400_000, 16, 8         # bench.py _bench_lifecycle's warm vs cold A/B
+LC_SHIFT = 0.6
+LC_BOOT = 20_000                          # the bootstrap fit's rows
+LC_FILES, LC_FILE_ROWS = 8, 50_000        # the full cycle's drifted drops: 400,000 rows
+LC_REQ_ROWS = 16                          # rows a request, a poll() after each
+LC_BUCKETS = (1, 16, 64)
+LC_CTRL = {"drift_window_rows": 128, "drift_trip_after": 2, "shadow_min_rows": 256,
+           "canary_fraction": 0.25, "canary_min_rows": 64, "eval_rows": 256}
+LC_OOC_ROWS = 131_072                     # the out-of-core retrain's block
+# out-of-core against resident retrain, max |center| gap: the first run on
+# the card read 4.77e-7 (blocked sums add in another order), so the limit
+# is about 10x that; the control retrains on TF32-rounded rows and must
+# land past it
+LC_OOC_LIMIT = 5e-6
+LC_CHAOS_FILES, LC_CHAOS_ROWS = 2, 2_000  # bench.py's 4,000-row loop snapshot
+LC_SITES = ("lifecycle.journal.append", "lifecycle.retrain.commit", "lifecycle.shadow.start",
+            "lifecycle.registry.flip", "lifecycle.registry.swap")
+LC_STATES = ["serving", "drift_suspected", "retraining", "shadow", "canary", "promoted",
+             "serving"]
+
+
+def farm_fleet() -> dict:
+    """bench.py's fleet (seed 0): hospital t has 4-48 rows of d = 8
+    N(0, 1) features and y = x·(θ0 + 0.2·N(0, 1)) + 0.01·N(0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    theta0 = rng.normal(size=FARM_D)
+    data = {}
+    for t in range(FARM_TENANTS):
+        n = int(rng.integers(4, 48))
+        x = rng.normal(size=(n, FARM_D))
+        y = x @ (theta0 + 0.2 * rng.normal(size=FARM_D)) + 0.01 * rng.normal(size=n)
+        data[f"H{t:05d}"] = (x, y)
+    return data
+
+
+def farm_theta(m):
+    import numpy as np
+
+    return np.concatenate([m.arrays["coefficients"], m.arrays["intercepts"][:, None]], 1)
+
+
+def rel_gap(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def farm_fits(port, batch, kbatch, card: str) -> tuple:
+    """The linear fits (ridge, and ridge + pooling) and the KMeans fit on
+    the card, each against its looped baseline on 64 sampled tenants
+    (bit for bit) and against the CPU route on the whole fleet (within
+    ``FARM_LIMITS``, each failing its TF32-rounded control).  → (the
+    ridge model, the KMeans model)."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.farm import farm as pf
+
+    F = port.farm
+    T = batch.n_tenants
+    lin_est = F.FarmLinearRegression(reg_param=FARM_REG)
+    pool_est = F.FarmLinearRegression(reg_param=FARM_REG, pool=FARM_POOL)
+    km_est = F.FarmKMeans(**FARM_KM)
+    t0 = time.perf_counter()
+    lin_est.fit(batch, device=DEV)
+    first_s = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    lin, lin_syncs = count_syncs(lambda: lin_est.fit(batch, device=DEV))
+    lin_s = time.perf_counter() - t0
+    pool = pool_est.fit(batch, device=DEV)
+    t0 = time.perf_counter()
+    km, km_syncs = count_syncs(lambda: km_est.fit(kbatch, device=DEV))
+    km_s = time.perf_counter() - t0
+    # where the fits' time goes: the host's tenant sketches, and the KMeans
+    # GLOBAL slot's pooled fit (8,192 rows at T = 1), each alone
+    t0 = time.perf_counter()
+    port.farm.farm.build_profile_stack(batch.x, batch.w, [f"f{j}" for j in range(FARM_D)])
+    sketch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    km_est._fit_global(kbatch, torch.device(DEV))
+    global_s = time.perf_counter() - t0
+
+    # the looped baselines: the same functions on one-tenant slices
+    sample = np.sort(np.random.default_rng(1).choice(T, FARM_SAMPLE, replace=False))
+    x_dev, y_dev, w_dev = (pf._place_stack(a, DEV) for a in (batch.x, batch.y, batch.w))
+    reg = pf._scalar(FARM_REG, DEV)
+    zeros = torch.zeros(FARM_D + 1, device=DEV)
+    for name, m, p, theta_g in (("ridge", lin, 0.0, zeros), ("pooled", pool, FARM_POOL,
+                                torch.from_numpy(farm_theta(pool)[T]).to(DEV))):
+        want = farm_theta(m)
+        sync()
+        t0 = time.perf_counter()
+        got = [pf._tenant_solve(x_dev[i:i + 1], y_dev[i:i + 1], w_dev[i:i + 1], reg,
+                                pf._scalar(p, DEV), theta_g, True)[0] for i in sample]
+        got = [g.cpu().numpy()[0] for g in got]
+        loop_s = time.perf_counter() - t0
+        bad = [int(i) for i, g in zip(sample, got) if g.tobytes() != want[i].tobytes()]
+        check(not bad, f"farm {name} fit != its looped baseline at tenants {bad[:5]}")
+        if name == "ridge":
+            lin_loop_rate = FARM_SAMPLE / loop_s
+    kx, kw = pf._place_stack(kbatch.x, DEV), pf._place_stack(kbatch.w, DEV)
+    sync()
+    t0 = time.perf_counter()
+    for i in sample:
+        c0, cv = pf._init_farm_centers(kbatch.x[i:i + 1], kbatch.w[i:i + 1], FARM_KM["k"], 0,
+                                       base_index=int(i))
+        cen, counts, cost, n_iter, _ = pf._farm_kmeans_loop(
+            kx[i:i + 1], kw[i:i + 1], pf._place_stack(c0, DEV), pf._place_stack(cv, DEV),
+            FARM_KM["max_iter"], km_est.tol)
+        for got, name in ((cen, "centers"), (counts, "sizes"), (cost, "costs"),
+                          (n_iter, "n_iter")):
+            check(got.cpu().numpy()[0].tobytes() == km.arrays[name][i].tobytes(),
+                  f"farm KMeans {name} != its looped baseline at tenant {i}")
+    km_loop_s = time.perf_counter() - t0
+
+    # card against the CPU route on the first FARM_CPU_CUT hospitals: a
+    # tenant's fit does not depend on the others, so the card's whole-fleet
+    # rows are compared (the pooled fit gets the card's global θ as its
+    # prior, through the refit), and the CPU route on TF32-rounded rows is
+    # the control
+    cut = FARM_CPU_CUT
+
+    def head(b, rows=None):
+        x = b.x[:cut] if rows is None else rows[:cut]
+        return dataclasses.replace(b, tenant_ids=b.tenant_ids[:cut], x=x, y=b.y[:cut],
+                                   w=b.w[:cut], n_rows=b.n_rows[:cut],
+                                   masked_rows=b.masked_rows[:cut])
+
+    def cpu_routes(rows=None, krows=None):
+        sub = {t: (np.asarray(rows if rows is not None else batch.x)[i][batch.w[i] > 0],
+                   batch.y[i][batch.w[i] > 0]) for i, t in enumerate(batch.tenant_ids[:cut])}
+        return {"theta": farm_theta(lin_est.fit(head(batch, rows), device="cpu"))[:cut],
+                "theta_pool": farm_theta(pool.refit(sub, device="cpu"))[:cut],
+                "centers": km_est.fit(head(kbatch, krows), device="cpu").arrays["centers"][:cut]}
+
+    card_out = {"theta": farm_theta(lin)[:cut], "theta_pool": farm_theta(pool)[:cut],
+                "centers": km.arrays["centers"][:cut]}
+    t0 = time.perf_counter()
+    gaps = {k: rel_gap(card_out[k], v) for k, v in cpu_routes().items()}
+    cpu_s = time.perf_counter() - t0
+    ctl = {k: rel_gap(card_out[k], v) for k, v in cpu_routes(
+        tf32_round(batch.x), tf32_round(kbatch.x)).items()}
+    for k, lim in FARM_LIMITS.items():
+        check(gaps[k] <= lim, f"farm {k}: card vs CPU {gaps[k]:.3g} > {lim}")
+        check(ctl[k] > lim, f"farm {k}: the TF32-rounded control {ctl[k]:.3g} <= {lim}")
+    say(f"farm: {T} hospitals ({int(batch.n_rows.sum())} rows, R={batch.pad_rows}, d={FARM_D}); "
+        f"FarmLinearRegression(reg {FARM_REG}) {lin_s:.4f} s = {T / lin_s:.1f} tenants/s "
+        f"(first call {first_s:.3f} s), {lin_syncs} host syncs a fit; looped "
+        f"{lin_loop_rate:.1f} tenants/s ({T / lin_s / lin_loop_rate:.1f}x); "
+        f"FarmKMeans(k={FARM_KM['k']}, max_iter {FARM_KM['max_iter']}) {km_s:.4f} s = "
+        f"{T / km_s:.1f} tenants/s, {km.fit_info['steps']} steps, "
+        f"{km.fit_info['done_reads']} reads of done, {km_syncs} host syncs a fit (alone: the "
+        f"host's tenant sketches {sketch_s:.4f} s, the GLOBAL slot's pooled fit "
+        f"{global_s:.4f} s); "
+        f"looped {FARM_SAMPLE / km_loop_s:.1f} tenants/s ({T / km_s / (FARM_SAMPLE / km_loop_s):.1f}x); "
+        f"ridge, pooled (pool {FARM_POOL}) and KMeans == their looped baselines bit for bit on "
+        f"{FARM_SAMPLE} tenants; card vs CPU route on the first {cut} hospitals ({cpu_s:.2f} s) "
+        f"{as_text(gaps)} "
+        f"(limits {as_text(FARM_LIMITS)}; TF32-rounded control {as_text(ctl)}) ({card})")
+    return lin, km
+
+
+def farm_serving(port, data, lin, srv, card: str) -> None:
+    """8 clients, ``FARM_REQUESTS`` requests of 1-64 rows over mixed
+    hospitals (2 % unknown) through ``InferenceServer.predict_tenant`` on
+    the started ``srv`` serving the farm as "farm" and a KMeans model as
+    "kmeans": every answer == ``ModelFarmModel.predict`` on the routed
+    rows, no recompile; ``predict_tenant`` on the KMeans name answers
+    invalid_input."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    ids = list(data)
+    jobs = front_requests(rng, FARM_REQUESTS, 1, 64)
+    tenants = [ids[int(i)] if u >= FARM_UNKNOWN else f"NEW{int(i)}"
+               for i, u in zip(rng.integers(0, len(ids), len(jobs)), rng.random(len(jobs)))]
+    rows = rng.normal(size=(jobs[-1][1], FARM_D))
+    routed = np.concatenate([lin.route_request(t, rows[a:b])
+                             for t, (a, b) in zip(tenants, jobs)]).astype(np.float32)
+    want = lin.predict(routed, device=DEV).cpu().numpy()
+    check(all(routed[a, 0] == lin.global_index for t, (a, _) in zip(tenants, jobs)
+              if t.startswith("NEW")), "an unknown hospital was not routed to the GLOBAL slot")
+    answers, wall = run_clients(FARM_CLIENTS, jobs, lambda j: srv.predict_tenant(
+        "farm", tenants[j], rows[jobs[j][0]:jobs[j][1]]))
+    for j, (a, b) in enumerate(jobs):
+        r, _ = answers[j]
+        check(r.ok and np.array_equal(r.value, want[a:b]),
+              f"predict_tenant request {j} ({tenants[j]}): {r.status}, or != predict")
+    check(srv.stats()["recompiles"] == 0, "farm serving met a shape outside the warmed buckets")
+    r = srv.predict_tenant("kmeans", ids[0], rows[:3])
+    check(r.status == "invalid_input" and "not tenant-routable" in r.detail,
+          f"predict_tenant on a KMeans name answered {r.status}")
+    check(srv.metrics.registry.counters.get("serve.not_routable") == 1,
+          "serve.not_routable did not count the refused request")
+    dev_rows = port.device_dataset(routed, device=DEV).x
+    mixed_ms = gpu_ms(lambda: lin.predict(dev_rows), 20) if DEV == "cuda" else float("nan")
+    unknown = sum(t.startswith("NEW") for t in tenants)
+    say(f"farm serving: {FARM_REQUESTS} predict_tenant requests ({len(routed)} rows, {unknown} "
+        f"to unknown hospitals -> the GLOBAL slot) from {FARM_CLIENTS} clients, every answer == "
+        f"ModelFarmModel.predict, 0 recompiles; {FARM_REQUESTS / wall:.1f} requests/s, "
+        f"{len(routed) / wall:.4g} rows/s over {wall:.2f} s; one mixed predict of "
+        f"{len(routed)} rows {mixed_ms:.4f} ms on the card = {len(routed) / mixed_ms * 1e3:.4g} "
+        f"rows/s; predict_tenant on a KMeans name -> invalid_input ({card})")
+
+
+def farm_drift(port, data, lin, srv, card: str) -> None:
+    """Shift 5 % of the hospitals (those of >= 16 rows) by ``FARM_SHIFT``;
+    ``retrain_drifted`` must refit exactly them, leave every other hospital
+    and the GLOBAL slot byte-identical, and ``swap_model`` the successor in
+    under 8 clients' traffic with no request refused."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    big = [t for t, (x, _) in data.items() if len(x) >= 16]
+    shifted = set(rng.choice(big, int(FARM_DRIFT * len(data)), replace=False).tolist())
+    new = {t: ((x + FARM_SHIFT, y) if t in shifted else (x, y)) for t, (x, y) in data.items()}
+    ids = list(data)
+    stop, results = threading.Event(), []
+
+    def client(seed):
+        r = np.random.default_rng(seed)
+        while not stop.is_set():
+            t = ids[int(r.integers(len(ids)))]
+            results.append(srv.predict_tenant("farm", t, r.normal(size=(int(r.integers(1, 65)),
+                                                                        FARM_D))))
+
+    threads = [threading.Thread(target=client, args=(100 + c,), daemon=True)
+               for c in range(FARM_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        t0 = time.perf_counter()
+        new_model, report = port.lifecycle.retrain_drifted(
+            lin, new, threshold=0.25, min_rows=16, server=srv, serving_name="farm", device=DEV)
+        retrain_s = time.perf_counter() - t0
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(60)
+    check(set(report["drifted"]) == shifted,
+          f"retrain_drifted refit {len(report['drifted'])} hospitals, shifted {len(shifted)}")
+    check(report.get("swapped") == "farm" and srv.registry.get("farm").model is new_model,
+          "the successor was not swapped in")
+    check(results and all(r.ok for r in results),
+          f"{sum(not r.ok for r in results)} of {len(results)} requests refused in the swap")
+    keep = [i for i, t in enumerate(lin.tenant_ids) if t not in shifted] + [lin.global_index]
+    for name in ("coefficients", "intercepts"):
+        check(new_model.arrays[name][keep].tobytes() == lin.arrays[name][keep].tobytes(),
+              f"an untouched hospital's {name} changed in the refit")
+    moved = [lin.tenant_index(t) for t in shifted]
+    check(not np.array_equal(new_model.arrays["coefficients"][moved],
+                             lin.arrays["coefficients"][moved]), "the drifted hospitals kept θ")
+    t = sorted(shifted)[0]
+    x = new[t][0][:5]
+    r = srv.predict_tenant("farm", t, x)
+    check(r.ok and np.array_equal(r.value, new_model.predict_tenant(t, x, device=DEV)),
+          "the server does not answer with the successor")
+    say(f"farm drift: {len(shifted)} of {len(data)} hospitals shifted {FARM_SHIFT} stds; "
+        f"retrain_drifted (PSI of {report['scored']} hospitals, masked refit, swap) "
+        f"{retrain_s:.3f} s refit exactly them, every other hospital and the GLOBAL slot "
+        f"byte-identical; {len(results)} requests from {FARM_CLIENTS} clients across the "
+        f"swap, none refused ({card})")
+
+
+def farm_preempt(port, kbatch, tmp: str) -> None:
+    """A checkpointed ``FarmKMeans`` over the fleet killed at the 3rd
+    checkpoint commit and resumed: bit-identical to an uninterrupted one."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    def est(d):
+        return port.farm.FarmKMeans(**FARM_KM, tol=0.0, checkpoint_dir=os.path.join(tmp, d),
+                                    checkpoint_every=1)
+
+    ref = est("ref").fit(kbatch, device=DEV)
+    plan = faults.FaultPlan().crash("fit_ckpt.save.commit", after=2)
+    with faults.active(plan):
+        try:
+            est("killed").fit(kbatch, device=DEV)
+            fail("the checkpointed farm fit was not killed")
+        except faults.InjectedCrash:
+            pass
+    check(plan.fired("fit_ckpt.save.commit") == 1, "the farm checkpoint kill never fired")
+    t0 = time.perf_counter()
+    got = est("killed").fit(kbatch, device=DEV)
+    resume_s = time.perf_counter() - t0
+    for name in ("centers", "sizes", "costs", "n_iter"):
+        check(got.arrays[name].tobytes() == ref.arrays[name].tobytes(),
+              f"the resumed farm fit's {name} differ from the uninterrupted fit's")
+    say(f"farm preemption: FarmKMeans with checkpoint_dir killed at the 3rd commit, resumed "
+        f"in {resume_s:.3f} s, bit-identical to the uninterrupted fit")
+
+
+def lc_draw(n: int, shift: float, rng):
+    """bench.py _bench_lifecycle's law: 16 clusters of N(0, 1.5²) centers
+    in 8-d, unit noise, all shifted by ``shift``."""
+    import numpy as np
+
+    true = np.random.default_rng(0).normal(scale=1.5, size=(LC_K, LC_D))
+    return ((true + shift)[rng.integers(0, LC_K, n)]
+            + rng.normal(scale=1.0, size=(n, LC_D))).astype(np.float32)
+
+
+def lc_warm_cold(port, card: str) -> None:
+    """bench.py's warm vs cold retrain A/B: 400,000 x 8 rows shifted 0.6,
+    k = 16, max_iter 80, tol 1e-5 (K1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    xa, xb = lc_draw(LC_N, 0.0, rng), lc_draw(LC_N, LC_SHIFT, rng)
+    base = port.KMeans(k=LC_K, seed=0, max_iter=80, tol=1e-5).fit(xa, device=DEV)
+    iters = {"cold": [], "warm": []}
+    t0 = time.perf_counter()
+    cold = port.KMeans(k=LC_K, seed=1, max_iter=80, tol=1e-5).fit(
+        xb, device=DEV, on_iteration=lambda it, c, m: iters["cold"].append(it))
+    cold_s = time.perf_counter() - t0
+    wc = (base.cluster_centers + (xb.mean(0) - xa.mean(0))).astype(np.float32)
+    t0 = time.perf_counter()
+    warm = port.KMeans(k=LC_K, seed=1, max_iter=80, tol=1e-5, warm_start_centers=wc).fit(
+        xb, device=DEV, on_iteration=lambda it, c, m: iters["warm"].append(it))
+    warm_s = time.perf_counter() - t0
+    ratio = warm.training_cost / cold.training_cost
+    check(np.isfinite(ratio) and warm.cluster_centers.shape == (LC_K, LC_D),
+          "the warm retrain is not finite")
+    say(f"lifecycle warm vs cold retrain ({LC_N} x {LC_D}, k={LC_K}, shift {LC_SHIFT}): cold "
+        f"{cold_s:.3f} s ({len(iters['cold'])} iterations), warm {warm_s:.3f} s "
+        f"({len(iters['warm'])} iterations), {cold_s / warm_s:.2f}x; warm / cold cost "
+        f"{ratio:.6f} ({card})")
+
+
+def lc_world(port, work: str, feats, retrainer=None):
+    """One incarnation of the lifecycle's server, stream and controller
+    over the durable state in ``work`` (bench.py's settings)."""
+    PL = port.lifecycle
+    schema = PL.feedback_schema(feats)
+    incoming = os.path.join(work, "incoming")
+    os.makedirs(incoming, exist_ok=True)
+    stream = port.StreamExecution(
+        source=port.FileStreamSource(incoming, schema),
+        sink=port.UnboundedTable(os.path.join(work, "table"), schema),
+        checkpoint=port.StreamCheckpoint(os.path.join(work, "ckpt")), device=DEV)
+    srv = port.serve.InferenceServer(breaker_recovery_s=0.1, device=DEV)
+    ctrl = PL.LifecycleController(
+        os.path.join(work, "lc"), srv, "m",
+        retrainer or PL.KMeansRetrainer(feats, k=LC_K, max_iter=80, tol=1e-5, device=DEV),
+        stream=stream, buckets=LC_BUCKETS, **LC_CTRL)
+    srv.attach_lifecycle(ctrl)
+    return srv, stream, ctrl
+
+
+def lc_drop(path: str, i: int, rows: int, feats) -> None:
+    """Drifted drop ``i`` (seed [3, i]) as a feedback CSV: the features, a
+    zero prediction and outcome (a worker process's job)."""
+    import numpy as np
+
+    x = lc_draw(rows, LC_SHIFT, np.random.default_rng([3, i]))
+    body = np.concatenate([x, np.zeros((rows, 2), np.float32)], axis=1)
+    with open(path, "w") as f:
+        f.write(",".join((*feats, "prediction", "outcome")) + "\n")
+        np.savetxt(f, body, fmt="%.9g", delimiter=",")   # float32 round-trips in 9 digits
+
+
+def lc_seed(port, work: str, feats, boot, files: int, rows: int) -> tuple:
+    """Bootstrap v0 and ingest ``files`` drifted drops of ``rows`` rows
+    (written by spawned worker processes when there are many).  →
+    (server, stream, controller, write s, ingest s)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    m0, profile, x0 = boot
+    srv, stream, ctrl = lc_world(port, work, feats)
+    ctrl.bootstrap(m0, profile, train_x=x0)
+    paths = [os.path.join(work, "incoming", f"drift-{i}.csv") for i in range(files)]
+    t0 = time.perf_counter()
+    if files * rows >= 100_000:
+        with ProcessPoolExecutor(min(files, os.cpu_count() or 1),
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            list(pool.map(lc_drop, paths, range(files), [rows] * files, [feats] * files))
+    else:
+        for i, path in enumerate(paths):
+            lc_drop(path, i, rows, feats)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    while stream.run_once() is not None:
+        pass
+    return srv, stream, ctrl, write_s, time.perf_counter() - t0
+
+
+def lc_gauges(text: str) -> dict:
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(cmlhn_lifecycle_\w+(?:\{[^}]*\})?) (\S+)$", text, re.M)}
+
+
+def lc_agree(srv, ctrl, phase: str) -> None:
+    """``health()["lifecycle"]`` and ``metrics_text()``'s lifecycle gauges
+    against the journal's last entry."""
+    last = ctrl.journal.last()
+    h = srv.health()["lifecycle"]
+    g = lc_gauges(srv.metrics_text())
+    check(h["phase"] == last["state"] == phase and h["cycle"] == last["cycle"],
+          f"health lifecycle {h['phase']} / {h['cycle']}, journal {last['state']} / "
+          f"{last['cycle']}")
+    check(g.get("cmlhn_lifecycle_cycle") == float(last["cycle"])
+          and g.get(f'cmlhn_lifecycle_phase{{phase="{phase}"}}') == 1.0,
+          f"metrics_text lifecycle gauges {g} disagree with the journal at {phase}")
+
+
+def lc_answer(r, what: str) -> None:
+    """A lifecycle request's answer is the primary's, the candidate's
+    (canary), or ``unavailable`` because sustained drift holds the
+    primary's breaker open ("circuit open"); any other answer (the primary
+    raised on the card, a deadline) fails the phase."""
+    check(r.status in ("ok", "canary")
+          or (r.status == "unavailable" and r.detail == "circuit open"),
+          f"{what}: {r.status} ({r.detail})")
+
+
+def lc_full_cycle(port, L, tmp: str, feats, boot, card: str) -> tuple:
+    """One full cycle over 400,000 drifted rows in 8 CSV drops: requests
+    of 16 rows and a poll() after each until PROMOTED → SERVING; every
+    answer the primary's, the candidate's or "circuit open"; the shadow
+    scorer saw exactly the rows the primary answered during SHADOW, and at
+    least one; every canary answer == the candidate's predict, with no
+    candidate failure; health and metrics_text against the journal at
+    CANARY and at the end.  → (the controller's work directory, the
+    controller)."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    work = os.path.join(tmp, "full")
+    srv, stream, ctrl, write_s, ingest_s = lc_seed(port, work, feats, boot, LC_FILES,
+                                                   LC_FILE_ROWS)
+    trng = np.random.default_rng(4)
+    steps, detect, t_detect, canary, states = 0, None, None, 0, []
+    seen_canary = False
+    tally, shadow_ok_rows = Counter(), 0
+    with srv:
+        t_start = time.perf_counter()
+        while True:
+            x = lc_draw(LC_REQ_ROWS, LC_SHIFT, trng)
+            st = ctrl.state
+            r = srv.predict("m", x, wait_timeout_s=30.0)
+            lc_answer(r, f"request {steps} in {st}")
+            tally[r.status] += 1
+            if st == "shadow" and r.status == "ok":
+                shadow_ok_rows += LC_REQ_ROWS
+            if st == "canary":
+                cand_failures = ctrl.health_fragment()["canary"]["candidate_failures"]
+                check(cand_failures == 0, f"request {steps}: {cand_failures} candidate "
+                      f"failures during CANARY")
+            if r.status == "canary":
+                canary += 1
+                want = ctrl._candidate_model.predict(torch.from_numpy(x).to(DEV)).cpu().numpy()
+                check(np.array_equal(r.value, want),
+                      f"canary answer {canary} != the candidate's predict")
+            ctrl.poll()
+            steps += 1
+            if detect is None and ctrl.state != "serving":
+                detect, t_detect = steps * LC_REQ_ROWS, time.perf_counter()
+            if not states or states[-1] != ctrl.state:
+                states.append(ctrl.state)
+            if ctrl.state == "canary" and not seen_canary:
+                seen_canary = True
+                lc_agree(srv, ctrl, "canary")
+            if ctrl.state == "serving" and (ctrl.active_version or 0) > 0:
+                break
+            check(steps < 5_000, f"the lifecycle never promoted (state {ctrl.state})")
+        e2e_s = time.perf_counter() - t_start
+        promote_s = time.perf_counter() - t_detect
+        lc_agree(srv, ctrl, "serving")
+    journal = [e["state"] for e in ctrl.journal.entries()]
+    check(journal == LC_STATES, f"journal {journal}")
+    check(canary > 0, "no canary answer")
+    shadow = next(e["info"] for e in ctrl.journal.entries() if e["state"] == "shadow")
+    check(shadow["train_rows"] == LC_FILES * LC_FILE_ROWS and shadow["warm_started"],
+          f"the retrain read {shadow['train_rows']} rows")
+    # the shadow gate's divergence window: every row the primary answered
+    # during SHADOW went through the candidate's ServingModel (K2), none lost
+    gate = next(e["info"]["gate"] for e in ctrl.journal.entries() if e["state"] == "canary")
+    shadow_rows = gate["shadow"]["rows"]
+    check(shadow_rows == shadow_ok_rows and shadow_rows > 0,
+          f"the shadow scorer saw {shadow_rows} rows; the primary answered {shadow_ok_rows} "
+          f"during SHADOW")
+    gate_path = ("full window" if shadow_rows >= LC_CTRL["shadow_min_rows"]
+                 else "degraded: the drift breaker open, the metric gate decides")
+    say(f"lifecycle full cycle: {LC_FILES} drops of {LC_FILE_ROWS} drifted rows written "
+        f"{write_s:.2f} s, ingested {ingest_s:.2f} s; {steps} requests of {LC_REQ_ROWS} rows, "
+        f"a poll() after each: journal {' -> '.join(journal)}; answers {dict(tally)} (every "
+        f"unavailable one \"circuit open\"); shadow scorer {shadow_rows} rows == the primary's "
+        f"ok rows during SHADOW, disagreement {gate['shadow']['disagreement_rate']}, gate "
+        f"{gate_path}; detection at row {detect}; "
+        f"drift to promotion {promote_s:.3f} s (retrain {shadow['retrain_s']} s on "
+        f"{shadow['train_rows']} rows), first request to promotion {e2e_s:.3f} s; "
+        f"{canary} canary answers == the candidate's predict, 0 candidate failures; health "
+        f"and metrics_text == "
+        f"the journal at CANARY and at the end ({card})")
+    return work, ctrl
+
+
+def lc_outofcore(port, work: str, ctrl, feats, boot, card: str) -> None:
+    """The full cycle's retrain again with ``out_of_core_rows=131072``
+    (``HostDataset`` blocks): the resident candidate's n_iter, centers
+    within ``LC_OOC_LIMIT``, which the same retrain on TF32-rounded rows
+    exceeds."""
+    import types
+
+    import numpy as np
+
+    info = next(e["info"] for e in ctrl.journal.entries() if e["state"] == "retraining")
+    table = ctrl.sink.read(upto_batch_id=info["snapshot_batch_id"])
+    resident = port.load_model(os.path.join(work, "lc", "models", "v1"))
+    retrain = port.lifecycle.KMeansRetrainer(
+        feats, k=LC_K, max_iter=80, tol=1e-5, out_of_core_rows=LC_OOC_ROWS, device=DEV)
+    t0 = time.perf_counter()
+    ooc, _ = retrain(boot[0], table, os.path.join(work, "ooc_ckpt"), int(info["seed"]))
+    ooc_s = time.perf_counter() - t0
+    gap = float(np.abs(ooc.cluster_centers - resident.cluster_centers).max())
+    rounded = types.SimpleNamespace(column=lambda c: tf32_round(table.column(c)))
+    ctl, _ = retrain(boot[0], rounded, os.path.join(work, "ooc_ctl_ckpt"), int(info["seed"]))
+    ctl_gap = float(np.abs(ctl.cluster_centers - resident.cluster_centers).max())
+    check(ooc.n_iter == resident.n_iter, f"out-of-core retrain n_iter {ooc.n_iter}, resident "
+          f"{resident.n_iter}")
+    check(gap <= LC_OOC_LIMIT, f"out-of-core retrain centers {gap:.3g} off (limit "
+          f"{LC_OOC_LIMIT})")
+    check(ctl_gap > LC_OOC_LIMIT, f"the TF32-rounded control retrain is within {ctl_gap:.3g} "
+          f"<= {LC_OOC_LIMIT}")
+    say(f"lifecycle out-of-core retrain: {len(table)} rows in blocks of {LC_OOC_ROWS} "
+        f"{ooc_s:.3f} s, n_iter {ooc.n_iter} == resident, centers within {gap:.3g} "
+        f"(limit {LC_OOC_LIMIT}; the TF32-rounded control {ctl_gap:.3g}, n_iter "
+        f"{ctl.n_iter}) ({card})")
+
+
+def lc_chaos(port, tmp: str, feats, boot, card: str) -> None:
+    """bench.py's chaos matrix at its 4,000-row loop snapshot: a kill at each
+    of the five promotion-path sites; every restart reaches PROMOTED with
+    the final artifact's arrays == an uninterrupted run's."""
+    from collections import Counter
+
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    answers = Counter()
+
+    def cycle(site):
+        work = os.path.join(tmp, "chaos", site or "ref")
+        srv, _, ctrl, _, _ = lc_seed(port, work, feats, boot, LC_CHAOS_FILES, LC_CHAOS_ROWS)
+        srv.start()
+        plan = faults.FaultPlan().crash(site) if site else None
+        if plan:
+            faults.install(plan)
+        crashes, trng = 0, np.random.default_rng(4)
+        try:
+            while not (ctrl.state == "serving" and (ctrl.active_version or 0) > 0):
+                try:
+                    st = ctrl.state
+                    r = srv.predict("m", lc_draw(LC_REQ_ROWS, LC_SHIFT, trng),
+                                    wait_timeout_s=30.0)
+                    lc_answer(r, f"chaos {site}: a request in {st}")
+                    answers[r.status] += 1
+                    ctrl.poll()
+                except faults.InjectedCrash:
+                    crashes += 1
+                    faults.clear()
+                    srv.stop()
+                    srv, _, ctrl = lc_world(port, work, feats)   # the restart
+                    srv.start()
+                except Exception as e:  # noqa: BLE001 — chaos_unhandled
+                    fail(f"chaos {site}: unhandled {e!r}")
+        finally:
+            faults.clear()
+            srv.stop()
+        if plan:
+            check(plan.fired(site) >= 1 and crashes >= 1, f"chaos {site}: the kill never fired")
+        check([e["state"] for e in ctrl.journal.entries()][-2:] == ["promoted", "serving"],
+              f"chaos {site}: did not end PROMOTED -> SERVING")
+        with np.load(os.path.join(work, "lc", "models", "v1", "arrays.npz")) as z:
+            return crashes, {k: z[k] for k in z.files}
+
+    t0 = time.perf_counter()
+    _, ref = cycle(None)
+    crashes = 0
+    for site in LC_SITES:
+        n, got = cycle(site)
+        crashes += n
+        check(sorted(got) == sorted(ref) and all(
+            got[k].tobytes() == v.tobytes() for k, v in ref.items()),
+            f"chaos {site}: the final artifact differs from the uninterrupted run's")
+    say(f"lifecycle chaos matrix ({LC_CHAOS_FILES * LC_CHAOS_ROWS}-row snapshot): a kill at "
+        f"each of {len(LC_SITES)} sites, {crashes} crashes, every restart PROMOTED with the "
+        f"final artifact == the uninterrupted run's; answers {dict(answers)} (every "
+        f"unavailable one \"circuit open\"); chaos_unhandled 0; "
+        f"{time.perf_counter() - t0:.2f} s ({card})")
+
+
+def farm_lifecycle_phase(port, L, card: str) -> dict:
+    """Slice 7b at bench.py's shapes: the model farm (4,096 hospitals of
+    4-48 rows: fits against their looped baselines and the CPU route,
+    tenant serving, drifted-subset refit swapped under traffic, a preempted
+    checkpointed fit) and the continuous-learning lifecycle (warm vs cold
+    retrain at 400,000 x 8, k = 16; one full cycle over 400,000 drifted
+    rows; the retrain out of core; the chaos matrix).  K1 and K2 are held
+    to their plain versions at the lifecycle's shapes.  → {"launches": the
+    main path's K1 / K2 launches, "k1": [shape records], "k2": [shape
+    records]}."""
+    import numpy as np
+
+    import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.lifecycle  # noqa: F401
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(L)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    with ledger.aside():
+        k_retrain = kernel_case(L, LC_N, LC_D, LC_K, 0, seed=15, reps=20)
+        k_block = kernel_case(L, LC_OOC_ROWS, LC_D, LC_K, 0, seed=16, reps=50)[0]
+        k2_served = k2_case(L, LC_BUCKETS[-1], LC_D, LC_K, seed=17, reps=200)
+    shapes = {
+        "k1": [{"n": LC_N, "d": LC_D, "k": LC_K, **{k: k_retrain[0][k] for k in keys}},
+               {"n": LC_OOC_ROWS, "d": LC_D, "k": LC_K, **{k: k_block[k] for k in keys}}],
+        "k2": [{"n": LC_N, "d": LC_D, "k": LC_K, **{k: k_retrain[1][k] for k in keys}},
+               k2_served],
+    }
+    lap("farm kernels")
+    data = farm_fleet()
+    t0 = time.perf_counter()
+    batch = port.farm.pack_tenants(data)
+    kbatch = port.farm.pack_tenants({t: x for t, (x, _) in data.items()})
+    say(f"farm: pack_tenants of {len(data)} hospitals {time.perf_counter() - t0:.3f} s (host)")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+        lin, km = farm_fits(port, batch, kbatch, card)
+        lap("farm fits")
+        srv = port.serve.InferenceServer(device=DEV)
+        srv.add_model("farm", lin, buckets=BUCKETS)
+        srv.add_model("kmeans", km.global_model(), buckets=BUCKETS)
+        with srv:
+            farm_serving(port, data, lin, srv, card)
+            farm_drift(port, data, lin, srv, card)
+        lap("farm serving and drift")
+        farm_preempt(port, kbatch, tmp)
+        lap("farm preemption")
+        lc_warm_cold(port, card)
+        lap("lifecycle warm vs cold")
+        feats = tuple(f"f{j}" for j in range(LC_D))
+        x0 = lc_draw(LC_BOOT, 0.0, np.random.default_rng(2))
+        m0 = port.KMeans(k=LC_K, seed=0, max_iter=80, tol=1e-5).fit(x0, device=DEV)
+        boot = (m0, port.DataProfile.from_matrix(x0.astype(np.float64), feats), x0)
+        work, ctrl = lc_full_cycle(port, L, tmp, feats, boot, card)
+        lap("lifecycle full cycle")
+        lc_outofcore(port, work, ctrl, feats, boot, card)
+        lap("lifecycle out of core")
+        lc_chaos(port, tmp, feats, boot, card)
+        lap("lifecycle chaos")
+        os.environ.pop("CMLHN_FLIGHT_DIR")
+    launches = ledger.main_path()
+    check(launches["fused_lloyd_stats"] > 0 and launches["fused_assign"] > 0,
+          f"farm_lifecycle_phase launches {launches}")
+    say(f"farm_lifecycle_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)}")
+    return {"launches": launches, **shapes}
 
 
 def main() -> None:
@@ -6642,6 +7346,15 @@ def main() -> None:
         counts[name] += v
     records[0]["shapes"].append(front["shape"])
 
+    # ------- slice 7b: the model farm (torch ops, no kernel) and the
+    # lifecycle (K1 in the retrains, K2 in every served, shadow and canary
+    # batch)
+    fl = farm_lifecycle_phase(port, L, card)
+    for name, v in fl["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += fl["k1"]
+    records[1]["shapes"] += fl["k2"]
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -6651,6 +7364,8 @@ def main() -> None:
         f"beyond_phase {sum(v for k, v in PHASE_S.items() if k.startswith('beyond ')):.2f}; "
         f"history_phase {sum(v for k, v in PHASE_S.items() if k.startswith('history ')):.2f}; "
         f"front_door_phase {sum(v for k, v in PHASE_S.items() if k.startswith('front ')):.2f}; "
+        f"farm_lifecycle_phase "
+        f"{sum(v for k, v in PHASE_S.items() if k.startswith(('farm ', 'lifecycle '))):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

@@ -88,14 +88,24 @@ quality stages, the firewall and the tuner are host code and take no
 tests/test_torch_breaker.py tests/test_torch_firewall.py
 tests/test_torch_serving.py``; on a card,
 ``chip_smoke.front_door_phase(port, L, card)`` runs it alone after
-``ops._build.build()``.
+``ops._build.build()``.  Slice 7b adds the model farm (``farm/``: one model
+per hospital, fit for every hospital at once on the card, bit-equal to a
+loop over the hospitals, served from one artifact through
+``InferenceServer.predict_tenant``) and the continuous-learning lifecycle
+(``lifecycle/``: the journaled controller that detects drift,
+warm-retrains, shadow-scores, canary-routes and promotes or rolls back,
+surviving a kill at any transition).  Packing, the tenant sketches, the
+journal, the feedback spool and the gates are host code.  Its CPU tests:
+``python -m pytest tests/test_torch_farm.py tests/test_torch_lifecycle.py``;
+on a card, ``chip_smoke.farm_lifecycle_phase(port, L, card)`` runs it alone
+after ``ops._build.build()``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import models, pipeline, quality, serve, stat, streaming, tune, tuning, utils, viz
+from . import farm, models, pipeline, quality, serve, stat, streaming, tune, tuning, utils, viz
 from .config import PipelineConfig
 from .convert import (
     imputer_model_from_jax_arrays,
@@ -378,4 +388,6 @@ __all__ = [
     # slice 7a
     "ConstraintSet", "DataFirewall", "DataProfile", "DriftMonitor", "InputGuard",
     "RowValidator", "hospital_constraints", "quality",
+    # slice 7b
+    "farm",
 ]

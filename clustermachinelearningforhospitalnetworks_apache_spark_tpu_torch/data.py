@@ -37,6 +37,36 @@ def pad_slots(arr: np.ndarray, n_total: int, dtype=np.float32) -> np.ndarray:
     return out
 
 
+def stack_ragged(mats, weights=None, pad_to: int | None = None, dtype=np.float32):
+    """Ragged row blocks → one padded stack + weight mask (host numpy).
+
+    ``mats`` is B arrays of shape (n_b, d); the result is ``(xs, ws)``
+    with ``xs`` of shape (B, R, d) and ``ws`` of shape (B, R), where
+    ``R = pad_to or max(n_b)``.  Rows past each block's length get weight
+    0 — the pad-and-weight contract along a leading tenant axis.
+    ``weights`` (optional per-block row weights) fold into the mask;
+    otherwise valid rows get weight 1."""
+    B = len(mats)
+    if B == 0:
+        raise ValueError("stack_ragged needs at least one block")
+    d = mats[0].shape[1] if mats[0].ndim == 2 else 1
+    R = pad_to if pad_to is not None else max(int(m.shape[0]) for m in mats)
+    R = max(R, 1)
+    xs = np.empty((B, R, d), dtype=dtype)
+    ws = np.zeros((B, R), dtype=dtype)
+    for i, m in enumerate(mats):
+        n = int(m.shape[0])
+        if n > R:
+            raise ValueError(f"block {i} has {n} rows > padded length {R}")
+        xs[i, :n] = m.reshape(n, d)
+        xs[i, n:] = 0.0
+        if weights is not None:
+            ws[i, :n] = np.asarray(weights[i], dtype=dtype).reshape(-1)[:n]
+        else:
+            ws[i, :n] = 1.0
+    return xs, ws
+
+
 @dataclass
 class DeviceDataset:
     """A padded, weighted design matrix on one device.

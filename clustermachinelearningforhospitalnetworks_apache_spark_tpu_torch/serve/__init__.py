@@ -1,5 +1,6 @@
 """Online serving: shape buckets, bounded queue, micro-batcher, circuit
-breaker, server, bulk scoring."""
+breaker, server (with tenant routing and the lifecycle hooks), bulk
+scoring."""
 
 from .batcher import DEFAULT_MAX_WAIT_S, MicroBatcher
 from .breaker import STATE_CLOSED, STATE_HALF_OPEN, STATE_OPEN, CircuitBreaker
@@ -22,11 +23,12 @@ from .queue import (
 )
 from .registry import ModelRegistry, ServingModel
 from .scoring import ShardedScorer, bulk_score
-from .server import InferenceServer
+from .server import InferenceServer, NotRoutableError
 
 __all__ = [
     "CircuitBreaker", "DEFAULT_BUCKETS", "DEFAULT_MAX_QUEUE_ROWS", "DEFAULT_MAX_WAIT_S",
-    "DEGRADED_STATUSES", "InferenceServer", "MicroBatcher", "ModelRegistry", "Request",
+    "DEGRADED_STATUSES", "InferenceServer", "MicroBatcher", "ModelRegistry", "NotRoutableError",
+    "Request",
     "RequestQueue", "STATE_CLOSED", "STATE_HALF_OPEN", "STATE_OPEN",
     "STATUS_CANARY", "STATUS_DEADLINE_EXCEEDED", "STATUS_ERROR", "STATUS_INVALID_INPUT",
     "STATUS_OK", "STATUS_REJECTED", "STATUS_SHUTDOWN", "STATUS_UNAVAILABLE", "ServeResult",

@@ -89,6 +89,11 @@ class ServingMetrics:
         with self._lock:
             self.registry.inc("serve.drift_trips")
 
+    def record_not_routable(self) -> None:
+        """A tenant request named a model with no tenant routing."""
+        with self._lock:
+            self.registry.inc("serve.not_routable")
+
     def record_breaker_transition(self, old: str, new: str) -> None:
         with self._lock:
             self.registry.inc("serve.breaker_transitions")

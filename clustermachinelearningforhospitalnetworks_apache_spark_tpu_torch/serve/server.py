@@ -17,6 +17,12 @@ drifting feed degrades to fallback answers.  Models hot-swap under load
 (:meth:`InferenceServer.prepare_swap` / :meth:`~InferenceServer.commit_swap`),
 and :meth:`~InferenceServer.health` / :meth:`~InferenceServer.metrics_text`
 report the whole front door.
+
+A model farm serves per-hospital requests through
+:meth:`~InferenceServer.predict_tenant` (the tenant carried in-band), and
+an attached lifecycle controller (:meth:`~InferenceServer.attach_lifecycle`)
+routes a canary share of requests to its candidate, observes every answer
+and reports under ``health()["lifecycle"]``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,23 @@ from .queue import STATUS_INVALID_INPUT, Request, ServeResult
 from .registry import ModelRegistry, ServingModel
 
 log = get_logger("serve")
+
+
+class NotRoutableError(TypeError):
+    """A tenant-addressed request named a model that has no tenant
+    routing (``route_request``) — a client / config error (400-shaped),
+    never a server fault.  Carries the model name and family so the shed
+    answer (and logs) can say exactly which registration is wrong.
+
+    Subclasses :class:`TypeError`, the duck-typing failure it types."""
+
+    def __init__(self, model_name: str, family: str):
+        self.model_name = model_name
+        self.family = family
+        super().__init__(
+            f"model {model_name!r} ({family}) is not tenant-routable; "
+            "serve a ModelFarmModel under this name or use predict()"
+        )
 
 
 @dataclass
@@ -108,6 +131,9 @@ class InferenceServer:
         #: so a swap that has to CREATE a monitor keeps the tuning
         self._drift_params: dict[str, tuple[float, int, int]] = {}
         self._monitor_width_warned: set[str] = set()
+        #: attached lifecycle controller: canary routing, shadow scoring
+        #: and the health() lifecycle fragment hang off it
+        self._lifecycle = None
         #: serializes hot swaps so the registry flip and the drift-
         #: reference rebase land as one operation
         self._swap_lock = threading.Lock()
@@ -134,7 +160,8 @@ class InferenceServer:
     def obs_fragment(self) -> dict:
         """This server's contribution to a registry pull: its own
         counters / gauges / histograms plus per-model breaker-state and
-        drift-PSI gauges (label syntax — ``obs/export.py`` splits them)."""
+        drift-PSI gauges (label syntax — ``obs/export.py`` splits them)
+        and the lifecycle phase."""
         reg = self.metrics.registry
         counters = dict(reg.counters)
         gauges = dict(reg.gauges)
@@ -152,6 +179,10 @@ class InferenceServer:
             lbl = f'{{model="{name}"}}'
             gauges[f"serve.drift_max_psi{lbl}"] = float(s["max_psi"])
             counters[f"serve.drift_windows{lbl}"] = float(s["windows"])
+        lc = self._lifecycle
+        if lc is not None and lc.state is not None:
+            gauges["lifecycle.cycle"] = float(lc.cycle)
+            gauges[f'lifecycle.phase{{phase="{lc.state}"}}'] = 1.0
         return {
             "counters": counters,
             "gauges": gauges,
@@ -354,6 +385,12 @@ class InferenceServer:
         )
         return sm
 
+    def attach_lifecycle(self, controller) -> None:
+        """Wire a :class:`~..lifecycle.controller.LifecycleController` into
+        the request path: canary routing (``on_request``), shadow / drift
+        observation (``on_result``), and the ``lifecycle`` health key."""
+        self._lifecycle = controller
+
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "InferenceServer":
         """Warm every bucket, then start the batcher workers — in that
@@ -447,6 +484,24 @@ class InferenceServer:
         x, refused = self._guard_input(name, x)
         if refused is not None:
             return refused
+        lc = self._lifecycle
+        if lc is not None:
+            # canary split: during CANARY the controller answers a
+            # deterministic fraction of requests with the candidate,
+            # tagged STATUS_CANARY (ok=True — a full-quality answer,
+            # attributed); None keeps the request on the primary path.
+            # The clock starts BEFORE the candidate predict, so the
+            # latency the client sees is the candidate's real cost.
+            t0 = time.monotonic()
+            canary = lc.on_request(name, x)
+            if canary is not None:
+                req = Request(
+                    x=np.atleast_2d(np.asarray(x, dtype=np.float64)),
+                    enqueued_at=t0, deadline=None,
+                )
+                req.complete(canary)
+                self.metrics.record_request(canary.latency_s, canary.status)
+                return req
         return batcher.submit(x, deadline_s=deadline_s)
 
     def predict(self, name: str, x: np.ndarray, deadline_s: float | None = None,
@@ -460,6 +515,40 @@ class InferenceServer:
                                           wait_timeout_s)
         return result
 
+    def route_tenant(self, name: str, tenant_id: str, x: np.ndarray) -> np.ndarray:
+        """tenant id + features → the in-band routed request for ``name``.
+        Raises :class:`NotRoutableError` (carrying the model name) when
+        the registered model has no tenant routing."""
+        sm = self.registry.get(name)
+        route = getattr(sm.model, "route_request", None)
+        if route is None:
+            raise NotRoutableError(name, type(sm.model).__name__)
+        return route(tenant_id, np.atleast_2d(np.asarray(x, dtype=np.float64)))
+
+    def predict_tenant(
+        self, name: str, tenant_id: str, x: np.ndarray,
+        deadline_s: float | None = None, wait_timeout_s: float | None = 30.0,
+    ) -> ServeResult:
+        """Route a per-hospital request to its tenant's slice of a model
+        farm: tenant id → farm index (unknown tenants fall back to the
+        pooled GLOBAL slot), carried in-band as the request's leading
+        column, so the standard bucket ladder answers it.
+
+        A tenant request against a NON-farm model is a malformed request,
+        not a server fault: it answers ``invalid_input`` (no fallback, no
+        breaker count) and counts ``serve.not_routable``.
+        :meth:`route_tenant` raises the typed :class:`NotRoutableError`
+        instead."""
+        try:
+            xt = self.route_tenant(name, tenant_id, x)
+        except NotRoutableError as e:
+            self.metrics.record_request(0.0, STATUS_INVALID_INPUT)
+            self.metrics.record_not_routable()
+            return ServeResult(None, STATUS_INVALID_INPUT, detail=str(e))
+        return self.predict(
+            name, xt, deadline_s=deadline_s, wait_timeout_s=wait_timeout_s
+        )
+
     def _predict_traced(
         self, sp, name: str, x: np.ndarray, deadline_s: float | None,
         wait_timeout_s: float | None,
@@ -470,6 +559,19 @@ class InferenceServer:
             sp.note("model", name)
             sp.note("status", result.status)
             sp.note("rows", int(req.x.shape[0]))
+        lc = self._lifecycle
+        if lc is not None and result.status != STATUS_INVALID_INPUT:
+            # post-answer observation: drift windows, the metric-decay
+            # trigger, shadow scoring, canary accounting.  Observes req.x —
+            # the GUARDED rows the model saw (imputed, never the refused
+            # garbage).  The async submit() path skips this hook (no
+            # rendezvous to observe); lifecycle-governed traffic goes
+            # through predict().
+            try:
+                lc.on_result(name, req.x, result)
+            except Exception as e:  # noqa: BLE001 — observation must
+                # never cost a client its (already computed) answer
+                log.warning("lifecycle on_result failed", error=repr(e))
         return result
 
     # ------------------------------------------------------------ observe
@@ -493,9 +595,8 @@ class InferenceServer:
     def health(self) -> dict[str, Any]:
         """Liveness / degradation snapshot: breaker state per model plus
         the self-healing counters (quarantined batches and rows, retry
-        totals) — what a ``/healthz`` endpoint would poll.  ``lifecycle``
-        is None: no lifecycle controller attaches to the port's server
-        yet."""
+        totals) and the attached lifecycle controller's fragment (None
+        without one) — what a ``/healthz`` endpoint would poll."""
         breakers = {
             name: b.snapshot() for name, b in list(self._breakers.items())
         }
@@ -512,13 +613,20 @@ class InferenceServer:
             self.ingest_metrics.counters if self.ingest_metrics is not None
             else serve_c  # a shared registry folds ingest counters in
         )
+        lifecycle = None
+        if self._lifecycle is not None:
+            try:
+                lifecycle = self._lifecycle.health_fragment()
+            except Exception as e:  # noqa: BLE001 — a broken controller
+                # must not take down the health endpoint reporting it
+                lifecycle = {"error": repr(e)}
         return {
             "status": (
                 "stopped" if not self._started
                 else "degraded" if degraded else "ok"
             ),
             "started": self._started,
-            "lifecycle": None,
+            "lifecycle": lifecycle,
             "models_serving": sorted(self._batchers),
             "breakers": breakers,
             "drift": drift,
