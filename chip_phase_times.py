@@ -27,7 +27,7 @@ PHASES = ["kernel_case", "k2_case", "edge_cases", "k3_phase", "sql_window",
           "streaming_phase", "gmm_phase", "bisecting_phase", "outofcore_phase", "gbt_phase",
           "lr_phase", "precision_phase", "bisecting_more", "classification_phase",
           "families_phase", "features_phase", "beyond_phase", "history_phase",
-          "front_door_phase"]
+          "front_door_phase", "farm_lifecycle_phase", "fleet_phase"]
 
 
 def main() -> None:

@@ -133,12 +133,12 @@ kernels:
   (k=8) on the bundled CSV's 10-nearest-neighbour graph (K1 and K2 at
   d = 1); each fit's seconds, records/s, torch ops and host syncs, and card
   against CPU within limits that a control fails.
-* slice 6 (``history_phase``) — 2M hospital rows in 40 drops streamed into
+* slice 6 (``history_phase``) — 1M hospital rows in 40 drops streamed into
   two materialized views, a kill at view maintenance, the train_window
   view into the 20-tree forest (K3), 400 sealed hourly batches pruned and
   scrubbed, and the fuzz harness on the card.
 * slice 7a (``front_door_phase``) — the k=256 model saved with its 10M-row
-  profile and served behind a k=16 fallback: 2,000 requests from 16
+  profile and served behind a k=16 fallback: 1,000 requests from 16
   clients with 1 % planted bad rows to an impute and a reject name (every
   answer ``==`` predict on the imputed rows, K2 in every primary batch and
   a served batch held to its plain version), a 2-std drift opening the
@@ -146,7 +146,7 @@ kernels:
   answers only, no primary K2 launch), a refit on 2M drifted rows (K1, held
   to its plain version at that shape) hot-swapped under 8 threads with no
   request refused, a failing primary through open / half open / closed
-  against ``metrics_text()``, 1M hospital rows through a firewalled stream
+  against ``metrics_text()``, 500,000 hospital rows through a firewalled stream
   (0.1 % planted bad rows, a renamed header) killed and resumed, and
   ``serve.microbatch.max_wait_ms`` measured over its domain into a trial
   store that a ``Selector`` then resolves.
@@ -166,6 +166,23 @@ kernels:
   ``metrics_text()`` against the journal; K2 in the served, shadow and
   canary batches); the retrain out of core in blocks of 131,072; and a kill
   at each of the five promotion-path sites resuming to the same artifact.
+* slice 7c (``fleet_phase``) — bench.py's serving fleet: KMeans k=1024 on
+  6,000 x 64 rows (K1) served by 4 replicas on the card behind the
+  consistent-hash router and the SLO ladder, against one server with its
+  default queue and with the fleet's total buffering, past saturation
+  (1.7x the raw rate, 22 tenants of three classes): every ok answer
+  ``==`` predict, none unanswered, in-SLO interactive goodput, p50 / p99
+  and shed fractions; the degradation curve's class order at 0.35-2.6x; a
+  routed trace; a prepare fault on replica 1 flipping no replica, a clean
+  swap flipping all 4 under load, a replica killed mid-load and revived
+  with its tenants home, all under a stall watchdog; the multi-process
+  fleet (k=256 at d=32), a fresh fleet of 1, 2 and 4 worker processes on
+  the card a leg, each worker reporting cuda:0, launching K2 in its leg
+  and answering ``==`` the parent's predict, a SIGKILL mid-load and a
+  corrupted RPC frame; the
+  lifecycle over a 2-replica fleet, PROMOTED on both replicas and
+  re-applied on both after a kill at ``fleet.swap.commit``; K1 / K2 at
+  the fleet's shapes against their plain versions.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -5175,13 +5192,15 @@ def beyond_phase(port, L, H, card: str) -> dict:
 
 
 # ------------------------------------------------ slice 6: views and history
-VIEW_N = 400_000                          # rows a hospital: 2M rows over the whole day
-VIEW_BATCHES = 40                         # bench.py _bench_sql_incremental: 50,000 rows a drop
+VIEW_N = 200_000                          # rows a hospital: 1M rows over the whole day (2M
+                                          # until slice 7c)
+VIEW_BATCHES = 40                         # bench.py _bench_sql_incremental: 25,000 rows a drop
 VIEW_KILL_BATCHES = 8                     # the kill-and-resume leg's fresh table
 VIEW_KILL_AT = 5
 WINDOW_SPAN = ("2025-03-31 12:00:00", "2025-03-31 18:00:00")
 HIST_BATCHES = 400                        # bench.py _bench_sql_history: 4 → 400 hourly batches
-HIST_ROWS = 5_000                         # bench's 256 rows a batch, raised: 2M rows in all
+HIST_ROWS = 2_500                         # bench's 256 rows a batch, raised: 1M rows in all
+                                          # (2M until slice 7c)
 HIST_REPS = 9
 FUZZ_SEEDS = (0, 1, 2)
 HOSP_Q = ("SELECT hospital_id, count(*) AS n, sum(admission_count) AS adm, "
@@ -5537,7 +5556,7 @@ def fuzz_part(port) -> None:
 
 def history_phase(port, H, card: str) -> dict:
     """Slice 6 at full width: the materialized views over the stream
-    (2M rows in 40 drops), a kill at view maintenance resumed byte-equal,
+    (1M rows in 40 drops), a kill at view maintenance resumed byte-equal,
     the train_window view into the stage's forest (K3), the table
     lifecycle over 400 hourly batches with zone-map pruning and a
     scrubbed flipped byte, and the fuzz harness on the card.  No fallback
@@ -5587,7 +5606,8 @@ def history_phase(port, H, card: str) -> dict:
 
 # ------------------------------------------------------------- slice 7a
 FRONT_CLIENTS = 16                        # the in-distribution traffic's client threads
-FRONT_REQUESTS = 2_000                    # requests of 1-256 rows each (4,000 until slice 7b)
+FRONT_REQUESTS = 1_000                    # requests of 1-256 rows each (4,000 until slice 7b,
+                                          # 2,000 until 7c)
 FRONT_PLANT = 0.01                        # share of rows with a planted NaN, ±inf or far value
 FRONT_WINDOW, FRONT_TRIP_AFTER = 4096, 3  # the drift monitor
 FRONT_DRIFT_REQUESTS = 2_000              # one feature shifted by FRONT_SHIFT_SIGMA stds
@@ -5596,7 +5616,8 @@ FRONT_REFIT_N = 2_000_000                 # the hot swap's refit on drifted rows
 FRONT_SWAP_THREADS, FRONT_SWAP_POST = 8, 200   # load threads; requests each after the commit
 FRONT_SWAP_MAX_ROWS = 16                  # rows a swap-load request (1-16)
 FRONT_FAILURES, FRONT_RECOVERY_S = 3, 0.5  # the breaker's threshold and recovery
-FRONT_DROPS, FRONT_DROP_ROWS = 40, 25_000  # the ingest firewall: 1M hospital rows (2M until 7b)
+FRONT_DROPS, FRONT_DROP_ROWS = 40, 12_500  # the ingest firewall: 500,000 hospital rows (2M
+                                           # until 7b, 1M until 7c)
 FRONT_BAD = 0.001                         # share of planted bad rows
 FRONT_KILL_BATCH = 19                     # the stream killed after this batch's read
 FRONT_KNOB_REQUESTS = 500                 # requests a max_wait_ms value, 16 clients
@@ -5737,7 +5758,7 @@ def front_profiled_artifact(port, L, model, x_host, tmp: str, ledger):
 
 
 def front_in_distribution(port, L, srv, model, x_host, profile, prim, ledger) -> int:
-    """Step 2: 16 clients, 2,000 requests to the impute name and the same
+    """Step 2: 16 clients, 1,000 requests to the impute name and the same
     to the reject name; 1 % of the rows carry a planted NaN, ±inf or a
     value 10 spans out.  → requests sent."""
     import numpy as np
@@ -6141,7 +6162,7 @@ def firewall_drop_text(cols, lo: int, hi: int, plants: dict, renamed: bool) -> t
 
 
 def front_firewall(port, tmp: str, card: str) -> dict:
-    """Step 6: 40 drops of 25,000 hospital rows through a firewalled stream,
+    """Step 6: 40 drops of 12,500 hospital rows through a firewalled stream,
     0.1 % planted bad rows and one renamed, reordered header; killed after
     a batch's read and resumed.  → the stream's metrics registry."""
     import multiprocessing
@@ -6335,7 +6356,7 @@ def front_door_phase(port, L, card: str, model=None, x_host=None) -> dict:
     """Slice 7a at full width: the KMeans k=256 server behind its data
     guards (a profiled artifact, in-distribution traffic with planted bad
     rows, a drift trip, a hot swap under load, a failing primary), the
-    ingest firewall over 1M hospital rows, and the batcher's deadline
+    ingest firewall over 500,000 hospital rows, and the batcher's deadline
     tuned from the card's traffic.  No fallback hides the card: a primary
     failure, a fallback answer or an open breaker outside the planted
     windows fails the run.  ``model`` / ``x_host`` are the main path's
@@ -6750,9 +6771,10 @@ def lc_warm_cold(port, card: str) -> None:
         f"{ratio:.6f} ({card})")
 
 
-def lc_world(port, work: str, feats, retrainer=None):
-    """One incarnation of the lifecycle's server, stream and controller
-    over the durable state in ``work`` (bench.py's settings)."""
+def lc_world(port, work: str, feats, retrainer=None, server=None):
+    """One incarnation of the lifecycle's server (``server``, or a new
+    InferenceServer on the card), stream and controller over the durable
+    state in ``work`` (bench.py's settings)."""
     PL = port.lifecycle
     schema = PL.feedback_schema(feats)
     incoming = os.path.join(work, "incoming")
@@ -6761,7 +6783,8 @@ def lc_world(port, work: str, feats, retrainer=None):
         source=port.FileStreamSource(incoming, schema),
         sink=port.UnboundedTable(os.path.join(work, "table"), schema),
         checkpoint=port.StreamCheckpoint(os.path.join(work, "ckpt")), device=DEV)
-    srv = port.serve.InferenceServer(breaker_recovery_s=0.1, device=DEV)
+    srv = (server if server is not None
+           else port.serve.InferenceServer(breaker_recovery_s=0.1, device=DEV))
     ctrl = PL.LifecycleController(
         os.path.join(work, "lc"), srv, "m",
         retrainer or PL.KMeansRetrainer(feats, k=LC_K, max_iter=80, tol=1e-5, device=DEV),
@@ -6782,15 +6805,16 @@ def lc_drop(path: str, i: int, rows: int, feats) -> None:
         np.savetxt(f, body, fmt="%.9g", delimiter=",")   # float32 round-trips in 9 digits
 
 
-def lc_seed(port, work: str, feats, boot, files: int, rows: int) -> tuple:
+def lc_seed(port, work: str, feats, boot, files: int, rows: int, server=None) -> tuple:
     """Bootstrap v0 and ingest ``files`` drifted drops of ``rows`` rows
-    (written by spawned worker processes when there are many).  →
+    (written by spawned worker processes when there are many) for the
+    controller over ``server`` (default a new InferenceServer).  →
     (server, stream, controller, write s, ingest s)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     m0, profile, x0 = boot
-    srv, stream, ctrl = lc_world(port, work, feats)
+    srv, stream, ctrl = lc_world(port, work, feats, server=server)
     ctrl.bootstrap(m0, profile, train_x=x0)
     paths = [os.path.join(work, "incoming", f"drift-{i}.csv") for i in range(files)]
     t0 = time.perf_counter()
@@ -6954,10 +6978,11 @@ def lc_outofcore(port, work: str, ctrl, feats, boot, card: str) -> None:
         f"{ctl.n_iter}) ({card})")
 
 
-def lc_chaos(port, tmp: str, feats, boot, card: str) -> None:
+def lc_chaos(port, tmp: str, feats, boot, card: str) -> dict:
     """bench.py's chaos matrix at its 4,000-row loop snapshot: a kill at each
     of the five promotion-path sites; every restart reaches PROMOTED with
-    the final artifact's arrays == an uninterrupted run's."""
+    the final artifact's arrays == an uninterrupted run's.  → the
+    uninterrupted run's final arrays."""
     from collections import Counter
 
     import numpy as np
@@ -7015,6 +7040,7 @@ def lc_chaos(port, tmp: str, feats, boot, card: str) -> None:
         f"final artifact == the uninterrupted run's; answers {dict(answers)} (every "
         f"unavailable one \"circuit open\"); chaos_unhandled 0; "
         f"{time.perf_counter() - t0:.2f} s ({card})")
+    return ref
 
 
 def farm_lifecycle_phase(port, L, card: str) -> dict:
@@ -7073,7 +7099,7 @@ def farm_lifecycle_phase(port, L, card: str) -> dict:
         lap("lifecycle full cycle")
         lc_outofcore(port, work, ctrl, feats, boot, card)
         lap("lifecycle out of core")
-        lc_chaos(port, tmp, feats, boot, card)
+        lc_ref = lc_chaos(port, tmp, feats, boot, card)
         lap("lifecycle chaos")
         os.environ.pop("CMLHN_FLIGHT_DIR")
     launches = ledger.main_path()
@@ -7081,6 +7107,608 @@ def farm_lifecycle_phase(port, L, card: str) -> dict:
           f"farm_lifecycle_phase launches {launches}")
     say(f"farm_lifecycle_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
         f"main-path launches {json.dumps(launches)}")
+    return {"launches": launches, "lc_ref": lc_ref, **shapes}
+
+
+# ------------------------------------------------------------------------
+# slice 7c: the serving fleet
+# ------------------------------------------------------------------------
+FLEET_N, FLEET_D, FLEET_K = 6_000, 64, 1_024   # bench.py _bench_serve_fleet's served model
+FLEET_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+FLEET_REPLICAS = 4                        # on one card: EvenPlacement round-robins onto cuda:0
+FLEET_QUEUE = 384                         # rows a replica's queue holds
+FLEET_OVERLOAD = 1.7                      # x the raw ServingModel rate at bucket 128
+FLEET_SECONDS = 4.0
+FLEET_CURVE = (0.35, 0.9, 1.7, 2.6)       # the degradation curve, 1.2 s a point
+FLEET_CURVE_SECONDS = 1.2
+FLEET_CHAOS = 0.9                         # the swap and kill legs' load, x the raw rate
+FLEET_CHAOS_SECONDS = 1.5
+PROC_N, PROC_D, PROC_K = 4_000, 32, 256   # bench.py _bench_serve_fleet_multiproc
+PROC_ROWS = 16
+PROC_OVERLOAD = 2.5
+PROC_SECONDS = 3.0
+PROC_LEGS = (1, 2, 4)
+FLEET_WATCH_S = 5.0                       # the stall watchdog's window
+
+
+def fleet_mix(F):
+    """bench.py's 22-tenant mix: 8 interactive hospitals of 16 rows, 8
+    batch of 64, 6 best-effort of 96."""
+    return tuple([F.TenantMix(f"H{i:02d}", 1.0, "interactive", 16) for i in range(8)]
+                 + [F.TenantMix(f"J{i:02d}", 1.0, "batch", 64) for i in range(8)]
+                 + [F.TenantMix(f"B{i:02d}", 1.0, "best_effort", 96) for i in range(6)])
+
+
+def fleet_schedule(F, mix, rows_per_s: float, seconds: float, seed: int = 42) -> list:
+    """bench.py's open-loop schedule: Poisson at ``rows_per_s`` with the
+    1.5x burst over the middle third."""
+    per_req = sum(m.weight * m.rows for m in mix) / sum(m.weight for m in mix)
+    return F.build_schedule(F.LoadProfile(
+        base_rate_rps=rows_per_s / per_req, tenants=mix, seed=seed,
+        burst_start_s=seconds / 3.0, burst_dur_s=seconds / 3.0, burst_mult=1.5), seconds)
+
+
+def raw_rate(port, model, x, bucket: int) -> float:
+    """Rows/s of one ServingModel on the card at ``bucket`` rows, 0.6 s."""
+    sm = port.serve.ServingModel(model, buckets=(bucket,), device=DEV).warmup()
+    t0, rows = time.perf_counter(), 0
+    while time.perf_counter() - t0 < 0.6:
+        sm.predict_bucketed(x[:bucket])
+        rows += bucket
+    return rows / (time.perf_counter() - t0)
+
+
+class Served:
+    """An open-loop submit that gives each arrival its own rows (a sliding
+    window over ``x``) and keeps (arrival, start, request, era) for the
+    checks after the replay; ``era`` counts the events fired before the
+    submit."""
+
+    def __init__(self, x, send):
+        self.x, self.send, self.kept, self.era = x, send, [], 0
+
+    def __call__(self, a):
+        start = (len(self.kept) * 97) % (len(self.x) - 128)
+        req = self.send(a, self.x[start:start + a.rows])
+        self.kept.append((a, start, req, self.era))
+        return req
+
+    def answers(self):
+        """→ [(rows start, n rows, result, era)] once the replay harvested."""
+        return [(start, a.rows, req.wait(0.0), era) for a, start, req, era in self.kept]
+
+
+def check_answers(served: Served, pred, what: str, era_pred=None) -> int:
+    """Every ok answer == ``pred`` on its rows (``era_pred[era]`` where
+    given: the model serving in that era).  → ok answers."""
+    import numpy as np
+
+    n = 0
+    for start, rows, r, era in served.answers():
+        if r.ok:
+            want = (era_pred or {}).get(era, pred)
+            ok = any(np.array_equal(r.value, w[start:start + rows])
+                     for w in (want if isinstance(want, list) else [want]))
+            check(ok, f"{what}: an ok answer (rows {start}..{start + rows}, era {era}) differs "
+                  f"from predict")
+            n += 1
+    return n
+
+
+def slo_line(rep: dict, pin_s: float) -> tuple[float, str]:
+    """(interactive rows/s within the pin, the summary text)."""
+    r = rep["reports"].get("interactive")
+    hit = r.in_slo(pin_s) if r is not None else {"rows": 0, "p50_ms": None, "p99_ms": None}
+    rate = hit["rows"] / rep["gen_wall_s"]
+    shed = {k: v["shed_fraction"] for k, v in rep["per_class"].items()}
+    return rate, (f"{rate:.1f} interactive rows/s within {pin_s * 1e3:.0f} ms (p50 "
+                  f"{hit['p50_ms']} ms, p99 {hit['p99_ms']} ms); ok {rep['ok_rows']} of "
+                  f"{rep['offered_rows']} rows; shed fractions {shed}; unanswered "
+                  f"{rep['unanswered']}; pacing lag {rep['max_pacing_lag_s']} s")
+
+
+def fleet_in_process(port, F, card: str, wd) -> dict:
+    """(a) and (b): bench.py's fleet of 4 replicas on the card against one
+    server (its default queue, and its queue at the fleet's total
+    buffering) past saturation, the degradation curve, one routed trace;
+    then a failed and a clean swap and a replica kill under load."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.obs import trace
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(FLEET_N, FLEET_D)).astype(np.float32)
+    t0 = time.perf_counter()
+    model = port.KMeans(k=FLEET_K, max_iter=2, seed=0).fit(x, device=DEV)
+    fit_s = time.perf_counter() - t0
+    pred = predict_rows(model, x)
+    rate = raw_rate(port, model, x, FLEET_BUCKETS[-1])
+    classes = F.default_slo_classes()
+    deadlines = {n: c.default_deadline_s for n, c in classes.items()}
+    pin = deadlines["interactive"]
+    mix = fleet_mix(F)
+    say(f"fleet model: KMeans(k={FLEET_K}, max_iter=2) on {FLEET_N} x {FLEET_D} rows "
+        f"{fit_s:.3f} s (K1); raw ServingModel rate at bucket {FLEET_BUCKETS[-1]} "
+        f"{rate:.1f} rows/s ({card})")
+
+    def fleet():
+        fs = F.ReplicaSet(n_replicas=FLEET_REPLICAS, max_queue_rows=FLEET_QUEUE)
+        fs.add_model("km", model, buckets=FLEET_BUCKETS)
+        wd.watch_fleet(fs)
+        return fs
+
+    def fleet_send(fs):
+        return lambda a, rows: fs.submit("km", rows, tenant_id=a.tenant_id, slo=a.slo,
+                                         deadline_s=deadlines[a.slo])
+
+    def run_fleet(sched, **kw):
+        fs = fleet()
+        served = Served(x, fleet_send(fs))
+        with fs:
+            rep = F.replay(served, sched, wait_timeout_s=8.0, **kw)
+            health = fs.health()
+        return rep, served, health, fs
+
+    def run_single(sched, queue_rows):
+        srv = port.serve.InferenceServer(max_queue_rows=queue_rows, device=DEV)
+        srv.add_model("km", model, buckets=FLEET_BUCKETS)
+        served = Served(x, lambda a, rows: srv.submit("km", rows, deadline_s=deadlines[a.slo]))
+        with srv:
+            rep = F.replay(served, sched, wait_timeout_s=8.0)
+        return rep, served
+
+    # ---- (a) past saturation: the fleet against both single-server baselines
+    sched = fleet_schedule(F, mix, FLEET_OVERLOAD * rate, FLEET_SECONDS)
+    legs = {}
+    for name, run in (("single (queue 4096)", lambda: run_single(sched, 4096)),
+                      (f"single (queue {FLEET_QUEUE * FLEET_REPLICAS})",
+                       lambda: run_single(sched, FLEET_QUEUE * FLEET_REPLICAS)),
+                      (f"fleet ({FLEET_REPLICAS} replicas)", lambda: run_fleet(sched)[:2])):
+        rep, served = run()
+        check(rep["unanswered"] == 0, f"{name}: {rep['unanswered']} unanswered")
+        n_ok = check_answers(served, pred, name)
+        legs[name] = slo_line(rep, pin)
+        say(f"fleet leg {name}, {len(sched)} requests at {FLEET_OVERLOAD}x the raw rate over "
+            f"{FLEET_SECONDS} s: {legs[name][1]}; {n_ok} ok answers == predict ({card})")
+    lap("fleet saturation legs")
+    curve = []
+    for mult in FLEET_CURVE:
+        rep, served, _, _ = run_fleet(fleet_schedule(F, mix, mult * rate, FLEET_CURVE_SECONDS,
+                                                     seed=7))
+        check(rep["unanswered"] == 0, f"curve {mult}x: {rep['unanswered']} unanswered")
+        check_answers(served, pred, f"curve {mult}x")
+        fr = {slo: rep["per_class"].get(slo, {"shed_fraction": 0.0})["shed_fraction"]
+              for slo in F.SLO_SHED_ORDER}
+        check(fr["best_effort"] >= fr["batch"] >= fr["interactive"],
+              f"curve {mult}x: shed fractions out of class order {fr}")
+        curve.append((mult, fr))
+    say("fleet degradation curve (shed fraction best_effort / batch / interactive): "
+        + "; ".join(f"{m}x {f['best_effort']} / {f['batch']} / {f['interactive']}"
+                    for m, f in curve) + f" — class order held at every point ({card})")
+    lap("fleet degradation curve")
+
+    # ---- one routed trace, and where the replicas' serving tensors lie
+    tracer = trace.Tracer()
+    fs = fleet()
+    with fs:
+        with trace.active(tracer):
+            r = fs.predict("km", x[:4], tenant_id="H00", slo="interactive")
+        check(r.ok and np.array_equal(r.value, pred[:4]), f"the traced request: {r.status}")
+        root = [s for s in tracer.spans if s["name"] == "fleet.request"]
+        check(len(root) == 1, "no fleet.request span")
+        chain = trace.timeline(tracer.spans, root[0]["trace_id"])
+        names = [s["name"] for s in chain]
+        check({"fleet.request", "router.route", "serve.request"} <= set(names),
+              f"the routed trace holds {names}")
+        card0 = torch.device("cuda", 0)
+        for rep_ in fs.replicas:
+            sm = rep_.server.registry.get("km")
+            out = sm._fn(torch.zeros((1, FLEET_D), device=sm.device))
+            check(sm.device == card0 and rep_.server.device == card0 and out.device == card0
+                  and all(t.device == card0 for t in sm.model._centers_on.values()),
+                  f"replica {rep_.index} serves off cuda:0")
+    say(f"fleet trace: one trace id {root[0]['trace_id']} holds {' > '.join(names)} "
+        f"(replica {root[0]['attrs'].get('replica')}); all {FLEET_REPLICAS} replicas' "
+        f"ServingModels, centers and outputs on cuda:0 ({card})")
+
+    # ---- (b) promotion and chaos under load
+    # the successor: two Lloyd steps from the served centers on a fresh
+    # draw of the rows (a warm refit, no k-means++ init)
+    x_new = np.random.default_rng(5).normal(size=(FLEET_N, FLEET_D)).astype(np.float32)
+    succ = port.KMeans(k=FLEET_K, max_iter=2, seed=5,
+                       warm_start_centers=model.cluster_centers).fit(x_new, device=DEV)
+    pred_new = predict_rows(succ, x)
+    check(not np.array_equal(pred_new, pred), "the refit predicts as the served model does")
+    swap = {}
+
+    def swap_leg(event, seed):
+        """A replay at the curve's unsaturated point with ``event(fs,
+        served)`` at its middle.  → (report, served, health)."""
+        fs = fleet()
+        served = Served(x, fleet_send(fs))
+        with fs:
+            rep = F.replay(served, fleet_schedule(F, mix, FLEET_CURVE[0] * rate,
+                                                  FLEET_CHAOS_SECONDS, seed=seed),
+                           wait_timeout_s=8.0,
+                           events=[(FLEET_CHAOS_SECONDS / 2, lambda: event(fs, served))])
+            health = fs.health()
+        check(rep["unanswered"] == 0, f"a swap leg: {rep['unanswered']} unanswered")
+        return rep, served, health
+
+    def failed_swap(fs, served):
+        plan = faults.FaultPlan().fail(
+            "fleet.swap.prepare", when=lambda ctx: ctx.get("replica") == 1,
+            error=lambda: RuntimeError("injected prepare failure"))
+        with faults.active(plan):
+            try:
+                fs.swap_model("km", succ)
+                fail("the swap with a failing prepare on replica 1 flipped")
+            except RuntimeError as e:
+                check("injected" in str(e), f"the failed swap raised {e!r}")
+        check(plan.fired("fleet.swap.prepare") == 1, "the prepare fault never fired")
+        check(all(r.server.registry.get("km").model is model for r in fs.replicas),
+              "a replica flipped in the failed swap")
+        served.era = 1
+
+    def clean_swap(fs, served):
+        t0 = time.perf_counter()
+        fs.swap_model("km", succ)
+        swap["ms"] = (time.perf_counter() - t0) * 1e3
+        check(all(r.server.registry.get("km").model is succ for r in fs.replicas),
+              "the clean swap left a replica on the old model")
+        served.era = 1
+
+    rep, served, health = swap_leg(failed_swap, 9)
+    n_failed = check_answers(served, pred, "the failed swap's leg")
+    check(health["promotions"] == 0, f"the failed swap counted {health['promotions']}")
+    rep, served, health = swap_leg(clean_swap, 10)
+    n_ok = check_answers(served, pred, "the clean swap's leg", {0: [pred, pred_new], 1: pred_new})
+    answers = served.answers()
+    refused = [r.status for *_, r, _ in answers if r.status == "unavailable" or (
+        r.status == "rejected" and not (r.detail or "").startswith("admission:"))]
+    ladder = sum(1 for *_, r, _ in answers
+                 if r.status == "rejected" and (r.detail or "").startswith("admission:"))
+    after = sum(1 for *_, r, era in answers if era == 1 and r.ok)
+    late = sum(1 for *_, r, _ in answers if r.status == "deadline_exceeded")
+    check(not refused, f"the clean swap's leg refused {len(refused)} requests")
+    check(health["promotions"] == 1 and after > 0,
+          f"promotions {health['promotions']}, {after} answers after the swap")
+    say(f"fleet swaps at {FLEET_CURVE[0]}x load: the prepare fault on replica 1 flipped no "
+        f"replica, {n_failed} ok answers == the served model's; the clean swap flipped all "
+        f"{FLEET_REPLICAS} in {swap['ms']:.2f} ms, {after} ok answers after it == the refit's "
+        f"predict ({n_ok} ok in the leg), none refused by a replica or the router ({ladder} "
+        f"shed at the door by the SLO ladder), {late} past their deadline ({card})")
+
+    fs = fleet()
+    tenants = [f"T{i:03d}" for i in range(200)]
+    home = {t: fs.router.route(tenant_id=t, model="km").index for t in tenants}
+    victims = [t for t in tenants if home[t] == 1]
+    served = Served(x, fleet_send(fs))
+    with fs:
+        rep = F.replay(served, fleet_schedule(F, mix, FLEET_CHAOS * rate, FLEET_CHAOS_SECONDS,
+                                              seed=11),
+                       wait_timeout_s=8.0, mid_hook=lambda: fs.kill_replica(1))
+        check(rep["unanswered"] == 0, f"the kill leg: {rep['unanswered']} unanswered")
+        n_ok = check_answers(served, pred, "the kill leg")
+        over = {t: fs.router.route(tenant_id=t, model="km").index for t in victims}
+        check(all(v != 1 for v in over.values()), "a dead replica's tenant routed to it")
+        for t in victims[:5]:
+            r = fs.predict("km", x[:2], tenant_id=t)
+            check(r.ok and np.array_equal(r.value, pred[:2]), f"post-kill {t}: {r.status}")
+        fs.revive_replica(1)
+        back = {t: fs.router.route(tenant_id=t, model="km").index for t in tenants}
+        check(back == home, "the revived replica's tenants did not come home")
+        r = fs.predict("km", x[:2], tenant_id=victims[0])
+        check(r.ok and np.array_equal(r.value, pred[:2]), f"after the revive: {r.status}")
+        health = fs.health()
+    check(health["replicas_killed"] == 1 and health["replicas_revived"] == 1
+          and health["status"] == "ok", f"kill leg health {health}")
+    say(f"fleet kill under {FLEET_CHAOS}x load: replica 1 killed mid-load, 0 unanswered, "
+        f"{n_ok} ok answers == predict, rerouted {health['rerouted']}; revived, its "
+        f"{len(victims)} of {len(tenants)} tenants home ({card})")
+    lap("fleet swap and kill")
+    return {"fit_s": fit_s, "raw_rate": rate, "legs": {k: v[0] for k, v in legs.items()},
+            "swap_ms": swap["ms"]}
+
+
+def note_launches(fs, seen: dict) -> None:
+    """Each live worker's K2 launches, read from its ping, by pid (a
+    worker's count only grows, so the newest reading is its total)."""
+    for r in fs.replicas:
+        if r.server.alive():
+            p = r.server.ping()
+            seen[p["pid"]] = p["launches"]["fused_assign"]
+
+
+def balanced_tenants(F, n: int, legs) -> list:
+    """``n`` interactive hospital ids, H00 upward, that the consistent-hash
+    ring of every leg's fleet spreads evenly (n / workers a worker).
+    bench.py's H00-H07 put 6 of 8 on one worker of 2 and none on the 4th
+    of 4, so its legs measure fewer serving workers than they name."""
+    rings = {}
+    for w in legs:
+        rings[w] = F.ConsistentHashRing()
+        for i in range(w):
+            rings[w].add(i)
+    counts = {w: [0] * w for w in legs}
+    names, i = [], 0
+    while len(names) < n:
+        name = f"H{i:02d}"
+        owners = {w: ring.owner(name) for w, ring in rings.items()}
+        if all(counts[w][o] < n // w for w, o in owners.items()):
+            names.append(name)
+            for w, o in owners.items():
+                counts[w][o] += 1
+        i += 1
+    return names
+
+
+def fleet_multiproc(port, F, FP, card: str) -> dict:
+    """(c): bench.py's multi-process fleet, 16-row interactive requests at
+    2.5x one server's raw rate over 3 s, one fresh fleet of 1, 2 and 4
+    worker processes on the card a leg (spawned side by side), as bench.py
+    runs them.  The 8 tenants spread evenly over every leg's workers, and
+    every worker must launch K2 during its leg.  After its leg the
+    2-worker fleet takes a SIGKILL mid-load (revived) and one corrupted
+    RPC frame (its worker reaped).  → {"launches": the workers' K2
+    launches read from their pings, "legs": {workers: numbers},
+    "revive_s": ...}."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(PROC_N, PROC_D)).astype(np.float32)
+    t0 = time.perf_counter()
+    model = port.KMeans(k=PROC_K, max_iter=2, seed=0).fit(x, device=DEV)
+    fit_s = time.perf_counter() - t0
+    pred = predict_rows(model, x)
+    rate = raw_rate(port, model, x, PROC_ROWS)
+    deadlines = {n: c.default_deadline_s for n, c in F.default_slo_classes().items()}
+    pin = deadlines["interactive"]
+    tenants = balanced_tenants(F, 8, PROC_LEGS)
+    mix = tuple(F.TenantMix(t, 1.0, "interactive", PROC_ROWS) for t in tenants)
+    sched = F.build_schedule(F.LoadProfile(
+        base_rate_rps=PROC_OVERLOAD * rate / PROC_ROWS, tenants=mix, seed=42,
+        burst_start_s=PROC_SECONDS / 3, burst_dur_s=PROC_SECONDS / 3, burst_mult=1.5),
+        PROC_SECONDS)
+    say(f"proc fleet: KMeans(k={PROC_K}, max_iter=2) on {PROC_N} x {PROC_D} rows "
+        f"{fit_s:.3f} s (K1); tenants {tenants}, 8 / n on each of a leg's n workers ({card})")
+    total, legs, revive_s = 0, {}, None
+    for n in PROC_LEGS:
+        t0 = time.perf_counter()
+        fs = FP.ProcReplicaSet(n_replicas=n, max_queue_rows=FLEET_QUEUE)
+        spawn_s = time.perf_counter() - t0
+        seen = {}
+        try:
+            fs.add_model("km", model, buckets=(PROC_ROWS,))
+            fs.start()
+            pings = [r.server.ping() for r in fs.replicas]
+            pids = [p["pid"] for p in pings]
+            check(len(set(pids)) == n and os.getpid() not in pids
+                  and pids == [r.server.pid for r in fs.replicas], f"worker pids {pids}")
+            check(all(p["device"] == "cuda:0" for p in pings),
+                  f"workers report devices {[p['device'] for p in pings]}")
+            before = [p["launches"]["fused_assign"] for p in pings]
+            served = Served(x, lambda a, rows: fs.submit(
+                "km", rows, tenant_id=a.tenant_id, slo=a.slo, deadline_s=deadlines[a.slo]))
+            rep = F.replay(served, sched, wait_timeout_s=8.0)
+            check(rep["unanswered"] == 0, f"{n} workers: {rep['unanswered']} unanswered")
+            n_ok = check_answers(served, pred, f"{n} workers")
+            goodput, text = slo_line(rep, pin)
+            k2 = [r.server.ping()["launches"]["fused_assign"] - b
+                  for r, b in zip(fs.replicas, before)]
+            check(all(v > 0 for v in k2), f"{n} workers: a worker launched K2 no time "
+                  f"during its leg: {k2}")
+            note_launches(fs, seen)
+            legs[n] = {"goodput": goodput, "spawn_s": spawn_s,
+                       "p99": rep["reports"]["interactive"].in_slo(pin)["p99_ms"]}
+            say(f"proc fleet, {n} worker(s) on cuda:0, a fresh fleet spawned side by side in "
+                f"{spawn_s:.2f} s, pids {pids} (the parent {os.getpid()}): {len(sched)} "
+                f"requests at {PROC_OVERLOAD}x the raw rate {rate:.1f} rows/s over "
+                f"{PROC_SECONDS} s: {text}; {n_ok} ok answers == the parent's predict; each "
+                f"worker's K2 launches during the leg {k2} ({card})")
+            if n == 2:
+                revive_s = proc_chaos(fs, x, pred, faults, seen, card)
+        finally:
+            fs.stop()
+        total += sum(seen.values())
+    check(revive_s is not None, "the proc fleet's chaos did not run")
+    g = {n: v["goodput"] for n, v in legs.items()}
+    say(f"proc fleet goodput ratios (no gate: the workers' CUDA contexts time-slice one card): "
+        f"1->2 {g[2] / g[1] if g[1] else float('nan'):.2f}, 2->4 "
+        f"{g[4] / g[2] if g[2] else float('nan'):.2f} ({card})")
+    lap("fleet multi-process")
+    return {"launches": total, "legs": legs, "revive_s": revive_s}
+
+
+def proc_chaos(fs, x, pred, faults, seen: dict, card: str) -> float:
+    """On a 2-worker fleet: a SIGKILL with 32 requests in flight (none
+    unanswered; the worker revived), then one corrupted RPC frame
+    (transport death, the worker reaped: one worker stays live); ``seen``
+    gathers the workers' K2 launches before each death.  → the revive's
+    seconds."""
+    import numpy as np
+
+    live = [r.index for r in fs.replicas if r.healthy()]
+    note_launches(fs, seen)
+    reqs = [fs.submit("km", x[i * 4:i * 4 + 4], tenant_id=f"t{i}") for i in range(32)]
+    fs.kill_replica(live[0])
+    res = [r.wait(15.0) for r in reqs]
+    check(all(r.detail != "client wait timed out" for r in res)
+          and {r.status for r in res} <= {"ok", "unavailable", "rejected"},
+          f"SIGKILL mid-load: {[r.status for r in res]}")
+    for i, r in enumerate(res):
+        check(not r.ok or np.array_equal(r.value, pred[i * 4:i * 4 + 4]),
+              "an answer around the SIGKILL differs from predict")
+    t0 = time.perf_counter()
+    fs.revive_replica(live[0])
+    revive_s = time.perf_counter() - t0
+    check(fs.replicas[live[0]].server.ping()["device"] == "cuda:0",
+          "the revived worker's device")
+    note_launches(fs, seen)
+    target = fs.router.route(tenant_id="h1", model="km").index
+    plan = faults.FaultPlan().corrupt("fleet.proc.rpc", at_byte=1, times=1,
+                                      when=lambda ctx: ctx.get("replica") == target)
+    with faults.active(plan):
+        r = fs.submit("km", x[:4], tenant_id="h1").wait(10.0)
+    check(r.status in ("ok", "unavailable") and plan.fired("fleet.proc.rpc") == 1,
+          f"the corrupted frame: {r.status}, fired {plan.fired('fleet.proc.rpc')}")
+    deadline = time.monotonic() + 10.0
+    while fs.replicas[target].server.alive() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    check(fs.reap() == [target], "the corrupted frame did not end its worker")
+    after = fs.predict("km", x[:4], tenant_id="h1")
+    check(after.ok and np.array_equal(after.value, pred[:4]),
+          f"after the corrupted frame: {after.status}")
+    say(f"proc fleet chaos (2 workers): SIGKILL with 32 requests in flight, "
+        f"{sum(q.ok for q in res)} ok and {sum(q.status == 'unavailable' for q in res)} "
+        f"unavailable, 0 unanswered, revived on cuda:0 in {revive_s:.2f} s; one corrupted RPC "
+        f"frame to worker {target} answered {r.status} as transport death, the worker reaped, "
+        f"the survivor answering == predict ({card})")
+    return revive_s
+
+
+def fleet_lifecycle(port, F, tmp: str, card: str, ref=None) -> None:
+    """(d): the lifecycle over a 2-replica fleet on the card at
+    farm_lifecycle_phase's 4,000-row chaos snapshot: PROMOTED on both
+    replicas, the final artifact == a single server's (``ref``: the final
+    arrays of farm_lifecycle_phase's uninterrupted chaos run of the same
+    snapshot; run here when not given); a kill at fleet.swap.commit flips
+    neither replica, and a restarted controller over the same fleet
+    re-applies the flip on both."""
+    import numpy as np
+
+    import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.lifecycle  # noqa: F401
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    feats = tuple(f"f{j}" for j in range(LC_D))
+    x0 = lc_draw(LC_BOOT, 0.0, np.random.default_rng(2))
+    m0 = port.KMeans(k=LC_K, seed=0, max_iter=80, tol=1e-5).fit(x0, device=DEV)
+    boot = (m0, port.DataProfile.from_matrix(x0.astype(np.float64), feats), x0)
+
+    def drive(srv, ctrl, crash=False):
+        trng, steps = np.random.default_rng(4), 0
+        while not (ctrl.state == "serving" and (ctrl.active_version or 0) > 0):
+            r = srv.predict("m", lc_draw(LC_REQ_ROWS, LC_SHIFT, trng), deadline_s=30.0,
+                            wait_timeout_s=30.0)
+            if r.status == "unavailable" and "no healthy replica" in r.detail:
+                time.sleep(0.1)   # every replica's drift breaker open: wait out its recovery
+            else:
+                lc_answer(r, f"fleet lifecycle request {steps}")
+            ctrl.poll()
+            steps += 1
+            check(steps < 5_000, f"the fleet lifecycle never promoted (state {ctrl.state})")
+        return steps
+
+    def arrays(work):
+        with np.load(os.path.join(work, "lc", "models", "v1", "arrays.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    def centers(fs):
+        return [r.server.registry.get("m").model.cluster_centers for r in fs.replicas]
+
+    t0 = time.perf_counter()
+    if ref is None:
+        work = os.path.join(tmp, "single")
+        srv, _, ctrl, _, _ = lc_seed(port, work, feats, boot, LC_CHAOS_FILES, LC_CHAOS_ROWS)
+        with srv:
+            drive(srv, ctrl)
+        ref = arrays(work)
+    single_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    work = os.path.join(tmp, "fleet")
+    fs = F.ReplicaSet(n_replicas=2, breaker_recovery_s=0.1)
+    _, _, ctrl, _, _ = lc_seed(port, work, feats, boot, LC_CHAOS_FILES, LC_CHAOS_ROWS, server=fs)
+    with fs:
+        steps = drive(fs, ctrl)
+        journal = [e["state"] for e in ctrl.journal.entries()]
+        check(journal == LC_STATES, f"the fleet's journal {journal}")
+        got = arrays(work)
+        check(sorted(got) == sorted(ref) and all(got[k].tobytes() == v.tobytes()
+                                                 for k, v in ref.items()),
+              "the fleet's promoted artifact differs from the single server's")
+        check(all(np.array_equal(c, ref["cluster_centers"]) for c in centers(fs)),
+              "PROMOTED did not land on both replicas")
+    fleet_s = time.perf_counter() - t0
+
+    work = os.path.join(tmp, "killed")
+    fs = F.ReplicaSet(n_replicas=2, breaker_recovery_s=0.1)
+    _, _, ctrl, _, _ = lc_seed(port, work, feats, boot, LC_CHAOS_FILES, LC_CHAOS_ROWS, server=fs)
+    plan = faults.FaultPlan().crash("fleet.swap.commit")
+    with fs:
+        faults.install(plan)
+        try:
+            drive(fs, ctrl)
+            fail("the kill at fleet.swap.commit never fired")
+        except faults.InjectedCrash:
+            pass
+        finally:
+            faults.clear()
+        check(ctrl.journal.last()["state"] == "promoted", "the kill before PROMOTED was journaled")
+        check(all(np.array_equal(c, m0.cluster_centers) for c in centers(fs)),
+              "a replica flipped before the killed commit")
+        _, _, again = lc_world(port, work, feats, server=fs)     # the restart
+        check([e["state"] for e in again.journal.entries()][-2:] == ["promoted", "serving"],
+              "the restart did not finish PROMOTED -> SERVING")
+        check(all(np.array_equal(c, ref["cluster_centers"]) for c in centers(fs)),
+              "the restart did not re-apply the flip on both replicas")
+    say(f"fleet lifecycle ({LC_CHAOS_FILES * LC_CHAOS_ROWS}-row snapshot, 2 replicas on "
+        f"cuda:0): journal {' -> '.join(journal)} in {steps} requests, {fleet_s:.2f} s (the "
+        f"single server's run {single_s:.2f} s, 0 when farm_lifecycle_phase's was given); "
+        f"PROMOTED on both replicas, the "
+        f"artifact == the single server's; a kill at fleet.swap.commit flipped neither replica "
+        f"and the restarted controller re-applied the flip on both ({card})")
+    lap("fleet lifecycle")
+
+
+def fleet_phase(port, L, card: str, lc_ref=None) -> dict:
+    """Slice 7c at bench.py's shapes: the in-process fleet (4 replicas on
+    the card, KMeans k=1024 at d=64; K1 in the fit, K2 in every served
+    batch) against one server past saturation, the degradation curve, a
+    routed trace, a failed and a clean swap and a replica kill under load,
+    all under a stall watchdog; the multi-process fleet (1, 2 and 4 worker
+    processes on the card, k=256 at d=32; K2 in every worker); the
+    lifecycle over a 2-replica fleet; and K1 / K2 at the fleet's shapes
+    against their plain versions.  → {"launches": the main path's K1 / K2
+    launches (the workers' read from their pings), "k1": [...], "k2":
+    [...]}."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve import fleet as F
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve.fleet import (
+        proc as FP,
+    )
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(L)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    with ledger.aside():
+        k_fit = kernel_case(L, FLEET_N, FLEET_D, FLEET_K, 0, seed=21, reps=20)[0]
+        k2_batch = k2_case(L, FLEET_BUCKETS[-1], FLEET_D, FLEET_K, seed=22, reps=200)
+        k2_proc = k2_case(L, PROC_ROWS, PROC_D, PROC_K, seed=23, reps=200)
+    shapes = {"k1": [{"n": FLEET_N, "d": FLEET_D, "k": FLEET_K, **{k: k_fit[k] for k in keys}}],
+              "k2": [k2_batch, k2_proc]}
+    lap("fleet kernels")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CMLHN_FLIGHT_DIR"] = os.path.join(tmp, "flight")
+        wd = F.StallWatchdog(window_s=FLEET_WATCH_S)
+        with wd:
+            inproc = fleet_in_process(port, F, card, wd)
+            wd.check()
+        check(wd.stalled() is None, "the stall watchdog declared a stall")
+        say(f"fleet stall watchdog ({FLEET_WATCH_S} s window) over (a) and (b): no stall")
+        procs = fleet_multiproc(port, F, FP, card)
+        fleet_lifecycle(port, F, tmp, card, lc_ref)
+        os.environ.pop("CMLHN_FLIGHT_DIR")
+    launches = ledger.main_path()
+    launches["fused_assign"] += procs["launches"]
+    check(launches["fused_lloyd_stats"] > 0 and launches["fused_assign"] > 0,
+          f"fleet_phase launches {launches}")
+    say(f"fleet_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)} (K2 of it in the worker processes "
+        f"{procs['launches']})")
     return {"launches": launches, **shapes}
 
 
@@ -7355,6 +7983,14 @@ def main() -> None:
     records[0]["shapes"] += fl["k1"]
     records[1]["shapes"] += fl["k2"]
 
+    # ------- slice 7c: the serving fleet (K1 in the served models' fits, K2
+    # in every replica's and every worker process's served batches)
+    fleet = fleet_phase(port, L, card, lc_ref=fl["lc_ref"])
+    for name, v in fleet["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += fleet["k1"]
+    records[1]["shapes"] += fleet["k2"]
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -7366,6 +8002,7 @@ def main() -> None:
         f"front_door_phase {sum(v for k, v in PHASE_S.items() if k.startswith('front ')):.2f}; "
         f"farm_lifecycle_phase "
         f"{sum(v for k, v in PHASE_S.items() if k.startswith(('farm ', 'lifecycle '))):.2f}; "
+        f"fleet_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fleet ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

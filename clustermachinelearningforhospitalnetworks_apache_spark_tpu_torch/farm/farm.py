@@ -502,6 +502,21 @@ class ModelFarmModel:
         self._lock = threading.Lock()
         self.fit_info: dict = {}
 
+    def __getstate__(self) -> dict:
+        """Pickle the parameters, not the per-device tensor cache or the
+        lock: a farm served on the card crosses a process boundary (the
+        multi-process fleet's ``add_model``) as host arrays and rebuilds
+        its cache where it is served next."""
+        state = dict(self.__dict__)
+        state.pop("_params_on", None)
+        state.pop("_lock", None)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._params_on = {}
+        self._lock = threading.Lock()
+
     # ------------------------------------------------------------ shape
     @property
     def n_tenants(self) -> int:
@@ -602,6 +617,13 @@ class ModelFarmModel:
         return np.concatenate(
             [np.full((x.shape[0], 1), float(idx)), x], axis=1
         )
+
+    def affinity_key(self, tenant_id) -> str:
+        """The key the serving fleet's consistent-hash router sticks a
+        tenant to — the SAME normalized id space ``tenant_index`` uses,
+        so an int/np database key and its string form land on the same
+        replica (and the same in-band farm slice)."""
+        return str(tenant_id)
 
     def predict_tenant(self, tenant_id: str, x: np.ndarray, device=None) -> np.ndarray:
         """Host-side convenience: route + predict + fetch for one tenant on

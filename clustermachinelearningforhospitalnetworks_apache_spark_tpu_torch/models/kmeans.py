@@ -211,6 +211,18 @@ class KMeansModel(ClusteringModel):
             )
         self._centers_on: dict[str, torch.Tensor] = {}
 
+    def __getstate__(self) -> dict:
+        """Pickle the model's arrays, not its per-device center cache: a
+        model served on the card crosses a process boundary (the
+        multi-process fleet's ``add_model``) with no CUDA tensor in it."""
+        state = dict(self.__dict__)
+        state.pop("_centers_on", None)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._centers_on = {}
+
     @property
     def k(self) -> int:
         return self.cluster_centers.shape[0]

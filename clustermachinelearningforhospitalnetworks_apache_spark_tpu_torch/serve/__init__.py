@@ -1,6 +1,6 @@
 """Online serving: shape buckets, bounded queue, micro-batcher, circuit
 breaker, server (with tenant routing and the lifecycle hooks), bulk
-scoring."""
+scoring, and the serving fleet (:mod:`.fleet`)."""
 
 from .batcher import DEFAULT_MAX_WAIT_S, MicroBatcher
 from .breaker import STATE_CLOSED, STATE_HALF_OPEN, STATE_OPEN, CircuitBreaker
@@ -24,6 +24,7 @@ from .queue import (
 from .registry import ModelRegistry, ServingModel
 from .scoring import ShardedScorer, bulk_score
 from .server import InferenceServer, NotRoutableError
+from . import fleet
 
 __all__ = [
     "CircuitBreaker", "DEFAULT_BUCKETS", "DEFAULT_MAX_QUEUE_ROWS", "DEFAULT_MAX_WAIT_S",
@@ -33,5 +34,5 @@ __all__ = [
     "STATUS_CANARY", "STATUS_DEADLINE_EXCEEDED", "STATUS_ERROR", "STATUS_INVALID_INPUT",
     "STATUS_OK", "STATUS_REJECTED", "STATUS_SHUTDOWN", "STATUS_UNAVAILABLE", "ServeResult",
     "ServingMetrics", "ServingModel", "ShardedScorer", "bucket_for", "bulk_score",
-    "fill_ratio", "pad_to_bucket",
+    "fill_ratio", "fleet", "pad_to_bucket",
 ]

@@ -346,14 +346,22 @@ class InferenceServer:
             name=name, sm=sm, profile=profile, family=type(model).__name__,
         )
 
-    def commit_swap(self, prepared: PreparedSwap) -> ServingModel:
+    def commit_swap(
+        self, prepared: PreparedSwap, fire_fault_point: bool = True
+    ) -> ServingModel:
         """Phase 2 of a hot swap: rebase the drift reference, flip the
         registry entry (``ModelRegistry.install``) and the live batcher,
         reset the breaker — all under one lock; nothing here can fail
         short of process death (the ``lifecycle.registry.swap`` fault
-        site fires before anything flips)."""
+        site fires before anything flips).
+
+        ``fire_fault_point=False`` is for the fleet's commit loop: its
+        injectable kill site is ``fleet.swap.commit``, fired ONCE before
+        any replica flips — a per-replica site inside the loop would be
+        a failure point mid-way through an all-or-none commit."""
         name, sm, profile = prepared.name, prepared.sm, prepared.profile
-        fault_point("lifecycle.registry.swap", model=name)
+        if fire_fault_point:
+            fault_point("lifecycle.registry.swap", model=name)
         with self._swap_lock:
             if profile is not None:
                 mon = self._monitors.get(name)

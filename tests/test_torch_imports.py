@@ -85,7 +85,11 @@ def test_every_module_is_walkable():
                      "quality.reconcile", "quality.drift", "quality.firewall",
                      "serve.breaker", "farm", "farm.farm", "farm.profiles", "farm.drift",
                      "lifecycle", "lifecycle.journal", "lifecycle.feedback",
-                     "lifecycle.promotion", "lifecycle.controller", "lifecycle.farm"):
+                     "lifecycle.promotion", "lifecycle.controller", "lifecycle.farm",
+                     "serve.fleet", "serve.fleet.placement", "serve.fleet.router",
+                     "serve.fleet.admission", "serve.fleet.loadgen", "serve.fleet.watchdog",
+                     "serve.fleet.replica_set", "serve.fleet.proc",
+                     "serve.fleet._proc_worker"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -615,6 +619,70 @@ def test_slice_7b_host_entry_points_take_no_device_and_need_no_card(monkeypatch,
     assert lifecycle.kmeans_cost(port.KMeansModel(x[:2].copy()), x) >= 0.0
 
 
+def test_slice_7c_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """The in-process and the multi-process fleet place their replicas on
+    every card by default and raise without one, before any replica
+    server or worker process is built; named devices serve there."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve import fleet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: fleet.ReplicaSet(),
+        lambda: fleet.ReplicaSet(n_replicas=4, max_queue_rows=384),
+        lambda: fleet.ProcReplicaSet(),
+        lambda: fleet.ProcReplicaSet(n_replicas=1, proc_env={"OMP_NUM_THREADS": "1"}),
+        lambda: fleet.replica_set.default_devices(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    fs = fleet.ReplicaSet(n_replicas=3, devices=("cpu",) * 3)
+    assert fs.device == torch.device("cpu")
+    assert [r.server.device.type for r in fs.replicas] == ["cpu"] * 3
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.ReplicaSet(n_replicas=2, devices=("cuda:0", "cuda:0"))
+
+
+def test_slice_7c_host_entry_points_take_no_device_and_need_no_card(monkeypatch):
+    """Placement, the router, admission, the load generator, the watchdog
+    and the frame transport are host code, as in the JAX package: none
+    takes ``device=`` and none needs a card."""
+    import inspect
+    import socket
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve import fleet
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve.fleet import (
+        placement,
+        proc,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [placement.partition_devices, fleet.EvenPlacement.assign, fleet.PinnedPlacement,
+           fleet.PinnedPlacement.assign, fleet.ConsistentHashRing,
+           fleet.ConsistentHashRing.preference, fleet.Router, fleet.Router.route,
+           fleet.TokenBucket, fleet.AdmissionController, fleet.AdmissionController.admit,
+           fleet.default_slo_classes, fleet.LoadProfile, fleet.build_schedule, fleet.replay,
+           fleet.ClassReport.summary, fleet.StallWatchdog, fleet.StallWatchdog.watch_fleet,
+           proc.send_frame, proc.recv_frame]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    assert [s.primary for s in fleet.EvenPlacement().assign(4, [0])] == [0, 0, 0, 0]
+    router = fleet.Router([type("R", (), {"index": 0, "healthy": lambda s: True,
+                                          "load_rows": lambda s: 0,
+                                          "breaker_open": lambda s, m: False})()])
+    assert router.route(tenant_id="H1", model="m").index == 0
+    assert fleet.AdmissionController().admit("H1", "interactive", 4, 0.5).admitted
+    prof = fleet.LoadProfile(base_rate_rps=50.0, tenants=(fleet.TenantMix("H1", 1.0),))
+    assert len(fleet.build_schedule(prof, 1.0)) > 10
+    a, b = socket.socketpair()
+    with a, b:
+        proc.send_frame(a, {"op": "ping"})
+        assert proc.recv_frame(b) == {"op": "ping"}
+    with fleet.StallWatchdog(window_s=1.0) as wd:
+        wd.register("idle", lambda: 0.0, busy_fn=lambda: False)
+        wd.check()
+
+
 # The reference's public names that the port does not have yet, by the
 # subpackage whose ``__all__`` lists them, each with the slice of ROADMAP
 # queue 1 that ports its module.  Every other name of the reference's
@@ -639,7 +707,8 @@ EXPECTED_GAPS = {
                               "use_mesh", "FederatedDataset", "federated_dataset",
                               "place_hospitals", "pad_rows", "replicate", "row_sharding",
                               "shard_rows", "global_sum", "tree_aggregate", "distributed")),
-    "serve": _tagged("7c", ("fleet",)),
+    "serve": {},
+    "serve.fleet": {},
     "ops": {},
     "utils": _tagged("7d", ("block_until_ready", "device_fence", "capture_trace",
                             "trace_annotation")),
