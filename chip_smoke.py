@@ -2566,20 +2566,16 @@ def gbt_data():
 
 
 def count_syncs(fn):
-    """``fn()`` under ``set_sync_debug_mode("warn")``: → (its result, the
-    host syncs it made)."""
-    import warnings
+    """``fn()`` under the package's ``host_sync_census`` (``set_sync_debug_mode
+    ("warn")``, one warning a blocking sync): → (its result, the host syncs
+    it made)."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils.profiling import (
+        host_sync_census,
+    )
 
-    import torch
-
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    with host_sync_census() as census:
+        out = fn()
+    return out, census["device_get"]
 
 
 def tree_gap(a, b) -> float:
@@ -7712,6 +7708,588 @@ def fleet_phase(port, L, card: str, lc_ref=None) -> dict:
     return {"launches": launches, **shapes}
 
 
+# ------------------------------------- slices 7c-2 + 7d-1: federation, pipelined stream
+FED_SILOS, FED_ROWS, FED_D, FED_K, FED_ITERS = 4, 500_000, 16, 64, 8   # bench.py _bench_federated
+FED_SITES = ("fed.round.collect", "fed.round.merge", "fed.round.fit", "fed.round.broadcast")
+#: federated against pooled KMeans on float rows: K1 sums a silo's rows in
+#: its own block order, so the two differ by the sums' reassociation, and
+#: over 8 rounds that moves rows between clusters; about 10x the first
+#: run's gaps (my call 2: centers 1.949e-3 absolute, cost 3.16e-7
+#: relative, 154 rows moved; NVIDIA H100 80GB HBM3, 700.00 W).  The
+#: control, the silos' rows bf16-rounded, fails the cost limit (2.26e-5)
+FED_GAP_LIMIT = {"centers": 0.02, "cost_rel": 3e-6, "moved": 1_500}
+FED_GMM_SILOS, FED_GMM_ROWS, FED_GMM_D, FED_GMM_K = 4, 50_000, 8, 8
+FED_LR_ROWS = 100_000                     # a hospital's CSV drop, 4 hospitals
+#: x the largest coefficient: about 10x the first gap (1.67e-6, my call 2),
+#: under the CPU tests' 1e-4; the Grams in TF32 (the control) read 9.1e-4
+FED_LR_TOL = 2e-5
+PIPE_FILES, PIPE_ROWS, PIPE_K = 10, 100_000, 8    # bench.py _bench_streaming_pipeline
+PIPE_D = 4                                # the hospital FEATURE_COLS
+PIPE_BAD = 10                             # planted garbage lines a drop (quarantine evidence)
+PIPE_KILL_SITE, PIPE_KILL_AFTER = "stream.after_sink", 3
+GBT_CENSUS_N = 200_000
+#: the JAX package's GBT fit's stage names (models/tree/gbt.py), which
+#: tests/test_torch_gbt.py holds the port's clock to on the CPU
+JAX_GBT_STAGES = ["bin", "init", "boost", "fetch_materialize"]
+
+
+def fed_silos(F, parts: list, order=None) -> list:
+    """One ``Silo`` a row block (DeviceDatasets on the phase's device)."""
+    silos = [F.Silo(f"s{i:02d}", ds, device=DEV) for i, ds in enumerate(parts)]
+    return silos if order is None else [silos[i] for i in order]
+
+
+def fed_cfg(F, **kw):
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils.retry import (
+        RetryPolicy,
+    )
+
+    return F.FederatedConfig(retry=RetryPolicy(max_attempts=3, base_delay_s=0.0,
+                                               max_delay_s=0.0),
+                             breaker_recovery_s=0.0, **kw)
+
+
+def same_kmeans(a, b) -> bool:
+    import numpy as np
+
+    return (np.array_equal(a.cluster_centers, b.cluster_centers)
+            and float(a.training_cost) == float(b.training_cost) and a.n_iter == b.n_iter
+            and np.array_equal(a.cluster_sizes, b.cluster_sizes))
+
+
+def same_gmm(a, b) -> bool:
+    import numpy as np
+
+    return (all(np.array_equal(getattr(a, n), getattr(b, n))
+                for n in ("weights", "means", "covariances"))
+            and float(a.log_likelihood) == float(b.log_likelihood) and a.n_iter == b.n_iter)
+
+
+def kmeans_gaps(a, b) -> dict:
+    import numpy as np
+
+    return {"centers": float(np.abs(a.cluster_centers - b.cluster_centers).max()),
+            "cost_rel": abs(a.training_cost - b.training_cost) / abs(b.training_cost),
+            "moved": int(np.abs(a.cluster_sizes - b.cluster_sizes).sum()) // 2}
+
+
+def fed_trace(port, F, parts, tmp: str, k1_per_round: int) -> str:
+    """``capture_trace`` of one federated round (and its closing collect)
+    under ``trace_annotation("fed.round")``; checks that the Chrome trace
+    holds K1's kernel events inside the annotation.  → the summary line."""
+    import numpy as np
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import (
+        profiling,
+    )
+
+    x0 = parts[0].x[:FED_K].cpu().numpy()
+    one = port.KMeans(k=FED_K, max_iter=1, tol=0.0, warm_start_centers=x0, chunk_rows=FED_ROWS)
+    log_dir = os.path.join(tmp, "trace")
+    with profiling.capture_trace(log_dir) as prof:
+        with profiling.trace_annotation("fed.round"):
+            F.FederatedCoordinator(one, fed_silos(F, parts), fed_cfg(F), device=DEV).fit()
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ann = [e for e in events if e.get("name") == "fed.round"]
+    check(ann, "the trace holds no fed.round annotation")
+    cpu_ann = min(ann, key=lambda e: e["ts"])
+    lo, hi = cpu_ann["ts"], cpu_ann["ts"] + cpu_ann["dur"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "lloyd_kernel" in e["name"]]
+    copies = [e for e in events if e.get("cat") in ("gpu_memcpy", "gpu_memset")]
+    names = sorted({e.get("cat", "?") for e in ann})
+    if DEV != "cuda":
+        return f"trace (CPU rehearsal): {len(events)} events, annotation {names}"
+    check(len(k1) == k1_per_round,
+          f"the trace holds {len(k1)} K1 kernel events, expected {k1_per_round}")
+    check(all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in k1),
+          "a K1 kernel event lies outside the fed.round annotation")
+    dev_us = sum(e["dur"] for e in kernels)
+    k1_us = sum(e["dur"] for e in k1)
+    top = sorted(((sum(e["dur"] for e in kernels if e["name"] == n), n)
+                  for n in {e["name"] for e in kernels}), reverse=True)[:3]
+    kav = prof.key_averages()
+    dev_total = sum(getattr(a, "self_device_time_total", getattr(a, "self_cuda_time_total", 0))
+                    for a in kav)
+    return (f"trace of one federated round (+ its closing collect): annotation "
+            f"{hi - lo:.0f} us of host clock, kinds {names}; {len(kernels)} kernel events "
+            f"({dev_us:.1f} us on the card, {100 * dev_us / max(hi - lo, 1e-9):.2f} % of the "
+            f"round), K1 {len(k1)} events {k1_us:.1f} us, all inside the annotation; "
+            f"{len(copies)} copies / memsets; top kernels "
+            + "; ".join(f"{re.sub(r'[(]anonymous namespace[)]::|^void ', '', n).split('(')[0]} "
+                        f"{t:.1f} us" for t, n in top)
+            + f"; key_averages device time {dev_total:.1f} us; {len(np.unique([e.get('tid') for e in kernels]))} stream(s)")
+
+
+def fed_small_fits(port, F, tmp: str, card: str) -> None:
+    """At a smaller size: federated GaussianMixture ``==`` its pooled warm
+    fit (each silo one ``chunk_rows`` chunk); federated LinearRegression
+    over one ``Silo.from_csv`` a hospital drop against the pooled fit,
+    with a control; ``merged_profile`` against the pooled profile."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    k, d, r = FED_GMM_K, FED_GMM_D, FED_GMM_ROWS
+    c = rng.normal(0, 5, (k, d))
+    gx = (c[rng.integers(0, k, FED_GMM_SILOS * r)] + rng.normal(size=(FED_GMM_SILOS * r, d))
+          ).astype(np.float32)
+    gm = port.GaussianMixture(k=k, max_iter=10, tol=1e-3, chunk_rows=r, warm_start_params=(
+        np.full((k,), 1.0 / k, np.float32), gx[:k].copy(),
+        np.stack([np.eye(d, dtype=np.float32) * 4.0] * k)))
+    t0 = time.perf_counter()
+    pooled = gm.fit(port.device_dataset(gx, device=DEV))
+    sync()
+    pooled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fed = F.FederatedCoordinator(gm, fed_silos(F, [
+        port.device_dataset(gx[i * r:(i + 1) * r], device=DEV) for i in range(FED_GMM_SILOS)]),
+        fed_cfg(F), device=DEV).fit()
+    fed_s = time.perf_counter() - t0
+    check(same_gmm(fed.model, pooled), "federated GaussianMixture differs from its pooled fit")
+    say(f"federated GaussianMixture k={k} on {FED_GMM_SILOS} x {r} x {d}: == the pooled warm "
+        f"fit (n_iter {pooled.n_iter}, ll {pooled.log_likelihood:.9g}); pooled "
+        f"{pooled_s:.3f} s, federated {fed_s:.3f} s ({card})")
+
+    cols = hospital_events(FED_LR_ROWS, seed=11, hospitals=4)
+    schema = port.hospital_event_schema()
+    feats = list(port.FEATURE_COLS)
+    silos = []
+    t0 = time.perf_counter()
+    for h in range(4):
+        path = os.path.join(tmp, f"hospital-H{h:02d}.csv")
+        write_events_csv(path, cols, h * FED_LR_ROWS, (h + 1) * FED_LR_ROWS)
+        silos.append(F.Silo.from_csv(f"H{h:02d}", path, schema, feats,
+                                     label_col=port.LABEL_COL,
+                                     table_dir=os.path.join(tmp, f"silo-H{h:02d}"), device=DEV))
+    ingest_s = time.perf_counter() - t0
+    check([s.n_rows for s in silos] == [FED_LR_ROWS] * 4, "a hospital silo lost rows")
+    x64 = np.concatenate([s.feature_matrix() for s in silos]).astype(np.float64)
+    x = x64.astype(np.float32)
+    y = np.concatenate([s.data.table.column(port.LABEL_COL) for s in silos]).astype(np.float32)
+    est = port.LinearRegression(reg_param=0.1)
+    pooled_lr = est.fit((x, y), device=DEV)
+    fed_lr = F.FederatedCoordinator(est, silos, fed_cfg(F), device=DEV).fit().model
+
+    def lr_gap(m) -> float:
+        a = pooled_lr.coefficients.cpu().numpy()
+        b = m.coefficients.cpu().numpy()
+        scale = float(np.abs(a).max())
+        return max(float(np.abs(a - b).max()), abs(float(pooled_lr.intercept) - float(m.intercept))
+                   ) / scale
+
+    gap = lr_gap(fed_lr)
+    with tf32_matmuls():
+        ctl = lr_gap(F.FederatedCoordinator(est, silos, fed_cfg(F), device=DEV).fit().model)
+    check(gap <= FED_LR_TOL, f"federated LinearRegression {gap:.3g} of the largest coefficient "
+          f"from the pooled fit (limit {FED_LR_TOL})")
+    check(ctl > FED_LR_TOL, f"the control (the silos' Grams in TF32) passes the LR limit "
+          f"({ctl:.3g})")
+    say(f"federated LinearRegression over 4 hospital drops (Silo.from_csv: firewall -> "
+        f"unbounded table -> assembler, {ingest_s:.2f} s for {4 * FED_LR_ROWS} rows): "
+        f"{gap:.3g} of the largest coefficient from the pooled fit (limit {FED_LR_TOL}; "
+        f"control, the silos' Grams in TF32, {ctl:.3g})")
+
+    coord = F.FederatedCoordinator(est, silos, fed_cfg(F), device=DEV)
+    prof = coord.merged_profile(names=feats)
+    ref = port.DataProfile.from_matrix(x64, feats)
+    worst = 0.0
+    for j, name in enumerate(feats):
+        a, b = prof.sketches[name], ref.sketches[name]
+        check(a.count == b.count == float(len(x)) and a.min == b.min and a.max == b.max,
+              f"merged profile {name}: count / min / max differ from the pooled profile")
+        worst = max(worst, abs(a.mean - b.mean) / max(abs(b.mean), 1e-30),
+                    abs(a.m2 - b.m2) / max(abs(b.m2), 1e-30))
+    check(worst <= 1e-9, f"merged profile moments {worst:.3g} from the pooled profile's")
+    say(f"merged_profile over the 4 hospitals: counts, min, max == the pooled profile's, "
+        f"mean and m2 within {worst:.3g} relative (limit 1e-9: Chan's merge in float64)")
+
+
+def federated_phase(port, ops, L, card: str) -> dict:
+    """Slice 7c's federation at bench.py's federated shape: 4 silos x
+    500,000 x 16 rows (``default_rng(0)``, the first half shifted by 4),
+    KMeans k=64, 8 rounds, tol 0, warm-started on the first 64 rows,
+    ``chunk_rows`` 500,000; each silo's rows a DeviceDataset on the card
+    (K1 a silo a round, and in the closing collect), against the pooled
+    fit (K1); determinism under a rerun, reverse registration, a dropout
+    and a kill at each ``fed.round.*`` site; the smaller fits; a
+    ``capture_trace`` of one round.  → {"launches": the main path's,
+    "k1": [shape records]}."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import (
+        federated as F,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(ops)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    shapes = []
+    if DEV == "cuda":
+        with ledger.aside():
+            for n, seed in ((FED_ROWS, 31), (FED_SILOS * FED_ROWS, 32)):
+                kr = kernel_case(L, n, FED_D, FED_K, 0, seed=seed, reps=20)[0]
+                shapes.append({"n": n, "d": FED_D, "k": FED_K, **{key: kr[key] for key in keys}})
+    lap("fed kernels")
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(FED_SILOS * FED_ROWS, FED_D)).astype(np.float32)
+    x[: FED_SILOS * FED_ROWS // 2] += 4.0
+    pooled_ds = port.device_dataset(x, device=DEV)
+    parts = [port.device_dataset(x[i * FED_ROWS:(i + 1) * FED_ROWS], device=DEV)
+             for i in range(FED_SILOS)]
+    km = port.KMeans(k=FED_K, max_iter=FED_ITERS, tol=0.0, warm_start_centers=x[:FED_K].copy(),
+                     chunk_rows=FED_ROWS)
+
+    def fit(silos, cfg=None):
+        return F.FederatedCoordinator(km, silos, cfg or fed_cfg(F), device=DEV).fit()
+
+    k1 = lambda: ops.launch_counts()["fused_lloyd_stats"]  # noqa: E731
+    sync()
+    before = k1()
+    t0 = time.perf_counter()
+    pooled = km.fit(pooled_ds)
+    sync()
+    pooled_first_s = time.perf_counter() - t0
+    k1_pooled = k1() - before
+    silos = fed_silos(F, parts)
+    t0 = time.perf_counter()
+    res = fit(silos)
+    sync()
+    fed_first_s = time.perf_counter() - t0
+    k1_fed = k1() - before - k1_pooled
+    # warm: each path's torch kernels loaded by its first run
+    t0 = time.perf_counter()
+    pooled_again = km.fit(pooled_ds)
+    sync()
+    pooled_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = fit(fed_silos(F, parts))
+    sync()
+    fed_s = time.perf_counter() - t0
+    check(same_kmeans(pooled_again, pooled), "two pooled card fits differ")
+    check(same_kmeans(again.model, res.model), "two federated card fits differ")
+    rounds = res.state.version
+    if DEV == "cuda":
+        check(k1_pooled == pooled.n_iter + 1,
+              f"the pooled fit launched K1 {k1_pooled} times over {pooled.n_iter} steps")
+        check(k1_fed == (rounds + 1) * FED_SILOS,
+              f"the federated fit launched K1 {k1_fed} times: expected {rounds} rounds x "
+              f"{FED_SILOS} silos + the closing collect's {FED_SILOS}")
+    check(res.model.n_iter == pooled.n_iter == FED_ITERS,
+          f"n_iter federated {res.model.n_iter}, pooled {pooled.n_iter}")
+    check(all(s.compute_calls == rounds + 1 for s in silos),
+          "a silo computed more than one partial a round")
+    check(float(res.model.cluster_sizes.sum()) == float(len(x)), "federated sizes lose rows")
+    t = {n: sum(getattr(r, "t_" + n) for r in res.rounds)
+         for n in ("collect", "merge", "fit", "broadcast")}
+    frac = (t["merge"] + t["broadcast"]) / max(sum(t.values()), 1e-12)
+    gaps = kmeans_gaps(res.model, pooled)
+    say(f"federated KMeans k={FED_K}: {FED_SILOS} silos x {FED_ROWS} x {FED_D} on the card; "
+        f"pooled fit {pooled_s:.4f} s, federated {fed_s:.4f} s ({fed_s / pooled_s:.2f}x; "
+        f"first runs {pooled_first_s:.4f} / {fed_first_s:.4f} s), "
+        f"{len(res.rounds)} rounds ({rounds} + the closing collect); round seconds "
+        + ", ".join(f"{n} {v:.4f}" for n, v in t.items())
+        + f"; merge + broadcast {100 * frac:.3f} % of the rounds; K1 {k1_pooled} pooled, "
+        f"{k1_fed} federated ({card})")
+    with ledger.aside():
+        ctl = fit(fed_silos(F, [port.device_dataset(bf16_round(x[i * FED_ROWS:(i + 1) * FED_ROWS]),
+                                                    device=DEV) for i in range(FED_SILOS)]))
+    ctl_gaps = kmeans_gaps(ctl.model, pooled)
+    say(f"federated vs pooled: largest center gap {gaps['centers']:.4g}, cost gap "
+        f"{gaps['cost_rel']:.4g} relative, rows moved {gaps['moved']} (limits "
+        f"{FED_GAP_LIMIT}); the control, the silos' rows bf16-rounded: "
+        + ", ".join(f"{key} {v:.4g}" for key, v in ctl_gaps.items()))
+    check(all(gaps[key] <= FED_GAP_LIMIT[key] for key in FED_GAP_LIMIT),
+          f"federated KMeans {gaps} from the pooled fit, limits {FED_GAP_LIMIT}")
+    check(any(ctl_gaps[key] > FED_GAP_LIMIT[key] for key in FED_GAP_LIMIT),
+          f"the bf16-rounded control {ctl_gaps} passes the limits {FED_GAP_LIMIT}")
+    lap("fed fits")
+
+    rev = fit(fed_silos(F, parts, order=list(reversed(range(FED_SILOS)))))
+    check(same_kmeans(rev.model, res.model), "reverse registration changed the federated fit")
+    plan = faults.FaultPlan().fail(F.FED_COLLECT_SITE, times=2,
+                                   when=lambda ctx: ctx.get("silo") == "s01")
+    drop_silos = fed_silos(F, parts)
+    t0 = time.perf_counter()
+    with faults.active(plan):
+        drop = fit(drop_silos)
+    sync()
+    drop_s = time.perf_counter() - t0
+    check(plan.fired(F.FED_COLLECT_SITE) == 2, "the dropout plan did not fire twice")
+    check(same_kmeans(drop.model, res.model), "the dropout run differs from the clean fit")
+    check(all(s.compute_calls == rounds + 1 for s in drop_silos),
+          "a failed collect reached a silo's compute")
+    with tempfile.TemporaryDirectory() as tmp:
+        for site in FED_SITES:
+            ksilos = fed_silos(F, parts)
+            kcfg = fed_cfg(F, journal_dir=os.path.join(tmp, site))
+            plan = faults.FaultPlan().crash(site)
+            try:
+                with faults.active(plan):
+                    fit(ksilos, kcfg)
+                fail(f"no crash at {site}")
+            except faults.InjectedCrash:
+                pass
+            check(plan.fired(site) == 1, f"{site} fired {plan.fired(site)} times")
+            resumed = fit(ksilos, kcfg)
+            check(same_kmeans(resumed.model, res.model),
+                  f"killed at {site} and resumed, the fit differs from the clean one")
+            check(all(s.compute_calls == rounds + 1 for s in ksilos),
+                  f"killed at {site}: a silo recomputed a banked partial")
+        say(f"federated determinism on the card: a rerun, reverse registration, s01 failing "
+            f"twice in its first collect (overhead {100 * (drop_s / fed_s - 1):.1f} %, "
+            f"{drop_s:.3f} s) and a kill at each of {', '.join(FED_SITES)} with resume: each "
+            f"bit-equal to the clean fit; no silo computed a partial twice")
+        lap("fed determinism")
+        fed_small_fits(port, F, tmp, card)
+        lap("fed small fits")
+        if DEV == "cuda":
+            say(fed_trace(port, F, parts, tmp, 2 * FED_SILOS))
+        lap("fed trace")
+    launches = ledger.main_path()
+    say(f"federated_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)}")
+    del pooled_ds, parts
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "k1": shapes}
+
+
+def pipe_fleet(incoming: str) -> int:
+    """bench.py's ``_pipeline_csv_fleet`` (seed 0, hospital ``H{i % 4}``,
+    2026-01-01 onward, one second a row) as ``PIPE_FILES`` drops of
+    ``PIPE_ROWS`` rows, each with ``PIPE_BAD`` lines replaced by garbage
+    the firewall must quarantine.  → the clean rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    base = np.datetime64("2026-01-01T00:00:00")
+    bad = np.random.default_rng(1)
+    for i in range(PIPE_FILES):
+        n = PIPE_ROWS
+        cols = {
+            "hospital_id": np.array([f"H{i % 4:02d}"] * n, dtype=object),
+            "event_time": base + (np.arange(n) + i * n).astype("timedelta64[s]"),
+            "admission_count": rng.integers(0, 50, n),
+            "current_occupancy": rng.integers(20, 200, n),
+            "emergency_visits": rng.integers(0, 30, n),
+            "seasonality_index": np.round(rng.uniform(0.5, 1.5, n), 4),
+            "length_of_stay": np.round(rng.uniform(1.0, 9.0, n), 4),
+        }
+        path = os.path.join(incoming, f"drop-{i:03d}.csv")
+        write_events_csv(path + ".tmp", cols, 0, n)
+        with open(path + ".tmp") as f:
+            lines = f.read().split("\n")
+        for j in bad.choice(np.arange(1, n + 1), size=PIPE_BAD, replace=False):
+            lines[j] = f"H{i % 4:02d},2026-01-01 00:00:00,banana,100,5,1.0,4.0"
+        with open(path + ".tmp", "w") as f:
+            f.write("\n".join(lines))
+        os.replace(path + ".tmp", path)
+        os.utime(path, ns=(10**18 + i, 10**18 + i))
+    return PIPE_FILES * (PIPE_ROWS - PIPE_BAD)
+
+
+def pipe_run(port, incoming: str, sub: str, pipelined: bool, centers0, kill: bool = False):
+    """One pass of the fleet through the serial or the pipelined stream
+    (firewall on, ``max_files_per_batch=1``), StreamingKMeans k=8 on the
+    card from ``centers0`` (through a ``ModelUpdateConsumer`` when
+    pipelined).  With ``kill``, crash at ``PIPE_KILL_SITE`` after
+    ``PIPE_KILL_AFTER`` batches and resume in a fresh pipelined stream.
+    → (stream, model, infos, wall s)."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import faults
+
+    S = port.streaming
+    schema = port.hospital_event_schema()
+    feats = list(port.FEATURE_COLS)
+
+    def stream():
+        kw = dict(source=S.FileStreamSource(incoming, schema, max_files_per_batch=1),
+                  sink=S.UnboundedTable(os.path.join(sub, "table"), schema),
+                  checkpoint=S.StreamCheckpoint(os.path.join(sub, "ckpt")),
+                  firewall=port.DataFirewall(schema), device=DEV)
+        if not pipelined:
+            return S.StreamExecution(foreach_batch=lambda t, b: sk.update(
+                t.numeric_matrix(feats).astype(np.float32), device=DEV), **kw), None
+        ex = S.PipelinedStreamExecution(pipeline_depth=2, **kw)
+        ex.stage = lambda t: t.numeric_matrix(feats).astype(np.float32)
+        cons = S.ModelUpdateConsumer(sk, pipeline=ex, device=DEV)
+        ex.foreach_batch = cons
+        return ex, cons
+
+    sk = port.StreamingKMeans(k=PIPE_K, seed=0)
+    sk.set_initial_centers(centers0)
+    ex, cons = stream()
+    infos = []
+    sync()
+    t0 = time.perf_counter()
+    try:
+        if kill:
+            for _ in range(PIPE_KILL_AFTER):
+                infos.append(ex.run_once())
+            plan = faults.FaultPlan().crash(PIPE_KILL_SITE)
+            try:
+                with faults.active(plan):
+                    ex.run_once()
+                fail(f"the pipelined stream did not crash at {PIPE_KILL_SITE}")
+            except faults.InjectedCrash:
+                pass
+            check(plan.fired(PIPE_KILL_SITE) == 1, "the stream's kill fired more than once")
+            ex.close()
+            ex, cons = stream()
+            while (info := ex.run_once()) is not None:
+                infos.append(info)
+        else:
+            infos = ex.run(max_batches=PIPE_FILES, timeout_s=600.0)
+        if cons is not None:
+            cons.flush()
+        sync()
+    finally:
+        if pipelined:
+            ex.close()
+    return ex, sk, infos, time.perf_counter() - t0
+
+
+def pipeline_stream_phase(port, ops, L, card: str) -> dict:
+    """Slice 7d's pipelined stream at bench.py's streaming-pipeline shape
+    (10 hospital drops of 100,000 rows, ``max_files_per_batch=1``, the
+    firewall on, 10 garbage lines a drop; StreamingKMeans k=8, K1 a batch):
+    serial and pipelined ``==`` in batches, sink rows, quarantine evidence,
+    WAL lines and final centers; the pipelined stream killed at
+    ``stream.after_sink`` and resumed exactly once; the stage clock's
+    shares; ``host_sync_census`` (syncs and host→device copies) on a GBT
+    fit with ``stage_clock=``.  → {"launches": ..., "k1": [shape record]}."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.streaming.wal import (
+        read_lines,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import (
+        profiling,
+    )
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(ops)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    shapes = []
+    if DEV == "cuda":
+        with ledger.aside():
+            kr = kernel_case(L, PIPE_ROWS, PIPE_D, PIPE_K, 0, seed=33, reps=50)[0]
+            shapes.append({"n": PIPE_ROWS, "d": PIPE_D, "k": PIPE_K,
+                           **{key: kr[key] for key in keys}})
+    with tempfile.TemporaryDirectory() as tmp:
+        incoming = os.path.join(tmp, "incoming")
+        os.makedirs(incoming)
+        t0 = time.perf_counter()
+        clean = pipe_fleet(incoming)
+        say(f"pipelined stream: {PIPE_FILES} drops x {PIPE_ROWS} rows written in "
+            f"{time.perf_counter() - t0:.2f} s ({PIPE_BAD} garbage lines a drop)")
+        lap("pipe fleet")
+        centers0 = np.random.default_rng(0).normal(size=(PIPE_K, PIPE_D)).astype(np.float32)
+        before = ops.launch_counts()["fused_lloyd_stats"]
+        ser, sk_s, infos_s, ser_s = pipe_run(port, incoming, os.path.join(tmp, "serial"), False,
+                                             centers0)
+        pipe, sk_p, infos_p, pipe_s = pipe_run(port, incoming, os.path.join(tmp, "pipe"), True,
+                                               centers0)
+        k1_runs = ops.launch_counts()["fused_lloyd_stats"] - before
+        lap("pipe runs")
+
+        def info_rows(infos):
+            return [(i.batch_id, i.num_input_rows, i.num_appended_rows, i.num_rejected_rows,
+                     os.path.basename(i.files[0]), i.status) for i in infos]
+
+        check(all(i.status == "ok" for i in infos_s + infos_p),
+              "a stream quarantined a batch (its update failed)")
+        check(info_rows(infos_s) == info_rows(infos_p), "serial and pipelined batches differ")
+        check(sum(i.num_appended_rows for i in infos_p) == clean,
+              f"the pipelined stream appended {sum(i.num_appended_rows for i in infos_p)} rows, "
+              f"expected {clean}")
+        a, b = ser.sink.read(), pipe.sink.read()
+        diff = [n for n in a.schema.names if n != "ingest_time" and columns_differ(a[n], b[n])]
+        check(a.num_rows == b.num_rows == clean and not diff,
+              f"serial and pipelined sinks differ in {diff}")
+
+        def strip(recs):
+            return [{k: v for k, v in r.items() if k != "quarantined_at"} for r in recs]
+
+        check(strip(ser.checkpoint.quarantined_rows()) == strip(pipe.checkpoint.quarantined_rows())
+              and ser.checkpoint.row_reason_histogram() == pipe.checkpoint.row_reason_histogram()
+              and pipe.checkpoint.quarantined_row_count() == PIPE_FILES * PIPE_BAD,
+              "serial and pipelined quarantine evidence differ")
+        for log in ("offsets.log", "commits.log"):
+            check(read_lines(os.path.join(ser.checkpoint.path, log))
+                  == read_lines(os.path.join(pipe.checkpoint.path, log)),
+                  f"serial and pipelined {log} differ")
+        check(np.array_equal(sk_s.latest_model.cluster_centers, sk_p.latest_model.cluster_centers)
+              and np.array_equal(sk_s.latest_model.cluster_weights,
+                                 sk_p.latest_model.cluster_weights),
+              "serial and pipelined StreamingKMeans states differ")
+        if DEV == "cuda":
+            check(k1_runs == 2 * PIPE_FILES, f"the two streams launched K1 {k1_runs} times, "
+                  f"expected one a batch ({2 * PIPE_FILES})")
+        secs = dict(pipe.clock.seconds)
+        shares = pipe.clock.shares()
+        say(f"serial {clean / ser_s:,.0f} rows/s ({ser_s:.3f} s), pipelined "
+            f"{clean / pipe_s:,.0f} rows/s ({pipe_s:.3f} s): pipelined / serial "
+            f"{ser_s / pipe_s:.3f}x; == in batches, {clean} sink rows, "
+            f"{PIPE_FILES * PIPE_BAD} quarantined rows, WAL lines and centers; stage seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(secs.items()))
+            + f" (sum {sum(secs.values()):.3f} s against {pipe_s:.3f} s wall), shares "
+            + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+            + f"; K1 {k1_runs} ({card})")
+        kex, _, kinfos, kill_s = pipe_run(port, incoming, os.path.join(tmp, "kill"), True,
+                                          centers0, kill=True)
+        rows = kex.sink.read().num_rows
+        check(all(i.status == "ok" for i in kinfos), "the killed stream quarantined a batch")
+        check(rows == clean and kex.sink.max_batch_id() == PIPE_FILES - 1
+              and kex.checkpoint.quarantine_count() == 0
+              and kex.checkpoint.quarantined_row_count() == PIPE_FILES * PIPE_BAD,
+              f"killed at {PIPE_KILL_SITE} and resumed: {rows} rows (expected {clean}), last "
+              f"batch {kex.sink.max_batch_id()}, quarantined rows "
+              f"{kex.checkpoint.quarantined_row_count()}")
+        say(f"pipelined stream killed at {PIPE_KILL_SITE} after batch {PIPE_KILL_AFTER} and "
+            f"resumed in a fresh stream: every row exactly once ({rows}), batches 0-"
+            f"{PIPE_FILES - 1}, the planted rows quarantined once, {kill_s:.2f} s")
+        lap("pipe kill")
+
+    rng = np.random.default_rng(0)
+    gx = rng.normal(size=(GBT_CENSUS_N, D)).astype(np.float32)
+    gy = (gx @ rng.normal(size=(D,)) + rng.normal(0.0, 0.3, GBT_CENSUS_N)).astype(np.float32)
+    clock = profiling.StageClock()
+    est = port.GBTRegressor(max_iter=5, max_depth=3, seed=0, stage_clock=clock)
+    with profiling.host_sync_census(count_puts=True) as census:
+        gbt = est.fit((gx, gy), device=DEV)
+    check(list(clock.counts) == JAX_GBT_STAGES and set(clock.counts.values()) == {1},
+          f"the GBT stage clock recorded {clock.counts}, the JAX fit's are {JAX_GBT_STAGES}")
+    check(gbt.num_trees == 5, "the clocked GBT fit grew the wrong number of trees")
+    import torch
+
+    with profiling.host_sync_census(count_puts=True) as puts:
+        for i in range(3):
+            torch.from_numpy(gx[:1000 * (i + 1)]).to(DEV)
+        torch.tensor(gy[:10], device=DEV)
+        torch.ones(4, device=DEV).sum()
+    want = 4 if DEV == "cuda" else 0
+    check(puts["device_put"] == want,
+          f"the census counted {puts} for four host->device copies (expected {want} puts)")
+    say(f"host_sync_census on GBTRegressor(5 rounds, depth 3) at {GBT_CENSUS_N} x {D} with "
+        f"stage_clock=: {census['device_get']} host syncs, {census['device_put']} host->device "
+        f"copies; stages {clock.counts} (the JAX fit's names), shares "
+        + ", ".join(f"{k} {v:.3f}" for k, v in clock.shares().items())
+        + f"; the census on 3 .to() copies, a torch.tensor(device=) and an on-card sum: "
+        f"{puts['device_put']} puts, {puts['device_get']} syncs (a blocking copy waits for the "
+        f"card's stream)")
+    lap("pipe census")
+    launches = ledger.main_path()
+    say(f"pipeline_stream_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)}")
+    return {"launches": launches, "k1": shapes}
+
+
+
 def main() -> None:
     try:
         import torch
@@ -7991,6 +8569,20 @@ def main() -> None:
     records[0]["shapes"] += fleet["k1"]
     records[1]["shapes"] += fleet["k2"]
 
+    # ------- slice 7c's federation: K1 a silo a round and in the closing
+    # collect, K1 in the pooled fits
+    fed = federated_phase(port, ops, L, card)
+    for name, v in fed["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += fed["k1"]
+
+    # ------- slice 7d's pipelined stream (K1 a batch in StreamingKMeans)
+    # and profiling (K3 in the clocked GBT fit)
+    pipe = pipeline_stream_phase(port, ops, L, card)
+    for name, v in pipe["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += pipe["k1"]
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -8003,6 +8595,9 @@ def main() -> None:
         f"farm_lifecycle_phase "
         f"{sum(v for k, v in PHASE_S.items() if k.startswith(('farm ', 'lifecycle '))):.2f}; "
         f"fleet_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fleet ')):.2f}; "
+        f"federated_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fed ')):.2f}; "
+        f"pipeline_stream_phase "
+        f"{sum(v for k, v in PHASE_S.items() if k.startswith('pipe ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

@@ -98,6 +98,17 @@ surviving a kill at any transition).  Packing, the tenant sketches, the
 journal, the feedback spool and the gates are host code.  Its CPU tests:
 ``python -m pytest tests/test_torch_farm.py tests/test_torch_lifecycle.py``;
 on a card, ``chip_smoke.farm_lifecycle_phase(port, L, card)`` runs it alone
+after ``ops._build.build()``.  Slice 7c adds the serving fleet
+(``serve.fleet``) and cross-silo federation (``federated/``: silos compute
+the partials of LinearRegression, KMeans and GaussianMixture on their
+device, a journaled coordinator merges them in ascending silo order and
+fits on its device); slice 7d the pipelined stream
+(``streaming.PipelinedStreamExecution``, ``ModelUpdateConsumer``) and the
+profiling hooks (``utils.profiling``: ``StageClock``, the host-sync census,
+``capture_trace`` over ``torch.profiler``).  Their CPU tests: ``python -m
+pytest tests/test_torch_federated.py tests/test_torch_stream_pipeline.py``;
+on a card, ``chip_smoke.federated_phase(port, ops, L, card)`` and
+``chip_smoke.pipeline_stream_phase(port, ops, L, card)`` run them alone
 after ``ops._build.build()``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
@@ -105,7 +116,8 @@ trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import farm, models, pipeline, quality, serve, stat, streaming, tune, tuning, utils, viz
+from . import (farm, federated, models, pipeline, quality, serve, stat, streaming, tune, tuning,
+               utils, viz)
 from .config import PipelineConfig
 from .convert import (
     imputer_model_from_jax_arrays,

@@ -112,6 +112,12 @@ class Table:
     def select(self, names: Sequence[str]) -> "Table":
         return Table(self.schema.select(names), {n: self.columns[n] for n in names})
 
+    def drop(self, *names: str) -> "Table":
+        """Spark's ``df.drop``: remove columns (unknown names ignored,
+        Spark semantics)."""
+        gone = set(names)
+        return self.select([c for c in self.schema.names if c not in gone])
+
     def mask(self, m: np.ndarray) -> "Table":
         """Rows picked by a boolean mask or an index array."""
         return Table(self.schema, {n: v[m] for n, v in self.columns.items()})

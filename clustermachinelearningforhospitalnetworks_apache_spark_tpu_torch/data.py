@@ -67,6 +67,28 @@ def stack_ragged(mats, weights=None, pad_to: int | None = None, dtype=np.float32
     return xs, ws
 
 
+def batch_rows(batch) -> int:
+    """Row count of any streaming batch form — array or tensor, (x, y[, w])
+    tuple, Table, AssembledTable, DeviceDataset — without copying device
+    tensors to the host (host code, copied from the JAX package's
+    ``parallel/sharding.py``)."""
+    if isinstance(batch, tuple):
+        batch = batch[0]
+    shape = getattr(batch, "shape", None)
+    if shape is not None:
+        return int(shape[0]) if len(shape) else 1
+    n = getattr(batch, "num_rows", None)  # Table
+    if n is not None:
+        return int(n)
+    x = getattr(batch, "x", None)  # DeviceDataset (padded count)
+    if x is not None:
+        return int(x.shape[0])
+    feats = getattr(batch, "features", None)  # AssembledTable
+    if feats is not None:
+        return int(feats.shape[0])
+    return int(np.asarray(batch).shape[0])
+
+
 @dataclass
 class DeviceDataset:
     """A padded, weighted design matrix on one device.

@@ -67,10 +67,84 @@ class PredictionResult:
 
 class Estimator:
     """Base: subclasses implement ``fit(data, label_col=None, device=None)
-    -> Model``."""
+    -> Model``.
+
+    Estimators that fit from mergeable sufficient statistics also
+    implement the **partials protocol** (the JAX package's, for
+    ``federated/``): set :attr:`partials_family` and override
+    :meth:`partial_fit_stats` / :meth:`fit_from_partials` (single-round
+    families) plus the state hooks (iterative families).  A silo's
+    statistics run on the silo's device; the coordinator's update and
+    solve run on ``device=`` (default the card).  ``fit(pooled)`` and
+    ``fit_from_partials(merge(per-silo partials))`` agree bit for bit
+    where the estimator's own pooled fit folds the same zero-initialized
+    pieces in the same order (each model's module says where that holds).
+    """
+
+    #: partials-family name (``federated.partials`` registry) or ``None``
+    #: when the estimator cannot fit from merged statistics
+    partials_family: str | None = None
 
     def fit(self, data: Any, label_col: str | None = None, device=None):
         raise NotImplementedError
+
+    # ---------------------------------------------------- partials protocol
+    def supports_partials(self) -> bool:
+        return self.partials_family is not None
+
+    def _no_partials(self):
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the mergeable-"
+            "partials protocol (partials_family="
+            f"{self.partials_family!r})"
+        )
+
+    def init_partials_state(self, n_features: int, mesh=None):
+        """Round-0 ``FitState`` when it needs no data, else ``None`` — the
+        coordinator then runs a data-dependent init round
+        (:meth:`local_init_stats` → :meth:`init_state_from_merged`)."""
+        self._no_partials()
+
+    def local_init_stats(self, data: Any, label_col: str | None = None, mesh=None,
+                         device=None):
+        """One silo's init-round contribution (e.g. k-means++ candidate
+        centers from the local sample) as a ``Partials``."""
+        self._no_partials()
+
+    def init_state_from_merged(self, merged):
+        """Build the round-0 ``FitState`` from merged init partials."""
+        self._no_partials()
+
+    def partial_fit_stats(self, data: Any, label_col: str | None = None, mesh=None,
+                          state=None, final: bool = False, device=None):
+        """One silo's sufficient statistics for the next update, computed
+        against ``state`` (ignored by single-round families) on ``device``
+        (default the card; a DeviceDataset stays where it is).  ``final``
+        marks the exact-precision closing collect of families that
+        require one (:meth:`partials_final_collect`)."""
+        self._no_partials()
+
+    def apply_partials(self, state, merged, device=None):
+        """Fold merged statistics into ``state`` → ``(state', done)``, the
+        update on ``device`` (default the card).  ``done`` mirrors the
+        family's own convergence test on the host in float32."""
+        self._no_partials()
+
+    def fit_from_partials(self, merged, state=None, device=None):
+        """Build the final Model from merged statistics (and, for
+        iterative families, the converged ``state``); a solve runs on
+        ``device`` (default the card)."""
+        self._no_partials()
+
+    def partials_max_rounds(self) -> int:
+        """Round budget: 1 for single-shot families, ``max_iter`` for
+        iterative ones."""
+        return 1
+
+    def partials_final_collect(self) -> bool:
+        """True when the family needs one extra exact-precision collect
+        after convergence (k-means' final stats pass)."""
+        return False
 
 
 def check_features(x, expected: int, model_name: str) -> None:

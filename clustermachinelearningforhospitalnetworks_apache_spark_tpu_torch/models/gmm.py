@@ -34,9 +34,13 @@ factor-form E-step: the k inverse Cholesky factors, stacked into one
 per-component triangular solves into one product a row chunk
 (:func:`_batched_log_pdf`), and that product and the two moment products
 run under the precision (``ops/distance.py::matmul_p``: TF32 on the card
-for "high" / "default", bf16 operands with float32 sums for "bf16").  The
-partials protocol comes with the slice that ports
-``federated/partials.py`` and raises.
+for "high" / "default", bf16 operands with float32 sums for "bf16").
+
+The partials protocol (federated EM, ``federated/``): a silo's
+statistics are one unshifted :func:`_em_pass` over its rows, the
+coordinator's M-step is :func:`_m_step_rule`.  With each silo one chunk
+of ``chunk_rows`` rows, a warm federated fit equals the pooled warm fit
+bit for bit.
 """
 
 from __future__ import annotations
@@ -55,9 +59,6 @@ from ..parallel.outofcore import HostDataset, add_stats
 from .base import ClusteringModel, Estimator, as_device_dataset, check_features
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
-
-_PARTIALS = "the slice of the port that ports federated/partials.py"
-
 
 def _log_pdf(x, means, chols):
     """(n, d) rows → (n, k) log N(x; mean_j, L_j·L_jᵀ), the k triangular
@@ -516,9 +517,134 @@ class GaussianMixture(Estimator):
                                          on_iteration)
         return self._model(params, shift, ll, n, it)
 
-    # the JAX package's partials protocol (federated EM)
-    def _partials(self, *args, **kwargs):
-        raise NotImplementedError(f"the GaussianMixture partials protocol comes with {_PARTIALS}")
+    # ---------------------------------------------------- partials protocol
+    # Federated EM: silos run _em_pass on their private rows against the
+    # broadcast parameters, the coordinator's zero-init ascending fold sums
+    # the statistics, and _m_step_rule on the coordinator's device + a
+    # host float32 mirror of the device loop's |ll − prev_ll| test replay
+    # the resident loop.  Everything runs unshifted (the warm start's
+    # convention).  _em_pass folds zero-initialized chunks in order, so
+    # with one chunk_rows chunk a silo the merge IS the pooled fold and a
+    # warm federated fit equals the pooled warm fit bit for bit.
+    partials_family = "gmm"
 
-    init_partials_state = local_init_stats = init_state_from_merged = _partials
-    partial_fit_stats = apply_partials = fit_from_partials = _partials
+    def partials_max_rounds(self) -> int:
+        return self.max_iter
+
+    def init_partials_state(self, n_features: int, mesh=None):
+        from ..federated.partials import FitState
+
+        warm = self._warm_params(n_features)
+        if warm is None:
+            return None  # the coordinator runs the candidate init round
+        weights, means, covs = warm
+        return FitState(
+            family=self.partials_family, version=0,
+            params={"weights": weights, "means": means, "covariances": covs},
+            # the device loop's first test compares ll₁ against +inf: the
+            # host mirror starts there to reproduce iteration counts
+            meta={"prev_ll": float("inf"), "ll": 0.0, "n": 0.0},
+        )
+
+    def local_init_stats(self, data, label_col: str | None = None, mesh=None, device=None):
+        """One silo's init contribution: local k-means++ candidates of its
+        sample (candidate centers cross the wire, never rows)."""
+        from ..federated.partials import Partials
+
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        sample = np.asarray(sample_valid_rows(ds, self.init_sample_size, self.seed), np.float64)
+        n_cand = min(max(4 * self.k, 2 * self.k + 8), sample.shape[0])
+        cand = _kmeans_pp_init(sample, n_cand, self.seed)
+        return Partials(
+            family="gmm.init",
+            stats={"candidates": np.asarray(cand, np.float64)},
+            n_rows=float(sample.shape[0]),
+        )
+
+    def init_state_from_merged(self, merged):
+        """Round-0 EM parameters from the concatenated per-silo candidates
+        (the pooled sample init's ``_init_params`` on the candidate pool,
+        unshifted; host numpy, bit-equal to the reference)."""
+        from ..federated.partials import FitState
+
+        cand = np.asarray(merged.stats["candidates"], np.float64)
+        d = cand.shape[1]
+        means, covs, weights = _init_params(cand, self.k, d, self.seed, self.reg_covar)
+        return FitState(
+            family=self.partials_family, version=0,
+            params={
+                "weights": np.asarray(weights, np.float32),
+                "means": np.asarray(means, np.float32),
+                "covariances": np.asarray(covs, np.float32),
+            },
+            meta={"prev_ll": float("inf"), "ll": 0.0, "n": 0.0},
+        )
+
+    def partial_fit_stats(self, data, label_col: str | None = None, mesh=None, state=None,
+                          final: bool = False, device=None):
+        """One silo's E-step statistics (nk, Σr·x, Σr·xxᵀ, ll): one
+        unshifted :func:`_em_pass` on ``device`` (default the card; a
+        DeviceDataset where it lies)."""
+        from ..federated.partials import Partials
+
+        if state is None:
+            raise ValueError("gmm partials need the broadcast FitState")
+        validate_matmul_precision(self.matmul_precision)
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        x = ds.x.to(torch.float32).contiguous()
+        w = ds.w.to(torch.float32).contiguous()
+        dev = x.device
+        d = x.shape[1]
+        covs_d, weights_d, means_d = (
+            torch.from_numpy(np.ascontiguousarray(state.params[k], np.float32)).to(dev)
+            for k in ("covariances", "weights", "means"))
+        chols = _gmm_chols(covs_d, self.reg_covar)
+        nk, sums, outer, ll = _em_pass(
+            x, w, torch.zeros((d,), dtype=torch.float32, device=dev), torch.log(weights_d),
+            means_d, chols, self.chunk_rows, self.matmul_precision)
+        return Partials(
+            family=self.partials_family,
+            stats={"nk": nk.cpu().numpy(), "sums": sums.cpu().numpy(),
+                   "outer": outer.cpu().numpy(), "ll": ll.cpu().numpy()},
+            n_rows=float(w.sum()),
+            state_version=state.version,
+        )
+
+    def apply_partials(self, state, merged, device=None):
+        """The M-step on ``device`` (default the card), and the stop
+        decided on the host as the resident device loop decides it:
+        ``|ll − prev_ll| < tol`` in float32."""
+        from ..federated.partials import FitState
+
+        dev = resolve_device(device)
+        means, covs, weights = _m_step_rule(
+            *(torch.from_numpy(np.asarray(merged.stats[k], np.float32)).to(dev)
+              for k in ("nk", "sums", "outer")),
+            self.reg_covar,
+        )
+        ll = np.float32(np.asarray(merged.stats["ll"]))
+        prev_ll = np.float32(state.meta.get("prev_ll", float("inf")))
+        version = state.version + 1
+        done = bool(np.abs(ll - prev_ll) < np.float32(self.tol))
+        done = done or version >= self.max_iter
+        return FitState(
+            family=self.partials_family, version=version,
+            params={"weights": weights.cpu().numpy(), "means": means.cpu().numpy(),
+                    "covariances": covs.cpu().numpy()},
+            meta={"prev_ll": float(ll), "ll": float(ll), "n": float(merged.n_rows)},
+        ), done
+
+    def fit_from_partials(self, merged, state=None, device=None) -> GaussianMixtureModel:
+        """The converged ``state``'s parameters as the model (host arrays)."""
+        if state is None:
+            raise ValueError("gmm fit_from_partials needs the converged FitState")
+        ll = float(state.meta.get("ll", 0.0))
+        n = float(state.meta.get("n", 0.0))
+        return GaussianMixtureModel(
+            weights=np.asarray(state.params["weights"], np.float32),
+            means=np.asarray(state.params["means"], np.float32),
+            covariances=np.asarray(state.params["covariances"], np.float32),
+            log_likelihood=ll,
+            avg_log_likelihood=ll / max(n, 1.0),
+            n_iter=state.version,
+        )

@@ -31,6 +31,11 @@ every out-of-core fit) compares in Python floats.  A ``move`` between
 the two thresholds stops a step apart, so the port keeps each rule where
 the reference has it.
 
+The partials protocol (``federated/``, family ``"kmeans"``): a silo's
+statistics are one Lloyd pass over its rows (K1 on the card) against the
+broadcast centers; the coordinator applies the centroid rule on its
+device and stops as the device loop does (``move > tol²`` in float32).
+
 A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core path:
 each Lloyd step is one K1 launch per streamed block, the statistics
 summed over blocks, then one centroid update.  ``checkpoint_dir`` commits
@@ -440,6 +445,137 @@ class KMeans(Estimator):
             training_cost=float(cost),
             n_iter=it,
             cluster_sizes=counts.cpu().numpy()[: self.k],
+        )
+
+    # ---------------------------------------------------- partials protocol
+    # K1 sums a silo's rows in its own block order, so the federated fit
+    # equals the pooled one bit for bit only where every float32 sum is
+    # exact (integer-valued rows); on float rows the gap is the sums'
+    # reassociation (ROADMAP "Decided").
+    partials_family = "kmeans"
+
+    def partials_max_rounds(self) -> int:
+        return self.max_iter
+
+    def partials_final_collect(self) -> bool:
+        # cost / sizes must describe the RETURNED centers (Spark's
+        # summary.trainingCost) at exact precision: one closing collect
+        return True
+
+    def init_partials_state(self, n_features: int, mesh=None):
+        from ..federated.partials import FitState
+
+        c0 = self._warm_centers(n_features)
+        if c0 is None:
+            return None  # the coordinator runs the candidate init round
+        return FitState(
+            family=self.partials_family, version=0,
+            params={"centers": c0.astype(np.float32)}, meta={},
+        )
+
+    def local_init_stats(self, data, label_col: str | None = None, mesh=None, device=None):
+        """One silo's init contribution: its local k-means++ candidates
+        (each a weighted summary of the silo's geometry — candidate
+        CENTERS cross the wire, never rows)."""
+        from ..federated.partials import Partials
+
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        sample = sample_valid_rows(ds, self.init_sample_size, self.seed)
+        cand = self._init_from_sample(np.asarray(sample, np.float64))
+        return Partials(
+            family="kmeans.init",
+            stats={"candidates": np.asarray(cand, np.float64)},
+            n_rows=float(sample.shape[0]),
+        )
+
+    def init_state_from_merged(self, merged):
+        """Round-0 centers from the concatenated per-silo candidates:
+        k-means++ re-seeds over the candidate pool (ascending silo order),
+        then ten host Lloyd polish passes — the distributed analogue of
+        the pooled sample init (host numpy, bit-equal to the reference)."""
+        from ..federated.partials import FitState
+
+        cand = np.asarray(merged.stats["candidates"], np.float64)
+        centers = _kmeans_pp_init(cand, self.k, self.seed)
+        centers = _lloyd_refine(cand, centers, iters=10)
+        if self.distance_measure == "cosine":
+            norms = np.sqrt(np.maximum((centers * centers).sum(axis=1), 1e-12))
+            centers = centers / norms[:, None]
+        return FitState(
+            family=self.partials_family, version=0,
+            params={"centers": centers.astype(np.float32)}, meta={},
+        )
+
+    def partial_fit_stats(self, data, label_col: str | None = None, mesh=None, state=None,
+                          final: bool = False, device=None):
+        """One silo's Lloyd statistics against ``state``'s centers on
+        ``device`` (default the card; a DeviceDataset where it lies): K1
+        at "highest" and in the closing ``final`` collect, else the
+        reduced-precision pass."""
+        from ..federated.partials import Partials
+
+        if state is None:
+            raise ValueError("kmeans partials need the broadcast FitState")
+        validate_matmul_precision(self.matmul_precision)
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        x = ds.x.to(torch.float32).contiguous()
+        w = ds.w.to(torch.float32).contiguous()
+        if self.distance_measure == "cosine":
+            x = _cosine_prep(x, w)
+        k_pad = padded_slots(self.k, 1)
+        dev = x.device
+        centers = torch.from_numpy(
+            pad_slots(np.asarray(state.params["centers"], np.float32), k_pad)).to(dev)
+        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+        # exact precision for the closing pass, as the resident fit's final pass
+        stats = fused_lloyd_stats if final else self._stats_fn()
+        sums, counts, cost = stats(x, w, centers, c_valid)
+        counts_h = counts.cpu().numpy()[: self.k]
+        return Partials(
+            family=self.partials_family,
+            stats={
+                "sums": sums.cpu().numpy()[: self.k],
+                "counts": counts_h,
+                "cost": cost.cpu().numpy(),
+            },
+            n_rows=float(counts_h.sum()),
+            state_version=state.version,
+        )
+
+    def apply_partials(self, state, merged, device=None):
+        """The centroid rule on ``device`` (default the card), and the
+        stop decided on the host as the resident device loop decides it:
+        ``move > tol²`` in float32."""
+        from ..federated.partials import FitState
+
+        dev = resolve_device(device)
+        centers = torch.from_numpy(np.asarray(state.params["centers"], np.float32)).to(dev)
+        c_valid = torch.ones((centers.shape[0],), dtype=torch.float32, device=dev)
+        new_centers, move = _centroid_rule(
+            torch.from_numpy(np.asarray(merged.stats["sums"], np.float32)).to(dev),
+            torch.from_numpy(np.asarray(merged.stats["counts"], np.float32)).to(dev),
+            centers, c_valid, self.distance_measure == "cosine",
+        )
+        version = state.version + 1
+        done = not bool(np.float32(move.item()) > np.float32(float(self.tol * self.tol)))
+        done = done or version >= self.max_iter
+        return FitState(
+            family=self.partials_family, version=version,
+            params={"centers": new_centers.cpu().numpy()},
+            meta={"cost": float(np.asarray(merged.stats["cost"]))},
+        ), done
+
+    def fit_from_partials(self, merged, state=None, device=None) -> KMeansModel:
+        """Final model from the closing exact-precision collect
+        (``merged``) at the converged ``state`` centers (host arrays)."""
+        if state is None:
+            raise ValueError("kmeans fit_from_partials needs the converged FitState")
+        return KMeansModel(
+            cluster_centers=np.asarray(state.params["centers"], np.float32)[: self.k],
+            distance_measure=self.distance_measure,
+            training_cost=float(np.asarray(merged.stats["cost"])),
+            n_iter=state.version,
+            cluster_sizes=np.asarray(merged.stats["counts"])[: self.k],
         )
 
     def fit(self, data, label_col: str | None = None, device=None,

@@ -28,6 +28,13 @@ Gram matrix of features shifted by a host-sample mean, then the small
 (d, d) system is solved (or FISTA'd) in centered, standardized
 coordinates.
 
+The partials protocol (``federated/``, family ``"linear"``): a silo's
+statistics are the fit's own sums (:func:`_wls_partial_stats`: Σw, Σw·x,
+Σw·x², the augmented Gram and moments) on the silo's device, and the
+merged sums are solved on the coordinator's (:func:`_wls_fit_from_stats`),
+so the resident fit is the one-silo case of the federated one.  The
+elastic net, which centers on the pooled mean, stays pooled-only.
+
 A fresh resident fit carries a lazy training summary
 (``models/summary.py``); a loaded model, or an out-of-core fit, has none
 and ``summary`` raises, as in the reference.  ``model.fit_info`` holds
@@ -104,24 +111,61 @@ def standardized_design(x, w, reg_param: float, fit_intercept: bool, standardize
     return xa, ridge, nfeat, n
 
 
-def _wls_fit(x, y, w, reg_param: float, fit_intercept: bool, standardize: bool):
-    """Weighted least squares → (coefficients (d,), intercept ()), float32
-    on the inputs' device."""
+def _wls_partial_stats(x, y, w, fit_intercept: bool):
+    """WLS sufficient statistics, the summation-mergeable pieces of the
+    fit: the raw feature moments (for the standardization scale, the rule
+    of :func:`weighted_moments`), the intercept-augmented Gram and the
+    moment vector (:func:`chunked_gram`).  Summed across silos and fed to
+    :func:`_wls_fit_from_stats` they give the pooled fit: bit for bit when
+    the per-silo sums are exact (e.g. integer-valued features), else to
+    the merge's reassociation."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     w = w.to(torch.float32)
-    xa, ridge, nfeat, _ = standardized_design(x, w, reg_param, fit_intercept, standardize)
-    d = xa.shape[1]
-    xw = xa * w[:, None]
-    gram = chunked_gram(xw, xa) + torch.diag(ridge)
-    mom = chunked_gram(xw, y)
-    eye = torch.eye(d, dtype=torch.float32, device=x.device)
-    # solve_ex: no host sync on the card, and a singular system gives
-    # non-finite coefficients instead of raising, as the reference's solve
-    theta = torch.linalg.solve_ex(gram + 1e-8 * eye, mom)[0]
+    xa = torch.cat([x, torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)], dim=1) \
+        if fit_intercept else x
+    wcol = w[:, None]
+    xw = xa * wcol
+    return (
+        w.sum(),                          # Σw
+        (x * wcol).sum(dim=0),            # Σw·x
+        (x * x * wcol).sum(dim=0),        # Σw·x²
+        chunked_gram(xw, xa),             # XᵀWX (augmented)
+        chunked_gram(xw, y),              # XᵀWy
+    )
+
+
+def _wls_fit_from_stats(sw, sx, sxx, gram, mom, reg_param: float, fit_intercept: bool,
+                        standardize: bool):
+    """Summed statistics → (coef, intercept): the moments rule of
+    :func:`weighted_moments`, Spark's ridge on standardized coefficients
+    (intercept unpenalized) and the jitter, then the solve (``solve_ex``:
+    no host sync on the card, and a singular system gives non-finite
+    coefficients instead of raising, as the reference's solve)."""
+    n = torch.clamp(sw, min=1.0)
+    mean = sx / n
+    var = sxx / n - mean * mean
+    std = torch.where(var > 1e-12, torch.sqrt(torch.clamp(var, min=1e-12)),
+                      torch.ones_like(var))
+    scale = std if standardize else torch.ones_like(std)
+    nfeat = sx.shape[0]
+    dd = gram.shape[0]
+    ridge = torch.zeros((dd,), dtype=gram.dtype, device=gram.device)
+    ridge[:nfeat] = reg_param * n * scale * scale
+    eye = torch.eye(dd, dtype=torch.float32, device=gram.device)
+    theta = torch.linalg.solve_ex((gram + torch.diag(ridge)) + 1e-8 * eye, mom)[0]
     coef = theta[:nfeat]
-    intercept = theta[nfeat] if fit_intercept else torch.zeros((), dtype=x.dtype, device=x.device)
+    intercept = theta[nfeat] if fit_intercept else torch.zeros((), dtype=gram.dtype,
+                                                              device=gram.device)
     return coef, intercept
+
+
+def _wls_fit(x, y, w, reg_param: float, fit_intercept: bool, standardize: bool):
+    """Weighted least squares → (coefficients (d,), intercept ()), float32
+    on the inputs' device: the whole design's statistics, solved — the
+    federated fit's two halves on one silo."""
+    return _wls_fit_from_stats(*_wls_partial_stats(x, y, w, fit_intercept), reg_param,
+                               fit_intercept, standardize)
 
 
 def _fista(g, c, l1: float, l2: float, tol: float, max_iter: int):
@@ -334,6 +378,52 @@ class LinearRegression(Estimator):
     @property
     def _elastic(self) -> bool:
         return self.elastic_net_param > 0.0 and self.reg_param > 0.0
+
+    # ---------------------------------------------------- partials protocol
+    partials_family = "linear"
+
+    def supports_partials(self) -> bool:
+        # the elastic net centers the design on the POOLED mean before its
+        # FISTA Gram: that coupling does not decompose into per-silo sums
+        return not self._elastic
+
+    def init_partials_state(self, n_features: int, mesh=None):
+        return None  # single-shot family: no state between rounds
+
+    def partial_fit_stats(self, data, label_col: str | None = None, mesh=None, state=None,
+                          final: bool = False, device=None):
+        """One silo's WLS statistics, computed on ``device`` (default the
+        card; a DeviceDataset where it lies); only the (d+1)² sums cross
+        to the host."""
+        from ..federated.partials import Partials
+
+        if not self.supports_partials():
+            raise NotImplementedError(
+                "elastic-net LinearRegression centers the design on the "
+                "pooled mean — not partials-decomposable; use reg_param "
+                "with elastic_net_param=0 (ridge) for federated fits"
+            )
+        ds = as_device_dataset(data, label_col or self.label_col, device=device,
+                               weight_col=self.weight_col)
+        sw, sx, sxx, gram, mom = (t.cpu().numpy() for t in _wls_partial_stats(
+            ds.x, ds.y, ds.w, self.fit_intercept))
+        return Partials(
+            family=self.partials_family,
+            stats={"sw": sw, "sx": sx, "sxx": sxx, "gram": gram, "mom": mom},
+            n_rows=float(sw),
+        )
+
+    def apply_partials(self, state, merged, device=None):
+        return state, True  # one update, then done
+
+    def fit_from_partials(self, merged, state=None, device=None) -> LinearRegressionModel:
+        """The merged statistics solved on ``device`` (default the card)."""
+        dev = resolve_device(device)
+        stats = [torch.from_numpy(np.asarray(merged.stats[k], np.float32)).to(dev)
+                 for k in ("sw", "sx", "sxx", "gram", "mom")]
+        coef, intercept = _wls_fit_from_stats(*stats, float(self.reg_param),
+                                              self.fit_intercept, self.standardize)
+        return LinearRegressionModel(coefficients=coef, intercept=intercept)
 
     def _fit_outofcore(self, hd: HostDataset, dev) -> LinearRegressionModel:
         """Rows ≫ device memory: one pass of block statistics, then the

@@ -33,12 +33,19 @@ signature), so a preempted fit resumes at the next round.
 ``use_pallas``, ``fused_levels`` and ``fused_rounds`` are accepted and
 change nothing: K3 is the histogram on the card, and in eager torch the
 reference's scanned rounds and its per-round deferred loop are one loop.
-``stage_clock`` takes None only; the stage clock comes with the slice
-that ports ``utils/profiling.py``.
+
+``stage_clock`` (a ``utils.profiling.StageClock``) brackets the resident
+fit's stages under the reference's names: ``bin`` (the sample, the
+thresholds and the bin matrix), ``init`` (F₀), ``boost`` (every round,
+drained on the card before the stage closes, so it measures the device
+work and not the launches) and ``fetch_materialize`` (the one bulk copy
+and the trees built from it); a validation fit bills its whole loop to
+``boost``.  Out-of-core fits ignore it, as in the reference.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -53,7 +60,10 @@ from ..base import Estimator, Model, as_device_dataset, check_features
 from . import engine
 from .binning import quantile_thresholds
 
-_PROFILING = "slice 7 of the port (utils/profiling.py)"
+
+def _stage(clock, name: str):
+    """StageClock stage when a clock is attached, else a no-op context."""
+    return clock.stage(name) if clock is not None else nullcontext()
 
 
 @register_model("GBTModel")
@@ -201,11 +211,6 @@ class _GBTParams:
     use_pallas: bool = False
     stage_clock: Any = field(default=None, compare=False, repr=False)
 
-    def _check_clock(self) -> None:
-        if self.stage_clock is not None:
-            raise NotImplementedError(
-                f"GBT stage_clock= comes with {_PROFILING}; pass None")
-
     def _resolve_validation(self, data, ds: DeviceDataset):
         """validation_indicator_col → (n_pad,) float 0/1 tensor on the
         dataset's device, or None."""
@@ -225,7 +230,7 @@ class _GBTParams:
         return torch.from_numpy(pad).to(ds.x.device)
 
     def _boost(self, ds: DeviceDataset, loss: str, val_ind=None) -> GBTModel:
-        self._check_clock()
+        clock = self.stage_clock
         x = ds.x.to(torch.float32)
         y = ds.y.to(torch.float32)
         w_all = ds.w.to(torch.float32)
@@ -243,15 +248,17 @@ class _GBTParams:
         # binning depends only on x: thresholds (from the training rows'
         # sample) and the bin matrix, once for every round; the categorical
         # range check covers every valid row, held-out ones too
-        sample = sample_valid_rows(DeviceDataset(x=x, y=y, w=w), self.init_sample_size,
-                                   self.seed)
-        if sample.shape[0] == 0:
-            raise ValueError("GBT fit on an empty dataset")
         B = self.max_bins
         cat = self.categorical_features
-        thr = quantile_thresholds(sample, B)
-        binned_t = engine.bin_feature_matrix(x, thr, cat, w=w_all)
-        f0 = _prior_margin(float((y * w).sum() / n), loss)
+        with _stage(clock, "bin"):
+            sample = sample_valid_rows(DeviceDataset(x=x, y=y, w=w), self.init_sample_size,
+                                       self.seed)
+            if sample.shape[0] == 0:
+                raise ValueError("GBT fit on an empty dataset")
+            thr = quantile_thresholds(sample, B)
+            binned_t = engine.bin_feature_matrix(x, thr, cat, w=w_all)
+        with _stage(clock, "init"):
+            f0 = _prior_margin(float((y * w).sum() / n), loss)
 
         d = x.shape[1]
         cat_arities = tuple(cat.get(f, 0) for f in range(d)) if cat else None
@@ -299,11 +306,23 @@ class _GBTParams:
             cat_arities=cat_arities, B=B, max_depth=self.max_depth,
             is_cat_host=is_cat_host, T=1, d=d, S=3)
         if val_ind is None:
-            fetched = self._device_rounds(
-                f_cur, grow_round, advance, thr_dev, is_cat).cpu().numpy()  # the one bulk fetch
-            trees = [template.fetch_packed(fetched[t : t + 1]) for t in range(self.max_iter)]
+            with _stage(clock, "boost"):
+                packed = self._device_rounds(f_cur, grow_round, advance, thr_dev, is_cat)
+                if clock is not None:
+                    # attribution only (clocked fits): drain the rounds so
+                    # "boost" measures the device work, not the launches
+                    from ...utils.profiling import device_fence
+
+                    device_fence(packed)
+            with _stage(clock, "fetch_materialize"):
+                fetched = packed.cpu().numpy()  # the one bulk fetch
+                trees = [template.fetch_packed(fetched[t : t + 1])
+                         for t in range(self.max_iter)]
         else:
-            trees = self._boost_validated(grow_round, advance, f_cur, y, w_val, loss, dev)
+            # the validated loop fetches each round to decide the stop:
+            # its growth and fetches bill to "boost" together
+            with _stage(clock, "boost"):
+                trees = self._boost_validated(grow_round, advance, f_cur, y, w_val, loss, dev)
         return _ensemble(trees, loss, f0, self.step_size, self.max_depth, cat)
 
     def _device_rounds(self, f_cur, grow_round, advance, thr_dev, is_cat) -> torch.Tensor:
@@ -357,7 +376,6 @@ class _GBTParams:
         and streams the blocks through it to advance F.  The thresholds
         are computed once; ``validation_indicator_col`` needs a table and
         is refused."""
-        self._check_clock()
         if self.validation_indicator_col is not None:
             raise ValueError(
                 "validation_indicator_col needs a table input to resolve "

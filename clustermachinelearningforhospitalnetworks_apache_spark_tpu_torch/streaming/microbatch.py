@@ -35,7 +35,9 @@ so a test can kill the run at each one and resume.
 
 With ``views`` set, the materialized views over the sink fold each
 committed batch in on the commit path (``core/sql_views.py``).  The
-pipelined loop's prefetched batches come with a later slice of the port.
+pipelined loop (``pipeline.py``) hands a batch's first attempt the table
+its worker already parsed and firewalled (``prefetched``); replays always
+re-read.
 """
 
 from __future__ import annotations
@@ -107,6 +109,9 @@ class StreamExecution:
     #: data-quality firewall: when set, source reads salvage + validate
     #: per row and rejects land in ``<ckpt>/quarantine/rows/``
     firewall: "DataFirewall | None" = None
+    #: append the ``ingest_time`` column (the reference script's
+    #: ``withColumn("ingest_time", current_timestamp())``)
+    add_ingest_time: bool = True
     history: list[BatchInfo] = field(default_factory=list)
     #: trace id of the most recent batch attempt (None when tracing off)
     last_trace_id: str | None = None
@@ -225,8 +230,14 @@ class StreamExecution:
         files: list[str],
         wm_state: dict,
         first_attempt_recorded: bool = False,
+        prefetched=None,
     ) -> BatchInfo:
-        """The replay/quarantine ladder around :meth:`_attempt`."""
+        """The replay/quarantine ladder around :meth:`_attempt`.
+
+        ``prefetched`` (a pipeline hand-off with the batch already parsed
+        and firewalled) is consumed by the FIRST attempt only — replays
+        always re-read from the source, so a corrupted prefetch can never
+        wedge the ladder."""
         while True:
             if first_attempt_recorded:
                 attempts = self.checkpoint.attempts(batch_id)
@@ -234,7 +245,7 @@ class StreamExecution:
             else:
                 attempts = self.checkpoint.record_attempt(batch_id)
             try:
-                return self._attempt(batch_id, files, wm_state)
+                return self._attempt(batch_id, files, wm_state, prefetched)
             except Exception as e:  # noqa: BLE001 — InjectedCrash is a
                 # BaseException and rightly flies past this handler
                 self.metrics.inc("stream.batch_failures")
@@ -247,11 +258,13 @@ class StreamExecution:
                     batch_id=batch_id, attempt=attempts,
                     max_attempts=self.max_batch_replays, error=repr(e),
                 )
+                prefetched = None
                 if attempts >= self.max_batch_replays:
                     return self._quarantine(batch_id, files, attempts, e)
                 time.sleep(self.replay_backoff.delay_for(attempts, self._rng))
 
-    def _attempt(self, batch_id: int, files: list[str], wm_state: dict) -> BatchInfo:
+    def _attempt(self, batch_id: int, files: list[str], wm_state: dict,
+                 prefetched=None) -> BatchInfo:
         """One ``stream.batch`` span per attempt: the trace root a
         streaming unit of work hangs its children off."""
         sp = _trace.span("stream.batch")
@@ -260,30 +273,44 @@ class StreamExecution:
             if sp.trace_id is not None:
                 sp.note("batch_id", batch_id)
                 sp.note("files", len(files))
-            info = self._attempt_inner(batch_id, files, wm_state)
+                sp.note("prefetched", prefetched is not None)
+            info = self._attempt_inner(batch_id, files, wm_state, prefetched)
             if sp.trace_id is not None:
                 sp.note("rows", info.num_appended_rows)
             return info
 
-    def _attempt_inner(self, batch_id: int, files: list[str], wm_state: dict) -> BatchInfo:
-        """One try at the batch lifecycle, fault sites at every boundary."""
+    def _attempt_inner(self, batch_id: int, files: list[str], wm_state: dict,
+                       prefetched=None) -> BatchInfo:
+        """One try at the batch lifecycle, fault sites at every boundary.
+
+        With ``prefetched``, the parse + firewall work already happened on
+        the pipeline's worker thread (a worker's error is re-raised here,
+        after the intent was written); the fault sites still fire in the
+        serial order, so each kill point keeps its meaning."""
         fault_point("stream.after_offsets", batch_id=batch_id)
         # replay with the watermark state recorded at intent time (a replay
         # must see the state the original attempt saw)
         if self.watermark is not None and wm_state:
             self.watermark.restore(wm_state)
-        if self.firewall is not None:
+        if prefetched is not None:
+            if prefetched.error is not None:
+                raise prefetched.error
+            table = prefetched.table
+            row_rejects = prefetched.rejects
+            drift_events = prefetched.drift_events
+        elif self.firewall is not None:
             table, row_rejects, drift_events = self.source.read_files_audited(files)
         else:
             table = self.source.read_files(files)
             row_rejects, drift_events = [], []
         fault_point("stream.after_read", batch_id=batch_id)
         n_in = len(table) + len(row_rejects)
-        # parity with withColumn("ingest_time", current_timestamp()) :82
-        now = np.datetime64(int(time.time_ns()), "ns")
-        table = table.with_column(
-            "ingest_time", np.full(len(table), now, dtype="datetime64[ns]")
-        )
+        if self.add_ingest_time:
+            # parity with withColumn("ingest_time", current_timestamp()) :82
+            now = np.datetime64(int(time.time_ns()), "ns")
+            table = table.with_column(
+                "ingest_time", np.full(len(table), now, dtype="datetime64[ns]")
+            )
         dropped = 0
         if self.watermark is not None:
             table, dropped = self.watermark.filter_late(table)
@@ -304,11 +331,15 @@ class StreamExecution:
                 batch_id=batch_id, rejected=len(row_rejects),
                 drift_events=len(drift_events),
             )
-        if self.firewall is not None and self.firewall.monitor is not None:
+        if prefetched is not None and prefetched.drift_psi is not None:
+            # the worker read PSI right after THIS batch's parse: the live
+            # monitor may already hold a later prefetch's windows
+            self.metrics.set("stream.drift_psi", prefetched.drift_psi)
+        elif self.firewall is not None and self.firewall.monitor is not None:
             self.metrics.set("stream.drift_psi", self.firewall.monitor.max_psi)
 
         if self.foreach_batch is not None:
-            self.foreach_batch(table, batch_id)
+            self._call_foreach(table, batch_id, prefetched)
         fault_point("stream.after_foreach", batch_id=batch_id)
 
         self.sink.append_batch(table, batch_id)
@@ -349,6 +380,11 @@ class StreamExecution:
             rejected=info.num_rejected_rows,
         )
         return info
+
+    def _call_foreach(self, table: Table, batch_id: int, prefetched) -> None:
+        """Hand the batch to the consumer; the pipelined stream overrides
+        this to pass its worker's staged payload instead of the table."""
+        self.foreach_batch(table, batch_id)
 
     def _quarantine(
         self, batch_id: int, files: list[str], attempts: int, err: Exception

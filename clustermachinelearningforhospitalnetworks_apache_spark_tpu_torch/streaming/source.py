@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 import random
+import threading
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Callable
 
@@ -65,6 +66,10 @@ class FileStreamSource:
     #: salvage mode through it; without one, reads stay strict
     firewall: "DataFirewall | None" = None
     _seen: set[str] = field(default_factory=set)
+    _seen_gen: int = field(default=0, repr=False)
+    # guards _seen: the pipelined stream's worker thread snapshots it
+    # while the commit thread marks files committed
+    _seen_lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     # entropy-seeded on purpose: a fleet of sources must not retry-jitter
     # in lockstep; jitter affects timing only, never data
     _rng: random.Random = field(default_factory=random.Random, repr=False)
@@ -102,11 +107,27 @@ class FileStreamSource:
         return self.max_files_per_batch
 
     def commit_files(self, files: list[str]) -> None:
-        self._seen.update(files)
+        with self._seen_lock:
+            self._seen.update(files)
+            self._seen_gen += 1
 
     def restore(self, files: list[str]) -> None:
         """Re-mark files as seen when resuming from a checkpoint."""
         self.commit_files(files)
+
+    def seen_generation(self) -> int:
+        """Bumped on every ``_seen`` mutation — lets a concurrent reader
+        cache :meth:`seen_snapshot` instead of copying the (ever-growing)
+        committed-file set on every poll."""
+        with self._seen_lock:
+            return self._seen_gen
+
+    def seen_snapshot(self) -> frozenset:
+        """Consistent copy of the committed-file set — iterating ``_seen``
+        directly from another thread races ``commit_files`` (a set resize
+        mid-iteration raises RuntimeError)."""
+        with self._seen_lock:
+            return frozenset(self._seen)
 
     def _retried(self, f: str, read: Callable):
         """``read(f)`` behind the per-file retry and the

@@ -144,11 +144,8 @@ def default(name: str):
 # The registered knob surface: each name, default, domain, metric, mode and
 # py_names equal to the JAX package's.
 # Each entry replaced a hand-set literal in serve/, streaming/, farm/ or
-# core/.  Some call sites come with later slices of the port: farm.pack.*
-# (farm/), serve.slo.* (serve/fleet/), stream.pipeline.depth,
-# stream.worker.poll_interval_ms and sql.stage.min_compiled_rows
-# (streaming/pipeline.py).  sql.rowbucket.min has no call site in the
-# port, by decision: eager torch keeps no compiled executables, so the
+# core/, and each has its call site in the port but sql.rowbucket.min, by
+# decision: eager torch keeps no compiled executables, so the
 # compiled SQL executor keeps columns at their true length and pads to no
 # row bucket.  It stays declared so the two packages' registries and
 # trial stores agree.

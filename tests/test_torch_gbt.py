@@ -304,11 +304,55 @@ def test_categorical_artifacts_round_trip(tmp_path):
 
 
 def test_stage_clock_raises():
+    # a stage_clock that is no StageClock raises at the first stage in
+    # both packages; out-of-core fits ignore the clock in both
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu.parallel.outofcore import (
+        HostDataset as JHostDataset,
+    )
+
     x, y = _data(n=64)
-    with pytest.raises(NotImplementedError, match="profiling"):
-        P.GBTRegressor(stage_clock=object()).fit((x, y), device="cpu")
-    with pytest.raises(NotImplementedError, match="profiling"):
-        P.GBTRegressor(stage_clock=object()).fit(P.HostDataset(x=x, y=y), device="cpu")
+    with pytest.raises(AttributeError, match="stage"):
+        J.GBTRegressor(stage_clock=object(), max_iter=1).fit((x, y))
+    with pytest.raises(AttributeError, match="stage"):
+        P.GBTRegressor(stage_clock=object(), max_iter=1).fit((x, y), device="cpu")
+    jm = J.GBTRegressor(stage_clock=object(), **BASE).fit(JHostDataset(x=x, y=y))
+    pm = P.GBTRegressor(stage_clock=object(), **BASE).fit(P.HostDataset(x=x, y=y),
+                                                          device="cpu")
+    assert pm.num_trees == jm.num_trees == BASE["max_iter"]
+
+
+@pytest.mark.parametrize("route", ["rounds", "validation"])
+def test_stage_clock_brackets_the_jax_stages(route):
+    """A clocked fit records the JAX fit's stage names, once each, and
+    grows the same trees as an unclocked fit (the clock only reads
+    time)."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu.utils.profiling import (
+        StageClock as JClock,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils.profiling import (
+        StageClock,
+    )
+
+    x, y = _data(n=512)
+    if route == "rounds":
+        jdata, pdata, kw = (x, y), (x, y), dict(BASE)
+    else:
+        is_val = (np.arange(len(y)) % 10 < 3).astype(np.int64)
+        cols = _table(x, y, is_val)
+        names = [f"f{j}" for j in range(x.shape[1])]
+        jdata = J.VectorAssembler(names).transform(J.Table.from_dict(cols))
+        pdata = P.VectorAssembler(names).transform(P.Table.from_dict(cols))
+        kw = dict(BASE, label_col="label", validation_indicator_col="is_val")
+    jc, pc = JClock(), StageClock()
+    J.GBTRegressor(stage_clock=jc, **kw).fit(jdata)
+    clocked = P.GBTRegressor(stage_clock=pc, **kw).fit(pdata, device="cpu")
+    assert pc.counts == jc.counts
+    assert list(pc.counts) == (["bin", "init", "boost", "fetch_materialize"]
+                               if route == "rounds" else ["bin", "init", "boost"])
+    assert all(v >= 0.0 for v in pc.seconds.values())
+    plain = P.GBTRegressor(**kw).fit(pdata, device="cpu")
+    np.testing.assert_array_equal(clocked.split_feat, plain.split_feat)
+    np.testing.assert_array_equal(clocked.value, plain.value)
 
 
 def test_entry_points_default_to_the_card():

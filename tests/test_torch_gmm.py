@@ -156,8 +156,10 @@ def test_transform_adds_prediction_and_probability(fitted):
 ])
 def test_unported_options_raise(option, tmp_path):
     # the factor-form E-step came with slice 4c (tests/test_torch_precision.py
-    # holds it to the JAX package); what still raises is the partials
-    # protocol, and an unknown precision
+    # holds it to the JAX package) and the partials protocol with slice 7c
+    # (tests/test_torch_federated.py); what still raises is an unknown
+    # precision, and partials asked for without the broadcast state, as in
+    # the JAX package
     option = dict(option)
     if "checkpoint_dir" in option:
         option["checkpoint_dir"] = str(tmp_path / "ck")
@@ -165,8 +167,9 @@ def test_unported_options_raise(option, tmp_path):
     assert np.isfinite(m.log_likelihood) and m.n_iter >= 1
     with pytest.raises(ValueError, match="matmul_precision"):
         port.GaussianMixture(k=2, matmul_precision="fp8").fit(_blobs(40), device="cpu")
-    with pytest.raises(NotImplementedError, match="federated/partials.py"):
-        port.GaussianMixture(k=2).partial_fit_stats(None)
+    assert port.GaussianMixture(k=2, **option).supports_partials()
+    with pytest.raises(ValueError, match="broadcast FitState"):
+        port.GaussianMixture(k=2, **option).partial_fit_stats(_blobs(40), device="cpu")
 
 
 def test_empty_fit_raises():

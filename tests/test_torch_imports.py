@@ -683,6 +683,128 @@ def test_slice_7c_host_entry_points_take_no_device_and_need_no_card(monkeypatch)
         wd.check()
 
 
+def test_slice_7c_federation_entry_points_default_to_the_card_and_raise_without_one(
+        monkeypatch):
+    """A silo computes on its device and the coordinator updates and
+    solves on its own (default the card); each raises without one, as do
+    the partials protocol's device calls and a silo from a CSV drop."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import federated
+
+    x = np.random.default_rng(6).normal(size=(16, 3)).astype(np.float32)
+    silo = federated.Silo("s0", (x, x[:, 0]), device="cpu")
+    part = silo.compute_partials(port.LinearRegression(), None, 0)
+    km = port.KMeans(k=2, warm_start_centers=x[:2])
+    state = km.init_partials_state(3)
+    kpart = federated.merge_partials([federated.Silo("s0", x, device="cpu").compute_partials(
+        km, state, 0)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: federated.Silo("s0", x),
+        lambda: federated.FederatedCoordinator(port.KMeans(k=2), [silo]),
+        lambda: port.LinearRegression().fit_from_partials(federated.merge_partials([part])),
+        lambda: port.LinearRegression().partial_fit_stats((x, x[:, 0])),
+        lambda: km.partial_fit_stats(x, state=state),
+        lambda: km.local_init_stats(x),
+        lambda: km.apply_partials(state, kpart),
+        lambda: port.GaussianMixture(k=2).local_init_stats(x),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    coord = federated.FederatedCoordinator(port.LinearRegression(), [silo], device="cpu")
+    assert coord.device == torch.device("cpu") and silo.device == torch.device("cpu")
+    assert coord.fit().model.coefficients.device == torch.device("cpu")
+
+
+def test_slice_7c_federation_host_entry_points_take_no_device_and_need_no_card(monkeypatch):
+    """Partials, merges, noise, the family registry, the profile merge and
+    the config are host code, as in the JAX package: none takes
+    ``device=`` and none needs a card."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import federated
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [federated.Partials, federated.Partials.to_payload, federated.Partials.from_payload,
+           federated.FitState, federated.merge_partials, federated.merge_profiles,
+           federated.apply_clipped_noise, federated.NoiseConfig, federated.register_family,
+           federated.family_mode, federated.FederatedConfig, federated.RoundReport,
+           federated.Silo.profile_partials, federated.Silo.feature_matrix,
+           port.KMeans.init_partials_state, port.KMeans.init_state_from_merged,
+           port.GaussianMixture.init_state_from_merged]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    p = federated.Partials(family="linear", stats={"g": np.ones(2, np.float32)}, silo_id="a")
+    q = federated.Partials(family="linear", stats={"g": np.ones(2, np.float32)}, silo_id="b")
+    assert federated.merge_partials([q, p]).sources == ("a", "b")
+    noisy = federated.apply_clipped_noise(p, federated.NoiseConfig(noise_multiplier=1e-9))
+    assert noisy.noised
+    cand = federated.Partials(family="kmeans.init", silo_id="a", stats={
+        "candidates": np.random.default_rng(0).normal(size=(8, 2))})
+    st = port.KMeans(k=2).init_state_from_merged(federated.merge_partials([cand]))
+    assert st.params["centers"].shape == (2, 2)
+
+
+def test_slice_7d_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                                         tmp_path):
+    """The pipelined stream (its table's device), the update consumer and
+    the SQL stage hook take ``device=`` (default the card) and raise
+    without one."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import streaming
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.streaming import (
+        pipeline,
+    )
+
+    schema = port.hospital_event_schema()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: streaming.PipelinedStreamExecution(
+            source=streaming.FileStreamSource(str(tmp_path / "in"), schema),
+            sink=streaming.UnboundedTable(str(tmp_path / "t"), schema),
+            checkpoint=streaming.StreamCheckpoint(str(tmp_path / "ck"))),
+        lambda: streaming.ModelUpdateConsumer(port.StreamingKMeans(k=2)),
+        lambda: pipeline.make_sql_feature_stage("SELECT * FROM __THIS__", ["f0"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    cons = streaming.ModelUpdateConsumer(port.StreamingKMeans(k=2), device="cpu")
+    cons(np.random.default_rng(0).normal(size=(16, 2)).astype(np.float32), 0)
+    assert cons.updates == 1
+
+
+def test_slice_7d_host_entry_points_take_no_device_and_need_no_card(monkeypatch, tmp_path):
+    """The stage clock, the sync census, the trace annotation and capture,
+    the fences, ``batch_rows`` and the worker's hand-off are host code:
+    none takes ``device=`` and none needs a card."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import data, streaming
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.utils import (
+        profiling,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [profiling.StageClock, profiling.StageClock.stage, profiling.StageClock.shares,
+           profiling.host_sync_census, profiling.trace_annotation, profiling.capture_trace,
+           profiling.device_fence, profiling.block_until_ready, data.batch_rows,
+           streaming.Prefetched, streaming.FileStreamSource.seen_snapshot]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    clock = profiling.StageClock()
+    with clock.stage("ingest"):
+        pass
+    assert clock.counts == {"ingest": 1}
+    with profiling.host_sync_census(count_puts=True) as c:
+        torch.ones(2).sum().item()
+    assert c == {"device_get": 0, "device_put": 0}
+    with profiling.capture_trace(str(tmp_path / "tr")):
+        with profiling.trace_annotation("x"):
+            torch.ones(2).sum()
+    assert (tmp_path / "tr" / "trace.json").is_file()
+    assert data.batch_rows((np.zeros((3, 2)), np.zeros(3))) == 3
+
+
 # The reference's public names that the port does not have yet, by the
 # subpackage whose ``__all__`` lists them, each with the slice of ROADMAP
 # queue 1 that ports its module.  Every other name of the reference's
@@ -710,12 +832,10 @@ EXPECTED_GAPS = {
     "serve": {},
     "serve.fleet": {},
     "ops": {},
-    "utils": _tagged("7d", ("block_until_ready", "device_fence", "capture_trace",
-                            "trace_annotation")),
+    "utils": {},
     "pipeline": {},
     "evaluation": {},
-    "streaming": _tagged("7d", ("PipelinedStreamExecution", "ModelUpdateConsumer",
-                                "Prefetched")),
+    "streaming": {},
     "stat": {},
     "tuning": {},
     "obs": {},
@@ -724,6 +844,7 @@ EXPECTED_GAPS = {
     "tune": {},
     "farm": {},
     "lifecycle": {},
+    "federated": {},
 }
 
 
