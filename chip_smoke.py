@@ -183,6 +183,15 @@ kernels:
   lifecycle over a 2-replica fleet, PROMOTED on both replicas and
   re-applied on both after a kill at ``fleet.swap.commit``; K1 / K2 at
   the fleet's shapes against their plain versions.
+* slice 7d-2 (``soak_phase``) — the compressed production day on the card:
+  ``SMOKE_CONFIG`` twice and ``full_config(1107)``, each report
+  machine-checked clean (``check_report``), read back, refused with one
+  flipped byte, every kill recovered, a bit-identical double kill and
+  its schedule re-derived; the two smoke days equal in schedule, kills,
+  offered rows, CSV files and quarantined rows; the day-zero farm fitted
+  again on the CPU ``==`` the card's saved artifact; the CLI on seed 4242
+  in two fresh processes; device bytes after each day; no kernel
+  launched.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -8290,6 +8299,187 @@ def pipeline_stream_phase(port, ops, L, card: str) -> dict:
 
 
 
+SOAK_CLI_SEED = 4242                      # the unseen seed the CLI runs in fresh processes
+SOAK_CLI_TIMEOUT = 300                    # seconds each CLI process may take
+SOAK_LEAK_BYTES = 1 << 20                 # device bytes a second smoke day may hold beyond the first
+
+
+def soak_day_lines(payload: dict, what: str, card: str) -> None:
+    """Print one day's wall seconds, phases, chaos, footprint, trace and
+    retune, each on its own line."""
+    res = payload["resources"]
+    say(f"soak {what}: wall_s {payload['wall_s']} ({card}); phases "
+        + "; ".join(f"{p['name']} offered rows {p['offered_rows']}, goodput "
+                    f"{p['goodput_frac']} against floor {p['min_goodput_frac']}, unanswered "
+                    f"{p['unanswered']}, in-SLO p99 {p['in_slo_p99_ms']} ms, phase wall "
+                    f"{p['wall_s']} s" for p in payload["phases"]))
+    say(f"soak {what}: {len(payload['kills'])} chaos events, "
+        f"{sum(k['recovered'] for k in payload['kills'])} recovered, "
+        f"{sum(len(k['postmortems']) for k in payload['kills'])} postmortems; "
+        + ", ".join(f"{k['label']} ({len(k['postmortems'])} pm"
+                    + (f", bit_identical {k['bit_identical']}" if "bit_identical" in k else "")
+                    + ")" for k in payload["kills"]))
+    say(f"soak {what}: RSS first {res['rss_first_kb'] / 1024:.1f} MiB, last "
+        f"{res['rss_last_kb'] / 1024:.1f} MiB (ratio "
+        f"{res['rss_last_kb'] / max(res['rss_first_kb'], 1.0):.3f}, ceiling "
+        f"{payload['config']['rss_growth_ratio']}), disk {res['disk_last_kb'] / 1024:.2f} MB, "
+        f"series {res['series_last']}, table at most "
+        f"{max(x.get('table_kb', 0.0) for x in res['samples']) / 1024:.2f} MiB of "
+        f"{payload['config']['table_budget_mb']}; ingest {json.dumps(payload['ingest'])}; "
+        f"fleet {json.dumps(payload['fleet_health'])}")
+    rt = payload["retune"] or {}
+    say(f"soak {what}: trace {payload['trace'].get('trace_id')} spans "
+        f"{payload['trace'].get('span_names')}; retune after "
+        f"{rt.get('boundary_after_phase')}: {rt.get('old')} -> {rt.get('new')} ms, applied "
+        f"{rt.get('applied')}, probe rps {rt.get('probe_rps')}, journal "
+        f"{rt.get('journal_kinds')}")
+
+
+def soak_day_checks(soak, payload: dict, path: str, what: str) -> None:
+    """The machine check, the report read back, a flipped byte refused,
+    every kill recovered, a bit-identical double kill and the schedule
+    re-derived from the report's own config."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak.schedule import (
+        SoakConfig,
+    )
+
+    violations = soak.check_report(payload)
+    check(violations == [], f"soak {what}: check_report found {violations}")
+    check(soak.read_report(path) == json.loads(json.dumps(payload, default=str)),
+          f"soak {what}: read_report does not give back the payload")
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    i = data.index(b'"wall_s":') + len(b'"wall_s":')
+    data[i] = ord("8") if data[i] == ord("9") else ord("9")
+    flipped = path + ".flipped"
+    with open(flipped, "wb") as f:
+        f.write(bytes(data))
+    try:
+        soak.read_report(flipped)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"soak {what}: a report with one flipped byte was read")
+    check(all(k["recovered"] for k in payload["kills"]), f"soak {what}: a kill not recovered")
+    check(any(k["kind"] == soak.KIND_DOUBLE_KILL and k.get("bit_identical") is True
+              for k in payload["kills"]), f"soak {what}: no bit-identical double kill")
+    rebuilt = [e.to_dict() for e in soak.build_chaos_schedule(
+        SoakConfig.from_dict(payload["config"]))]
+    check(rebuilt == payload["chaos_schedule"],
+          f"soak {what}: the schedule rebuilt from the report's config differs")
+
+
+def soak_phase(port, card: str) -> dict:
+    """Slice 7d-2's compressed production day on the card: bench.py's soak
+    shape (``SMOKE_CONFIG``) twice, then the reference's slow full day
+    (``full_config(1107)``), each machine-checked clean with a
+    bit-identical double kill; the two smoke days compared; the day-zero
+    farm fitted again on the CPU ``==`` the card's saved artifact; an
+    unseen seed through the CLI in two fresh processes; the device memory
+    after each day.  The day launches no kernel (the farm and the views
+    are torch ops): the K1/K2/K3 counts must not move.  → {"launches": ...}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import ops
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import soak
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak import driver
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak.schedule import (
+        full_config,
+    )
+
+    t_phase = time.perf_counter()
+    before = ops.launch_counts()
+    # the earlier phases' heap is the harness's, not the day's: frozen out
+    # of the collector, so a full collection during the day walks only what
+    # the day allocates (a fresh soak process has no such heap)
+    gc.collect()
+    gc.freeze()
+    runs = []
+    alloc = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (what, cfg) in enumerate((("smoke 1", soak.SMOKE_CONFIG),
+                                         ("smoke 2", soak.SMOKE_CONFIG),
+                                         ("full", full_config(1107)))):
+            work = os.path.join(tmp, f"day{i}")
+            if DEV == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            payload, path = soak.run_soak(cfg, work, device=DEV)
+            gc.collect()
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+                alloc.append(torch.cuda.memory_allocated())
+                say(f"soak {what}: device memory after the day {alloc[-1]} bytes allocated, "
+                    f"peak {torch.cuda.max_memory_allocated()} bytes during it")
+            soak_day_lines(payload, what, card)
+            soak_day_checks(soak, payload, path, what)
+            runs.append((payload, work))
+            lap(f"soak {what}")
+        (one, work1), (two, _), _ = runs
+        same = {
+            "chaos schedule": one["chaos_schedule"] == two["chaos_schedule"],
+            "kill labels": [k["label"] for k in one["kills"]] == [k["label"] for k in two["kills"]],
+            "offered rows": [p["offered_rows"] for p in one["phases"]]
+            == [p["offered_rows"] for p in two["phases"]],
+            "csv files": one["ingest"]["csv_files"] == two["ingest"]["csv_files"],
+            "rows quarantined": one["ingest"]["rows_quarantined"]
+            == two["ingest"]["rows_quarantined"],
+        }
+        check(all(same.values()), f"the two smoke days differ: {same}")
+        if DEV == "cuda":
+            check(alloc[1] - alloc[0] <= SOAK_LEAK_BYTES,
+                  f"the second smoke day left {alloc[1] - alloc[0]} more device bytes allocated "
+                  f"than the first (bound {SOAK_LEAK_BYTES})")
+        say(f"soak smoke 1 == smoke 2 in {', '.join(same)}; device bytes allocated after each "
+            f"day {alloc} (second minus first {alloc[1] - alloc[0] if alloc else 'n/a'}, "
+            f"bound {SOAK_LEAK_BYTES})")
+
+        # the day-zero farm again on the CPU from a fresh run's first draws
+        cfg = soak.SMOKE_CONFIG
+        pools = driver._SoakRun(cfg, os.path.join(tmp, "cpu"), device="cpu").day_zero_pools()
+        cpu = port.farm.FarmKMeans(
+            k=cfg.kmeans_k, max_iter=cfg.kmeans_iters, seed=cfg.seed,
+            feature_names=list(driver.FEATURES)).fit(pools, device="cpu")
+        saved = port.load_model(os.path.join(work1, "models", "farm-day0"))
+        differ = sorted(k for k in set(cpu.arrays) | set(saved.arrays)
+                        if k not in cpu.arrays or k not in saved.arrays
+                        or not np.array_equal(cpu.arrays[k], saved.arrays[k]))
+        check(not differ, f"the card's day-zero farm differs from the CPU fit in {differ}")
+        say(f"soak day-zero farm: the card's saved models/farm-day0 == the CPU fit on the same "
+            f"pools in all {len(cpu.arrays)} arrays ({', '.join(sorted(cpu.arrays))})")
+
+        # an unseen seed through the CLI, each step in a fresh process
+        cli = os.path.join(tmp, "cli")
+        steps = (["--seed", str(SOAK_CLI_SEED), "--workdir", cli],
+                 ["--check", os.path.join(cli, "soak_report.json")])
+        for argv in steps:
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", f"{PKG}.soak", *argv]
+                                 + (["--device", "cpu"] if DEV != "cuda" else []),
+                                 cwd=ROOT, capture_output=True, text=True,
+                                 timeout=SOAK_CLI_TIMEOUT)
+            verdict = [ln for ln in out.stdout.splitlines() if ln.startswith(("PASS", "FAIL"))]
+            check(out.returncode == 0 and verdict and verdict[0].startswith("PASS"),
+                  f"the soak CLI {' '.join(argv)} exited {out.returncode}: {verdict} "
+                  f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+            say(f"soak CLI {' '.join(argv[:2])}: exit 0, {verdict[0]} "
+                f"({time.perf_counter() - t0:.2f} s in a fresh process)")
+        soak_day_lines(soak.read_report(os.path.join(cli, "soak_report.json")),
+                       f"CLI seed {SOAK_CLI_SEED}", card)
+        lap("soak cli")
+    gc.unfreeze()
+    after = ops.launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    check(all(v == 0 for v in launches.values()),
+          f"the soak day launched kernels {launches}: its farm, views and serving are torch ops")
+    say(f"soak_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); K1/K2/K3 "
+        f"launches over the phase {json.dumps(launches)} (the day's farm fits, refits, views "
+        f"and served batches are torch ops)")
+    return {"launches": launches}
+
+
 def main() -> None:
     try:
         import torch
@@ -8583,6 +8773,10 @@ def main() -> None:
         counts[name] += v
     records[0]["shapes"] += pipe["k1"]
 
+    # ------- slice 7d-2: the compressed production day under chaos (no
+    # kernel: the counts must not move)
+    soak_phase(port, card)
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -8598,6 +8792,7 @@ def main() -> None:
         f"federated_phase {sum(v for k, v in PHASE_S.items() if k.startswith('fed ')):.2f}; "
         f"pipeline_stream_phase "
         f"{sum(v for k, v in PHASE_S.items() if k.startswith('pipe ')):.2f}; "
+        f"soak_phase {sum(v for k, v in PHASE_S.items() if k.startswith('soak ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

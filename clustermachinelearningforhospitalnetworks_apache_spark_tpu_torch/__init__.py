@@ -109,7 +109,12 @@ profiling hooks (``utils.profiling``: ``StageClock``, the host-sync census,
 pytest tests/test_torch_federated.py tests/test_torch_stream_pipeline.py``;
 on a card, ``chip_smoke.federated_phase(port, ops, L, card)`` and
 ``chip_smoke.pipeline_stream_phase(port, ops, L, card)`` run them alone
-after ``ops._build.build()``.
+after ``ops._build.build()``.  Slice 7d-2 adds the compressed-production-day
+soak (``soak``, imported on its own as in the JAX package: ``run_soak``
+and ``python -m <package>.soak``), one seeded day of every subsystem under
+chaos judged by a machine-checked report.  Its CPU tests: ``python -m
+pytest tests/test_torch_soak.py``; on a card,
+``chip_smoke.soak_phase(port, card)`` runs it alone.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to

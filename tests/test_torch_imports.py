@@ -89,7 +89,8 @@ def test_every_module_is_walkable():
                      "serve.fleet", "serve.fleet.placement", "serve.fleet.router",
                      "serve.fleet.admission", "serve.fleet.loadgen", "serve.fleet.watchdog",
                      "serve.fleet.replica_set", "serve.fleet.proc",
-                     "serve.fleet._proc_worker"):
+                     "serve.fleet._proc_worker", "soak", "soak.schedule", "soak.report",
+                     "soak.resource_probe", "soak.driver", "soak.__main__"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -805,6 +806,70 @@ def test_slice_7d_host_entry_points_take_no_device_and_need_no_card(monkeypatch,
     assert data.batch_rows((np.zeros((3, 2)), np.zeros(3))) == 3
 
 
+def test_slice_7d2_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                                          tmp_path):
+    """``run_soak`` and the CLI's run mode default to the card and raise
+    without one, before the day writes a file; ``device="cpu"`` builds the
+    run on the host."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import soak
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak import driver
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak.__main__ import (
+        main,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: soak.run_soak(soak.SMOKE_CONFIG, str(tmp_path / "a")),
+        lambda: driver._SoakRun(soak.SMOKE_CONFIG, str(tmp_path / "b")),
+        lambda: main(["--workdir", str(tmp_path / "c")]),
+        lambda: main(["--workdir", str(tmp_path / "d"), "--device", "cuda"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert sorted(p.name for p in tmp_path.iterdir()) == []
+    run = driver._SoakRun(soak.SMOKE_CONFIG, str(tmp_path / "e"), device="cpu")
+    assert run.device == torch.device("cpu") and run.views.device == torch.device("cpu")
+    stream = run.build_stream()
+    assert stream.device == torch.device("cpu")
+
+
+def test_slice_7d2_host_entry_points_take_no_device_and_need_no_card(monkeypatch, tmp_path,
+                                                                     capsys):
+    """The schedule, the report, the resource probe and the CLI's
+    ``--check`` are host code, as in the JAX package: none takes
+    ``device=`` and none needs a card."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import soak
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak import schedule
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.soak.__main__ import (
+        main,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [soak.SoakConfig, soak.SoakConfig.from_dict, soak.DiurnalPhase, soak.ChaosEvent,
+           schedule.full_config, soak.build_chaos_schedule, soak.write_report,
+           soak.read_report, soak.check_report, soak.ResourceProbe,
+           soak.ResourceProbe.sample, soak.ResourceProbe.report]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    cfg = schedule.full_config(3)
+    assert soak.build_chaos_schedule(cfg) == soak.build_chaos_schedule(
+        soak.SoakConfig.from_dict(cfg.to_dict()))
+    probe = soak.ResourceProbe(str(tmp_path), table_dir=str(tmp_path))
+    probe.sample("start")
+    probe.sample("end")
+    assert probe.report()["bounded"]
+    payload = {"version": 1, "config": cfg.to_dict(), "unhandled": []}
+    path = soak.write_report(payload, str(tmp_path / "r.json"))
+    assert soak.read_report(path) == payload
+    assert soak.check_report(payload)      # an incomplete day: violations, no device
+    assert main(["--check", path]) == 1
+    assert main(["--check", str(tmp_path / "missing.json")]) == 2
+    assert "FAIL: report unreadable" in capsys.readouterr().out
+
+
 # The reference's public names that the port does not have yet, by the
 # subpackage whose ``__all__`` lists them, each with the slice of ROADMAP
 # queue 1 that ports its module.  Every other name of the reference's
@@ -845,7 +910,19 @@ EXPECTED_GAPS = {
     "farm": {},
     "lifecycle": {},
     "federated": {},
+    "soak": {},
 }
+
+
+def _public_names(mod) -> set:
+    """A package's ``__all__``, or, where it has none (the reference's
+    ``soak``), the public names its ``__init__`` binds other than its
+    submodules."""
+    import inspect
+
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    return {n for n, v in vars(mod).items() if not n.startswith("_") and not inspect.ismodule(v)}
 
 
 @pytest.mark.parametrize("sub", sorted(EXPECTED_GAPS))
@@ -857,13 +934,15 @@ def test_package_surfaces_cover_the_reference(sub):
 
     ref = importlib.import_module(JAX_PKG + (f".{sub}" if sub else ""))
     mine = importlib.import_module(port.__name__ + (f".{sub}" if sub else ""))
-    missing = set(ref.__all__) - set(mine.__all__)
+    missing = _public_names(ref) - set(mine.__all__)
     assert missing == set(EXPECTED_GAPS[sub]), (
         f"unexpected gaps {sorted(missing - set(EXPECTED_GAPS[sub]))}; "
         f"filled gaps still listed {sorted(set(EXPECTED_GAPS[sub]) - missing)}")
     assert set(EXPECTED_GAPS[sub].values()) <= {"7c", "7d", "8"}
     for name in mine.__all__:
         assert getattr(mine, name) is not None, name
+    if sub == "soak":
+        assert set(mine.__all__) == _public_names(ref) and len(mine.__all__) == 14
 
 
 def test_the_surface_imports_of_a_line_for_line_port():
