@@ -192,6 +192,17 @@ kernels:
   again on the CPU ``==`` the card's saved artifact; the CLI on seed 4242
   in two fresh processes; device bytes after each day; no kernel
   launched.
+* slice 8a (``mesh_phase``) — KMeans k=256 on the main path's 10M rows
+  over a (data, model) mesh, warm-started from its init centers: a (1, 1)
+  mesh ``==`` the main path's model; a (4, 1) mesh over ``[cuda:0] * 4``
+  (K1 a shard a step) against it within the out-of-core limits beside a
+  bf16-rounded control that fails them, ``==`` on integer rows, with
+  predict, compute_cost and the silhouette shard by shard; a (2, 2) mesh
+  (K2 then the owner-masked K1 a shard) whose summed counts are the
+  bincount of K2's global argmin; two spawned processes over gloo and one
+  over NCCL at world size 1, each ``==`` its in-process fit, and NCCL's
+  refusal of two ranks on one card; ``federated_dataset`` over 64 hospital
+  ids; K1 and K2 at every shard shape against their plain versions.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -430,6 +441,34 @@ def compare(L, x, w, centers, c_valid, tag: str):
     return k1_err, k2_err, cost_rel, flips
 
 
+def kernel_times(L, x, w, centers, c_valid, reps: int) -> dict:
+    """K1's and K2's device times on one input: the kernel, its plain
+    version and one library composition (``library_assign``, then
+    ``index_add_`` for K1's sums and counts)."""
+    import torch
+
+    k, d = centers.shape
+    c_sq = (centers * centers).sum(1)
+    x_sq = (x * x).sum(1)
+
+    def lib_stats():
+        mn, arg = library_assign(x, centers, x_sq, c_sq)
+        arg = arg.to(torch.int64)
+        sums = torch.zeros(k, d, device="cuda").index_add_(0, arg, x * w[:, None])
+        cnts = torch.zeros(k, device="cuda").index_add_(0, arg, w)
+        return sums, cnts, (mn * w).sum()
+
+    plain_reps = max(2, reps // 5)
+    return {
+        "k2": gpu_ms(lambda: L.fused_assign(x, centers, c_valid), reps),
+        "k2_plain": gpu_ms(lambda: L.fused_assign_plain(x, centers, c_valid), plain_reps),
+        "k2_lib": gpu_ms(lambda: library_assign(x, centers, x_sq, c_sq), plain_reps),
+        "k1": gpu_ms(lambda: L.fused_lloyd_stats(x, w, centers, c_valid), reps),
+        "k1_plain": gpu_ms(lambda: L.fused_lloyd_stats_plain(x, w, centers, c_valid), plain_reps),
+        "k1_lib": gpu_ms(lib_stats, plain_reps),
+    }
+
+
 def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
                 dup: bool = False):
     """K1 and K2 against their plain versions (and the library yardstick)
@@ -457,30 +496,11 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
               f"K2 {tag}: an exact tie did not go to the first index")
         del a
 
-    # --- times: kernel, plain version, and one library composition
-    c_sq = (centers * centers).sum(1)
-    x_sq = (x * x).sum(1)
-
-    def lib_stats():
-        mn, arg = library_assign(x, centers, x_sq, c_sq)
-        arg = arg.to(torch.int64)
-        sums = torch.zeros(k, d, device="cuda").index_add_(0, arg, x * w[:, None])
-        cnts = torch.zeros(k, device="cuda").index_add_(0, arg, w)
-        return sums, cnts, (mn * w).sum()
-
-    plain_reps = max(2, reps // 5)
+    t = kernel_times(L, x, w, centers, c_valid, reps)
+    # K2 at one row a thread runs K1's distance loop: K1 minus it is
+    # K1's accumulation
     one = k2_plans(L, n, d, k)[1]
-    t = {
-        "k2": gpu_ms(lambda: L.fused_assign(x, centers, c_valid), reps),
-        # K2 at one row a thread runs K1's distance loop: K1 minus it is
-        # K1's accumulation
-        "k2_one": gpu_ms(lambda: L.fused_assign_planned(x, centers, c_valid, one), reps),
-        "k2_plain": gpu_ms(lambda: L.fused_assign_plain(x, centers, c_valid), plain_reps),
-        "k2_lib": gpu_ms(lambda: library_assign(x, centers, x_sq, c_sq), plain_reps),
-        "k1": gpu_ms(lambda: L.fused_lloyd_stats(x, w, centers, c_valid), reps),
-        "k1_plain": gpu_ms(lambda: L.fused_lloyd_stats_plain(x, w, centers, c_valid), plain_reps),
-        "k1_lib": gpu_ms(lib_stats, plain_reps),
-    }
+    t["k2_one"] = gpu_ms(lambda: L.fused_assign_planned(x, centers, c_valid, one), reps)
     b1, b1_by = bound_ms(n, d, k, stats=True)
     b2, b2_by = bound_ms(n, d, k, stats=False)
     plan = L.lloyd_plan(n, d, k, torch.cuda.get_device_properties(0).multi_processor_count,
@@ -496,7 +516,7 @@ def kernel_case(L, n: int, d: int, k: int, n_invalid: int, seed: int, reps: int,
         f"K1 plan: {plan['blocks']} blocks, {plan['n_ctiles']} center tile(s) of "
         f"{plan['kt']}, accumulators in {'shared' if plan['acc_smem'] else 'global'} "
         f"memory, {plan['smem']} shared bytes — ok")
-    del x, w, x_sq
+    del x, w
     torch.cuda.empty_cache()
     src = f"{PKG}/csrc/lloyd.cu"
     return [
@@ -7131,7 +7151,7 @@ FLEET_CHAOS_SECONDS = 1.5
 PROC_N, PROC_D, PROC_K = 4_000, 32, 256   # bench.py _bench_serve_fleet_multiproc
 PROC_ROWS = 16
 PROC_OVERLOAD = 2.5
-PROC_SECONDS = 3.0
+PROC_SECONDS = 1.5                        # bench.py's 3 s, halved for the script's time
 PROC_LEGS = (1, 2, 4)
 FLEET_WATCH_S = 5.0                       # the stall watchdog's window
 
@@ -7452,8 +7472,8 @@ def balanced_tenants(F, n: int, legs) -> list:
 
 def fleet_multiproc(port, F, FP, card: str) -> dict:
     """(c): bench.py's multi-process fleet, 16-row interactive requests at
-    2.5x one server's raw rate over 3 s, one fresh fleet of 1, 2 and 4
-    worker processes on the card a leg (spawned side by side), as bench.py
+    2.5x one server's raw rate over 1.5 s (bench.py: 3 s), one fresh fleet
+    of 1, 2 and 4 worker processes on the card a leg (spawned side by side), as bench.py
     runs them.  The 8 tenants spread evenly over every leg's workers, and
     every worker must launch K2 during its leg.  After its leg the
     2-worker fleet takes a SIGKILL mid-load (revived) and one corrupted
@@ -8480,6 +8500,354 @@ def soak_phase(port, card: str) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------- slice 8a
+MESH_DATA = 4                 # leg (b): a (4, 1) mesh over cuda:0, 2.5M rows a shard
+MESH_PROC_N = 2_000_000       # legs (d)-(f): the main path's first 2M rows
+MESH_HOSPITALS = 64           # leg (f): hospital ids over those rows
+MESH_EXACT_N = 2_000_000      # leg (b)'s integer-valued rows
+MESH_JOIN_S = 240             # seconds the spawned legs may take, start-up included
+#: a sharded fit against the unsharded one: the out-of-core limits, set for
+#: the same kind of reassociated K1 sums (read 2.26e-4 / 0 there)
+MESH_TOL = {"centers": OOC_KMEANS_TOL["centers"], "cost_rel": OOC_KMEANS_TOL["cost_rel"]}
+
+
+def mesh_rank_main(rank: int, world: int, store: str, backend: str, dev: str, rows_path: str,
+                   warm_path: str, out_path: str) -> None:
+    """One spawned process of ``mesh_phase``: joins a ``world``-process
+    group through the ``file://`` store on ``dev`` (cuda:0), fits KMeans k=256 on its
+    shard of the host-major (world, 1) mesh from the warm centers, and
+    pickles what it saw to ``out_path`` (an exception is its result)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import (
+        KMeans,
+        MeshConfig,
+        build_mesh,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import lloyd as L
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import (
+        distributed,
+    )
+
+    res = {"rank": rank}
+    try:
+        ctx = distributed.initialize(f"file://{store}", world, rank, backend=backend, device=dev)
+        res.update(backend=ctx.backend, world=ctx.num_processes)
+        mesh = distributed.cluster_mesh() or build_mesh(MeshConfig(data=1), [dev])
+        x, warm = np.load(rows_path), np.load(warm_path)
+        before = L.launch_counts()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = KMeans(k=len(warm), seed=SEED, max_iter=MAX_ITER,
+                   warm_start_centers=warm).fit(x, mesh=mesh)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        res.update(fit_s=time.perf_counter() - t0, model=m, owned=mesh.local_data_shards(),
+                   mesh=dict(mesh.shape),
+                   launches={k: v - before[k] for k, v in L.launch_counts().items()})
+    except Exception as e:  # noqa: BLE001 - the parent checks what each rank met
+        res["error"] = f"{type(e).__name__}: {e}"
+    try:
+        distributed.shutdown()
+    except Exception as e:  # noqa: BLE001
+        res["shutdown_error"] = f"{type(e).__name__}: {e}"
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+    sys.stdout.flush()
+    os._exit(0)   # a refused NCCL communicator must not hold the exit
+
+
+def mesh_case(L, x, w, centers, c_valid, tag: str, reps: int = 20) -> tuple[dict, dict]:
+    """K1 and K2 against their plain versions on one shard's own inputs
+    (``compare``), with their times.  → (K1 shape record, K2 shape record)."""
+    n, d = x.shape
+    k = centers.shape[0]
+    k1_err, k2_err, cost_rel, flips = compare(L, x, w, centers, c_valid, tag)
+    t = kernel_times(L, x, w, centers, c_valid, reps)
+    b1, b1_by = bound_ms(n, d, k, stats=True)
+    b2, b2_by = bound_ms(n, d, k, stats=False)
+    say(f"  shard {tag}: K1 {t['k1']:.4f} ms (plain {t['k1_plain']:.4f}, library "
+        f"{t['k1_lib']:.4f}, bound {b1:.4f} by {b1_by}; max_abs_err {k1_err:.3g}, cost rel err "
+        f"{cost_rel:.3g}) | K2 {t['k2']:.4f} ms (plain {t['k2_plain']:.4f}, library "
+        f"{t['k2_lib']:.4f}, bound {b2:.4f} by {b2_by}; max_abs_err {k2_err:.3g}, {flips} "
+        f"near-tie flips) — ok")
+    shape = {"n": n, "d": d, "k": k}
+    return ({**shape, "max_abs_err": k1_err, "ms": t["k1"], "plain_ms": t["k1_plain"],
+             "library_ms": t["k1_lib"], "bound_ms": b1, "bound_by": b1_by},
+            {**shape, "max_abs_err": k2_err, "ms": t["k2"], "plain_ms": t["k2_plain"],
+             "library_ms": t["k2_lib"], "bound_ms": b2, "bound_by": b2_by})
+
+
+def mesh_phase(port, L, card: str, ds, model, init, sil: float) -> dict:
+    """Slice 8a: KMeans k=256 over a (data, model) mesh on the card,
+    warm-started from the main path's init centers ``init``, on its 10M
+    standardized rows ``ds`` (each shard a view of them):
+
+    (a) a (1, 1) mesh == the main path's ``model`` bit for bit, n_iter + 1
+        K1 launches; (b) a (4, 1) mesh over ``[cuda:0] * 4``: 4 K1 launches
+        a step at 2.5M x 8 x 256, against (a) within ``MESH_TOL`` beside its
+        control (the same fit on bf16-rounded rows, which must fail it),
+        ``==`` on integer-valued rows, predict / compute_cost / silhouette
+        shard by shard; (c) a (2, 2) mesh: K2 then the owner-masked K1 a
+        shard at 5M x 8 x 128, the K1 counts summed over the model shards
+        == the bincount of K2's global argmin, against (b) within the
+        limits; (d) two spawned processes on the one card, a (2, 1) mesh
+        over gloo (named: NCCL refuses two ranks on one card, and that
+        refusal is checked), both ranks ``==`` the in-process (2, 1) fit on
+        the same 2M rows; (e) one spawned process over NCCL at world size
+        1, its (1, 1) fit through the NCCL all_gather ``==`` the in-process
+        fit; (f) ``federated_dataset`` over a (4, 1) mesh of the 2M rows
+        under 64 hospital ids, balanced, within the limits of the
+        ingest-order (4, 1) fit.  → {"launches": the main path's, "k1",
+        "k2": shape records}."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel as P
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(L)
+    cuda0 = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+    counts = L.launch_counts
+
+    def fit(data, warm=init, **kw):
+        sync()
+        t0 = time.perf_counter()
+        m = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER, warm_start_centers=warm).fit(data, **kw)
+        sync()
+        return m, time.perf_counter() - t0
+
+    def gated(gaps: dict) -> bool:
+        return all(gaps[key] <= MESH_TOL[key] for key in MESH_TOL)
+
+    def mesh(data: int, model: int = 1):
+        return P.build_mesh(port.MeshConfig(data=data, model=model), [cuda0] * (data * model))
+
+    k1_shapes, k2_shapes = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        # ------------------- the spawned legs first: their start-up overlaps
+        x2 = ds.x[:MESH_PROC_N].cpu().numpy()
+        rows_path, warm_path = os.path.join(tmp, "rows.npy"), os.path.join(tmp, "warm.npy")
+        np.save(rows_path, x2)
+        np.save(warm_path, np.asarray(init, np.float32))
+        spawn = mp.get_context("spawn")      # the parent's CUDA context exists: never fork
+        procs = {}
+        for leg, world, backend in (("gloo", 2, "gloo"), ("nccl1", 1, "nccl"),
+                                    ("refused", 2, "nccl")):
+            for r in range(world):
+                out = os.path.join(tmp, f"{leg}{r}.pkl")
+                p = spawn.Process(target=mesh_rank_main, args=(
+                    r, world, os.path.join(tmp, f"store_{leg}"), backend, str(cuda0), rows_path,
+                    warm_path, out))
+                p.start()
+                procs[leg, r] = (p, out)
+        t_spawn = time.perf_counter()
+        lap("mesh spawn")
+
+        # ---------------------------------------------------- (a) (1, 1)
+        before = counts()
+        m_a, s_a = fit(ds, mesh=P.build_mesh(port.MeshConfig(data=1), [cuda0]))
+        k1_a = counts()["fused_lloyd_stats"] - before["fused_lloyd_stats"]
+        check(same_kmeans(m_a, model), "the (1, 1) mesh fit differs from the main path's fit")
+        check(k1_a == m_a.n_iter + 1, f"the (1, 1) fit launched K1 {k1_a} times")
+        say(f"mesh (a) (1, 1) over cuda:0: fit {s_a:.4f} s warm, n_iter {m_a.n_iter}, "
+            f"{N * m_a.n_iter / s_a:.4g} Lloyd records/s, K1 {k1_a} launches; == the main "
+            f"path's model bit for bit ({card})")
+        lap("mesh (a)")
+
+        # ---------------------------------------------------- (b) (4, 1)
+        mesh4 = mesh(MESH_DATA)
+        sds4 = sharding.shard_dataset(ds, mesh4)
+        per = N // MESH_DATA
+        check(all(s.x.data_ptr() == ds.x[i * per:].data_ptr() for i, s in enumerate(sds4.shards)),
+              "a shard of the (4, 1) mesh is a copy, not a view of the rows")
+        before = counts()
+        m_b, s_b = fit(sds4)
+        k1_b = counts()["fused_lloyd_stats"] - before["fused_lloyd_stats"]
+        check(k1_b == MESH_DATA * (m_b.n_iter + 1),
+              f"the (4, 1) fit launched K1 {k1_b} times over {m_b.n_iter} steps")
+        gaps_b = kmeans_gaps(m_b, m_a)
+        with ledger.aside():
+            xr = ds.x.to(torch.bfloat16).to(torch.float32)
+            ctl, _ = fit(sharding.shard_dataset(port.DeviceDataset(xr, ds.y, ds.w), mesh4))
+            del xr
+        ctl_gaps = kmeans_gaps(ctl, m_a)
+        say(f"mesh (b) (4, 1) over [cuda:0] * 4: fit {s_b:.4f} s warm, n_iter {m_b.n_iter}, "
+            f"{N * m_b.n_iter / s_b:.4g} Lloyd records/s, K1 {k1_b} launches (4 a step at "
+            f"{per} x {D} x {K}); vs (a): " + as_text(gaps_b) + f" (limits {MESH_TOL}); the "
+            f"control, the rows bf16-rounded: " + as_text(ctl_gaps))
+        check(m_b.n_iter == m_a.n_iter and gated(gaps_b),
+              f"(4, 1) vs (1, 1): n_iter {m_b.n_iter} / {m_a.n_iter}, {gaps_b}")
+        check(not gated(ctl_gaps), f"the bf16-rounded control {ctl_gaps} passes {MESH_TOL}")
+        before = counts()
+        pred_b = m_b.predict(sds4.x)
+        cost_b = m_b.compute_cost(sds4)
+        sil_b = port.ClusteringEvaluator().evaluate(sds4, pred_b, k=K)
+        sync()
+        k2_b = counts()["fused_assign"] - before["fused_assign"]
+        check(k2_b == 2 * MESH_DATA, f"predict + compute_cost launched K2 {k2_b} times")
+        with ledger.aside():
+            whole = m_b.predict(ds.x)
+            check(torch.equal(torch.cat(pred_b.data_blocks()), whole),
+                  "the sharded predict differs from the unsharded one")
+            sil_whole = port.ClusteringEvaluator().evaluate(ds, whole, k=K)
+        cost_rel = abs(cost_b - m_b.training_cost) / m_b.training_cost
+        check(cost_rel <= 1e-6, f"sharded compute_cost {cost_b} vs training_cost "
+              f"{m_b.training_cost}")
+        check(abs(sil_b - sil_whole) <= 1e-5, f"sharded silhouette {sil_b} vs {sil_whole}")
+        say(f"  (b) predict shard by shard == unsharded (K2 {k2_b} launches with compute_cost), "
+            f"compute_cost rel {cost_rel:.3g} of training_cost, silhouette {sil_b:.6f} "
+            f"(unsharded {sil_whole:.6f}, the main path's {sil:.6f})")
+        rng = np.random.default_rng(SEED)
+        cen = rng.integers(-30, 30, size=(K, D))
+        xe = (cen[rng.integers(0, K, size=MESH_EXACT_N)]
+              + rng.integers(-2, 3, size=(MESH_EXACT_N, D))).astype(np.float32)
+        ide = port.device_dataset(xe, device=cuda0)
+        e1, _ = fit(ide, warm=xe[:K])
+        e4, _ = fit(sharding.shard_dataset(ide, mesh4), warm=xe[:K])
+        check(np.array_equal(e1.cluster_centers, e4.cluster_centers)
+              and np.array_equal(e1.cluster_sizes, e4.cluster_sizes) and e1.n_iter == e4.n_iter,
+              "integer rows: the (4, 1) fit differs from the unsharded fit")
+        say(f"  (b) integer-valued rows ({MESH_EXACT_N} x {D}): the (4, 1) fit == the "
+            f"unsharded fit (centers, sizes, n_iter {e4.n_iter})")
+        del ide, xe
+        with ledger.aside():
+            kr = mesh_case(L, sds4.shard(0).x, sds4.shard(0).w,
+                           torch.from_numpy(m_b.cluster_centers).to(cuda0),
+                           torch.ones(K, device=cuda0), f"(b) 0 of 4")
+        k1_shapes.append(kr[0])
+        k2_shapes.append(kr[1])
+        lap("mesh (b)")
+
+        # ---------------------------------------------------- (c) (2, 2)
+        sds22 = sharding.shard_dataset(ds, mesh(2, 2))
+        before = counts()
+        m_c, s_c = fit(sds22)
+        k1_c = counts()["fused_lloyd_stats"] - before["fused_lloyd_stats"]
+        k2_c = counts()["fused_assign"] - before["fused_assign"]
+        check(k1_c == k2_c == 4 * (m_c.n_iter + 1),
+              f"the (2, 2) fit launched K1 {k1_c} and K2 {k2_c} times over {m_c.n_iter} steps")
+        with ledger.aside():
+            glob = torch.bincount(m_c.predict(ds.x).to(torch.int64), minlength=K).cpu().numpy()
+        check(np.array_equal(m_c.cluster_sizes.astype(np.int64), glob),
+              "(2, 2): the K1 counts summed over the model shards are not the bincount of "
+              "K2's global argmin")
+        gaps_c = kmeans_gaps(m_c, m_b)
+        say(f"mesh (c) (2, 2) over [cuda:0] * 4: fit {s_c:.4f} s warm, n_iter {m_c.n_iter}, "
+            f"{N * m_c.n_iter / s_c:.4g} Lloyd records/s, K2 {k2_c} + K1 {k1_c} launches (a "
+            f"shard: {N // 2} x {D} x {K // 2}); the K1 counts summed over the model shards "
+            f"== the bincount of K2's global argmin; vs (b): " + as_text(gaps_c))
+        check(m_c.n_iter == m_b.n_iter and gated(gaps_c), f"(2, 2) vs (4, 1): {gaps_c}")
+        with ledger.aside():
+            x0, w0 = sds22.shard(0).x, sds22.shard(0).w
+            c = torch.from_numpy(m_c.cluster_centers).to(cuda0)
+            ones = torch.ones(K // 2, device=cuda0)
+            mins = torch.stack([L.fused_assign(x0, c[:K // 2].contiguous(), ones)[1],
+                                L.fused_assign(x0, c[K // 2:].contiguous(), ones)[1]])
+            owned = (w0 * (mins.argmin(dim=0) == 0).float()).contiguous()
+            kr = mesh_case(L, x0, owned, c[:K // 2].contiguous(), ones, "(c) (0, 0) of (2, 2)")
+            del mins, owned
+        k1_shapes.append(kr[0])
+        k2_shapes.append(kr[1])
+        del sds22
+        lap("mesh (c)")
+
+        # ------------------------------------- (f) per-hospital placement
+        ids = np.random.default_rng(SEED + 1).integers(0, MESH_HOSPITALS, MESH_PROC_N)
+        t0 = time.perf_counter()
+        fd = port.federated_dataset(x2, ids, mesh=mesh4)
+        fd_s = time.perf_counter() - t0
+        hosp, n_h = np.unique(ids, return_counts=True)
+        load = np.zeros(MESH_DATA, np.int64)
+        for h, c_h in zip(hosp, n_h):
+            load[fd.hospital_to_shard[h]] += c_h
+        shard_len = fd.n_padded // MESH_DATA
+        live = fd.row_order >= 0
+        check(load.max() <= load.mean() + n_h.max(), f"hospital placement unbalanced: {load}")
+        check(np.array_equal(np.flatnonzero(live) // shard_len,
+                             [fd.hospital_to_shard[h] for h in ids[fd.row_order[live]]]),
+              "a hospital's rows straddle shards")
+        m_f, s_f = fit(fd)
+        m_p, _ = fit(x2, mesh=mesh4)
+        gaps_f = kmeans_gaps(m_f, m_p)
+        say(f"mesh (f) federated_dataset over (4, 1): {MESH_PROC_N} rows of {MESH_HOSPITALS} "
+            f"hospitals placed in {fd_s:.2f} s, shard loads {load.tolist()} (LPT bound "
+            f"{load.mean() + n_h.max():.0f}), each hospital on one shard; fit {s_f:.4f} s, "
+            f"n_iter {m_f.n_iter}; vs the ingest-order (4, 1) fit: " + as_text(gaps_f))
+        check(m_f.n_iter == m_p.n_iter and gated(gaps_f), f"federated vs ingest order: {gaps_f}")
+        del fd
+        lap("mesh (f)")
+
+        # ------------------------------------------- (d), (e): the ranks
+        for (leg, r), (p, _) in procs.items():
+            p.join(max(1.0, MESH_JOIN_S - (time.perf_counter() - t_spawn)))
+            if p.is_alive():
+                p.kill()
+                p.join()
+            check(p.exitcode == 0, f"mesh leg {leg} rank {r} exited {p.exitcode}")
+        got = {}
+        for key, (_, out) in procs.items():
+            with open(out, "rb") as f:
+                got[key] = pickle.load(f)
+        spawned_s = time.perf_counter() - t_spawn
+        lap("mesh spawned legs")
+        refusals = [got["refused", r].get("error", "") for r in range(2)]
+        check(all("duplicate gpu" in e.lower() or "invalidusage" in e.lower().replace(" ", "")
+                  for e in refusals), f"NCCL took two ranks on one card: {refusals}")
+        say(f"mesh: NCCL refuses two ranks on one card, as expected: "
+            f"{refusals[0].splitlines()[0][:300]}")
+        m_d, _ = fit(x2, mesh=mesh(2))
+        for r in range(2):
+            g = got["gloo", r]
+            check("error" not in g, f"gloo rank {r}: {g.get('error')}")
+            check(g["backend"] == "gloo" and g["world"] == 2 and g["owned"] == [r],
+                  f"gloo rank {r} saw {g}")
+            check(same_kmeans(g["model"], m_d), f"gloo rank {r} differs from the in-process "
+                  "(2, 1) fit")
+            check(g["launches"]["fused_lloyd_stats"] == g["model"].n_iter + 1,
+                  f"gloo rank {r} launched K1 {g['launches']['fused_lloyd_stats']} times")
+        say(f"mesh (d) two processes on {card} over gloo, a (2, 1) host-major mesh of "
+            f"{MESH_PROC_N} rows: both ranks == each other and the in-process (2, 1) fit "
+            f"(n_iter {m_d.n_iter}); K1 a rank {got['gloo', 0]['launches']['fused_lloyd_stats']}"
+            f" / {got['gloo', 1]['launches']['fused_lloyd_stats']} (one {MESH_PROC_N // 2}-row "
+            f"shard a step); rank fits {got['gloo', 0]['fit_s']:.3f} / "
+            f"{got['gloo', 1]['fit_s']:.3f} s")
+        g = got["nccl1", 0]
+        m_e, _ = fit(x2, device=cuda0)
+        check("error" not in g, f"the NCCL world-1 leg: {g.get('error')}")
+        check(g["backend"] == "nccl" and g["world"] == 1 and same_kmeans(g["model"], m_e),
+              "the NCCL world-1 fit differs from the in-process (1, 1) fit")
+        check(g["launches"]["fused_lloyd_stats"] == g["model"].n_iter + 1,
+              "the NCCL world-1 rank's K1 launches")
+        say(f"mesh (e) one process over NCCL (world size 1), its statistics through the NCCL "
+            f"all_gather: == the in-process (1, 1) fit (n_iter {m_e.n_iter}, fit "
+            f"{g['fit_s']:.3f} s); spawned legs ended {spawned_s:.1f} s after their start")
+        with ledger.aside():
+            x1 = torch.from_numpy(x2[: MESH_PROC_N // 2]).to(cuda0)
+            kr = mesh_case(L, x1, torch.ones(MESH_PROC_N // 2, device=cuda0),
+                           torch.from_numpy(m_d.cluster_centers).to(cuda0),
+                           torch.ones(K, device=cuda0), "(d) a rank's (1M rows)")
+            del x1
+        k1_shapes.append(kr[0])
+        k2_shapes.append(kr[1])
+        lap("mesh (d), (e)")
+    launches = ledger.main_path()
+    say(f"mesh_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "k1": k1_shapes, "k2": k2_shapes}
+
+
 def main() -> None:
     try:
         import torch
@@ -8606,7 +8974,7 @@ def main() -> None:
     # where the fit's time goes: the host k-means++ init, re-run alone
     # (deterministic, launches nothing)
     t0 = time.perf_counter()
-    port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER)._init_centers(ds)
+    init_centers = port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER)._init_centers(ds)
     init_s = time.perf_counter() - t0
     k1_s = after_fit["fused_lloyd_stats"] * records[0]["ms"] / 1e3
     say(f"fit breakdown: host sample + k-means++ init, timed alone, {init_s:.3f} s; "
@@ -8777,6 +9145,15 @@ def main() -> None:
     # kernel: the counts must not move)
     soak_phase(port, card)
 
+    # ------- slice 8a: KMeans k=256 over a (data, model) mesh, in one
+    # process and across processes (K1 a shard a step; K2 + K1 a shard on a
+    # model axis; K2 a shard in predict and compute_cost)
+    mp_ = mesh_phase(port, L, card, ds, model, init_centers, sil)
+    for name, v in mp_["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += mp_["k1"]
+    records[1]["shapes"] += mp_["k2"]
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -8793,6 +9170,7 @@ def main() -> None:
         f"pipeline_stream_phase "
         f"{sum(v for k, v in PHASE_S.items() if k.startswith('pipe ')):.2f}; "
         f"soak_phase {sum(v for k, v in PHASE_S.items() if k.startswith('soak ')):.2f}; "
+        f"mesh_phase {sum(v for k, v in PHASE_S.items() if k.startswith('mesh ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

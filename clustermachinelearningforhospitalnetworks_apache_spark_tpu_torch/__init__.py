@@ -114,16 +114,28 @@ soak (``soak``, imported on its own as in the JAX package: ``run_soak``
 and ``python -m <package>.soak``), one seeded day of every subsystem under
 chaos judged by a machine-checked report.  Its CPU tests: ``python -m
 pytest tests/test_torch_soak.py``; on a card,
-``chip_smoke.soak_phase(port, card)`` runs it alone.
+``chip_smoke.soak_phase(port, card)`` runs it alone.  Slice 8a adds the
+mesh (``parallel``: ``MeshConfig``, ``build_mesh`` / ``build_hybrid_mesh`` /
+``default_mesh`` / ``use_mesh``, the ``torch.distributed`` runtime, the
+partitioner, sharded datasets, the ordered collectives and the per-hospital
+placement ``federated_dataset``) and runs KMeans over it: fit, predict,
+cost and silhouette on a (data, model) mesh in one process and across
+processes (``KMeans().fit(x, mesh=build_mesh(MeshConfig(data=4)))``; every
+other estimator takes ``mesh=`` and raises for more than one shard until
+slice 8b).  Its CPU tests: ``python -m pytest tests/test_torch_mesh.py
+tests/test_torch_sharded_kmeans.py tests/test_torch_distributed.py
+tests/test_torch_hospital_placement.py``; on a card,
+``chip_smoke.mesh_phase(port, L, card, ds, model, init)`` runs it after
+the main path.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to
 ``device="cuda"`` and run on the CPU only when asked.
 """
 
-from . import (farm, federated, models, pipeline, quality, serve, stat, streaming, tune, tuning,
-               utils, viz)
-from .config import PipelineConfig
+from . import (farm, federated, models, parallel, pipeline, quality, serve, stat, streaming, tune,
+               tuning, utils, viz)
+from .config import MeshConfig, PipelineConfig
 from .convert import (
     imputer_model_from_jax_arrays,
     maxabs_scaler_model_from_jax_arrays,
@@ -279,6 +291,8 @@ from .models.tree import (
     RandomForestModel,
     RandomForestRegressor,
 )
+from .parallel.federation import FederatedDataset, federated_dataset
+from .parallel.mesh import build_hybrid_mesh, build_mesh, default_mesh, use_mesh
 from .parallel.outofcore import HostDataset
 from .pipeline.ml_pipeline import Pipeline, PipelineModel, load_pipeline_model
 from .pipeline.hospital_pipeline import (
@@ -407,4 +421,7 @@ __all__ = [
     "RowValidator", "hospital_constraints", "quality",
     # slice 7b
     "farm",
+    # slice 8a
+    "FederatedDataset", "MeshConfig", "build_hybrid_mesh", "build_mesh", "default_mesh",
+    "federated_dataset", "use_mesh",
 ]

@@ -2,11 +2,14 @@
 the reference script's ``CONFIG`` dict (``mllearnforhospitalnetwork.py
 :40-50``) as a frozen dataclass loadable from JSON or command-line flags.
 
-The port runs on one device, so it has no ``MeshConfig``: a ``mesh`` key
-in a JSON config, and ``--mesh-data`` / ``--mesh-model`` on the command
-line, are accepted and ignored, so a JAX package config file loads
-unchanged.  The device is not a config field either: entry points take
-``device=`` (the console entry ``--device``), default the card.
+``mesh`` is a :class:`MeshConfig`, the shape of the (data, model) device
+mesh that ``parallel.build_mesh`` lays out (the reference's ``hdfsMaster``
+cluster URL, superseded by it and dropped on load), read from a JSON
+config's ``mesh`` key and from ``--mesh-data`` / ``--mesh-model``, so a JAX
+package config file loads unchanged and ``to_dict()`` equals the
+reference's.  The device is not a config field: entry points take
+``device=`` (the console entry ``--device``), default the card, and
+``mesh=`` where they run over a mesh.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
 #: the reference's camelCase ``CONFIG`` keys, accepted by ``from_dict``
@@ -29,8 +32,25 @@ _ALIASES = {
     "losThreshold": "los_threshold",
 }
 
-#: keys of a JAX config that name the mesh, which one device does not have
-_MESH_KEYS = ("mesh", "hdfsMaster")
+#: the reference's cluster-master key, superseded by ``mesh`` and dropped
+_MESH_KEYS = ("hdfsMaster",)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Shape of the device mesh (the JAX package's ``MeshConfig``).
+
+    ``data`` is the row axis (Spark's executor data parallelism), ``-1``
+    meaning every device the model axis leaves; ``model`` splits KMeans'
+    centers; ``dcn_hosts`` > 1 makes the data axis host-major across
+    processes (``parallel.build_hybrid_mesh``)."""
+
+    data: int = -1
+    model: int = 1
+    dcn_hosts: int = 1
+
+    def axis_names(self) -> tuple[str, ...]:
+        return ("data", "model")
 
 
 @dataclass(frozen=True)
@@ -46,6 +66,7 @@ class PipelineConfig:
     watermark_minutes: float = 10.0       # withWatermark("event_time", "10 minutes") :81
     train_fraction: float = 0.7           # randomSplit([0.7, 0.3], seed=42) :139
     split_seed: int = 42
+    mesh: MeshConfig = field(default_factory=MeshConfig)   # supersedes :47 hdfsMaster
     plot_dir: str = "./data/plots"        # PNGs in place of plt.show() :215,:223
     tree_max_depth: int = 5               # Spark's DT/RF defaults
     rf_num_trees: int = 20
@@ -59,6 +80,8 @@ class PipelineConfig:
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "PipelineConfig":
         d = dict(d)
+        if isinstance(d.get("mesh"), Mapping):
+            d["mesh"] = MeshConfig(**d["mesh"])
         for old, new in _ALIASES.items():
             if old in d:
                 d[new] = d.pop(old)
@@ -79,12 +102,14 @@ class PipelineConfig:
     @classmethod
     def from_flags(cls, argv: Sequence[str] | None = None) -> "PipelineConfig":
         """``--key=value`` for every field, over ``--config`` (a JSON file)
-        when given; ``--mesh-data`` / ``--mesh-model`` are ignored."""
+        when given; ``--mesh-data`` / ``--mesh-model`` set the mesh's axes."""
         p = argparse.ArgumentParser(description="hospital pipeline config")
         p.add_argument("--config", help="JSON config file", default=None)
         p.add_argument("--mesh-data", type=int, default=None)
         p.add_argument("--mesh-model", type=int, default=None)
         for f in dataclasses.fields(cls):
+            if f.name == "mesh":
+                continue
             p.add_argument("--" + f.name.replace("_", "-"), type=type(f.default), default=None)
         ns = p.parse_args(argv)
         base = cls.from_json(ns.config) if ns.config else cls()
@@ -92,4 +117,10 @@ class PipelineConfig:
             k: v for k, v in vars(ns).items()
             if v is not None and k not in ("config", "mesh_data", "mesh_model")
         }
-        return base.replace(**over) if over else base
+        cfg = base.replace(**over) if over else base
+        if ns.mesh_data is not None or ns.mesh_model is not None:
+            cfg = cfg.replace(mesh=MeshConfig(
+                data=ns.mesh_data if ns.mesh_data is not None else cfg.mesh.data,
+                model=ns.mesh_model if ns.mesh_model is not None else cfg.mesh.model,
+            ))
+        return cfg

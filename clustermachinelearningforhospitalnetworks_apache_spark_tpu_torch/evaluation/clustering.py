@@ -26,8 +26,9 @@ from ..device import resolve_device
 _SIL_TILE = 1 << 24
 
 
-def _silhouette(x, assign, w, k: int):
-    """(x, assign, w) → (Σ s·w, Σ w), both float64 host scalars."""
+def _cluster_stats(x, assign, w, k: int):
+    """Pass 1: (idx, w masked to in-range assignments, |x|², the per-cluster
+    (N_C, Y_C, Ψ_C) packed as one (k·(d + 2),) vector)."""
     in_range = (assign >= 0) & (assign < k)
     w = torch.where(in_range, w, torch.zeros_like(w))
     idx = torch.where(in_range, assign, torch.zeros_like(assign)).to(torch.int64)
@@ -37,9 +38,15 @@ def _silhouette(x, assign, w, k: int):
         0, idx, x * w[:, None]
     )
     psi = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(0, idx, sq * w)
+    return idx, w, sq, torch.cat([counts, y.reshape(-1), psi])
+
+
+def _score(x, idx, w, sq, packed, k: int) -> torch.Tensor:
+    """Pass 2 against the global (N_C, Y_C, Ψ_C): → float64 [Σ s·w, Σ w]."""
+    d = x.shape[1]
+    counts, y, psi = packed[:k], packed[k : k + k * d].view(k, d), packed[k + k * d :]
     empty = counts == 0
     safe_counts = torch.clamp(counts, min=1.0)
-
     s_sum = torch.zeros((), dtype=torch.float64, device=x.device)
     step = max(1, _SIL_TILE // k)
     for s in range(0, x.shape[0], step):
@@ -57,7 +64,35 @@ def _silhouette(x, assign, w, k: int):
         )
         sc = torch.where(torch.isfinite(sc), sc, torch.zeros_like(sc))
         s_sum += (sc * wc).sum().to(torch.float64)
-    return float(s_sum), float(w.sum(dtype=torch.float64))
+    return torch.stack([s_sum, w.sum(dtype=torch.float64)])
+
+
+def _silhouette(x, assign, w, k: int):
+    """(x, assign, w) → (Σ s·w, Σ w), both float64 host scalars."""
+    idx, w, sq, packed = _cluster_stats(x, assign, w, k)
+    out = _score(x, idx, w, sq, packed, k)
+    return float(out[0]), float(out[1])
+
+
+def _silhouette_sharded(sds, assign, k: int):
+    """The two passes shard by shard, each shard's statistics and scores
+    summed in ascending shard order (``parallel.collectives``)."""
+    from ..parallel.collectives import ordered_sum
+
+    mesh, passes = sds.mesh, {}
+    packed: list = [None] * len(sds.shards)
+    for i, s in enumerate(sds.shards):
+        if s is not None:
+            x = s.x.to(torch.float32)
+            passes[i] = (x,) + _cluster_stats(x, assign.block(i).to(torch.int32),
+                                              s.w.to(torch.float32), k)
+            packed[i] = passes[i][-1]
+    total = ordered_sum(packed, mesh)
+    scores: list = [None] * len(sds.shards)
+    for i, (x, idx, w, sq, _) in passes.items():
+        scores[i] = _score(x, idx, w, sq, total.to(x.device), k)
+    out = ordered_sum(scores, mesh)
+    return float(out[0]), float(out[1])
 
 
 def inertia(x: torch.Tensor, centers: torch.Tensor, assign: torch.Tensor,
@@ -75,32 +110,57 @@ class ClusteringEvaluator:
     metric_name: str = "silhouette"
 
     def evaluate(self, features, assignments, k: int | None = None,
-                 device=None) -> float:
-        """``features``: the DeviceDataset a model was fit on (with
-        assignments from ``model.predict(ds.x)``) or host rows, moved to
-        ``device`` (default the card)."""
+                 device=None, mesh=None) -> float:
+        """``features``: the dataset a model was fit on (a DeviceDataset,
+        a ShardedDataset or a FederatedDataset, with assignments from
+        ``model.predict(ds.x)``) or host rows, moved to ``device``
+        (default the card) or laid over ``mesh``.  Host assignments follow
+        the rows' order (a federated layout scatters them by its
+        ``row_order``)."""
+        from ..parallel.federation import FederatedDataset
+        from ..parallel.sharding import MeshArray, ShardedDataset, shard_rows
+        from ..parallel.sharding import device_dataset as mesh_dataset
+
         if self.metric_name != "silhouette":
             raise ValueError(f"unsupported metric {self.metric_name!r}")
-        if isinstance(features, DeviceDataset):
+        row_order = None
+        if isinstance(features, FederatedDataset):
+            row_order = features.row_order
+            features = features.data
+        if isinstance(features, (DeviceDataset, ShardedDataset)):
             ds = features
+        elif mesh is not None:
+            ds = mesh_dataset(np.asarray(features), mesh=mesh)
         else:
             ds = device_dataset(np.asarray(features), device=resolve_device(device))
-        n_pad, dev = ds.n_padded, ds.x.device
+        n_pad = ds.n_padded
 
-        def to_slots(values, dtype):
-            v = torch.as_tensor(np.asarray(values).astype(dtype).reshape(-1))
-            out = torch.zeros((n_pad,), dtype=v.dtype)
-            out[: v.shape[0]] = v
-            return out.to(dev)
+        def to_slots(values):
+            v = np.asarray(values).astype(np.int32).reshape(-1)
+            out = np.zeros((n_pad,), dtype=np.int32)
+            if row_order is None:
+                out[: v.shape[0]] = v
+            else:
+                live = row_order >= 0
+                out[live] = v[row_order[live]]
+            return out
 
+        if isinstance(ds, ShardedDataset):
+            if not (isinstance(assignments, MeshArray) and assignments.shape[0] == n_pad):
+                if isinstance(assignments, torch.Tensor):
+                    assignments = assignments.cpu().numpy()
+                assignments = shard_rows(to_slots(assignments), ds.mesh)
+            if k is None:
+                k = int(np.where(ds.w.numpy() > 0, assignments.numpy(), 0).max()) + 1
+            s_sum, n = _silhouette_sharded(ds, assignments, int(k))
+            return s_sum / max(n, 1.0)
+        dev = ds.x.device
         if isinstance(assignments, torch.Tensor) and assignments.shape[0] == n_pad:
             assign = assignments.to(dev, torch.int32)
         else:
-            assign = to_slots(
-                assignments.cpu().numpy()
-                if isinstance(assignments, torch.Tensor) else assignments,
-                np.int32,
-            )
+            assign = torch.from_numpy(to_slots(
+                assignments.cpu().numpy() if isinstance(assignments, torch.Tensor)
+                else assignments)).to(dev)
         w = ds.w
         if k is None:
             k = int(torch.where(w > 0, assign, torch.zeros_like(assign)).max()) + 1

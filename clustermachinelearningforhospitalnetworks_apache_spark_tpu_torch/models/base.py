@@ -10,6 +10,8 @@ package's artifact layout (``io/model_io.py``).
 
 from __future__ import annotations
 
+import functools
+import inspect
 from dataclasses import dataclass
 from typing import Any
 
@@ -21,15 +23,83 @@ from ..device import resolve_device
 from ..features.assembler import AssembledTable
 
 
+#: the slice of the port that brings ``mesh=`` to every estimator but KMeans
+MESH_SLICE = "8b"
+
+
+def _sharded(data: Any) -> bool:
+    from ..parallel.federation import FederatedDataset
+    from ..parallel.sharding import ShardedDataset
+
+    if isinstance(data, FederatedDataset):
+        data = data.data
+    return isinstance(data, ShardedDataset)
+
+
+def require_single_shard(data: Any, mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` naming slice 8b when ``mesh`` has more
+    than one entry (or a process group is active) or ``data`` is sharded:
+    ``what`` runs on one device until its mesh slice lands, and never
+    gathers the shards silently."""
+    from ..parallel.sharding import uses_shards
+
+    if (mesh is not None and uses_shards(mesh)) or _sharded(data):
+        raise NotImplementedError(
+            f"{what} over a mesh of more than one shard comes with slice {MESH_SLICE} of "
+            "the port; run it on one device (device=) or a one-entry mesh"
+        )
+
+
+def _mesh_guarded(fit):
+    """``fit`` taking ``mesh=`` (the reference's keyword): a mesh of more
+    than one shard, or sharded data, raises (:func:`require_single_shard`);
+    a one-entry mesh runs the fit on its device."""
+    params = list(inspect.signature(fit).parameters)
+    takes_mesh = "mesh" in params
+    device_at = params.index("device") if "device" in params else None
+
+    @functools.wraps(fit)
+    def guarded(self, *args, mesh=None, **kw):
+        data = args[0] if args else kw.get(params[1])
+        require_single_shard(data, mesh, f"{type(self).__name__}.fit")
+        if mesh is not None:
+            if takes_mesh:
+                kw["mesh"] = mesh
+            if device_at is not None and len(args) < device_at and kw.get("device") is None:
+                kw["device"] = mesh.device(0, 0)
+        return fit(self, *args, **kw)
+
+    return guarded
+
+
 def as_device_dataset(data: Any, label_col: str | None = None, device=None,
-                      weight_col: str | None = None) -> DeviceDataset:
+                      weight_col: str | None = None, mesh=None, sharded: bool = False):
     """Coerce (DeviceDataset | AssembledTable | (X, y[, w]) | X) to a
-    padded dataset on ``device`` (default the card).  A DeviceDataset is
-    returned as it is, on its own device; an AssembledTable takes its
-    labels (``label_col``) and weights (``weight_col``) from its source
-    table."""
-    if isinstance(data, DeviceDataset):
+    padded dataset on ``device`` (default the card), or over ``mesh``.  A
+    DeviceDataset is returned as it is, on its own device; a
+    FederatedDataset gives its data; an AssembledTable takes its labels
+    (``label_col``) and weights (``weight_col``) from its source table.
+
+    ``mesh=None`` keeps ``device=``; a mesh of one entry (and no process
+    group) gives the single-device dataset on its device.  A caller that
+    runs over shards passes ``sharded=True`` and gets a ShardedDataset for
+    a larger mesh; any other caller raises (:func:`require_single_shard`)."""
+    from ..parallel.federation import FederatedDataset
+    from ..parallel.sharding import ShardedDataset, shard_dataset, uses_shards
+
+    if isinstance(data, FederatedDataset):
+        data = data.data
+    if not sharded:
+        require_single_shard(data, mesh, "fitting or predicting")
+    if isinstance(data, (DeviceDataset, ShardedDataset)):
         return data
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        if uses_shards(mesh):
+            # padded and weighted on the host, then split over the mesh
+            return shard_dataset(as_device_dataset(data, label_col, "cpu", weight_col), mesh)
+        device = mesh.device(0, 0)
     if isinstance(data, AssembledTable):
         return data.to_device(label_col=label_col, device=device, weight_col=weight_col)
     if weight_col is not None:
@@ -84,6 +154,18 @@ class Estimator:
     #: partials-family name (``federated.partials`` registry) or ``None``
     #: when the estimator cannot fit from merged statistics
     partials_family: str | None = None
+
+    #: True where ``fit`` runs over a mesh of more than one shard itself
+    #: (KMeans).  Every other subclass's ``fit`` takes ``mesh=`` too: a
+    #: one-entry mesh names its device, a larger one raises until slice 8b
+    #: (:func:`_mesh_guarded`)
+    mesh_fit: bool = False
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        fit = cls.__dict__.get("fit")
+        if fit is not None and not cls.mesh_fit:
+            cls.fit = _mesh_guarded(fit)
 
     def fit(self, data: Any, label_col: str | None = None, device=None):
         raise NotImplementedError

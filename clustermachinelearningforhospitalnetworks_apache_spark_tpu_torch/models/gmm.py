@@ -56,7 +56,8 @@ from ..device import resolve_device
 from ..io.model_io import register_model
 from ..ops.distance import matmul_p, validate_matmul_precision
 from ..parallel.outofcore import HostDataset, add_stats
-from .base import ClusteringModel, Estimator, as_device_dataset, check_features
+from .base import (ClusteringModel, Estimator, as_device_dataset, check_features,
+                   require_single_shard)
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
 
@@ -551,6 +552,7 @@ class GaussianMixture(Estimator):
         sample (candidate centers cross the wire, never rows)."""
         from ..federated.partials import Partials
 
+        require_single_shard(data, mesh, "GaussianMixture.local_init_stats")
         ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
         sample = np.asarray(sample_valid_rows(ds, self.init_sample_size, self.seed), np.float64)
         n_cand = min(max(4 * self.k, 2 * self.k + 8), sample.shape[0])
@@ -590,6 +592,7 @@ class GaussianMixture(Estimator):
         if state is None:
             raise ValueError("gmm partials need the broadcast FitState")
         validate_matmul_precision(self.matmul_precision)
+        require_single_shard(data, mesh, "GaussianMixture.partial_fit_stats")
         ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
         x = ds.x.to(torch.float32).contiguous()
         w = ds.w.to(torch.float32).contiguous()

@@ -36,6 +36,18 @@ statistics are one Lloyd pass over its rows (K1 on the card) against the
 broadcast centers; the coordinator applies the centroid rule on its
 device and stops as the device loop does (``move > tol²`` in float32).
 
+Over a mesh (``fit(..., mesh=)``, or a ``ShardedDataset``; ``parallel/``)
+each Lloyd step launches K1 once per data shard on that shard's device,
+sums the shards' statistics in ascending shard order (across processes an
+ordered all_gather, ``parallel/collectives.py``) and applies the centroid
+rule once.  The model axis splits the ``k_pad = padded_slots(k, m)``
+centers: each (data, model) shard launches K2 on its ``k_pad/m`` centers,
+the owner of a row is the first model shard with the smallest min d² (the
+reference's rule), and each shard launches K1 with the weights
+``w · (owner == m)``; K1 and K2 share one d² expression, so the counts
+summed over the model shards are the bincount of the global argmin.  A
+mesh of one shard is the single-device fit, bit for bit.
+
 A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core path:
 each Lloyd step is one K1 launch per streamed block, the statistics
 summed over blocks, then one centroid update.  ``checkpoint_dir`` commits
@@ -50,19 +62,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..data import DeviceDataset, pad_slots, padded_slots, sample_valid_rows, slot_mask
+from ..data import DeviceDataset, pad_slots, padded_slots, slot_mask
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..ops.distance import matmul_p, pairwise_sqdist, sq_norms, validate_matmul_precision
 from ..ops.lloyd import fused_assign, fused_lloyd_stats
+from ..parallel.collectives import ordered_sum
+from ..parallel.mesh import check_model_local
 from ..parallel.outofcore import HostDataset, add_stats
-from .base import ClusteringModel, Estimator, as_device_dataset, check_features
+from ..parallel.partitioner import family
+from ..parallel.sharding import (MeshArray, ShardedDataset, sample_valid_rows, shard_dataset,
+                                 uses_shards)
+from .base import (MESH_SLICE, ClusteringModel, Estimator, as_device_dataset, check_features,
+                   require_single_shard)
 from .summary import ClusteringSummary
 
 DISTANCE_MEASURES = ("euclidean", "cosine")
 
 #: invalid (k-padding) centers' distance in the reduced-precision steps
 _BIG = 1e30
+
+#: center placement over the mesh's model axis (``parallel/partitioner.py``)
+_PT = family("kmeans")
 
 
 def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -199,6 +220,78 @@ def _lloyd_refine(
     return centers
 
 
+class _ShardedLloyd:
+    """The Lloyd statistics of a :class:`ShardedDataset`: K1 once a data
+    shard (on a model axis, K2 then the owner-masked K1 once a (data,
+    model) shard), the shards' statistics summed in ascending data-shard
+    order (``collectives.ordered_sum``), unpacked on this process's first
+    local shard's device (``home``)."""
+
+    def __init__(self, sds: ShardedDataset, k: int, cosine: bool):
+        mesh = sds.mesh
+        check_model_local(mesh)
+        self.mesh = mesh
+        self.D, self.M = mesh.devices.shape
+        self.k_pad = padded_slots(k, self.M)
+        self.k_loc = self.k_pad // self.M
+        self.local = mesh.local_data_shards()
+        if not self.local:
+            raise ValueError(f"this process owns no data shard of {mesh}")
+        self.home = mesh.device(self.local[0], 0)
+        prepped, self.x, self.w = {}, {}, {}
+        blocks = np.empty(mesh.devices.shape, dtype=object)
+        for i in self.local:
+            for j in range(self.M):
+                blk = sds.shard(i, j)
+                key = (i, str(blk.x.device))  # a repeated device prepares once
+                if key not in prepped:
+                    x = blk.x.to(torch.float32).contiguous()
+                    w = blk.w.to(torch.float32).contiguous()
+                    prepped[key] = (_cosine_prep(x, w) if cosine else x, w)
+                self.x[i, j], self.w[i, j] = prepped[key]
+                blocks[i, j] = DeviceDataset(self.x[i, j], blk.y, self.w[i, j])
+        #: the prepared rows, which the init samples
+        self.data = ShardedDataset(mesh, blocks)
+        self.c_valid = _PT.put("state/c_valid", slot_mask(k, self.k_pad), mesh)
+
+    def _shard(self, i: int, cen: MeshArray, fn) -> list:
+        """Data shard i's (sums, counts, cost) for each model shard."""
+        cv = self.c_valid
+        if self.M == 1:
+            return [fn(self.x[i, 0], self.w[i, 0], cen.block(i, 0), cv.block(i, 0))]
+        dev = self.mesh.device(i, 0)
+        mins = [fused_assign(self.x[i, j], cen.block(i, j), cv.block(i, j))[1].to(dev)
+                for j in range(self.M)]
+        # the owner of a row: the first model shard with the smallest min
+        owner = torch.stack(mins).argmin(dim=0)
+        out = []
+        for j in range(self.M):
+            dj = self.mesh.device(i, j)
+            wj = self.w[i, j] * (owner == j).to(dj, torch.float32)
+            out.append(fused_lloyd_stats(self.x[i, j], wj, cen.block(i, j), cv.block(i, j)))
+        return out
+
+    def stats(self, centers: torch.Tensor, fn):
+        """One pass against ``centers`` (k_pad, d) with the per-shard
+        statistics ``fn`` (K1, or the reduced-precision pass on a data-only
+        mesh) → (sums (k_pad, d), counts (k_pad,), cost ()) on ``home``."""
+        cen = _PT.put("state/centers", centers, self.mesh)
+        parts: list = [None] * self.D
+        for i in self.local:
+            dev = self.mesh.device(i, 0)
+            parts[i] = torch.cat([torch.cat([s.reshape(-1), c, t.reshape(1)]).to(dev)
+                                  for s, c, t in self._shard(i, cen, fn)])
+        tot = ordered_sum(parts, self.mesh).to(self.home)
+        d, kl = centers.shape[1], self.k_loc
+        per = [tot[j * (kl * d + kl + 1):(j + 1) * (kl * d + kl + 1)] for j in range(self.M)]
+        sums = torch.cat([b[: kl * d].view(kl, d) for b in per])
+        counts = torch.cat([b[kl * d : kl * d + kl] for b in per])
+        cost = per[0][-1]
+        for b in per[1:]:
+            cost = cost + b[-1]
+        return sums, counts, cost
+
+
 @register_model("KMeansModel")
 @dataclass
 class KMeansModel(ClusteringModel):
@@ -262,19 +355,31 @@ class KMeansModel(ClusteringModel):
 
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         """(n, d) tensor → (n,) int32 cluster indices on x's device (the K2
-        kernel on the card; unit rows in cosine mode)."""
+        kernel on the card; unit rows in cosine mode).  A row-sharded
+        :class:`~..parallel.sharding.MeshArray` is assigned shard by shard
+        on each shard's device, one K2 launch a shard."""
         check_features(x, self.cluster_centers.shape[1], type(self).__name__)
+        if isinstance(x, MeshArray):
+            return x.map_data(self.predict)
         c_valid = torch.ones((self.k,), dtype=torch.float32, device=x.device)
         return fused_assign(self._prep(x), self._centers(x.device), c_valid)[0]
 
-    def compute_cost(self, data, device=None) -> float:
-        """Sum of weighted squared distances to the nearest center (Spark
-        computeCost; on unit rows in cosine mode)."""
-        ds = as_device_dataset(data, device=device)
+    def _cost(self, ds: DeviceDataset) -> torch.Tensor:
         centers = self._centers(ds.x.device)
         c_valid = torch.ones((self.k,), dtype=torch.float32, device=ds.x.device)
         _, mind2 = fused_assign(self._prep(ds.x), centers, c_valid)
-        return float((mind2 * ds.w).sum())
+        return (mind2 * ds.w).sum()
+
+    def compute_cost(self, data, device=None, mesh=None) -> float:
+        """Sum of weighted squared distances to the nearest center (Spark
+        computeCost; on unit rows in cosine mode).  Over a mesh each data
+        shard runs K2 on its device and the shards' sums add in ascending
+        shard order."""
+        ds = as_device_dataset(data, device=device, mesh=mesh, sharded=True)
+        if isinstance(ds, ShardedDataset):
+            return float(ordered_sum([None if s is None else self._cost(s)
+                                      for s in ds.shards], ds.mesh))
+        return float(self._cost(ds))
 
     def _artifacts(self):
         return (
@@ -334,6 +439,9 @@ class KMeans(Estimator):
     checkpoint_dir: str | None = None
     checkpoint_every: int = 5
     weight_col: str | None = None  # Spark's weightCol
+
+    #: ``fit`` runs over a mesh of more than one shard (``_fit_sharded``)
+    mesh_fit = True
 
     def _init_from_sample(self, valid: np.ndarray) -> np.ndarray:
         """(sample of valid rows) → (k, d) start centers."""
@@ -479,7 +587,7 @@ class KMeans(Estimator):
         CENTERS cross the wire, never rows)."""
         from ..federated.partials import Partials
 
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        ds = self._on_mesh(data, None if mesh is not None else device, mesh)
         sample = sample_valid_rows(ds, self.init_sample_size, self.seed)
         cand = self._init_from_sample(np.asarray(sample, np.float64))
         return Partials(
@@ -509,27 +617,32 @@ class KMeans(Estimator):
     def partial_fit_stats(self, data, label_col: str | None = None, mesh=None, state=None,
                           final: bool = False, device=None):
         """One silo's Lloyd statistics against ``state``'s centers on
-        ``device`` (default the card; a DeviceDataset where it lies): K1
-        at "highest" and in the closing ``final`` collect, else the
-        reduced-precision pass."""
+        ``device`` (default the card; a DeviceDataset where it lies), or
+        over ``mesh`` (the sharded pass of the fit): K1 at "highest" and in
+        the closing ``final`` collect, else the reduced-precision pass."""
         from ..federated.partials import Partials
 
         if state is None:
             raise ValueError("kmeans partials need the broadcast FitState")
         validate_matmul_precision(self.matmul_precision)
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
-        x = ds.x.to(torch.float32).contiguous()
-        w = ds.w.to(torch.float32).contiguous()
-        if self.distance_measure == "cosine":
-            x = _cosine_prep(x, w)
-        k_pad = padded_slots(self.k, 1)
-        dev = x.device
-        centers = torch.from_numpy(
-            pad_slots(np.asarray(state.params["centers"], np.float32), k_pad)).to(dev)
-        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+        ds = self._on_mesh(data, None if mesh is not None else device, mesh)
         # exact precision for the closing pass, as the resident fit's final pass
         stats = fused_lloyd_stats if final else self._stats_fn()
-        sums, counts, cost = stats(x, w, centers, c_valid)
+        cen_h = np.asarray(state.params["centers"], np.float32)
+        if isinstance(ds, ShardedDataset):
+            lloyd = self._sharded_lloyd(ds, stats)
+            centers = torch.from_numpy(pad_slots(cen_h, lloyd.k_pad)).to(lloyd.home)
+            sums, counts, cost = lloyd.stats(centers, stats)
+        else:
+            x = ds.x.to(torch.float32).contiguous()
+            w = ds.w.to(torch.float32).contiguous()
+            if self.distance_measure == "cosine":
+                x = _cosine_prep(x, w)
+            k_pad = padded_slots(self.k, 1)
+            dev = x.device
+            centers = torch.from_numpy(pad_slots(cen_h, k_pad)).to(dev)
+            c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+            sums, counts, cost = stats(x, w, centers, c_valid)
         counts_h = counts.cpu().numpy()[: self.k]
         return Partials(
             family=self.partials_family,
@@ -578,13 +691,51 @@ class KMeans(Estimator):
             cluster_sizes=np.asarray(merged.stats["counts"])[: self.k],
         )
 
+    def _on_mesh(self, data, device, mesh):
+        """``data`` as a DeviceDataset on ``device``, or as a
+        ShardedDataset when ``mesh`` has more than one shard (or a process
+        group is active): a DeviceDataset given with such a mesh is split
+        into its shards."""
+        ds = as_device_dataset(data, device=device, weight_col=self.weight_col, mesh=mesh,
+                               sharded=True)
+        if isinstance(ds, ShardedDataset):
+            if mesh is not None and mesh != ds.mesh:
+                raise ValueError(f"the data lies on {ds.mesh}, not on the mesh given ({mesh})")
+        elif mesh is not None and uses_shards(mesh):
+            ds = shard_dataset(ds, mesh)
+        return ds
+
+    def _sharded_lloyd(self, sds: ShardedDataset, stats) -> _ShardedLloyd:
+        lloyd = _ShardedLloyd(sds, self.k, self.distance_measure == "cosine")
+        if lloyd.M > 1 and stats is not fused_lloyd_stats:
+            raise NotImplementedError(
+                f"matmul_precision={self.matmul_precision!r} over a model axis comes with "
+                f"slice {MESH_SLICE} of the port; the model axis runs K2 and K1 at 'highest'")
+        return lloyd
+
+    def _lloyd(self, step, centers, start_it: int, ckpt, on_iteration):
+        """The Lloyd loop → (centers, last step): the reference's device
+        loop (``move`` against tol² in float32) without a checkpoint or
+        ``on_iteration``, else its host loop."""
+        if ckpt is None and on_iteration is None:
+            tol_sq = float(np.float32(self.tol * self.tol))
+            it, move = 0, float("inf")
+            while it < self.max_iter and move > tol_sq:
+                centers, _, move_t = step(centers)
+                move = float(move_t)
+                it += 1
+            return centers, it
+        return self._host_loop(step, centers, start_it, ckpt, on_iteration)
+
     def fit(self, data, label_col: str | None = None, device=None,
-            on_iteration=None) -> KMeansModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
-        x), moved to ``device`` (default the card) unless it already is a
-        DeviceDataset; a :class:`HostDataset` streams its blocks to
-        ``device``.  ``on_iteration(it, cost, move)`` (optional) fires
-        after every Lloyd step."""
+            on_iteration=None, mesh=None) -> KMeansModel:
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w]) or x), moved to ``device`` (default the card) unless it
+        already is a dataset; a :class:`HostDataset` streams its blocks to
+        ``device``.  ``mesh`` lays the rows over its data axis and the
+        centers over its model axis (a one-entry mesh is its device); a
+        ShardedDataset fits on its own mesh.  ``on_iteration(it, cost,
+        move)`` (optional) fires after every Lloyd step."""
         if self.init_mode not in ("k-means++", "random"):
             raise ValueError(f"unknown init_mode {self.init_mode!r}")
         if self.distance_measure not in DISTANCE_MEASURES:
@@ -592,8 +743,13 @@ class KMeans(Estimator):
         validate_matmul_precision(self.matmul_precision)
         stats = self._stats_fn()
         if isinstance(data, HostDataset):
+            require_single_shard(None, mesh, "KMeans.fit out of core")
+            if mesh is not None and device is None:
+                device = mesh.device(0, 0)
             return self._fit_outofcore(data, resolve_device(device), stats, on_iteration)
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        ds = self._on_mesh(data, device, mesh)
+        if isinstance(ds, ShardedDataset):
+            return self._fit_sharded(ds, stats, on_iteration)
         dev = ds.x.device
         x = ds.x.to(torch.float32).contiguous()
         w = ds.w.to(torch.float32).contiguous()
@@ -628,18 +784,36 @@ class KMeans(Estimator):
             new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
             return new, cost, move
 
-        if ckpt is None and on_iteration is None:
-            # the reference's device loop: move against tol² in float32
-            tol_sq = float(np.float32(self.tol * self.tol))
-            it, move = 0, float("inf")
-            while it < self.max_iter and move > tol_sq:
-                centers, _, move_t = step(centers)
-                move = float(move_t)
-                it += 1
-        else:
-            centers, it = self._host_loop(step, centers, start_it, ckpt, on_iteration)
+        centers, it = self._lloyd(step, centers, start_it, ckpt, on_iteration)
         # final pass: cost/sizes describe the RETURNED centers
         _, counts, cost = fused_lloyd_stats(x, w, centers, c_valid)
+        return self._model(centers, counts, cost, it)
+
+    def _fit_sharded(self, sds: ShardedDataset, stats, on_iteration=None) -> KMeansModel:
+        """The fit over a mesh: each Lloyd step is one sharded pass
+        (:class:`_ShardedLloyd`) and one centroid rule on the home device;
+        every process of a group runs the same steps on the same summed
+        bits, so all stop together."""
+        if self.checkpoint_dir:
+            raise NotImplementedError(
+                f"a checkpointed KMeans fit over a mesh of more than one shard comes with "
+                f"slice {MESH_SLICE} of the port")
+        lloyd = self._sharded_lloyd(sds, stats)
+        cosine = self.distance_measure == "cosine"
+        cen, _ = self._start(None, sds.n_features, lloyd.k_pad,
+                             lambda: sample_valid_rows(lloyd.data, self.init_sample_size,
+                                                       self.seed))
+        centers = torch.from_numpy(cen).to(lloyd.home)
+        c_valid = torch.from_numpy(slot_mask(self.k, lloyd.k_pad)).to(lloyd.home)
+
+        def step(cen):
+            sums, counts, cost = lloyd.stats(cen, stats)
+            new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
+            return new, cost, move
+
+        centers, it = self._lloyd(step, centers, 1, None, on_iteration)
+        # final pass (exact, K1): cost/sizes describe the RETURNED centers
+        _, counts, cost = lloyd.stats(centers, fused_lloyd_stats)
         return self._model(centers, counts, cost, it)
 
     def _fit_outofcore(self, hd: HostDataset, dev, stats, on_iteration=None) -> KMeansModel:

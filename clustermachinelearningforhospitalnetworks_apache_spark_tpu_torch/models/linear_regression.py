@@ -52,7 +52,7 @@ from ..data import DeviceDataset
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..parallel.outofcore import HostDataset, add_stats
-from .base import Estimator, Model, as_device_dataset, check_features
+from .base import Estimator, Model, as_device_dataset, check_features, require_single_shard
 from .summary import SummaryMixin
 
 #: rows summed by one partial product of :func:`chunked_gram`
@@ -403,6 +403,7 @@ class LinearRegression(Estimator):
                 "pooled mean — not partials-decomposable; use reg_param "
                 "with elastic_net_param=0 (ridge) for federated fits"
             )
+        require_single_shard(data, mesh, "LinearRegression.partial_fit_stats")
         ds = as_device_dataset(data, label_col or self.label_col, device=device,
                                weight_col=self.weight_col)
         sw, sx, sxx, gram, mom = (t.cpu().numpy() for t in _wls_partial_stats(

@@ -29,38 +29,10 @@ import abc
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
 
+from ...parallel.partitioner import partition_devices
 from ...utils.logging import get_logger
 
 log = get_logger("serve")
-
-
-def partition_devices(
-    devices: Sequence[Any], n_replicas: int
-) -> tuple[tuple[Any, ...], ...]:
-    """Partition a device list along the logical replica axis: a
-    contiguous even split (remainder spread over the first replicas);
-    with fewer devices than replicas, round-robined single-device
-    slices (the oversubscribed topology — callers log it).
-
-    A host copy of the JAX package's ``parallel/partitioner.py``
-    function of the same name; the partitioner itself comes with the
-    multi-device slice of the port."""
-    if n_replicas < 1:
-        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-    devs = tuple(devices)
-    if not devs:
-        raise ValueError("no devices to partition into replica slices")
-    if n_replicas > len(devs):
-        return tuple(
-            (devs[i % len(devs)],) for i in range(n_replicas)
-        )
-    per, extra = divmod(len(devs), n_replicas)
-    out, start = [], 0
-    for i in range(n_replicas):
-        width = per + (1 if i < extra else 0)
-        out.append(devs[start : start + width])
-        start += width
-    return tuple(out)
 
 
 @dataclass(frozen=True)

@@ -90,7 +90,9 @@ def test_every_module_is_walkable():
                      "serve.fleet.admission", "serve.fleet.loadgen", "serve.fleet.watchdog",
                      "serve.fleet.replica_set", "serve.fleet.proc",
                      "serve.fleet._proc_worker", "soak", "soak.schedule", "soak.report",
-                     "soak.resource_probe", "soak.driver", "soak.__main__"):
+                     "soak.resource_probe", "soak.driver", "soak.__main__",
+                     "parallel.mesh", "parallel.distributed", "parallel.partitioner",
+                     "parallel.sharding", "parallel.collectives", "parallel.federation"):
         assert f"{port.__name__}.{expected}" in names
 
 
@@ -870,30 +872,87 @@ def test_slice_7d2_host_entry_points_take_no_device_and_need_no_card(monkeypatch
     assert "FAIL: report unreadable" in capsys.readouterr().out
 
 
+def test_slice_8a_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """The mesh's device entry points span every card by default and raise
+    without one: the default mesh, ``build_mesh`` with no devices, a
+    mesh-laid dataset, the per-hospital layout and the sharded fit; named
+    CPU devices run there."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel
+
+    x = np.random.default_rng(8).normal(size=(16, 3)).astype(np.float32)
+    ids = np.arange(16) % 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parallel.set_default_mesh(None)
+    calls = [
+        parallel.default_mesh,
+        parallel.build_mesh,
+        lambda: parallel.build_hybrid_mesh(1),
+        lambda: parallel.device_dataset(x, mesh=parallel.default_mesh()),
+        lambda: parallel.device_dataset(x),
+        lambda: port.federated_dataset(x, ids),
+        lambda: port.KMeans(k=2).fit(x, mesh=port.default_mesh()),
+        lambda: port.KMeans(k=2).fit(x),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mesh = parallel.build_mesh(port.MeshConfig(data=2), [torch.device("cpu")] * 2)
+    ds = parallel.device_dataset(x, mesh=mesh)
+    assert ds.shard(0).x.device == torch.device("cpu")
+    assert port.federated_dataset(x, ids, mesh=mesh).n_rows == 16
+    assert port.KMeans(k=2).fit(x, mesh=mesh).cluster_centers.shape == (2, 3)
+
+
+def test_slice_8a_host_entry_points_take_no_device_and_need_no_card(monkeypatch, tmp_path):
+    """``MeshConfig``, the partitioner's resolution, ``partition_devices``,
+    ``place_hospitals``, ``pad_rows`` and a single-process ``initialize()``
+    are host code, as in the JAX package: none takes ``device=`` and none
+    needs a card."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import (
+        distributed,
+        partitioner,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fns = [port.MeshConfig, port.PipelineConfig.from_flags, partitioner.Partitioner.spec,
+           partitioner.Partitioner.round_rows, partitioner.family, partitioner.register_family,
+           partitioner.partition_devices, parallel.place_hospitals, parallel.pad_rows]
+    for fn in fns:
+        assert "device" not in inspect.signature(fn).parameters, fn
+    cfg = port.PipelineConfig.from_flags(["--mesh-data", "4", "--mesh-model", "2"])
+    assert cfg.mesh == port.MeshConfig(data=4, model=2)
+    assert partitioner.family("kmeans").spec("state/centers", 2) == ("model", None)
+    assert partitioner.partition_devices(["a", "b", "c"], 2) == (("a", "b"), ("c",))
+    assert parallel.place_hospitals(np.array([1, 1, 2]), 2) == {1: 0, 2: 1}
+    assert parallel.pad_rows(9, 4) == 12
+    distributed.shutdown()
+    try:
+        ctx = distributed.initialize()
+        assert (ctx.process_id, ctx.num_processes, ctx.backend) == (0, 1, None)
+        assert ctx.devices[0].device == torch.device("cpu")
+    finally:
+        distributed.shutdown()
+
+
 # The reference's public names that the port does not have yet, by the
 # subpackage whose ``__all__`` lists them, each with the slice of ROADMAP
 # queue 1 that ports its module.  Every other name of the reference's
 # ``__all__`` must be in the port's.
-_8_MESH = ("MeshConfig", "build_mesh", "build_hybrid_mesh", "default_mesh", "use_mesh",
-           "FederatedDataset", "federated_dataset")
-
-
 def _tagged(slice_: str, names) -> dict:
     return {n: slice_ for n in names}
 
 
 EXPECTED_GAPS = {
-    "": _tagged("8", _8_MESH),
+    "": {},
     "models": {},
     "models.tree": {},
     "features": {},
     "io": {},
     "core": {},
-    "parallel": _tagged("8", ("DATA_AXIS", "MODEL_AXIS", "build_mesh", "build_hybrid_mesh",
-                              "default_mesh", "set_default_mesh", "single_device_mesh",
-                              "use_mesh", "FederatedDataset", "federated_dataset",
-                              "place_hospitals", "pad_rows", "replicate", "row_sharding",
-                              "shard_rows", "global_sum", "tree_aggregate", "distributed")),
+    "parallel": {},
     "serve": {},
     "serve.fleet": {},
     "ops": {},

@@ -283,11 +283,13 @@ def test_console_entry_without_plots_needs_no_matplotlib(tmp_path, capsys, monke
 
 # ============================================================== the config
 def test_config_shared_fields_equal_the_jax_defaults():
-    jf = {f.name: f.default for f in dataclasses.fields(JConfig) if f.name != "mesh"}
+    jf = {f.name: f.default for f in dataclasses.fields(JConfig)}
     pf = {f.name: f.default for f in dataclasses.fields(P.PipelineConfig)}
     assert pf == jf
     for name in pf:
-        assert type(getattr(P.PipelineConfig(), name)) is type(getattr(JConfig(), name)), name
+        if name != "mesh":
+            assert type(getattr(P.PipelineConfig(), name)) is type(getattr(JConfig(), name)), name
+    assert dataclasses.asdict(P.PipelineConfig().mesh) == dataclasses.asdict(JConfig().mesh)
 
 
 def test_config_reads_a_jax_config_with_a_mesh(tmp_path):
@@ -295,13 +297,15 @@ def test_config_reads_a_jax_config_with_a_mesh(tmp_path):
     JConfig(input_path="/in", rf_num_trees=7, mesh=MeshConfig(data=4, model=2)).save_json(path)
     cfg = P.PipelineConfig.from_json(path)
     assert cfg.input_path == "/in" and cfg.rf_num_trees == 7
-    assert cfg.to_dict() == {k: v for k, v in JConfig.from_json(path).to_dict().items() if k != "mesh"}
+    assert cfg.to_dict() == JConfig.from_json(path).to_dict()
+    assert cfg.mesh == P.MeshConfig(data=4, model=2)
     camel = P.PipelineConfig.from_dict({"hdfsInputPath": "/h", "losThreshold": 6.0,
                                         "hdfsMaster": "spark://m:7077", "appName": "x"})
     assert (camel.input_path, camel.los_threshold, camel.app_name) == ("/h", 6.0, "x")
     flags = P.PipelineConfig.from_flags(["--config", path, "--mesh-data", "8",
                                          "--mesh-model", "1", "--los-threshold", "4.5"])
     assert flags.los_threshold == 4.5 and flags.rf_num_trees == 7
+    assert flags.mesh == P.MeshConfig(data=8, model=1)
     out = str(tmp_path / "back.json")
     flags.save_json(out)
     assert json.load(open(out)) == flags.to_dict()
