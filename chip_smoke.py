@@ -203,6 +203,22 @@ kernels:
   over NCCL at world size 1, each ``==`` its in-process fit, and NCCL's
   refusal of two ranks on one card; ``federated_dataset`` over 64 hospital
   ids; K1 and K2 at every shard shape against their plain versions.
+* slice 8b-1 (``mesh_models_phase``) — the model stage over a mesh, on
+  the 2M-row window of the stage at scale: a (1, 1) mesh ``==`` the stage;
+  a (4, 1) mesh over ``[cuda:0] * 4`` (K3 once a shard a level, 350,000
+  training rows a shard) against it — LR coefficients within 1e-4 of the
+  largest (beside TF32 products, which must fail it), the regressors'
+  RMSE at rtol 1e-4 (beside the stage on bf16-rounded LOS), the
+  classifiers' accuracy and trees ``==``; integer LOS over (4, 1) and
+  (2, 2), every tree ``==``; GBT over (4, 1) on gbt20's rows with no host
+  sync in the boost loop, the same trees on integer labels and its
+  predictions at rtol 1e-4 on float labels; GaussianMixture k=32 and the
+  binomial and multinomial LogisticRegression on the stage's 2M hospital
+  rows against their one-device fits, each limit beside a control that
+  fails it; the JAX package's cross-process phases (WLS, a depth-3 tree,
+  5 EM steps, the multinomial fit) on ``mesh_phase``'s two gloo ranks
+  ``==`` each other and the in-process (2, 1) fits; K3 at the shard shape
+  against its plain version.
 
 Any failed check exits non-zero before the last line; without a CUDA
 device, or without the port's package beside it, the script prints no
@@ -1252,7 +1268,13 @@ def stage_at_scale(port, H, save_dir: str):
     binarized = port.Binarizer(port.LABEL_COL, "LOS_binary", cfg.los_threshold).transform(table)
     _, test_t = port.train_test_split(binarized, cfg.train_fraction, cfg.split_seed)
     test_x = port.VectorAssembler(port.FEATURE_COLS).transform(test_t).to_device(device=DEV).x
+    STAGE_WINDOW.update(table=table, rmse=dict(res.regression_rmse),
+                        accuracy=dict(res.classification_accuracy),
+                        importances=dict(res.feature_importances))
     return launches, res, test_x
+
+
+STAGE_WINDOW: dict = {}                   # the stage's window and metrics, for mesh_models_phase
 
 
 def serve_requests(srv, name: str, x_host, pred_h) -> dict:
@@ -8550,6 +8572,17 @@ def mesh_rank_main(rank: int, world: int, store: str, backend: str, dev: str, ro
         res.update(fit_s=time.perf_counter() - t0, model=m, owned=mesh.local_data_shards(),
                    mesh=dict(mesh.shape),
                    launches={k: v - before[k] for k, v in L.launch_counts().items()})
+        if backend == "gloo":
+            # slice 8b-1 (f): the JAX package's cross-process phases on these rows
+            from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import (
+                tree_hist as H,
+            )
+
+            k3 = H.launch_counts()["fused_level_hist"]
+            t0 = time.perf_counter()
+            res["phases"] = mesh_model_phases(x, mesh)
+            res.update(phases_s=time.perf_counter() - t0,
+                       phases_k3=H.launch_counts()["fused_level_hist"] - k3)
     except Exception as e:  # noqa: BLE001 - the parent checks what each rank met
         res["error"] = f"{type(e).__name__}: {e}"
     try:
@@ -8845,7 +8878,375 @@ def mesh_phase(port, L, card: str, ds, model, init, sil: float) -> dict:
         f"main-path launches {json.dumps(launches)}")
     if DEV == "cuda":
         torch.cuda.empty_cache()
-    return {"launches": launches, "k1": k1_shapes, "k2": k2_shapes}
+    return {"launches": launches, "k1": k1_shapes, "k2": k2_shapes, "x2": x2,
+            "gloo": [got["gloo", r] for r in range(2)]}
+
+
+# ------------------------------------------------------------- slice 8b-1
+MM_DATA = 4                   # (b)-(e): a (4, 1) mesh over cuda:0, 350,000 training rows a shard
+MM_SHARD_N = 350_000          # the stage's 1.4M training rows over 4 shards
+#: the sharded stage against the unsharded one: LR coefficients within 1e-4
+#: of the largest and the regressors' RMSE at rtol 1e-4 (ROADMAP queue 3's
+#: LR and near-tie bounds), GBT predictions at gbt_phase's rtol
+MM_LR_TOL = 1e-4
+#: (c) the LR fit on integer LOS over (4, 1) and (2, 2) against (1, 1):
+#: about 10x the larger gap of the first chip run (NVIDIA H100 80GB HBM3,
+#: 700 W: 1.37e-6 and 1.79e-7 of the largest coefficient; not 0, since the
+#: Gram's float32 entries pass 2**24 and the shards cut its row chunks
+#: elsewhere), beside its own TF32 control
+MM_LR_INT_TOL = 1.4e-5
+MM_RMSE_RTOL = 1e-4
+MM_GBT_RTOL = GBT_PRED_RTOL
+#: the rest against one device: about 10x the gaps of the first chip run
+#: (NVIDIA H100 80GB HBM3, 700 W: GBT leaf values 7.15e-7 on integer
+#: labels; GMM means 1.19e-3, weights 2.13e-6, ll 7.29e-8 relative; the
+#: logistic probabilities 0 and 5.96e-7), one float32 ulp where a gap was 0
+MM_GBT_VALUE_TOL = 7.2e-6
+MM_GMM_TOL = {"means": 1.2e-2, "weights": 2.1e-5, "ll_rel": 7.3e-7}
+MM_LOGIT_TOL = {"binomial": 1.2e-7, "multinomial": 6e-6}
+MM_MLR_ITERS = 10             # (f)'s multinomial Newton steps
+
+
+def mesh_model_phases(x, mesh) -> dict:
+    """The JAX package's cross-process phases 1, 3, 4 and 5
+    (``tests/test_distributed.py``) on rows ``x`` over ``mesh``: the WLS, a
+    depth-3 regression tree, 5 EM steps of a 3-component GMM and the
+    multinomial fit, with labels drawn from ``x`` (seed ``SEED + 3``).
+    → host arrays."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
+
+    rng = np.random.default_rng(SEED + 3)
+    y = (x @ rng.normal(size=x.shape[1]) + 0.25 + rng.normal(0, 0.3, len(x))).astype(np.float32)
+    y3 = np.clip((x[:, 0] > 0).astype(np.int32) + 2 * (x[:, 1] > 0.5).astype(np.int32),
+                 0, 2).astype(np.float32)
+    lr = port.LinearRegression().fit((x, y), mesh=mesh)
+    tree = port.DecisionTreeRegressor(max_depth=3, max_bins=16).fit((x, y), mesh=mesh)
+    gm = port.GaussianMixture(k=3, max_iter=5, tol=0.0, seed=SEED).fit(x, mesh=mesh)
+    ml = port.LogisticRegression(family="multinomial", reg_param=0.01,
+                                 max_iter=MM_MLR_ITERS).fit((x, y3), mesh=mesh)
+    return {"coef": lr.coefficients.cpu().numpy(), "intercept": lr.intercept.cpu().numpy(),
+            "split_feat": tree.split_feat, "threshold": tree.threshold, "value": tree.value,
+            "gmm_means": gm.means, "gmm_weights": gm.weights,
+            "gmm_covariances": gm.covariances, "gmm_ll": np.float64(gm.log_likelihood),
+            "gmm_n_iter": np.int64(gm.n_iter),
+            "mlr_coef": ml.coefficient_matrix.cpu().numpy(),
+            "mlr_intercept": ml.intercept_vector.cpu().numpy(),
+            "mlr_n_iter": np.int64(ml.n_iter)}
+
+
+def stage_split(port, table, cfg):
+    """The stage's own train and test AssembledTables (its Binarizer,
+    seed-42 split and assembler)."""
+    binarized = port.Binarizer(port.LABEL_COL, "LOS_binary", cfg.los_threshold).transform(table)
+    train_t, test_t = port.train_test_split(binarized, cfg.train_fraction, cfg.split_seed)
+    assembler = port.VectorAssembler(port.FEATURE_COLS)
+    return assembler.transform(train_t), assembler.transform(test_t)
+
+
+def lr_gap(a, b) -> float:
+    """Two LinearRegression fits' largest coefficient gap, relative to the
+    largest coefficient of ``b``."""
+    import numpy as np
+
+    ca, cb = a.coefficients.cpu().numpy(), b.coefficients.cpu().numpy()
+    return float(np.abs(ca - cb).max() / np.abs(cb).max())
+
+
+def rmse_gap(a: dict, b: dict) -> float:
+    return max(abs(a[k] - b[k]) / b[k] for k in b)
+
+
+def same_forests(a, b) -> bool:
+    """Two tree models with equal splits, thresholds and leaf values."""
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("split_feat", "threshold", "value"))
+
+
+def mesh_models_phase(port, H, card: str, mp_: dict) -> dict:
+    """Slice 8b-1: the model stage's estimators over a (data, model) mesh
+    on the card.  (a) ``run_model_stage`` over a (1, 1) mesh on the stage's
+    2M-row window ``==`` the stage (every RMSE, accuracy and importance);
+    (b) over a (4, 1) mesh of ``[cuda:0] * 4``: K3 once a shard a level
+    (4 x 6 x 4 = 96 launches), LR coefficients within ``MM_LR_TOL`` of the
+    largest beside TF32 products (which must fail it), the regressors' RMSE
+    at ``MM_RMSE_RTOL`` beside the stage on bf16-rounded LOS, the
+    classifiers' accuracy and trees ``==``; (c) integer LOS: every tree
+    over (4, 1) and (2, 2) ``==`` the (1, 1) stage's, the LR fit within
+    ``MM_LR_INT_TOL`` beside a TF32 control; (d) GBT on gbt20's
+    rows over (4, 1), its boost loop under ``set_sync_debug_mode("error")``,
+    the same trees as one device on integer labels and predictions at
+    ``MM_GBT_RTOL`` on float labels beside a TF32-rounded control; (e)
+    GaussianMixture k=32 and binomial / multinomial LogisticRegression on
+    the stage's 2M hospital rows over (4, 1) against one device, each
+    limit beside its bf16-rounded control; (f) ``mesh_phase``'s two gloo
+    ranks ran ``mesh_model_phases`` on their rows: both ``==`` each other
+    and the in-process (2, 1) fits.  K3 against its plain version at the
+    shard shape, with the plans at 350,000 and 1.4M rows.  → {"launches":
+    K3's main-path launches, "shape": K3's shard-shape record}."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel as P
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import gbt
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import sharding
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(H)
+    cuda0 = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+    cfg = port.PipelineConfig()
+    table = STAGE_WINDOW["table"]
+
+    def mesh(data: int, model: int = 1):
+        return P.build_mesh(port.MeshConfig(data=data, model=model), [cuda0] * (data * model))
+
+    def stage(tab, m):
+        before = H.launch_counts()["fused_level_hist"]
+        sync()
+        t0 = time.perf_counter()
+        res = port.run_model_stage(tab, cfg, mesh=m)
+        sync()
+        return res, time.perf_counter() - t0, H.launch_counts()["fused_level_hist"] - before
+
+    # ------------------------------------------------------------ (a) (1, 1)
+    res_a, s_a, k3_a = stage(table, mesh(1))
+    check(res_a.regression_rmse == STAGE_WINDOW["rmse"]
+          and res_a.classification_accuracy == STAGE_WINDOW["accuracy"]
+          and res_a.feature_importances == STAGE_WINDOW["importances"],
+          "the (1, 1) mesh stage differs from the stage on the card")
+    check(k3_a == 24, f"the (1, 1) stage launched K3 {k3_a} times (expected 24)")
+    say(f"mesh models (a) (1, 1) over cuda:0: run_model_stage on {table.num_rows} rows "
+        f"{s_a:.3f} s, K3 {k3_a} launches; every RMSE, accuracy and importance == the stage's "
+        f"({card})")
+    lap("mm (a)")
+
+    # ------------------------------------------------------------ (b) (4, 1)
+    mesh4 = mesh(MM_DATA)
+    res_b, s_b, k3_b = stage(table, mesh4)
+    check(k3_b == MM_DATA * 24, f"the (4, 1) stage launched K3 {k3_b} times "
+          f"(expected {MM_DATA} shards x 6 levels x 4 tree fits)")
+    g_lr = lr_gap(res_b.models["LinearRegression"], res_a.models["LinearRegression"])
+    g_rmse = rmse_gap(res_b.regression_rmse, res_a.regression_rmse)
+    with ledger.aside():
+        train, _ = stage_split(port, table, cfg)
+        with tf32_matmuls():
+            lr_ctl = port.LinearRegression().fit(train, label_col=port.LABEL_COL, mesh=mesh4)
+        c_lr = lr_gap(lr_ctl, res_a.models["LinearRegression"])
+        del train, lr_ctl
+        rounded = table.with_column(port.LABEL_COL, bf16_round(table.column(port.LABEL_COL)),
+                                    dtype="float")
+        res_ctl, _, _ = stage(rounded, mesh4)
+        c_rmse = rmse_gap(res_ctl.regression_rmse, res_a.regression_rmse)
+        del rounded, res_ctl
+    check(g_lr <= MM_LR_TOL < c_lr, f"(4, 1) LR coefficients {g_lr:.3g} of the largest apart, "
+          f"TF32 control {c_lr:.3g} (limit {MM_LR_TOL:g})")
+    check(g_rmse <= MM_RMSE_RTOL < c_rmse, f"(4, 1) RMSE rel {g_rmse:.3g}, bf16-LOS control "
+          f"{c_rmse:.3g} (limit {MM_RMSE_RTOL:g})")
+    check(res_b.classification_accuracy == res_a.classification_accuracy,
+          f"(4, 1) accuracy {res_b.classification_accuracy} vs {res_a.classification_accuracy}")
+    for name in ("DecisionTreeClassifier", "RandomForestClassifier"):
+        check(same_forests(res_b.models[name], res_a.models[name]),
+              f"(4, 1) {name} differs from the (1, 1) tree")
+    say(f"mesh models (b) (4, 1) over [cuda:0] * 4: run_model_stage {s_b:.3f} s (1, 1: "
+        f"{s_a:.3f} s), K3 {k3_b} launches (4 a level, {MM_SHARD_N} rows a shard); "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in res_b.seconds.items())
+        + f"; LR coefficients {g_lr:.3g} of the largest apart (limit {MM_LR_TOL:g}; TF32 "
+        f"control {c_lr:.3g}); RMSE rel {g_rmse:.3g} (limit {MM_RMSE_RTOL:g}; bf16-LOS control "
+        f"{c_rmse:.3g}); classifier accuracy and trees == ({card})")
+    del res_b
+    lap("mm (b)")
+
+    # ---------------------------------------------- (c) integer LOS, == trees
+    ints = table.with_column(port.LABEL_COL, np.round(table.column(port.LABEL_COL)),
+                             dtype="float")
+    ref_c, s_c1, _ = stage(ints, mesh(1))
+    gaps_c = {}
+    for shape in ((MM_DATA, 1), (2, 2)):
+        got, s_c, k3_c = stage(ints, mesh(*shape))
+        check(k3_c == shape[0] * 24, f"{shape} integer-LOS stage launched K3 {k3_c} times")
+        for name, m in got.models.items():
+            if name != "LinearRegression":
+                check(same_forests(m, ref_c.models[name]),
+                      f"integer LOS over {shape}: {name} differs from the (1, 1) tree")
+        check(got.feature_importances == ref_c.feature_importances
+              and got.classification_accuracy == ref_c.classification_accuracy,
+              f"integer LOS over {shape}: importances or accuracy differ")
+        gaps_c[shape] = (lr_gap(got.models["LinearRegression"], ref_c.models["LinearRegression"]),
+                         s_c, k3_c)
+        check(gaps_c[shape][0] <= MM_LR_INT_TOL,
+              f"integer LOS over {shape}: LR {gaps_c[shape][0]:.3g} of the largest apart "
+              f"(limit {MM_LR_INT_TOL:g})")
+        del got
+    with ledger.aside():
+        train, _ = stage_split(port, ints, cfg)
+        with tf32_matmuls():
+            lr_ctl = port.LinearRegression().fit(train, label_col=port.LABEL_COL, mesh=mesh4)
+        c_lr_int = lr_gap(lr_ctl, ref_c.models["LinearRegression"])
+        del train, lr_ctl
+    check(c_lr_int > MM_LR_INT_TOL, f"the TF32 control passes (c)'s LR limit: {c_lr_int:.3g} "
+          f"(limit {MM_LR_INT_TOL:g})")
+    say(f"mesh models (c) integer LOS: over (4, 1) and (2, 2) every tree, importance and "
+        f"accuracy == the (1, 1) stage's; LR within "
+        + ", ".join(f"{g:.3g} of the largest over {sh} ({t:.3f} s, K3 {k})"
+                    for sh, (g, t, k) in gaps_c.items())
+        + f" (limit {MM_LR_INT_TOL:g}; TF32 control over (4, 1) {c_lr_int:.3g}; the Gram's "
+        f"float32 entries pass 2**24, so the LR sums are not exact)")
+    del ints, ref_c, res_a
+    lap("mm (c)")
+
+    # ------------------------------------------------------- (d) GBT over (4, 1)
+    x, y = gbt_data()
+    kw = dict(max_iter=GBT_ROUNDS, max_depth=GBT_DEPTH, seed=0)
+    one = port.device_dataset(x, y, device=cuda0)
+    sds = sharding.shard_dataset(one, mesh4)
+    m_one = port.GBTRegressor(**kw).fit(one)
+    rounds = gbt._GBTParams._device_rounds
+
+    def guarded(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return rounds(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    before = H.launch_counts()["fused_level_hist"]
+    gbt._GBTParams._device_rounds = guarded
+    try:
+        sync()
+        t0 = time.perf_counter()
+        m_sh = port.GBTRegressor(**kw).fit(sds)
+        sync()
+        gbt_s = time.perf_counter() - t0
+    finally:
+        gbt._GBTParams._device_rounds = rounds
+    k3_d = H.launch_counts()["fused_level_hist"] - before
+    check(k3_d == MM_DATA * GBT_ROUNDS * (GBT_DEPTH + 1), f"(4, 1) GBT launched K3 {k3_d} times")
+    base = m_one.predict(one.x).cpu().numpy()
+
+    def pred_gap(m) -> float:
+        p = m.predict(one.x).cpu().numpy()
+        return float((np.abs(p - base) / np.maximum(np.abs(base), 1e-6)).max())
+
+    g_pred = pred_gap(m_sh)
+    with ledger.aside():
+        ctl = port.GBTRegressor(**kw).fit(
+            sharding.shard_dataset(port.device_dataset(x, tf32_round(y), device=cuda0), mesh4))
+        c_pred = pred_gap(ctl)
+        yi = np.round(y)
+        i_one = port.GBTRegressor(**kw).fit((x, yi), device=cuda0)
+        v_ctl = tree_gap(port.GBTRegressor(**kw).fit((tf32_round(x), yi), mesh=mesh4), i_one)
+    i_sh = port.GBTRegressor(**kw).fit((x, yi), mesh=mesh4)
+    check(g_pred <= MM_GBT_RTOL < c_pred, f"(4, 1) GBT predictions rel {g_pred:.3g}, TF32 "
+          f"control {c_pred:.3g} (limit {MM_GBT_RTOL:g})")
+    v_gap = same_trees(i_sh, i_one, MM_GBT_VALUE_TOL)
+    check(v_ctl > MM_GBT_VALUE_TOL, f"the TF32-rounded control passes the (4, 1) GBT value "
+          f"limit: {v_ctl:.3g} (limit {MM_GBT_VALUE_TOL:g})")
+    say(f"mesh models (d) GBT over (4, 1) on gbt20's {TREE_N} x 8 rows: fit {gbt_s:.3f} s, K3 "
+        f"{MM_DATA * GBT_ROUNDS * (GBT_DEPTH + 1)} launches (4 a level), the boost loop under "
+        f"set_sync_debug_mode('error'): no host sync; predictions rel {g_pred:.3g} of one "
+        f"device's (limit {MM_GBT_RTOL:g}; TF32-rounded labels {c_pred:.3g}); integer labels: "
+        f"the same trees, leaf values {v_gap:.3g} apart (limit {MM_GBT_VALUE_TOL:g}; "
+        f"TF32-rounded features {v_ctl:.3g})")
+    del one, sds, m_one, m_sh, ctl, i_one, i_sh, x, y
+    lap("mm (d)")
+
+    # ------------------------------------- (e) GMM and logistic over (4, 1)
+    xh, _, yb = stage_rows()
+    xh = xh.astype(np.float32)
+    los = STAGE_ROWS["los"]
+    tiers = np.digitize(los, np.quantile(los, [0.5, 0.85])).astype(np.float32)
+    gkw = dict(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED)
+
+    def gmm_gaps(a, b) -> dict:
+        return {"means": float(np.abs(a.means - b.means).max()),
+                "weights": float(np.abs(a.weights - b.weights).max()),
+                "ll_rel": abs(a.log_likelihood / b.log_likelihood - 1)}
+
+    g_one = port.GaussianMixture(**gkw).fit(xh, device=cuda0)
+    sync()
+    t0 = time.perf_counter()
+    g_sh = port.GaussianMixture(**gkw).fit(xh, mesh=mesh4)
+    sync()
+    gmm_s = time.perf_counter() - t0
+    g_ctl = port.GaussianMixture(**gkw).fit(bf16_round(xh), mesh=mesh4)
+    gg, gc = gmm_gaps(g_sh, g_one), gmm_gaps(g_ctl, g_one)
+    check(all(gg[k] <= MM_GMM_TOL[k] < gc[k] for k in MM_GMM_TOL),
+          f"(4, 1) GMM k={GMM_K} {gg}, bf16 control {gc} (limits {MM_GMM_TOL})")
+    lines = [f"GMM k={GMM_K} x {GMM_ITERS} EM iterations {gmm_s:.3f} s: "
+             + ", ".join(f"{k} {gg[k]:.3g} (limit {MM_GMM_TOL[k]:g}; bf16 {gc[k]:.3g})"
+                         for k in MM_GMM_TOL)]
+    for family, lab, est in (("binomial", yb, port.LogisticRegression(tol=CLS_TOL)),
+                             ("multinomial", tiers, port.LogisticRegression(**MULTI_KW))):
+        a = est.fit((xh, lab), device=cuda0)
+        sync()
+        t0 = time.perf_counter()
+        b = est.fit((xh, lab), mesh=mesh4)
+        sync()
+        fit_s = time.perf_counter() - t0
+        c = est.fit((bf16_round(xh), lab), mesh=mesh4)
+        pa = a.predict_proba(torch.from_numpy(xh).to(cuda0))
+        gap = float((b.predict_proba(torch.from_numpy(xh).to(cuda0)) - pa).abs().max())
+        ctl_gap = float((c.predict_proba(torch.from_numpy(xh).to(cuda0)) - pa).abs().max())
+        lim = MM_LOGIT_TOL[family]
+        check(gap <= lim < ctl_gap and a.n_iter == b.n_iter,
+              f"(4, 1) {family} logistic: probabilities {gap:.3g} apart, n_iter {b.n_iter} / "
+              f"{a.n_iter}, bf16 control {ctl_gap:.3g} (limit {lim:g})")
+        lines.append(f"{family} LogisticRegression {fit_s:.3f} s, n_iter {b.n_iter} == one "
+                     f"device's, probabilities {gap:.3g} apart (limit {lim:g}; bf16 {ctl_gap:.3g})")
+        del a, b, c, pa
+    say(f"mesh models (e) over (4, 1) on the stage's {len(xh)} hospital rows against one "
+        f"device: " + "; ".join(lines))
+    del g_one, g_sh, g_ctl
+    lap("mm (e)")
+
+    # ------------------------------- (f) the JAX phases on the gloo ranks
+    ranks = mp_["gloo"]
+    for r, g in enumerate(ranks):
+        check("error" not in g and "phases" in g, f"gloo rank {r}: {g.get('error')}")
+    here = mesh_model_phases(mp_["x2"], mesh(2))
+    for key, v in here.items():
+        for r, g in enumerate(ranks):
+            check(np.array_equal(np.asarray(g["phases"][key]), np.asarray(v)),
+                  f"(f) gloo rank {r}'s {key} differs from the in-process (2, 1) fit")
+    say(f"mesh models (f) the JAX package's cross-process phases (WLS, a depth-3 tree, 5 EM "
+        f"steps of a k=3 GMM, {here['mlr_n_iter']} multinomial Newton steps) on mesh_phase's "
+        f"two gloo ranks over {len(mp_['x2'])} rows: both ranks == each other and the "
+        f"in-process (2, 1) fits on every array; rank phase seconds "
+        f"{ranks[0]['phases_s']:.3f} / {ranks[1]['phases_s']:.3f}, K3 a rank "
+        f"{ranks[0]['phases_k3']} / {ranks[1]['phases_k3']}")
+    lap("mm (f)")
+
+    # ------------------------------------ K3 at the shard shape, plain and plans
+    with ledger.aside():
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        recs = []
+        for S in (3, 2):
+            ins = k3_inputs(MM_SHARD_N, 4, S, 20, 32, 32, seed=60 + S)
+            err, _ = k3_check(H, *ins, 32, 32, f"stage shard S={S}")
+            t = k3_time(H, *ins, 32, 32, reps=20)
+            plans = {n: H.hist_plan(n, 4, S, 32, 32, 20, sms,
+                                    H.occupancy(cuda0, 4, S, 32, 32, 20))
+                     for n in (MM_SHARD_N, 4 * MM_SHARD_N)}
+            say(f"K3 stage shard (n={MM_SHARD_N} d=4 S={S} T=20 LN=32 B=32): {t['ms']:.4f} ms "
+                f"(plain {t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound "
+                f"{t['bound_ms']:.4f} by {t['bound_by']}), max_abs_err {err:.3g}; plan at "
+                + "; at ".join(f"{n} rows: TB {p['TB']}, blocks_x {p['blocks_x']}, "
+                               f"{p['n_ptiles'] * p['n_ftiles']} tiles, {p['warps']} warps, "
+                               f"{p['per_sm']} resident an SM, {p['waves']} wave(s)"
+                               for n, p in plans.items()) + f" ({card})")
+            recs.append({"n": MM_SHARD_N, "d": 4, "S": S, "T": 20, "LN": 32, "B": 32,
+                         "max_abs_err": err, **t})
+            del ins
+    launches = ledger.main_path()["fused_level_hist"]
+    say(f"mesh_models_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"K3 main-path launches {launches}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": recs}
 
 
 def main() -> None:
@@ -9154,6 +9555,14 @@ def main() -> None:
     records[0]["shapes"] += mp_["k1"]
     records[1]["shapes"] += mp_["k2"]
 
+    # ------- slice 8b-1: the model stage over a mesh (K3 once a data shard
+    # a level in DT, RF and GBT), and the JAX package's cross-process
+    # phases on mesh_phase's gloo ranks
+    mm = mesh_models_phase(port, H, card, mp_)
+    counts["fused_level_hist"] += mm["launches"]
+    records[2]["shapes"] += mm["shapes"]
+    del mp_
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -9171,6 +9580,7 @@ def main() -> None:
         f"{sum(v for k, v in PHASE_S.items() if k.startswith('pipe ')):.2f}; "
         f"soak_phase {sum(v for k, v in PHASE_S.items() if k.startswith('soak ')):.2f}; "
         f"mesh_phase {sum(v for k, v in PHASE_S.items() if k.startswith('mesh ')):.2f}; "
+        f"mesh_models_phase {sum(v for k, v in PHASE_S.items() if k.startswith('mm ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

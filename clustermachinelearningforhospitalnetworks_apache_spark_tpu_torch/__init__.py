@@ -120,13 +120,22 @@ mesh (``parallel``: ``MeshConfig``, ``build_mesh`` / ``build_hybrid_mesh`` /
 partitioner, sharded datasets, the ordered collectives and the per-hospital
 placement ``federated_dataset``) and runs KMeans over it: fit, predict,
 cost and silhouette on a (data, model) mesh in one process and across
-processes (``KMeans().fit(x, mesh=build_mesh(MeshConfig(data=4)))``; every
-other estimator takes ``mesh=`` and raises for more than one shard until
-slice 8b).  Its CPU tests: ``python -m pytest tests/test_torch_mesh.py
+processes (``KMeans().fit(x, mesh=build_mesh(MeshConfig(data=4)))``).
+Its CPU tests: ``python -m pytest tests/test_torch_mesh.py
 tests/test_torch_sharded_kmeans.py tests/test_torch_distributed.py
 tests/test_torch_hospital_placement.py``; on a card,
 ``chip_smoke.mesh_phase(port, L, card, ds, model, init)`` runs it after
-the main path.
+the main path.  Slice 8b-1 runs the reference script's model stage over
+the mesh: ``Session(mesh=)`` (else the one-entry mesh of ``device=``, else
+``build_mesh(config.mesh)`` over every card), ``run_model_stage(...,
+mesh=)``, and ``fit`` / ``transform`` with ``mesh=`` on LinearRegression,
+the decision trees, random forests, GBT (K3 once a data shard a level),
+GaussianMixture and LogisticRegression, each shard's statistics summed in
+ascending shard order; the other estimators raise for more than one shard
+until slice 8c.  Its CPU tests: ``python -m pytest
+tests/test_torch_sharded_models.py tests/test_torch_sharded_pipeline.py
+tests/test_torch_distributed.py``; on a card, ``chip_smoke.py``'s
+``mesh_models_phase``.
 Hand-written
 Hopper kernels (``csrc/``) carry the Lloyd step, the assignment and the
 trees' level histograms on the card; entry points default to

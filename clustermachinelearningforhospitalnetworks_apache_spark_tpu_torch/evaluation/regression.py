@@ -1,7 +1,8 @@
 """RegressionEvaluator (``pyspark.ml.evaluation.RegressionEvaluator``).
 
-One weighted reduction over the predictions, on the device they lie on,
-then the metric on the host.  Weights multiply the squared/absolute
+One weighted reduction over the predictions, on the device they lie on
+(a shard on its device, then in ascending shard order, over a mesh), then
+the metric on the host.  Weights multiply the squared/absolute
 error, so the weighted RMSE is ``sqrt(Σw·e² / Σw)`` (Spark's), and pad
 rows (w = 0) drop out.  Metrics: rmse, mse, mae, r2, var.
 """
@@ -14,17 +15,30 @@ import numpy as np
 import torch
 
 
-def _sums(pred: torch.Tensor, label: torch.Tensor, w: torch.Tensor) -> dict[str, float]:
+def _stacked(pred: torch.Tensor, label: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     pred = pred.to(torch.float32)
     label = label.to(torch.float32)
     w = w.to(torch.float32)
     err = pred - label
-    s = torch.stack([
+    return torch.stack([
         w.sum(), (err * err * w).sum(), (err.abs() * w).sum(), (label * w).sum(),
         (label * label * w).sum(), (pred * w).sum(), (pred * pred * w).sum(),
-    ]).cpu().numpy()
+    ])
+
+
+def _sums(pred, label, w) -> dict[str, float]:
+    """The metrics' weighted sums on the host.  Row-sharded MeshArrays
+    (a sharded ``transform``) are summed a shard on its device, then over
+    the shards in ascending order (``collectives.tree_aggregate``)."""
+    from ..parallel.collectives import tree_aggregate
+    from ..parallel.sharding import MeshArray
+
+    if isinstance(pred, MeshArray):
+        s = tree_aggregate(lambda t: _stacked(*t), (pred, label, w))
+    else:
+        s = _stacked(pred, label, w)
     keys = ("n", "sq_err", "abs_err", "label_sum", "label_sq", "pred_sum", "pred_sq")
-    return dict(zip(keys, (float(v) for v in s)))
+    return dict(zip(keys, (float(v) for v in s.cpu().numpy())))
 
 
 @dataclass(frozen=True)

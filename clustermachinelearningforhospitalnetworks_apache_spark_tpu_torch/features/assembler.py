@@ -84,13 +84,15 @@ class AssembledTable:
         return self.table.column(name).astype(np.float64)
 
     def to_device(self, label_col: str | None = None, device=None,
-                  weight_col: str | None = None):
+                  weight_col: str | None = None, mesh=None):
         """The features as a padded :class:`~..data.DeviceDataset` on
-        ``device`` (default the card).  The label comes from the source
-        table: ``label_col``, else the canonical LOS label when the table
-        has it; ``weight_col`` names non-negative sample weights."""
+        ``device`` (default the card), or over ``mesh`` (a
+        ``ShardedDataset`` for more than one shard, the one-entry mesh's
+        device otherwise).  The label comes from the source table:
+        ``label_col``, else the canonical LOS label when the table has it;
+        ``weight_col`` names non-negative sample weights."""
         from ..core.schema import LABEL_COL
-        from ..data import device_dataset
+        from ..parallel.sharding import device_dataset
 
         if label_col is None and LABEL_COL in self.table.schema:
             label_col = LABEL_COL
@@ -103,4 +105,4 @@ class AssembledTable:
                     f"table; available: {self.table.schema.names}"
                 )
             w = self.table.column(weight_col).astype(np.float64)
-        return device_dataset(self.features, y, device=device, weights=w)
+        return device_dataset(self.features, y, device=device, weights=w, mesh=mesh)

@@ -3,7 +3,14 @@
 Estimators consume a padded :class:`~..data.DeviceDataset` (or anything
 coercible to one) and models predict on the device the input lies on;
 ``Model.transform`` returns a :class:`PredictionResult` whose tensors stay
-on the device until an evaluator reduces them.  ``Model.save`` and the
+on the device until an evaluator reduces them.  Over a mesh of more than
+one shard the data is a :class:`~..parallel.sharding.ShardedDataset`: a fit
+computes its statistics once a local data shard on the shard's device
+(:class:`Shards`; one device is one shard), sums them in ascending
+data-shard order (``collectives.aggregate_shards``) and solves once on the
+home device, and
+``transform`` predicts shard by shard into :class:`~..parallel.sharding.
+MeshArray` columns.  ``Model.save`` and the
 Spark-style ``model.write().overwrite().save(path)`` write the JAX
 package's artifact layout (``io/model_io.py``).
 """
@@ -23,8 +30,9 @@ from ..device import resolve_device
 from ..features.assembler import AssembledTable
 
 
-#: the slice of the port that brings ``mesh=`` to every estimator but KMeans
-MESH_SLICE = "8b"
+#: the slice of the port that brings ``mesh=`` to the estimators that still
+#: fit on one device
+MESH_SLICE = "8c"
 
 
 def _sharded(data: Any) -> bool:
@@ -37,7 +45,7 @@ def _sharded(data: Any) -> bool:
 
 
 def require_single_shard(data: Any, mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` naming slice 8b when ``mesh`` has more
+    """Raise ``NotImplementedError`` naming slice 8c when ``mesh`` has more
     than one entry (or a process group is active) or ``data`` is sharded:
     ``what`` runs on one device until its mesh slice lands, and never
     gathers the shards silently."""
@@ -117,6 +125,104 @@ def as_device_dataset(data: Any, label_col: str | None = None, device=None,
     return device_dataset(np.asarray(data), None, device=device)
 
 
+def on_mesh(data: Any, label_col: str | None = None, device=None,
+            weight_col: str | None = None, mesh=None):
+    """``data`` as a DeviceDataset on ``device`` (default the card; a
+    dataset stays where it lies), or over ``mesh`` (not both): a one-entry
+    mesh with no process group is its device, a larger one (or a group)
+    gives a ShardedDataset, a DeviceDataset given with it split into its
+    shards.  A ShardedDataset fits on its own mesh, which ``mesh`` must
+    equal."""
+    from ..parallel.sharding import ShardedDataset, shard_dataset, uses_shards
+
+    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col, mesh=mesh,
+                           sharded=True)
+    if isinstance(ds, ShardedDataset):
+        if mesh is not None and mesh != ds.mesh:
+            raise ValueError(f"the data lies on {ds.mesh}, not on the mesh given ({mesh})")
+    elif mesh is not None and uses_shards(mesh):
+        ds = shard_dataset(ds, mesh)
+    return ds
+
+
+def is_sharded(ds) -> bool:
+    from ..parallel.sharding import ShardedDataset
+
+    return isinstance(ds, ShardedDataset)
+
+
+class Shards:
+    """The data shards a fit runs over: a DeviceDataset is one shard on its
+    device (a one-entry mesh, D = 1); a ShardedDataset gives the data
+    shards this process owns.  ``sum(fn)`` runs ``fn(i, shard)`` once a
+    local data shard on the shard's device (its ``(i, 0)`` entry: the model
+    axis is replicated) and sums each statistic over the data shards in
+    ascending order on ``home``, this process's first local shard's device
+    (``collectives.aggregate_shards``).  One shard's sum is its statistics
+    as they are; every process of a group gets the same bits, so every rank
+    solves alike and stops alike."""
+
+    def __init__(self, ds):
+        from ..parallel.mesh import Mesh, check_model_local
+
+        if isinstance(ds, DeviceDataset):
+            self.mesh = Mesh(np.asarray([[ds.x.device]], dtype=object))
+            self.data = {0: ds}
+        else:
+            check_model_local(ds.mesh)
+            self.mesh = ds.mesh
+            self.data = {i: ds.shard(i) for i in ds.mesh.local_data_shards()}
+            if not self.data:
+                raise ValueError(f"this process owns no data shard of {ds.mesh}")
+        self.D = self.mesh.devices.shape[0]
+        self.local = list(self.data)
+        self.home = self.data[self.local[0]].x.device
+        self.n_padded = ds.n_padded
+        self.n_features = ds.n_features
+
+    def device(self, i: int) -> torch.device:
+        return self.data[i].x.device
+
+    def sum(self, fn):
+        """Each statistic of ``fn(i, shard)`` (a sequence of tensors)
+        summed over the data shards in ascending order, on ``home``: one
+        gather under a process group."""
+        from ..parallel.collectives import aggregate_shards
+
+        return aggregate_shards(lambda i: tuple(fn(i, self.data[i])), self.mesh)
+
+    def put(self, t: torch.Tensor) -> dict:
+        """``t`` on every local shard's device (a repeated device holds it
+        once: ``.to`` of a tensor already there is the tensor)."""
+        return {i: t.to(self.device(i)) for i in self.local}
+
+    def count(self) -> float:
+        """Σw over every shard, on the host."""
+        return float(self.sum(lambda i, s: (s.w.to(torch.float32).sum(),))[0])
+
+    def with_rows(self, x: dict | None = None, y: dict | None = None,
+                  w: dict | None = None) -> "Shards":
+        """The same shards with their rows, labels or weights replaced
+        (``{i: tensor on shard i's device}``)."""
+        out = object.__new__(Shards)
+        out.__dict__.update(self.__dict__)
+        out.data = {i: DeviceDataset(x=s.x if x is None else x[i], y=s.y if y is None else y[i],
+                                     w=s.w if w is None else w[i])
+                    for i, s in self.data.items()}
+        return out
+
+    def dataset(self):
+        """The shards as a ShardedDataset (what ``sample_valid_rows``
+        reads): each local data shard on every model entry of its row."""
+        from ..parallel.sharding import ShardedDataset
+
+        blocks = np.empty(self.mesh.devices.shape, dtype=object)
+        for i, s in self.data.items():
+            for j in range(blocks.shape[1]):
+                blocks[i, j] = s
+        return ShardedDataset(self.mesh, blocks)
+
+
 @dataclass
 class PredictionResult:
     """Predictions, labels and validity weights (pad rows w = 0), as
@@ -127,12 +233,18 @@ class PredictionResult:
     weight: torch.Tensor
 
     def to_numpy(self, n: int | None = None) -> tuple[np.ndarray, np.ndarray]:
-        pred = self.prediction.cpu().numpy()
-        lab = self.label.cpu().numpy()
+        pred, lab = host_array(self.prediction), host_array(self.label)
         if n is None:
-            valid = self.weight.cpu().numpy() > 0
+            valid = host_array(self.weight) > 0
             return pred[valid], lab[valid]
         return pred[:n], lab[:n]
+
+
+def host_array(t) -> np.ndarray:
+    """A tensor, or a row-sharded MeshArray (gathered), on the host."""
+    from ..parallel.sharding import MeshArray
+
+    return t.numpy() if isinstance(t, MeshArray) else t.cpu().numpy()
 
 
 class Estimator:
@@ -156,9 +268,10 @@ class Estimator:
     partials_family: str | None = None
 
     #: True where ``fit`` runs over a mesh of more than one shard itself
-    #: (KMeans).  Every other subclass's ``fit`` takes ``mesh=`` too: a
-    #: one-entry mesh names its device, a larger one raises until slice 8b
-    #: (:func:`_mesh_guarded`)
+    #: (KMeans, LinearRegression, the trees, GaussianMixture,
+    #: LogisticRegression).  Every other subclass's ``fit`` takes ``mesh=``
+    #: too: a one-entry mesh names its device, a larger one raises until
+    #: slice 8c (:func:`_mesh_guarded`)
     mesh_fit: bool = False
 
     def __init_subclass__(cls, **kw):
@@ -268,12 +381,22 @@ class Model:
                 return int(v.shape[axis])
         return None
 
-    def transform(self, data: Any, label_col: str | None = None,
-                  device=None) -> PredictionResult:
-        """Predict on ``data`` (coerced as :func:`as_device_dataset`
-        does) → predictions beside its labels and weights."""
-        ds = as_device_dataset(data, label_col=label_col, device=device)
-        return PredictionResult(prediction=self.predict(ds.x), label=ds.y, weight=ds.w)
+    def transform(self, data: Any, label_col: str | None = None, device=None,
+                  mesh=None) -> PredictionResult:
+        """Predict on ``data`` (coerced as :func:`on_mesh` does) →
+        predictions beside its labels and weights; over a mesh of more
+        than one shard each shard predicts on its device and the columns
+        are row-sharded MeshArrays (the reference's sharded result)."""
+        ds = on_mesh(data, label_col, device, None, mesh)
+        return self._result(ds, self.predict)
+
+    @staticmethod
+    def _result(ds, predict) -> PredictionResult:
+        """``predict`` on ``ds``'s rows (shard by shard on a ShardedDataset)
+        beside its labels and weights."""
+        if is_sharded(ds):
+            return PredictionResult(prediction=ds.x.map_data(predict), label=ds.y, weight=ds.w)
+        return PredictionResult(prediction=predict(ds.x), label=ds.y, weight=ds.w)
 
     def predict_numpy(self, x: np.ndarray, device=None) -> np.ndarray:
         """Host rows in, host predictions out; computed on ``device``
@@ -305,11 +428,13 @@ class ClusteringModel(Model):
     assignments, computed on ``device``, default the card).  Non-table
     inputs keep the base behavior (:class:`PredictionResult`)."""
 
-    def transform(self, data: Any, label_col: str | None = None, device=None):
+    def transform(self, data: Any, label_col: str | None = None, device=None, mesh=None):
         if isinstance(data, AssembledTable):
+            if mesh is not None and device is None:
+                device = mesh.devices.flat[0].device
             pred = self.predict_numpy(data.features, device=device).astype(np.int32)
             return data.table.with_column("prediction", pred, dtype="int")
-        return super().transform(data, label_col=label_col, device=device)
+        return super().transform(data, label_col=label_col, device=device, mesh=mesh)
 
 
 @dataclass

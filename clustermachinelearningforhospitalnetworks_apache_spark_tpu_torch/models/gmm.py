@@ -36,6 +36,15 @@ per-component triangular solves into one product a row chunk
 run under the precision (``ops/distance.py::matmul_p``: TF32 on the card
 for "high" / "default", bf16 operands with float32 sums for "bf16").
 
+The resident fit runs over data shards (``base.Shards``: one device is one
+shard, ``fit(..., mesh=)`` or a ``ShardedDataset`` spread the rows over a
+mesh): each EM iteration runs :func:`_em_pass` once a data shard on its
+device against the parameters broadcast from the home device,
+sums (nk, Σr·x, Σr·xxᵀ, ll) in ascending shard order and runs the M-step
+once on the home device; the init draws the global sample.  ``score``,
+``predict_assigned`` and ``transform`` work shard by shard, and the
+partials calls take ``mesh=``.
+
 The partials protocol (federated EM, ``federated/``): a silo's
 statistics are one unshifted :func:`_em_pass` over its rows, the
 coordinator's M-step is :func:`_m_step_rule`.  With each silo one chunk
@@ -51,13 +60,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..data import DeviceDataset, sample_valid_rows
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..ops.distance import matmul_p, validate_matmul_precision
 from ..parallel.outofcore import HostDataset, add_stats
-from .base import (ClusteringModel, Estimator, as_device_dataset, check_features,
-                   require_single_shard)
+from ..parallel.sharding import MeshArray, sample_valid_rows
+from .base import (MESH_SLICE, ClusteringModel, Estimator, Shards, check_features, is_sharded,
+                   on_mesh, require_single_shard)
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
 
@@ -242,7 +251,17 @@ class GaussianMixtureModel(ClusteringModel):
     def predict_assigned(self, x: torch.Tensor, chunk: int = 65536):
         """→ (component (n,) int32, assigned-component posterior (n,)):
         ``argmax(predict_proba)`` one row chunk at a time, so no (n, k)
-        tensor exists."""
+        tensor exists.  A row-sharded MeshArray is assigned shard by shard
+        on each shard's device (two MeshArrays)."""
+        if isinstance(x, MeshArray):
+            pairs = {}
+
+            def first(b):
+                pairs[id(b)] = self.predict_assigned(b, chunk)
+                return pairs[id(b)][0]
+
+            pred = x.map_data(first)
+            return pred, x.map_data(lambda b: pairs[id(b)][1])
         pred = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
         prob = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
         for s, lr in self._log_resp(x, chunk):
@@ -251,27 +270,33 @@ class GaussianMixtureModel(ClusteringModel):
             prob[s:s + lr.shape[0]] = torch.exp(top - torch.logsumexp(lr, dim=1))
         return pred, prob
 
-    def score(self, data, device=None) -> float:
-        """Mean per-row log-likelihood."""
-        ds = as_device_dataset(data, device=device)
-        logw, means, chols = self._device_params(ds.x.device)
-        ll = _e_step(ds.x.to(torch.float32), ds.w, logw, means, chols)
-        return float(ll / torch.clamp(ds.w.sum(), min=1.0))
+    def score(self, data, device=None, mesh=None) -> float:
+        """Mean per-row log-likelihood (over a mesh: each shard's sums on
+        its device, added in ascending shard order)."""
+        ds = on_mesh(data, None, device, None, mesh)
 
-    def transform(self, data, label_col: str | None = None, device=None):
+        def sums(i, s):
+            logw, means, chols = self._device_params(s.x.device)
+            return _e_step(s.x.to(torch.float32), s.w, logw, means, chols), s.w.sum()
+
+        ll, n = Shards(ds).sum(sums)
+        return float(ll / torch.clamp(n, min=1.0))
+
+    def transform(self, data, label_col: str | None = None, device=None, mesh=None):
         """An AssembledTable comes back as its source Table with the
         ``prediction`` column and the assigned component's posterior as
         ``probability``; other inputs as :class:`PredictionResult`."""
         from ..features.assembler import AssembledTable
+        from .base import host_array
 
         if isinstance(data, AssembledTable):
             n = len(data)
-            ds = as_device_dataset(data.features, device=device)
+            ds = on_mesh(data.features, None, device, None, mesh)
             pred, prob = self.predict_assigned(ds.x)
             out = data.table.with_column(
-                "prediction", pred[:n].cpu().numpy().astype(np.int32), dtype="int")
-            return out.with_column("probability", prob[:n].cpu().numpy(), dtype="float")
-        return super().transform(data, label_col=label_col, device=device)
+                "prediction", host_array(pred)[:n].astype(np.int32), dtype="int")
+            return out.with_column("probability", host_array(prob)[:n], dtype="float")
+        return super().transform(data, label_col=label_col, device=device, mesh=mesh)
 
     def _artifacts(self):
         return (
@@ -415,53 +440,63 @@ class GaussianMixture(Estimator):
             n_iter=it,
         )
 
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
     def fit(self, data, label_col: str | None = None, mesh=None, on_iteration=None,
             device=None) -> GaussianMixtureModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
-        x) on ``device`` (default the card); a :class:`HostDataset`
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w]) or x) on ``device`` (default the card) or over
+        ``mesh``; a :class:`HostDataset`
         streams its blocks to ``device``.  ``on_iteration(it,
         log_likelihood)`` (optional) fires after every EM step."""
         validate_matmul_precision(self.matmul_precision)
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device), on_iteration)
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
-        x = ds.x.to(torch.float32).contiguous()
-        w = ds.w.to(torch.float32).contiguous()
-        d = x.shape[1]
-        n = float(w.sum())
+            require_single_shard(None, mesh, "GaussianMixture.fit out of core")
+            return self._fit_outofcore(data, resolve_device(
+                device if mesh is None or device is not None else mesh.device(0, 0)),
+                on_iteration)
+        ds = on_mesh(data, None, device, self.weight_col, mesh)
+        sh = Shards(ds)
+        x = {i: s.x.to(torch.float32).contiguous() for i, s in sh.data.items()}
+        w = {i: s.w.to(torch.float32).contiguous() for i, s in sh.data.items()}
+        prepped = sh.with_rows(x=x, w=w)
+        d = sh.n_features
+        n = prepped.count()
         if n == 0:
             raise ValueError("GaussianMixture fit on an empty dataset")
         signature = None
         if self.checkpoint_dir:
+            if is_sharded(ds):
+                raise NotImplementedError(
+                    "a checkpointed GaussianMixture fit over a mesh of more than one shard "
+                    f"comes with slice {MESH_SLICE} of the port")
             from ..io.fit_checkpoint import data_fingerprint
 
             signature = {
                 "estimator": "GaussianMixture", "k": self.k, "d": d,
-                "data": data_fingerprint(x, w),
+                "data": data_fingerprint(x[0], w[0]),
                 "n_padded": ds.n_padded, "seed": self.seed,
                 "warm": self._warm_fingerprint(),
                 "reg_covar": self.reg_covar, "tol": self.tol,
             }
-        # the init's bounded host sample also gives the recentering shift
-        # that keeps the float32 covariance refit stable
+        # the init's bounded host sample (of every shard's rows) also gives
+        # the recentering shift that keeps the float32 covariance refit
+        # stable
         ckpt, shift, means, covs, weights, start_it, prev_ll = self._start(
             signature, d,
-            lambda: sample_valid_rows(DeviceDataset(x, ds.y, w), self.init_sample_size,
-                                      self.seed))
-        dev = x.device
-        params = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            lambda: sample_valid_rows(prepped.dataset(), self.init_sample_size, self.seed))
+        params = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(sh.home)
                        for a in (means, covs, weights))
-        shift_d = torch.from_numpy(shift).to(dev)
+        step = self._em_step(sh, x, w, sh.put(torch.from_numpy(shift)), self.matmul_precision)
+        params, ll, it = self._em(step, params, shift, start_it, prev_ll, ckpt, on_iteration)
+        return self._model(params, shift, ll, n, it)
 
-        def step(params):
-            means_d, covs_d, weights_d = params
-            chols = _gmm_chols(covs_d, self.reg_covar)
-            nk, sums, outer, ll = _em_pass(x, w, shift_d, torch.log(weights_d), means_d,
-                                           chols, self.chunk_rows, self.matmul_precision)
-            return _m_step_rule(nk, sums, outer, self.reg_covar), ll
-
+    def _em(self, step, params, shift, start_it: int, prev_ll: float, ckpt, on_iteration):
+        """The EM iterations → (params, ll, last iteration): the
+        reference's device loop (``|ll − prev_ll| >= tol`` in float32) with
+        no checkpoint or ``on_iteration``, else its host loop."""
         if ckpt is None and on_iteration is None:
-            # the reference's device loop: |ll − prev_ll| >= tol in float32
             it = 0
             prev, ll = np.float32(-np.inf), np.float32(np.inf)
             tol = np.float32(self.tol)
@@ -469,11 +504,29 @@ class GaussianMixture(Estimator):
                 params, ll_d = step(params)
                 prev, ll = ll, np.float32(ll_d.item())
                 it += 1
-            ll = float(ll)
-        else:
-            params, ll, it = self._host_loop(step, params, shift, start_it, prev_ll, ckpt,
-                                             on_iteration)
-        return self._model(params, shift, ll, n, it)
+            return params, float(ll), it
+        return self._host_loop(step, params, shift, start_it, prev_ll, ckpt, on_iteration)
+
+    def _em_stats(self, sh: Shards, x: dict, w: dict, shift: dict, params, precision: str):
+        """One E-step's statistics over the data shards of ``sh`` (``x`` /
+        ``w`` / ``shift`` a shard's on its device): the parameters'
+        Cholesky factors once on the home device, broadcast; :func:`_em_pass`
+        a shard on its device; (nk, Σr·x, Σr·xxᵀ, ll) summed in ascending
+        shard order on the home device."""
+        means_d, covs_d, weights_d = params
+        chols = sh.put(_gmm_chols(covs_d, self.reg_covar))
+        logw, means = sh.put(torch.log(weights_d)), sh.put(means_d)
+        return sh.sum(lambda i, s: _em_pass(x[i], w[i], shift[i], logw[i], means[i], chols[i],
+                                            self.chunk_rows, precision))
+
+    def _em_step(self, sh: Shards, x: dict, w: dict, shift: dict, precision: str):
+        """→ ``step(params)`` → (params, ll): :meth:`_em_stats`, then the
+        M-step on the home device."""
+        def step(params):
+            nk, sums, outer, ll = self._em_stats(sh, x, w, shift, params, precision)
+            return _m_step_rule(nk, sums, outer, self.reg_covar), ll
+
+        return step
 
     def _fit_outofcore(self, hd: HostDataset, dev, on_iteration=None) -> GaussianMixtureModel:
         """Rows ≫ device memory: each EM iteration streams the blocks,
@@ -552,8 +605,8 @@ class GaussianMixture(Estimator):
         sample (candidate centers cross the wire, never rows)."""
         from ..federated.partials import Partials
 
-        require_single_shard(data, mesh, "GaussianMixture.local_init_stats")
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
+        ds = on_mesh(data, None, None if mesh is not None else device, self.weight_col,
+                     mesh)
         sample = np.asarray(sample_valid_rows(ds, self.init_sample_size, self.seed), np.float64)
         n_cand = min(max(4 * self.k, 2 * self.k + 8), sample.shape[0])
         cand = _kmeans_pp_init(sample, n_cand, self.seed)
@@ -592,24 +645,22 @@ class GaussianMixture(Estimator):
         if state is None:
             raise ValueError("gmm partials need the broadcast FitState")
         validate_matmul_precision(self.matmul_precision)
-        require_single_shard(data, mesh, "GaussianMixture.partial_fit_stats")
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
-        x = ds.x.to(torch.float32).contiguous()
-        w = ds.w.to(torch.float32).contiguous()
-        dev = x.device
-        d = x.shape[1]
+        ds = on_mesh(data, None, None if mesh is not None else device, self.weight_col,
+                     mesh)
+        sh = Shards(ds)
         covs_d, weights_d, means_d = (
-            torch.from_numpy(np.ascontiguousarray(state.params[k], np.float32)).to(dev)
+            torch.from_numpy(np.ascontiguousarray(state.params[k], np.float32)).to(sh.home)
             for k in ("covariances", "weights", "means"))
-        chols = _gmm_chols(covs_d, self.reg_covar)
-        nk, sums, outer, ll = _em_pass(
-            x, w, torch.zeros((d,), dtype=torch.float32, device=dev), torch.log(weights_d),
-            means_d, chols, self.chunk_rows, self.matmul_precision)
+        x = {i: s.x.to(torch.float32).contiguous() for i, s in sh.data.items()}
+        w = {i: s.w.to(torch.float32).contiguous() for i, s in sh.data.items()}
+        zero = sh.put(torch.zeros((ds.n_features,), dtype=torch.float32))
+        nk, sums, outer, ll = self._em_stats(sh, x, w, zero, (means_d, covs_d, weights_d),
+                                             self.matmul_precision)
         return Partials(
             family=self.partials_family,
             stats={"nk": nk.cpu().numpy(), "sums": sums.cpu().numpy(),
                    "outer": outer.cpu().numpy(), "ll": ll.cpu().numpy()},
-            n_rows=float(w.sum()),
+            n_rows=sh.count(),
             state_version=state.version,
         )
 

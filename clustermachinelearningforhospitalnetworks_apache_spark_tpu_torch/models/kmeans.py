@@ -71,10 +71,9 @@ from ..parallel.collectives import ordered_sum
 from ..parallel.mesh import check_model_local
 from ..parallel.outofcore import HostDataset, add_stats
 from ..parallel.partitioner import family
-from ..parallel.sharding import (MeshArray, ShardedDataset, sample_valid_rows, shard_dataset,
-                                 uses_shards)
+from ..parallel.sharding import MeshArray, ShardedDataset, sample_valid_rows
 from .base import (MESH_SLICE, ClusteringModel, Estimator, as_device_dataset, check_features,
-                   require_single_shard)
+                   on_mesh, require_single_shard)
 from .summary import ClusteringSummary
 
 DISTANCE_MEASURES = ("euclidean", "cosine")
@@ -692,18 +691,9 @@ class KMeans(Estimator):
         )
 
     def _on_mesh(self, data, device, mesh):
-        """``data`` as a DeviceDataset on ``device``, or as a
-        ShardedDataset when ``mesh`` has more than one shard (or a process
-        group is active): a DeviceDataset given with such a mesh is split
-        into its shards."""
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col, mesh=mesh,
-                               sharded=True)
-        if isinstance(ds, ShardedDataset):
-            if mesh is not None and mesh != ds.mesh:
-                raise ValueError(f"the data lies on {ds.mesh}, not on the mesh given ({mesh})")
-        elif mesh is not None and uses_shards(mesh):
-            ds = shard_dataset(ds, mesh)
-        return ds
+        """``data`` as a DeviceDataset on ``device``, or over ``mesh``
+        (``base.on_mesh``)."""
+        return on_mesh(data, None, device, self.weight_col, mesh)
 
     def _sharded_lloyd(self, sds: ShardedDataset, stats) -> _ShardedLloyd:
         lloyd = _ShardedLloyd(sds, self.k, self.distance_measure == "cosine")

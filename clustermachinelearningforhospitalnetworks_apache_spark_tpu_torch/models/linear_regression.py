@@ -35,6 +35,15 @@ merged sums are solved on the coordinator's (:func:`_wls_fit_from_stats`),
 so the resident fit is the one-silo case of the federated one.  The
 elastic net, which centers on the pooled mean, stays pooled-only.
 
+The resident fit runs over data shards (``base.Shards``: one device is
+one shard, ``fit(..., mesh=)`` or a ``ShardedDataset`` spread the rows
+over a mesh): each data shard computes :func:`_wls_partial_stats` on its
+device, the shards' sums add in ascending shard order and
+:func:`_wls_fit_from_stats` solves once on the home device, so the WLS is
+the federated fit with each shard a silo.  The elastic net takes two such
+passes, the moments (its centering) and then the Gram of the centered,
+scaled rows, and FISTA runs on the home device.
+
 A fresh resident fit carries a lazy training summary
 (``models/summary.py``); a loaded model, or an out-of-core fit, has none
 and ``summary`` raises, as in the reference.  ``model.fit_info`` holds
@@ -48,11 +57,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..data import DeviceDataset
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..parallel.outofcore import HostDataset, add_stats
-from .base import Estimator, Model, as_device_dataset, check_features, require_single_shard
+from .base import Estimator, Model, Shards, check_features, on_mesh, require_single_shard
 from .summary import SummaryMixin
 
 #: rows summed by one partial product of :func:`chunked_gram`
@@ -85,16 +93,35 @@ def chunked_gram(a: torch.Tensor, b: torch.Tensor, chunk: int = GRAM_CHUNK) -> t
     return out[:, 0] if b.ndim == 1 else out
 
 
-def weighted_moments(x: torch.Tensor, w: torch.Tensor):
-    """Weighted per-feature moments; a (near-)constant feature gets std
-    1.0.  → (n, mean, std) with n = max(Σw, 1)."""
-    n = torch.clamp(w.sum(), min=1.0)
-    wcol = w[:, None]
-    mean = (x * wcol).sum(dim=0) / n
-    var = (x * x * wcol).sum(dim=0) / n - mean * mean
+def moments_from_sums(sw, sx, sxx):
+    """(n, mean, std) from Σw, Σw·x and Σw·x²: n = max(Σw, 1), and a
+    (near-)constant feature gets std 1.0."""
+    n = torch.clamp(sw, min=1.0)
+    mean = sx / n
+    var = sxx / n - mean * mean
     std = torch.where(var > 1e-12, torch.sqrt(torch.clamp(var, min=1e-12)),
                       torch.ones_like(var))
     return n, mean, std
+
+
+def weighted_moments(x: torch.Tensor, w: torch.Tensor):
+    """Weighted per-feature moments (:func:`moments_from_sums`).
+    → (n, mean, std)."""
+    wcol = w[:, None]
+    return moments_from_sums(w.sum(), (x * wcol).sum(dim=0), (x * x * wcol).sum(dim=0))
+
+
+def shard_moments(sh):
+    """:func:`weighted_moments` over the data shards of ``sh``
+    (``base.Shards``; one device is one shard): each shard's sums on its
+    device, added in ascending shard order.  → (n, mean, std) on the home
+    device."""
+    def sums(i, s):
+        x, w = s.x.to(torch.float32), s.w.to(torch.float32)
+        wcol = w[:, None]
+        return w.sum(), (x * wcol).sum(dim=0), (x * x * wcol).sum(dim=0)
+
+    return moments_from_sums(*sh.sum(sums))
 
 
 def standardized_design(x, w, reg_param: float, fit_intercept: bool, standardize: bool):
@@ -142,11 +169,7 @@ def _wls_fit_from_stats(sw, sx, sxx, gram, mom, reg_param: float, fit_intercept:
     (intercept unpenalized) and the jitter, then the solve (``solve_ex``:
     no host sync on the card, and a singular system gives non-finite
     coefficients instead of raising, as the reference's solve)."""
-    n = torch.clamp(sw, min=1.0)
-    mean = sx / n
-    var = sxx / n - mean * mean
-    std = torch.where(var > 1e-12, torch.sqrt(torch.clamp(var, min=1e-12)),
-                      torch.ones_like(var))
+    n, _, std = moments_from_sums(sw, sx, sxx)
     scale = std if standardize else torch.ones_like(std)
     nfeat = sx.shape[0]
     dd = gram.shape[0]
@@ -158,14 +181,6 @@ def _wls_fit_from_stats(sw, sx, sxx, gram, mom, reg_param: float, fit_intercept:
     intercept = theta[nfeat] if fit_intercept else torch.zeros((), dtype=gram.dtype,
                                                               device=gram.device)
     return coef, intercept
-
-
-def _wls_fit(x, y, w, reg_param: float, fit_intercept: bool, standardize: bool):
-    """Weighted least squares → (coefficients (d,), intercept ()), float32
-    on the inputs' device: the whole design's statistics, solved — the
-    federated fit's two halves on one silo."""
-    return _wls_fit_from_stats(*_wls_partial_stats(x, y, w, fit_intercept), reg_param,
-                               fit_intercept, standardize)
 
 
 def _fista(g, c, l1: float, l2: float, tol: float, max_iter: int):
@@ -215,31 +230,37 @@ def _en_penalties(reg_param: float, en_param: float):
     return float(reg * en), float(reg * (np.float32(1.0) - en))
 
 
-def _elastic_net_fit(x, y, w, reg_param: float, en_param: float, tol: float,
+def _elastic_net_fit(sh, reg_param: float, en_param: float, tol: float,
                      fit_intercept: bool, standardize: bool, max_iter: int):
     """Elastic-net WLS via FISTA on the Gram matrix of the centered,
-    scaled design (Spark's ``elasticNetParam``): minimizes 1/(2n) Σ wᵢ(yᵢ −
-    xᵢβ − b)² + λ(α‖β̃‖₁ + (1−α)/2 ‖β̃‖²), intercept unpenalized.
+    scaled design (Spark's ``elasticNetParam``) over the data shards of
+    ``sh`` (``base.Shards``): minimizes 1/(2n) Σ wᵢ(yᵢ − xᵢβ − b)² +
+    λ(α‖β̃‖₁ + (1−α)/2 ‖β̃‖²), intercept unpenalized.  Two passes over
+    the shards, the moments (the centering) and then the centered Gram,
+    each summed in ascending shard order; FISTA on the home device.
     → (coef, intercept, n_iter, host syncs)."""
-    x = x.to(torch.float32)
-    y = y.to(torch.float32)
-    w = w.to(torch.float32)
-    n, mean, std = weighted_moments(x, w)
+    n, mean, std = shard_moments(sh)
     scale = std if standardize else torch.ones_like(std)
-    ybar = (y * w).sum() / n
+    sy, = sh.sum(lambda i, s: ((s.y.to(torch.float32) * s.w.to(torch.float32)).sum(),))
+    ybar = sy / n
     if fit_intercept:
         xc_mean, yc = mean, ybar
     else:
         xc_mean, yc = torch.zeros_like(mean), torch.zeros_like(ybar)
-    xs = (x - xc_mean[None, :]) / scale[None, :]
-    xw = xs * w[:, None]
-    g = chunked_gram(xw, xs) / n
-    c = chunked_gram(xw, y - yc) / n
+    put_m, put_s, put_y = sh.put(xc_mean), sh.put(scale), sh.put(yc)
+
+    def gram(i, s):
+        x, y, w = (t.to(torch.float32) for t in (s.x, s.y, s.w))
+        xs = (x - put_m[i][None, :]) / put_s[i][None, :]
+        xw = xs * w[:, None]
+        return chunked_gram(xw, xs), chunked_gram(xw, y - put_y[i])
+
+    g, c = sh.sum(gram)
     l1, l2 = _en_penalties(reg_param, en_param)
-    beta, n_iter, syncs = _fista(g, c, l1, l2, float(np.float32(tol)), max_iter)
+    beta, n_iter, syncs = _fista(g / n, c / n, l1, l2, float(np.float32(tol)), max_iter)
     coef = beta / scale
-    intercept = ybar - mean @ coef if fit_intercept else torch.zeros((), dtype=x.dtype,
-                                                                      device=x.device)
+    intercept = ybar - mean @ coef if fit_intercept else torch.zeros(
+        (), dtype=beta.dtype, device=beta.device)
     return coef, intercept, n_iter, syncs
 
 
@@ -265,11 +286,7 @@ def _lr_solve_from_stats(stats, shift, reg_param: float, fit_intercept: bool,
     WLS with Spark's unpenalized intercept), or FISTA on ``g`` for the
     elastic net (the resident path's solver)."""
     sw, sx, sxx, sy, gram, mom = stats
-    n = torch.clamp(sw, min=1.0)
-    mean_s = sx / n                       # mean of the shifted features
-    var = sxx / n - mean_s * mean_s
-    std = torch.where(var > 1e-12, torch.sqrt(torch.clamp(var, min=1e-12)),
-                      torch.ones_like(var))
+    n, mean_s, std = moments_from_sums(sw, sx, sxx)   # mean_s: of the shifted features
     scale = std if standardize else torch.ones_like(std)
     ybar = sy / n
     if fit_intercept:
@@ -346,24 +363,30 @@ class LinearRegression(Estimator):
     standardize: bool = True
     weight_col: str | None = None
 
-    def fit(self, data, label_col: str | None = None, device=None) -> LinearRegressionModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w])) on
-        ``device`` (default the card); a :class:`HostDataset` streams its
-        blocks to ``device``."""
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> LinearRegressionModel:
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
+        :class:`HostDataset` streams its blocks to ``device``."""
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device))
-        ds: DeviceDataset = as_device_dataset(
-            data, label_col or self.label_col, device=device, weight_col=self.weight_col
-        )
+            require_single_shard(None, mesh, "LinearRegression.fit out of core")
+            return self._fit_outofcore(data, resolve_device(
+                device if mesh is None or device is not None else mesh.device(0, 0)))
+        ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
+        sh = Shards(ds)
         info = {}
         if self._elastic:
             coef, intercept, info["n_iter"], info["host_syncs"] = _elastic_net_fit(
-                ds.x, ds.y, ds.w, float(self.reg_param), float(self.elastic_net_param),
-                float(self.tol), self.fit_intercept, self.standardize, self.max_iter)
+                sh, float(self.reg_param), float(self.elastic_net_param), float(self.tol),
+                self.fit_intercept, self.standardize, self.max_iter)
         else:
-            coef, intercept = _wls_fit(
-                ds.x, ds.y, ds.w, float(self.reg_param), self.fit_intercept, self.standardize
-            )
+            # the WLS: each shard a silo of the federated fit
+            stats = sh.sum(lambda i, s: _wls_partial_stats(s.x, s.y, s.w, self.fit_intercept))
+            coef, intercept = _wls_fit_from_stats(*stats, float(self.reg_param),
+                                                  self.fit_intercept, self.standardize)
         model = LinearRegressionModel(coefficients=coef, intercept=intercept)
         model.fit_info = info
         # the lazy training summary holds references only; each metric is
@@ -393,8 +416,9 @@ class LinearRegression(Estimator):
     def partial_fit_stats(self, data, label_col: str | None = None, mesh=None, state=None,
                           final: bool = False, device=None):
         """One silo's WLS statistics, computed on ``device`` (default the
-        card; a DeviceDataset where it lies); only the (d+1)² sums cross
-        to the host."""
+        card; a DeviceDataset where it lies) or over ``mesh`` (a shard on
+        its device, summed in ascending shard order); only the (d+1)² sums
+        cross to the host."""
         from ..federated.partials import Partials
 
         if not self.supports_partials():
@@ -403,11 +427,11 @@ class LinearRegression(Estimator):
                 "pooled mean — not partials-decomposable; use reg_param "
                 "with elastic_net_param=0 (ridge) for federated fits"
             )
-        require_single_shard(data, mesh, "LinearRegression.partial_fit_stats")
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
-        sw, sx, sxx, gram, mom = (t.cpu().numpy() for t in _wls_partial_stats(
-            ds.x, ds.y, ds.w, self.fit_intercept))
+        ds = on_mesh(data, label_col or self.label_col, None if mesh is not None else device,
+                     self.weight_col, mesh)
+        stats = Shards(ds).sum(lambda i, s: _wls_partial_stats(s.x, s.y, s.w,
+                                                                self.fit_intercept))
+        sw, sx, sxx, gram, mom = (t.cpu().numpy() for t in stats)
         return Partials(
             family=self.partials_family,
             stats={"sw": sw, "sx": sx, "sxx": sxx, "gram": gram, "mom": mom},

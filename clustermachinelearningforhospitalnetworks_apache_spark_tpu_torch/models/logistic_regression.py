@@ -25,6 +25,13 @@ The multinomial Hessian uses the reference's exact PSD factorization
 ``diag(p) − ppᵀ = BBᵀ`` with ``B = diag(√p) − p√pᵀ``: per chunk of rows,
 ``E[(n, c), (a, i)] = √wₙ·B[a, c]·xa[n, i]`` and ``H += EᵀE``.
 
+The resident fit runs over data shards (``base.Shards``: one device is one
+shard, ``fit(..., mesh=)`` or a ``ShardedDataset`` spread the rows over a
+mesh): the standardization moments and, every Newton step, the (gradient,
+Hessian) are computed once a data shard on its device against ``theta``
+broadcast from the home device, summed in ascending shard order, and the
+damped solve runs once on the home device.
+
 A :class:`~..parallel.outofcore.HostDataset` streams its blocks through
 the same statistics once a Newton step, after the moments pre-pass
 (``streamed_standardization``), with one host read a step as in the
@@ -38,12 +45,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..data import DeviceDataset
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..parallel.outofcore import HostDataset, add_stats, streamed_standardization
-from .base import Estimator, Model, PredictionResult, as_device_dataset, check_features
-from .linear_regression import chunked_gram, standardized_design
+from ..parallel.collectives import gather_shards
+from .base import (Estimator, Model, PredictionResult, Shards, check_features, on_mesh,
+                   require_single_shard)
+from .linear_regression import chunked_gram, shard_moments
 from .summary import (
     BinaryLogisticRegressionTrainingSummary,
     MulticlassLogisticRegressionTrainingSummary,
@@ -146,26 +154,6 @@ def _newton_update_from_stats(theta, grad, hess, ridge):
     return theta - delta, torch.max(torch.abs(delta))
 
 
-def _irls_fit(x, y, w, reg_param: float, tol: float, fit_intercept: bool,
-              standardize: bool, max_iter: int):
-    """Binomial damped Newton → (coef (d,), intercept (), n_iter, host
-    syncs), float32 on the inputs' device."""
-    x = x.to(torch.float32)
-    y = y.to(torch.float32)
-    w = w.to(torch.float32)
-    _, ridge, nfeat, _ = standardized_design(x, w, reg_param, fit_intercept, standardize)
-
-    def step(theta):
-        return _newton_update_from_stats(
-            theta, *_logit_block_newton_stats(x, y, w, theta, fit_intercept), ridge)
-
-    theta0 = torch.zeros((ridge.shape[0],), dtype=torch.float32, device=x.device)
-    theta, n_iter, syncs = newton_loop(step, theta0, tol, max_iter)
-    coef = theta[:nfeat]
-    intercept = theta[nfeat] if fit_intercept else torch.zeros((), device=x.device)
-    return coef, intercept, n_iter, syncs
-
-
 def multinomial_chunk(k: int, dd: int) -> int:
     """Rows a multinomial Hessian chunk holds: its E factor is chunk·K²·D
     floats, so the chunk shrinks as K²·D grows (the reference's rule)."""
@@ -204,29 +192,50 @@ def _multinomial_block_stats(x, y, w, theta, num_classes: int, fit_intercept: bo
     return g.reshape(kd), h
 
 
-def _multinomial_fit(x, y, w, reg_param: float, tol: float, num_classes: int,
-                     fit_intercept: bool, standardize: bool, max_iter: int, chunk: int):
-    """Softmax damped Newton (Spark's ``family="multinomial"``: K
-    coefficient vectors, standardized L2, intercepts unpenalized; the
-    trace-scaled jitter pins the parameterization's null direction).
-    → (coef (K, d), intercept (K,), n_iter, host syncs)."""
-    k = num_classes
-    x = x.to(torch.float32)
-    w = w.to(torch.float32)
-    _, ridge1, nfeat, _ = standardized_design(x, w, reg_param, fit_intercept, standardize)
-    dd = ridge1.shape[0]
-    ridge = ridge1.repeat(k)
+def _newton_fit(sh, k: int | None, reg_param: float, tol: float, fit_intercept: bool,
+                standardize: bool, max_iter: int, chunk: int = 0):
+    """Damped Newton over the data shards of ``sh`` (``base.Shards``; one
+    device is one shard): binomial for ``k=None``, else softmax over ``k``
+    classes (Spark's ``family="multinomial"``: K coefficient vectors,
+    standardized L2, intercepts unpenalized; the trace-scaled jitter pins
+    the parameterization's null direction).  The standardization moments
+    (→ the ridge) are summed in shard order, then every step's (gradient,
+    Hessian) is computed a shard on its device against the broadcast
+    ``theta``, summed, and solved on the home device.  → (coef (d,) or
+    (K, d), intercept () or (K,), n_iter, host syncs), float32 on the home
+    device."""
+    f32 = torch.float32
+    x = {i: s.x.to(f32) for i, s in sh.data.items()}
+    y = {i: s.y.to(f32) for i, s in sh.data.items()}
+    w = {i: s.w.to(f32) for i, s in sh.data.items()}
+    n, _, std = shard_moments(sh)
+    scale = std if standardize else torch.ones_like(std)
+    nfeat = sh.n_features
+    dd = nfeat + (1 if fit_intercept else 0)
+    ridge = torch.zeros((dd,), dtype=f32, device=sh.home)
+    ridge[:nfeat] = reg_param * n * scale * scale
+    if k is not None:
+        ridge = ridge.repeat(k)
+
+        def stats(i, th):
+            return _multinomial_block_stats(x[i], y[i], w[i], th, k, fit_intercept, chunk)
+    else:
+        def stats(i, th):
+            return _logit_block_newton_stats(x[i], y[i], w[i], th, fit_intercept)
 
     def step(theta):
-        return _newton_update_from_stats(
-            theta, *_multinomial_block_stats(x, y, w, theta, k, fit_intercept, chunk), ridge)
+        th = sh.put(theta)
+        g, h = sh.sum(lambda i, s: stats(i, th[i]))
+        return _newton_update_from_stats(theta, g, h, ridge)
 
-    theta0 = torch.zeros((k * dd,), dtype=torch.float32, device=x.device)
+    theta0 = torch.zeros(((k or 1) * dd,), dtype=f32, device=sh.home)
     theta, n_iter, syncs = newton_loop(step, theta0, tol, max_iter)
+    if k is None:
+        intercept = theta[nfeat] if fit_intercept else torch.zeros((), device=sh.home)
+        return theta[:nfeat], intercept, n_iter, syncs
     th = theta.reshape(k, dd)
-    coef = th[:, :nfeat]
-    intercept = th[:, nfeat] if fit_intercept else torch.zeros((k,), device=x.device)
-    return coef, intercept, n_iter, syncs
+    intercept = th[:, nfeat] if fit_intercept else torch.zeros((k,), device=sh.home)
+    return th[:, :nfeat], intercept, n_iter, syncs
 
 
 def _as_f32(a) -> torch.Tensor:
@@ -300,13 +309,12 @@ class LogisticRegressionModel(SummaryMixin, Model):
     def predict(self, x: torch.Tensor) -> torch.Tensor:
         return (self.predict_proba(x) > self.threshold).to(torch.float32)
 
-    def transform_proba(self, data, label_col: str | None = None,
-                        device=None) -> PredictionResult:
+    def transform_proba(self, data, label_col: str | None = None, device=None,
+                        mesh=None) -> PredictionResult:
         """Like ``transform``, with P(class 1) in the prediction column: the
         score ``BinaryClassificationEvaluator`` ranks (Spark's
-        ``probability`` column)."""
-        ds = as_device_dataset(data, label_col=label_col, device=device)
-        return PredictionResult(prediction=self.predict_proba(ds.x), label=ds.y, weight=ds.w)
+        ``probability`` column); over a mesh, shard by shard."""
+        return self._result(on_mesh(data, label_col, device, None, mesh), self.predict_proba)
 
     def _artifacts(self):
         return (
@@ -358,32 +366,38 @@ class LogisticRegression(Estimator):
     family: str = "auto"       # Spark default
     weight_col: str | None = None
 
-    def fit(self, data, label_col: str | None = None, device=None):
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w])) on
-        ``device`` (default the card); a :class:`HostDataset` streams its
-        blocks to ``device``."""
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None):
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
+        :class:`HostDataset` streams its blocks to ``device``."""
         if self.family not in ("auto", "binomial", "multinomial"):
             raise ValueError(f"family must be auto|binomial|multinomial, got {self.family!r}")
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device))
-        ds: DeviceDataset = as_device_dataset(
-            data, label_col or self.label_col, device=device, weight_col=self.weight_col)
+            require_single_shard(None, mesh, "LogisticRegression.fit out of core")
+            return self._fit_outofcore(data, resolve_device(
+                device if mesh is None or device is not None else mesh.device(0, 0)))
+        ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
+        sh = Shards(ds)
         # one host read: the class count is a shape parameter (and the
         # binomial-on-multiclass guard)
-        num_classes = int(torch.where(ds.w > 0, ds.y, torch.zeros_like(ds.y)).max()) + 1
+        tops: list = [None] * sh.D
+        for i, s in sh.data.items():
+            tops[i] = torch.where(s.w > 0, s.y, torch.zeros_like(s.y)).max().reshape(1)
+        num_classes = int(torch.cat(gather_shards(tops, sh.mesh)).max()) + 1
+        args = (float(self.reg_param), float(self.tol), self.fit_intercept, self.standardize,
+                self.max_iter)
         if _family(self.family, num_classes) == "multinomial":
             k = max(num_classes, 2)
             dd = ds.n_features + (1 if self.fit_intercept else 0)
-            coef, intercept, n_iter, syncs = _multinomial_fit(
-                ds.x, ds.y, ds.w, float(self.reg_param), float(self.tol), k,
-                self.fit_intercept, self.standardize, self.max_iter, multinomial_chunk(k, dd))
+            coef, intercept, n_iter, syncs = _newton_fit(sh, k, *args, multinomial_chunk(k, dd))
             model = MultinomialLogisticRegressionModel(
                 coefficient_matrix=coef, intercept_vector=intercept, n_iter=n_iter)
             model._summary = MulticlassLogisticRegressionTrainingSummary(model, ds)
         else:
-            coef, intercept, n_iter, syncs = _irls_fit(
-                ds.x, ds.y, ds.w, float(self.reg_param), float(self.tol),
-                self.fit_intercept, self.standardize, self.max_iter)
+            coef, intercept, n_iter, syncs = _newton_fit(sh, None, *args)
             model = LogisticRegressionModel(coefficients=coef, intercept=intercept,
                                             threshold=self.threshold, n_iter=n_iter)
             model._summary = BinaryLogisticRegressionTrainingSummary(model, ds)

@@ -11,6 +11,12 @@ one weighted reduction on the device, and cached.
 Memory note: the summary keeps the training ``DeviceDataset`` alive, and
 so on the device, for the model's lifetime; ``model.release_summary()``
 lets it go.  Saving a model never persists the summary.
+
+A fit over a mesh of more than one shard keeps its ``ShardedDataset``:
+its predictions are row-sharded MeshArrays, every sum (the metrics, the
+counts, X'WX) runs a shard on its device and then over the shards in
+ascending order, and only the binary summary's curves gather the scores,
+labels and weights (a global sort) onto the home device.
 """
 
 from __future__ import annotations
@@ -53,6 +59,33 @@ class SummaryMixin:
         return self._summary
 
 
+def _predictions(model, ds, predict=None):
+    """The model's predictions on the training rows beside their labels
+    and weights (shard by shard on a ShardedDataset)."""
+    from .base import Model
+
+    return Model._result(ds, predict or model.predict)
+
+
+def _ds_sum(ds, fn) -> tuple:
+    """``fn(shard)`` (a sequence of tensors) summed over the data shards
+    of ``ds`` in ascending order (a DeviceDataset is one shard)."""
+    from .base import Shards
+
+    return Shards(ds).sum(lambda i, s: fn(s))
+
+
+def _whole(t) -> torch.Tensor:
+    """A tensor, or a row-sharded MeshArray's shards in order on the home
+    device (the binary curves' global sort)."""
+    from ..parallel.collectives import gather_shards
+    from ..parallel.sharding import MeshArray
+
+    if isinstance(t, MeshArray):
+        return torch.cat(gather_shards(t.data_blocks(), t.mesh))
+    return t
+
+
 def _xtwx_gram(x: torch.Tensor, w: torch.Tensor, fit_intercept: bool) -> torch.Tensor:
     """X'WX (the intercept column appended only when the model fitted
     one), summed per chunk of rows as the fit's Gram is
@@ -90,22 +123,18 @@ class LinearRegressionTrainingSummary:
 
     @cached_property
     def predictions(self):
-        from .base import PredictionResult
-
-        return PredictionResult(
-            prediction=self._model.predict(self._ds.x),
-            label=self._ds.y,
-            weight=self._ds.w,
-        )
+        return _predictions(self._model, self._ds)
 
     @cached_property
     def residuals(self) -> np.ndarray:
         """Per-row label − prediction on the valid rows only (pad rows
         dropped: statistics over this array see ``num_instances``
         entries, like Spark's residuals column)."""
+        from .base import host_array
+
         p = self.predictions
-        res = (p.prediction - p.label).cpu().numpy() * -1.0
-        w = p.weight.cpu().numpy()
+        res = (host_array(p.prediction) - host_array(p.label)) * -1.0
+        w = host_array(p.weight)
         return res[w > 0]
 
     @cached_property
@@ -156,12 +185,12 @@ class LinearRegressionTrainingSummary:
     def num_instances(self) -> int:
         """Count of (w > 0) rows: Spark's numInstances is a row count, not
         the weight sum (they differ under fractional weights)."""
-        return int((self._ds.w > 0).sum())
+        return int(_ds_sum(self._ds, lambda s: ((s.w > 0).sum().to(torch.float64),))[0])
 
     @cached_property
     def weight_sum(self) -> float:
         """Σw over the valid rows."""
-        return float(self._ds.w.sum())
+        return float(_ds_sum(self._ds, lambda s: (s.w.sum(),))[0])
 
     @property
     def degrees_of_freedom(self) -> int:
@@ -184,8 +213,9 @@ class LinearRegressionTrainingSummary:
         Spark's order.  Raises on a (near-)collinear design instead of
         returning a float32 inverse's garbage."""
         self._require_unregularized()
-        g = _xtwx_gram(self._ds.x.to(torch.float32), self._ds.w,
-                       self._fit_intercept).cpu().numpy().astype(np.float64)
+        g = _ds_sum(self._ds, lambda s: (_xtwx_gram(s.x.to(torch.float32), s.w,
+                                                    self._fit_intercept),))[0]
+        g = g.cpu().numpy().astype(np.float64)
         cond = np.linalg.cond(g)
         if not np.isfinite(cond) or cond > 1e7:  # the float32 data's Gram limit
             raise RuntimeError(
@@ -232,13 +262,7 @@ class _ConfusionMetricsMixin:
 
     @cached_property
     def predictions(self):
-        from .base import PredictionResult
-
-        return PredictionResult(
-            prediction=self._model.predict(self._ds.x),
-            label=self._ds.y,
-            weight=self._ds.w,
-        )
+        return _predictions(self._model, self._ds)
 
     @cached_property
     def accuracy(self) -> float:
@@ -351,14 +375,20 @@ class BinaryLogisticRegressionTrainingSummary(_ConfusionMetricsMixin):
     _ds: Any = field(repr=False)
 
     @cached_property
+    def _scored(self) -> tuple:
+        """(P(class 1), label, weight) of every training row, whole on one
+        device: the curves sort them globally."""
+        p = _predictions(self._model, self._ds, self._model.predict_proba)
+        return _whole(p.prediction), _whole(p.label), _whole(p.weight)
+
+    @property
     def _scores(self):
-        return self._model.predict_proba(self._ds.x)
+        return self._scored[0]
 
     def _area(self, metric: str) -> float:
         from ..evaluation.binary import BinaryClassificationEvaluator
 
-        return BinaryClassificationEvaluator(metric).evaluate(self._scores, self._ds.y,
-                                                               self._ds.w)
+        return BinaryClassificationEvaluator(metric).evaluate(*self._scored)
 
     @cached_property
     def area_under_roc(self) -> float:
@@ -374,7 +404,7 @@ class BinaryLogisticRegressionTrainingSummary(_ConfusionMetricsMixin):
     def _curves(self) -> dict:
         from ..evaluation.binary import binary_curves
 
-        return binary_curves(self._scores, self._ds.y, self._ds.w)
+        return binary_curves(*self._scored)
 
     @cached_property
     def roc(self) -> np.ndarray:

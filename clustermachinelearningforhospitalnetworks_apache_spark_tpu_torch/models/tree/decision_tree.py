@@ -2,7 +2,8 @@
 ``models/tree/decision_tree.py``, resident fits).
 
 A decision tree is the one-tree case of the level-order histogram engine
-(``engine.py``).  Spark defaults: maxDepth 5, maxBins 32,
+(``engine.py``); ``fit(..., mesh=)`` grows it over the mesh's data shards
+and ``transform(..., mesh=)`` predicts shard by shard.  Spark defaults: maxDepth 5, maxBins 32,
 minInstancesPerNode 1, minInfoGain 0.  A
 :class:`~...parallel.outofcore.HostDataset` streams through the engine's
 out-of-core grower, which alone reads ``checkpoint_dir``.
@@ -17,16 +18,18 @@ import torch
 
 from ...io.model_io import register_model
 from ...parallel.outofcore import HostDataset
-from ..base import Estimator, Model, as_device_dataset, check_features
+from ..base import Estimator, Model, check_features, on_mesh, require_single_shard
 from .engine import GrownForest, grow_forest, grow_forest_outofcore, predict_forest
 
 
 def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None = None,
-               **kw) -> GrownForest:
+               mesh=None, **kw) -> GrownForest:
     """Shared fit for every tree estimator: a HostDataset streams through
-    ``grow_forest_outofcore``; anything else is staged on ``device`` and
-    grown resident.  ``subset_strategy`` (forests) resolves to a per-node
-    feature count once the dataset's width is known."""
+    ``grow_forest_outofcore``; anything else is staged on ``device``, or
+    over ``mesh`` (each data shard on its device, ``engine.grow_forest``'s
+    sharded path), and grown resident.  ``subset_strategy`` (forests)
+    resolves to a per-node feature count once the dataset's width is
+    known."""
     def subset_kw(d: int) -> dict:
         if subset_strategy is None:
             return {}
@@ -35,6 +38,9 @@ def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None 
         return {"feature_subset_size": _subset_size(subset_strategy, d, kw["task"])}
 
     if isinstance(data, HostDataset):
+        require_single_shard(None, mesh, "a tree fit out of core")
+        if mesh is not None and device is None:
+            device = mesh.device(0, 0)
         if data.y is None:
             raise ValueError("tree fit needs labels: HostDataset(y=...)")
         return grow_forest_outofcore(data, device=device, **subset_kw(data.n_features), **kw)
@@ -42,7 +48,7 @@ def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None 
     # device pass a level and restarts cheaply
     kw.pop("checkpoint_dir", None)
     kw.pop("checkpoint_every", None)
-    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col)
+    ds = on_mesh(data, label_col, device, weight_col, mesh)
     return grow_forest(ds, **subset_kw(ds.n_features), **kw)
 
 
@@ -182,9 +188,12 @@ class _TreeParams:
 
 @dataclass(frozen=True)
 class DecisionTreeRegressor(Estimator, _TreeParams):
-    def fit(self, data, label_col: str | None = None, device=None) -> DecisionTreeModel:
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> DecisionTreeModel:
         grown = _fit_grown(data, label_col or self.label_col, self.weight_col, device,
-                           task="regression", num_trees=1, **self._grow_kw())
+                           mesh=mesh, task="regression", num_trees=1, **self._grow_kw())
         return _from_grown(DecisionTreeModel, grown, "regression", 2)
 
 
@@ -192,9 +201,11 @@ class DecisionTreeRegressor(Estimator, _TreeParams):
 class DecisionTreeClassifier(Estimator, _TreeParams):
     num_classes: int = 2
     label_col: str = "LOS_binary"
+    mesh_fit = True
 
-    def fit(self, data, label_col: str | None = None, device=None) -> DecisionTreeModel:
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> DecisionTreeModel:
         grown = _fit_grown(data, label_col or self.label_col, self.weight_col, device,
-                           task="classification", num_classes=self.num_classes,
+                           mesh=mesh, task="classification", num_classes=self.num_classes,
                            num_trees=1, **self._grow_kw())
         return _from_grown(DecisionTreeModel, grown, "classification", self.num_classes)

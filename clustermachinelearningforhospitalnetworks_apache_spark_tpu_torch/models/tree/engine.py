@@ -21,6 +21,20 @@ fetches every round's winners once, at the end.  ``bin_thresholds=`` and
 ``binned_t=`` let a caller that grows many trees on one feature matrix
 bin it once.
 
+The growth runs over data shards (``models.base.Shards``): a
+DeviceDataset is one shard on its device, a ``ShardedDataset`` (or the
+shards of a boosting loop) spreads its rows over a mesh, and the rows stay
+on their shards.  The thresholds come from the global sample, each shard
+bins its own rows, the Poisson bootstrap is drawn once over the global
+padded rows (the reference's (T, n_pad) draw) and cut by columns, and
+every level runs K3 once a data shard on that shard's device, sums the
+(T, LN, d, B, S) histograms in ascending shard order
+(``collectives.ordered_sum``), selects the splits once on the home device
+and moves the winners back to each shard, which advances its own rows.  The reference replicates the trees over the model
+axis (its histogram's in_specs shard only the rows), so each data shard
+runs once, on its ``(i, 0)`` entry.  In one process the level loop makes
+no host sync; across processes each level's gather is one round trip.
+
 ``grow_forest_outofcore`` grows from a :class:`~...parallel.outofcore.HostDataset`:
 each level streams the blocks, re-bins each one, replays the recorded
 splits to find its rows' nodes, and sums one K3 launch a block; the same
@@ -39,7 +53,6 @@ import numpy as np
 import torch
 
 from ... import prng
-from ...data import DeviceDataset, sample_valid_rows
 from ...device import resolve_device
 from ...ops.tree_hist import fused_level_hist
 from .binning import digitize, quantile_thresholds
@@ -330,30 +343,42 @@ def _frontier(node_id, level_nodes: int) -> torch.Tensor:
                        torch.full_like(pos, -1))
 
 
-def _level_loop(binned_t, base_t, w_tree, T: int, d: int, B: int, task: str,
-                max_depth: int, seed: int, subset_k: int | None, min_inst: float,
-                min_gain: float, is_cat):
-    """Grow every level on the device without a host sync.  → per level
-    the device winners (agg, gain, feat, bin, do_split, catmask)."""
-    dev = binned_t.device
-    n = binned_t.shape[1]
-    node_id = torch.zeros((T, n), dtype=torch.int32, device=dev)
+def _level_loop(sh, binned, base, w_tree, T: int, d: int, B: int, task: str, max_depth: int,
+                seed: int, subset_k: int | None, min_inst: float, min_gain: float, is_cat,
+                cat_sh):
+    """Grow every level over the data shards of ``sh`` (``models.base.
+    Shards``) without a host sync in one process: ``binned`` / ``base`` /
+    ``w_tree`` map each local shard to its tensors on its device; K3 once a
+    shard a level, the histograms summed in ascending shard order on the
+    home device, one selection there, the winners moved to every shard.
+    → per level the home device's winners (agg, gain, feat, bin, do_split,
+    catmask)."""
+    from ...parallel.collectives import ordered_sum
+
+    home = sh.home
+    node = {i: torch.zeros((T, binned[i].shape[1]), dtype=torch.int32, device=binned[i].device)
+            for i in sh.local}
     level_out = []
     for depth in range(max_depth + 1):
         level_nodes = 1 << depth
         level_base = level_nodes - 1
-        pos = _frontier(node_id, level_nodes)
+        pos = {i: _frontier(node[i], level_nodes) for i in sh.local}
         if subset_k is not None:
-            mask = subset_mask(seed, depth, T, level_nodes, d, subset_k, dev)
+            mask = subset_mask(seed, depth, T, level_nodes, d, subset_k, home)
         else:
-            mask = torch.ones((T, level_nodes, d), dtype=torch.float32, device=dev)
-        hist = fused_level_hist(binned_t, base_t, w_tree, pos, level_nodes, B)
+            mask = torch.ones((T, level_nodes, d), dtype=torch.float32, device=home)
+        parts: list = [None] * sh.D
+        for i in sh.local:
+            parts[i] = fused_level_hist(binned[i], base[i], w_tree[i], pos[i], level_nodes, B)
+        hist = ordered_sum(parts, sh.mesh)
         out = select_splits(hist, mask, min_inst, min_gain, task, is_cat)
         level_out.append(out)
-        _, _, feat, bin_, split, catmask = out
         if depth < max_depth:
-            node_id = advance_level(binned_t, node_id, pos, feat, bin_, split, level_base,
-                                    catmask, is_cat)
+            _, _, feat, bin_, split, catmask = out
+            for i in sh.local:
+                dev = binned[i].device
+                node[i] = advance_level(binned[i], node[i], pos[i], feat.to(dev), bin_.to(dev),
+                                        split.to(dev), level_base, catmask.to(dev), cat_sh[i])
     return level_out
 
 
@@ -489,7 +514,7 @@ def _stats_base(y: torch.Tensor, task: str, S: int) -> torch.Tensor:
 
 
 def grow_forest(
-    ds: DeviceDataset,
+    ds,
     *,
     task: str,                      # "regression" | "classification"
     num_classes: int = 2,
@@ -511,7 +536,10 @@ def grow_forest(
     cat_flags: torch.Tensor | None = None,
     timings: dict | None = None,
 ) -> "GrownForest | DeferredForest":
-    """Train ``num_trees`` trees level by level on the dataset's device.
+    """Train ``num_trees`` trees level by level over the data shards of
+    ``ds``: a DeviceDataset (one shard, on its device), a
+    ``ShardedDataset`` or a ``models.base.Shards`` (see the module
+    docstring).
 
     Steps: quantile thresholds from a host sample of valid rows; the
     (d, n) bin matrix on the device; per-tree weights (validity × Poisson
@@ -521,8 +549,10 @@ def grow_forest(
 
     ``bin_thresholds`` ((d, max_bins-1), from
     ``binning.quantile_thresholds``) skips the sample and its quantiles;
-    ``binned_t`` ((d, n_pad) int32, with the matching ``bin_thresholds``)
-    skips the digitize too.  ``defer_fetch=True`` returns a
+    ``binned_t`` (each local shard's (d, n_pad) int32 bin matrix as
+    ``{shard: tensor}``, or the tensor of a one-device fit, with the
+    matching ``bin_thresholds``) skips the digitize too.
+    ``defer_fetch=True`` returns a
     :class:`DeferredForest` and makes no host sync at all (not even the
     empty-dataset check of the ``bin_thresholds`` route: the caller has
     checked).  ``fused_levels`` is the reference's switch and changes
@@ -534,16 +564,17 @@ def grow_forest(
     max_bins)); those columns hold category ids and split as unordered
     sets.  ``timings``, when given, receives host seconds per step
     (each step ends with a device sync, so only pass it when timing)."""
-    n_pad = ds.n_padded
-    d = ds.n_features
-    T = num_trees
-    B = max_bins
-    dev = ds.x.device
+    from ...parallel.sharding import sample_valid_rows
+    from ..base import Shards
+
+    sh = ds if isinstance(ds, Shards) else Shards(ds)
+    d, T, B, home = sh.n_features, num_trees, max_bins, sh.home
 
     def tick(name, t0):
         if timings is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            for dev in {sh.device(i) for i in sh.local}:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
         return time.perf_counter()
 
@@ -555,36 +586,45 @@ def grow_forest(
         thr = np.asarray(bin_thresholds, dtype=np.float64)
         if thr.shape != (d, B - 1):
             raise ValueError(f"bin_thresholds shape {thr.shape} != ({d}, {B - 1})")
-        if not defer_fetch and float(ds.w.sum()) == 0.0:
+        if not defer_fetch and sh.count() == 0.0:
             raise ValueError("tree fit on an empty dataset")
     else:
-        sample = sample_valid_rows(ds, init_sample_size, seed)
+        sample = sample_valid_rows(sh.dataset(), init_sample_size, seed)
         if sample.shape[0] == 0:
             raise ValueError("tree fit on an empty dataset")
         thr = quantile_thresholds(sample, B)
     t0 = tick("thresholds", t0)
     if binned_t is None:
-        binned_t = bin_feature_matrix(ds.x, thr, cat, w=ds.w)
+        binned = {i: bin_feature_matrix(s.x, thr, cat, w=s.w) for i, s in sh.data.items()}
     elif bin_thresholds is None:
         raise ValueError("binned_t requires the matching bin_thresholds")
-    elif tuple(binned_t.shape) != (d, n_pad):
-        raise ValueError(f"binned_t shape {tuple(binned_t.shape)} != ({d}, {n_pad})")
+    else:
+        binned = binned_t if isinstance(binned_t, dict) else {0: binned_t}
+        for i, s in sh.data.items():
+            got = tuple(binned[i].shape) if i in binned else None
+            if got != (d, s.n_padded):
+                raise ValueError(f"binned_t of shard {i}: shape {got} != ({d}, {s.n_padded})")
     t0 = tick("digitize", t0)
 
-    w_valid = ds.w.to(torch.float32)
     if bootstrap:
-        w_tree = bootstrap_weights(seed, float(subsampling_rate), T, n_pad, dev) * w_valid[None, :]
+        # the reference's draw over the global padded rows, cut by columns
+        boot = bootstrap_weights(seed, float(subsampling_rate), T, sh.n_padded, home)
+        per = sh.n_padded // sh.D
+        w_tree = {i: boot[:, i * per:(i + 1) * per].to(s.x.device)
+                  * s.w.to(torch.float32)[None, :] for i, s in sh.data.items()}
     else:
-        w_tree = w_valid[None, :].expand(T, n_pad).contiguous()
+        w_tree = {i: s.w.to(torch.float32)[None, :].expand(T, s.n_padded).contiguous()
+                  for i, s in sh.data.items()}
     S = 3 if task == "regression" else num_classes
-    base_t = _stats_base(ds.y, task, S)
+    base_t = {i: _stats_base(s.y, task, S) for i, s in sh.data.items()}
     is_cat_host = np.asarray([f in cat for f in range(d)], dtype=bool)
     if not cat:
         is_cat = None
     elif cat_flags is not None:
-        is_cat = cat_flags
+        is_cat = cat_flags.to(home)
     else:
-        is_cat = torch.as_tensor(is_cat_host, device=dev)
+        is_cat = torch.as_tensor(is_cat_host, device=home)
+    cat_sh = {i: None if is_cat is None else is_cat.to(s.x.device) for i, s in sh.data.items()}
     subset_k = (
         feature_subset_size
         if feature_subset_size is not None and feature_subset_size < d
@@ -592,9 +632,9 @@ def grow_forest(
     )
     t0 = tick("draws", t0)
 
-    level_out = _level_loop(binned_t, base_t, w_tree, T, d, B, task, max_depth, seed,
+    level_out = _level_loop(sh, binned, base_t, w_tree, T, d, B, task, max_depth, seed,
                             subset_k, float(min_instances_per_node), float(min_info_gain),
-                            is_cat)
+                            is_cat, cat_sh)
     t0 = tick("level_loop", t0)
     deferred = DeferredForest(level_out=level_out, thr=thr, task=task,
                               num_classes=num_classes, cat_arities=cat_arities, B=B,
@@ -681,8 +721,11 @@ def grow_forest_outofcore(
 
     S = 3 if task == "regression" else num_classes
     _, b = hd.block_shape()
-    subset_k = (feature_subset_size
-                if feature_subset_size is not None and feature_subset_size < d else None)
+    subset_k = (
+        feature_subset_size
+        if feature_subset_size is not None and feature_subset_size < d
+        else None
+    )
     rec = _ForestRecorder(T, d, S, max_depth, is_cat_host)
     winners: list[tuple] = []   # (feat, bin, do_split, catmask) per level, on the device
 

@@ -23,6 +23,15 @@ device.  Two routes:
   ``validation_tol`` (Spark's runWithValidation), one host sync a round
   by design, and keeps the best prefix of rounds.
 
+The resident boost runs over data shards (``models.base.Shards``: one
+device is one shard, ``fit(..., mesh=)`` or a ``ShardedDataset`` spread the
+rows over a mesh): the margin F, the residuals and the bin matrix live a
+data shard on its device; each round's tree grows through the engine (K3
+once a shard a level, the histograms summed in shard order) and its heap
+tensors, built once on the home device, move to every shard to advance F.
+In one process the rounds make no host sync.  The validation rows are cut
+as the data is, and their loss is summed in shard order.
+
 A :class:`~...parallel.outofcore.HostDataset` boosts out of core: the
 margin column lives on the host, each round grows one out-of-core tree
 (``engine.grow_forest_outofcore``) and streams the blocks through it to
@@ -52,11 +61,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from ...data import DeviceDataset, sample_valid_rows
 from ...device import resolve_device
 from ...io.model_io import register_model
 from ...parallel.outofcore import HostDataset
-from ..base import Estimator, Model, as_device_dataset, check_features
+from ...parallel.sharding import sample_valid_rows
+from ..base import Estimator, Model, Shards, check_features, is_sharded, on_mesh, \
+    require_single_shard
 from . import engine
 from .binning import quantile_thresholds
 
@@ -152,6 +162,15 @@ class GBTModel(Model):
         )
 
 
+def _val_loss(y, f, loss: str) -> torch.Tensor:
+    """Per-row validation loss: squared error, or Spark's LogLoss
+    2·log(1 + e^(−2y±F))."""
+    if loss == "squared":
+        return (y - f) ** 2
+    ypm = 2.0 * y - 1.0
+    return 2.0 * torch.log1p(torch.exp(-2.0 * ypm * f))
+
+
 def _prior_margin(ybar: float, loss: str) -> float:
     """F₀: the label mean (squared loss) or half the base log-odds
     (Spark's LogLoss prior)."""
@@ -211,9 +230,10 @@ class _GBTParams:
     use_pallas: bool = False
     stage_clock: Any = field(default=None, compare=False, repr=False)
 
-    def _resolve_validation(self, data, ds: DeviceDataset):
-        """validation_indicator_col → (n_pad,) float 0/1 tensor on the
-        dataset's device, or None."""
+    def _resolve_validation(self, data, ds):
+        """validation_indicator_col → the (n_pad,) float 0/1 column cut as
+        the data is, ``{shard: its part on its device}`` (a DeviceDataset
+        is shard 0), or None."""
         if self.validation_indicator_col is None:
             return None
         from ...features.assembler import AssembledTable
@@ -227,79 +247,90 @@ class _GBTParams:
         ind = np.asarray(data.table.column(self.validation_indicator_col)).astype(bool)
         pad = np.zeros((ds.n_padded,), np.float32)
         pad[: ind.shape[0]] = ind
-        return torch.from_numpy(pad).to(ds.x.device)
+        if is_sharded(ds):
+            from ...parallel.sharding import shard_rows
 
-    def _boost(self, ds: DeviceDataset, loss: str, val_ind=None) -> GBTModel:
+            cut = shard_rows(pad, ds.mesh)
+            return {i: cut.block(i) for i in ds.mesh.local_data_shards()}
+        return {0: torch.from_numpy(pad).to(ds.x.device)}
+
+    def _boost(self, sh: Shards, loss: str, val_ind=None) -> GBTModel:
+        """The resident boost over the data shards of ``sh`` (one shard on
+        one device): F, the residuals, the bin matrix and the validation
+        rows a shard on its device, each round's tree grown by the engine
+        over the shards, its heap tensors built on the home device and
+        moved to every shard; F is a ``{shard: tensor}`` map."""
         clock = self.stage_clock
-        x = ds.x.to(torch.float32)
-        y = ds.y.to(torch.float32)
-        w_all = ds.w.to(torch.float32)
-        dev = x.device
+        home = sh.home
+        f32 = torch.float32
+        x = {i: s.x.to(f32) for i, s in sh.data.items()}
+        y = {i: s.y.to(f32) for i, s in sh.data.items()}
+        w_all = {i: s.w.to(f32) for i, s in sh.data.items()}
         if val_ind is not None:
             # held-out rows train nothing (weight 0) but score every round
-            w = w_all * (1.0 - val_ind)
-            w_val = w_all * val_ind
-            if float(w_val.sum()) == 0.0:
+            w = {i: w_all[i] * (1.0 - val_ind[i]) for i in sh.local}
+            w_val = {i: w_all[i] * val_ind[i] for i in sh.local}
+            if float(sh.sum(lambda i, s: (w_val[i].sum(),))[0]) == 0.0:
                 raise ValueError("validation_indicator_col selected no validation rows")
         else:
             w, w_val = w_all, None
-        n = torch.clamp(w.sum(), min=1.0)
-
-        # binning depends only on x: thresholds (from the training rows'
-        # sample) and the bin matrix, once for every round; the categorical
-        # range check covers every valid row, held-out ones too
+        train = sh.with_rows(x=x, y=y, w=w)
         B = self.max_bins
         cat = self.categorical_features
         with _stage(clock, "bin"):
-            sample = sample_valid_rows(DeviceDataset(x=x, y=y, w=w), self.init_sample_size,
-                                       self.seed)
+            # binning depends only on x: thresholds (from the training
+            # rows' sample) and the bin matrix, once for every round; the
+            # categorical range check covers every valid row, held-out
+            # ones too
+            sample = sample_valid_rows(train.dataset(), self.init_sample_size, self.seed)
             if sample.shape[0] == 0:
                 raise ValueError("GBT fit on an empty dataset")
             thr = quantile_thresholds(sample, B)
-            binned_t = engine.bin_feature_matrix(x, thr, cat, w=w_all)
+            binned = {i: engine.bin_feature_matrix(x[i], thr, cat, w=w_all[i])
+                      for i in sh.local}
         with _stage(clock, "init"):
-            f0 = _prior_margin(float((y * w).sum() / n), loss)
+            sw, syw = sh.sum(lambda i, s: (w[i].sum(), (y[i] * w[i]).sum()))
+            f0 = _prior_margin(float(syw / torch.clamp(sw, min=1.0)), loss)
 
-        d = x.shape[1]
+        d = sh.n_features
         cat_arities = tuple(cat.get(f, 0) for f in range(d)) if cat else None
         is_cat_host = np.asarray([f in cat for f in range(d)] if cat else np.zeros(d, bool))
-        is_cat = torch.as_tensor(is_cat_host, device=dev)
-        cat_flags = is_cat if cat else None
-        thr_dev = torch.as_tensor(thr, dtype=torch.float32, device=dev)
+        is_cat = torch.as_tensor(is_cat_host, device=home)
+        cat_sh = {i: is_cat.to(sh.device(i)) for i in sh.local} if cat else None
+        thr_dev = torch.as_tensor(thr, dtype=f32, device=home)
         lr = float(np.float32(self.step_size))
-        f_cur = torch.full(y.shape, float(np.float32(f0)), dtype=torch.float32, device=dev)
+        f_cur = {i: torch.full(y[i].shape, float(np.float32(f0)), dtype=f32,
+                               device=sh.device(i)) for i in sh.local}
 
-        def residual(f):
+        def residual(i, f):
             if loss == "squared":
-                return y - f
+                return y[i] - f
             # Spark's LogLoss: loss 2·log(1 + e^(−2y±F)), so the
             # pseudo-residual is 4(y01 − σ(2F)); the factor matters for
             # stepSize parity with Spark
-            return 4.0 * (y - torch.sigmoid(2.0 * f))
+            return 4.0 * (y[i] - torch.sigmoid(2.0 * f))
 
         def advance(f, sf, th, val, cm):
             # categorical rounds route by the set mask here too: the later
             # rounds' residuals depend on this prediction
-            return f + lr * engine.predict_forest(x, sf, th, val, cm, cat_flags)[0, :, 0]
+            out = {}
+            for i in sh.local:
+                dev = sh.device(i)
+                cmi = cm.to(dev) if isinstance(cm, torch.Tensor) else cm
+                out[i] = f[i] + lr * engine.predict_forest(
+                    x[i], sf.to(dev), th.to(dev), val.to(dev), cmi,
+                    None if cat_sh is None else cat_sh[i])[0, :, 0]
+            return out
 
         def grow_round(t: int, f, defer: bool):
             return engine.grow_forest(
-                DeviceDataset(x=x, y=residual(f), w=w),
-                task="regression",
-                num_trees=1,
-                max_depth=self.max_depth,
-                max_bins=B,
+                train.with_rows(y={i: residual(i, f[i]) for i in sh.local}),
+                task="regression", num_trees=1, max_depth=self.max_depth, max_bins=B,
                 min_instances_per_node=self.min_instances_per_node,
-                min_info_gain=self.min_info_gain,
-                bootstrap=self.subsampling_rate < 1.0,
-                subsampling_rate=self.subsampling_rate,
-                seed=self.seed + t,
-                bin_thresholds=thr,
-                binned_t=binned_t,
-                categorical_features=cat,
-                defer_fetch=defer,
-                cat_flags=cat_flags,
-            )
+                min_info_gain=self.min_info_gain, bootstrap=self.subsampling_rate < 1.0,
+                subsampling_rate=self.subsampling_rate, seed=self.seed + t,
+                bin_thresholds=thr, binned_t=binned, categorical_features=cat,
+                defer_fetch=defer, cat_flags=is_cat if cat else None)
 
         template = engine.DeferredForest(
             level_out=[], thr=thr, task="regression", num_classes=2,
@@ -321,9 +352,21 @@ class _GBTParams:
         else:
             # the validated loop fetches each round to decide the stop:
             # its growth and fetches bill to "boost" together
+            def val_err(f):
+                e, nv = sh.sum(lambda i, s: ((_val_loss(y[i], f[i], loss) * w_val[i]).sum(),
+                                             w_val[i].sum()))
+                return e / torch.clamp(nv, min=1.0)
+
             with _stage(clock, "boost"):
-                trees = self._boost_validated(grow_round, advance, f_cur, y, w_val, loss, dev)
+                trees = self._boost_validated(grow_round, advance, f_cur, val_err, home)
         return _ensemble(trees, loss, f0, self.step_size, self.max_depth, cat)
+
+    def _fit(self, data, label_col, device, mesh, loss: str) -> GBTModel:
+        """A resident fit on ``device`` or over ``mesh``."""
+        ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
+        if loss == "logistic":
+            _check_binary_labels(ds)
+        return self._boost(Shards(ds), loss, self._resolve_validation(data, ds))
 
     def _device_rounds(self, f_cur, grow_round, advance, thr_dev, is_cat) -> torch.Tensor:
         """Every boosting round on the device with no host sync: the
@@ -338,22 +381,12 @@ class _GBTParams:
             packed.append(engine._pack_levels(level_out))
         return torch.cat(packed, dim=0)
 
-    def _boost_validated(self, grow_round, advance, f_cur, y, w_val, loss, dev):
+    def _boost_validated(self, grow_round, advance, f_cur, val_err, dev):
         """Spark's runWithValidation: each round grown and fetched, F
-        advanced by the host-materialized tree, the held-out loss read on
-        the host; stop when the best-so-far loss improves by less than
-        ``validation_tol`` (relative to max(err, 0.01)); keep the best
-        prefix."""
-        nv = torch.clamp(w_val.sum(), min=1.0)
-
-        def val_err(f):
-            if loss == "squared":
-                e = (y - f) ** 2
-            else:   # Spark's LogLoss 2·log(1 + e^(−2y±F))
-                ypm = 2.0 * y - 1.0
-                e = 2.0 * torch.log1p(torch.exp(-2.0 * ypm * f))
-            return (e * w_val).sum() / nv
-
+        advanced by the host-materialized tree, the held-out loss
+        ``val_err(F)`` read on the host; stop when the best-so-far loss
+        improves by less than ``validation_tol`` (relative to max(err,
+        0.01)); keep the best prefix."""
         trees = []
         best_err, best_m = np.inf, 0
         for t in range(self.max_iter):
@@ -491,17 +524,25 @@ class _GBTParams:
         return _ensemble(trees, loss, f0, self.step_size, self.max_depth, cat)
 
 
+def _outofcore_device(device, mesh):
+    """An out-of-core boost's device: one shard only (slice 8c brings the
+    mesh), the one-entry mesh's device or ``device``."""
+    require_single_shard(None, mesh, "a GBT fit out of core")
+    return resolve_device(device if mesh is None or device is not None else mesh.device(0, 0))
+
+
 @dataclass(frozen=True)
 class GBTRegressor(Estimator, _GBTParams):
-    def fit(self, data, label_col: str | None = None, device=None) -> GBTModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w])) on
-        ``device`` (default the card); a :class:`HostDataset` boosts out
-        of core, streaming its blocks to ``device``."""
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> GBTModel:
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
+        :class:`HostDataset` boosts out of core, streaming its blocks to
+        ``device``."""
         if isinstance(data, HostDataset):
-            return self._boost_outofcore(data, resolve_device(device), loss="squared")
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
-        return self._boost(ds, loss="squared", val_ind=self._resolve_validation(data, ds))
+            return self._boost_outofcore(data, _outofcore_device(device, mesh), loss="squared")
+        return self._fit(data, label_col, device, mesh, "squared")
 
 
 def _check_binary(y: np.ndarray) -> None:
@@ -510,22 +551,32 @@ def _check_binary(y: np.ndarray) -> None:
         raise ValueError(f"GBTClassifier is binary (labels 0/1); got labels {uniq[:5]}")
 
 
+def _check_binary_labels(ds) -> None:
+    """The valid rows' labels are 0/1: a count of the other labels summed
+    in shard order (every rank decides alike), then the local shards'
+    labels for the message."""
+    sh = Shards(ds)
+    bad = sh.sum(lambda i, s: ((((s.y != 0) & (s.y != 1)) & (s.w > 0)).sum().to(torch.float64),))
+    if float(bad[0]) > 0:
+        uniq = np.unique(np.concatenate([s.y[s.w > 0].cpu().numpy() for s in sh.data.values()]))
+        raise ValueError(f"GBTClassifier is binary (labels 0/1); got labels {uniq[:5]}")
+
+
 @dataclass(frozen=True)
 class GBTClassifier(Estimator, _GBTParams):
     label_col: str = "LOS_binary"
+    mesh_fit = True
 
-    def fit(self, data, label_col: str | None = None, device=None) -> GBTModel:
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> GBTModel:
         """As :meth:`GBTRegressor.fit`, on labels 0/1."""
         if isinstance(data, HostDataset):
             if data.y is None:
                 raise ValueError("GBT fit needs labels: HostDataset(y=...)")
             yv = np.asarray(data.y)
             _check_binary(yv[np.asarray(data.w) > 0] if data.w is not None else yv)
-            return self._boost_outofcore(data, resolve_device(device), loss="logistic")
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
-        _check_binary(ds.y[ds.w > 0].cpu().numpy())
-        return self._boost(ds, loss="logistic", val_ind=self._resolve_validation(data, ds))
+            return self._boost_outofcore(data, _outofcore_device(device, mesh),
+                                         loss="logistic")
+        return self._fit(data, label_col, device, mesh, "logistic")
 
 
 __all__ = ["GBTClassifier", "GBTModel", "GBTRegressor"]

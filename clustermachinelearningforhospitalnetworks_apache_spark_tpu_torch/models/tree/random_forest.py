@@ -4,7 +4,9 @@
 Spark defaults: numTrees 20, maxDepth 5, subsamplingRate 1.0 with a
 Poisson bootstrap, featureSubsetStrategy "onethird" (regression) /
 "sqrt" (classification).  All trees grow at once: the tree axis is the
-leading axis of every level's K3 launch.
+leading axis of every level's K3 launch; over a mesh, K3 runs once a data
+shard a level and the bootstrap is the global draw cut by columns
+(``engine.py``).
 """
 
 from __future__ import annotations
@@ -44,9 +46,12 @@ class RandomForestRegressor(Estimator, _TreeParams):
     subsampling_rate: float = 1.0
     feature_subset_strategy: str = "auto"
 
-    def fit(self, data, label_col: str | None = None, device=None) -> RandomForestModel:
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> RandomForestModel:
         grown = _fit_grown(
-            data, label_col or self.label_col, self.weight_col, device,
+            data, label_col or self.label_col, self.weight_col, device, mesh=mesh,
             subset_strategy=self.feature_subset_strategy, task="regression",
             num_trees=self.num_trees, bootstrap=True,
             subsampling_rate=self.subsampling_rate, **self._grow_kw(),
@@ -62,9 +67,12 @@ class RandomForestClassifier(Estimator, _TreeParams):
     feature_subset_strategy: str = "auto"
     label_col: str = "LOS_binary"
 
-    def fit(self, data, label_col: str | None = None, device=None) -> RandomForestModel:
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> RandomForestModel:
         grown = _fit_grown(
-            data, label_col or self.label_col, self.weight_col, device,
+            data, label_col or self.label_col, self.weight_col, device, mesh=mesh,
             subset_strategy=self.feature_subset_strategy, task="classification",
             num_classes=self.num_classes, num_trees=self.num_trees, bootstrap=True,
             subsampling_rate=self.subsampling_rate, **self._grow_kw(),

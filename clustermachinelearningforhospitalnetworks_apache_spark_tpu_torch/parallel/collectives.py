@@ -39,7 +39,8 @@ def gather_shards(parts: Sequence[torch.Tensor | None], mesh: Mesh) -> list[torc
     D = mesh.shape[DATA_AXIS]
     if len(parts) != D:
         raise ValueError(f"{len(parts)} parts for {D} data shards")
-    if not distributed.group_active():
+    if not distributed.group_active() or len(mesh.local_data_shards()) == D:
+        # one process, or a mesh this process owns whole: nothing to gather
         missing = [i for i, p in enumerate(parts) if p is None]
         if missing:
             raise ValueError(f"data shards {missing} have no part and no process group holds them")
@@ -142,14 +143,32 @@ def tree_aggregate(seq_op: Callable[[Any], Any], dataset_shards: Any, mesh: Mesh
     if mesh is None:
         mesh = next((v.mesh for v in inputs if isinstance(v, (MeshArray, ShardedDataset))),
                     None) or default_mesh()
+    return aggregate_shards(lambda i: seq_op(rebuild_in([_shard_of(v, i) for v in inputs])),
+                            mesh)
+
+
+def aggregate_shards(stats_of: Callable[[int], Any], mesh: Mesh) -> Any:
+    """The shard-sum rule of every fit and evaluator over a mesh:
+    ``stats_of(i)`` (a nest of tensors, the sufficient statistics) once a
+    local data shard ``i``, then every leaf :func:`ordered_sum`'d over the
+    data shards in ascending order.  Leaves of one dtype travel in one
+    gather: each shard's leaves are flattened into one vector, summed and
+    cut back, and as the sum is elementwise the bits are those of one
+    ``ordered_sum`` a leaf."""
     per_shard: list = [None] * mesh.shape[DATA_AXIS]
     for i in mesh.local_data_shards():
-        per_shard[i] = _flatten(seq_op(rebuild_in([_shard_of(v, i) for v in inputs])))
-    first = next(p for p in per_shard if p is not None)
-    n_leaves = len(first[0])
-    sums = [ordered_sum([None if p is None else p[0][k] for p in per_shard], mesh)
-            for k in range(n_leaves)]
-    return first[1](sums)
+        per_shard[i] = _flatten(stats_of(i))
+    leaves, rebuild = next(p for p in per_shard if p is not None)
+    if len({t.dtype for t in leaves}) > 1:
+        return rebuild([ordered_sum([None if p is None else p[0][k] for p in per_shard], mesh)
+                        for k in range(len(leaves))])
+    tot = ordered_sum([None if p is None else torch.cat([t.reshape(-1) for t in p[0]])
+                       for p in per_shard], mesh)
+    sums, at = [], 0
+    for t in leaves:
+        sums.append(tot[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return rebuild(sums)
 
 
 def global_sum(x, w=None, dtype=torch.float32) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The end-to-end hospital pipeline — the reference script, working (the
-JAX package's ``pipeline/hospital_pipeline.py``), on one device, default
-the card:
+JAX package's ``pipeline/hospital_pipeline.py``), on the session's mesh
+(default every card; one card is a (1, 1) mesh, the single-device path):
 
   §1-2  config + session                     (:40-58)   → PipelineConfig/Session
   §3    schema + streaming ingest, watermark (:64-82)   → read_stream.csv + with_watermark
@@ -17,9 +17,12 @@ the card:
 ``run_pipeline`` runs them all.  Its parts are callable alone:
 ``extract_training_window`` is §5 over a bare ``Table``, and
 ``run_model_stage`` is §6–§11 over the windowed table (the trees grow
-through K3 on the card).
+through K3 on the card); given ``mesh=`` it fits and transforms every
+estimator over the mesh's data shards, as the reference's stage does with
+``mesh=spark.mesh``.
 
-Run: ``hospital-pipeline-torch --input-path ... [--device cuda] [--no-plots]``
+Run: ``hospital-pipeline-torch --input-path ... [--device cuda] [--no-plots]
+[--mesh-data N] [--mesh-model M]``
 """
 
 from __future__ import annotations
@@ -137,11 +140,21 @@ def extract_training_window(table: Table, cfg: PipelineConfig | None = None,
 
 
 def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
-                    device=None, save_models: bool = False) -> StageResult:
+                    device=None, save_models: bool = False, mesh=None) -> StageResult:
     """§6–§10 on the windowed training table (after ``na_drop``), and
-    §11 when ``save_models``."""
+    §11 when ``save_models``: on ``device`` (default the card), or over
+    ``mesh`` (each estimator fits, and each model transforms, over its
+    data shards; a one-entry mesh is its device)."""
     cfg = cfg or PipelineConfig()
-    dev = resolve_device(device)
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        where = {"mesh": mesh}
+        devs = {e.device for e in mesh.devices.flat}
+    else:
+        dev = resolve_device(device)
+        where = {"device": dev}
+        devs = {dev}
     n_rows = training_df.num_rows
     if n_rows < 10:
         raise ValueError(
@@ -153,13 +166,14 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
     def timed(key: str, fn):
         t0 = time.perf_counter()
         out = fn()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         seconds[key] = time.perf_counter() - t0
         return out
 
     def scored(model, label: str, evaluator):
-        preds = model.transform(test, label_col=label, device=dev)
+        preds = model.transform(test, label_col=label, **where)
         return preds, evaluator.evaluate(preds)
 
     # §6: the label is binarized before the split, so one split + one
@@ -184,7 +198,7 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
     rmse: dict[str, float] = {}
     preds = {}
     for name, est in regressors.items():
-        model = timed(f"fit:{name}", lambda: est.fit(train, label_col=LABEL_COL, device=dev))
+        model = timed(f"fit:{name}", lambda: est.fit(train, label_col=LABEL_COL, **where))
         preds[name], rmse[name] = timed(f"eval:{name}",
                                         lambda: scored(model, LABEL_COL, reg_eval))
         models[name] = model
@@ -197,7 +211,7 @@ def run_model_stage(training_df: Table, cfg: PipelineConfig | None = None,
     }
     accuracy: dict[str, float] = {}
     for name, est in classifiers.items():
-        model = timed(f"fit:{name}", lambda: est.fit(train, label_col=BINARY_LABEL, device=dev))
+        model = timed(f"fit:{name}", lambda: est.fit(train, label_col=BINARY_LABEL, **where))
         _, accuracy[name] = timed(f"eval:{name}", lambda: scored(model, BINARY_LABEL, cls_eval))
         models[name] = model
 
@@ -233,17 +247,25 @@ def run_pipeline(
     save_models: bool = True,
     make_plots: bool = True,
     device=None,
+    mesh=None,
 ) -> PipelineResult:
-    """The whole job, §1–§12, on ``device`` (default the card; raises
-    without one) or on ``session``'s device.  ``make_plots`` needs
-    matplotlib (the ``viz`` extra), checked before any work starts."""
+    """The whole job, §1–§12, over ``session``'s mesh, or a new session's
+    (``mesh``, else the one-entry mesh of ``device``, else
+    ``build_mesh(config.mesh)`` over every card; raises without one).
+    ``make_plots`` needs matplotlib (the ``viz`` extra), checked before
+    any work starts."""
     cfg = config or (session.config if session is not None else PipelineConfig())
     if make_plots:
         plots.figure_class()
-    if session is not None and device is not None and resolve_device(device) != session.device:
-        raise ValueError(f"device {device!r} is not the session's ({session.device})")
+    if session is not None:
+        want = None if device is None else resolve_device(device)
+        if ((mesh is not None and mesh != session.mesh) or (want is not None and (
+                want.type != session.device.type
+                or want.index not in (None, session.device.index)))):
+            raise ValueError(f"device {device!r} / mesh {mesh} is not the session's "
+                             f"({session.mesh})")
     owns_session = session is None
-    spark = session or Session(cfg, device=device)
+    spark = session or Session(cfg, device=device, mesh=mesh)
     try:
         return _run(cfg, spark, save_models, make_plots)
     finally:
@@ -277,7 +299,7 @@ def _run(cfg: PipelineConfig, spark: Session, save_models: bool,
         training_df = _window(spark.sql, cfg)
 
     # §6-§8, §10, §11
-    stage = run_model_stage(training_df, cfg, device=spark.device, save_models=save_models)
+    stage = run_model_stage(training_df, cfg, save_models=save_models, mesh=spark.mesh)
     metrics.timings.extend(StageTiming(name=k, seconds=v) for k, v in stage.seconds.items())
 
     # §9: plots → PNG files (:204-223)
@@ -313,15 +335,25 @@ def _run(cfg: PipelineConfig, spark: Session, save_models: bool,
 
 
 def main(argv=None) -> None:
-    """Console entry: ``--device`` (default the card), ``--no-plots``
-    (skip §9, for a machine without matplotlib), then every
+    """Console entry: ``--device`` (one device; default the session's
+    mesh over every card, shaped by ``--mesh-data`` / ``--mesh-model``),
+    ``--no-plots`` (skip §9, for a machine without matplotlib), then every
     ``PipelineConfig`` flag; prints the report."""
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--device", default=None)
     p.add_argument("--no-plots", dest="make_plots", action="store_false")
     ns, rest = p.parse_known_args(argv)
-    result = run_pipeline(PipelineConfig.from_flags(rest), device=ns.device,
-                          make_plots=ns.make_plots)
+    cfg = PipelineConfig.from_flags(rest)
+    if ns.device is not None and (cfg.mesh.data > 1 or cfg.mesh.model > 1):
+        # a mesh of more than one entry on the named device: its shards
+        # repeat the device (the port's virtual mesh)
+        from ..parallel.mesh import build_mesh
+
+        size = cfg.mesh.data * max(cfg.mesh.model, 1)
+        result = run_pipeline(cfg, mesh=build_mesh(cfg.mesh, [ns.device] * size),
+                              make_plots=ns.make_plots)
+    else:
+        result = run_pipeline(cfg, device=ns.device, make_plots=ns.make_plots)
     print(result.report)
 
 

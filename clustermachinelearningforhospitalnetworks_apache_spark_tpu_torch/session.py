@@ -1,10 +1,10 @@
 """Session — the ``SparkSession`` analogue (the JAX package's
-``session.py``, on one device in place of the mesh).
+``session.py``).
 
 The reference bootstraps ``SparkSession.builder.appName(...).master(
 "spark://…").getOrCreate()`` (``mllearnforhospitalnetwork.py:55-58``) and
 then uses it for streaming reads (:75) and SQL (:128).  Here a Session
-is an in-process object: it owns the device (default the card), a
+is an in-process object: it owns a device mesh and its first device, a
 named-table registry and the fluent streaming read/write surface, with
 the builder chain, so reference code ports line for line::
 
@@ -16,6 +16,14 @@ the builder chain, so reference code ports line for line::
     q.process_available()          # or q.await_termination(timeout)
     train = spark.sql("SELECT * FROM events WHERE event_time BETWEEN "
                       "'2025-03-31 22:00:00' AND '2025-03-31 23:00:00'")
+
+The mesh is, in this order: the ``mesh=`` given; else the one-entry mesh
+of ``device=``; else ``build_mesh(config.mesh)`` over every card (raising
+without one) — ``(1, 1)`` on a one-card machine, today's single-device
+path.  It becomes the process's default mesh at construction and
+``stop()`` restores the one it displaced, only if the default is still
+this session's.  ``session.device`` is the mesh's first device: SQL, the
+views and the streams run there, and the model stage fits over the mesh.
 
 ``sql_to_device`` is the fused training path: the SQL window, feature
 assembly and a ``DeviceDataset`` on the session's device, with no row
@@ -34,7 +42,6 @@ from typing import Any, Callable
 from .config import PipelineConfig
 from .core.schema import Schema
 from .core.table import Table
-from .device import resolve_device
 from .streaming.checkpoint import StreamCheckpoint
 from .streaming.microbatch import BatchInfo, StreamExecution
 from .streaming.source import FileStreamSource
@@ -61,13 +68,34 @@ def parse_duration_minutes(text: str) -> float:
 _ACTIVE_SESSION: "Session | None" = None
 
 
+def _session_mesh(config: PipelineConfig, device, mesh):
+    """The session's mesh: ``mesh``, else the one-entry mesh of ``device``,
+    else ``build_mesh(config.mesh)`` over every card.  ``device`` and
+    ``mesh`` together must agree: the device is the mesh's first entry's."""
+    from .parallel.mesh import build_mesh, single_device_mesh
+
+    if mesh is not None:
+        if device is not None and single_device_mesh(device).device(0, 0) != mesh.device(0, 0):
+            raise ValueError(f"device {device!r} is not the mesh's first device "
+                             f"({mesh.device(0, 0)})")
+        return mesh
+    if device is not None:
+        return single_device_mesh(device)
+    return build_mesh(config.mesh)
+
+
 class Session:
-    def __init__(self, config: PipelineConfig | None = None, device=None):
+    def __init__(self, config: PipelineConfig | None = None, device=None, mesh=None):
         global _ACTIVE_SESSION
+        from .parallel import mesh as _mesh_mod
+
         self.config = config or PipelineConfig()
-        self.device = resolve_device(device)
+        self.mesh = _session_mesh(self.config, device, mesh)
+        self.device = self.mesh.device(0, 0)
         # remember what we displaced, so stop() restores it rather than
         # nulling the slot out from under another session
+        self._prev_default_mesh = _mesh_mod._DEFAULT_MESH
+        _mesh_mod.set_default_mesh(self.mesh)
         self._prev_active_session = _ACTIVE_SESSION
         self.metrics = MetricsRegistry()
         self._tables: dict[str, Any] = {}
@@ -94,6 +122,15 @@ class Session:
 
         def device(self, device) -> "Session._Builder":
             self._device = device
+            return self
+
+        def config_obj(self, cfg: PipelineConfig) -> "Session._Builder":
+            self._config = cfg
+            return self
+
+        def mesh(self, mesh_cfg) -> "Session._Builder":
+            """The mesh's shape (a ``MeshConfig``), built over every card."""
+            self._config = self._config.replace(mesh=mesh_cfg)
             return self
 
         def get_or_create(self) -> "Session":
@@ -191,6 +228,9 @@ class Session:
         from contextlib import nullcontext
 
         from .core.schema import FEATURE_COLS, LABEL_COL
+        from .models.base import require_single_shard
+
+        require_single_shard(None, self.mesh, "Session.sql_to_device")
         from .core.sql import execute
         from .core.sql_compile import compile_rowlevel
         from .features.assembler import VectorAssembler
@@ -225,8 +265,13 @@ class Session:
 
     def stop(self) -> None:
         global _ACTIVE_SESSION
-        # release the active slot only if it is still ours — a non-LIFO
-        # stop must not clobber another live session's
+        from .parallel import mesh as _mesh_mod
+
+        # restore the displaced default mesh and active slot only if they
+        # are still ours — a non-LIFO stop must not clobber another live
+        # session's
+        if _mesh_mod._DEFAULT_MESH is self.mesh:
+            _mesh_mod.set_default_mesh(self._prev_default_mesh)
         if _ACTIVE_SESSION is self:
             _ACTIVE_SESSION = self._prev_active_session
         log.info("session stopped", app=self.config.app_name)

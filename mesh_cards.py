@@ -15,7 +15,12 @@ from its first 256 rows:
    each ``==`` the same mesh shape over ``[cuda:0] * C`` (the same shards,
    the same K1 plans, the same ordered fold on cuda:0), with each fit's
    warm seconds;
-2. C processes, one card each, NCCL through a ``file://`` store: the
+2. the hospital pipeline's model stage (``run_model_stage``, on
+   ``chip_smoke.py``'s 2M-row window of the example generator's law) over a
+   (C, 1) mesh of the C cards, ``==`` the (C, 1) mesh over
+   ``[cuda:0] * C`` (every RMSE, accuracy, importance, the LR coefficients
+   and every tree), with each stage's warm seconds;
+3. C processes, one card each, NCCL through a ``file://`` store: the
    host-major (C, 1) mesh, every rank's model ``==`` the in-process (C, 1)
    fit, each rank's warm fit seconds (its second fit) and the seconds of
    it inside the ordered gather (``collectives.gather_shards``).
@@ -59,6 +64,53 @@ def sync(dev: str) -> None:
 
     if dev != "cpu":
         torch.cuda.synchronize()
+
+
+def sync_all(dev: str) -> None:
+    import torch
+
+    if dev != "cpu":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def stage_leg(port, cs, C: int, cards: list, one: list, dev: str, n: int, card: str) -> dict:
+    """The model stage over a (C, 1) mesh of the cards against the same
+    shape over one card: every metric and model ``==``.  → its seconds."""
+    import numpy as np
+
+    cfg = port.PipelineConfig()
+    window = port.extract_training_window(
+        port.Table.from_dict(cs.hospital_events(n // 5), port.hospital_event_schema()), cfg,
+        device=one[0])
+    runs = {}
+    for name, devs in (("cards", cards), ("one_card", one)):
+        mesh = port.build_mesh(port.MeshConfig(data=C), devs)
+        port.run_model_stage(window, cfg, mesh=mesh)            # first use of each card
+        sync_all(dev)
+        t0 = time.perf_counter()
+        res = port.run_model_stage(window, cfg, mesh=mesh)
+        sync_all(dev)
+        runs[name] = (res, time.perf_counter() - t0)
+    (a, s_a), (b, s_b) = runs["cards"], runs["one_card"]
+    if (a.regression_rmse != b.regression_rmse
+            or a.classification_accuracy != b.classification_accuracy
+            or a.feature_importances != b.feature_importances):
+        fail(f"the ({C}, 1) stage over {C} cards differs from one card's")
+    for name, m in a.models.items():
+        other = b.models[name]
+        if name == "LinearRegression":
+            same_m = np.array_equal(m.coefficients.cpu().numpy(), other.coefficients.cpu().numpy())
+        else:
+            same_m = all(np.array_equal(getattr(m, k), getattr(other, k))
+                         for k in ("split_feat", "threshold", "value"))
+        if not same_m:
+            fail(f"the ({C}, 1) stage's {name} over {C} cards differs from one card's")
+    print(f"({C}, 1) model stage on {window.num_rows} rows, one process: over {C} cards "
+          f"{s_a:.4f} s, over one card {s_b:.4f} s ({s_b / s_a:.2f}x); every metric and model "
+          f"== bit for bit ({card})", flush=True)
+    return {"cards_s": s_a, "one_card_s": s_b, "rows": window.num_rows,
+            "seconds": {k: round(v, 4) for k, v in a.seconds.items()}}
 
 
 def fit(port, ds, warm, mesh, dev: str):
@@ -176,6 +228,8 @@ def main() -> None:
         del on_cards, on_one
     out["in_process"] = legs
     del ds
+    out["model_stage"] = stage_leg(port, cs, C, cards, one, dev,
+                                   40_000 if dev == "cpu" else cs.TREE_N, card)
     if dev != "cpu":
         torch.cuda.empty_cache()
 

@@ -903,6 +903,47 @@ def test_slice_8a_entry_points_default_to_the_card_and_raise_without_one(monkeyp
     assert port.KMeans(k=2).fit(x, mesh=mesh).cluster_centers.shape == (2, 3)
 
 
+def test_slice_8b_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """The session's mesh, the sharded model stage and the estimators'
+    ``mesh=`` span every card by default and raise without one; a named
+    CPU mesh runs there."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(40, 4)).astype(np.float32)
+    y, yb = x[:, 0] + 1.0, (x[:, 1] > 0).astype(np.float32)
+    cols = {c: np.round(rng.uniform(1, 9, 40)) for c in (*port.FEATURE_COLS, port.LABEL_COL)}
+    table = port.Table.from_dict(cols)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    parallel.set_default_mesh(None)
+    calls = [
+        lambda: port.Session(),
+        lambda: port.Session(port.PipelineConfig(mesh=port.MeshConfig(data=2))),
+        lambda: port.run_model_stage(table),
+        lambda: port.run_model_stage(table, mesh=port.default_mesh()),
+        lambda: port.LinearRegression().fit((x, y), mesh=port.default_mesh()),
+        lambda: port.DecisionTreeRegressor().fit((x, y), mesh=port.default_mesh()),
+        lambda: port.GBTRegressor(max_iter=2).fit((x, y), mesh=port.default_mesh()),
+        lambda: port.GaussianMixture(k=2).fit(x, mesh=port.default_mesh()),
+        lambda: port.LogisticRegression().fit((x, yb), mesh=port.default_mesh()),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mesh = parallel.build_mesh(port.MeshConfig(data=2), [torch.device("cpu")] * 2)
+    spark = port.Session(mesh=mesh)
+    try:
+        assert spark.mesh is mesh and spark.device == torch.device("cpu")
+        assert parallel.default_mesh() is mesh
+    finally:
+        spark.stop()
+    assert parallel.mesh._DEFAULT_MESH is None
+    res = port.run_model_stage(table, port.PipelineConfig(tree_max_depth=2, rf_num_trees=2),
+                               mesh=mesh)
+    assert res.training_rows == 40
+    assert isinstance(res.models["LinearRegression"].coefficients, torch.Tensor)
+
+
 def test_slice_8a_host_entry_points_take_no_device_and_need_no_card(monkeypatch, tmp_path):
     """``MeshConfig``, the partitioner's resolution, ``partition_devices``,
     ``place_hospitals``, ``pad_rows`` and a single-process ``initialize()``

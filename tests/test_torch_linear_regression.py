@@ -43,6 +43,8 @@ import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as P
 from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models import (
     linear_regression as plr,
 )
+from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.data import DeviceDataset
+from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.base import Shards
 
 torch.set_num_threads(1)
 
@@ -99,8 +101,8 @@ def test_elastic_net_matches_reference(kw, weighted):
             est["fit_intercept"], est["standardize"], est["max_iter"])
     jc, ji, jn = jlr._elastic_net_fit(x, y, wv, np.float32(args[0]), np.float32(args[1]),
                                       np.float32(args[2]), *args[3:])
-    pc, pi, pn, syncs = plr._elastic_net_fit(torch.from_numpy(x), torch.from_numpy(y),
-                                             torch.from_numpy(wv), *args)
+    one = Shards(DeviceDataset(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(wv)))
+    pc, pi, pn, syncs = plr._elastic_net_fit(one, *args)
     assert pn == int(jn)
     assert syncs == -(-max(pn, 1) // plr.FISTA_CHUNK) or pn == est["max_iter"]
     _close(pc.numpy(), pi, np.asarray(jc), ji)

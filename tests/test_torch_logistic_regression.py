@@ -42,6 +42,8 @@ import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as P
 from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models import (
     logistic_regression as plog,
 )
+from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.data import DeviceDataset
+from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.base import Shards
 
 torch.set_num_threads(1)
 
@@ -116,8 +118,8 @@ def test_binomial_matches_reference(kw, weighted):
 def test_irls_fit_function_matches_reference():
     x, y, w = _binary_data(n=1000, seed=4, weighted=True)
     jc, ji, jn = jlog._irls_fit(x, y, w, np.float32(0.01), np.float32(1e-6), True, True, 100)
-    pc, pi, pn, syncs = plog._irls_fit(torch.from_numpy(x), torch.from_numpy(y),
-                                       torch.from_numpy(w), 0.01, 1e-6, True, True, 100)
+    one = Shards(DeviceDataset(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(w)))
+    pc, pi, pn, syncs = plog._newton_fit(one, None, 0.01, 1e-6, True, True, 100)
     assert pn == int(jn) and syncs == -(-pn // plog.NEWTON_CHUNK)
     _close(_theta(pc.numpy(), pi), _theta(jc, ji), COEF_TOL)
 

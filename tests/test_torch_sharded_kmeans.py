@@ -178,28 +178,34 @@ def test_partials_protocol_honours_the_mesh(integers):
 
 
 def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
+    """The estimators and paths outside the mesh slices raise, naming slice
+    8c, and never gather the shards (LinearRegression, the trees,
+    GaussianMixture and LogisticRegression fit over a mesh since slice 8b:
+    ``tests/test_torch_sharded_models.py``)."""
     mesh = _mesh((4, 1))
-    y = blobs[:, 0]
-    for call in (
-        lambda: port.GaussianMixture(k=2).fit(blobs, mesh=mesh),
-        lambda: port.LinearRegression().fit((blobs, y), mesh=mesh),
-        lambda: port.GaussianMixture(k=2).fit(P.device_dataset(blobs, mesh=mesh)),
-        lambda: port.LinearRegression().partial_fit_stats((blobs, y), mesh=mesh),
-        lambda: port.GaussianMixture(k=2).local_init_stats(blobs, mesh=mesh),
-        lambda: port.DecisionTreeRegressor().fit((blobs, y), mesh=mesh),
-        lambda: port.KMeans(k=2).fit(port.HostDataset(x=blobs, max_device_rows=512),
-                                     mesh=mesh),
-    ):
-        with pytest.raises(NotImplementedError, match="slice 8b"):
-            call()
-    lr = port.LinearRegression().fit((blobs, y), mesh=P.single_device_mesh("cpu"))
+    yb = (blobs[:, 0] > 0).astype(np.float32)
+    session = port.Session(port.PipelineConfig(), mesh=mesh)
+    try:
+        for call in (
+            lambda: port.KMeans(k=2).fit(port.HostDataset(x=blobs, max_device_rows=512),
+                                         mesh=mesh),
+            lambda: port.LinearSVC().fit((blobs, yb), mesh=mesh),
+            lambda: port.NaiveBayes(model_type="gaussian").fit((blobs, yb), mesh=mesh),
+            lambda: port.BisectingKMeans(k=2).fit(blobs, mesh=mesh),
+            lambda: session.sql_to_device("SELECT * FROM events"),
+        ):
+            with pytest.raises(NotImplementedError, match="slice 8c"):
+                call()
+    finally:
+        session.stop()
+    lr = port.LinearRegression().fit((blobs, blobs[:, 0]), mesh=P.single_device_mesh("cpu"))
     assert lr.coefficients.device == torch.device("cpu")
 
 
 def test_unported_kmeans_options_on_a_mesh_raise(blobs, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 8b"):
+    with pytest.raises(NotImplementedError, match="slice 8c"):
         port.KMeans(k=K, matmul_precision="bf16").fit(blobs, mesh=_mesh((4, 2)))
-    with pytest.raises(NotImplementedError, match="slice 8b"):
+    with pytest.raises(NotImplementedError, match="slice 8c"):
         port.KMeans(k=K, checkpoint_dir=str(tmp_path)).fit(blobs, mesh=_mesh((4, 1)))
     with pytest.raises(ValueError, match="not on the mesh given"):
         port.KMeans(k=K).fit(P.device_dataset(blobs, mesh=_mesh((4, 1))), mesh=_mesh((8, 1)))
