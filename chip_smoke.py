@@ -557,8 +557,17 @@ def k2_case(L, n: int, d: int, k: int, seed: int, reps: int) -> dict:
     centers = torch.randn(k, d, device="cuda", generator=g) * 3.0
     x = (centers[torch.randint(0, k, (n,), device="cuda", generator=g)]
          + torch.randn(n, d, device="cuda", generator=g)).contiguous()
-    c_valid = torch.ones(k, device="cuda")
-    tag = f"n={n} d={d} k={k}"
+    return k2_record(L, x, centers, f"n={n} d={d} k={k}", reps)
+
+
+def k2_record(L, x, centers, tag: str, reps: int) -> dict:
+    """K2 against its plain version on the inputs given (every center
+    valid), with its times.  → the shape's record."""
+    import torch
+
+    n, d = x.shape
+    k = centers.shape[0]
+    c_valid = torch.ones(k, device=x.device)
     err, bad = compare_k2(L, x, centers, c_valid, tag)
     c_sq, x_sq = (centers * centers).sum(1), (x * x).sum(1)
     t = {
@@ -9249,6 +9258,417 @@ def mesh_models_phase(port, H, card: str, mp_: dict) -> dict:
     return {"launches": launches, "shapes": recs}
 
 
+# ------------------------------------------------------------- slice 8c-1
+MC_DATA = 4                   # (b)-(f): a (4, 1) mesh over cuda:0
+MC_STREAM_MIN = 16_384        # (b)'s override: a 100,000-row batch's 25,000-row shards take it
+MC_LIN_ROWS = 400_000         # (c): the stage's 2M hospital rows in 5 batches, 100,000 a shard
+MC_KILL_AT = 5                # (d), (e): the fit killed after this step / EM iteration
+MC_KM_ITERS = 10              # (d): the checkpointed k=256 fit's steps (tol 0)
+#: (a), (b), (c) against one device: about 10x the first chip run's gaps,
+#: two float32 ulp at the values' magnitude where a gap was 0 (NVIDIA H100
+#: 80GB HBM3, 700 W: bisecting centers 0 (|c| about 2; bf16-rounded control
+#: 3.0e-4), streaming centers 2.38e-7 and weights 0 (bf16 control 3.22 /
+#: 1.02), logistic probabilities 8.05e-7 (bf16 control 3.2e-5)); the linear
+#: stream at queue 3's bound on the hospital Gram, 1e-4 of the largest
+#: coefficient, beside TF32 products
+MC_BISECT_TOL = 5e-7
+MC_STREAM_TOL = {"centers": 2.4e-6, "weights_rel": 2.4e-7}
+MC_LIN_TOL = MM_LR_TOL
+MC_LOGIT_TOL = 8e-6
+
+
+class _Killed(Exception):
+    """The preemption (d) and (e) inject through ``on_iteration``."""
+
+
+def bisect_gaps(a, b) -> dict:
+    import numpy as np
+
+    return {"centers": float(np.abs(a.cluster_centers - b.cluster_centers).max()),
+            "sizes": float(np.abs(a.cluster_sizes - b.cluster_sizes).max()),
+            "splits": int(a.fit_info["splits"] != b.fit_info["splits"])}
+
+
+def same_stream(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, n).cpu(), getattr(b, n).cpu())
+               for n in ("_centers", "_weights", "_weights_lo")) and a._steps == b._steps
+
+
+def stream_gaps(a, b) -> dict:
+    import numpy as np
+
+    ma, mb = a.latest_model, b.latest_model
+    return {"centers": float(np.abs(ma.cluster_centers - mb.cluster_centers).max()),
+            "weights_rel": float(np.abs(ma.cluster_weights / mb.cluster_weights - 1).max())}
+
+
+def mesh_clustering_phase(port, L, card: str, ds, model, pred_h, x_host, init, x2) -> dict:
+    """Slice 8c-1: the clustering family, the streams and bulk scoring over
+    virtual meshes of ``cuda:0``.  (a) BisectingKMeans, config 4 (2M x 8,
+    k=8, one restart): (1, 1) ``==`` one device, (4, 1) and (2, 2) the same
+    splits and sizes, centers within ``MC_BISECT_TOL`` beside a
+    bf16-rounded control, ``==`` on integer rows; predict over the mesh
+    (K2 a shard) ``==`` one device.  (b) StreamingKMeans, config 5 (12
+    batches of 100,000 x 8, k=16, half_life 5) over (4, 1): at the default
+    threshold every batch on one device, ``==`` the one-device stream;
+    with ``shard_min_rows_per_device=MC_STREAM_MIN`` K1 4 a batch in
+    ``update`` and ``update_many``, within ``MC_STREAM_TOL`` (a bf16
+    control), ``==`` on integer rows, a 13th update with no host sync, and
+    ``ModelUpdateConsumer(mesh=)`` over 10 drops ``==`` the direct
+    updates.  (c) the streaming linear and logistic models on the stage's
+    2M hospital rows in 5 batches of 400,000 over (4, 1) (sharded at the
+    default threshold) against one device, beside TF32 / bf16 controls.
+    (d) KMeans k=256 over (4, 1) on the main path's first 2M rows with
+    ``checkpoint_dir``, killed after step ``MC_KILL_AT`` and resumed ``==``
+    the uninterrupted fit; a (2, 2) bf16 fit against the (2, 2) "highest"
+    fit at ``precision_phase``'s limit.  (e) GaussianMixture k=32 over (4,
+    1) on the 2M hospital rows, killed and resumed ``==``.  (f) the main
+    path's 10M rows scored over (4, 1): ``bulk_score``, ``ShardedScorer``
+    and ``assign_clusters_chunked`` ``==`` predict, K2 4 a chunk.  K1 and
+    K2 against their plain versions at the new shard shapes.  → {"launches":
+    the main path's K1 / K2, "k1", "k2": shape records}."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel as P
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import streaming as S
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models import (
+        streaming_linear as psl,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops.distance import (
+        assign_clusters_chunked,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import sharding
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel.partitioner import (
+        family,
+    )
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.serve.scoring import (
+        DEFAULT_CHUNK_ROWS,
+    )
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(L)
+    cuda0 = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+    counts = L.launch_counts
+
+    def mesh(data: int, model: int = 1):
+        return P.build_mesh(port.MeshConfig(data=data, model=model), [cuda0] * (data * model))
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def launched(fn, name: str):
+        before = counts()[name]
+        out = fn()
+        sync()
+        return out, counts()[name] - before
+
+    mesh4 = mesh(MC_DATA)
+    k1_shapes, k2_shapes = [], []
+
+    # -------------------------------------------- (a) BisectingKMeans
+    x = make_data(BISECT_N, D, BISECT_K)
+    bkw = dict(k=BISECT_K, seed=SEED, n_restarts=1)
+    one_ds = port.device_dataset(x, device=cuda0)
+    with ledger.aside():
+        one, s_one = timed(lambda: port.BisectingKMeans(**bkw).fit(one_ds))
+    m11, s11 = timed(lambda: port.BisectingKMeans(**bkw).fit(one_ds, mesh=mesh(1)))
+    check(bisect_gaps(m11, one) == {"centers": 0.0, "sizes": 0.0, "splits": 0}
+          and m11.training_cost == one.training_cost, "bisecting: (1, 1) differs from one device")
+    lines, shard_ds = [], {}
+    for shape in ((MC_DATA, 1), (2, 2)):
+        shard_ds[shape] = sharding.shard_dataset(one_ds, mesh(*shape))
+        m, s = timed(lambda: port.BisectingKMeans(**bkw).fit(shard_ds[shape]))
+        g = bisect_gaps(m, one)
+        check(g["splits"] == 0 and g["sizes"] == 0.0 and g["centers"] <= MC_BISECT_TOL,
+              f"bisecting {shape} vs one device: {g} (limit {MC_BISECT_TOL:g})")
+        lines.append(f"{shape} {s:.3f} s, {len(m.fit_info['levels'])} levels, centers "
+                     f"{g['centers']:.3g}")
+        if shape == (MC_DATA, 1):
+            m4 = m
+    with ledger.aside():
+        ctl = port.BisectingKMeans(**bkw).fit(sharding.shard_dataset(
+            port.device_dataset(bf16_round(x), device=cuda0), mesh4))
+        c_ctl = bisect_gaps(ctl, one)["centers"]
+    check(c_ctl > MC_BISECT_TOL, f"bisecting: the bf16-rounded control {c_ctl:.3g} passes "
+          f"{MC_BISECT_TOL:g}")
+    pred4, k2_a = launched(lambda: m4.predict(shard_ds[MC_DATA, 1].x), "fused_assign")
+    check(k2_a == MC_DATA, f"bisecting predict over (4, 1) launched K2 {k2_a} times")
+    with ledger.aside():
+        check(torch.equal(torch.cat(pred4.data_blocks()), m4.predict(one_ds.x)),
+              "bisecting: predict over the mesh differs from one device")
+        k2_shapes.append(k2_record(L, shard_ds[MC_DATA, 1].shard(0).x,
+                                   torch.from_numpy(m4.cluster_centers).to(cuda0),
+                                   f"bisecting (4, 1) shard n={BISECT_N // MC_DATA}", 20))
+    rng = np.random.default_rng(SEED + 8)
+    cen = rng.integers(-3, 4, size=(BISECT_K, D))
+    xi = (cen[rng.integers(0, BISECT_K, BISECT_N)]
+          + rng.integers(-1, 2, size=(BISECT_N, D))).astype(np.float32)
+    ids = port.device_dataset(xi, device=cuda0)
+    with ledger.aside():
+        one_i = port.BisectingKMeans(**bkw).fit(ids)
+    for shape in ((MC_DATA, 1), (2, 2)):
+        mi = port.BisectingKMeans(**bkw).fit(sharding.shard_dataset(ids, mesh(*shape)))
+        check(bisect_gaps(mi, one_i) == {"centers": 0.0, "sizes": 0.0, "splits": 0}
+              and mi.training_cost == one_i.training_cost,
+              f"bisecting integer rows over {shape}: {bisect_gaps(mi, one_i)}")
+    say(f"mesh clustering (a) BisectingKMeans k={BISECT_K} on {BISECT_N} x {D}: one device "
+        f"{s_one:.3f} s, (1, 1) {s11:.3f} s == one device; " + "; ".join(lines)
+        + f" (limit {MC_BISECT_TOL:g}; bf16-rounded control {c_ctl:.3g}); the same splits "
+        f"and sizes; integer rows == one device over (4, 1) and (2, 2); predict over (4, 1) "
+        f"K2 {k2_a} launches == one device ({card})")
+    del one_ds, shard_ds, ids, pred4, x, xi
+    lap("mc (a)")
+
+    # -------------------------------------------- (b) StreamingKMeans
+    xs = make_data(STREAM_BATCH * STREAM_BATCHES, D, STREAM_K)
+    batches = [xs[i * STREAM_BATCH:(i + 1) * STREAM_BATCH] for i in range(STREAM_BATCHES)]
+    skw = dict(k=STREAM_K, half_life=5.0, seed=SEED)
+
+    def stream(bs, where: dict, **kw):
+        sk = port.StreamingKMeans(**skw, **kw)
+        k1 = []
+        for b in bs[:2]:
+            k1.append(launched(lambda: sk.update(b, **where), "fused_lloyd_stats")[1])
+        k1.append(launched(lambda: sk.update_many(bs[2:], **where), "fused_lloyd_stats")[1])
+        return sk, k1
+
+    with ledger.aside():
+        ref, _ = stream(batches, {"device": cuda0})
+    (sk_def, k1_def), s_def = timed(lambda: stream(batches, {"mesh": mesh4}))
+    check(same_stream(sk_def, ref) and k1_def == [1, 1, STREAM_BATCHES - 2],
+          f"streaming over (4, 1) at the default threshold: K1 {k1_def}, state == one "
+          f"device: {same_stream(sk_def, ref)}")
+    (sko, k1_o), s_o = timed(lambda: stream(batches, {"mesh": mesh4},
+                                            shard_min_rows_per_device=MC_STREAM_MIN))
+    check(k1_o == [MC_DATA, MC_DATA, MC_DATA * (STREAM_BATCHES - 2)],
+          f"streaming over (4, 1) with the override: K1 {k1_o} (want 4 a batch)")
+    g_s = stream_gaps(sko, ref)
+    with ledger.aside():
+        ctl_s = stream_gaps(stream([bf16_round(b) for b in batches], {"mesh": mesh4},
+                                   shard_min_rows_per_device=MC_STREAM_MIN)[0], ref)
+        rng = np.random.default_rng(SEED + 9)
+        cen = rng.integers(-8, 9, size=(STREAM_K, D))
+        ib = [(cen[rng.integers(0, STREAM_K, STREAM_BATCH)]
+               + rng.integers(-2, 3, size=(STREAM_BATCH, D))).astype(np.float32)
+              for _ in range(STREAM_BATCHES)]
+        ref_i, _ = stream(ib, {"device": cuda0})
+    sko_i, _ = stream(ib, {"mesh": mesh4}, shard_min_rows_per_device=MC_STREAM_MIN)
+    check(same_stream(sko_i, ref_i), "streaming integer rows over (4, 1) differ from one device")
+    check(all(g_s[k] <= MC_STREAM_TOL[k] for k in MC_STREAM_TOL)
+          and ctl_s["centers"] > MC_STREAM_TOL["centers"],
+          f"streaming over (4, 1) vs one device {g_s}, bf16 control {ctl_s} "
+          f"(limits {MC_STREAM_TOL})")
+    sds = sharding.shard_dataset(port.device_dataset(batches[0], device=cuda0), mesh4)
+    sync()
+    before = counts()["fused_lloyd_stats"]
+    if DEV == "cuda":
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        sko.update(sds)
+    finally:
+        if DEV == "cuda":
+            torch.cuda.set_sync_debug_mode("default")
+    sync()
+    k1_13 = counts()["fused_lloyd_stats"] - before
+    check(k1_13 == MC_DATA, f"the 13th sharded update launched K1 {k1_13} times")
+    direct = port.StreamingKMeans(**skw, shard_min_rows_per_device=MC_STREAM_MIN)
+    fed = port.StreamingKMeans(**skw, shard_min_rows_per_device=MC_STREAM_MIN)
+    for b in batches[:10]:
+        direct.update(b, mesh=mesh4)
+    cons = S.ModelUpdateConsumer(fed, mesh=mesh4)
+    _, k1_cons = launched(lambda: [cons(b, i) for i, b in enumerate(batches[:10])],
+                          "fused_lloyd_stats")
+    check(same_stream(fed, direct) and k1_cons == 10 * MC_DATA,
+          f"ModelUpdateConsumer(mesh=) over 10 drops: K1 {k1_cons}, == the direct updates: "
+          f"{same_stream(fed, direct)}")
+    with ledger.aside():
+        k1_shapes.append(mesh_case(L, sds.shard(0).x, sds.shard(0).w, sko._centers.clone(),
+                                   torch.ones(STREAM_K, device=cuda0),
+                                   f"streaming (4, 1) shard n={STREAM_BATCH // MC_DATA}",
+                                   reps=50)[0])
+    say(f"mesh clustering (b) StreamingKMeans k={STREAM_K} over (4, 1), {STREAM_BATCHES} "
+        f"batches of {STREAM_BATCH} x {D}: default threshold {s_def:.3f} s, K1 {k1_def} (one "
+        f"device a batch: {STREAM_BATCH // MC_DATA} rows a shard < 65,536), == the one-device "
+        f"stream; shard_min_rows_per_device={MC_STREAM_MIN} {s_o:.3f} s, K1 {k1_o} (4 a "
+        f"batch in update and update_many), vs one device " + as_text(g_s)
+        + f" (limits {MC_STREAM_TOL}; bf16 control " + as_text(ctl_s) + "); integer rows "
+        f"==; a 13th update from the card: no host sync, K1 {k1_13}; ModelUpdateConsumer(mesh=) "
+        f"over 10 drops == the direct updates, K1 {k1_cons} ({card})")
+    del sds, batches, xs, ib
+    lap("mc (b)")
+
+    # ----------------------------------- (c) the streaming linear models
+    xh, los, yb = stage_rows()
+    xh = xh.astype(np.float32)
+    y = los.astype(np.float32)
+    n_b = len(xh) // MC_LIN_ROWS
+
+    def streams(rows, where: dict):
+        lin, log = port.StreamingLinearRegression(), port.StreamingLogisticRegression()
+        for i in range(n_b):
+            sl = slice(i * MC_LIN_ROWS, (i + 1) * MC_LIN_ROWS)
+            lin.update((rows[sl], y[sl]), **where)
+            log.update((rows[sl], yb[sl]), **where)
+        return lin, log
+
+    def theta(m):
+        return np.r_[m.coefficients.cpu().numpy(), float(m.intercept)]
+
+    x_dev = torch.from_numpy(xh).to(cuda0)
+
+    def proba_gap(a, b) -> float:
+        return float((a.latest_model.predict_proba(x_dev)
+                      - b.latest_model.predict_proba(x_dev)).abs().max())
+
+    with ledger.aside():
+        lin1, log1 = streams(xh, {"device": cuda0})
+    calls = []
+    real = psl.lin_batch_stats
+
+    def counted(*a):
+        calls.append(a[0].shape[0])
+        return real(*a)
+
+    psl.lin_batch_stats = counted
+    try:
+        (lin4, log4), s_c = timed(lambda: streams(xh, {"mesh": mesh4}))
+    finally:
+        psl.lin_batch_stats = real
+    check(calls == [MC_LIN_ROWS // MC_DATA] * (MC_DATA * n_b),
+          f"the linear stream's batches did not run a shard each: {calls[:8]}")
+    g_lin, g_log = rel(theta(lin4.latest_model), theta(lin1.latest_model)), proba_gap(log4, log1)
+    with ledger.aside():
+        with tf32_matmuls():
+            c_lin = rel(theta(streams(xh, {"mesh": mesh4})[0].latest_model),
+                        theta(lin1.latest_model))
+        c_log = proba_gap(streams(bf16_round(xh), {"mesh": mesh4})[1], log1)
+    check(g_lin <= MC_LIN_TOL < c_lin, f"the (4, 1) linear stream {g_lin:.3g} of the largest "
+          f"coefficient from one device, TF32 control {c_lin:.3g} (limit {MC_LIN_TOL:g})")
+    check(g_log <= MC_LOGIT_TOL < c_log, f"the (4, 1) logistic stream's probabilities "
+          f"{g_log:.3g} from one device, bf16 control {c_log:.3g} (limit {MC_LOGIT_TOL:g})")
+    say(f"mesh clustering (c) the streaming regressions on the stage's {len(xh)} hospital rows "
+        f"in {n_b} batches of {MC_LIN_ROWS} over (4, 1) ({MC_LIN_ROWS // MC_DATA} rows a shard, "
+        f"sharded at the default threshold): {s_c:.3f} s for both streams; linear "
+        f"{g_lin:.3g} of the largest coefficient from one device (limit {MC_LIN_TOL:g}; TF32 "
+        f"control {c_lin:.3g}); logistic probabilities {g_log:.3g} apart (limit "
+        f"{MC_LOGIT_TOL:g}; bf16 control {c_log:.3g}) ({card})")
+    del x_dev
+    lap("mc (c)")
+
+    # ------------------------------- (d) KMeans k=256: checkpoint, bf16
+    kkw = dict(k=K, seed=SEED, max_iter=MC_KM_ITERS, tol=0.0, warm_start_centers=init)
+    one2 = port.device_dataset(x2, device=cuda0)
+    sds4 = sharding.shard_dataset(one2, mesh4)
+    (plain, k1_plain), s_plain = timed(lambda: launched(
+        lambda: port.KMeans(**kkw).fit(sds4), "fused_lloyd_stats"))
+    check(k1_plain == MC_DATA * (plain.n_iter + 1), f"(d) the (4, 1) fit launched K1 "
+          f"{k1_plain} times over {plain.n_iter} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        est = port.KMeans(checkpoint_dir=tmp, checkpoint_every=1, **kkw)
+
+        def bomb(it, cost, move):
+            if it == MC_KILL_AT:
+                raise _Killed()
+
+        try:
+            est.fit(sds4, on_iteration=bomb)
+            fail("(d) the kill did not fire")
+        except _Killed:
+            pass
+        seen = []
+        resumed, s_res = timed(lambda: est.fit(sds4, on_iteration=lambda it, c, m: seen.append(it)))
+    check(seen[0] == MC_KILL_AT + 1 and same_kmeans(resumed, plain),
+          f"(d) the resumed fit (from step {seen[0]}) differs from the uninterrupted one")
+    sds22 = sharding.shard_dataset(one2, mesh(2, 2))
+    hkw = dict(k=K, seed=SEED, max_iter=MAX_ITER, warm_start_centers=init)
+    hi22, s_hi = timed(lambda: port.KMeans(**hkw).fit(sds22))
+    (bf22, k2_bf), s_bf = timed(lambda: launched(
+        lambda: port.KMeans(matmul_precision="bf16", **hkw).fit(sds22), "fused_assign"))
+    rel_bf = abs(bf22.training_cost / hi22.training_cost - 1)
+    check(np.isfinite(bf22.training_cost) and rel_bf <= BF16_COST_RTOL["bf16"]
+          and float(bf22.cluster_sizes.sum()) == len(x2) and k2_bf == 4,
+          f"(d) (2, 2) bf16 against (2, 2) highest: cost rel {rel_bf:.3g} (limit "
+          f"{BF16_COST_RTOL['bf16']:g}), K2 {k2_bf} (the final exact pass: 4)")
+    say(f"mesh clustering (d) KMeans k={K} over (4, 1) on the main path's first {len(x2)} rows, "
+        f"checkpoint_dir: uninterrupted {s_plain:.3f} s (n_iter {plain.n_iter}, K1 {k1_plain}); "
+        f"killed after step {MC_KILL_AT}, resumed from step {seen[0]} in {s_res:.3f} s == the "
+        f"uninterrupted fit; (2, 2) bf16 {s_bf:.3f} s (n_iter {bf22.n_iter}) against (2, 2) "
+        f"highest {s_hi:.3f} s (n_iter {hi22.n_iter}): cost rel {rel_bf:.3g} (limit "
+        f"{BF16_COST_RTOL['bf16']:g}) ({card})")
+    del one2, sds4, sds22
+    lap("mc (d)")
+
+    # ----------------------------------------- (e) GaussianMixture k=32
+    gkw = dict(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED)
+    g_plain, s_g = timed(lambda: port.GaussianMixture(**gkw).fit(xh, mesh=mesh4))
+    with tempfile.TemporaryDirectory() as tmp:
+        gest = port.GaussianMixture(checkpoint_dir=tmp, checkpoint_every=2, **gkw)
+
+        def gbomb(it, ll):
+            if it == MC_KILL_AT:
+                raise _Killed()
+
+        try:
+            gest.fit(xh, mesh=mesh4, on_iteration=gbomb)
+            fail("(e) the kill did not fire")
+        except _Killed:
+            pass
+        gseen = []
+        g_res, s_gr = timed(lambda: gest.fit(xh, mesh=mesh4,
+                                             on_iteration=lambda it, ll: gseen.append(it)))
+    check(gseen[0] == MC_KILL_AT and same_gmm(g_res, g_plain),
+          f"(e) the resumed GMM (from iteration {gseen[0]}) differs from the uninterrupted one")
+    say(f"mesh clustering (e) GaussianMixture k={GMM_K} over (4, 1) on the {len(xh)} hospital "
+        f"rows, checkpoint_dir: uninterrupted {s_g:.3f} s ({g_plain.n_iter} EM iterations); "
+        f"killed after iteration {MC_KILL_AT}, resumed from iteration {gseen[0]} (the commit "
+        f"at {gseen[0] - 1}) in {s_gr:.3f} s == the uninterrupted fit ({card})")
+    lap("mc (e)")
+
+    # ------------------------------------------------ (f) bulk scoring
+    chunk = family("rows").round_rows(DEFAULT_CHUNK_ROWS, mesh4)
+    n_chunks = -(-len(x_host) // chunk)
+    (scored, k2_bulk), s_bulk = timed(lambda: launched(
+        lambda: port.serve.bulk_score(model, x_host, mesh=mesh4), "fused_assign"))
+    check(np.array_equal(scored, pred_h) and k2_bulk == MC_DATA * n_chunks,
+          f"(f) bulk_score over (4, 1): == predict {np.array_equal(scored, pred_h)}, K2 "
+          f"{k2_bulk} (want {MC_DATA} a chunk x {n_chunks})")
+    scorer = port.serve.ShardedScorer(model, mesh=mesh4)
+    (got, k2_sc), s_sc = timed(lambda: launched(lambda: scorer.warmup().score(x_host),
+                                                "fused_assign"))
+    check(np.array_equal(got, pred_h) and k2_sc == MC_DATA * (n_chunks + 1),
+          f"(f) ShardedScorer over (4, 1): == predict {np.array_equal(got, pred_h)}, K2 {k2_sc}")
+    sds10 = sharding.shard_dataset(ds, mesh4)
+    (a, k2_acc), s_acc = timed(lambda: launched(lambda: assign_clusters_chunked(
+        sds10.x, torch.from_numpy(model.cluster_centers)), "fused_assign"))
+    check(np.array_equal(P.unpad(a, len(x_host)), pred_h) and k2_acc == MC_DATA,
+          f"(f) assign_clusters_chunked over (4, 1): K2 {k2_acc}")
+    with ledger.aside():
+        xc = torch.from_numpy(np.ascontiguousarray(x_host[:chunk // MC_DATA])).to(cuda0)
+        k2_shapes.append(k2_record(L, xc, torch.from_numpy(model.cluster_centers).to(cuda0),
+                                   f"bulk_score (4, 1) shard chunk n={chunk // MC_DATA}", 20))
+        del xc
+    say(f"mesh clustering (f) scoring the main path's {len(x_host)} rows over (4, 1): "
+        f"bulk_score {s_bulk:.3f} s, {n_chunks} chunks of {chunk} rows, K2 {k2_bulk} ({MC_DATA} "
+        f"a chunk); ShardedScorer warmup + score {s_sc:.3f} s, K2 {k2_sc}; "
+        f"assign_clusters_chunked {s_acc:.3f} s, K2 {k2_acc}; each == predict ({card})")
+    del sds10, a, scored, got
+    lap("mc (f)")
+
+    launches = ledger.main_path()
+    say(f"mesh_clustering_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "k1": k1_shapes, "k2": k2_shapes}
+
+
 def main() -> None:
     try:
         import torch
@@ -9561,6 +9981,16 @@ def main() -> None:
     mm = mesh_models_phase(port, H, card, mp_)
     counts["fused_level_hist"] += mm["launches"]
     records[2]["shapes"] += mm["shapes"]
+
+    # ------- slice 8c-1: BisectingKMeans, the streams, the checkpointed
+    # KMeans / GMM and bulk scoring over a mesh (K1 a shard a batch or a
+    # step, K2 a shard a predict or a scoring chunk)
+    mc = mesh_clustering_phase(port, L, card, ds, model, pred_h, x_host, init_centers,
+                               mp_["x2"])
+    for name, v in mc["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += mc["k1"]
+    records[1]["shapes"] += mc["k2"]
     del mp_
 
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
@@ -9581,6 +10011,8 @@ def main() -> None:
         f"soak_phase {sum(v for k, v in PHASE_S.items() if k.startswith('soak ')):.2f}; "
         f"mesh_phase {sum(v for k, v in PHASE_S.items() if k.startswith('mesh ')):.2f}; "
         f"mesh_models_phase {sum(v for k, v in PHASE_S.items() if k.startswith('mm ')):.2f}; "
+        f"mesh_clustering_phase "
+        f"{sum(v for k, v in PHASE_S.items() if k.startswith('mc ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

@@ -82,6 +82,9 @@ class Schema:
     def select(self, names: Iterable[str]) -> "Schema":
         return Schema(tuple(self.field(n) for n in names))
 
+    def numeric_names(self) -> list[str]:
+        return [f.name for f in self.fields if f.is_numeric]
+
 
 def hospital_event_schema() -> Schema:
     """The reference script's streaming schema: 7 declared fields."""

@@ -1,15 +1,18 @@
-"""Columnar in-memory table — the subset of the JAX package's
-``core/table.py`` that the feature stages and the hospital pipeline's
-model stage and the SQL engine need: construction, column access, the
-numeric matrix, the relational steps concat / empty / select / mask /
-limit / with_column / na_drop / between, the Arrow hand-off the
-unbounded table's Parquet parts go through, and the device-column cache
-the compiled SQL executor reads."""
+"""Columnar in-memory table — the JAX package's ``core/table.py``, the
+DataFrame replacement: construction (dicts, pandas, Arrow), column
+access, the numeric matrix, the relational steps (concat / empty / select
+/ drop / mask / filter / limit / with_column / with_column_renamed /
+na_drop / between / sample / sort_by / group_count), Spark's ``show`` and
+``describe``, the pandas and Arrow hand-offs, the device-column cache the
+compiled SQL executor reads, and ``to_device``, the one host → device
+boundary of the pipeline (a padded, weighted dataset on the card, or laid
+over a mesh).  Everything but ``device_column`` and ``to_device`` is host
+numpy and needs no card."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -84,6 +87,10 @@ class Table:
         return cls(schema, cols)
 
     @classmethod
+    def from_pandas(cls, df, schema: Schema | None = None) -> "Table":
+        return cls.from_dict({c: df[c].to_numpy() for c in df.columns}, schema)
+
+    @classmethod
     def from_arrow(cls, batch) -> "Table":
         """From a pyarrow Table or RecordBatch, the schema inferred:
         strings come back as objects, timestamps as ``datetime64[ns]``."""
@@ -122,8 +129,117 @@ class Table:
         """Rows picked by a boolean mask or an index array."""
         return Table(self.schema, {n: v[m] for n, v in self.columns.items()})
 
+    def filter(self, predicate: Callable[["Table"], np.ndarray]) -> "Table":
+        """Rows where ``predicate(table)`` (a boolean array) is true."""
+        return self.mask(np.asarray(predicate(self), dtype=bool))
+
     def limit(self, n: int) -> "Table":
         return Table(self.schema, {k: v[:n] for k, v in self.columns.items()})
+
+    def sample(self, fraction: float, seed: int = 0) -> "Table":
+        """Spark's ``df.sample(fraction, seed)``: a per-row Bernoulli draw
+        from numpy's ``default_rng(seed)`` (the row count varies around
+        n·fraction, as Spark's does)."""
+        if not 0.0 <= fraction <= 1.0:
+            raise ValueError(f"fraction must be in [0, 1], got {fraction}")
+        keep = np.random.default_rng(seed).random(len(self)) < fraction
+        return self.mask(keep)
+
+    def with_column_renamed(self, existing: str, new: str) -> "Table":
+        """Spark's ``withColumnRenamed`` (a no-op when ``existing`` is
+        absent, as in Spark); a rename onto another existing column raises
+        (Spark would make duplicate columns, which a Table cannot hold)."""
+        if existing not in self.columns:
+            return self
+        if new in self.columns and new != existing:
+            raise ValueError(
+                f"cannot rename {existing!r} to {new!r}: a column named "
+                f"{new!r} already exists"
+            )
+        fields = [
+            Field(new, f.dtype, f.nullable) if f.name == existing else f
+            for f in self.schema.fields
+        ]
+        return Table(
+            Schema(fields),
+            {(new if k == existing else k): v for k, v in self.columns.items()},
+        )
+
+    def sort_by(self, column: str) -> "Table":
+        """Rows in ascending order of ``column`` (a stable sort)."""
+        return self.mask(np.argsort(self.columns[column], kind="stable"))
+
+    def group_count(self, column: str) -> dict[Any, int]:
+        """{value: row count} of ``column``, in ascending value order."""
+        vals, counts = np.unique(self.columns[column], return_counts=True)
+        return dict(zip(vals.tolist(), counts.tolist()))
+
+    def show(self, n: int = 20, truncate: int = 20) -> None:
+        """Spark's ``df.show()``: print the first ``n`` rows as an
+        ASCII-boxed table, string cells truncated to ``truncate`` chars
+        (0: no truncation)."""
+        names = list(self.columns)
+
+        def fmt(v) -> str:
+            if (
+                v is None
+                or (isinstance(v, float) and np.isnan(v))
+                or (isinstance(v, (np.datetime64, np.timedelta64)) and np.isnat(v))
+            ):
+                return "NULL"
+            s = f"{v:.6g}" if isinstance(v, (float, np.floating)) else str(v)
+            if truncate and len(s) > truncate:
+                # Spark: an ellipsis only where there is room for it
+                s = s[:truncate] if truncate < 4 else s[: truncate - 3] + "..."
+            return s
+
+        rows = [[fmt(self.columns[c][i]) for c in names] for i in range(min(n, len(self)))]
+        widths = [
+            max(len(c), *(len(r[j]) for r in rows)) if rows else len(c)
+            for j, c in enumerate(names)
+        ]
+        bar = "+" + "+".join("-" * (w + 2) for w in widths) + "+"
+        print(bar)
+        print("|" + "|".join(f" {c:<{w}} " for c, w in zip(names, widths)) + "|")
+        print(bar)
+        for r in rows:
+            print("|" + "|".join(f" {v:<{w}} " for v, w in zip(r, widths)) + "|")
+        print(bar)
+        if len(self) > n:
+            print(f"only showing top {n} rows")
+
+    def describe(self, *cols: str) -> "Table":
+        """Spark's ``df.describe()``: count / mean / stddev / min / max of
+        each numeric column (all of them when none is named), as a Table
+        whose first column is ``summary``."""
+        names = list(cols) if cols else self.schema.numeric_names()
+        # the non-numeric check, on a 0-row slice
+        self.limit(0).numeric_matrix(names)
+        if "summary" in names:
+            raise ValueError(
+                "describe() reserves the output column name 'summary' — "
+                "rename that column first"
+            )
+        out: dict[str, Any] = {
+            "summary": np.asarray(["count", "mean", "stddev", "min", "max"], dtype=object)
+        }
+        for c in names:
+            v = self.columns[c].astype(np.float64)
+            ok = v[~np.isnan(v)]
+            if ok.size:
+                # Spark reports the sample stddev (ddof=1; NaN for one row)
+                sd = float(np.std(ok, ddof=1)) if ok.size > 1 else np.nan
+                stats = [float(ok.size), float(ok.mean()), sd, float(ok.min()), float(ok.max())]
+            else:
+                stats = [0.0, np.nan, np.nan, np.nan, np.nan]
+            out[c] = np.asarray(stats)
+        return Table.from_dict(out)
+
+    def to_pandas(self):
+        """Spark's ``toPandas``."""
+        import pandas as pd
+
+        return pd.DataFrame({n: self.columns[n] for n in self.schema.names})
 
     def with_column(self, name: str, values: Any, dtype: str | None = None) -> "Table":
         """``DataFrame.withColumn``: add or replace a column; ``values``
@@ -223,3 +339,15 @@ class Table:
             "bytes": int(sum(a.numel() * a.element_size()
                              for a in self._device_cache.values())),
         }
+
+    def to_device(self, feature_cols: Sequence[str], label_col: str | None = None,
+                  mesh=None, device=None):
+        """The feature columns (and the label) as a padded, weighted
+        dataset on ``device`` (default the card), or over ``mesh`` (not
+        both): a one-entry mesh gives a DeviceDataset on its device, a
+        larger one a ShardedDataset."""
+        from ..parallel.sharding import device_dataset
+
+        x = self.numeric_matrix(feature_cols)
+        y = self.columns[label_col].astype(np.float64) if label_col else None
+        return device_dataset(x, y, device=device, mesh=mesh)

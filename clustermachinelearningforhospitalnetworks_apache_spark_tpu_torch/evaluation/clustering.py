@@ -109,6 +109,11 @@ class ClusteringEvaluator:
 
     metric_name: str = "silhouette"
 
+    @property
+    def is_larger_better(self) -> bool:
+        """Spark's ``isLargerBetter``: silhouette is."""
+        return True
+
     def evaluate(self, features, assignments, k: int | None = None,
                  device=None, mesh=None) -> float:
         """``features``: the dataset a model was fit on (a DeviceDataset,

@@ -51,13 +51,20 @@ def _host(a) -> np.ndarray:
 def data_fingerprint(x, w=None, sample: int = 1024) -> str:
     """Cheap deterministic identity of a dataset: the hash of an evenly
     strided row sample (the rows at the same ``linspace`` indices, in
-    their own dtype, as the JAX package hashes them).  Estimators put it
-    in the checkpoint signature so resuming against different data of the
-    same shape raises."""
+    their own dtype, as the JAX package hashes them).  A row-sharded
+    :class:`~..parallel.sharding.MeshArray` is sampled over its global
+    padded rows, each row read from the shard that holds it, so the
+    signature is the JAX package's for the same rows and mesh shape.
+    Estimators put it in the checkpoint signature so resuming against
+    different data of the same shape raises."""
+    from ..parallel.sharding import MeshArray, rows_at
+
     n = x.shape[0]
     idx = np.linspace(0, max(n - 1, 0), num=min(sample, n), dtype=np.int64)
 
     def rows(a):
+        if isinstance(a, MeshArray):
+            return _host(rows_at(a, idx))
         if isinstance(a, torch.Tensor):
             return _host(a[torch.from_numpy(idx).to(a.device)])
         return _host(a[idx])

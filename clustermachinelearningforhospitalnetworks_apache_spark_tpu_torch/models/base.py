@@ -125,6 +125,25 @@ def as_device_dataset(data: Any, label_col: str | None = None, device=None,
     return device_dataset(np.asarray(data), None, device=device)
 
 
+def stream_batch(data: Any, label_col: str | None = None, device=None, mesh=None,
+                 min_rows_per_device: int | None = None):
+    """A streaming micro-batch as a dataset on ``device`` (default the
+    card), or over ``mesh`` (not both) with the reference's adaptive
+    placement: a host batch is laid over the mesh only when every data
+    shard gets at least ``min_rows_per_device`` rows
+    (``parallel.sharding.microbatch_mesh``), else it runs on the mesh's
+    first device.  A DeviceDataset or ShardedDataset runs where it lies."""
+    from ..data import batch_rows
+    from ..parallel.sharding import ShardedDataset, microbatch_mesh
+
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        if not isinstance(data, (DeviceDataset, ShardedDataset)):
+            mesh = microbatch_mesh(batch_rows(data), mesh, min_rows_per_device)
+    return as_device_dataset(data, label_col, device=device, mesh=mesh, sharded=True)
+
+
 def on_mesh(data: Any, label_col: str | None = None, device=None,
             weight_col: str | None = None, mesh=None):
     """``data`` as a DeviceDataset on ``device`` (default the card; a

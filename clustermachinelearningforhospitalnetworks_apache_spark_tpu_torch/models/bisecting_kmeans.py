@@ -39,6 +39,18 @@ makes one a tree.  ``model.fit_info`` counts them, and its ``splits``
 lists the winning tree's splits as ``[level, parent slot, new slot]``
 (leaf slots before empty leaves are compacted away).
 
+Over a mesh (``fit(..., mesh=)``, or a ``ShardedDataset``) the resident
+fit runs over the data axis, as the reference's ``_lloyd_scan`` /
+``_stats_scan`` psums do: each data shard keeps its rows and their leaf
+ids on its device (``base.Shards``; the model axis is replicated, the
+reference shards only ``DATA_AXIS``), the root's sums, every Lloyd pass's
+float64 child sums and counts and each level's counts and SSE are computed
+a shard on that shard's device and summed in ascending shard order
+(``collectives.aggregate_shards``), and the schedule, the stop rule and the
+restarts run once on the home device and the host.  One device is one
+shard and keeps its bits; a sharded fit equals it where the float32 root
+sums are exact (integer rows), and within rounding elsewhere.
+
 A :class:`~..parallel.outofcore.HostDataset` takes the reference's
 out-of-core fit: the per-row leaf lives on the host, every Lloyd
 iteration and every level's stats pass is a sweep over the streamed
@@ -61,7 +73,7 @@ from .. import prng
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..parallel.outofcore import HostDataset, add_stats, block_moments
-from .base import Estimator, as_device_dataset
+from .base import Estimator, Shards, on_mesh, require_single_shard
 from .kmeans import KMeansModel, _cosine_prep, normalize_rows
 from .linear_regression import chunked_gram
 
@@ -86,23 +98,24 @@ def _weighted_onehot(arg, k2: int, wv):
 
 
 def _lloyd_pass(xs, wv, pos, cen):
-    """One constrained 2-means iteration's float32 child (sums, counts).
+    """One constrained 2-means iteration's float64 child (sums, counts) on
+    a shard's rows (rounded to float32 once the shards are summed).
     ``xs`` and ``wv`` are float64 (module docstring): one-hot products
     summed per chunk of rows, as the reference's scan does."""
     arg = torch.argmin(_children_d2(xs, cen.to(xs.dtype), pos, exact=False), dim=1)
     oh = _weighted_onehot(arg, cen.shape[0], wv)
-    return chunked_gram(oh, xs).to(cen.dtype), oh.sum(dim=0).to(cen.dtype)
+    return chunked_gram(oh, xs), oh.sum(dim=0)
 
 
 def _stats_pass(xs, wv, pos, cen):
-    """Final pass on converged children: float32 (counts, SSE) and each
-    row's side."""
+    """Final pass on converged children, on a shard's rows: float64
+    (counts, SSE) and each row's side."""
     d2 = _children_d2(xs, cen.to(xs.dtype), pos, exact=True)
     mind, arg = d2.min(dim=1)
     mind = torch.clamp(mind, min=0.0)
     oh = _weighted_onehot(arg, cen.shape[0], wv)
     sse = chunked_gram(oh, torch.where(wv > 0, mind, torch.zeros_like(mind)))
-    return oh.sum(dim=0).to(cen.dtype), sse.to(cen.dtype), (arg % 2).to(torch.int32)
+    return oh.sum(dim=0), sse, (arg % 2).to(torch.int32)
 
 
 def _block_children(x, pos, cen, shift):
@@ -166,38 +179,51 @@ class BisectingKMeans(Estimator):
     #: from the key itself); the lowest final cost wins
     n_restarts: int = 4
 
+    #: ``fit`` runs over a mesh of more than one shard (its resident path)
+    mesh_fit = True
+
     def fit(self, data, label_col: str | None = None, mesh=None,
             device=None) -> BisectingKMeansModel:
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w]) or
-        x) on ``device`` (default the card); a :class:`HostDataset`
-        streams its blocks to ``device``."""
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w]) or x) on ``device`` (default the card) or over ``mesh``
+        (module docstring); a :class:`HostDataset` streams its blocks to
+        ``device``."""
         if self.strategy not in ("level", "sequential"):
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.n_restarts < 1:
             raise ValueError(f"n_restarts must be >= 1, got {self.n_restarts}")
         if isinstance(data, HostDataset):
+            require_single_shard(None, mesh, "BisectingKMeans.fit out of core")
+            if mesh is not None and device is None:
+                device = mesh.device(0, 0)
             return self._fit_outofcore(data, resolve_device(device))
-        ds = as_device_dataset(data, device=device, weight_col=self.weight_col)
-        x = ds.x.to(torch.float32)
-        w = ds.w.to(torch.float32)
+        sh = Shards(on_mesh(data, None, device, self.weight_col, mesh))
+        x = {i: s.x.to(torch.float32) for i, s in sh.data.items()}
+        w = {i: s.w.to(torch.float32) for i, s in sh.data.items()}
         cosine = self.distance_measure == "cosine"
         if cosine:
             # train in the geometry predict uses: the unit sphere
-            x = _cosine_prep(x, w)
+            x = {i: _cosine_prep(x[i], w[i]) for i in sh.local}
         f32 = np.float32
 
         # the root leaf: weighted mean (the recentering shift; none on the
         # sphere, where the root is the normalized mean), then its SSE
-        s0_t = w.sum()
-        mean_t = (w @ x) / torch.clamp(s0_t, min=1.0)
+        s0_t, wx_t = sh.sum(lambda i, s: (w[i].sum(), w[i] @ x[i]))
+        mean_t = wx_t / torch.clamp(s0_t, min=1.0)
         if cosine:
             shift_t = torch.zeros_like(mean_t)
             root_t = mean_t / torch.clamp(torch.linalg.norm(mean_t), min=1e-12)
         else:
             shift_t, root_t = mean_t, torch.zeros_like(mean_t)
-        xs = x - shift_t[None, :]
-        diff = xs - root_t[None, :]
-        root_sse_t = ((diff * diff).sum(dim=1) * w).sum()
+        shift_s, root_s = sh.put(shift_t), sh.put(root_t)
+        xs = {i: x[i] - shift_s[i][None, :] for i in sh.local}
+        del x
+
+        def sse(i, s):
+            diff = xs[i] - root_s[i][None, :]
+            return (((diff * diff).sum(dim=1) * w[i]).sum(),)
+
+        root_sse_t, = sh.sum(sse)
         s0, root_sse = (float(v) for v in torch.stack([s0_t, root_sse_t]).cpu())
         shift = shift_t.cpu().numpy()
         root = root_t.cpu().numpy()
@@ -209,12 +235,13 @@ class BisectingKMeans(Estimator):
         info = {"trees": self.n_restarts, "levels": [], "lloyd_iters": 0, "host_syncs": 1}
 
         # the Lloyd passes in float64 (module docstring)
-        xs64, w64 = xs.to(torch.float64), w.to(torch.float64)
-        del xs, diff
+        xs64 = {i: xs[i].to(torch.float64) for i in sh.local}
+        w64 = {i: w[i].to(torch.float64) for i in sh.local}
+        del xs
 
         def grow(key):
-            return self._grow_tree(xs64, w64, key, L, root, f32(s0), f32(root_sse), min_size,
-                                   cosine, info)
+            return self._grow_tree(sh, xs64, w64, key, L, root, f32(s0), f32(root_sse),
+                                   min_size, cosine, info)
 
         return self._best_tree(grow, shift, info)
 
@@ -307,11 +334,13 @@ class BisectingKMeans(Estimator):
         splits.extend([level, int(p), int(c)] for p, c in zip(sel[succ], new_id[succ]))
         return succ, new_id, int(succ.sum())
 
-    def _grow_tree(self, xs, w, key, L, root, s0, root_sse, min_size, cosine, info):
-        """One complete split tree → (cost, centers, sizes, sse, n_splits,
-        splits); the leaf state has k + 1 slots, slot k a write-only
-        dummy."""
-        k, d, dev = self.k, xs.shape[1], xs.device
+    def _grow_tree(self, sh: Shards, xs: dict, w: dict, key, L, root, s0, root_sse, min_size,
+                   cosine, info):
+        """One complete split tree over the data shards of ``sh`` (``xs`` /
+        ``w`` a shard's float64 rows and weights on its device) →
+        (cost, centers, sizes, sse, n_splits, splits); the leaf state has
+        k + 1 slots, slot k a write-only dummy."""
+        k, d, home = self.k, root.shape[0], sh.home
         centers = np.zeros((k + 1, d), np.float32)
         centers[0] = root                    # mean − shift (0), or the unit mean
         sizes = np.zeros((k + 1,), np.float32)
@@ -320,7 +349,9 @@ class BisectingKMeans(Estimator):
         sse[0] = root_sse
         divisible = np.zeros((k + 1,), bool)
         divisible[0] = True
-        assign = torch.zeros((xs.shape[0],), dtype=torch.int64, device=dev)
+        # each row's leaf, on its shard
+        assign = {i: torch.zeros((xs[i].shape[0],), dtype=torch.int64, device=sh.device(i))
+                  for i in sh.local}
         tol_sq = np.float32(1e-8)
         n_leaves, n_splits, level, splits = 1, 0, 0, []
         while n_leaves < k:
@@ -329,16 +360,21 @@ class BisectingKMeans(Estimator):
             if plan is None:
                 break
             sel, slot_valid, slot_of, cen_h = plan
-            cen = torch.from_numpy(cen_h).to(dev)
-            pos = torch.from_numpy(slot_of).to(dev)[assign]
-            pos = torch.where(w > 0, pos, torch.full_like(pos, -1))
-            wv = torch.where(pos >= 0, w, torch.zeros_like(w))
-            valid2 = torch.from_numpy(np.repeat(slot_valid, 2).astype(np.float32)).to(dev)
+            cen = torch.from_numpy(cen_h).to(home)
+            slot_of_s = sh.put(torch.from_numpy(slot_of))
+            pos, wv = {}, {}
+            for i in sh.local:
+                p = slot_of_s[i][assign[i]]
+                pos[i] = torch.where(w[i] > 0, p, torch.full_like(p, -1))
+                wv[i] = torch.where(pos[i] >= 0, w[i], torch.zeros_like(w[i]))
+            valid2 = torch.from_numpy(np.repeat(slot_valid, 2).astype(np.float32)).to(home)
 
             # the constrained 2-means Lloyd loop over every splitting leaf
             it, move = 0, np.float32(np.inf)
             while it < self.max_iter and move > tol_sq:
-                sums, counts = _lloyd_pass(xs, wv, pos, cen)
+                cen_s = sh.put(cen)
+                sums, counts = (t.to(cen.dtype) for t in sh.sum(
+                    lambda i, s: _lloyd_pass(xs[i], wv[i], pos[i], cen_s[i])))
                 new_cen = torch.where((counts > 0)[:, None],
                                       sums / torch.clamp(counts, min=1.0)[:, None], cen)
                 if cosine:
@@ -346,7 +382,9 @@ class BisectingKMeans(Estimator):
                 move = np.float32((((new_cen - cen) ** 2).sum(dim=1) * valid2).max().item())
                 cen = new_cen
                 it += 1
-            counts, csse, bits = _stats_pass(xs, wv, pos, cen)
+            cen_s = sh.put(cen)
+            passes = {i: _stats_pass(xs[i], wv[i], pos[i], cen_s[i]) for i in sh.local}
+            counts, csse = (t.to(cen.dtype) for t in sh.sum(lambda i, s: passes[i][:2]))
             counts2, csse2 = (a.reshape(L, 2) for a in
                               torch.stack([counts, csse]).cpu().numpy())
             cen2 = cen.cpu().numpy().reshape(L, 2, d)
@@ -357,9 +395,12 @@ class BisectingKMeans(Estimator):
             succ, new_id, grown = self._record_level(
                 centers, sizes, sse, divisible, splits, level, n_leaves, sel, slot_valid,
                 counts2, csse2, cen2)
-            safe_p = torch.clamp(pos, 0, L - 1)
-            relabel = (pos >= 0) & (bits == 1) & torch.from_numpy(succ).to(dev)[safe_p]
-            assign = torch.where(relabel, torch.from_numpy(new_id).to(dev)[safe_p], assign)
+            succ_s, new_id_s = sh.put(torch.from_numpy(succ)), sh.put(torch.from_numpy(new_id))
+            for i in sh.local:
+                safe_p = torch.clamp(pos[i], 0, L - 1)
+                relabel = (pos[i] >= 0) & (passes[i][2] == 1) & succ_s[i][safe_p]
+                assign[i] = torch.where(relabel, new_id_s[i][safe_p], assign[i])
+            del passes
             n_leaves += grown
             n_splits += grown
             level += 1

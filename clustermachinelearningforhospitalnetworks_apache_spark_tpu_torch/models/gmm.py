@@ -25,8 +25,10 @@ device loop); a checkpoint or ``on_iteration`` takes the reference's host
 loop (Python floats).  A :class:`~..parallel.outofcore.HostDataset`
 streams its blocks through the same chunked E-step statistics, summed
 over blocks, then one M-step an iteration.  ``checkpoint_dir`` commits
-the parameters with **unshifted** means (``io/fit_checkpoint.py``), and a
-warm start (``warm_start_params``) runs unshifted.
+the parameters with **unshifted** means (``io/fit_checkpoint.py``; in
+float64, where the sum of the float32 shifted means and the shift is
+exact, so a resume is bit-equal to the uninterrupted fit), and a warm
+start (``warm_start_params``) runs unshifted.
 
 ``matmul_precision`` other than ``"highest"`` takes the reference's
 factor-form E-step: the k inverse Cholesky factors, stacked into one
@@ -43,7 +45,9 @@ device against the parameters broadcast from the home device,
 sums (nk, Σr·x, Σr·xxᵀ, ll) in ascending shard order and runs the M-step
 once on the home device; the init draws the global sample.  ``score``,
 ``predict_assigned`` and ``transform`` work shard by shard, and the
-partials calls take ``mesh=``.
+partials calls take ``mesh=``.  ``checkpoint_dir`` over shards signs the
+rows by their global padded indices, so a resumed sharded fit is the
+uninterrupted one.
 
 The partials protocol (federated EM, ``federated/``): a silo's
 statistics are one unshifted :func:`_em_pass` over its rows, the
@@ -65,8 +69,8 @@ from ..io.model_io import register_model
 from ..ops.distance import matmul_p, validate_matmul_precision
 from ..parallel.outofcore import HostDataset, add_stats
 from ..parallel.sharding import MeshArray, sample_valid_rows
-from .base import (MESH_SLICE, ClusteringModel, Estimator, Shards, check_features, is_sharded,
-                   on_mesh, require_single_shard)
+from .base import (ClusteringModel, Estimator, Shards, check_features, is_sharded, on_mesh,
+                   require_single_shard)
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
 
@@ -390,7 +394,9 @@ class GaussianMixture(Estimator):
             valid, shift = None, np.zeros((d,), np.float32)
         if resumed is not None:
             step0, arrays, extra = resumed
-            means = arrays["means"].astype(np.float32) - shift
+            # the float64 commit minus the shift is the float32 state exactly
+            # (a float32 commit rounds as the JAX package's resume rounds it)
+            means = (arrays["means"].astype(np.float64) - shift).astype(np.float32)
             covs = arrays["covariances"].astype(np.float32)
             weights = arrays["weights"].astype(np.float32)
             return ckpt, shift, means, covs, weights, step0 + 1, float(
@@ -416,9 +422,11 @@ class GaussianMixture(Estimator):
             ll = float(ll_d)  # TOTAL log-likelihood — Spark tol here
             if ckpt is not None and it % max(self.checkpoint_every, 1) == 0:
                 means_d, covs_d, weights_d = params
+                # unshifted means, in float64: the sum of two float32 arrays
+                # is exact there, so a resume recovers the state bit for bit
                 ckpt.save(
                     it,
-                    {"means": means_d.cpu().numpy() + shift,
+                    {"means": means_d.cpu().numpy().astype(np.float64) + shift,
                      "covariances": covs_d, "weights": weights_d},
                     extra={"prev_ll": ll},
                 )
@@ -467,15 +475,13 @@ class GaussianMixture(Estimator):
             raise ValueError("GaussianMixture fit on an empty dataset")
         signature = None
         if self.checkpoint_dir:
-            if is_sharded(ds):
-                raise NotImplementedError(
-                    "a checkpointed GaussianMixture fit over a mesh of more than one shard "
-                    f"comes with slice {MESH_SLICE} of the port")
             from ..io.fit_checkpoint import data_fingerprint
 
+            # over shards the rows are signed by their global padded indices
+            rows = prepped.dataset() if is_sharded(ds) else prepped.data[0]
             signature = {
                 "estimator": "GaussianMixture", "k": self.k, "d": d,
-                "data": data_fingerprint(x[0], w[0]),
+                "data": data_fingerprint(rows.x, rows.w),
                 "n_padded": ds.n_padded, "seed": self.seed,
                 "warm": self._warm_fingerprint(),
                 "reg_covar": self.reg_covar, "tol": self.tol,

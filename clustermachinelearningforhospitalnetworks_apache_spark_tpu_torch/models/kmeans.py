@@ -46,7 +46,12 @@ the owner of a row is the first model shard with the smallest min d² (the
 reference's rule), and each shard launches K1 with the weights
 ``w · (owner == m)``; K1 and K2 share one d² expression, so the counts
 summed over the model shards are the bincount of the global argmin.  A
-mesh of one shard is the single-device fit, bit for bit.
+reduced ``matmul_precision`` on a model axis applies the same owner rule
+to each chunk's reduced-precision mins (:func:`lloyd_stats_reduced_model`).
+``checkpoint_dir`` over shards signs the rows by their global padded
+indices (``io/fit_checkpoint.py::data_fingerprint``) and resumes bit-equal
+to the uninterrupted sharded fit.  A mesh of one shard is the
+single-device fit, bit for bit.
 
 A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core path:
 each Lloyd step is one K1 launch per streamed block, the statistics
@@ -57,6 +62,7 @@ the centers every ``checkpoint_every`` steps on both paths
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -72,7 +78,7 @@ from ..parallel.mesh import check_model_local
 from ..parallel.outofcore import HostDataset, add_stats
 from ..parallel.partitioner import family
 from ..parallel.sharding import MeshArray, ShardedDataset, sample_valid_rows
-from .base import (MESH_SLICE, ClusteringModel, Estimator, as_device_dataset, check_features,
+from .base import (ClusteringModel, Estimator, as_device_dataset, check_features,
                    on_mesh, require_single_shard)
 from .summary import ClusteringSummary
 
@@ -112,6 +118,23 @@ def _centroid_rule(sums, counts, centers, c_valid, cosine: bool = False):
     return new_centers, move
 
 
+def lloyd_stats_model(parts) -> list:
+    """One exact Lloyd pass over one data shard's model shards: each of
+    ``parts`` is a model shard's ``(x, w, centers, c_valid)`` (the same
+    rows, its ``k_pad / m`` centers) on its device.  One part is one K1
+    launch.  More: K2 a model shard, the owner of a row the first model
+    shard with the smallest min d² (the reference's rule), and K1 a model
+    shard on the weights ``w · (owner == m)``.  → [(sums, counts, cost)] a
+    model shard."""
+    if len(parts) == 1:
+        return [fused_lloyd_stats(*parts[0])]
+    home = parts[0][0].device
+    mins = [fused_assign(x, c, v)[1].to(home) for x, _, c, v in parts]
+    owner = torch.stack(mins).argmin(dim=0)
+    return [fused_lloyd_stats(x, w * (owner == j).to(x.device, torch.float32), c, v)
+            for j, (x, w, c, v) in enumerate(parts)]
+
+
 def lloyd_stats_reduced(x, w, centers, c_valid, precision: str, fuse_stats: bool,
                         chunk: int):
     """One Lloyd pass's (sums (k, d), counts (k,), cost ()) under a
@@ -124,37 +147,72 @@ def lloyd_stats_reduced(x, w, centers, c_valid, precision: str, fuse_stats: bool
     constant along a row and is added back for the cost only), and sums
     and counts from one bf16 one-hot product of the bf16-rounded weights
     against ``[x | 1]``, summed in float32."""
+    return lloyd_stats_reduced_model([(x, w, centers, c_valid)], precision, fuse_stats,
+                                     chunk)[0]
+
+
+def lloyd_stats_reduced_model(parts, precision: str, fuse_stats: bool, chunk: int) -> list:
+    """:func:`lloyd_stats_reduced` over one data shard's model shards: each
+    of ``parts`` is a model shard's ``(x, w, centers, c_valid)`` (the same
+    rows, its ``k_pad / m`` centers) on its device.  Chunk by chunk, each
+    model shard takes its local min and argmin under ``precision``; the
+    owner of a row is the first model shard with the smallest min (the
+    reference's ``all_gather`` over ``MODEL_AXIS``), and each shard sums
+    the rows it owns.  The cost (Σ w·global min) is the first shard's, the
+    others' are 0, so their sum is the reference's ``pmax`` over the model
+    axis.  → [(sums, counts, cost)] a model shard; one shard is
+    :func:`lloyd_stats_reduced`."""
     if fuse_stats and precision != "bf16":
         raise ValueError("fuse_stats requires matmul_precision='bf16'")
-    k, d = centers.shape
-    f32 = dict(dtype=torch.float32, device=x.device)
-    sums = torch.zeros((k, d), **f32)
-    counts = torch.zeros((k,), **f32)
-    cost = torch.zeros((), **f32)
-    c_sq = sq_norms(centers)
-    valid = (c_valid > 0)[None, :]
-    for s in range(0, x.shape[0], max(chunk, 1)):
-        xb, wb = x[s:s + chunk], w[s:s + chunk]
-        if fuse_stats:
-            basis = c_sq[None, :] - 2.0 * matmul_p(xb, centers.T, "bf16")
+    home = parts[0][0].device
+    acc, prep = [], []
+    for x, w, centers, c_valid in parts:
+        k, d = centers.shape
+        f32 = dict(dtype=torch.float32, device=x.device)
+        acc.append([torch.zeros((k, d), **f32), torch.zeros((k,), **f32),
+                    torch.zeros((), **f32)])
+        prep.append((sq_norms(centers), (c_valid > 0)[None, :]))
+    n = parts[0][0].shape[0]
+    for s in range(0, n, max(chunk, 1)):
+        mins, args = [], []
+        for (x, w, centers, _), (c_sq, valid) in zip(parts, prep):
+            xb = x[s:s + chunk]
+            if fuse_stats:
+                basis = c_sq[None, :] - 2.0 * matmul_p(xb, centers.T, "bf16")
+            else:
+                basis = pairwise_sqdist(xb, centers, c_sq=c_sq, precision=precision)
             mn, arg = torch.where(valid, basis, torch.full_like(basis, _BIG)).min(dim=1)
-            g_min = torch.clamp(mn + sq_norms(xb), min=0.0)
-            wv = torch.where(wb > 0, wb, torch.zeros_like(wb)).to(torch.bfloat16)
-            oh = torch.nn.functional.one_hot(arg, k).to(torch.float32) * wv.to(
-                torch.float32)[:, None]
-            x1 = torch.cat([xb, torch.ones((xb.shape[0], 1), **f32)], dim=1)
-            sc = matmul_p(oh.T, x1, "bf16")
-            sums = sums + sc[:, :d]
-            counts = counts + sc[:, d]
+            mins.append(mn)
+            args.append(arg)
+        if len(parts) == 1:
+            g_min, owner = mins[0], None
         else:
-            d2 = pairwise_sqdist(xb, centers, c_sq=c_sq, precision=precision)
-            g_min, arg = torch.where(valid, d2, torch.full_like(d2, _BIG)).min(dim=1)
-            oh = torch.nn.functional.one_hot(arg, k).to(torch.float32) * torch.where(
-                wb > 0, wb, torch.zeros_like(wb))[:, None]
-            sums = sums + oh.T @ xb
-            counts = counts + oh.sum(dim=0)
-        cost = cost + (g_min * wb).sum()
-    return sums, counts, cost
+            all_min = torch.stack([m.to(home) for m in mins])
+            g_min, owner = all_min.min(dim=0).values, all_min.argmin(dim=0)
+        for j, (x, w, centers, _) in enumerate(parts):
+            xb, wb = x[s:s + chunk], w[s:s + chunk]
+            k, d = centers.shape
+            mine = wb > 0 if owner is None else (owner.to(x.device) == j) & (wb > 0)
+            wv = torch.where(mine, wb, torch.zeros_like(wb))
+            if fuse_stats:
+                wv = wv.to(torch.bfloat16)
+                oh = torch.nn.functional.one_hot(args[j], k).to(torch.float32) * wv.to(
+                    torch.float32)[:, None]
+                x1 = torch.cat([xb, torch.ones((xb.shape[0], 1), dtype=torch.float32,
+                                               device=xb.device)], dim=1)
+                sc = matmul_p(oh.T, x1, "bf16")
+                acc[j][0] = acc[j][0] + sc[:, :d]
+                acc[j][1] = acc[j][1] + sc[:, d]
+            else:
+                oh = torch.nn.functional.one_hot(args[j], k).to(torch.float32) * wv[:, None]
+                acc[j][0] = acc[j][0] + oh.T @ xb
+                acc[j][1] = acc[j][1] + oh.sum(dim=0)
+        gm = g_min
+        if fuse_stats:
+            x0 = parts[0][0][s:s + chunk]
+            gm = torch.clamp(g_min + sq_norms(x0), min=0.0)
+        acc[0][2] = acc[0][2] + (gm * parts[0][1][s:s + chunk]).sum()
+    return [tuple(a) for a in acc]
 
 
 def _kmeans_pp_init(sample: np.ndarray, k: int, seed: int) -> np.ndarray:
@@ -253,33 +311,19 @@ class _ShardedLloyd:
         self.data = ShardedDataset(mesh, blocks)
         self.c_valid = _PT.put("state/c_valid", slot_mask(k, self.k_pad), mesh)
 
-    def _shard(self, i: int, cen: MeshArray, fn) -> list:
-        """Data shard i's (sums, counts, cost) for each model shard."""
-        cv = self.c_valid
-        if self.M == 1:
-            return [fn(self.x[i, 0], self.w[i, 0], cen.block(i, 0), cv.block(i, 0))]
-        dev = self.mesh.device(i, 0)
-        mins = [fused_assign(self.x[i, j], cen.block(i, j), cv.block(i, j))[1].to(dev)
-                for j in range(self.M)]
-        # the owner of a row: the first model shard with the smallest min
-        owner = torch.stack(mins).argmin(dim=0)
-        out = []
-        for j in range(self.M):
-            dj = self.mesh.device(i, j)
-            wj = self.w[i, j] * (owner == j).to(dj, torch.float32)
-            out.append(fused_lloyd_stats(self.x[i, j], wj, cen.block(i, j), cv.block(i, j)))
-        return out
-
     def stats(self, centers: torch.Tensor, fn):
-        """One pass against ``centers`` (k_pad, d) with the per-shard
-        statistics ``fn`` (K1, or the reduced-precision pass on a data-only
-        mesh) → (sums (k_pad, d), counts (k_pad,), cost ()) on ``home``."""
+        """One pass against ``centers`` (k_pad, d): ``fn`` (:func:`lloyd_stats_model`
+        or :func:`lloyd_stats_reduced_model`) over each data shard's model
+        shards → (sums (k_pad, d), counts (k_pad,), cost ()) on ``home``."""
         cen = _PT.put("state/centers", centers, self.mesh)
+        cv = self.c_valid
         parts: list = [None] * self.D
         for i in self.local:
             dev = self.mesh.device(i, 0)
+            got = fn([(self.x[i, j], self.w[i, j], cen.block(i, j), cv.block(i, j))
+                      for j in range(self.M)])
             parts[i] = torch.cat([torch.cat([s.reshape(-1), c, t.reshape(1)]).to(dev)
-                                  for s, c, t in self._shard(i, cen, fn)])
+                                  for s, c, t in got])
         tot = ordered_sum(parts, self.mesh).to(self.home)
         d, kl = centers.shape[1], self.k_loc
         per = [tot[j * (kl * d + kl + 1):(j + 1) * (kl * d + kl + 1)] for j in range(self.M)]
@@ -485,18 +529,16 @@ class KMeans(Estimator):
         return array_fingerprint(np.asarray(self.warm_start_centers, dtype=np.float32))
 
     def _stats_fn(self):
-        """The Lloyd steps' statistics: K1 at "highest", else the
-        reduced-precision torch pass."""
+        """The Lloyd steps' statistics over a data shard's model shards
+        (one part on one device): K1 at "highest"
+        (:func:`lloyd_stats_model`), else the reduced-precision torch pass
+        (:func:`lloyd_stats_reduced_model`)."""
         if self.matmul_precision == "highest":
             if self.fused_stats:
                 raise ValueError("fuse_stats requires matmul_precision='bf16'")
-            return fused_lloyd_stats
-
-        def reduced(x, w, cen, c_valid):
-            return lloyd_stats_reduced(x, w, cen, c_valid, self.matmul_precision,
-                                       self.fused_stats, self.chunk_rows)
-
-        return reduced
+            return lloyd_stats_model
+        return functools.partial(lloyd_stats_reduced_model, precision=self.matmul_precision,
+                                 fuse_stats=self.fused_stats, chunk=self.chunk_rows)
 
     def _init_centers(self, ds: DeviceDataset) -> np.ndarray:
         return self._init_from_sample(
@@ -626,10 +668,10 @@ class KMeans(Estimator):
         validate_matmul_precision(self.matmul_precision)
         ds = self._on_mesh(data, None if mesh is not None else device, mesh)
         # exact precision for the closing pass, as the resident fit's final pass
-        stats = fused_lloyd_stats if final else self._stats_fn()
+        stats = lloyd_stats_model if final else self._stats_fn()
         cen_h = np.asarray(state.params["centers"], np.float32)
         if isinstance(ds, ShardedDataset):
-            lloyd = self._sharded_lloyd(ds, stats)
+            lloyd = self._sharded_lloyd(ds)
             centers = torch.from_numpy(pad_slots(cen_h, lloyd.k_pad)).to(lloyd.home)
             sums, counts, cost = lloyd.stats(centers, stats)
         else:
@@ -641,7 +683,7 @@ class KMeans(Estimator):
             dev = x.device
             centers = torch.from_numpy(pad_slots(cen_h, k_pad)).to(dev)
             c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
-            sums, counts, cost = stats(x, w, centers, c_valid)
+            sums, counts, cost = stats([(x, w, centers, c_valid)])[0]
         counts_h = counts.cpu().numpy()[: self.k]
         return Partials(
             family=self.partials_family,
@@ -695,13 +737,26 @@ class KMeans(Estimator):
         (``base.on_mesh``)."""
         return on_mesh(data, None, device, self.weight_col, mesh)
 
-    def _sharded_lloyd(self, sds: ShardedDataset, stats) -> _ShardedLloyd:
-        lloyd = _ShardedLloyd(sds, self.k, self.distance_measure == "cosine")
-        if lloyd.M > 1 and stats is not fused_lloyd_stats:
-            raise NotImplementedError(
-                f"matmul_precision={self.matmul_precision!r} over a model axis comes with "
-                f"slice {MESH_SLICE} of the port; the model axis runs K2 and K1 at 'highest'")
-        return lloyd
+    def _sharded_lloyd(self, sds: ShardedDataset) -> _ShardedLloyd:
+        return _ShardedLloyd(sds, self.k, self.distance_measure == "cosine")
+
+    def _signature(self, d: int, k_pad: int, x, w, n_padded: int) -> dict | None:
+        """The checkpoint signature, the reference's keys (``x`` / ``w``
+        the prepared rows and weights: a tensor, or a row-sharded
+        MeshArray fingerprinted over its global padded rows)."""
+        if not self.checkpoint_dir:
+            return None
+        from ..io.fit_checkpoint import data_fingerprint
+
+        return {
+            "estimator": "KMeans", "k": self.k, "d": d,
+            "k_pad": k_pad,
+            "data": data_fingerprint(x, w),
+            "n_padded": n_padded, "seed": self.seed,
+            "init_mode": self.init_mode,
+            "warm": self._warm_fingerprint(),
+            "distance_measure": self.distance_measure, "tol": self.tol,
+        }
 
     def _lloyd(self, step, centers, start_it: int, ckpt, on_iteration):
         """The Lloyd loop → (centers, last step): the reference's device
@@ -749,20 +804,7 @@ class KMeans(Estimator):
         d = x.shape[1]
         k_pad = padded_slots(self.k, 1)
 
-        signature = None
-        if self.checkpoint_dir:
-            from ..io.fit_checkpoint import data_fingerprint
-
-            signature = {
-                "estimator": "KMeans", "k": self.k, "d": d,
-                "k_pad": k_pad,
-                "data": data_fingerprint(x, w),
-                "n_padded": ds.n_padded, "seed": self.seed,
-                "init_mode": self.init_mode,
-                "warm": self._warm_fingerprint(),
-                "distance_measure": self.distance_measure, "tol": self.tol,
-            }
-        ckpt, resumed = self._checkpointer(signature)
+        ckpt, resumed = self._checkpointer(self._signature(d, k_pad, x, w, ds.n_padded))
         cen, start_it = self._start(resumed, d, k_pad,
                                     lambda: sample_valid_rows(DeviceDataset(x, ds.y, w),
                                                               self.init_sample_size, self.seed))
@@ -770,7 +812,7 @@ class KMeans(Estimator):
         c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
 
         def step(cen):
-            sums, counts, cost = stats(x, w, cen, c_valid)
+            sums, counts, cost = stats([(x, w, cen, c_valid)])[0]
             new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
             return new, cost, move
 
@@ -783,16 +825,17 @@ class KMeans(Estimator):
         """The fit over a mesh: each Lloyd step is one sharded pass
         (:class:`_ShardedLloyd`) and one centroid rule on the home device;
         every process of a group runs the same steps on the same summed
-        bits, so all stop together."""
-        if self.checkpoint_dir:
-            raise NotImplementedError(
-                f"a checkpointed KMeans fit over a mesh of more than one shard comes with "
-                f"slice {MESH_SLICE} of the port")
-        lloyd = self._sharded_lloyd(sds, stats)
+        bits, so all stop together.  ``checkpoint_dir`` signs the prepared
+        rows over their global padded indices and commits from the
+        reference's host loop, so a resumed fit is the uninterrupted one."""
+        lloyd = self._sharded_lloyd(sds)
         cosine = self.distance_measure == "cosine"
-        cen, _ = self._start(None, sds.n_features, lloyd.k_pad,
-                             lambda: sample_valid_rows(lloyd.data, self.init_sample_size,
-                                                       self.seed))
+        d = sds.n_features
+        ckpt, resumed = self._checkpointer(
+            self._signature(d, lloyd.k_pad, lloyd.data.x, lloyd.data.w, sds.n_padded))
+        cen, start_it = self._start(resumed, d, lloyd.k_pad,
+                                    lambda: sample_valid_rows(lloyd.data, self.init_sample_size,
+                                                              self.seed))
         centers = torch.from_numpy(cen).to(lloyd.home)
         c_valid = torch.from_numpy(slot_mask(self.k, lloyd.k_pad)).to(lloyd.home)
 
@@ -801,9 +844,9 @@ class KMeans(Estimator):
             new, move = _centroid_rule(sums, counts, cen, c_valid, cosine)
             return new, cost, move
 
-        centers, it = self._lloyd(step, centers, 1, None, on_iteration)
+        centers, it = self._lloyd(step, centers, start_it, ckpt, on_iteration)
         # final pass (exact, K1): cost/sizes describe the RETURNED centers
-        _, counts, cost = lloyd.stats(centers, fused_lloyd_stats)
+        _, counts, cost = lloyd.stats(centers, lloyd_stats_model)
         return self._model(centers, counts, cost, it)
 
     def _fit_outofcore(self, hd: HostDataset, dev, stats, on_iteration=None) -> KMeansModel:
@@ -839,7 +882,7 @@ class KMeans(Estimator):
             tot = None
             for blk in hd.blocks(device=dev):
                 x = _cosine_prep(blk.x, blk.w) if cosine else blk.x
-                s = stats_fn(x, blk.w, cen, c_valid)
+                s = stats_fn([(x, blk.w, cen, c_valid)])[0]
                 tot = s if tot is None else add_stats(tot, s)
             if tot is None:
                 raise ValueError("k-means fit on an empty dataset")
@@ -852,5 +895,5 @@ class KMeans(Estimator):
 
         centers, it = self._host_loop(step, centers, start_it, ckpt, on_iteration)
         # final pass (exact, K1): cost/sizes describe the RETURNED centers
-        _, counts, cost = epoch(centers, fused_lloyd_stats)
+        _, counts, cost = epoch(centers, lloyd_stats_model)
         return self._model(centers, counts, cost, it)

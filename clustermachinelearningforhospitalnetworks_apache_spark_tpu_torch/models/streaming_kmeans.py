@@ -21,8 +21,17 @@ batch by batch (ragged batches too).  The state stays on the device until
 
 A first batch with no centers set initializes them from a host sample:
 k-means++ and ten host Lloyd iterations, the JAX package's init, bit-equal.
-The JAX package's mesh placement (``mesh=``, ``shard_min_rows_per_device``)
-is accepted and ignored: the port runs on one device.
+
+Over a mesh (``update(batch, mesh=)``) the placement is the reference's
+adaptive one: a host batch is sharded only when every data shard gets at
+least ``shard_min_rows_per_device`` rows (``parallel.sharding.
+microbatch_mesh``; default 65,536, the ``CMLHN_STREAM_SHARD_MIN_ROWS`` env
+var), else it runs on the mesh's first device; a dataset already on the
+device runs where it lies.  A sharded batch launches K1 once a data shard
+on that shard's device (``base.Shards``), the statistics are summed in
+ascending shard order (``collectives.aggregate_shards``), and the decayed
+merge and the reseed run once on the home device, where the state lives.
+One shard keeps the one-device bits.
 """
 
 from __future__ import annotations
@@ -33,10 +42,11 @@ import numpy as np
 import torch
 
 from .. import prng
-from ..data import sample_valid_rows
+from ..data import batch_rows
 from ..io.model_io import register_model
 from ..ops.lloyd import fused_lloyd_stats
-from .base import as_device_dataset
+from ..parallel.sharding import microbatch_mesh, sample_valid_rows
+from .base import Shards, as_device_dataset, stream_batch
 from .kmeans import KMeansModel, _kmeans_pp_init, _lloyd_refine
 
 
@@ -59,11 +69,14 @@ def _alpha(mode: str, param: float, m: torch.Tensor):
     return float(np.float32(param))
 
 
-def _update_step(x, w, centers, w_hi, w_lo, key, mode: str, param: float):
-    """One micro-batch: stats, the decayed Kahan merge and the reseed →
-    (centers, w_hi, w_lo)."""
+def _update_step(sh: Shards, centers, w_hi, w_lo, key, mode: str, param: float):
+    """One micro-batch over the data shards of ``sh``: K1 a shard, the
+    statistics summed in shard order on the home device, then the decayed
+    Kahan merge and the reseed there → (centers, w_hi, w_lo)."""
     k, d = centers.shape
-    sums, counts, _ = _batch_stats(x, w, centers)
+    cen = sh.put(centers)
+    sums, counts, _ = sh.sum(lambda i, s: _batch_stats(
+        s.x.to(torch.float32).contiguous(), s.w.to(torch.float32).contiguous(), cen[i]))
     alpha = _alpha(mode, param, counts.sum())
     # decay both limbs, then Kahan-add this batch's counts
     hi, lo = w_hi * alpha, w_lo * alpha
@@ -84,9 +97,9 @@ def _update_step(x, w, centers, w_hi, w_lo, key, mode: str, param: float):
     for _ in range(k):
         key, sub = prng.split(key)
         subs.append(sub)
-    noise = prng.normal_each(torch.stack(subs), (d,), device=x.device)
+    noise = prng.normal_each(torch.stack(subs), (d,), device=sh.home)
     hi, lo = new_hi, new_lo
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=sh.home)
     for i in range(k):
         eff = hi + lo
         total = eff.sum()
@@ -140,7 +153,10 @@ class StreamingKMeans:
     half_life: float | None = None
     time_unit: str = "batches"  # or "points"
     seed: int = 0
-    #: the JAX package's adaptive mesh placement; accepted and ignored
+    #: over a mesh, shard a micro-batch only when every data shard gets at
+    #: least this many rows, else run it on the mesh's first device
+    #: (``parallel.sharding.microbatch_mesh``); None → the
+    #: ``CMLHN_STREAM_SHARD_MIN_ROWS`` env default (65,536)
     shard_min_rows_per_device: int | None = None
     _centers: torch.Tensor | None = field(default=None, repr=False)
     _weights: torch.Tensor | None = field(default=None, repr=False)
@@ -177,29 +193,45 @@ class StreamingKMeans:
         )
 
     def update(self, batch, mesh=None, device=None) -> "StreamingKMeans":
-        """Consume one micro-batch (a DeviceDataset, AssembledTable,
-        ``(x, y[, w])`` or x, moved to ``device``, default the card);
-        returns ``self``.  The state stays on the device: read
-        ``latest_model`` to bring it to the host."""
-        ds = as_device_dataset(batch, device=device)
-        dev = ds.x.device
-        self._ensure_centers(ds)
-        mode, param = self._alpha()
-        key = prng.fold_in(prng.key(self.seed), self._steps)
-        self._centers, self._weights, self._weights_lo = _update_step(
-            ds.x.to(torch.float32).contiguous(), ds.w.to(torch.float32).contiguous(),
-            self._centers.to(dev), self._weights.to(dev), self._weights_lo.to(dev),
-            key, mode, param,
-        )
-        self._steps += 1
-        return self
+        """Consume one micro-batch (a DeviceDataset, ShardedDataset,
+        AssembledTable, ``(x, y[, w])`` or x) on ``device`` (default the
+        card) or over ``mesh`` (not both; the adaptive placement of the
+        module docstring); returns ``self``.  The state stays on the
+        device: read ``latest_model`` to bring it to the host."""
+        return self._update(stream_batch(batch, device=device, mesh=mesh,
+                                         min_rows_per_device=self.shard_min_rows_per_device))
 
     def update_many(self, batches, mesh=None, device=None) -> "StreamingKMeans":
         """Drain a backlog: ``update``'s rule applied batch by batch, in
-        order (the batches may differ in length)."""
+        order (the batches may differ in length).  Over a mesh the
+        placement is decided once, by the backlog's largest batch, as the
+        reference's stacked drain decides it."""
+        batches = list(batches)
+        if mesh is not None and batches:
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both")
+            mesh = microbatch_mesh(max(batch_rows(b) for b in batches), mesh,
+                                   self.shard_min_rows_per_device)
         for b in batches:
-            self.update(b, device=device)
+            self._update(as_device_dataset(b, device=device, mesh=mesh, sharded=True))
         return self
+
+    def _update(self, ds) -> "StreamingKMeans":
+        sh = Shards(ds)
+        self._ensure_centers(ds)
+        self._place_state(sh)
+        mode, param = self._alpha()
+        key = prng.fold_in(prng.key(self.seed), self._steps)
+        self._centers, self._weights, self._weights_lo = _update_step(
+            sh, self._centers, self._weights, self._weights_lo, key, mode, param)
+        self._steps += 1
+        return self
+
+    def _place_state(self, sh: Shards) -> None:
+        """The state (k×d + 2k floats) on the batch's home device: a no-op
+        while the placement does not change."""
+        self._centers, self._weights, self._weights_lo = (
+            t.to(sh.home) for t in (self._centers, self._weights, self._weights_lo))
 
     def _ensure_centers(self, ds) -> None:
         if self._centers is not None:

@@ -16,8 +16,14 @@ supervised learners over micro-batches (the JAX package's
   ``1e-6·tr/d + 1e-8``, the step capped at 20) update θ.  One host read
   a batch: its weight sum, for the ridge, as in the reference.
 
-The reference's mesh placement of the state has no counterpart here: the
-state lives on the device of the batches.
+Over a mesh (``update(batch, mesh=)``) a host batch is laid over the
+data axis when every shard gets at least 65,536 rows (the reference's
+``microbatch_mesh`` at its default threshold), else it runs on the mesh's
+first device; the batch statistics (Gram and moments, or the Newton
+gradient and Hessian) are computed once a data shard on its device and
+summed in ascending shard order (``collectives.aggregate_shards``), and
+the state lives on the home device (``_place_state``).  One shard keeps
+the one-device bits.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .base import as_device_dataset
+from .base import Shards, stream_batch
 from .linear_regression import LinearRegressionModel, chunked_gram
 from .logistic_regression import LogisticRegressionModel, row_sums, with_intercept
 
@@ -52,8 +58,8 @@ def logit_batch_stats(x, y, w, theta):
 
 
 def _on(dev, *state) -> tuple:
-    """The state on the batch's device (a state carried across from the
-    JAX package starts on the CPU)."""
+    """The state on the batch's home device (a state carried across from
+    the JAX package starts on the CPU)."""
     return tuple(None if t is None else t.to(dev) for t in state)
 
 
@@ -95,15 +101,19 @@ class StreamingLinearRegression:
         self._wsum = a * self._wsum + ws
         self._n_batches += 1
 
-    def update(self, batch, device=None) -> "StreamingLinearRegression":
-        """Fold one micro-batch (DeviceDataset, AssembledTable, (x, y[, w]))
-        into the state on ``device`` (default the card)."""
-        ds = as_device_dataset(batch, self.label_col, device=device)
+    def update(self, batch, mesh=None, device=None) -> "StreamingLinearRegression":
+        """Fold one micro-batch (DeviceDataset, ShardedDataset,
+        AssembledTable, (x, y[, w])) into the state on ``device`` (default
+        the card), or over ``mesh`` (module docstring)."""
+        sh = Shards(stream_batch(batch, self.label_col, device=device, mesh=mesh))
         if self._gram is None:
-            self._init_state(ds.n_features + 1, ds.x.device)
-        self._gram, self._mom, self._wsum = _on(ds.x.device, self._gram, self._mom, self._wsum)
-        self._accumulate(*lin_batch_stats(ds.x, ds.y, ds.w))
+            self._init_state(sh.n_features + 1, sh.home)
+        self._place_state(sh)
+        self._accumulate(*sh.sum(lambda i, s: lin_batch_stats(s.x, s.y, s.w)))
         return self
+
+    def _place_state(self, sh: Shards) -> None:
+        self._gram, self._mom, self._wsum = _on(sh.home, self._gram, self._mom, self._wsum)
 
     def absorb_partials(self, merged) -> "StreamingLinearRegression":
         """Fold merged federated ``linear`` partials (an object with
@@ -163,21 +173,26 @@ class StreamingLogisticRegression:
     def n_batches(self) -> int:
         return self._n_batches
 
-    def update(self, batch, device=None) -> "StreamingLogisticRegression":
+    def update(self, batch, mesh=None, device=None) -> "StreamingLogisticRegression":
         """Fold one micro-batch into the state on ``device`` (default the
-        card); one host read (the batch's weight sum)."""
-        ds = as_device_dataset(batch, self.label_col, device=device)
-        d = ds.n_features + 1
-        dev = ds.x.device
+        card), or over ``mesh`` (module docstring); one host read (the
+        batch's weight sum)."""
+        sh = Shards(stream_batch(batch, self.label_col, device=device, mesh=mesh))
+        d = sh.n_features + 1
+        dev = sh.home
         if self._theta is None:
             self._theta = torch.zeros((d,), dtype=torch.float32, device=dev)
-        self._theta, self._grad_hist, self._hess_hist = _on(
-            dev, self._theta, self._grad_hist, self._hess_hist)
+        self._place_state(sh)
         a = float(np.float32(self.decay_factor))
-        w_batch = float(torch.sum(ds.w))
+        w_batch = sh.count()
         eye = torch.eye(d, dtype=torch.float32, device=dev)
+
+        def stats():
+            theta = sh.put(self._theta)
+            return sh.sum(lambda i, s: logit_batch_stats(s.x, s.y, s.w, theta[i]))
+
         for _ in range(self.newton_steps_per_batch):
-            g, h = logit_batch_stats(ds.x, ds.y, ds.w, self._theta)
+            g, h = stats()
             if self._grad_hist is None:
                 grad_tot, hess_tot = g, h
             else:
@@ -194,7 +209,7 @@ class StreamingLogisticRegression:
             delta = delta * torch.clamp(20.0 / (dmax + 1e-30), max=1.0)
             self._theta = self._theta - delta
         # the history takes this batch's statistics at its last θ
-        g, h = logit_batch_stats(ds.x, ds.y, ds.w, self._theta)
+        g, h = stats()
         if self._grad_hist is None:
             self._grad_hist, self._hess_hist = g, h
         else:
@@ -203,6 +218,10 @@ class StreamingLogisticRegression:
         self._wsum = self.decay_factor * self._wsum + w_batch
         self._n_batches += 1
         return self
+
+    def _place_state(self, sh: Shards) -> None:
+        self._theta, self._grad_hist, self._hess_hist = _on(
+            sh.home, self._theta, self._grad_hist, self._hess_hist)
 
     @property
     def latest_model(self) -> LogisticRegressionModel:

@@ -5,7 +5,8 @@ one float32 product plus rank-1 corrections, clamped at 0.  TF32 is off
 (``device.py``), matching the reference's ``Precision.HIGHEST``.
 
 These are the plain forms the K1/K2 kernels' plain versions are built
-from (``ops/lloyd.py``); on the card the assignment itself runs in K2.
+from (``ops/lloyd.py``); on the card the assignment itself runs in K2
+(:func:`assign_clusters_chunked`, shard by shard over a mesh).
 
 :func:`matmul_p` is the reference's matmul under a precision mode, for
 KMeans' and GaussianMixture's reduced-precision fits (XLA matmuls in the
@@ -102,3 +103,22 @@ def assign_clusters(x: torch.Tensor, centers: torch.Tensor, c_sq=None):
     d2 = pairwise_sqdist(x, centers, c_sq=c_sq)
     m, a = d2.min(dim=1)
     return a.to(torch.int32), m
+
+
+def assign_clusters_chunked(x, centers: torch.Tensor, chunk: int = ASSIGN_CHUNK):
+    """The assignment (argmin index, int32) with no (n, k) distance matrix:
+    the K2 kernel on the card (its plain version, tiled by ASSIGN_CHUNK
+    rows, on the CPU).  A row-sharded
+    :class:`~..parallel.sharding.MeshArray` is assigned shard by shard on
+    each shard's device, one K2 launch a shard, into a MeshArray (the
+    reference's shard-local ``shard_map``).  ``chunk``, the reference's
+    row tile, is accepted for the reference's signature and ignored: K2
+    builds no (n, k) tile at any size, so there is no memory to bound."""
+    from ..parallel.sharding import MeshArray
+    from .lloyd import fused_assign
+
+    if isinstance(x, MeshArray):
+        return x.map_data(lambda b: assign_clusters_chunked(b, centers, chunk))
+    c = centers.to(device=x.device, dtype=torch.float32).contiguous()
+    c_valid = torch.ones((c.shape[0],), dtype=torch.float32, device=x.device)
+    return fused_assign(x.to(torch.float32).contiguous(), c, c_valid)[0]

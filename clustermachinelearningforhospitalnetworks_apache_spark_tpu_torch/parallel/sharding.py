@@ -359,6 +359,29 @@ def unpad(values, n: int) -> np.ndarray:
     return _single_unpad(values, n)
 
 
+def rows_at(a: MeshArray, idx: np.ndarray) -> torch.Tensor:
+    """The rows of a row-sharded MeshArray at global padded indices
+    ``idx`` (ascending), on the host: each read on the shard that holds it,
+    gathered in data-shard order (over the process group when one is
+    active)."""
+    D = a.mesh.shape[DATA_AXIS]
+    per = a.shape[0] // D
+    owner = idx // per
+    counts = np.bincount(owner, minlength=D)
+    top = max(int(counts.max()), 1) if len(counts) else 1
+    parts = []
+    for i, blk in enumerate(a.data_blocks()):
+        if blk is None:
+            parts.append(None)
+            continue
+        loc = torch.from_numpy(idx[owner == i] - i * per).to(blk.device)
+        rows = torch.zeros((top,) + tuple(blk.shape[1:]), dtype=blk.dtype, device=blk.device)
+        rows[: loc.numel()] = blk[loc]
+        parts.append(rows)
+    got = gather_shards(parts, a.mesh)
+    return torch.cat([g[: counts[i]].cpu() for i, g in enumerate(got)])
+
+
 def sample_valid_rows(ds, size: int, seed: int) -> np.ndarray:
     """A uniform sample of ≤ ``size`` valid rows on the host, as float64:
     ``default_rng(seed).choice`` over the valid rows' global indices, then
@@ -367,7 +390,6 @@ def sample_valid_rows(ds, size: int, seed: int) -> np.ndarray:
     if not isinstance(ds, ShardedDataset):
         return _single_sample_valid_rows(ds, size, seed)
     mesh = ds.mesh
-    D = mesh.shape[DATA_AXIS]
     ws = gather_shards([None if s is None else s.w for s in ds.shards], mesh)
     w = torch.cat([p.cpu() for p in ws])
     valid_idx = np.flatnonzero(w.numpy() > 0)
@@ -376,19 +398,4 @@ def sample_valid_rows(ds, size: int, seed: int) -> np.ndarray:
     if valid_idx.size > size:
         rng = np.random.default_rng(seed)
         valid_idx = np.sort(rng.choice(valid_idx, size=size, replace=False))
-    per = ds.n_padded // D
-    owner = valid_idx // per
-    counts = np.bincount(owner, minlength=D)
-    top = max(int(counts.max()), 1)
-    parts = []
-    for i, s in enumerate(ds.shards):
-        if s is None:
-            parts.append(None)
-            continue
-        loc = torch.from_numpy(valid_idx[owner == i] - i * per).to(s.x.device)
-        rows = torch.zeros((top, ds.n_features), dtype=s.x.dtype, device=s.x.device)
-        rows[: loc.numel()] = s.x[loc]
-        parts.append(rows)
-    got = gather_shards(parts, mesh)
-    rows = torch.cat([g[: counts[i]].cpu() for i, g in enumerate(got)])
-    return rows.numpy().astype(np.float64)
+    return rows_at(ds.x, valid_idx).numpy().astype(np.float64)

@@ -174,6 +174,11 @@ class RequestQueue:
         with self._lock:
             return self._rows
 
+    @property
+    def depth_requests(self) -> int:
+        with self._lock:
+            return len(self._q)
+
     def drain_all(self) -> list[Request]:
         """Pop everything (shutdown path)."""
         with self._lock:

@@ -26,6 +26,7 @@ from ..utils.logging import get_logger
 from .bucketing import (
     DEFAULT_BUCKETS,
     bucket_for,
+    fill_ratio,
     iter_chunks,
     pad_to_bucket,
     validate_buckets,
@@ -115,6 +116,10 @@ class ServingModel:
         parts = [self.predict_bucketed(piece) for _, piece in iter_chunks(x, top)]
         return np.concatenate(parts, axis=0)
 
+    def batch_fill(self, n: int) -> float:
+        """The share of real rows in the bucket an ``n``-row batch pads to."""
+        return fill_ratio(n, bucket_for(n, self.buckets))
+
 
 class ModelRegistry:
     """Name → :class:`ServingModel`, loadable straight from saved artifact
@@ -188,3 +193,8 @@ class ModelRegistry:
     def names(self) -> list[str]:
         with self._lock:
             return sorted(self._models)
+
+    def warmup_all(self) -> None:
+        """Warm every registered model's buckets."""
+        for name in self.names():
+            self.get(name).warmup()

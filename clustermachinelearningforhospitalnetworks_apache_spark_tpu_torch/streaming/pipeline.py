@@ -443,7 +443,9 @@ class ModelUpdateConsumer:
     (``ready_depth() > 0``), batches are buffered and the burst is
     flushed through ``model.update_many`` in power-of-two drains — the
     same decayed updates as the per-batch calls, in the same order.
-    ``mesh`` is the reference's and is ignored.
+    ``mesh`` (the reference's) hands each update and drain the mesh
+    instead of ``device``: the estimator's adaptive placement decides
+    whether a batch is sharded.
 
     Note on semantics: a buffered update may execute after its batch's
     commit.  The model state is in-memory either way (a crash loses it
@@ -460,11 +462,18 @@ class ModelUpdateConsumer:
     batches_drained: int = 0
     _buf: list = field(default_factory=list)
     _seen_rows: bool = False
-    #: where the updates run (default the card)
+    #: where the updates run without a mesh (default the card)
     device: Any = None
 
     def __post_init__(self) -> None:
-        self.device = resolve_device(self.device)
+        if self.mesh is not None and self.device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+
+    def _where(self) -> dict:
+        """The placement each update and drain is handed."""
+        return {"mesh": self.mesh} if self.mesh is not None else {"device": self.device}
 
     def __call__(self, batch, batch_id: int) -> None:
         if batch_rows(batch) == 0:
@@ -509,7 +518,7 @@ class ModelUpdateConsumer:
         try:
             if len(buf) == 1 or not hasattr(self.model, "update_many"):
                 for b in buf:
-                    self.model.update(b, device=self.device)
+                    self.model.update(b, **self._where())
                     self.updates += 1
                     applied += 1
                 return
@@ -519,12 +528,12 @@ class ModelUpdateConsumer:
             i, n = 0, len(buf)
             while n - i >= 2:
                 size = 1 << ((n - i).bit_length() - 1)
-                self.model.update_many(buf[i : i + size], device=self.device)
+                self.model.update_many(buf[i : i + size], **self._where())
                 self.batches_drained += size
                 i += size
                 applied = i
             for b in buf[i:]:
-                self.model.update(b, device=self.device)
+                self.model.update(b, **self._where())
                 self.updates += 1
                 applied += 1
         except BaseException:

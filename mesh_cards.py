@@ -19,8 +19,17 @@ from its first 256 rows:
    ``chip_smoke.py``'s 2M-row window of the example generator's law) over a
    (C, 1) mesh of the C cards, ``==`` the (C, 1) mesh over
    ``[cuda:0] * C`` (every RMSE, accuracy, importance, the LR coefficients
-   and every tree), with each stage's warm seconds;
-3. C processes, one card each, NCCL through a ``file://`` store: the
+   and every tree), with each stage's warm seconds, before the legs of
+   item 3 and again after them (their tensors freed and the allocators'
+   caches emptied), to read whether what they leave behind slows it;
+3. the clustering family and bulk scoring over a (C, 1) mesh of the C
+   cards, each ``==`` the (C, 1) mesh over ``[cuda:0] * C``:
+   BisectingKMeans (BASELINE config 4: 2M x 8, k=8, one restart),
+   StreamingKMeans (config 5: 12 batches of 100,000 x 8, k=16, half_life
+   5, each batch sharded: ``shard_min_rows_per_device=16,384``) and
+   ``bulk_score`` of the 10M rows with a k=256 model, with their warm
+   seconds;
+4. C processes, one card each, NCCL through a ``file://`` store: the
    host-major (C, 1) mesh, every rank's model ``==`` the in-process (C, 1)
    fit, each rank's warm fit seconds (its second fit) and the seconds of
    it inside the ordered gather (``collectives.gather_shards``).
@@ -74,15 +83,14 @@ def sync_all(dev: str) -> None:
             torch.cuda.synchronize(i)
 
 
-def stage_leg(port, cs, C: int, cards: list, one: list, dev: str, n: int, card: str) -> dict:
-    """The model stage over a (C, 1) mesh of the cards against the same
-    shape over one card: every metric and model ``==``.  → its seconds."""
+def stage_leg(port, window, C: int, cards: list, one: list, dev: str, card: str,
+              when: str) -> dict:
+    """The model stage on the training ``window`` over a (C, 1) mesh of the
+    cards against the same shape over one card: every metric and model
+    ``==``.  → its seconds."""
     import numpy as np
 
     cfg = port.PipelineConfig()
-    window = port.extract_training_window(
-        port.Table.from_dict(cs.hospital_events(n // 5), port.hospital_event_schema()), cfg,
-        device=one[0])
     runs = {}
     for name, devs in (("cards", cards), ("one_card", one)):
         mesh = port.build_mesh(port.MeshConfig(data=C), devs)
@@ -106,11 +114,61 @@ def stage_leg(port, cs, C: int, cards: list, one: list, dev: str, n: int, card: 
                          for k in ("split_feat", "threshold", "value"))
         if not same_m:
             fail(f"the ({C}, 1) stage's {name} over {C} cards differs from one card's")
-    print(f"({C}, 1) model stage on {window.num_rows} rows, one process: over {C} cards "
-          f"{s_a:.4f} s, over one card {s_b:.4f} s ({s_b / s_a:.2f}x); every metric and model "
-          f"== bit for bit ({card})", flush=True)
+    print(f"({C}, 1) model stage on {window.num_rows} rows, one process, {when}: over {C} "
+          f"cards {s_a:.4f} s, over one card {s_b:.4f} s ({s_b / s_a:.2f}x); every metric and "
+          f"model == bit for bit ({card})", flush=True)
     return {"cards_s": s_a, "one_card_s": s_b, "rows": window.num_rows,
             "seconds": {k: round(v, 4) for k, v in a.seconds.items()}}
+
+
+def clustering_leg(port, cs, C: int, cards: list, one: list, dev: str, scale: int,
+                   model, x, card: str) -> dict:
+    """BisectingKMeans, StreamingKMeans and ``bulk_score`` over a (C, 1)
+    mesh of the cards against the same shape over one card: ``==``.  Rows
+    are ``chip_smoke.py``'s configs 4 and 5 divided by ``scale``.  → their
+    seconds."""
+    import numpy as np
+    import torch
+
+    xb = cs.make_data(cs.BISECT_N // scale, cs.D, cs.BISECT_K)
+    xs = cs.make_data(cs.STREAM_BATCH * cs.STREAM_BATCHES // scale, cs.D, cs.STREAM_K)
+    batches = np.array_split(xs, cs.STREAM_BATCHES)
+    runs = {}
+    for name, devs in (("cards", cards), ("one_card", one)):
+        mesh = port.build_mesh(port.MeshConfig(data=C), devs)
+        got = {}
+        for leg, run in (
+            ("bisecting", lambda: port.BisectingKMeans(k=cs.BISECT_K, seed=SEED, n_restarts=1)
+             .fit(xb, mesh=mesh)),
+            ("streaming", lambda: port.StreamingKMeans(
+                k=cs.STREAM_K, half_life=5.0, seed=SEED,
+                shard_min_rows_per_device=cs.STREAM_BATCH // scale // (2 * C))
+             .update_many(batches, mesh=mesh)),
+            ("bulk_score", lambda: port.serve.bulk_score(model, x, mesh=mesh)),
+        ):
+            run()                                               # first use of each card
+            sync_all(dev)
+            t0 = time.perf_counter()
+            out = run()
+            sync_all(dev)
+            got[leg] = (out, time.perf_counter() - t0)
+        runs[name] = got
+    a, b = runs["cards"], runs["one_card"]
+    same_b = (np.array_equal(a["bisecting"][0].cluster_centers, b["bisecting"][0].cluster_centers)
+              and a["bisecting"][0].fit_info["splits"] == b["bisecting"][0].fit_info["splits"])
+    same_s = all(torch.equal(getattr(a["streaming"][0], k).cpu(),
+                             getattr(b["streaming"][0], k).cpu())
+                 for k in ("_centers", "_weights", "_weights_lo"))
+    same_f = np.array_equal(a["bulk_score"][0], b["bulk_score"][0])
+    if not (same_b and same_s and same_f):
+        fail(f"the clustering legs over {C} cards differ from one card's: bisecting {same_b}, "
+             f"streaming {same_s}, bulk_score {same_f}")
+    secs = {leg: {"cards_s": a[leg][1], "one_card_s": b[leg][1]} for leg in a}
+    print(f"({C}, 1) clustering legs, one process, over {C} cards against one card: "
+          + "; ".join(f"{leg} {v['cards_s']:.4f} s / {v['one_card_s']:.4f} s "
+                      f"({v['one_card_s'] / v['cards_s']:.2f}x)" for leg, v in secs.items())
+          + f"; each == bit for bit ({card})", flush=True)
+    return secs
 
 
 def fit(port, ds, warm, mesh, dev: str):
@@ -228,8 +286,18 @@ def main() -> None:
         del on_cards, on_one
     out["in_process"] = legs
     del ds
-    out["model_stage"] = stage_leg(port, cs, C, cards, one, dev,
-                                   40_000 if dev == "cpu" else cs.TREE_N, card)
+    window = port.extract_training_window(
+        port.Table.from_dict(cs.hospital_events((40_000 if dev == "cpu" else cs.TREE_N) // 5),
+                             port.hospital_event_schema()), port.PipelineConfig(), device=one[0])
+    out["model_stage"] = stage_leg(port, window, C, cards, one, dev, card,
+                                   "before the clustering legs")
+    out["clustering"] = clustering_leg(port, cs, C, cards, one, dev, 50 if dev == "cpu" else 1,
+                                       ref, x, card)
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    # the stage once more: what the clustering legs leave behind slows it or not
+    out["model_stage_after_clustering"] = stage_leg(port, window, C, cards, one, dev, card,
+                                                    "after the clustering legs")
     if dev != "cpu":
         torch.cuda.empty_cache()
 

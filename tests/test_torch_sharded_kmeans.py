@@ -130,7 +130,7 @@ def test_model_axis_counts_are_the_bincount_of_the_global_argmin(shape, blobs):
     x = (blobs + rng.normal(scale=2.0, size=blobs.shape)).astype(np.float32)  # many near ties
     lloyd_ = PK._ShardedLloyd(P.device_dataset(x, mesh=_mesh(shape)), K, cosine=False)
     centers = torch.from_numpy(x[rng.choice(N, K, replace=False)].copy())
-    sums, counts, cost = lloyd_.stats(centers, lloyd.fused_lloyd_stats)
+    sums, counts, cost = lloyd_.stats(centers, PK.lloyd_stats_model)
     assign, mind2 = lloyd.fused_assign_plain(torch.from_numpy(x), centers, torch.ones(K))
     np.testing.assert_array_equal(counts.numpy(), np.bincount(assign.numpy(), minlength=K))
     want = np.zeros((K, D), np.float64)
@@ -180,8 +180,11 @@ def test_partials_protocol_honours_the_mesh(integers):
 def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
     """The estimators and paths outside the mesh slices raise, naming slice
     8c, and never gather the shards (LinearRegression, the trees,
-    GaussianMixture and LogisticRegression fit over a mesh since slice 8b:
-    ``tests/test_torch_sharded_models.py``)."""
+    GaussianMixture and LogisticRegression fit over a mesh since slice 8b,
+    BisectingKMeans' resident fit since slice 8c-1:
+    ``tests/test_torch_sharded_models.py``,
+    ``tests/test_torch_sharded_clustering.py``); out of core over a mesh
+    (slice 8c-2) still raises, for BisectingKMeans too."""
     mesh = _mesh((4, 1))
     yb = (blobs[:, 0] > 0).astype(np.float32)
     session = port.Session(port.PipelineConfig(), mesh=mesh)
@@ -191,7 +194,8 @@ def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
                                          mesh=mesh),
             lambda: port.LinearSVC().fit((blobs, yb), mesh=mesh),
             lambda: port.NaiveBayes(model_type="gaussian").fit((blobs, yb), mesh=mesh),
-            lambda: port.BisectingKMeans(k=2).fit(blobs, mesh=mesh),
+            lambda: port.BisectingKMeans(k=2).fit(port.HostDataset(x=blobs, max_device_rows=512),
+                                                  mesh=mesh),
             lambda: session.sql_to_device("SELECT * FROM events"),
         ):
             with pytest.raises(NotImplementedError, match="slice 8c"):
@@ -203,10 +207,22 @@ def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
 
 
 def test_unported_kmeans_options_on_a_mesh_raise(blobs, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        port.KMeans(k=K, matmul_precision="bf16").fit(blobs, mesh=_mesh((4, 2)))
-    with pytest.raises(NotImplementedError, match="slice 8c"):
-        port.KMeans(k=K, checkpoint_dir=str(tmp_path)).fit(blobs, mesh=_mesh((4, 1)))
+    """The two KMeans options that raised over shards until slice 8c-1 run
+    there: bf16 on a model axis is the (1, 1) bf16 fit up to the rows that
+    bf16's rounding leaves near a tie (centers within 1e-4: float32 sums in
+    another order), and a checkpointed (4, 1) fit is the uninterrupted one,
+    bit for bit; a dataset on another mesh still refuses the mesh given."""
+    kw = dict(k=K, seed=0, max_iter=8, matmul_precision="bf16")
+    ref = port.KMeans(**kw).fit(blobs, device="cpu")
+    got = port.KMeans(**kw).fit(blobs, mesh=_mesh((4, 2)))
+    assert got.n_iter == ref.n_iter
+    np.testing.assert_array_equal(got.cluster_sizes, ref.cluster_sizes)
+    np.testing.assert_allclose(got.cluster_centers, ref.cluster_centers, atol=1e-4)
+    plain = port.KMeans(k=K, seed=0, max_iter=8).fit(blobs, mesh=_mesh((4, 1)))
+    ckpt = port.KMeans(k=K, seed=0, max_iter=8, checkpoint_dir=str(tmp_path)).fit(
+        blobs, mesh=_mesh((4, 1)))
+    np.testing.assert_array_equal(ckpt.cluster_centers, plain.cluster_centers)
+    assert ckpt.n_iter == plain.n_iter and ckpt.training_cost == plain.training_cost
     with pytest.raises(ValueError, match="not on the mesh given"):
         port.KMeans(k=K).fit(P.device_dataset(blobs, mesh=_mesh((4, 1))), mesh=_mesh((8, 1)))
 
