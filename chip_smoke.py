@@ -2221,7 +2221,7 @@ def link_and_fill(hd, b: int) -> tuple[float, float]:
     copy_ms = gpu_ms(lambda: on_dev.copy_(pinned, non_blocking=True), 10)
     t0 = time.perf_counter()
     for i in range(3):
-        hd._fill(pinned.numpy(), i, b)
+        hd._fill(pinned.numpy(), i * b, b)
     return copy_ms, (time.perf_counter() - t0) / 3 * 1e3
 
 
@@ -9669,6 +9669,443 @@ def mesh_clustering_phase(port, L, card: str, ds, model, pred_h, x_host, init, x
     return {"launches": launches, "k1": k1_shapes, "k2": k2_shapes}
 
 
+# ------------------------------------------------------------- slice 8c-2
+MO_DATA = 4                   # (a)-(e): a (4, 1) mesh over cuda:0
+MO_SUB_N = 2_000_000          # (a)'s (2, 2) leg, its kill and its control: the first 2M rows
+MO_KILL_AT = 3                # (a): the (4, 1) fit killed after this step
+MO_KILL_ITERS = 6             # (a): the killed fit's steps (tol 0)
+MO_GBT_ROUNDS = 5             # (d): gbt20's rows, 5 of its 20 rounds (the phase's time)
+#: (b) against the one-device out-of-core fit on the card, about 10x the
+#: first gaps (NVIDIA H100 80GB HBM3, 700 W: LinearRegression 4.66e-7 of the
+#: largest coefficient, far inside queue 3's 1e-4, where TF32 products read
+#: 2.68e-6 and cannot serve as the control; the binomial probabilities
+#: 5.96e-7), each beside bf16-rounded rows
+MO_LR_TOL = 4.7e-6
+MO_LOGIT_TOL = 6e-6
+MO_GMM_TOL = MM_GMM_TOL       # (c): mesh_models_phase's GMM limits
+
+
+def mesh_link_and_fill(hd, mesh, b: int) -> tuple[float, float, int]:
+    """The link and the host fill of one staged block over ``mesh``: its D
+    segments pinned -> the card in one copy (entries sharing the card),
+    CUDA events; and one block's segments filled from the memmap (host
+    clock).  → (copy ms, fill ms, staged bytes)."""
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import (
+        outofcore,
+    )
+
+    lay = outofcore._Layout(mesh, b, hd._width(b // mesh.devices.shape[0]), True)
+    width = len(lay.local) * lay.seg
+    pinned = torch.empty((width,), dtype=torch.float32, pin_memory=True)
+    on_dev = torch.empty((width,), dtype=torch.float32, device=DEV)
+    copy_ms = gpu_ms(lambda: on_dev.copy_(pinned, non_blocking=True), 10)
+    t0 = time.perf_counter()
+    for i in range(3):
+        hd._stage(lay, pinned.numpy(), i)
+    return copy_ms, (time.perf_counter() - t0) / 3 * 1e3, width * 4
+
+
+def same_forest(a, b) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, n), getattr(b, n))
+               for n in ("split_feat", "threshold", "value"))
+
+
+def mesh_outofcore_phase(port, L, H, card: str, x_host, init) -> dict:
+    """Slice 8c-2: the out-of-core fits over virtual meshes of ``cuda:0``,
+    each leg against the one-device out-of-core fit on the card.  (a)
+    KMeans k=256 on the main path's 10M x 8 rows (``x_host``) memory-mapped,
+    in blocks of 2**20, warm-started from its init centers (``init``): over (4, 1)
+    (K1 once a shard a block a step), (1, 1) ``==`` one device, the same
+    n_iter, centers and cost within the out-of-core limits; the epoch, the
+    fill and the copy of a block, and peak device memory against two
+    blocks + k-state + K1 workspace + 1 MiB; over (2, 2) on the first 2M
+    rows (K2 + the owner-masked K1 a (data, model) shard) within the same
+    limits, beside a bf16-rounded control; integer rows ``==``; killed
+    after step ``MO_KILL_AT`` over (4, 1) and resumed ``==`` the
+    uninterrupted fit.  (b) LinearRegression and binomial LogisticRegression
+    on the stage's 2M hospital rows in blocks of 2**18 over (4, 1).  (c)
+    GaussianMixture k=32, config 3's 2M x 8, in blocks of 2**19 over (4, 1),
+    killed and resumed ``==``.  (d) the rf20 forest shape in 8 blocks of
+    2**18 over (4, 1) on integer LOS, without and with bootstrap, ``==`` one
+    device, K3 4 x blocks x levels; GBT on gbt20's rows (integer labels)
+    over (4, 1).  (e) BisectingKMeans on config 4 over (4, 1) and (2, 2):
+    the same splits and sizes, centers within ``BISECT_CENTER_TOL``,
+    ``==`` on integer rows.  K1 / K2 and K3 against their plain versions at
+    the new shard shapes.  → {"launches": the main path's K1 / K2 / K3,
+    "k1", "k2", "k3": shape records}."""
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel as P
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import (
+        engine,
+    )
+
+    t_phase = time.perf_counter()
+    ledger = LaunchLedger(L)
+    k3_aside = [0]
+    k3_start = H.launch_counts()["fused_level_hist"]
+    cuda0 = torch.device("cuda", 0) if DEV == "cuda" else torch.device(DEV)
+
+    def mesh(data: int, model: int = 1):
+        return P.build_mesh(port.MeshConfig(data=data, model=model), [cuda0] * (data * model))
+
+    @contextlib.contextmanager
+    def aside():
+        k3 = H.launch_counts()["fused_level_hist"]
+        with ledger.aside():
+            yield
+        k3_aside[0] += H.launch_counts()["fused_level_hist"] - k3
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    mesh4 = mesh(MO_DATA)
+    k1_shapes, k2_shapes, k3_shapes = [], [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
+    tmp = tempfile.mkdtemp(prefix="mooc-")
+    try:
+        # --------------------------------------- (a) KMeans k=256, 10M rows
+        np.save(os.path.join(tmp, "kmeans.npy"), x_host)
+        x = np.load(os.path.join(tmp, "kmeans.npy"), mmap_mode="r")
+        hd = port.HostDataset(x=x, max_device_rows=OOC_BLOCK)
+        n_blocks, b = hd.block_shape(mesh4)
+        check(b == OOC_BLOCK and hd.block_shape() == (n_blocks, b),
+              f"(a) block_shape over (4, 1) {hd.block_shape(mesh4)} differs from one device's")
+        copy_ms, fill_ms, staged = mesh_link_and_fill(hd, mesh4, b)
+        kw = dict(k=K, seed=SEED, max_iter=MAX_ITER, warm_start_centers=init)
+        with aside():
+            one, s_one = timed(lambda: port.KMeans(**kw).fit(hd, device=cuda0))
+            m11 = port.KMeans(**kw).fit(hd, mesh=mesh(1))
+        check(np.array_equal(m11.cluster_centers, one.cluster_centers)
+              and m11.training_cost == one.training_cost and m11.n_iter == one.n_iter,
+              "(a) KMeans out of core over (1, 1) differs from one device")
+        k_pad_floats = 8 * (K * (D + 1) + 1) * 4
+        plan = L.lloyd_plan(b // MO_DATA, D, K, sms,
+                            L._stats_occupancy(cuda0, D, K)) if DEV == "cuda" else \
+            {"partial_floats": 0}
+        sync()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        stamps = []
+        k1_0 = L.launch_counts()["fused_lloyd_stats"]
+        m4, s4 = timed(lambda: port.KMeans(**kw).fit(
+            hd, mesh=mesh4, on_iteration=lambda it, c, m: stamps.append(time.perf_counter())))
+        peak = torch.cuda.max_memory_allocated() - base if DEV == "cuda" else 0
+        k1_4 = L.launch_counts()["fused_lloyd_stats"] - k1_0
+        check(k1_4 == MO_DATA * n_blocks * (m4.n_iter + 1),
+              f"(a) KMeans over (4, 1) launched K1 {k1_4} times (want 4 x {n_blocks} blocks x "
+              f"(n_iter {m4.n_iter} + 1))")
+        bound = 2 * staged + k_pad_floats + plan["partial_floats"] * 4 + (1 << 20)
+        check(peak <= bound, f"(a) peak device memory {peak} B above the bound {bound} B = 2 "
+                             f"blocks x {staged} + k-state {k_pad_floats} + K1 workspace "
+                             f"{plan['partial_floats'] * 4} + 1 MiB")
+        g4 = kmeans_gaps(m4, one)
+        check(m4.n_iter == one.n_iter and g4["centers"] <= OOC_KMEANS_TOL["centers"]
+              and g4["cost_rel"] <= OOC_KMEANS_TOL["cost_rel"],
+              f"(a) KMeans over (4, 1) vs one device: n_iter {m4.n_iter} / {one.n_iter}, {g4} "
+              f"(limits {OOC_KMEANS_TOL})")
+        epoch_ms = float(np.median(np.diff(stamps))) * 1e3 if len(stamps) > 1 else s4 * 1e3
+        with aside():
+            c_shard = torch.from_numpy(np.array(x[:b // MO_DATA])).to(cuda0)
+            w_shard = torch.ones((b // MO_DATA,), device=cuda0)
+            cen = torch.from_numpy(m4.cluster_centers).to(cuda0)
+            r1, _ = mesh_case(L, c_shard, w_shard, cen, torch.ones((K,), device=cuda0),
+                              f"(4, 1) block shard n={b // MO_DATA}")
+            k1_shapes.append(r1)
+            del c_shard, w_shard
+        say(f"mesh out of core (a) KMeans k={K} on the main path's {N} x {D} memmapped rows, "
+            f"{n_blocks} blocks of {b}, warm-started from its init: one device {s_one:.3f} s, "
+            f"(4, 1) {s4:.3f} s (n_iter {m4.n_iter}, K1 {k1_4} = 4 a block a step), (1, 1) == "
+            f"one device; epoch {epoch_ms:.1f} ms (median of {max(len(stamps) - 1, 0)}); a block's "
+            f"host fill {fill_ms:.2f} ms and copy {copy_ms:.3f} ms ({staged} B in one copy, the "
+            f"4 shards its segments); peak device memory {peak / 2**20:.1f} MiB <= bound "
+            f"{bound / 2**20:.1f} MiB; vs one device: centers {g4['centers']:.3g} (limit "
+            f"{OOC_KMEANS_TOL['centers']:g}), cost rel {g4['cost_rel']:.3g} (limit "
+            f"{OOC_KMEANS_TOL['cost_rel']:g}) ({card})")
+        del one, m11, m4
+        lap("mo (a) 10M")
+
+        # (2, 2) on the first 2M rows: K2 + the owner-masked K1, and its control
+        xs = np.array(x[:MO_SUB_N])
+        hs = port.HostDataset(x=xs, max_device_rows=OOC_BLOCK)
+        with aside():
+            one2 = port.KMeans(**kw).fit(hs, device=cuda0)
+        k2_0 = L.launch_counts()["fused_assign"]
+        m22, s22 = timed(lambda: port.KMeans(**kw).fit(hs, mesh=mesh(2, 2)))
+        k2_22 = L.launch_counts()["fused_assign"] - k2_0
+        g22 = kmeans_gaps(m22, one2)
+        with aside():
+            ctl = port.KMeans(**kw).fit(port.HostDataset(x=bf16_round(xs),
+                                                         max_device_rows=OOC_BLOCK),
+                                        mesh=mesh(2, 2))
+        gc = kmeans_gaps(ctl, one2)
+        check(m22.n_iter == one2.n_iter and g22["centers"] <= OOC_KMEANS_TOL["centers"]
+              and g22["cost_rel"] <= OOC_KMEANS_TOL["cost_rel"]
+              and (gc["centers"] > OOC_KMEANS_TOL["centers"]
+                   or gc["cost_rel"] > OOC_KMEANS_TOL["cost_rel"]),
+              f"(a) KMeans over (2, 2) vs one device: {g22}, bf16 control {gc} (limits "
+              f"{OOC_KMEANS_TOL})")
+        check(k2_22 == 4 * hs.block_shape(mesh(2, 2))[0] * (m22.n_iter + 1),
+              f"(a) (2, 2) launched K2 {k2_22} times")
+        with aside():
+            half = hs.block_shape(mesh(2, 2))[1] // 2
+            xr = torch.from_numpy(np.ascontiguousarray(xs[:half])).to(cuda0)
+            cen = torch.from_numpy(np.ascontiguousarray(m22.cluster_centers[:K // 2])).to(cuda0)
+            r1, r2 = mesh_case(L, xr, torch.ones((half,), device=cuda0), cen,
+                               torch.ones((K // 2,), device=cuda0),
+                               f"(2, 2) block shard n={half} k={K // 2}")
+            k1_shapes.append(r1)
+            k2_shapes.append(r2)
+            del xr
+
+        # killed after step MO_KILL_AT over (4, 1), resumed
+        kkw = dict(kw, max_iter=MO_KILL_ITERS, tol=0.0)
+        plain = port.KMeans(**kkw).fit(hs, mesh=mesh4)
+        ck = os.path.join(tmp, "km-ck")
+
+        def bomb(it, cost, move):
+            if it == MO_KILL_AT:
+                raise _Killed()
+
+        try:
+            port.KMeans(checkpoint_dir=ck, checkpoint_every=1, **kkw).fit(
+                hs, mesh=mesh4, on_iteration=bomb)
+            fail("(a) the kill did not fire")
+        except _Killed:
+            pass
+        seen = []
+        res = port.KMeans(checkpoint_dir=ck, checkpoint_every=1, **kkw).fit(
+            hs, mesh=mesh4, on_iteration=lambda it, c, m: seen.append(it))
+        check(seen[:1] == [MO_KILL_AT + 1]
+              and kmeans_gaps(res, plain) == {"centers": 0.0, "cost_rel": 0.0, "moved": 0},
+              f"(a) the resumed (4, 1) fit (from step {seen[:1]}) differs from the uninterrupted")
+        # integer rows: == one device, over (4, 1) and (2, 2)
+        rng = np.random.default_rng(0)
+        cen_i = rng.integers(-30, 30, size=(EXACT_K, D))
+        xi = (cen_i[rng.integers(0, EXACT_K, size=EXACT_N)]
+              + rng.integers(-2, 3, size=(EXACT_N, D))).astype(np.float32)
+        hi = port.HostDataset(x=xi, max_device_rows=EXACT_BLOCK)
+        with aside():
+            one_i = port.KMeans(k=EXACT_K, seed=SEED).fit(hi, device=cuda0)
+        for shape in ((MO_DATA, 1), (2, 2)):
+            mi = port.KMeans(k=EXACT_K, seed=SEED).fit(hi, mesh=mesh(*shape))
+            check(np.array_equal(mi.cluster_centers, one_i.cluster_centers)
+                  and np.array_equal(mi.cluster_sizes, one_i.cluster_sizes)
+                  and mi.n_iter == one_i.n_iter,
+                  f"(a) integer rows over {shape} differ from one device")
+        say(f"mesh out of core (a) (2, 2) on the first {MO_SUB_N} rows: {s22:.3f} s, n_iter "
+            f"{m22.n_iter}, K2 {k2_22} (4 a block a step), centers {g22['centers']:.3g}, cost "
+            f"rel {g22['cost_rel']:.3g} (bf16-rounded control {gc['centers']:.3g} / "
+            f"{gc['cost_rel']:.3g}); (4, 1) killed after step {MO_KILL_AT}, resumed == the "
+            f"uninterrupted fit; integer rows ({EXACT_N} x {D}, blocks of {EXACT_BLOCK}) over "
+            f"(4, 1) and (2, 2) == one device ({card})")
+        del x, hd, xs, hs, one2, m22, ctl, plain, res, xi, hi
+        lap("mo (a)")
+
+        # ---------------------- (b) LinearRegression and binomial logistic
+        xh, _, yb = stage_rows()
+        xh = xh.astype(np.float32)
+        los = STAGE_ROWS["los"]
+        hl = port.HostDataset(x=xh, y=los, max_device_rows=LR_OOC_BLOCK)
+        with aside():
+            lr1 = port.LinearRegression().fit(hl, device=cuda0)
+        lr4, s_lr = timed(lambda: port.LinearRegression().fit(hl, mesh=mesh4))
+        with aside():
+            lrc = port.LinearRegression().fit(port.HostDataset(
+                x=bf16_round(xh), y=los, max_device_rows=LR_OOC_BLOCK), mesh=mesh4)
+        lg, lc = lr_gap(lr4, lr1), lr_gap(lrc, lr1)
+        check(lg <= MO_LR_TOL < lc,
+              f"(b) LinearRegression over (4, 1): {lg:.3g} of the largest coefficient from one "
+              f"device, bf16 control {lc:.3g} (limit {MO_LR_TOL:g})")
+        est = port.LogisticRegression(tol=CLS_TOL)
+        hb = port.HostDataset(x=xh, y=yb, max_device_rows=LR_OOC_BLOCK)
+        with aside():
+            a = est.fit(hb, device=cuda0)
+        bm, s_lg = timed(lambda: est.fit(hb, mesh=mesh4))
+        with aside():
+            c = est.fit(port.HostDataset(x=bf16_round(xh), y=yb, max_device_rows=LR_OOC_BLOCK),
+                        mesh=mesh4)
+        xt = torch.from_numpy(xh).to(cuda0)
+        pa = a.predict_proba(xt)
+        gap = float((bm.predict_proba(xt) - pa).abs().max())
+        ctl_gap = float((c.predict_proba(xt) - pa).abs().max())
+        check(gap <= MO_LOGIT_TOL < ctl_gap and a.n_iter == bm.n_iter,
+              f"(b) binomial logistic over (4, 1): probabilities {gap:.3g} apart, n_iter "
+              f"{bm.n_iter} / {a.n_iter}, bf16 control {ctl_gap:.3g} (limit {MO_LOGIT_TOL:g})")
+        say(f"mesh out of core (b) on the stage's {len(xh)} hospital rows in blocks of "
+            f"{LR_OOC_BLOCK} over (4, 1) against one device: LinearRegression {s_lr:.3f} s, "
+            f"{lg:.3g} of the largest coefficient (limit {MO_LR_TOL:g}; bf16 control "
+            f"{lc:.3g}); binomial "
+            f"LogisticRegression {s_lg:.3f} s, n_iter {bm.n_iter} == one device's, probabilities "
+            f"{gap:.3g} apart (limit {MO_LOGIT_TOL:g}; bf16 control {ctl_gap:.3g}) ({card})")
+        del xt, pa, hl, hb
+        lap("mo (b)")
+
+        # ------------------------------------------------ (c) GMM k=32
+        xg, xgm = ooc_rows(GMM_OOC_N, D, GMM_K, tmp, "gmm")
+        hg = port.HostDataset(x=xgm, max_device_rows=GMM_OOC_BLOCK)
+        gkw = dict(k=GMM_K, max_iter=GMM_ITERS, tol=0.0, seed=SEED)
+
+        def gmm_gaps(p, q) -> dict:
+            return {"means": float(np.abs(p.means - q.means).max()),
+                    "weights": float(np.abs(p.weights - q.weights).max()),
+                    "ll_rel": abs(p.log_likelihood / q.log_likelihood - 1)}
+
+        with aside():
+            g1 = port.GaussianMixture(**gkw).fit(hg, device=cuda0)
+        g4m, s_g = timed(lambda: port.GaussianMixture(**gkw).fit(hg, mesh=mesh4))
+        with aside():
+            gctl = port.GaussianMixture(**gkw).fit(port.HostDataset(
+                x=bf16_round(xg), max_device_rows=GMM_OOC_BLOCK), mesh=mesh4)
+        gg, gcg = gmm_gaps(g4m, g1), gmm_gaps(gctl, g1)
+        check(all(gg[k] <= MO_GMM_TOL[k] < gcg[k] for k in MO_GMM_TOL),
+              f"(c) GMM over (4, 1) {gg}, bf16 control {gcg} (limits {MO_GMM_TOL})")
+        gest = port.GaussianMixture(checkpoint_dir=os.path.join(tmp, "g-ck"),
+                                    checkpoint_every=1, **gkw)
+
+        def gbomb(it, ll):
+            if it == MO_KILL_AT:
+                raise _Killed()
+
+        try:
+            gest.fit(hg, mesh=mesh4, on_iteration=gbomb)
+            fail("(c) the kill did not fire")
+        except _Killed:
+            pass
+        gseen = []
+        gres = gest.fit(hg, mesh=mesh4, on_iteration=lambda it, ll: gseen.append(it))
+        check(gseen[:1] == [MO_KILL_AT + 1] and same_gmm(gres, g4m),
+              f"(c) the resumed GMM (from iteration {gseen[:1]}) differs from the uninterrupted")
+        say(f"mesh out of core (c) GaussianMixture k={GMM_K} on {GMM_OOC_N} x {D} rows in blocks "
+            f"of {GMM_OOC_BLOCK} over (4, 1): {s_g:.3f} s ({GMM_ITERS} EM iterations); vs one "
+            f"device " + ", ".join(f"{k} {gg[k]:.3g} (limit {MO_GMM_TOL[k]:g}; bf16 "
+                                   f"{gcg[k]:.3g})" for k in MO_GMM_TOL)
+            + f"; killed after iteration {MO_KILL_AT}, resumed == the uninterrupted fit ({card})")
+        del xg, xgm, hg
+        lap("mo (c)")
+
+        # ----------------------------- (d) the rf20 forest shape, and GBT
+        rng = np.random.default_rng(0)
+        cols = make_table_columns(TREE_N, D, 16, 0)
+        xf = np.stack([cols[f"f{j}"] for j in range(D)], axis=1)
+        del cols
+        xf = ((xf - xf.mean(axis=0)) / xf.std(axis=0)).astype(np.float32)
+        yf = xf @ rng.normal(size=(D,)) + rng.normal(0.0, 0.3, size=TREE_N)
+        yi = np.clip(np.round(yf + 1.5), 0, 3).astype(np.float32)       # integer LOS 0..3
+        np.save(os.path.join(tmp, "forest.npy"), xf)
+        hf = port.HostDataset(x=np.load(os.path.join(tmp, "forest.npy"), mmap_mode="r"), y=yi,
+                              max_device_rows=FOREST_BLOCK)
+        fb = hf.block_shape(mesh4)[0]
+        fkw = dict(task="regression", num_trees=20, max_depth=5, seed=0)
+        lines = []
+        for boot in (False, True):
+            with aside():
+                f1 = engine.grow_forest_outofcore(hf, device=cuda0, bootstrap=boot, **fkw)
+            k3_0 = H.launch_counts()["fused_level_hist"]
+            f4, s_f = timed(lambda: engine.grow_forest_outofcore(hf, mesh=mesh4, bootstrap=boot,
+                                                                 **fkw))
+            k3_f = H.launch_counts()["fused_level_hist"] - k3_0
+            check(same_forest(f4, f1) and k3_f == MO_DATA * fb * (fkw["max_depth"] + 1),
+                  f"(d) the forest over (4, 1) (bootstrap {boot}) differs from one device or "
+                  f"launched K3 {k3_f} times (want 4 x {fb} blocks x 6 levels)")
+            lines.append(f"bootstrap {boot} {s_f:.3f} s, K3 {k3_f}, == one device")
+        rf = port.RandomForestRegressor(num_trees=20, max_depth=5, seed=0,
+                                        feature_subset_strategy="all").fit(hf, mesh=mesh4)
+        check(np.array_equal(rf.split_feat, f4.split_feat),
+              "(d) RandomForestRegressor over (4, 1) differs from the engine's forest")
+        xb_, yb_ = gbt_data()
+        yg = np.clip(np.round(yb_), -4, 4).astype(np.float32)             # integer labels
+        hgb = port.HostDataset(x=xb_, y=yg, max_device_rows=GBT_BLOCK)
+        gbkw = dict(max_iter=MO_GBT_ROUNDS, max_depth=GBT_DEPTH, seed=0)
+        with aside():
+            b1 = port.GBTRegressor(**gbkw).fit(hgb, device=cuda0)
+        b4, s_b = timed(lambda: port.GBTRegressor(**gbkw).fit(hgb, mesh=mesh4))
+        with aside():
+            bc = port.GBTRegressor(**gbkw).fit(port.HostDataset(
+                x=bf16_round(xb_), y=yg, max_device_rows=GBT_BLOCK), mesh=mesh4)
+        vg = float(np.abs(b4.value - b1.value).max())
+        vc = float(np.abs(bc.value - b1.value).max()) if bc.value.shape == b1.value.shape \
+            else float("inf")
+        check(np.array_equal(b4.split_feat, b1.split_feat) and vg <= GBT_OOC_VALUE_TOL < vc,
+              f"(d) GBT over (4, 1): splits equal {np.array_equal(b4.split_feat, b1.split_feat)}"
+              f", values {vg:.3g} (limit {GBT_OOC_VALUE_TOL:g}; bf16 control {vc:.3g})")
+        with aside():
+            ins = k3_inputs(FOREST_BLOCK // MO_DATA, D, 3, 20, 32, 32, seed=70)
+            err, _ = k3_check(H, *ins, 32, 32, "(4, 1) forest block shard")
+            t = k3_time(H, *ins, 32, 32, reps=20)
+            k3_shapes.append({"n": FOREST_BLOCK // MO_DATA, "d": D, "S": 3, "T": 20, "LN": 32,
+                              "B": 32, "max_abs_err": err, **t})
+            del ins
+        say(f"mesh out of core (d) the rf20 forest shape ({TREE_N} x {D}, {fb} blocks of "
+            f"{FOREST_BLOCK}, integer LOS) over (4, 1): " + "; ".join(lines)
+            + f"; RandomForestRegressor.fit == the engine; GBT {MO_GBT_ROUNDS} rounds on gbt20's "
+            f"rows (integer labels) {s_b:.3f} s, the same splits, values {vg:.3g} (limit "
+            f"{GBT_OOC_VALUE_TOL:g}; bf16 control {vc:.3g}); K3 at the shard (n="
+            f"{FOREST_BLOCK // MO_DATA} d={D} S=3 T=20 LN=32 B=32) {t['ms']:.4f} ms (plain "
+            f"{t['plain_ms']:.4f}, library {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} by "
+            f"{t['bound_by']}), max_abs_err {err:.3g} ({card})")
+        del xf, yf, yi, hf, xb_, yb_, hgb
+        lap("mo (d)")
+
+        # ------------------------------------------ (e) BisectingKMeans
+        xbk = make_data(BISECT_N, D, BISECT_K)
+        hbk = port.HostDataset(x=xbk, max_device_rows=BISECT_OOC_BLOCK)
+        bkw = dict(k=BISECT_K, seed=SEED, n_restarts=1)
+        with aside():
+            k1b = port.BisectingKMeans(**bkw).fit(hbk, device=cuda0)
+            ctlb = port.BisectingKMeans(**bkw).fit(port.HostDataset(
+                x=bf16_round(xbk), max_device_rows=BISECT_OOC_BLOCK), mesh=mesh4)
+        c_ctl = bisect_gaps(ctlb, k1b)["centers"]
+        lines = []
+        for shape in ((MO_DATA, 1), (2, 2)):
+            mb, s_bk = timed(lambda: port.BisectingKMeans(**bkw).fit(hbk, mesh=mesh(*shape)))
+            g = bisect_gaps(mb, k1b)
+            check(g["splits"] == 0 and g["sizes"] == 0.0 and g["centers"] <= BISECT_CENTER_TOL
+                  < c_ctl, f"(e) bisecting over {shape}: {g}, bf16 control {c_ctl:.3g} (limit "
+                           f"{BISECT_CENTER_TOL:g})")
+            lines.append(f"{shape} {s_bk:.3f} s, centers {g['centers']:.3g}")
+        rng = np.random.default_rng(SEED + 8)
+        cen_b = rng.integers(-3, 4, size=(BISECT_K, D))
+        xbi = (cen_b[rng.integers(0, BISECT_K, EXACT_N)]
+               + rng.integers(-1, 2, size=(EXACT_N, D))).astype(np.float32)
+        hbi = port.HostDataset(x=xbi, max_device_rows=EXACT_BLOCK)
+        with aside():
+            one_b = port.BisectingKMeans(**bkw).fit(hbi, device=cuda0)
+        for shape in ((MO_DATA, 1), (2, 2)):
+            mb = port.BisectingKMeans(**bkw).fit(hbi, mesh=mesh(*shape))
+            check(bisect_gaps(mb, one_b) == {"centers": 0.0, "sizes": 0.0, "splits": 0},
+                  f"(e) bisecting integer rows over {shape}: {bisect_gaps(mb, one_b)}")
+        say(f"mesh out of core (e) BisectingKMeans config 4 ({BISECT_N} x {D}, k={BISECT_K}, "
+            f"blocks of {BISECT_OOC_BLOCK}) against one device: " + "; ".join(lines)
+            + f" (limit {BISECT_CENTER_TOL:g}; bf16 control {c_ctl:.3g}), the same splits and "
+            f"sizes; integer rows ({EXACT_N}) over (4, 1) and (2, 2) == ({card})")
+        del xbk, hbk, xbi, hbi
+        lap("mo (e)")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = ledger.main_path()
+    launches["fused_level_hist"] = (H.launch_counts()["fused_level_hist"] - k3_start
+                                    - k3_aside[0])
+    say(f"mesh_outofcore_phase: {time.perf_counter() - t_phase:.2f} s of host clock ({card}); "
+        f"main-path launches {json.dumps(launches)}")
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return {"launches": launches, "k1": k1_shapes, "k2": k2_shapes, "k3": k3_shapes}
+
+
 def main() -> None:
     try:
         import torch
@@ -9993,6 +10430,16 @@ def main() -> None:
     records[1]["shapes"] += mc["k2"]
     del mp_
 
+    # ------- slice 8c-2: the out-of-core fits over a mesh (K1 a shard a
+    # block a step, K2 + K1 a (data, model) shard, K3 a shard a block a
+    # level)
+    mo = mesh_outofcore_phase(port, L, H, card, x_host, init_centers)
+    for name, v in mo["launches"].items():
+        counts[name] += v
+    records[0]["shapes"] += mo["k1"]
+    records[1]["shapes"] += mo["k2"]
+    records[2]["shapes"] += mo["k3"]
+
     check(all(v > 0 for v in counts.values()), "a kernel was never launched")
     say(f"phase seconds (host clock): "
         f"{json.dumps({k: round(v, 2) for k, v in PHASE_S.items()})}; "
@@ -10013,6 +10460,8 @@ def main() -> None:
         f"mesh_models_phase {sum(v for k, v in PHASE_S.items() if k.startswith('mm ')):.2f}; "
         f"mesh_clustering_phase "
         f"{sum(v for k, v in PHASE_S.items() if k.startswith('mc ')):.2f}; "
+        f"mesh_outofcore_phase "
+        f"{sum(v for k, v in PHASE_S.items() if k.startswith('mo ')):.2f}; "
         f"all phases {sum(PHASE_S.values()):.2f}")
     say(f"kernels launched on the main paths: {json.dumps(counts)}")
     for rec in records:

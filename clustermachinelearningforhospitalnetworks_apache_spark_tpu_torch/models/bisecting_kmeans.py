@@ -52,11 +52,18 @@ shard and keeps its bits; a sharded fit equals it where the float32 root
 sums are exact (integer rows), and within rounding elsewhere.
 
 A :class:`~..parallel.outofcore.HostDataset` takes the reference's
-out-of-core fit: the per-row leaf lives on the host, every Lloyd
-iteration and every level's stats pass is a sweep over the streamed
-blocks (:func:`_bkm_lloyd_block`, :func:`_bkm_stats_block`), children are
-seeded from the same ``fold_in(key, level)`` draws and restarts, so both
-routes walk the same split tree up to the blocks' float32 sums.
+out-of-core fit, on one device or over a mesh (``fit(HostDataset,
+mesh=)``): the per-row leaf lives on the host, every Lloyd iteration and
+every level's stats pass is a sweep over the streamed blocks
+(:func:`_bkm_lloyd_block`, :func:`_bkm_stats_block` once a data shard of
+a block), children are seeded from the same ``fold_in(key, level)`` draws
+and restarts, so both routes walk the same split tree up to rounding.
+Each row takes the nearer child of its leaf's pair in float32, as in the
+reference; the root's moments and the child sums, counts and SSE are
+float64 a shard, summed over the block's shards in ascending order and
+over the blocks in float64 and rounded to float32 once on the host, so
+the split tree hardly depends on the mesh shape or the block size (the
+model axis is replicated, as in the reference).
 
 The model is a :class:`KMeansModel`, so ``predict`` is the K2 kernel on
 the card.
@@ -70,10 +77,10 @@ import numpy as np
 import torch
 
 from .. import prng
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset, add_stats, block_moments
-from .base import Estimator, Shards, on_mesh, require_single_shard
+from ..parallel.outofcore import (HostDataset, add_stats, shard_rows, shard_sum, stream_home,
+                                  stream_mesh)
+from .base import Estimator, Shards, on_mesh
 from .kmeans import KMeansModel, _cosine_prep, normalize_rows
 from .linear_regression import chunked_gram
 
@@ -135,24 +142,35 @@ def _live_weights(pos, w):
     return ((pos >= 0) & (w > 0)).to(torch.float32) * w
 
 
+def _block_onehot(child, pos, w, k2: int):
+    return torch.nn.functional.one_hot(child, k2).to(torch.float64) * \
+        _live_weights(pos, w).to(torch.float64)[:, None]
+
+
+def _root_moments(x, w):
+    """A shard's float64 (Σw, Σw·x) of its valid rows (pad rows' features
+    masked before the product)."""
+    w64 = w.to(torch.float64)
+    x64 = torch.where(w[:, None] > 0, x, torch.zeros_like(x)).to(torch.float64)
+    return w64.sum(), w64 @ x64
+
+
 def _bkm_lloyd_block(x, w, pos, cen, shift):
-    """One block's 2-means statistics (sums (2L, d), counts (2L,)) for
-    every splitting leaf at once: a row of leaf slot ``pos`` (−1: not
-    splitting) takes the nearer of its leaf's two children.  Euclidean on
-    (for cosine, unit) rows serves both measures."""
+    """One block shard's float64 2-means statistics (sums (2L, d), counts
+    (2L,)) for every splitting leaf at once: a row of leaf slot ``pos``
+    (−1: not splitting) takes the nearer of its leaf's two children.
+    Euclidean on (for cosine, unit) rows serves both measures."""
     xb, child, _, _, _ = _block_children(x, pos, cen, shift)
-    oh = torch.nn.functional.one_hot(child, cen.shape[0]).to(torch.float32) * \
-        _live_weights(pos, w)[:, None]
-    return oh.T @ xb, oh.sum(dim=0)
+    oh = _block_onehot(child, pos, w, cen.shape[0])
+    return oh.T @ xb.to(torch.float64), oh.sum(dim=0)
 
 
 def _bkm_stats_block(x, w, pos, cen, shift):
-    """A level's last pass over a block: child (counts, SSE) and each
-    row's side bit."""
+    """A level's last pass over a block shard: float64 child (counts, SSE)
+    and each row's side bit."""
     _, child, d0, d1, bit = _block_children(x, pos, cen, shift)
-    oh = torch.nn.functional.one_hot(child, cen.shape[0]).to(torch.float32) * \
-        _live_weights(pos, w)[:, None]
-    mind = torch.where(bit == 1, d1, d0)
+    oh = _block_onehot(child, pos, w, cen.shape[0])
+    mind = torch.where(bit == 1, d1, d0).to(torch.float64)
     return oh.sum(dim=0), (oh * mind[:, None]).sum(dim=0), bit.to(torch.int32)
 
 
@@ -186,17 +204,14 @@ class BisectingKMeans(Estimator):
             device=None) -> BisectingKMeansModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w]) or x) on ``device`` (default the card) or over ``mesh``
-        (module docstring); a :class:`HostDataset` streams its blocks to
-        ``device``."""
+        (module docstring); a :class:`HostDataset` streams its blocks
+        there."""
         if self.strategy not in ("level", "sequential"):
             raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.n_restarts < 1:
             raise ValueError(f"n_restarts must be >= 1, got {self.n_restarts}")
         if isinstance(data, HostDataset):
-            require_single_shard(None, mesh, "BisectingKMeans.fit out of core")
-            if mesh is not None and device is None:
-                device = mesh.device(0, 0)
-            return self._fit_outofcore(data, resolve_device(device))
+            return self._fit_outofcore(data, stream_mesh(mesh, device))
         sh = Shards(on_mesh(data, None, device, self.weight_col, mesh))
         x = {i: s.x.to(torch.float32) for i, s in sh.data.items()}
         w = {i: s.w.to(torch.float32) for i, s in sh.data.items()}
@@ -407,31 +422,42 @@ class BisectingKMeans(Estimator):
         cost = float(sse[:k][sizes[:k] > 0].sum())
         return cost, centers, sizes, sse, n_splits, splits
 
-    def _fit_outofcore(self, hd: HostDataset, dev) -> BisectingKMeansModel:
+    def _fit_outofcore(self, hd: HostDataset, mesh) -> BisectingKMeansModel:
         """Rows ≫ device memory: the same level algorithm with each row's
         leaf on the host (n int32) and every Lloyd iteration and stats
-        pass a sweep over the streamed blocks, recentered around the global
-        mean (no shift on the sphere), the same seeds and restarts, so the
-        split tree is the resident one up to block-sum rounding."""
+        pass a sweep over the blocks streamed over ``mesh`` (each block's
+        shards on their devices, their float64 sums added in shard order),
+        recentered around the global mean (no shift on the sphere), the
+        same seeds and restarts, so the split tree is the resident one up
+        to rounding."""
         k, d = self.k, hd.n_features
         if hd.n == 0:
             raise ValueError("BisectingKMeans fit on an empty dataset")
         cosine = self.distance_measure == "cosine"
         L = self._leaves_a_level()
-        n_blocks, b = hd.block_shape()
+        n_blocks, b = hd.block_shape(mesh)
+        per = b // mesh.devices.shape[0]
+        dev = stream_home(mesh)
 
-        def prep(blk):
-            return _cosine_prep(blk.x, blk.w) if cosine else blk.x
+        def prep(sh):
+            return _cosine_prep(sh.x, sh.w) if cosine else sh.x
+
+        def sweep(fn):
+            """``fn(block index, shard index, shard)`` summed over every
+            block's shards, then over the blocks (float64, on ``dev``)."""
+            tot = None
+            for bi, blk in enumerate(hd.blocks(mesh)):
+                s = shard_sum(blk, lambda i, sh: fn(bi, i, sh))
+                tot = s if tot is None else add_stats(tot, s)
+            return tot
 
         # pass 0: the global mean → the shift and the root center
-        mom = None
-        for blk in hd.blocks(device=dev):
-            s = block_moments(prep(blk), blk.w, blk.w)
-            mom = s if mom is None else add_stats(mom, s)
-        sw = max(float(mom[0]), 0.0)
+        s0, sx = (v.cpu().numpy() for v in sweep(lambda bi, i, sh: _root_moments(prep(sh),
+                                                                                 sh.w)))
+        sw = max(float(np.float32(s0)), 0.0)
         if sw == 0.0:
             raise ValueError("BisectingKMeans fit on an empty dataset")
-        mean = mom[1].cpu().numpy() / max(sw, 1.0)
+        mean = sx.astype(np.float32) / max(sw, 1.0)
         shift = np.zeros((d,), np.float32) if cosine else mean.astype(np.float32)
         root = mean.astype(np.float32) - shift
         if cosine:
@@ -442,18 +468,22 @@ class BisectingKMeans(Estimator):
 
         # pass 1: the root's SSE
         root_cen = torch.from_numpy(np.broadcast_to(root, (2, d)).astype(np.float32)).to(dev)
-        tot = None
-        for blk in hd.blocks(device=dev):
-            pos0 = torch.zeros((blk.x.shape[0],), dtype=torch.int64, device=dev)
-            _, csse, _ = _bkm_stats_block(prep(blk), blk.w, pos0, root_cen, shift_dev)
-            tot = csse if tot is None else tot + csse
-        root_sse = float(tot.cpu().numpy().sum())
+
+        def root_sse_of(bi, i, sh):
+            pos0 = torch.zeros((sh.x.shape[0],), dtype=torch.int64, device=sh.x.device)
+            return _bkm_stats_block(prep(sh), sh.w, pos0, root_cen.to(sh.x.device),
+                                    shift_dev.to(sh.x.device))[1:2]
+
+        root_sse = float(sweep(root_sse_of)[0].cpu().numpy().astype(np.float32).sum())
         min_size = self._min_size(sw)
 
-        def block_pos(i: int, rows: int, assign, slot_of) -> np.ndarray:
-            s, e = i * b, min(i * b + b, hd.n)
-            p = np.full((rows,), -1, np.int64)
-            p[: e - s] = slot_of[np.clip(assign[s:e], 0, k)]
+        def block_pos(bi: int, i: int, assign, slot_of) -> np.ndarray:
+            """Shard ``i`` of block ``bi``: its rows' leaf slots (−1 past n)."""
+            s = bi * b + i * per
+            e = min(s + per, hd.n)
+            p = np.full((per,), -1, np.int64)
+            if e > s:
+                p[: e - s] = slot_of[np.clip(assign[s:e], 0, k)]
             return p
 
         def grow(key):
@@ -475,16 +505,18 @@ class BisectingKMeans(Estimator):
                 sel, slot_valid, slot_of, cen = plan
                 cen = cen.astype(np.float32)
                 valid2 = np.repeat(slot_valid, 2)
+
+                def shard_args(bi, i, sh, cen_dev):
+                    dv = sh.x.device
+                    return (prep(sh), sh.w,
+                            torch.from_numpy(block_pos(bi, i, assign, slot_of)).to(dv),
+                            cen_dev.to(dv), shift_dev.to(dv))
+
                 it = 0
                 for it in range(1, self.max_iter + 1):
                     cen_dev = torch.from_numpy(cen).to(dev)
-                    tot = None
-                    for i, blk in enumerate(hd.blocks(device=dev)):
-                        pos_b = torch.from_numpy(
-                            block_pos(i, blk.x.shape[0], assign, slot_of)).to(dev)
-                        s2 = _bkm_lloyd_block(prep(blk), blk.w, pos_b, cen_dev, shift_dev)
-                        tot = s2 if tot is None else add_stats(tot, s2)
-                    sums, counts = (v.cpu().numpy() for v in tot)
+                    sums, counts = (v.cpu().numpy().astype(np.float32) for v in sweep(
+                        lambda bi, i, sh: _bkm_lloyd_block(*shard_args(bi, i, sh, cen_dev))))
                     new_cen = np.where((counts > 0)[:, None],
                                        sums / np.maximum(counts, 1.0)[:, None], cen)
                     if cosine:
@@ -497,18 +529,21 @@ class BisectingKMeans(Estimator):
                 cen_dev = torch.from_numpy(cen).to(dev)
                 counts_t = sse_t = None
                 bits_blocks = []
-                for i, blk in enumerate(hd.blocks(device=dev)):
-                    pos_h = block_pos(i, blk.x.shape[0], assign, slot_of)
-                    c, cs, bit = _bkm_stats_block(prep(blk), blk.w,
-                                                  torch.from_numpy(pos_h).to(dev), cen_dev,
-                                                  shift_dev)
+                for bi, blk in enumerate(hd.blocks(mesh)):
+                    out = {}
+
+                    def stats(i, sh):
+                        out[i] = _bkm_stats_block(*shard_args(bi, i, sh, cen_dev))
+                        return out[i][:2]
+
+                    c, cs = shard_sum(blk, stats)
                     counts_t = c if counts_t is None else counts_t + c
                     sse_t = cs if sse_t is None else sse_t + cs
                     # a block on the card lives until the iterator advances:
-                    # its bits come to the host now
-                    bits_blocks.append((i, pos_h, bit.cpu().numpy()))
-                counts2 = counts_t.cpu().numpy().reshape(L, 2)
-                csse2 = sse_t.cpu().numpy().reshape(L, 2)
+                    # its bits (every shard's, in row order) come to the host now
+                    bits_blocks.append((bi, shard_rows(blk, lambda i, sh: out[i][2])))
+                counts2 = counts_t.cpu().numpy().astype(np.float32).reshape(L, 2)
+                csse2 = sse_t.cpu().numpy().astype(np.float32).reshape(L, 2)
                 info["lloyd_iters"] += it
                 # a fetch a Lloyd iteration, a bit vector a block, the level's sums
                 info["host_syncs"] += it + n_blocks + 1
@@ -517,9 +552,9 @@ class BisectingKMeans(Estimator):
                 succ, new_id, grown = self._record_level(
                     centers, sizes, sse, divisible, splits, level, n_leaves, sel, slot_valid,
                     counts2, csse2, cen.reshape(L, 2, d))
-                for i, pos_h, bit in bits_blocks:
-                    s, e = i * b, min(i * b + b, hd.n)
-                    p = pos_h[: e - s]
+                for bi, bit in bits_blocks:
+                    s, e = bi * b, min(bi * b + b, hd.n)
+                    p = slot_of[np.clip(assign[s:e], 0, k)]
                     safe_p = np.clip(p, 0, L - 1)
                     relabel = (p >= 0) & (bit[: e - s] == 1) & succ[safe_p]
                     if relabel.any():

@@ -42,7 +42,8 @@ import torch
 from ..data import DeviceDataset
 from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset, standardized_ridge, streamed_standardization
+from ..parallel.outofcore import (HostDataset, standardized_ridge, stream_mesh,
+                                  streamed_standardization)
 from .base import Estimator, Model, as_device_dataset, check_features
 from .linear_regression import standardized_design
 from .logistic_regression import newton_loop, row_sums, streamed_newton_loop, with_intercept
@@ -609,7 +610,7 @@ class GeneralizedLinearRegression(Estimator):
             raise ValueError("GeneralizedLinearRegression needs labels: HostDataset(y=...)")
         w_host = np.asarray(hd.w) if hd.w is not None else np.ones(hd.n, np.float32)
         self._validate_labels(np.asarray(hd.y)[w_host > 0], link, vp)
-        n, _, std, sy = streamed_standardization(hd, dev, extra="ysum")
+        n, _, std, sy = streamed_standardization(hd, device=dev, extra="ysum")
         ybar = torch.tensor(np.float32(sy / n), device=dev)
         nfeat = hd.n_features
         ridge = torch.from_numpy(standardized_ridge(
@@ -625,8 +626,8 @@ class GeneralizedLinearRegression(Estimator):
             return _damped_solve(theta, gram, mom, ridge)
 
         theta = torch.zeros((ridge.shape[0],), dtype=torch.float32, device=dev)
-        theta, it = streamed_newton_loop(hd, dev, stats, update, theta, self.tol,
-                                         self.max_iter)
+        theta, it = streamed_newton_loop(hd, stream_mesh(device=dev), stats, update, theta,
+                                         self.tol, self.max_iter)
         dev_sum = None
         for blk in hd.blocks(device=dev):
             d = _block_deviance(blk.x, blk.y, blk.w.to(torch.float32), theta, self.family,

@@ -23,12 +23,14 @@ The fast path syncs the host once per iteration, on the log-likelihood
 that decides convergence (``|Δll| >= tol`` in float32, as the reference's
 device loop); a checkpoint or ``on_iteration`` takes the reference's host
 loop (Python floats).  A :class:`~..parallel.outofcore.HostDataset`
-streams its blocks through the same chunked E-step statistics, summed
-over blocks, then one M-step an iteration.  ``checkpoint_dir`` commits
-the parameters with **unshifted** means (``io/fit_checkpoint.py``; in
-float64, where the sum of the float32 shifted means and the shift is
-exact, so a resume is bit-equal to the uninterrupted fit), and a warm
-start (``warm_start_params``) runs unshifted.
+streams its blocks, to one device or over a mesh, through the same
+chunked E-step statistics, each block's shards summed in ascending shard
+order and then the blocks, then one M-step an iteration on the home
+device.  ``checkpoint_dir`` commits the parameters with **unshifted**
+means (``io/fit_checkpoint.py``; in float64, where the sum of the float32
+shifted means and the shift is exact, so a resume is bit-equal to the
+uninterrupted fit), and a warm start (``warm_start_params``) runs
+unshifted.
 
 ``matmul_precision`` other than ``"highest"`` takes the reference's
 factor-form E-step: the k inverse Cholesky factors, stacked into one
@@ -67,10 +69,9 @@ import torch
 from ..device import resolve_device
 from ..io.model_io import register_model
 from ..ops.distance import matmul_p, validate_matmul_precision
-from ..parallel.outofcore import HostDataset, add_stats
+from ..parallel.outofcore import HostDataset, add_stats, shard_sum, stream_home, stream_mesh
 from ..parallel.sharding import MeshArray, sample_valid_rows
-from .base import (ClusteringModel, Estimator, Shards, check_features, is_sharded, on_mesh,
-                   require_single_shard)
+from .base import ClusteringModel, Estimator, Shards, check_features, is_sharded, on_mesh
 from .kmeans import _kmeans_pp_init, _lloyd_refine
 from .summary import ClusteringSummary
 
@@ -460,10 +461,7 @@ class GaussianMixture(Estimator):
         log_likelihood)`` (optional) fires after every EM step."""
         validate_matmul_precision(self.matmul_precision)
         if isinstance(data, HostDataset):
-            require_single_shard(None, mesh, "GaussianMixture.fit out of core")
-            return self._fit_outofcore(data, resolve_device(
-                device if mesh is None or device is not None else mesh.device(0, 0)),
-                on_iteration)
+            return self._fit_outofcore(data, stream_mesh(mesh, device), on_iteration)
         ds = on_mesh(data, None, device, self.weight_col, mesh)
         sh = Shards(ds)
         x = {i: s.x.to(torch.float32).contiguous() for i, s in sh.data.items()}
@@ -534,11 +532,12 @@ class GaussianMixture(Estimator):
 
         return step
 
-    def _fit_outofcore(self, hd: HostDataset, dev, on_iteration=None) -> GaussianMixtureModel:
-        """Rows ≫ device memory: each EM iteration streams the blocks,
-        sums their chunked E-step statistics (nk, Σr·x, Σr·xxᵀ, ll) and
-        applies one M-step; device memory stays bounded by the block
-        size."""
+    def _fit_outofcore(self, hd: HostDataset, mesh, on_iteration=None) -> GaussianMixtureModel:
+        """Rows ≫ device memory: each EM iteration streams the blocks over
+        ``mesh``, sums their chunked E-step statistics (nk, Σr·x, Σr·xxᵀ,
+        ll) a shard on its device, over the block's shards in ascending
+        order and then over the blocks, and applies one M-step on the home
+        device; device memory stays bounded by the block size."""
         d = hd.n_features
         n = hd.count()
         if n == 0:
@@ -557,18 +556,23 @@ class GaussianMixture(Estimator):
             }
         ckpt, shift, means, covs, weights, start_it, prev_ll = self._start(
             signature, d, lambda: hd.sample_rows(self.init_sample_size, self.seed))
+        dev = stream_home(mesh)
         params = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                        for a in (means, covs, weights))
         shift_d = torch.from_numpy(shift).to(dev)
 
         def step(params):
             means_d, covs_d, weights_d = params
-            chols = _gmm_chols(covs_d, self.reg_covar)
-            logw = torch.log(weights_d)
+            state = (shift_d, torch.log(weights_d), means_d, _gmm_chols(covs_d, self.reg_covar))
+
+            def stats(i, sh):
+                shift_s, logw, means_s, chols = (t.to(sh.x.device) for t in state)
+                return _em_pass(sh.x, sh.w, shift_s, logw, means_s, chols, self.chunk_rows,
+                                self.matmul_precision)
+
             tot = None
-            for blk in hd.blocks(device=dev):
-                s = _em_pass(blk.x, blk.w, shift_d, logw, means_d, chols, self.chunk_rows,
-                             self.matmul_precision)
+            for blk in hd.blocks(mesh):
+                s = shard_sum(blk, stats)
                 tot = s if tot is None else add_stats(tot, s)
             nk, sums, outer, ll = tot
             return _m_step_rule(nk, sums, outer, self.reg_covar), ll

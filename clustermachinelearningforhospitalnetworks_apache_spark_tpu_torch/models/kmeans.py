@@ -53,11 +53,16 @@ indices (``io/fit_checkpoint.py::data_fingerprint``) and resumes bit-equal
 to the uninterrupted sharded fit.  A mesh of one shard is the
 single-device fit, bit for bit.
 
-A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core path:
-each Lloyd step is one K1 launch per streamed block, the statistics
-summed over blocks, then one centroid update.  ``checkpoint_dir`` commits
-the centers every ``checkpoint_every`` steps on both paths
-(``io/fit_checkpoint.py``, the reference's signatures key for key).
+A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core path,
+on one device or over a mesh (``fit(HostDataset, mesh=)``): each Lloyd
+step streams the blocks, each block one sharded pass (K1 once a data
+shard of the block; on a model axis K2 then the owner-masked K1 once a
+(data, model) shard), the statistics summed over the block's shards in
+ascending order and then over the blocks, then one centroid update on the
+home device.  A one-device block is the (1, 1) case of the same pass.
+``checkpoint_dir`` commits the centers every ``checkpoint_every`` steps on
+both paths (``io/fit_checkpoint.py``, the reference's signatures key for
+key).
 """
 
 from __future__ import annotations
@@ -74,12 +79,11 @@ from ..io.model_io import register_model
 from ..ops.distance import matmul_p, pairwise_sqdist, sq_norms, validate_matmul_precision
 from ..ops.lloyd import fused_assign, fused_lloyd_stats
 from ..parallel.collectives import ordered_sum
-from ..parallel.mesh import check_model_local
-from ..parallel.outofcore import HostDataset, add_stats
+from ..parallel.mesh import MODEL_AXIS, check_model_local, single_device_mesh
+from ..parallel.outofcore import HostDataset, add_stats, stream_home, stream_mesh
 from ..parallel.partitioner import family
 from ..parallel.sharding import MeshArray, ShardedDataset, sample_valid_rows
-from .base import (ClusteringModel, Estimator, as_device_dataset, check_features,
-                   on_mesh, require_single_shard)
+from .base import ClusteringModel, Estimator, as_device_dataset, check_features, on_mesh
 from .summary import ClusteringSummary
 
 DISTANCE_MEASURES = ("euclidean", "cosine")
@@ -282,9 +286,16 @@ class _ShardedLloyd:
     shard (on a model axis, K2 then the owner-masked K1 once a (data,
     model) shard), the shards' statistics summed in ascending data-shard
     order (``collectives.ordered_sum``), unpacked on this process's first
-    local shard's device (``home``)."""
+    local shard's device (``home``).  A DeviceDataset is the (1, 1) mesh of
+    its device; ``c_valid`` (the slot mask laid over the mesh) may be given
+    by a caller that passes many datasets of one mesh shape (the streamed
+    blocks)."""
 
-    def __init__(self, sds: ShardedDataset, k: int, cosine: bool):
+    def __init__(self, sds, k: int, cosine: bool, c_valid: MeshArray | None = None):
+        if isinstance(sds, DeviceDataset):
+            blocks = np.empty((1, 1), dtype=object)
+            blocks[0, 0] = sds
+            sds = ShardedDataset(single_device_mesh(sds.x.device), blocks)
         mesh = sds.mesh
         check_model_local(mesh)
         self.mesh = mesh
@@ -309,7 +320,8 @@ class _ShardedLloyd:
                 blocks[i, j] = DeviceDataset(self.x[i, j], blk.y, self.w[i, j])
         #: the prepared rows, which the init samples
         self.data = ShardedDataset(mesh, blocks)
-        self.c_valid = _PT.put("state/c_valid", slot_mask(k, self.k_pad), mesh)
+        self.c_valid = (c_valid if c_valid is not None
+                        else _PT.put("state/c_valid", slot_mask(k, self.k_pad), mesh))
 
     def stats(self, centers: torch.Tensor, fn):
         """One pass against ``centers`` (k_pad, d): ``fn`` (:func:`lloyd_stats_model`
@@ -779,8 +791,9 @@ class KMeans(Estimator):
         already is a dataset; a :class:`HostDataset` streams its blocks to
         ``device``.  ``mesh`` lays the rows over its data axis and the
         centers over its model axis (a one-entry mesh is its device); a
-        ShardedDataset fits on its own mesh.  ``on_iteration(it, cost,
-        move)`` (optional) fires after every Lloyd step."""
+        ShardedDataset fits on its own mesh, a HostDataset streams its blocks
+        over ``mesh``.  ``on_iteration(it, cost, move)`` (optional) fires
+        after every Lloyd step."""
         if self.init_mode not in ("k-means++", "random"):
             raise ValueError(f"unknown init_mode {self.init_mode!r}")
         if self.distance_measure not in DISTANCE_MEASURES:
@@ -788,10 +801,7 @@ class KMeans(Estimator):
         validate_matmul_precision(self.matmul_precision)
         stats = self._stats_fn()
         if isinstance(data, HostDataset):
-            require_single_shard(None, mesh, "KMeans.fit out of core")
-            if mesh is not None and device is None:
-                device = mesh.device(0, 0)
-            return self._fit_outofcore(data, resolve_device(device), stats, on_iteration)
+            return self._fit_outofcore(data, mesh, device, stats, on_iteration)
         ds = self._on_mesh(data, device, mesh)
         if isinstance(ds, ShardedDataset):
             return self._fit_sharded(ds, stats, on_iteration)
@@ -849,15 +859,20 @@ class KMeans(Estimator):
         _, counts, cost = lloyd.stats(centers, lloyd_stats_model)
         return self._model(centers, counts, cost, it)
 
-    def _fit_outofcore(self, hd: HostDataset, dev, stats, on_iteration=None) -> KMeansModel:
-        """Rows ≫ device memory: each Lloyd step streams the blocks, one K1
-        launch a block, sums the statistics over blocks and applies one
-        centroid update; device memory stays bounded by the block size.
-        The result matches the resident fit (bit-equal when the sums are
-        exact, e.g. on integer-valued features)."""
+    def _fit_outofcore(self, hd: HostDataset, mesh, device, stats,
+                       on_iteration=None) -> KMeansModel:
+        """Rows ≫ device memory: each Lloyd step streams the blocks over
+        ``mesh`` (or to ``device``), one sharded pass a block
+        (:class:`_ShardedLloyd`: one K1 launch a data shard, K2 + K1 a
+        (data, model) shard on a model axis), the statistics summed over
+        the block's shards and then over the blocks, and one centroid
+        update on the home device; device memory stays bounded by the
+        block size.  The result matches the resident fit (bit-equal when
+        the sums are exact, e.g. on integer-valued features)."""
         cosine = self.distance_measure == "cosine"
         d = hd.n_features
-        k_pad = padded_slots(self.k, 1)
+        sm = stream_mesh(mesh, device)
+        k_pad = padded_slots(self.k, sm.shape[MODEL_AXIS])
 
         signature = None
         if self.checkpoint_dir:
@@ -875,14 +890,15 @@ class KMeans(Estimator):
         ckpt, resumed = self._checkpointer(signature)
         cen, start_it = self._start(
             resumed, d, k_pad, lambda: hd.sample_rows(self.init_sample_size, self.seed))
-        centers = torch.from_numpy(cen).to(dev)
-        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(dev)
+        home = stream_home(sm)
+        centers = torch.from_numpy(cen).to(home)
+        c_valid = torch.from_numpy(slot_mask(self.k, k_pad)).to(home)
+        c_valid_mesh = _PT.put("state/c_valid", slot_mask(self.k, k_pad), sm)
 
         def epoch(cen, stats_fn):
             tot = None
-            for blk in hd.blocks(device=dev):
-                x = _cosine_prep(blk.x, blk.w) if cosine else blk.x
-                s = stats_fn([(x, blk.w, cen, c_valid)])[0]
+            for blk in hd.blocks(sm):
+                s = _ShardedLloyd(blk, self.k, cosine, c_valid_mesh).stats(cen, stats_fn)
                 tot = s if tot is None else add_stats(tot, s)
             if tot is None:
                 raise ValueError("k-means fit on an empty dataset")

@@ -23,10 +23,11 @@ stops, and the host reads the flag once a chunk, so ``n_iter`` equals the
 reference's.
 
 A :class:`~..parallel.outofcore.HostDataset` takes the out-of-core
-path: one pass over the streamed blocks sums weighted moments and the
-Gram matrix of features shifted by a host-sample mean, then the small
-(d, d) system is solved (or FISTA'd) in centered, standardized
-coordinates.
+path, on one device or over a mesh: one pass over the streamed blocks sums
+weighted moments and the Gram matrix of features shifted by a host-sample
+mean (each block's shards on their devices, summed in ascending shard
+order, then over the blocks), then the small (d, d) system is solved (or
+FISTA'd) once, on the home device, in centered, standardized coordinates.
 
 The partials protocol (``federated/``, family ``"linear"``): a silo's
 statistics are the fit's own sums (:func:`_wls_partial_stats`: Σw, Σw·x,
@@ -59,8 +60,8 @@ import torch
 
 from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset, add_stats
-from .base import Estimator, Model, Shards, check_features, on_mesh, require_single_shard
+from ..parallel.outofcore import HostDataset, add_stats, shard_sum, stream_home, stream_mesh
+from .base import Estimator, Model, Shards, check_features, on_mesh
 from .summary import SummaryMixin
 
 #: rows summed by one partial product of :func:`chunked_gram`
@@ -370,11 +371,9 @@ class LinearRegression(Estimator):
             mesh=None) -> LinearRegressionModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
-        :class:`HostDataset` streams its blocks to ``device``."""
+        :class:`HostDataset` streams its blocks there."""
         if isinstance(data, HostDataset):
-            require_single_shard(None, mesh, "LinearRegression.fit out of core")
-            return self._fit_outofcore(data, resolve_device(
-                device if mesh is None or device is not None else mesh.device(0, 0)))
+            return self._fit_outofcore(data, stream_mesh(mesh, device))
         ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
         sh = Shards(ds)
         info = {}
@@ -450,9 +449,10 @@ class LinearRegression(Estimator):
                                               self.fit_intercept, self.standardize)
         return LinearRegressionModel(coefficients=coef, intercept=intercept)
 
-    def _fit_outofcore(self, hd: HostDataset, dev) -> LinearRegressionModel:
-        """Rows ≫ device memory: one pass of block statistics, then the
-        (d, d) solve.  No training summary (it would pin the whole
+    def _fit_outofcore(self, hd: HostDataset, mesh) -> LinearRegressionModel:
+        """Rows ≫ device memory: one pass of block statistics over ``mesh``
+        (each block's shards summed in shard order, then the blocks), then
+        the (d, d) solve on the home device.  No training summary (it would pin the whole
         dataset on the device), as in the reference."""
         if hd.y is None:
             raise ValueError("LinearRegression needs labels: HostDataset(y=...)")
@@ -460,14 +460,16 @@ class LinearRegression(Estimator):
             raise ValueError("LinearRegression fit on an empty dataset")
         # the shift is a host-sample mean, exactly 0 without an intercept to
         # absorb it (or when every weight is 0)
+        dev = stream_home(mesh)
         sample = hd.sample_rows(65536, seed=0) if self.fit_intercept else None
         if sample is not None and sample.shape[0] > 0:
             shift = torch.from_numpy(sample.mean(axis=0).astype(np.float32)).to(dev)
         else:
             shift = torch.zeros((hd.n_features,), dtype=torch.float32, device=dev)
         tot = None
-        for blk in hd.blocks(device=dev):
-            s = _lr_block_stats(blk.x, blk.y, blk.w, shift)
+        for blk in hd.blocks(mesh):
+            s = shard_sum(blk, lambda i, sh: _lr_block_stats(sh.x, sh.y, sh.w,
+                                                             shift.to(sh.x.device)))
             tot = s if tot is None else add_stats(tot, s)
         coef, intercept, info = _lr_solve_from_stats(
             tot, shift, float(self.reg_param), self.fit_intercept, self.standardize,

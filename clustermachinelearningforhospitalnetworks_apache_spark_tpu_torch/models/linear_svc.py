@@ -27,7 +27,8 @@ import torch
 
 from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset, standardized_ridge, streamed_standardization
+from ..parallel.outofcore import (HostDataset, standardized_ridge, stream_mesh,
+                                  streamed_standardization)
 from .base import Estimator, Model, as_device_dataset, check_features
 from .linear_regression import standardized_design
 from .logistic_regression import newton_loop, row_sums, streamed_newton_loop, with_intercept
@@ -177,7 +178,7 @@ class LinearSVC(Estimator):
         dd = nfeat + (1 if self.fit_intercept else 0)
         if self.reg_param > 0:
             # pass 0: the moments → the standardized ridge
-            n, _, std, _ = streamed_standardization(hd, dev)
+            n, _, std, _ = streamed_standardization(hd, device=dev)
             ridge = standardized_ridge(n, std, self.reg_param, nfeat, self.fit_intercept,
                                        self.standardize)
         else:
@@ -187,7 +188,8 @@ class LinearSVC(Estimator):
         ridge = torch.from_numpy(ridge).to(dev)
         n_dev = torch.tensor(n, dtype=torch.float32, device=dev)
         theta, it = streamed_newton_loop(
-            hd, dev, lambda blk, th: _svc_block_stats(blk.x, blk.y, blk.w, th, self.fit_intercept),
+            hd, stream_mesh(device=dev),
+            lambda blk, th: _svc_block_stats(blk.x, blk.y, blk.w, th, self.fit_intercept),
             lambda th, g, h: _svc_update_from_stats(th, g, h, ridge, n_dev),
             torch.zeros((dd,), dtype=torch.float32, device=dev), self.tol, self.max_iter)
         th = theta.cpu().numpy()

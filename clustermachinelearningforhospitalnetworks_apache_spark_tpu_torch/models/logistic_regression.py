@@ -32,10 +32,12 @@ Hessian) are computed once a data shard on its device against ``theta``
 broadcast from the home device, summed in ascending shard order, and the
 damped solve runs once on the home device.
 
-A :class:`~..parallel.outofcore.HostDataset` streams its blocks through
-the same statistics once a Newton step, after the moments pre-pass
-(``streamed_standardization``), with one host read a step as in the
-reference; out-of-core fits carry no training summary.
+A :class:`~..parallel.outofcore.HostDataset` streams its blocks, to one
+device or over a mesh, through the same statistics once a Newton step
+(each block's shards summed in ascending shard order, then the blocks),
+after the moments pre-pass (``streamed_standardization`` over the same
+shards), with one host read a step as in the reference; out-of-core fits
+carry no training summary.
 """
 
 from __future__ import annotations
@@ -45,12 +47,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset, add_stats, streamed_standardization
+from ..parallel.outofcore import (HostDataset, add_stats, shard_sum, stream_home, stream_mesh,
+                                  streamed_standardization)
 from ..parallel.collectives import gather_shards
-from .base import (Estimator, Model, PredictionResult, Shards, check_features, on_mesh,
-                   require_single_shard)
+from .base import Estimator, Model, PredictionResult, Shards, check_features, on_mesh
 from .linear_regression import chunked_gram, shard_moments
 from .summary import (
     BinaryLogisticRegressionTrainingSummary,
@@ -99,17 +100,20 @@ def newton_loop(step, theta: torch.Tensor, tol: float, max_iter: int):
     return theta, n_iter, syncs
 
 
-def streamed_newton_loop(hd: HostDataset, dev, stats, update, theta: torch.Tensor,
+def streamed_newton_loop(hd: HostDataset, mesh, stats, update, theta: torch.Tensor,
                          tol: float, max_iter: int):
-    """The out-of-core Newton loop: each step streams ``hd``'s blocks,
-    summing ``stats(block, theta)`` with ``add_stats``, then ``theta, dmax
-    = update(theta, *sums)``; one host read of ``dmax`` a step, as in the
+    """The out-of-core Newton loop over ``mesh`` (``outofcore.stream_mesh``:
+    a device is its one-entry mesh): each step streams ``hd``'s blocks, runs
+    ``stats(shard, theta)`` once a data shard of a block (``theta`` on the
+    shard's device), sums the shards in ascending order and the blocks
+    with ``add_stats``, then ``theta, dmax = update(theta, *sums)`` on
+    ``theta``'s device; one host read of ``dmax`` a step, as in the
     reference.  → (theta, n_iter)."""
     it = 0
     for it in range(1, max_iter + 1):
         tot = None
-        for blk in hd.blocks(device=dev):
-            s = stats(blk, theta)
+        for blk in hd.blocks(mesh):
+            s = shard_sum(blk, lambda i, sh: stats(sh, theta.to(sh.x.device)))
             tot = s if tot is None else add_stats(tot, s)
         theta, dmax = update(theta, *tot)
         if float(dmax) <= tol:
@@ -372,13 +376,11 @@ class LogisticRegression(Estimator):
     def fit(self, data, label_col: str | None = None, device=None, mesh=None):
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
-        :class:`HostDataset` streams its blocks to ``device``."""
+        :class:`HostDataset` streams its blocks there."""
         if self.family not in ("auto", "binomial", "multinomial"):
             raise ValueError(f"family must be auto|binomial|multinomial, got {self.family!r}")
         if isinstance(data, HostDataset):
-            require_single_shard(None, mesh, "LogisticRegression.fit out of core")
-            return self._fit_outofcore(data, resolve_device(
-                device if mesh is None or device is not None else mesh.device(0, 0)))
+            return self._fit_outofcore(data, stream_mesh(mesh, device))
         ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
         sh = Shards(ds)
         # one host read: the class count is a shape parameter (and the
@@ -404,18 +406,19 @@ class LogisticRegression(Estimator):
         model.fit_info = {"host_syncs": syncs + 1}
         return model
 
-    def _fit_outofcore(self, hd: HostDataset, dev):
+    def _fit_outofcore(self, hd: HostDataset, mesh):
         """Rows ≫ device memory: each Newton step is one pass over the
-        blocks summing the resident fit's (gradient, Hessian), then the
-        same damped solve; one host read of the step a pass, as in the
-        reference.  No training summary (it would pin the whole dataset on
-        the device)."""
+        blocks on ``mesh`` summing the resident fit's (gradient, Hessian)
+        a shard at a time, then the same damped solve on the home device;
+        one host read of the step a pass, as in the reference.  No training
+        summary (it would pin the whole dataset on the device)."""
         if hd.y is None:
             raise ValueError("LogisticRegression needs labels: HostDataset(y=...)")
         if hd.n == 0:
             raise ValueError("LogisticRegression fit on an empty dataset")
         # pass 0: the standardization moments (→ the ridge) and the class count
-        n, _, std, ymax = streamed_standardization(hd, dev, extra="ymax")
+        dev = stream_home(mesh)
+        n, _, std, ymax = streamed_standardization(hd, mesh, extra="ymax")
         scale = std if self.standardize else np.ones_like(std)
         num_classes = int(ymax) + 1
         family = _family(self.family, num_classes)
@@ -441,7 +444,7 @@ class LogisticRegression(Estimator):
 
             ridge = torch.from_numpy(ridge1).to(dev)
         theta, it = streamed_newton_loop(
-            hd, dev, stats, lambda th, g, h: _newton_update_from_stats(th, g, h, ridge),
+            hd, mesh, stats, lambda th, g, h: _newton_update_from_stats(th, g, h, ridge),
             torch.zeros((k * dd,), dtype=torch.float32, device=dev), self.tol, self.max_iter)
         if family == "multinomial":
             th = theta.reshape(k, dd)

@@ -6,7 +6,8 @@ A decision tree is the one-tree case of the level-order histogram engine
 and ``transform(..., mesh=)`` predicts shard by shard.  Spark defaults: maxDepth 5, maxBins 32,
 minInstancesPerNode 1, minInfoGain 0.  A
 :class:`~...parallel.outofcore.HostDataset` streams through the engine's
-out-of-core grower, which alone reads ``checkpoint_dir``.
+out-of-core grower, on ``device`` or over ``mesh``, which alone reads
+``checkpoint_dir``.
 """
 
 from __future__ import annotations
@@ -18,16 +19,16 @@ import torch
 
 from ...io.model_io import register_model
 from ...parallel.outofcore import HostDataset
-from ..base import Estimator, Model, check_features, on_mesh, require_single_shard
+from ..base import Estimator, Model, check_features, on_mesh
 from .engine import GrownForest, grow_forest, grow_forest_outofcore, predict_forest
 
 
 def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None = None,
                mesh=None, **kw) -> GrownForest:
     """Shared fit for every tree estimator: a HostDataset streams through
-    ``grow_forest_outofcore``; anything else is staged on ``device``, or
-    over ``mesh`` (each data shard on its device, ``engine.grow_forest``'s
-    sharded path), and grown resident.  ``subset_strategy`` (forests)
+    ``grow_forest_outofcore`` (to ``device``, or over ``mesh``); anything
+    else is staged on ``device``, or over ``mesh`` (each data shard on its
+    device, ``engine.grow_forest``'s sharded path), and grown resident.  ``subset_strategy`` (forests)
     resolves to a per-node feature count once the dataset's width is
     known."""
     def subset_kw(d: int) -> dict:
@@ -38,12 +39,10 @@ def _fit_grown(data, label_col, weight_col, device, subset_strategy: str | None 
         return {"feature_subset_size": _subset_size(subset_strategy, d, kw["task"])}
 
     if isinstance(data, HostDataset):
-        require_single_shard(None, mesh, "a tree fit out of core")
-        if mesh is not None and device is None:
-            device = mesh.device(0, 0)
         if data.y is None:
             raise ValueError("tree fit needs labels: HostDataset(y=...)")
-        return grow_forest_outofcore(data, device=device, **subset_kw(data.n_features), **kw)
+        return grow_forest_outofcore(data, device=device, mesh=mesh,
+                                     **subset_kw(data.n_features), **kw)
     # checkpoints serve the long streaming fits; a resident fit is one
     # device pass a level and restarts cheaply
     kw.pop("checkpoint_dir", None)

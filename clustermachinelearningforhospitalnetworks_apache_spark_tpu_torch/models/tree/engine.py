@@ -35,13 +35,17 @@ axis (its histogram's in_specs shard only the rows), so each data shard
 runs once, on its ``(i, 0)`` entry.  In one process the level loop makes
 no host sync; across processes each level's gather is one round trip.
 
-``grow_forest_outofcore`` grows from a :class:`~...parallel.outofcore.HostDataset`:
-each level streams the blocks, re-bins each one, replays the recorded
-splits to find its rows' nodes, and sums one K3 launch a block; the same
-selection then picks the winners.  Its bootstrap is drawn per block,
-``poisson(fold_in(key(seed), block), rate, (T, b))``, so every level's
-re-stream of a block draws the same weights.  A level is its checkpoint
-boundary (``io/fit_checkpoint.py``).
+``grow_forest_outofcore`` grows from a :class:`~...parallel.outofcore.HostDataset`,
+on one device or over a mesh's data shards: each level streams the
+blocks, re-bins each block shard, replays the recorded splits to find its
+rows' nodes and runs one K3 launch a data shard of a block; the shards'
+histograms add in ascending shard order, then the blocks, and the same
+selection picks the winners once on the home device.  Its bootstrap is
+drawn per block on the home device, ``poisson(fold_in(key(seed), block),
+rate, (T, b))`` over the block's (mesh-rounded) rows, and cut by columns
+into the shards, so every level's re-stream of a block draws the same
+weights, and the JAX package's draw on the same mesh shape.  A level is
+its checkpoint boundary (``io/fit_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +57,6 @@ import numpy as np
 import torch
 
 from ... import prng
-from ...device import resolve_device
 from ...ops.tree_hist import fused_level_hist
 from .binning import digitize, quantile_thresholds
 
@@ -681,24 +684,31 @@ def grow_forest_outofcore(
     checkpoint_dir: str | None = None,
     checkpoint_every: int = 1,
     on_level=None,
+    mesh=None,
 ) -> GrownForest:
-    """Grow from a HostDataset: every level is one more sufficient-stats
-    pass over the streamed blocks, so device memory stays bounded by
+    """Grow from a HostDataset on ``device`` (default the card) or over
+    ``mesh``: every level is one more sufficient-stats pass over the
+    streamed blocks, so device memory stays bounded by
     ``hd.max_device_rows``.
 
     Per level, each block is re-binned against the fit-start thresholds
     (from ``hd.sample_rows`` or the caller's ``bin_thresholds``), replayed
     through the splits recorded so far (``advance_level``, the routing the
     resident loop applies once per level) and given its (T, LN, d, B, S)
-    histogram by one K3 launch; the block histograms are summed and
-    ``select_splits`` picks the winners.  With float32-exact sums the
-    splits are the resident engine's.
+    histogram by one K3 launch a data shard; the shards' histograms are
+    summed in ascending shard order, then the blocks, and
+    ``select_splits`` picks the winners on the home device.  With
+    float32-exact sums the splits are the resident engine's.
 
     ``checkpoint_dir`` commits the thresholds and the recorder's arrays
     every ``checkpoint_every`` levels; a resumed fit rebuilds the recorded
     levels' winners from them and goes on at the next level.
     ``on_level(depth)`` fires after each level's commit."""
-    dev = resolve_device(device)
+    from ...parallel.collectives import ordered_sum
+    from ...parallel.outofcore import block_shards, stream_home, stream_mesh
+
+    sm = stream_mesh(mesh, device)
+    dev = stream_home(sm)
     d = hd.n_features
     T = num_trees
     B = max_bins
@@ -720,7 +730,8 @@ def grow_forest_outofcore(
         thr = quantile_thresholds(sample, B)
 
     S = 3 if task == "regression" else num_classes
-    _, b = hd.block_shape()
+    _, b = hd.block_shape(sm)
+    per = b // sm.devices.shape[0]
     subset_k = (
         feature_subset_size
         if feature_subset_size is not None and feature_subset_size < d
@@ -771,25 +782,27 @@ def grow_forest_outofcore(
             winners.extend(winners_from_recorder(dep) for dep in range(step0 + 1))
             start_depth = step0 + 1
 
-    def block_arrays(blk, block_idx: int):
-        """(binned_t, base_t, w_tree) of one streamed block."""
-        binned_t = bin_feature_matrix(blk.x, thr, cat, w=blk.w)
-        base_t = _stats_base(blk.y, task, S)
-        if bootstrap:
-            w_tree = block_bootstrap(seed, block_idx, float(subsampling_rate), T, b, dev) \
-                * blk.w[None, :]
+    def shard_arrays(sh, i: int, boot):
+        """(binned_t, base_t, w_tree) of data shard ``i`` of a streamed
+        block (``boot`` the block's (T, b) bootstrap draw, or None)."""
+        binned_t = bin_feature_matrix(sh.x, thr, cat, w=sh.w)
+        base_t = _stats_base(sh.y, task, S)
+        if boot is not None:
+            w_tree = boot[:, i * per:(i + 1) * per].to(sh.x.device) * sh.w[None, :]
         else:
-            w_tree = blk.w[None, :].expand(T, b).contiguous()
+            w_tree = sh.w[None, :].expand(T, per).contiguous()
         return binned_t, base_t, w_tree
 
     def descend(binned_t, upto_depth: int):
-        """Rows → their heap node at ``upto_depth``, replaying the recorded
-        levels' splits."""
-        node_id = torch.zeros((T, b), dtype=torch.int32, device=dev)
+        """A shard's rows → their heap node at ``upto_depth``, replaying the
+        recorded levels' splits on the shard's device."""
+        dv = binned_t.device
+        node_id = torch.zeros((T, per), dtype=torch.int32, device=dv)
+        cat_d = None if is_cat is None else is_cat.to(dv)
         for dep in range(upto_depth):
-            feat, bin_, split, catmask = winners[dep]
+            feat, bin_, split, catmask = (t.to(dv) for t in winners[dep])
             node_id = advance_level(binned_t, node_id, _frontier(node_id, 1 << dep), feat,
-                                    bin_, split, (1 << dep) - 1, catmask, is_cat)
+                                    bin_, split, (1 << dep) - 1, catmask, cat_d)
         return node_id
 
     min_inst, min_gain = float(min_instances_per_node), float(min_info_gain)
@@ -800,10 +813,15 @@ def grow_forest_outofcore(
         else:
             mask = torch.ones((T, level_nodes, d), dtype=torch.float32, device=dev)
         hist = None
-        for i, blk in enumerate(hd.blocks(device=dev)):
-            binned_t, base_t, w_tree = block_arrays(blk, i)
-            pos = _frontier(descend(binned_t, depth), level_nodes)
-            h = fused_level_hist(binned_t, base_t, w_tree, pos, level_nodes, B)
+        for bi, blk in enumerate(hd.blocks(sm)):
+            boot = (block_bootstrap(seed, bi, float(subsampling_rate), T, b, dev)
+                    if bootstrap else None)
+            parts: list = [None] * sm.devices.shape[0]
+            for i, sh in block_shards(blk).items():
+                binned_t, base_t, w_tree = shard_arrays(sh, i, boot)
+                pos = _frontier(descend(binned_t, depth), level_nodes)
+                parts[i] = fused_level_hist(binned_t, base_t, w_tree, pos, level_nodes, B)
+            h = ordered_sum(parts, sm)
             hist = h if hist is None else hist + h
         agg, gain, feat, bin_, split, catmask = select_splits(
             hist, mask, min_inst, min_gain, task, is_cat)

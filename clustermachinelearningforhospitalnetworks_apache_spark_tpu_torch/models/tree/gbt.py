@@ -32,10 +32,11 @@ tensors, built once on the home device, move to every shard to advance F.
 In one process the rounds make no host sync.  The validation rows are cut
 as the data is, and their loss is summed in shard order.
 
-A :class:`~...parallel.outofcore.HostDataset` boosts out of core: the
-margin column lives on the host, each round grows one out-of-core tree
-(``engine.grow_forest_outofcore``) and streams the blocks through it to
-advance F; ``checkpoint_dir`` commits the margin and the trees every
+A :class:`~...parallel.outofcore.HostDataset` boosts out of core, on one
+device or over a mesh: the margin column lives on the host, each round
+grows one out-of-core tree (``engine.grow_forest_outofcore``) and streams
+the blocks through it to advance F, each block shard predicted on its
+device; ``checkpoint_dir`` commits the margin and the trees every
 ``checkpoint_every`` rounds (``io/fit_checkpoint.py``, the reference's
 signature), so a preempted fit resumes at the next round.
 
@@ -61,12 +62,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from ...device import resolve_device
 from ...io.model_io import register_model
-from ...parallel.outofcore import HostDataset
+from ...parallel.outofcore import HostDataset, shard_rows, stream_mesh
 from ...parallel.sharding import sample_valid_rows
-from ..base import Estimator, Model, Shards, check_features, is_sharded, on_mesh, \
-    require_single_shard
+from ..base import Estimator, Model, Shards, check_features, is_sharded, on_mesh
 from . import engine
 from .binning import quantile_thresholds
 
@@ -403,10 +402,11 @@ class _GBTParams:
                 best_err, best_m = err, t + 1
         return trees[:best_m] if best_m > 0 else trees
 
-    def _boost_outofcore(self, hd: HostDataset, dev, loss: str) -> GBTModel:
+    def _boost_outofcore(self, hd: HostDataset, mesh, loss: str) -> GBTModel:
         """Rows ≫ device memory: the margin column F lives on the host,
         each round grows one out-of-core tree on the host pseudo-residuals
-        and streams the blocks through it to advance F.  The thresholds
+        over ``mesh`` and streams the blocks through it, shard by shard, to
+        advance F.  The thresholds
         are computed once; ``validation_indicator_col`` needs a table and
         is refused."""
         if self.validation_indicator_col is not None:
@@ -480,7 +480,7 @@ class _GBTParams:
                     ))
                 start_t = step0 + 1
 
-        _, b = hd.block_shape()
+        _, b = hd.block_shape(mesh)
         for t in range(start_t, self.max_iter):
             grown = engine.grow_forest_outofcore(
                 HostDataset(hd.x, residual(f_cur).astype(np.float32), hd.w,
@@ -494,21 +494,27 @@ class _GBTParams:
                 bootstrap=self.subsampling_rate < 1.0,
                 subsampling_rate=self.subsampling_rate,
                 seed=self.seed + t,
-                device=dev,
+                mesh=mesh,
                 categorical_features=cat,
                 bin_thresholds=thr,
             )
             trees.append(grown)
             # advance the host margin: stream the blocks through the new tree
-            sf = torch.as_tensor(grown.split_feat, device=dev)
-            th = torch.as_tensor(grown.threshold, device=dev)
-            val = torch.as_tensor(grown.value, device=dev)
-            for i, blk in enumerate(hd.blocks(device=dev)):
-                pred = engine.predict_forest(blk.x, sf, th, val, grown.split_catmask,
+            heap = {}
+
+            def predict(i, sh):
+                dv = sh.x.device
+                if dv not in heap:
+                    heap[dv] = tuple(torch.as_tensor(a, device=dv) for a in
+                                     (grown.split_feat, grown.threshold, grown.value))
+                return engine.predict_forest(sh.x, *heap[dv], grown.split_catmask,
                                              cat_flags)[0, :, 0]
+
+            for i, blk in enumerate(hd.blocks(mesh)):
+                pred = shard_rows(blk, predict)
                 s = i * b
                 e = min(s + b, hd.n)
-                f_cur[s:e] += self.step_size * pred.cpu().numpy()[: e - s]
+                f_cur[s:e] += self.step_size * pred[: e - s]
             if ckpt is not None and (t + 1) % max(self.checkpoint_every, 1) == 0:
                 arrays = {
                     "thr": thr,
@@ -524,13 +530,6 @@ class _GBTParams:
         return _ensemble(trees, loss, f0, self.step_size, self.max_depth, cat)
 
 
-def _outofcore_device(device, mesh):
-    """An out-of-core boost's device: one shard only (slice 8c brings the
-    mesh), the one-entry mesh's device or ``device``."""
-    require_single_shard(None, mesh, "a GBT fit out of core")
-    return resolve_device(device if mesh is None or device is not None else mesh.device(0, 0))
-
-
 @dataclass(frozen=True)
 class GBTRegressor(Estimator, _GBTParams):
     mesh_fit = True
@@ -538,10 +537,10 @@ class GBTRegressor(Estimator, _GBTParams):
     def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> GBTModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
-        :class:`HostDataset` boosts out of core, streaming its blocks to
-        ``device``."""
+        :class:`HostDataset` boosts out of core, streaming its blocks
+        there."""
         if isinstance(data, HostDataset):
-            return self._boost_outofcore(data, _outofcore_device(device, mesh), loss="squared")
+            return self._boost_outofcore(data, stream_mesh(mesh, device), loss="squared")
         return self._fit(data, label_col, device, mesh, "squared")
 
 
@@ -574,8 +573,7 @@ class GBTClassifier(Estimator, _GBTParams):
                 raise ValueError("GBT fit needs labels: HostDataset(y=...)")
             yv = np.asarray(data.y)
             _check_binary(yv[np.asarray(data.w) > 0] if data.w is not None else yv)
-            return self._boost_outofcore(data, _outofcore_device(device, mesh),
-                                         loss="logistic")
+            return self._boost_outofcore(data, stream_mesh(mesh, device), loss="logistic")
         return self._fit(data, label_col, device, mesh, "logistic")
 
 

@@ -29,7 +29,13 @@ from its first 256 rows:
    5, each batch sharded: ``shard_min_rows_per_device=16,384``) and
    ``bulk_score`` of the 10M rows with a k=256 model, with their warm
    seconds;
-4. C processes, one card each, NCCL through a ``file://`` store: the
+4. out of core over a (C, 1) mesh of the C cards, each ``==`` the (C, 1)
+   mesh over ``[cuda:0] * C``: KMeans k=256 on the main path's 10M rows
+   memory-mapped in blocks of 2**20 (warm-started as in item 1) and the
+   rf20 forest shape (2M x 8, 20 trees, depth 5, bootstrap) on integer LOS
+   in 8 blocks of 2**18, with their warm seconds: each card takes its
+   shard's segment of every block on its own copy stream;
+5. C processes, one card each, NCCL through a ``file://`` store: the
    host-major (C, 1) mesh, every rank's model ``==`` the in-process (C, 1)
    fit, each rank's warm fit seconds (its second fit) and the seconds of
    it inside the ordered gather (``collectives.gather_shards``).
@@ -171,6 +177,61 @@ def clustering_leg(port, cs, C: int, cards: list, one: list, dev: str, scale: in
     return secs
 
 
+def outofcore_leg(port, cs, C: int, cards: list, one: list, dev: str, x, warm, tmp: str,
+                  scale: int, card: str) -> dict:
+    """KMeans and the forest out of core over a (C, 1) mesh of the cards
+    against the same shape over one card: ``==``.  Rows are the main path's
+    ``x`` (memory-mapped from ``tmp``) and ``chip_smoke.py``'s rf20 shape,
+    the blocks divided by ``scale``.  → their seconds."""
+    import numpy as np
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models.tree import (
+        engine,
+    )
+
+    np.save(os.path.join(tmp, "ooc.npy"), x)
+    hk = port.HostDataset(x=np.load(os.path.join(tmp, "ooc.npy"), mmap_mode="r"),
+                          max_device_rows=cs.OOC_BLOCK // scale)
+    xf = cs.make_data(cs.TREE_N // scale, cs.D, 16)
+    rng = np.random.default_rng(0)
+    yf = xf @ rng.normal(size=(cs.D,)) + rng.normal(0.0, 0.3, size=len(xf))
+    hf = port.HostDataset(x=xf, y=np.clip(np.round(yf + 1.5), 0, 3).astype(np.float32),
+                          max_device_rows=cs.FOREST_BLOCK // scale)
+    runs = {}
+    for name, devs in (("cards", cards), ("one_card", one)):
+        mesh = port.build_mesh(port.MeshConfig(data=C), devs)
+        got = {}
+        for leg, run in (
+            ("kmeans", lambda: port.KMeans(k=K, seed=SEED, max_iter=MAX_ITER,
+                                           warm_start_centers=warm).fit(hk, mesh=mesh)),
+            ("forest", lambda: engine.grow_forest_outofcore(
+                hf, mesh=mesh, task="regression", num_trees=20, max_depth=5, bootstrap=True,
+                seed=0)),
+        ):
+            run()                                               # first use of each card
+            sync_all(dev)
+            t0 = time.perf_counter()
+            out = run()
+            sync_all(dev)
+            got[leg] = (out, time.perf_counter() - t0)
+        runs[name] = got
+    a, b = runs["cards"], runs["one_card"]
+    same_k = same(a["kmeans"][0], b["kmeans"][0])
+    same_f = all(np.array_equal(getattr(a["forest"][0], k), getattr(b["forest"][0], k))
+                 for k in ("split_feat", "threshold", "value"))
+    if not (same_k and same_f):
+        fail(f"out of core over {C} cards differs from one card's: kmeans {same_k}, "
+             f"forest {same_f}")
+    secs = {leg: {"cards_s": a[leg][1], "one_card_s": b[leg][1]} for leg in a}
+    print(f"({C}, 1) out of core, one process, over {C} cards against one card: KMeans k={K} "
+          f"on {hk.n} memmapped rows in {hk.block_shape()[0]} blocks, n_iter "
+          f"{a['kmeans'][0].n_iter}; the forest on {hf.n} rows in {hf.block_shape()[0]} blocks; "
+          + "; ".join(f"{leg} {v['cards_s']:.4f} s / {v['one_card_s']:.4f} s "
+                      f"({v['one_card_s'] / v['cards_s']:.2f}x)" for leg, v in secs.items())
+          + f"; each == bit for bit ({card})", flush=True)
+    return secs
+
+
 def fit(port, ds, warm, mesh, dev: str):
     """A warm KMeans fit of the dataset ``ds`` laid over ``mesh`` →
     (model, seconds)."""
@@ -298,6 +359,11 @@ def main() -> None:
     # the stage once more: what the clustering legs leave behind slows it or not
     out["model_stage_after_clustering"] = stage_leg(port, window, C, cards, one, dev, card,
                                                     "after the clustering legs")
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["outofcore"] = outofcore_leg(port, cs, C, cards, one, dev, x, warm, tmp,
+                                         50 if dev == "cpu" else 1, card)
     if dev != "cpu":
         torch.cuda.empty_cache()
 

@@ -44,6 +44,8 @@ torch.set_num_threads(1)
 
 N, D, K = 2048, 8, 16
 JOIN_S = 120
+#: rows a block of the out-of-core fit (3 blocks of 700 over (2, M))
+OOC_ROWS = 700
 
 
 def _rows() -> np.ndarray:
@@ -113,6 +115,10 @@ def _rank_main(rank: int, store: str, model: int, out_dir: str) -> None:
         ds = P.device_dataset(x, mesh=mesh)
         pred = P.unpad(m.predict(ds.x), N)
         phases = {f"phase_{k}": v for k, v in _phases(mesh).items()}
+        ooc = port.KMeans(k=K, seed=0, max_iter=15).fit(
+            port.HostDataset(x=x, max_device_rows=OOC_ROWS), mesh=mesh)
+        phases.update(ooc_centers=ooc.cluster_centers, ooc_sizes=ooc.cluster_sizes,
+                      ooc_cost=np.float64(ooc.training_cost), ooc_n_iter=np.int64(ooc.n_iter))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), centers=m.cluster_centers,
                  sizes=m.cluster_sizes, cost=np.float64(m.training_cost),
                  n_iter=np.int64(m.n_iter), pred=pred, shape=np.array(list(mesh.shape.values())),
@@ -200,6 +206,24 @@ def test_two_process_fit_is_bit_equal_across_ranks_and_to_one_process(clusters, 
     assert float(ranks[0]["cost"]) == ref.training_cost
     assert int(ranks[0]["n_iter"]) == ref.n_iter
     np.testing.assert_array_equal(ranks[0]["pred"], ref.predict_numpy(x, device="cpu"))
+
+
+@pytest.mark.parametrize("model", [1, 2])
+def test_two_process_outofcore_kmeans_is_the_in_process_fit(clusters, model):
+    """KMeans out of core over (2, M) across two ranks (each fills and copies
+    only its own shard of every block; one gather a block): ``==`` on
+    every rank to the in-process out-of-core fit on the same mesh shape.
+    The gather cadence is a block's, so the sums fold per block over the
+    shards and then over the blocks, the in-process order."""
+    ranks = clusters(model)
+    mesh = P.build_mesh(port.MeshConfig(data=2, model=model), [torch.device("cpu")] * 2 * model)
+    ref = port.KMeans(k=K, seed=0, max_iter=15).fit(
+        port.HostDataset(x=_rows(), max_device_rows=OOC_ROWS), mesh=mesh)
+    for r in ranks:
+        np.testing.assert_array_equal(r["ooc_centers"], ref.cluster_centers)
+        np.testing.assert_array_equal(r["ooc_sizes"], ref.cluster_sizes)
+        assert float(r["ooc_cost"]) == ref.training_cost
+        assert int(r["ooc_n_iter"]) == ref.n_iter
 
 
 @pytest.mark.parametrize("model", [1, 2])

@@ -190,6 +190,33 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch, tmp
     assert port.KMeans(k=2).fit(x, device="cpu").n_iter >= 1
 
 
+def test_slice_8c_2_block_shape_is_host_work_and_the_streams_default_to_the_card(
+        monkeypatch):
+    """Slice 8c-2's split: ``block_shape(mesh)`` is host arithmetic (a CPU
+    mesh, no card), while ``blocks()`` / ``blocks(None)`` and
+    ``streamed_standardization`` with neither a mesh nor a device stream to
+    the card and raise without one; named CPU meshes run."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel as P
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.parallel import (
+        outofcore,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.arange(90, dtype=np.float32).reshape(30, 3)
+    y = (x[:, 0] > 40).astype(np.float32)
+    hd = port.HostDataset(x, y, max_device_rows=7)
+    mesh = P.build_mesh(port.MeshConfig(data=4, model=1), [torch.device("cpu")] * 4)
+    assert hd.block_shape(mesh) == (4, 8) and hd.block_shape() == (5, 7)
+    for call in (lambda: list(hd.blocks()), lambda: list(hd.blocks(None, np.float32)),
+                 lambda: outofcore.streamed_standardization(hd),
+                 lambda: outofcore.streamed_standardization(hd, extra="ymax"),
+                 lambda: port.KMeans(k=2).fit(hd, device=None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert len(list(hd.blocks(mesh))) == 4
+    assert outofcore.streamed_standardization(hd, mesh, extra="ymax")[3] == 1.0
+
+
 def test_launch_counts_cover_every_kernel():
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import ops
 

@@ -298,7 +298,7 @@ def test_streamed_standardization_matches_reference():
         jr = joc.streamed_standardization(J.HostDataset(x=x, y=y, w=w, max_device_rows=256),
                                           J.build_mesh(), extra=extra)
         pr = poc.streamed_standardization(P.HostDataset(x=x, y=y, w=w, max_device_rows=256),
-                                          "cpu", extra=extra)
+                                          device="cpu", extra=extra)
         np.testing.assert_allclose(pr[0], jr[0], rtol=1e-6)
         np.testing.assert_allclose(pr[1], jr[1], rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(pr[2], jr[2], rtol=1e-4)

@@ -183,19 +183,19 @@ def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
     GaussianMixture and LogisticRegression fit over a mesh since slice 8b,
     BisectingKMeans' resident fit since slice 8c-1:
     ``tests/test_torch_sharded_models.py``,
-    ``tests/test_torch_sharded_clustering.py``); out of core over a mesh
-    (slice 8c-2) still raises, for BisectingKMeans too."""
+    ``tests/test_torch_sharded_clustering.py``); KMeans and BisectingKMeans
+    fit a HostDataset over a mesh since slice 8c-2
+    (``tests/test_torch_sharded_outofcore.py``), LinearSVC's and
+    NaiveBayes' out-of-core fits still raise."""
     mesh = _mesh((4, 1))
     yb = (blobs[:, 0] > 0).astype(np.float32)
     session = port.Session(port.PipelineConfig(), mesh=mesh)
     try:
         for call in (
-            lambda: port.KMeans(k=2).fit(port.HostDataset(x=blobs, max_device_rows=512),
-                                         mesh=mesh),
             lambda: port.LinearSVC().fit((blobs, yb), mesh=mesh),
             lambda: port.NaiveBayes(model_type="gaussian").fit((blobs, yb), mesh=mesh),
-            lambda: port.BisectingKMeans(k=2).fit(port.HostDataset(x=blobs, max_device_rows=512),
-                                                  mesh=mesh),
+            lambda: port.LinearSVC().fit(port.HostDataset(x=blobs, y=yb, max_device_rows=512),
+                                         mesh=mesh),
             lambda: session.sql_to_device("SELECT * FROM events"),
         ):
             with pytest.raises(NotImplementedError, match="slice 8c"):
