@@ -131,8 +131,11 @@ the mesh: ``Session(mesh=)`` (else the one-entry mesh of ``device=``, else
 mesh=)``, and ``fit`` / ``transform`` with ``mesh=`` on LinearRegression,
 the decision trees, random forests, GBT (K3 once a data shard a level),
 GaussianMixture and LogisticRegression, each shard's statistics summed in
-ascending shard order; the other estimators raise for more than one shard
-until slice 8c.  Its CPU tests: ``python -m pytest
+ascending shard order.  Slices 8c-1 to 8c-3 bring the clustering family,
+out of core, the other estimators and the composites (``Pipeline``,
+``CrossValidator``, ``TrainValidationSplit``: ``fit(data, label_col,
+mesh)``); what is left (PCA, the selectors, LDA, PIC, ALS) raises for more
+than one shard, naming slice 8c-4.  Its CPU tests: ``python -m pytest
 tests/test_torch_sharded_models.py tests/test_torch_sharded_pipeline.py
 tests/test_torch_distributed.py``; on a card, ``chip_smoke.py``'s
 ``mesh_models_phase``.

@@ -19,11 +19,17 @@ from ..io.model_io import register_model
 from .assembler import AssembledTable
 
 
-def _moments(x: torch.Tensor, w: torch.Tensor):
+def _moment_sums(x: torch.Tensor, w: torch.Tensor):
+    """(Σw, Σw·x, Σw·x²) of one dataset or shard."""
     wcol = w[:, None]
-    n = w.sum()
-    s1 = (x * wcol).sum(dim=0)
-    s2 = (x * x * wcol).sum(dim=0)
+    return w.sum(), (x * wcol).sum(dim=0), (x * x * wcol).sum(dim=0)
+
+
+def _moments(x: torch.Tensor, w: torch.Tensor):
+    return _from_sums(*_moment_sums(x, w))
+
+
+def _from_sums(n, s1, s2):
     mean = s1 / torch.clamp(n, min=1.0)
     var = s2 / torch.clamp(n, min=1.0) - mean * mean
     return mean, torch.sqrt(torch.clamp(var, min=0.0)), n
@@ -59,11 +65,20 @@ class StandardScalerModel:
 
     def transform(self, x):
         """AssembledTable → AssembledTable, DeviceDataset → DeviceDataset,
-        tensor → tensor (on its device), ndarray → ndarray."""
+        ShardedDataset → ShardedDataset (each shard where it lies), tensor
+        → tensor (on its device), ndarray → ndarray."""
+        from ..parallel.sharding import ShardedDataset
+
         if isinstance(x, AssembledTable):
             return replace(x, features=self.transform(x.features))
         if isinstance(x, DeviceDataset):
             return self.transform_dataset(x)
+        if isinstance(x, ShardedDataset):
+            blocks = np.empty(x.blocks.shape, dtype=object)
+            for ij in np.ndindex(blocks.shape):
+                if x.blocks[ij] is not None:
+                    blocks[ij] = self.transform_dataset(x.blocks[ij])
+            return ShardedDataset(x.mesh, blocks)
         if isinstance(x, torch.Tensor):
             out = x
             if self.with_mean:
@@ -93,11 +108,24 @@ class StandardScaler:
     with_mean: bool = True
     with_std: bool = True
 
-    def fit(self, data, device=None) -> StandardScalerModel:
+    def fit(self, data, device=None, mesh=None) -> StandardScalerModel:
         """``data``: DeviceDataset (fit where it lies), or an AssembledTable,
         ndarray or tensor, moved to ``device`` (default the card).  A matrix
         is fit in float64 with the population std, as the JAX package fits
-        an ndarray on the host."""
+        an ndarray on the host.  Over ``mesh`` (or for a ShardedDataset) an
+        AssembledTable or dataset is laid over the data shards and the
+        moments are summed a shard, in ascending shard order, as the
+        reference's moments over its mesh."""
+        from ..models.base import Shards, is_sharded, on_mesh
+
+        if is_sharded(data) or (mesh is not None and not isinstance(
+                data, (np.ndarray, torch.Tensor))):
+            sh = Shards(on_mesh(data, None, device, None, mesh))
+            mean, std, _ = _from_sums(*sh.sum(lambda i, s: _moment_sums(s.x, s.w)))
+            return StandardScalerModel(
+                mean.cpu().numpy(), std.cpu().numpy(), self.with_mean, self.with_std)
+        if mesh is not None:
+            device = mesh.device(0, 0)    # a matrix: the float64 host-equivalent fit
         if isinstance(data, AssembledTable):
             data = data.to_device(device=device)
         if isinstance(data, DeviceDataset):

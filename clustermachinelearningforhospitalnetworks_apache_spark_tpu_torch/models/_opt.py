@@ -24,7 +24,9 @@ torch tensors, so ``n_iter`` and the fitted parameters match:
 The parameters are a list of tensors, optax's pytree leaves in order: a
 dot product or a norm is taken per leaf and then summed over the leaves
 in that order (``optax.tree.vdot``).  Gradients come from
-``torch.autograd.grad``.
+``torch.autograd.grad``; over a mesh, a shard at a time and summed in
+ascending shard order (:func:`shard_value_and_grad`), so the line search
+decides from the same summed bits on every rank of a process group.
 
 The direction and its two-loop products stay on the device.  The line
 search's decisions are scalar float32 arithmetic on the host (numpy
@@ -87,6 +89,27 @@ def value_and_grad(loss_fn, params: list):
     return v.detach(), [gi.detach() for gi in g]
 
 
+def shard_value_and_grad(shard_sum, loss_of):
+    """The (value, gradients) function of a loss that is a sum of per-shard
+    terms: ``loss_of(i, shard)`` is data shard i's term as a function of
+    the parameter list.  Each shard's value and gradient are taken on its
+    device by :func:`value_and_grad` (its own leaves: shards that share a
+    device share no ``.grad``), and ``shard_sum(fn)`` adds them over the
+    shards in ascending order (``base.Shards.sum`` or
+    ``outofcore.shard_sum``; one gather under a process group, so every
+    rank reads the same bits).  One shard gives :func:`value_and_grad` of
+    its term as it is."""
+    def vg(params: list):
+        def term(i, s):
+            v, g = value_and_grad(loss_of(i, s), [p.to(s.x.device) for p in params])
+            return (v, *g)
+
+        out = shard_sum(term)
+        return out[0], list(out[1:])
+
+    return vg
+
+
 def _cubicmin(a, fa, fpa, b, fb, c, fc):
     """optax's ``_cubicmin``: the critical point of the cubic through (a,
     fa), (b, fb), (c, fc) with slope fpa at a (NaN when there is none)."""
@@ -131,8 +154,8 @@ class LBFGS:
     size), ``value`` (the loss there, host float32) and
     ``num_linesearch_steps`` read as optax's state does."""
 
-    def __init__(self, loss_fn, params: list):
-        self.loss_fn = loss_fn
+    def __init__(self, loss_fn, params: list, grad_fn=None):
+        self.grad_fn = grad_fn or (lambda ps: value_and_grad(loss_fn, ps))
         self.params = [p.detach().to(torch.float32) for p in params]
         self.count = 0
         self._prev_params = [torch.zeros_like(p) for p in self.params]
@@ -156,7 +179,7 @@ class LBFGS:
 
     def _evaluate(self, params: list):
         self.evaluations += 1
-        return value_and_grad(self.loss_fn, params)
+        return self.grad_fn(params)
 
     def _start(self) -> None:
         """optax's ``value_and_grad_from_state``: keep the line search's
@@ -319,14 +342,16 @@ class LBFGS:
         return v
 
 
-def lbfgs_minimize(loss_fn, params: list, max_iter: int, tol: float):
+def lbfgs_minimize(loss_fn, params: list, max_iter: int, tol: float, grad_fn=None):
     """Minimize ``loss_fn`` over the list of tensors ``params`` with
     :class:`LBFGS`, the reference's loop: iterate while ``it < max_iter``
     and ``|prev − loss| > tol·max(|loss|, 1)`` (float32), ``prev`` the
     value where the iteration started and ``loss`` the value the line
-    search accepted.  → (params, final loss, n_iter, the optimizer: its
-    ``evaluations`` and ``host_reads``)."""
-    opt = LBFGS(loss_fn, params)
+    search accepted.  ``grad_fn(params) → (value, gradients)`` takes the
+    place of ``loss_fn``'s autograd where given (a sharded loss:
+    :func:`shard_value_and_grad`).  → (params, final loss, n_iter, the
+    optimizer: its ``evaluations`` and ``host_reads``)."""
+    opt = LBFGS(loss_fn, params, grad_fn)
     tol32 = f32(tol)
     opt._start()
     prev, loss = f32(np.inf), opt.value
@@ -373,4 +398,4 @@ class Adam:
         return out
 
 
-__all__ = ["Adam", "LBFGS", "lbfgs_minimize", "value_and_grad"]
+__all__ = ["Adam", "LBFGS", "lbfgs_minimize", "shard_value_and_grad", "value_and_grad"]

@@ -10,7 +10,11 @@ the reference's ``optax.lbfgs`` steps, tol 1e-6).  Per row:
     observed:  −log σ + z − eᶻ
     censored:  −eᶻ
 
-A :class:`~..parallel.outofcore.HostDataset` trains by minibatch Adam
+Over a mesh (``fit(..., mesh=)``; one device is one shard of
+``base.Shards``) the loss is a sum of per-shard terms, each shard's
+value and gradient taken on its device and added in ascending shard
+order, the censor column row-sharded as the rows are.  A
+:class:`~..parallel.outofcore.HostDataset` trains by minibatch Adam
 (lr 1e-2), one step a block, the blocks of each epoch in the order of
 ``default_rng(1).permutation``, ``max_iter`` epochs, as the reference.
 ``model.fit_info`` holds ``n_iter``, the loss evaluations and the host
@@ -24,20 +28,22 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset
-from ._opt import Adam, lbfgs_minimize, value_and_grad
-from .base import Estimator, Model, as_device_dataset, check_features
+from ..parallel.outofcore import HostDataset, stream_home, stream_mesh
+from ._opt import Adam, lbfgs_minimize, shard_value_and_grad
+from .base import Estimator, Model, Shards, check_features, on_mesh, padded_column
 
 QUANTILES = (0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 0.99)
 
 
-def aft_loss(x, logy, censor, w, fit_intercept: bool):
+def aft_loss(x, logy, censor, w, fit_intercept: bool, wsum=None):
     """The weighted mean negative log-likelihood as a function of
-    ``[theta]`` (θ = (β, b, log σ), or (β, log σ) without an intercept)."""
+    ``[theta]`` (θ = (β, b, log σ), or (β, log σ) without an intercept);
+    ``wsum`` (default max(Σw, 1) of these rows) is the mean's divisor, a
+    whole dataset's where these rows are one shard of it."""
     d = x.shape[1]
-    wsum = torch.clamp(w.sum(), min=1.0)
+    if wsum is None:
+        wsum = torch.clamp(w.sum(), min=1.0)
 
     def loss_fn(params):
         theta = params[0]
@@ -130,9 +136,13 @@ class AFTSurvivalRegression(Estimator):
         model.fit_info = info
         return model
 
-    def fit(self, data, label_col: str | None = None, device=None, censor=None):
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, censor=None, mesh=None):
         """``censor`` as an array for non-table inputs; a table input
-        resolves ``censor_col``.  On ``device`` (default the card); a
+        resolves ``censor_col``.  On ``device`` (default the card) or over
+        ``mesh``, the censor column laid out as the rows are; a
         :class:`HostDataset` needs ``censor=`` and streams its blocks."""
         from ..features.assembler import AssembledTable
 
@@ -140,7 +150,7 @@ class AFTSurvivalRegression(Estimator):
             if censor is None:
                 raise ValueError("HostDataset inputs need censor= as an array (there is "
                                  "no table column to resolve)")
-            return self._fit_outofcore(data, censor, resolve_device(device))
+            return self._fit_outofcore(data, censor, stream_mesh(mesh, device))
         if censor is None:
             if not isinstance(data, AssembledTable):
                 raise ValueError(f"censor_col={self.censor_col!r} needs a table input "
@@ -150,33 +160,41 @@ class AFTSurvivalRegression(Estimator):
                                f"table; available: {data.table.schema.names}")
             censor = np.asarray(data.table.column(self.censor_col), np.float32)
         censor = _check_censor(censor)
-        ds = as_device_dataset(data, label_col or self.label_col, device=device)
-        w_host = ds.w.cpu().numpy()
-        n_rows = int(np.sum(w_host > 0))
-        if censor.shape[0] != n_rows:
+        ds = on_mesh(data, label_col or self.label_col, device, None, mesh)
+        sh = Shards(ds)
+        yv = sh.valid_labels()
+        if censor.shape[0] != yv.shape[0]:
             raise ValueError(
-                f"censor has {censor.shape[0]} entries but the data has {n_rows} rows — a "
+                f"censor has {censor.shape[0]} entries but the data has {yv.shape[0]} rows — a "
                 "short censor array would silently mark the tail as censored")
-        if (ds.y.cpu().numpy()[w_host > 0] <= 0).any():
+        if (yv <= 0).any():
             raise ValueError("survival times must be positive")
-        cen = np.zeros((ds.n_padded,), np.float32)
-        cen[: censor.shape[0]] = censor
-        dev = ds.x.device
         d = ds.n_features
-        loss_fn = aft_loss(ds.x.to(torch.float32), _log_labels(ds.y),
-                           torch.from_numpy(cen).to(dev), ds.w.to(torch.float32),
-                           self.fit_intercept)
         theta0 = torch.zeros((d + (2 if self.fit_intercept else 1),), dtype=torch.float32,
-                             device=dev)
-        params, loss, n_iter, opt = lbfgs_minimize(loss_fn, [theta0], self.max_iter, 1e-6)
+                             device=sh.home)
+        params, loss, n_iter, opt = lbfgs_minimize(None, [theta0], self.max_iter, 1e-6,
+                                                   self._grad_fn(sh, padded_column(censor, ds)))
         return self._model(params[0].cpu().numpy(), d, {
             "n_iter": n_iter, "loss": float(loss), "evaluations": opt.evaluations,
             "host_reads": opt.host_reads})
 
-    def _fit_outofcore(self, hd: HostDataset, censor, dev):
-        """Rows ≫ device memory: minibatch Adam, one step a block,
-        ``max_iter`` epochs (the reference's trade of solver parity for
-        bounded memory)."""
+    def _grad_fn(self, sh, cen):
+        """The loss's (value, gradients) over the shards of ``sh``: each
+        shard's term, its rows' sum over the whole Σw, on its device
+        (:func:`~._opt.shard_value_and_grad`); ``cen`` the censor column
+        laid out as the rows are."""
+        f32 = torch.float32
+        wsum = torch.clamp(sh.sum(lambda i, s: (s.w.to(f32).sum(),))[0], min=1.0)
+        cparts = sh.parts(cen)
+        return shard_value_and_grad(sh.sum, lambda i, s: aft_loss(
+            s.x.to(f32), _log_labels(s.y), cparts[i], s.w.to(f32), self.fit_intercept,
+            wsum.to(s.x.device)))
+
+    def _fit_outofcore(self, hd: HostDataset, censor, mesh):
+        """Rows ≫ device memory: minibatch Adam over ``mesh``, one step a
+        block (its gradient a shard at a time, summed), ``max_iter`` epochs
+        (the reference's trade of solver parity for bounded memory); each
+        block's censor flags sliced on the host and laid out as its rows."""
         if hd.y is None:
             raise ValueError("AFTSurvivalRegression needs labels (survival times): "
                              "HostDataset(y=...)")
@@ -193,20 +211,15 @@ class AFTSurvivalRegression(Estimator):
             raise ValueError("survival times must be positive")
         d = hd.n_features
         theta = [torch.zeros((d + (2 if self.fit_intercept else 1),), dtype=torch.float32,
-                             device=dev)]
+                             device=stream_home(mesh))]
         opt = Adam(theta, 1e-2)
-        n_blocks, b = hd.block_shape()
+        n_blocks, b = hd.block_shape(mesh)
         shuffle = np.random.default_rng(1)
         for _ in range(self.max_iter):
             perm = shuffle.permutation(n_blocks)
-            for i, blk in zip(perm, hd.blocks(device=dev, order=perm)):
-                s, e = int(i) * b, min(int(i) * b + b, hd.n)
-                cb = np.zeros((b,), np.float32)
-                cb[: e - s] = censor[s:e]
-                loss_fn = aft_loss(blk.x.to(torch.float32), _log_labels(blk.y),
-                                   torch.from_numpy(cb).to(dev), blk.w.to(torch.float32),
-                                   self.fit_intercept)
-                _, grads = value_and_grad(loss_fn, theta)
+            for i, blk in zip(perm, hd.blocks(mesh, order=perm)):
+                s = int(i) * b
+                _, grads = self._grad_fn(Shards(blk), padded_column(censor[s:s + b], blk))(theta)
                 theta = opt.step(theta, grads)
         return self._model(theta[0].cpu().numpy(), d, {"epochs": self.max_iter})
 

@@ -31,8 +31,8 @@ from ..features.assembler import AssembledTable
 
 
 #: the slice of the port that brings ``mesh=`` to the estimators that still
-#: fit on one device
-MESH_SLICE = "8c"
+#: fit on one device (PCA, the selectors, LSH, ``stat/``, LDA, PIC)
+MESH_SLICE = "8c-4"
 
 
 def _sharded(data: Any) -> bool:
@@ -45,7 +45,7 @@ def _sharded(data: Any) -> bool:
 
 
 def require_single_shard(data: Any, mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` naming slice 8c when ``mesh`` has more
+    """Raise ``NotImplementedError`` naming slice 8c-4 when ``mesh`` has more
     than one entry (or a process group is active) or ``data`` is sharded:
     ``what`` runs on one device until its mesh slice lands, and never
     gathers the shards silently."""
@@ -62,7 +62,8 @@ def _mesh_guarded(fit):
     """``fit`` taking ``mesh=`` (the reference's keyword): a mesh of more
     than one shard, or sharded data, raises (:func:`require_single_shard`);
     a one-entry mesh runs the fit on its device."""
-    params = list(inspect.signature(fit).parameters)
+    sig = inspect.signature(fit)
+    params = list(sig.parameters)
     takes_mesh = "mesh" in params
     device_at = params.index("device") if "device" in params else None
 
@@ -77,6 +78,12 @@ def _mesh_guarded(fit):
                 kw["device"] = mesh.device(0, 0)
         return fit(self, *args, **kw)
 
+    # the signature callers read (a Pipeline's ``_call_stage``) names
+    # ``mesh``, so a mesh reaches the guard and is never dropped
+    if not takes_mesh:
+        guarded.__signature__ = sig.replace(parameters=[
+            *sig.parameters.values(),
+            inspect.Parameter("mesh", inspect.Parameter.KEYWORD_ONLY, default=None)])
     return guarded
 
 
@@ -170,6 +177,21 @@ def is_sharded(ds) -> bool:
     return isinstance(ds, ShardedDataset)
 
 
+def padded_column(values, ds):
+    """A host column of ``ds``'s rows (a GLM offset, AFT's censor flags),
+    zero-extended to its padded rows and laid out as they are: row-sharded
+    over its mesh's data axis (``shard_rows``), or a tensor on its
+    device."""
+    from ..parallel.sharding import shard_rows
+
+    col = np.zeros((ds.n_padded,), np.float32)
+    values = np.asarray(values, np.float32)
+    col[: values.shape[0]] = values
+    if is_sharded(ds):
+        return shard_rows(col, ds.mesh)
+    return torch.from_numpy(col).to(ds.x.device)
+
+
 class Shards:
     """The data shards a fit runs over: a DeviceDataset is one shard on its
     device (a one-entry mesh, D = 1); a ShardedDataset gives the data
@@ -218,6 +240,36 @@ class Shards:
     def count(self) -> float:
         """Σw over every shard, on the host."""
         return float(self.sum(lambda i, s: (s.w.to(torch.float32).sum(),))[0])
+
+    def rows(self, fn) -> np.ndarray:
+        """``fn(i, shard)`` (a tensor aligned with the shard's rows, pad
+        rows included, so every shard's part has one shape) on every data
+        shard, on the host in global row order: the shards' parts in
+        data-shard order (gathered over the process group when one is
+        active)."""
+        from ..parallel.collectives import gather_shards
+
+        parts: list = [None] * self.D
+        for i, s in self.data.items():
+            parts[i] = fn(i, s)
+        return torch.cat([p.cpu() for p in gather_shards(parts, self.mesh)]).numpy()
+
+    def valid_labels(self) -> np.ndarray:
+        """The labels of the valid rows (w > 0), on the host in row order
+        (float64: a float32 label's value exactly)."""
+        yw = self.rows(lambda i, s: torch.stack([s.y.to(torch.float64),
+                                                 s.w.to(torch.float64)], dim=1))
+        return yw[yw[:, 1] > 0, 0]
+
+    def parts(self, col) -> dict:
+        """A row-aligned column laid out as the shards' rows are (a
+        MeshArray over the data axis, or one device's tensor) →
+        ``{i: its part on shard i's device}``."""
+        from ..parallel.sharding import MeshArray
+
+        if isinstance(col, MeshArray):
+            return {i: col.block(i) for i in self.local}
+        return {0: col}
 
     def with_rows(self, x: dict | None = None, y: dict | None = None,
                   w: dict | None = None) -> "Shards":
@@ -287,10 +339,11 @@ class Estimator:
     partials_family: str | None = None
 
     #: True where ``fit`` runs over a mesh of more than one shard itself
-    #: (KMeans, LinearRegression, the trees, GaussianMixture,
-    #: LogisticRegression).  Every other subclass's ``fit`` takes ``mesh=``
-    #: too: a one-entry mesh names its device, a larger one raises until
-    #: slice 8c (:func:`_mesh_guarded`)
+    #: (the clustering family, LinearRegression, the trees, GaussianMixture,
+    #: LogisticRegression, LinearSVC, NaiveBayes, OneVsRest, the GLM, AFT,
+    #: the FMs, the MLP, IsotonicRegression).  Every other subclass's
+    #: ``fit`` takes ``mesh=`` too: a one-entry mesh names its device, a
+    #: larger one raises until slice 8c-4 (:func:`_mesh_guarded`)
     mesh_fit: bool = False
 
     def __init_subclass__(cls, **kw):

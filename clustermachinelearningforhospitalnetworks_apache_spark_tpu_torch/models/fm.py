@@ -12,7 +12,10 @@ loss (regressor) or logistic loss on ±1 labels (classifier), written as
 ``logaddexp(−m, 0)`` — the reference's ``jax.nn.softplus`` — and not
 ``torch.nn.functional.softplus``, which returns its input above 20; L2
 ``reg_param`` on w and V, the intercept unpenalized.  The loop makes no
-host read.
+host read.  Over a mesh (``fit(..., mesh=)``; one device is one shard of
+``base.Shards``) the loss is a sum of per-shard terms (the penalty in
+data shard 0's), each shard's value and gradient taken on its device and
+added in ascending shard order.
 
 A :class:`~..parallel.outofcore.HostDataset` trains by minibatch Adam,
 one step a block, the blocks of each epoch in the order of
@@ -26,11 +29,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset
-from ._opt import Adam, value_and_grad
-from .base import Estimator, Model, as_device_dataset, check_features
+from ..parallel.outofcore import HostDataset, stream_home, stream_mesh
+from ._opt import Adam, shard_value_and_grad
+from .base import Estimator, Model, Shards, check_features, on_mesh
 
 
 def fm_raw(w0, w, v, x):
@@ -40,11 +42,13 @@ def fm_raw(w0, w, v, x):
     return w0 + x @ w + 0.5 * torch.sum(xv * xv - x2v2, dim=1)
 
 
-def fm_loss(x, y, wt, reg: float, loss: str):
+def fm_loss(x, y, wt, reg: float | None, loss: str, wsum=None):
     """The weighted mean loss plus reg·(‖w‖² + ‖V‖²) as a function of
-    [w0, w, V]."""
-    wsum = torch.clamp(wt.sum(), min=1.0)
-    reg = float(np.float32(reg))
+    [w0, w, V]; ``wsum`` (default max(Σw, 1) of these rows) is the mean's
+    divisor, a whole dataset's where these rows are one shard of it, and
+    ``reg=None`` leaves the penalty out (a shard other than the first)."""
+    if wsum is None:
+        wsum = torch.clamp(wt.sum(), min=1.0)
 
     def loss_fn(params):
         w0, w, v = params
@@ -57,7 +61,9 @@ def fm_loss(x, y, wt, reg: float, loss: str):
             m = -ypm * raw
             per_row = torch.logaddexp(m, torch.zeros_like(m))
         data = torch.sum(per_row * wt) / wsum
-        return data + reg * (torch.sum(w * w) + torch.sum(v * v))
+        if reg is None:
+            return data
+        return data + float(np.float32(reg)) * (torch.sum(w * w) + torch.sum(v * v))
 
     return loss_fn
 
@@ -139,27 +145,36 @@ class _FMParams:
         if not np.all(np.isin(uniq, (0.0, 1.0))):
             raise ValueError(f"FMClassifier is binary (labels 0/1); got {uniq[:5]}")
 
-    def _fit(self, data, label_col, device, loss: str) -> FMModel:
+    def _grad_fn(self, sh, loss: str):
+        """The loss's (value, gradients) over the shards of ``sh``: each
+        shard's mean term over the whole Σw on its device, the penalty in
+        data shard 0's (:func:`~._opt.shard_value_and_grad`)."""
+        f32 = torch.float32
+        wsum = torch.clamp(sh.sum(lambda i, s: (s.w.to(f32).sum(),))[0], min=1.0)
+        return shard_value_and_grad(sh.sum, lambda i, s: fm_loss(
+            s.x.to(f32), s.y.to(f32), s.w.to(f32), self.reg_param if i == 0 else None, loss,
+            wsum.to(s.x.device)))
+
+    def _fit(self, data, label_col, device, mesh, loss: str) -> FMModel:
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device), loss)
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
+            return self._fit_outofcore(data, stream_mesh(mesh, device), loss)
+        sh = Shards(on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh))
         if self.factor_size < 1:
             raise ValueError(f"factor_size must be >= 1, got {self.factor_size}")
         if loss == "logistic":
-            self._check_binary(ds.y.cpu().numpy()[ds.w.cpu().numpy() > 0])
-        params = self._init(ds.n_features, ds.x.device)
-        loss_fn = fm_loss(ds.x.to(torch.float32), ds.y.to(torch.float32),
-                          ds.w.to(torch.float32), self.reg_param, loss)
+            self._check_binary(sh.valid_labels())
+        params = self._init(sh.n_features, sh.home)
+        grad_fn = self._grad_fn(sh, loss)
         opt = Adam(params, self.step_size)
         for _ in range(self.max_iter):
-            _, grads = value_and_grad(loss_fn, params)
+            _, grads = grad_fn(params)
             params = opt.step(params, grads)
         return self._model(params, loss)
 
-    def _fit_outofcore(self, hd: HostDataset, dev, loss: str) -> FMModel:
-        """Rows ≫ device memory: minibatch Adam, one step a block,
-        ``max_iter`` epochs."""
+    def _fit_outofcore(self, hd: HostDataset, mesh, loss: str) -> FMModel:
+        """Rows ≫ device memory: minibatch Adam over ``mesh``, one step a
+        block (its gradient a shard at a time, summed), ``max_iter``
+        epochs."""
         if hd.y is None:
             raise ValueError("FM fit needs labels: HostDataset(y=...)")
         if hd.n == 0 or hd.count() == 0.0:
@@ -169,33 +184,37 @@ class _FMParams:
         if loss == "logistic":
             w_host = np.asarray(hd.w) if hd.w is not None else np.ones(hd.n, np.float32)
             self._check_binary(np.asarray(hd.y)[w_host > 0])
-        params = self._init(hd.n_features, dev)
+        params = self._init(hd.n_features, stream_home(mesh))
         opt = Adam(params, self.step_size)
-        n_blocks, _ = hd.block_shape()
+        n_blocks, _ = hd.block_shape(mesh)
         shuffle = np.random.default_rng(self.seed + 1)
         for _ in range(self.max_iter):
-            for blk in hd.blocks(device=dev, order=shuffle.permutation(n_blocks)):
-                loss_fn = fm_loss(blk.x.to(torch.float32), blk.y.to(torch.float32),
-                                  blk.w.to(torch.float32), self.reg_param, loss)
-                _, grads = value_and_grad(loss_fn, params)
+            for blk in hd.blocks(mesh, order=shuffle.permutation(n_blocks)):
+                _, grads = self._grad_fn(Shards(blk), loss)(params)
                 params = opt.step(params, grads)
         return self._model(params, loss)
 
 
 @dataclass(frozen=True)
 class FMRegressor(Estimator, _FMParams):
-    def fit(self, data, label_col: str | None = None, device=None) -> FMModel:
-        """Fit on ``device`` (default the card)."""
-        return self._fit(data, label_col, device, "squared")
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> FMModel:
+        """Fit on ``device`` (default the card) or over ``mesh``."""
+        return self._fit(data, label_col, device, mesh, "squared")
 
 
 @dataclass(frozen=True)
 class FMClassifier(Estimator, _FMParams):
     label_col: str = "LOS_binary"
 
-    def fit(self, data, label_col: str | None = None, device=None) -> FMModel:
-        """Fit on ``device`` (default the card)."""
-        return self._fit(data, label_col, device, "logistic")
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> FMModel:
+        """Fit on ``device`` (default the card) or over ``mesh``."""
+        return self._fit(data, label_col, device, mesh, "logistic")
 
 
 __all__ = ["FMClassifier", "FMModel", "FMRegressor", "fm_loss", "fm_raw"]

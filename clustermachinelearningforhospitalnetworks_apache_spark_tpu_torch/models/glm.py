@@ -21,13 +21,19 @@ with a done flag that freezes the state where the reference stops, and
 the host reads the flag once a chunk, so ``n_iter`` equals the
 reference's where the stop is decided above float32 rounding.
 
-A fresh resident fit carries a lazy training summary (deviance, null
-deviance, Pearson χ², dispersion, AIC, the four residual types, and on
-unregularized fits the standard errors, t- and p-values).  A
-:class:`~..parallel.outofcore.HostDataset` fits out of core: the
-standardization pre-pass (``streamed_standardization(extra="ysum")``),
-then one pass over the blocks an iteration and one host read of the
-step, as in the reference; it has no summary and no offset.
+The resident fit runs over data shards (``base.Shards``: one device is
+one shard; ``fit(..., mesh=)`` or a ``ShardedDataset`` spread the rows over
+a mesh): the moments, every iteration's sums and the deviance a shard,
+added in ascending shard order, the solve once on the home device; the
+offset column is laid out as the rows are (``sharding.shard_rows`` over a
+mesh).  A fresh resident fit carries a lazy training summary (deviance,
+null deviance, Pearson χ², dispersion, AIC, the four residual types, and
+on unregularized fits the standard errors, t- and p-values), its sums
+taken over the same shards.  A :class:`~..parallel.outofcore.HostDataset`
+fits out of core, to one device or over a mesh: the standardization
+pre-pass (``streamed_standardization(extra="ysum")``), then one pass over
+the blocks an iteration and one host read of the step, as in the
+reference; it has no summary and no offset.
 ``model.fit_info`` holds ``n_iter`` and the host syncs of the fit.
 """
 
@@ -40,12 +46,11 @@ import numpy as np
 import torch
 
 from ..data import DeviceDataset
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import (HostDataset, standardized_ridge, stream_mesh,
-                                  streamed_standardization)
-from .base import Estimator, Model, as_device_dataset, check_features
-from .linear_regression import standardized_design
+from ..parallel.outofcore import (HostDataset, shard_sum, standardized_ridge, stream_home,
+                                  stream_mesh, streamed_standardization)
+from .base import Estimator, Model, Shards, check_features, on_mesh, padded_column
+from .linear_regression import shard_moments
 from .logistic_regression import newton_loop, row_sums, streamed_newton_loop, with_intercept
 from .summary import SummaryMixin
 
@@ -179,33 +184,73 @@ def _damped_solve(theta, gram, mom, ridge):
 def irls_glm(x, y, w, offset, reg_param: float, tol: float, family: str, link: str,
              fit_intercept: bool, standardize: bool, max_iter: int, var_power: float = 0.0,
              link_power: float = 0.0):
-    """The resident IRLS fit → (coef (d,), intercept (), n_iter, deviance
-    (), host syncs), float32 on the inputs' device."""
-    x = x.to(torch.float32)
-    y = y.to(torch.float32)
-    w = w.to(torch.float32)
-    offset = offset.to(torch.float32)
-    xa, ridge, nfeat, _ = standardized_design(x, w, reg_param, fit_intercept, standardize)
-    d = xa.shape[1]
-    dev = x.device
-    n = torch.clamp(w.sum(), min=1.0)
-    ybar = (y * w).sum() / n
-    eta0 = [glm_mu0_eta(y, ybar, family, link, var_power, link_power)]
+    """The one-device IRLS fit (:func:`irls_shards` of one shard) →
+    (coef (d,), intercept (), n_iter, deviance (), host syncs), float32 on
+    the inputs' device."""
+    return irls_shards(Shards(DeviceDataset(x=x, y=y, w=w)), {0: offset.to(torch.float32)},
+                       reg_param, tol, family, link, fit_intercept, standardize, max_iter,
+                       var_power, link_power)
+
+
+def irls_shards(sh, off: dict, reg_param: float, tol: float, family: str, link: str,
+                fit_intercept: bool, standardize: bool, max_iter: int, var_power: float = 0.0,
+                link_power: float = 0.0):
+    """IRLS over the data shards of ``sh`` (``base.Shards``; one device is
+    one shard), ``off`` each shard's float32 part of the offset column
+    (:func:`offset_parts`): the standardization moments (→ the ridge) and
+    Σw·y (→ the μ-init's ȳ) summed in shard order, then every iteration's (XᵀΩX,
+    XᵀΩ(z − offset)) a shard on its device against the broadcast θ, summed,
+    and the damped solve once on the home device; the deviance a shard,
+    summed.  → (coef (d,), intercept (), n_iter, deviance (), host syncs),
+    float32 on the home device."""
+    f32 = torch.float32
+    xa = {i: with_intercept(s.x.to(f32), fit_intercept) for i, s in sh.data.items()}
+    y = {i: s.y.to(f32) for i, s in sh.data.items()}
+    w = {i: s.w.to(f32) for i, s in sh.data.items()}
+    n, _, std = shard_moments(sh)
+    scale = std if standardize else torch.ones_like(std)
+    nfeat = sh.n_features
+    ridge = torch.zeros((xa[sh.local[0]].shape[1],), dtype=f32, device=sh.home)
+    ridge[:nfeat] = reg_param * n * scale * scale
+    ybar = sh.sum(lambda i, s: ((y[i] * w[i]).sum(),))[0] / n
+    eta0 = {i: glm_mu0_eta(y[i], ybar.to(y[i].device), family, link, var_power, link_power)
+            for i in sh.local}
+    first = [True]
 
     def step(theta):
         # the first iteration starts from the μ-init, every later one from X·θ
-        eta = eta0.pop() if eta0 else xa @ theta + offset
-        z, om = _irls_terms(xa, y, w, eta, family, link, var_power, link_power)
-        xo = xa * om[:, None]
-        return _damped_solve(theta, row_sums(xo, xa), row_sums(xo, z - offset), ridge)
+        th = sh.put(theta)
+        start, first[0] = first[0], False
 
-    theta = torch.zeros((d,), dtype=torch.float32, device=dev)
+        def stats(i, s):
+            eta = eta0[i] if start else xa[i] @ th[i] + off[i]
+            z, om = _irls_terms(xa[i], y[i], w[i], eta, family, link, var_power, link_power)
+            xo = xa[i] * om[:, None]
+            return row_sums(xo, xa[i]), row_sums(xo, z - off[i])
+
+        gram, mom = sh.sum(stats)
+        return _damped_solve(theta, gram, mom, ridge)
+
+    theta = torch.zeros((ridge.shape[0],), dtype=f32, device=sh.home)
     theta, n_iter, syncs = newton_loop(step, theta, tol, max_iter)
     _, ginv, _ = link_fns(link, link_power)
-    mu = mu_clip(family, ginv(xa @ theta + offset), var_power)
-    deviance = torch.sum(unit_deviance(family, y, mu, var_power) * w)
-    intercept = theta[nfeat] if fit_intercept else torch.zeros((), device=dev)
-    return theta[:nfeat], intercept, n_iter, deviance, syncs
+    th = sh.put(theta)
+
+    def deviance(i, s):
+        mu = mu_clip(family, ginv(xa[i] @ th[i] + off[i]), var_power)
+        return (torch.sum(unit_deviance(family, y[i], mu, var_power) * w[i]),)
+
+    dev_sum = sh.sum(deviance)[0]
+    intercept = theta[nfeat] if fit_intercept else torch.zeros((), device=sh.home)
+    return theta[:nfeat], intercept, n_iter, dev_sum, syncs
+
+
+def offset_parts(sh, offset) -> dict:
+    """Each shard's part of the offset column (laid out as the rows are;
+    zeros without one), float32 on its device."""
+    if offset is None:
+        return {i: torch.zeros_like(s.y, dtype=torch.float32) for i, s in sh.data.items()}
+    return {i: v.to(torch.float32) for i, v in sh.parts(offset).items()}
 
 
 def _block_irls_stats(x, y, w, theta, ybar, family, link, fit_intercept: bool, first: bool,
@@ -231,10 +276,6 @@ def _block_deviance(x, y, w, theta, family, link, fit_intercept: bool, var_power
     return torch.sum(unit_deviance(family, y.to(torch.float32), mu, var_power) * w)
 
 
-def _off_or_zeros(offset, like: torch.Tensor) -> torch.Tensor:
-    return offset if offset is not None else torch.zeros_like(like)
-
-
 @dataclass
 class GeneralizedLinearRegressionTrainingSummary:
     """Spark's ``GeneralizedLinearRegressionTrainingSummary``: deviance,
@@ -244,72 +285,91 @@ class GeneralizedLinearRegressionTrainingSummary:
     the device at first read, cached."""
 
     _model: "GeneralizedLinearRegressionModel" = field(repr=False)
-    _ds: DeviceDataset = field(repr=False)
+    _ds: object = field(repr=False)          # a DeviceDataset or ShardedDataset
     _reg_param: float = 0.0
     _fit_intercept: bool = True
-    _offset: torch.Tensor | None = field(default=None, repr=False)
+    _offset: object | None = field(default=None, repr=False)   # laid out as _ds's rows
 
     def _eta(self, x, off):
         m = self._model
         return (x.to(torch.float32) @ m.coefficients.to(x.device)
                 + float(np.float32(m.intercept)) + off.to(torch.float32))
 
+    def _shards(self):
+        """The fit's rows as ``base.Shards`` and each shard's offset."""
+        sh = Shards(self._ds)
+        return sh, offset_parts(sh, self._offset)
+
     @cached_property
     def _stats(self) -> dict:
-        """One pass on the device → every scalar the summary needs, read
-        to the host once.  The per-row terms are float32 and their sums
-        accumulate in float64: the gamma AIC's terms cancel about a
-        hundredfold, so a float32 sum would carry the device's reduction
-        order into it."""
+        """One pass over the shards → every scalar the summary needs, read
+        to the host once (the null model's ȳ, and with an offset its
+        intercept's sweeps, are passes of their own).  The per-row terms
+        are float32 and their sums accumulate in float64, a shard and then
+        over the shards in ascending order: the gamma AIC's terms cancel
+        about a hundredfold, so a float32 sum would carry the device's
+        reduction order into it."""
         m = self._model
         fam, vp = m.family, m.variance_power
         g_link, ginv, gprime = link_fns(m.link, m.link_power)
         vfn = variance_fn(fam, vp)
-        ds = self._ds
-        y = ds.y.to(torch.float32)
-        w = ds.w.to(torch.float32)
-        off = _off_or_zeros(self._offset, y).to(torch.float32)
-        mu = mu_clip(fam, ginv(self._eta(ds.x, off)), vp)
-        ybar = (y * w).sum() / torch.clamp(w.sum(), min=1e-12)
+        sh, off = self._shards()
+        y = {i: s.y.to(torch.float32) for i, s in sh.data.items()}
+        w = {i: s.w.to(torch.float32) for i, s in sh.data.items()}
+        mu = {i: mu_clip(fam, ginv(self._eta(s.x, off[i])), vp) for i, s in sh.data.items()}
+        sw, sy = sh.sum(lambda i, s: (w[i].sum(), (y[i] * w[i]).sum()))
+        ybar = sy / torch.clamp(sw, min=1e-12)
         if self._offset is None:
             # the intercept-only MLE is the weighted mean for every link
-            mu0 = (mu_clip(fam, ybar * torch.ones_like(y), vp) if self._fit_intercept
-                   else mu_clip(fam, ginv(torch.zeros_like(y)), vp))
+            mu0 = {i: (mu_clip(fam, ybar.to(y[i].device) * torch.ones_like(y[i]), vp)
+                       if self._fit_intercept
+                       else mu_clip(fam, ginv(torch.zeros_like(y[i])), vp)) for i in sh.local}
         elif not self._fit_intercept:
-            mu0 = mu_clip(fam, ginv(off), vp)
+            mu0 = {i: mu_clip(fam, ginv(off[i]), vp) for i in sh.local}
         else:
             # with an offset the null model's b₀ has no closed form: 25
-            # scalar IRLS sweeps, as the reference
-            b0 = g_link(mu_clip(fam, torch.clamp(ybar, min=1e-8) * torch.ones((), device=y.device),
+            # scalar IRLS sweeps, as the reference, each summed over the shards
+            b0 = g_link(mu_clip(fam, torch.clamp(ybar, min=1e-8) * torch.ones((), device=sh.home),
                                 vp))
-            for _ in range(25):
-                mu_ = mu_clip(fam, ginv(b0 + off), vp)
+
+            def sweep(i, s, b):
+                mu_ = mu_clip(fam, ginv(b + off[i]), vp)
                 gp_ = gprime(mu_)
-                om_ = w / torch.clamp(gp_ * gp_ * vfn(mu_), min=1e-12)
-                z_ = b0 + (y - mu_) * gp_
-                b0 = torch.sum(om_ * z_) / torch.clamp(torch.sum(om_), min=1e-12)
-            mu0 = mu_clip(fam, ginv(b0 + off), vp)
+                om_ = w[i] / torch.clamp(gp_ * gp_ * vfn(mu_), min=1e-12)
+                z_ = b + (y[i] - mu_) * gp_
+                return torch.sum(om_ * z_), torch.sum(om_)
+
+            for _ in range(25):
+                bs = sh.put(b0)
+                num, den = sh.sum(lambda i, s: sweep(i, s, bs[i]))
+                b0 = num / torch.clamp(den, min=1e-12)
+            bs = sh.put(b0)
+            mu0 = {i: mu_clip(fam, ginv(bs[i] + off[i]), vp) for i in sh.local}
+
         def sum64(t):
             return torch.sum(t, dtype=torch.float64)
 
-        dev = sum64(unit_deviance(fam, y, mu, vp) * w)
-        dev0 = sum64(unit_deviance(fam, y, mu0, vp) * w)
-        pearson = sum64(w * (y - mu) ** 2 / torch.clamp(vfn(mu), min=1e-12))
-        if fam == "binomial":
-            ll = sum64(w * (y * torch.log(mu) + (1.0 - y) * torch.log1p(-mu)))
-        elif fam == "poisson":
-            ll = sum64(w * (y * torch.log(torch.clamp(mu, min=1e-12)) - mu
-                            - torch.lgamma(y + 1.0)))
-        else:
-            ll = torch.zeros((), dtype=torch.float64, device=y.device)
-        zero = torch.zeros_like(y)
-        logy = sum64(torch.where(w > 0, torch.log(torch.clamp(y, min=1e-12)), zero) * w)
-        logmu = sum64(torch.where(w > 0, torch.log(torch.clamp(mu, min=1e-12)), zero) * w)
-        y_over_mu = sum64(w * y / torch.clamp(mu, min=1e-12))
+        def terms(i, s):
+            yi, wi, mui = y[i], w[i], mu[i]
+            if fam == "binomial":
+                ll = sum64(wi * (yi * torch.log(mui) + (1.0 - yi) * torch.log1p(-mui)))
+            elif fam == "poisson":
+                ll = sum64(wi * (yi * torch.log(torch.clamp(mui, min=1e-12)) - mui
+                                 - torch.lgamma(yi + 1.0)))
+            else:
+                ll = torch.zeros((), dtype=torch.float64, device=yi.device)
+            zero = torch.zeros_like(yi)
+            return (sum64(unit_deviance(fam, yi, mui, vp) * wi),
+                    sum64(unit_deviance(fam, yi, mu0[i], vp) * wi),
+                    sum64(wi * (yi - mui) ** 2 / torch.clamp(vfn(mui), min=1e-12)),
+                    ll, sum64(wi), sum64(wi > 0),
+                    sum64(torch.where(wi > 0, torch.log(torch.clamp(yi, min=1e-12)), zero) * wi),
+                    sum64(torch.where(wi > 0, torch.log(torch.clamp(mui, min=1e-12)), zero) * wi),
+                    sum64(wi * yi / torch.clamp(mui, min=1e-12)))
+
         names = ("deviance", "null_deviance", "pearson", "ll", "wsum", "nrows", "logy",
                  "logmu", "y_over_mu")
-        vals = torch.stack([dev, dev0, pearson, ll, sum64(w), sum64(w > 0), logy, logmu,
-                            y_over_mu]).tolist()
+        vals = torch.stack(sh.sum(terms)).tolist()
         return dict(zip(names, vals))
 
     @property
@@ -381,10 +441,10 @@ class GeneralizedLinearRegressionTrainingSummary:
         m = self._model
         _, _, gprime = link_fns(m.link, m.link_power)
         vfn = variance_fn(m.family, m.variance_power)
-        ds = self._ds
-        y = ds.y.cpu().numpy().astype(np.float64)
-        w = ds.w.cpu().numpy().astype(np.float64)
-        mu = m.predict(ds.x, offset=self._offset).cpu().numpy().astype(np.float64)
+        sh, off = self._shards()
+        y = sh.rows(lambda i, s: s.y).astype(np.float64)
+        w = sh.rows(lambda i, s: s.w).astype(np.float64)
+        mu = sh.rows(lambda i, s: m.predict(s.x, offset=off[i])).astype(np.float64)
         valid = w > 0
         y, w, mu = y[valid], w[valid], mu[valid]
 
@@ -417,15 +477,19 @@ class GeneralizedLinearRegressionTrainingSummary:
         Gram is summed per chunk of rows as the fit's is (``row_sums``)."""
         self._require_unregularized()
         m = self._model
-        ds = self._ds
-        w = ds.w.to(torch.float32)
-        off = _off_or_zeros(self._offset, w)
         _, ginv, gprime = link_fns(m.link, m.link_power)
-        mu = mu_clip(m.family, ginv(self._eta(ds.x, off)), m.variance_power)
-        gp = gprime(mu)
-        om = w / torch.clamp(gp * gp * variance_fn(m.family, m.variance_power)(mu), min=1e-12)
-        xa = with_intercept(ds.x.to(torch.float32), self._fit_intercept)
-        g = row_sums(xa * om[:, None], xa).cpu().numpy().astype(np.float64)
+        sh, off = self._shards()
+
+        def gram(i, s):
+            w = s.w.to(torch.float32)
+            mu = mu_clip(m.family, ginv(self._eta(s.x, off[i])), m.variance_power)
+            gp = gprime(mu)
+            om = w / torch.clamp(gp * gp * variance_fn(m.family, m.variance_power)(mu),
+                                 min=1e-12)
+            xa = with_intercept(s.x.to(torch.float32), self._fit_intercept)
+            return (row_sums(xa * om[:, None], xa),)
+
+        g = sh.sum(gram)[0].cpu().numpy().astype(np.float64)
         cond = np.linalg.cond(g)
         if not np.isfinite(cond) or cond > 1e7:
             raise RuntimeError(
@@ -540,15 +604,19 @@ class GeneralizedLinearRegression(Estimator):
             lp = float(self.link_power) if self.link_power is not None else 1.0 - vp
         return link, vp, lp
 
-    def fit(self, data, label_col: str | None = None, device=None):
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w])) on
-        ``device`` (default the card); a :class:`HostDataset` streams its
-        blocks to ``device``."""
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None):
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
+        :class:`HostDataset` streams its blocks there.  An ``offset_col``
+        is laid out as the rows are (row-sharded over a mesh)."""
         link, vp, lp = self._link_and_powers()
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, link, vp, lp, resolve_device(device))
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
+            return self._fit_outofcore(data, link, vp, lp, stream_mesh(mesh, device))
+        ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
+        sh = Shards(ds)
         offset = None
         if self.offset_col is not None:
             from ..features.assembler import AssembledTable
@@ -559,22 +627,17 @@ class GeneralizedLinearRegression(Estimator):
             if self.offset_col not in data.table.schema:
                 raise KeyError(f"offset_col {self.offset_col!r} is not a column of the "
                                f"table; available: {data.table.schema.names}")
-            off = np.zeros((ds.n_padded,), np.float32)
-            vals = np.asarray(data.table.column(self.offset_col), np.float32)
-            off[: vals.shape[0]] = vals
-            offset = torch.from_numpy(off).to(ds.x.device)
-        y_host, w_host = ds.y.cpu().numpy(), ds.w.cpu().numpy()
-        self._validate_labels(y_host[w_host > 0], link, vp)
-        coef, intercept, n_iter, deviance, syncs = irls_glm(
-            ds.x, ds.y, ds.w, _off_or_zeros(offset, ds.y), float(self.reg_param),
-            float(self.tol), self.family, link, self.fit_intercept, self.standardize,
-            self.max_iter, vp, lp)
+            offset = padded_column(data.table.column(self.offset_col), ds)
+        self._validate_labels(sh.valid_labels(), link, vp)
+        coef, intercept, n_iter, deviance, syncs = irls_shards(
+            sh, offset_parts(sh, offset), float(self.reg_param), float(self.tol), self.family,
+            link, self.fit_intercept, self.standardize, self.max_iter, vp, lp)
         head = torch.stack([intercept.reshape(()), deviance]).tolist()
         model = GeneralizedLinearRegressionModel(
             coefficients=coef, intercept=head[0], family=self.family, link=link,
             n_iter=n_iter, deviance=head[1], variance_power=vp, link_power=lp)
-        # host reads: labels and weights (the checks), the loop's flags, the head
-        model.fit_info = {"n_iter": n_iter, "host_syncs": syncs + 3}
+        # host reads: the valid labels (the checks), the loop's flags, the head
+        model.fit_info = {"n_iter": n_iter, "host_syncs": syncs + 2}
         model._summary = GeneralizedLinearRegressionTrainingSummary(
             model, ds, self.reg_param, self.fit_intercept, offset)
         return model
@@ -599,10 +662,11 @@ class GeneralizedLinearRegression(Estimator):
         if self.family == "gaussian" and link == "log" and yv.min() <= 0.0:
             raise ValueError("gaussian family with log link needs positive labels")
 
-    def _fit_outofcore(self, hd: HostDataset, link: str, vp: float, lp: float, dev):
-        """Rows ≫ device memory: each iteration streams the blocks summing
-        the resident fit's (XᵀΩX, XᵀΩz), then the same damped solve; one
-        host read of the step an iteration."""
+    def _fit_outofcore(self, hd: HostDataset, link: str, vp: float, lp: float, mesh):
+        """Rows ≫ device memory: each iteration streams the blocks over
+        ``mesh`` summing the resident fit's (XᵀΩX, XᵀΩz) a shard at a time,
+        then the same damped solve on the home device; one host read of
+        the step an iteration."""
         if self.offset_col is not None:
             raise ValueError("offset_col needs a table input to resolve the column; "
                              "HostDataset has no columns")
@@ -610,7 +674,8 @@ class GeneralizedLinearRegression(Estimator):
             raise ValueError("GeneralizedLinearRegression needs labels: HostDataset(y=...)")
         w_host = np.asarray(hd.w) if hd.w is not None else np.ones(hd.n, np.float32)
         self._validate_labels(np.asarray(hd.y)[w_host > 0], link, vp)
-        n, _, std, sy = streamed_standardization(hd, device=dev, extra="ysum")
+        dev = stream_home(mesh)
+        n, _, std, sy = streamed_standardization(hd, mesh, extra="ysum")
         ybar = torch.tensor(np.float32(sy / n), device=dev)
         nfeat = hd.n_features
         ridge = torch.from_numpy(standardized_ridge(
@@ -618,21 +683,21 @@ class GeneralizedLinearRegression(Estimator):
         first = [True]
 
         def stats(blk, theta):
-            return _block_irls_stats(blk.x, blk.y, blk.w, theta, ybar, self.family, link,
-                                     self.fit_intercept, first[0], vp, lp)
+            return _block_irls_stats(blk.x, blk.y, blk.w, theta, ybar.to(blk.x.device),
+                                     self.family, link, self.fit_intercept, first[0], vp, lp)
 
         def update(theta, gram, mom):
             first[0] = False
             return _damped_solve(theta, gram, mom, ridge)
 
         theta = torch.zeros((ridge.shape[0],), dtype=torch.float32, device=dev)
-        theta, it = streamed_newton_loop(hd, stream_mesh(device=dev), stats, update, theta,
-                                         self.tol, self.max_iter)
+        theta, it = streamed_newton_loop(hd, mesh, stats, update, theta, self.tol, self.max_iter)
         dev_sum = None
-        for blk in hd.blocks(device=dev):
-            d = _block_deviance(blk.x, blk.y, blk.w.to(torch.float32), theta, self.family,
-                                link, self.fit_intercept, vp, lp)
-            dev_sum = d.to(torch.float64) if dev_sum is None else dev_sum + d.to(torch.float64)
+        for blk in hd.blocks(mesh):
+            d = shard_sum(blk, lambda i, s: (_block_deviance(
+                s.x, s.y, s.w.to(torch.float32), theta.to(s.x.device), self.family, link,
+                self.fit_intercept, vp, lp),))[0].to(torch.float64)
+            dev_sum = d if dev_sum is None else dev_sum + d
         theta_h = theta.cpu().numpy()
         model = GeneralizedLinearRegressionModel(
             coefficients=theta[:nfeat],

@@ -6,7 +6,8 @@ decreasing, weighted; predictions interpolate linearly between the fitted
 boundaries and clamp outside them (Spark's rule).
 
 The fit is host work, as in the reference: one copy of (x, y, w) to the
-host, a stable sort, pooling of duplicate x (``np.unique``,
+host (over a mesh, the shards' rows gathered in global row order), a
+stable sort, pooling of duplicate x (``np.unique``,
 ``np.add.reduceat``), then linear-time PAVA over the pooled groups.
 ``predict`` runs on the device: :func:`interp`, ``jnp.interp``'s
 arithmetic (``searchsorted`` on the right, a lerp, the clamps) in
@@ -22,7 +23,7 @@ import torch
 
 from ..io.model_io import register_model
 from ..parallel.outofcore import HostDataset
-from .base import Estimator, Model, as_device_dataset
+from .base import Estimator, Model, Shards, on_mesh
 
 #: ``jnp.interp``'s "dx is zero" threshold for float32 boundaries
 _DX_EPS = float(np.spacing(np.finfo(np.float32).eps))
@@ -113,9 +114,15 @@ class IsotonicRegression(Estimator):
             raise ValueError(f"feature_index {self.feature_index} out of range "
                              f"[0, {n_features})")
 
-    def fit(self, data, label_col: str | None = None, device=None) -> IsotonicRegressionModel:
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> IsotonicRegressionModel:
         """Fit on ``data``; its rows are staged on ``device`` (default the
-        card) as every estimator's are, then PAVA runs on the host.  A
+        card) or over ``mesh`` as every estimator's are, the one column, the
+        labels and the weights gathered to the host in global row order
+        (data-shard order), then PAVA runs on the host.  A
         :class:`HostDataset` stages nothing: the one column is sliced from
         the host matrix."""
         if isinstance(data, HostDataset):
@@ -128,12 +135,14 @@ class IsotonicRegression(Estimator):
             w = (np.asarray(data.w, np.float32).astype(np.float64) if data.w is not None
                  else np.ones(data.n, np.float64))
         else:
-            ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                                   weight_col=self.weight_col)
-            self._check_feature_index(ds.n_features)
-            x = ds.x[:, self.feature_index].cpu().numpy().astype(np.float64)
-            y = ds.y.cpu().numpy().astype(np.float64)
-            w = ds.w.cpu().numpy().astype(np.float64)
+            sh = Shards(on_mesh(data, label_col or self.label_col, device, self.weight_col,
+                                mesh))
+            self._check_feature_index(sh.n_features)
+            j = self.feature_index
+            cols = sh.rows(lambda i, s: torch.stack(
+                [s.x[:, j].to(torch.float64), s.y.to(torch.float64), s.w.to(torch.float64)],
+                dim=1))
+            x, y, w = cols[:, 0], cols[:, 1], cols[:, 2]
         valid = w > 0
         x, y, w = x[valid], y[valid], w[valid]
         if x.size == 0:

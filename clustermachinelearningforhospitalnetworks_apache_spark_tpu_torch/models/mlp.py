@@ -6,7 +6,10 @@ hidden layers, softmax output on the weighted cross-entropy, Glorot
 initial weights from numpy ``default_rng(seed)`` (bit-equal to the
 reference's), trained by full-batch L-BFGS (``models/_opt.py``: the
 reference's ``optax.lbfgs`` steps and its ``|Δloss| ≤ tol·max(|loss|, 1)``
-stop).  Gradients come from autograd; pad rows carry w = 0.
+stop).  Gradients come from autograd; pad rows carry w = 0.  Over a mesh
+(``fit(..., mesh=)``; one device is one shard of ``base.Shards``) the
+loss is a sum of per-shard terms, each shard's value and gradient taken
+on its device and added in ascending shard order.
 
 A :class:`~..parallel.outofcore.HostDataset` trains by minibatch Adam
 (lr 1e-2), one step a block, the blocks of each epoch in the order of
@@ -23,11 +26,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset
-from ._opt import Adam, lbfgs_minimize, value_and_grad
-from .base import Estimator, Model, as_device_dataset, check_features
+from ..parallel.outofcore import HostDataset, stream_home, stream_mesh
+from ._opt import Adam, lbfgs_minimize, shard_value_and_grad
+from .base import Estimator, Model, Shards, check_features, on_mesh
 
 
 def init_params(layers: tuple, seed: int, device) -> list:
@@ -51,11 +53,14 @@ def forward(params: list, x: torch.Tensor) -> torch.Tensor:
     return h @ params[-2] + params[-1][None, :]
 
 
-def mlp_loss(x, y, w):
+def mlp_loss(x, y, w, wsum=None):
     """Weighted mean cross-entropy of the softmax over ``forward``'s logits,
-    as a function of the parameter list."""
+    as a function of the parameter list; ``wsum`` (default max(Σw, 1) of
+    these rows) is the mean's divisor, a whole dataset's where these rows
+    are one shard of it."""
     yi = y.to(torch.int64)
-    wsum = torch.clamp(w.sum(), min=1.0)
+    if wsum is None:
+        wsum = torch.clamp(w.sum(), min=1.0)
 
     def loss_fn(params):
         ll = torch.log_softmax(forward(params, x), dim=1)
@@ -63,6 +68,17 @@ def mlp_loss(x, y, w):
         return torch.sum(nll * w) / wsum
 
     return loss_fn
+
+
+def mlp_grad_fn(sh):
+    """The loss's (value, gradients) over the shards of ``sh``
+    (``base.Shards``): each shard's mean term over the whole Σw on its
+    device, summed in ascending shard order
+    (:func:`~._opt.shard_value_and_grad`)."""
+    f32 = torch.float32
+    wsum = torch.clamp(sh.sum(lambda i, s: (s.w.to(f32).sum(),))[0], min=1.0)
+    return shard_value_and_grad(sh.sum, lambda i, s: mlp_loss(
+        s.x.to(f32), s.y, s.w.to(f32), wsum.to(s.x.device)))
 
 
 def _check_labels(valid: np.ndarray, n_out: int) -> None:
@@ -138,10 +154,13 @@ class MultilayerPerceptronClassifier(Estimator):
         model.fit_info = info
         return model
 
-    def fit(self, data, label_col: str | None = None, device=None):
-        """Fit on ``data`` (DeviceDataset, AssembledTable, (x, y[, w])) on
-        ``device`` (default the card); a :class:`HostDataset` streams its
-        blocks to ``device``."""
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None):
+        """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
+        (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
+        :class:`HostDataset` streams its blocks there."""
         if self.solver != "l-bfgs":
             raise ValueError(f"solver must be 'l-bfgs' (Spark's default and the only one "
                              f"implemented); got {self.solver!r}")
@@ -149,24 +168,24 @@ class MultilayerPerceptronClassifier(Estimator):
             raise ValueError(f"layers must name [input, hidden..., output] widths; got "
                              f"{self.layers}")
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device))
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
+            return self._fit_outofcore(data, stream_mesh(mesh, device))
+        sh = Shards(on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh))
         d_in, n_out = int(self.layers[0]), int(self.layers[-1])
-        if ds.n_features != d_in:
-            raise ValueError(f"layers[0]={d_in} but the data has {ds.n_features} features")
-        _check_labels(ds.y.cpu().numpy()[ds.w.cpu().numpy() > 0], n_out)
-        params = init_params(tuple(int(v) for v in self.layers), self.seed, ds.x.device)
-        loss_fn = mlp_loss(ds.x.to(torch.float32), ds.y, ds.w.to(torch.float32))
-        params, loss, n_iter, opt = lbfgs_minimize(loss_fn, params, self.max_iter, self.tol)
+        if sh.n_features != d_in:
+            raise ValueError(f"layers[0]={d_in} but the data has {sh.n_features} features")
+        _check_labels(sh.valid_labels(), n_out)
+        params = init_params(tuple(int(v) for v in self.layers), self.seed, sh.home)
+        params, loss, n_iter, opt = lbfgs_minimize(None, params, self.max_iter, self.tol,
+                                                   mlp_grad_fn(sh))
         return self._model(params, {"n_iter": n_iter, "loss": float(loss),
                                     "evaluations": opt.evaluations,
                                     "host_reads": opt.host_reads})
 
-    def _fit_outofcore(self, hd: HostDataset, dev):
-        """Rows ≫ device memory: minibatch Adam, one step a block, until
-        the mean epoch loss stops moving by more than ``tol`` or
-        ``max_iter`` epochs."""
+    def _fit_outofcore(self, hd: HostDataset, mesh):
+        """Rows ≫ device memory: minibatch Adam over ``mesh``, one step a
+        block (its gradient a shard at a time, summed), until the mean
+        epoch loss stops moving by more than ``tol`` or ``max_iter``
+        epochs."""
         if hd.y is None:
             raise ValueError("MultilayerPerceptronClassifier needs labels: HostDataset(y=...)")
         if hd.n == 0 or hd.count() == 0.0:
@@ -176,18 +195,17 @@ class MultilayerPerceptronClassifier(Estimator):
             raise ValueError(f"layers[0]={d_in} but the data has {hd.n_features} features")
         w_host = np.asarray(hd.w) if hd.w is not None else np.ones(hd.n, np.float32)
         _check_labels(np.asarray(hd.y)[w_host > 0], n_out)
-        params = init_params(tuple(int(v) for v in self.layers), self.seed, dev)
+        params = init_params(tuple(int(v) for v in self.layers), self.seed, stream_home(mesh))
         opt = Adam(params, 1e-2)
         prev = np.inf
-        n_blocks, _ = hd.block_shape()
+        n_blocks, _ = hd.block_shape(mesh)
         shuffle = np.random.default_rng(self.seed + 1)
         epochs = 0
         cur = 0.0
         for _ in range(self.max_iter):
             losses = []
-            for blk in hd.blocks(device=dev, order=shuffle.permutation(n_blocks)):
-                loss_fn = mlp_loss(blk.x.to(torch.float32), blk.y, blk.w.to(torch.float32))
-                loss, grads = value_and_grad(loss_fn, params)
+            for blk in hd.blocks(mesh, order=shuffle.permutation(n_blocks)):
+                loss, grads = mlp_grad_fn(Shards(blk))(params)
                 params = opt.step(params, grads)
                 losses.append(loss)
             epochs += 1

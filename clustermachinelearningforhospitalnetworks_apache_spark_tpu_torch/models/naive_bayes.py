@@ -11,7 +11,11 @@ The per-class statistics are one pass on the device: the one-hot product
 ``onehotᵀ·x`` as the reference takes it, summed per chunk of rows and then
 over the chunks (``chunked_gram``) in a fixed order, never ``index_add_``
 (whose order on the card varies from run to run).  Features of w = 0 rows
-are masked before any product, so a NaN in such a row stays inert.  The
+are masked before any product, so a NaN in such a row stays inert.  Over
+a mesh (``fit(..., mesh=)`` or a ``ShardedDataset``; one device is one
+shard of ``base.Shards``) the sums are taken a data shard on its device
+and added in ascending shard order, the class count from every shard's
+valid labels; out of core, a shard of each block, then the blocks.  The
 small (k, d) finish runs on the host in float64.
 """
 
@@ -22,11 +26,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..data import DeviceDataset
-from ..device import resolve_device
 from ..io.model_io import register_model
-from ..parallel.outofcore import HostDataset, add_stats, block_moments
-from .base import Estimator, Model, as_device_dataset, check_features
+from ..parallel.collectives import gather_shards
+from ..parallel.outofcore import HostDataset, add_stats, block_moments, shard_sum, stream_mesh
+from .base import Estimator, Model, Shards, check_features, on_mesh
 from .linear_regression import chunked_gram
 
 MODEL_TYPES = ("multinomial", "bernoulli", "complement", "gaussian")
@@ -60,6 +63,13 @@ def _count_sums(x, y, w, k: int, binary: bool = False):
     return counts, s1, bad
 
 
+def _count_stats(shard, k: int, binary: bool):
+    """One shard's (counts, Σx, bad-feature flag as float32): the discrete
+    types' sums, added over the shards and the blocks."""
+    counts, s1, bad = _count_sums(shard.x, shard.y, shard.w, k, binary=binary)
+    return counts, s1, bad.to(torch.float32)
+
+
 def _gaussian_stats_centered(x, y, w, k: int, gmean: torch.Tensor):
     """Per-class weighted (count, Σxc, Σxc²) at a fixed center: the
     per-block half of :func:`_gaussian_stats` for out-of-core fits."""
@@ -70,14 +80,20 @@ def _gaussian_stats_centered(x, y, w, k: int, gmean: torch.Tensor):
     return onehot.sum(dim=0), chunked_gram(onehot, xc), chunked_gram(onehot, xc * xc)
 
 
+def _weighted_sums(x, w):
+    """(Σw, Σw·x) with the features of w = 0 rows masked: the global
+    mean's sums."""
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    return w.sum(), (_masked(x, w) * w[:, None]).sum(dim=0)
+
+
 def _gaussian_stats(x, y, w, k: int):
     """Per-class weighted (count, Σxc, Σxc²) of globally centered features,
     and the center: centering keeps E[x²] − mean² out of float32 for
     features whose mean dwarfs their spread."""
-    x = x.to(torch.float32)
-    w = w.to(torch.float32)
-    n = torch.clamp(w.sum(), min=1.0)
-    gmean = (_masked(x, w) * w[:, None]).sum(dim=0) / n
+    sw, sx = _weighted_sums(x, w)
+    gmean = sx / torch.clamp(sw, min=1.0)
     return (*_gaussian_stats_centered(x, y, w, k, gmean), gmean)
 
 
@@ -163,30 +179,46 @@ class NaiveBayes(Estimator):
     features_col: str = "features"
     weight_col: str | None = None
 
-    def fit(self, data, label_col: str | None = None, device=None) -> NaiveBayesModel:
+    #: ``fit`` runs over a mesh of more than one shard
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> NaiveBayesModel:
         """One pass of per-class statistics on ``device`` (default the
-        card); a :class:`HostDataset` streams its blocks to ``device``."""
+        card) or over ``mesh``, a shard at a time; a :class:`HostDataset`
+        streams its blocks there."""
         if self.model_type not in MODEL_TYPES:
             raise ValueError(
                 "model_type must be multinomial|bernoulli|complement|"
                 f"gaussian, got {self.model_type!r}")
         if isinstance(data, HostDataset):
-            return self._fit_outofcore(data, resolve_device(device))
-        ds: DeviceDataset = as_device_dataset(
-            data, label_col or self.label_col, device=device, weight_col=self.weight_col)
-        # one host read: the class count (a shape), 0 when no row is valid
-        k = int(torch.where(ds.w > 0, ds.y, torch.full_like(ds.y, -1.0)).max()) + 1
-        k = max(k, 1)
+            return self._fit_outofcore(data, stream_mesh(mesh, device))
+        sh = Shards(on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh))
+        # one host read: the class count (a shape), 0 when no row is valid,
+        # from every shard's valid labels
+        tops: list = [None] * sh.D
+        for i, s in sh.data.items():
+            tops[i] = torch.where(s.w > 0, s.y, torch.full_like(s.y, -1.0)).max().reshape(1)
+        k = max(int(torch.cat(gather_shards(tops, sh.mesh)).max()) + 1, 1)
         if self.model_type != "gaussian":
-            counts, s1, bad = _count_sums(ds.x, ds.y, ds.w, k,
-                                          binary=self.model_type == "bernoulli")
-            flat = torch.cat([bad.to(torch.float32).reshape(1), counts,
-                              s1.reshape(-1)]).cpu().numpy().astype(np.float64)
-            if flat[0] > 0:
-                self._raise_bad_features()
-            return self._finalize_discrete(flat[1:1 + k], flat[1 + k:].reshape(k, -1), k)
-        stats = _gaussian_stats(ds.x, ds.y, ds.w, k)
-        return self._finalize_gaussian(*_host64(stats, k))
+            binary = self.model_type == "bernoulli"
+            return self._discrete_from_sums(
+                *sh.sum(lambda i, s: _count_stats(s, k, binary)), k)
+        # the global mean, then the per-class sums centred on it
+        sw, sx = sh.sum(lambda i, s: _weighted_sums(s.x, s.w))
+        gmean = sx / torch.clamp(sw, min=1.0)
+        gm = sh.put(gmean)
+        stats = sh.sum(lambda i, s: _gaussian_stats_centered(s.x, s.y, s.w, k, gm[i]))
+        return self._finalize_gaussian(*_host64((*stats, gmean), k))
+
+    def _discrete_from_sums(self, counts, s1, bad, k: int) -> NaiveBayesModel:
+        """Summed (counts, Σx, bad-feature flag) → the model, in one copy to
+        the host."""
+        flat = torch.cat([bad.reshape(1), counts, s1.reshape(-1)]).cpu().numpy() \
+            .astype(np.float64)
+        if flat[0] > 0:
+            self._raise_bad_features()
+        return self._finalize_discrete(flat[1:1 + k], flat[1 + k:].reshape(k, -1), k)
 
     def _raise_bad_features(self):
         if self.model_type == "bernoulli":
@@ -229,11 +261,11 @@ class NaiveBayes(Estimator):
         var = np.maximum(var, floor)
         return NaiveBayesModel("gaussian", pi, mean_c + gmean[None, :], var)
 
-    def _fit_outofcore(self, hd: HostDataset, dev) -> NaiveBayesModel:
-        """Rows ≫ device memory: the same per-class statistics summed block
-        by block (the bad-feature flag summed on the device, read once);
-        gaussian takes two passes, the global mean and then the centered
-        per-class sums."""
+    def _fit_outofcore(self, hd: HostDataset, mesh) -> NaiveBayesModel:
+        """Rows ≫ device memory: the same per-class statistics a shard of a
+        block over ``mesh``, summed over the shards and then the blocks (the
+        bad-feature flag summed on the device, read once); gaussian takes
+        two passes, the global mean and then the centred per-class sums."""
         if hd.y is None:
             raise ValueError("NaiveBayes needs labels: HostDataset(y=...)")
         if hd.n == 0:
@@ -245,26 +277,22 @@ class NaiveBayes(Estimator):
         k = int(y_host[w_host > 0].max()) + 1
 
         if self.model_type != "gaussian":
+            binary = self.model_type == "bernoulli"
             tot = None
-            for blk in hd.blocks(device=dev):
-                counts, s1, bad = _count_sums(blk.x, blk.y, blk.w, k,
-                                              binary=self.model_type == "bernoulli")
-                s = (counts, s1, bad.to(torch.float32))
+            for blk in hd.blocks(mesh):
+                s = shard_sum(blk, lambda i, sh: _count_stats(sh, k, binary))
                 tot = s if tot is None else add_stats(tot, s)
-            flat = torch.cat([tot[2].reshape(1), tot[0], tot[1].reshape(-1)]) \
-                .cpu().numpy().astype(np.float64)
-            if flat[0] > 0:
-                self._raise_bad_features()
-            return self._finalize_discrete(flat[1:1 + k], flat[1 + k:].reshape(k, -1), k)
+            return self._discrete_from_sums(*tot, k)
 
         mtot = None
-        for blk in hd.blocks(device=dev):
-            s = block_moments(blk.x, blk.y, blk.w)
+        for blk in hd.blocks(mesh):
+            s = shard_sum(blk, lambda i, sh: block_moments(sh.x, sh.y, sh.w))
             mtot = s if mtot is None else add_stats(mtot, s)
         gmean = mtot[1] / torch.clamp(mtot[0], min=1.0)
         tot = None
-        for blk in hd.blocks(device=dev):
-            s = _gaussian_stats_centered(blk.x, blk.y, blk.w, k, gmean)
+        for blk in hd.blocks(mesh):
+            s = shard_sum(blk, lambda i, sh: _gaussian_stats_centered(
+                sh.x, sh.y, sh.w, k, gmean.to(sh.x.device)))
             tot = s if tot is None else add_stats(tot, s)
         return self._finalize_gaussian(*_host64((*tot, gmean), k))
 

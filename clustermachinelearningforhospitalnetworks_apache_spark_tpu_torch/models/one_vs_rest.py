@@ -3,9 +3,10 @@
 The JAX package's ``models/one_vs_rest.py`` (``pyspark.ml.classification.
 OneVsRest``): one binary model per class (label == c → 1), prediction by
 the highest per-class confidence.  The one-vs-all labels are made on the
-device the rows lie on and the k fits run one after another (a tree
-classifier inside launches K3 at every level of each); scoring stacks the
-k confidences and takes the argmax on the device.
+device the rows lie on, a data shard at a time over a mesh, and the k
+fits run one after another over the same shards (a tree classifier
+inside launches K3 at every level of each, once a data shard); scoring
+stacks the k confidences and takes the argmax on the device.
 
 The confidence is the model's ``predict_proba`` (the class-1 column) or,
 failing that, its ``predict_raw`` margin.  The model persists as a
@@ -23,7 +24,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..data import DeviceDataset
 from ..io.model_io import (
     METADATA_FILE,
     finalize_artifact_dir,
@@ -34,9 +34,10 @@ from ..io.model_io import (
     validate_persistable,
     write_metadata,
 )
+from ..parallel.collectives import gather_shards
 from ..parallel.outofcore import HostDataset
 from ..version import __version__
-from .base import Estimator, Model, as_device_dataset
+from .base import Estimator, Model, Shards, is_sharded, on_mesh
 
 _OVR_CLASS = "OneVsRestModel"
 
@@ -108,10 +109,16 @@ class OneVsRest(Estimator):
     features_col: str = "features"
     weight_col: str | None = None
 
-    def fit(self, data, label_col: str | None = None, device=None) -> OneVsRestModel:
+    #: ``fit`` runs over a mesh of more than one shard (its classifier's)
+    mesh_fit = True
+
+    def fit(self, data, label_col: str | None = None, device=None,
+            mesh=None) -> OneVsRestModel:
         """k one-vs-all fits of ``classifier`` on ``device`` (default the
-        card); a :class:`HostDataset` goes through the inner estimator's
-        own out-of-core path with host 0/1 labels."""
+        card) or over ``mesh``: the 0/1 labels are made a shard at a time
+        and each fit runs over the same shards.  A :class:`HostDataset`
+        goes through the inner estimator's own out-of-core path, to
+        ``device`` or over ``mesh``, with host 0/1 labels."""
         if self.classifier is None:
             raise ValueError("OneVsRest needs a classifier estimator")
         if isinstance(data, HostDataset):
@@ -125,29 +132,42 @@ class OneVsRest(Estimator):
             k = int(y_host[w_host > 0].max()) + 1
             if k < 2:
                 raise ValueError("OneVsRest needs at least 2 classes")
+            where = {"mesh": mesh} if mesh is not None else {"device": device}
             return OneVsRestModel(tuple(
                 self.classifier.fit(HostDataset(x=data.x, y=(y_host == float(c)).astype(np.float32),
                                                 w=data.w, max_device_rows=data.max_device_rows),
-                                    device=device)
+                                    **where)
                 for c in range(k)))
-        ds = as_device_dataset(data, label_col or self.label_col, device=device,
-                               weight_col=self.weight_col)
+        ds = on_mesh(data, label_col or self.label_col, device, self.weight_col, mesh)
+        sh = Shards(ds)
+
         # one host read: whether any row is valid, and the class count
-        valid = ds.w > 0
-        some, top = torch.stack([valid.any().to(ds.y.dtype),
-                                 torch.where(valid, ds.y, torch.zeros_like(ds.y)).max()]).tolist()
+        def head(i, s):
+            valid = s.w > 0
+            return torch.stack([valid.any().to(s.y.dtype),
+                                torch.where(valid, s.y, torch.zeros_like(s.y)).max()])
+
+        parts: list = [None] * sh.D
+        for i, s in sh.data.items():
+            parts[i] = head(i, s)
+        some, top = torch.stack(gather_shards(parts, sh.mesh)).max(dim=0).values.tolist()
         if not some:
             raise ValueError("OneVsRest fit on an empty dataset")
         k = int(top) + 1
         if k < 2:
             raise ValueError("OneVsRest needs at least 2 classes")
         _refuse_inner_weight_col(self.classifier, "DeviceDataset")
-        # one-vs-all labels on the device; the inner estimator's label_col
-        # is not read for a DeviceDataset
-        return OneVsRestModel(tuple(
-            self.classifier.fit(DeviceDataset(x=ds.x, y=(ds.y == float(c)).to(torch.float32),
-                                              w=ds.w))
-            for c in range(k)))
+        # one-vs-all labels on each shard's device; the inner estimator's
+        # label_col is not read for a dataset
+        models = []
+        for c in range(k):
+            sub = sh.with_rows(y={i: (s.y == float(c)).to(torch.float32)
+                                  for i, s in sh.data.items()})
+            if is_sharded(ds):
+                models.append(self.classifier.fit(sub.dataset(), mesh=ds.mesh))
+            else:
+                models.append(self.classifier.fit(sub.data[0]))
+        return OneVsRestModel(tuple(models))
 
 
 register_composite(

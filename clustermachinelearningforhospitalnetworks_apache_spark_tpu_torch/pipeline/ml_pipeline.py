@@ -5,7 +5,9 @@ a *stage* is anything with ``fit`` (an estimator, replaced by its fitted
 model in the ``PipelineModel``) or else ``transform`` (a transformer,
 carried as it is).  Data flows through whatever each stage produces —
 ``Table`` → ``AssembledTable`` → ``DeviceDataset`` — and a stage that
-takes ``device=`` (or ``label_col=``) is handed the pipeline's.
+takes ``mesh=`` (or ``label_col=``) is handed the pipeline's, in the
+reference's positional order ``fit(data, label_col, mesh)``; ``device=``
+is a keyword, handed to the stages that take it (:func:`_call_stage`).
 
 Persistence is the JAX package's layout: one directory per stage
 (``stages/<i>_<ClassName>``) and a pipeline-level ``metadata.json``;
@@ -43,11 +45,27 @@ def _accepts(fn, name: str) -> bool:
         return False
 
 
-def _call_stage(fn, data, label_col, device):
+def _call_stage(fn, data, label_col, mesh, device=None):
+    """``fn(data)`` with the pipeline's ``label_col`` and ``mesh`` (or
+    ``device``) where it takes them.  A stage that takes ``mesh`` gets it
+    (an estimator whose fit does not run over shards yet raises there); a
+    stage that takes only ``device`` runs on one device, the mesh's first
+    for a one-entry mesh, and raises over a larger one rather than fit the
+    rows of every shard on one device."""
+    from ..models.base import require_single_shard
+
     kwargs = {}
     if label_col is not None and _accepts(fn, "label_col"):
         kwargs["label_col"] = label_col
-    if device is not None and _accepts(fn, "device"):
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        if _accepts(fn, "mesh"):
+            kwargs["mesh"] = mesh
+        elif _accepts(fn, "device"):
+            require_single_shard(None, mesh, getattr(fn, "__qualname__", repr(fn)))
+            kwargs["device"] = mesh.device(0, 0)
+    elif device is not None and _accepts(fn, "device"):
         kwargs["device"] = device
     return fn(data, **kwargs)
 
@@ -59,13 +77,16 @@ class Pipeline:
 
     stages: Sequence[Any]
 
-    def fit(self, data: Any, label_col: str | None = None, device=None) -> "PipelineModel":
+    def fit(self, data: Any, label_col: str | None = None, mesh=None, *,
+            device=None) -> "PipelineModel":
+        """Fit every estimator stage over ``mesh`` (or on ``device``,
+        default the card) on the output of the stages before it."""
         fitted: list[Any] = []
         cur = data
         last = len(self.stages) - 1
         for i, stage in enumerate(self.stages):
             if hasattr(stage, "fit"):
-                model = _call_stage(stage.fit, cur, label_col, device)
+                model = _call_stage(stage.fit, cur, label_col, mesh, device)
             elif hasattr(stage, "transform"):
                 model = stage
             else:
@@ -73,7 +94,7 @@ class Pipeline:
                     f"pipeline stage {i} ({type(stage).__name__}) has neither fit nor transform")
             fitted.append(model)
             if i < last:
-                cur = _call_stage(model.transform, cur, label_col, device)
+                cur = _call_stage(model.transform, cur, label_col, mesh, device)
         return PipelineModel(tuple(fitted))
 
 
@@ -83,10 +104,12 @@ class PipelineModel:
 
     stages: tuple[Any, ...]
 
-    def transform(self, data: Any, label_col: str | None = None, device=None):
+    def transform(self, data: Any, label_col: str | None = None, mesh=None, *, device=None):
+        """Every stage's ``transform`` in turn, over ``mesh`` (or on
+        ``device``)."""
         cur = data
         for stage in self.stages:
-            cur = _call_stage(stage.transform, cur, label_col, device)
+            cur = _call_stage(stage.transform, cur, label_col, mesh, device)
         return cur
 
     def _validate_persistable(self, prefix: str = "") -> None:

@@ -2,11 +2,13 @@
 ``pyspark.ml.tuning``).
 
 ``ParamGridBuilder`` / ``CrossValidator`` / ``TrainValidationSplit``: the
-search is a sequential loop of fits on the device (one card: every fit
-already uses it), fold membership decided once on the host by the same
-seeded permutation as the reference's (``np.random.default_rng(seed)``),
+search is a sequential loop of fits on the device or over a mesh (every
+fit already spans it), fold membership decided once on the host by the
+same seeded permutation as the reference's (``np.random.default_rng(seed)``),
 and each fold's train and validation rows cut on the host; each fit moves
-its rows to ``device`` itself.
+its rows to ``device``, or lays them over ``mesh``, itself.  ``fit`` and
+``transform`` take the reference's order ``(data, label_col, mesh)``, with
+``device=`` a keyword.
 
 Estimators are frozen or plain dataclasses, so a param map is a plain
 dict applied with ``dataclasses.replace``:
@@ -158,30 +160,34 @@ def _val_features(val) -> np.ndarray:
     return np.asarray(val, dtype=np.float32)
 
 
-def _score(model, val, evaluator, label_col, device) -> float:
+def _score(model, val, evaluator, label_col, mesh, device=None) -> float:
     from ..evaluation.clustering import ClusteringEvaluator
 
     if isinstance(evaluator, ClusteringEvaluator):
         # a clustering model is scored on (features, assignments): the
-        # silhouette needs the features, not a PredictionResult
-        from ..data import unpad
-        from ..models.base import as_device_dataset
+        # silhouette needs the features, not a PredictionResult.  Over a
+        # mesh the assignments are taken a shard at a time (K2 once a data
+        # shard for KMeans) and the silhouette runs over the same mesh
+        from ..models.base import as_device_dataset, is_sharded
+        from ..parallel.sharding import unpad
 
         x = _val_features(val)
-        ds = as_device_dataset(x, device=device)
-        assign = np.asarray(unpad(model.predict(ds.x), x.shape[0]))
+        ds = as_device_dataset(x, device=device, mesh=mesh, sharded=True)
+        pred = ds.x.map_data(model.predict) if is_sharded(ds) else model.predict(ds.x)
+        assign = np.asarray(unpad(pred, x.shape[0]))
         k = getattr(model, "k", None) or getattr(
             model, "cluster_centers", np.zeros((0,))
         ).shape[0] or None
-        return float(evaluator.evaluate(x, assign, k=k, device=device))
-    pred = _call_stage(model.transform, val, label_col, device)
+        where = {"mesh": mesh} if mesh is not None else {"device": device}
+        return float(evaluator.evaluate(x, assign, k=k, **where))
+    pred = _call_stage(model.transform, val, label_col, mesh, device)
     return float(evaluator.evaluate(pred))
 
 
-def _fit_and_score(estimator, params, train, val, evaluator, label_col, device):
+def _fit_and_score(estimator, params, train, val, evaluator, label_col, mesh, device):
     est = apply_params(estimator, params)
-    model = _call_stage(est.fit, train, label_col, device)
-    return model, _score(model, val, evaluator, label_col, device)
+    model = _call_stage(est.fit, train, label_col, mesh, device)
+    return model, _score(model, val, evaluator, label_col, mesh, device)
 
 
 def _best_index(avg: np.ndarray, larger_better: bool) -> int:
@@ -209,7 +215,10 @@ class CrossValidator:
     seed: int = 0
     collect_sub_models: bool = False
 
-    def fit(self, data: Any, label_col: str | None = None, device=None) -> "CrossValidatorModel":
+    def fit(self, data: Any, label_col: str | None = None, mesh=None, *,
+            device=None) -> "CrossValidatorModel":
+        """Every (param map, fold) fit and scored over ``mesh`` (or on
+        ``device``, default the card), the best refit on all the rows."""
         if self.num_folds < 2:
             raise ValueError(f"num_folds must be ≥2, got {self.num_folds}")
         if not self.param_maps:
@@ -225,7 +234,7 @@ class CrossValidator:
             for pi, params in enumerate(self.param_maps):
                 model, score = _fit_and_score(
                     self.estimator, params, train, val, self.evaluator,
-                    label_col, device,
+                    label_col, mesh, device,
                 )
                 metrics[pi, fold] = score
                 if self.collect_sub_models:
@@ -234,7 +243,7 @@ class CrossValidator:
         larger = getattr(self.evaluator, "is_larger_better", True)
         best = _best_index(avg, larger)
         best_est = apply_params(self.estimator, self.param_maps[best])
-        best_model = _call_stage(best_est.fit, data, label_col, device)
+        best_model = _call_stage(best_est.fit, data, label_col, mesh, device)
         return CrossValidatorModel(
             best_model=best_model,
             avg_metrics=avg,
@@ -255,7 +264,11 @@ class TrainValidationSplit:
     train_ratio: float = 0.75
     seed: int = 0
 
-    def fit(self, data: Any, label_col: str | None = None, device=None) -> "TrainValidationSplitModel":
+    def fit(self, data: Any, label_col: str | None = None, mesh=None, *,
+            device=None) -> "TrainValidationSplitModel":
+        """Every param map fit on the train split and scored on the rest
+        over ``mesh`` (or on ``device``, default the card), the best refit
+        on all the rows."""
         if not 0.0 < self.train_ratio < 1.0:
             raise ValueError(f"train_ratio must be in (0, 1), got {self.train_ratio}")
         if not self.param_maps:
@@ -270,12 +283,12 @@ class TrainValidationSplit:
         metrics = np.zeros(len(self.param_maps))
         for pi, params in enumerate(self.param_maps):
             _, metrics[pi] = _fit_and_score(
-                self.estimator, params, train, val, self.evaluator, label_col, device
+                self.estimator, params, train, val, self.evaluator, label_col, mesh, device
             )
         larger = getattr(self.evaluator, "is_larger_better", True)
         best = _best_index(metrics, larger)
         best_est = apply_params(self.estimator, self.param_maps[best])
-        best_model = _call_stage(best_est.fit, data, label_col, device)
+        best_model = _call_stage(best_est.fit, data, label_col, mesh, device)
         return TrainValidationSplitModel(
             best_model=best_model,
             validation_metrics=metrics,
@@ -289,8 +302,8 @@ class _SelectedModel:
 
     _ARTIFACT: str = ""
 
-    def transform(self, data: Any, label_col: str | None = None, device=None):
-        return _call_stage(self.best_model.transform, data, label_col, device)
+    def transform(self, data: Any, label_col: str | None = None, mesh=None, *, device=None):
+        return _call_stage(self.best_model.transform, data, label_col, mesh, device)
 
     def _validate_persistable(self, prefix: str = "") -> None:
         validate_persistable(self.best_model, label=f"{prefix}bestModel")

@@ -38,7 +38,19 @@ from its first 256 rows:
 5. C processes, one card each, NCCL through a ``file://`` store: the
    host-major (C, 1) mesh, every rank's model ``==`` the in-process (C, 1)
    fit, each rank's warm fit seconds (its second fit) and the seconds of
-   it inside the ordered gather (``collectives.gather_shards``).
+   it inside the ordered gather (``collectives.gather_shards``);
+6. slice 8c-3's estimators and composites over a (C, 1) mesh of the C
+   cards on ``chip_smoke.py``'s 2M hospital rows (``mesh_estimators_phase``'s
+   (4, 1) legs), each ``==`` the (C, 1) mesh over ``[cuda:0] * C``:
+   LinearSVC, gaussian NaiveBayes, OneVsRest over trees and over
+   LogisticRegression, the Poisson GLM with an offset and its summary,
+   AFT, FMRegressor, the MLP, IsotonicRegression, the two pipelines, the
+   CrossValidator and the TrainValidationSplit (its silhouette metrics
+   within the phase's limit: their sums are not order-stable on the card),
+   with their seconds.
+
+``--legs`` runs a subset of the legs (the numbers above, default all), so
+a call that tests one slice's path runs that path alone.
 
 It prints the card's name and power limit, a line a leg, and one JSON
 object last; any disagreement exits 1.
@@ -232,6 +244,115 @@ def outofcore_leg(port, cs, C: int, cards: list, one: list, dev: str, x, warm, t
     return secs
 
 
+def estimators_leg(port, cs, C: int, cards: list, one: list, dev: str, scale: int,
+                   card: str) -> dict:
+    """Slice 8c-3's fits over a (C, 1) mesh of the cards against the same
+    shape over one card: every fitted array ``==``.  Rows are
+    ``chip_smoke.py``'s 2M hospital rows (its 2M censored AFT rows)
+    divided by ``scale``.  → each leg's seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    cs.TREE_N //= scale
+    try:
+        x, los, yb = cs.stage_rows()
+        xa, ya, cen = cs.aft_rows(cs.TREE_N)
+    finally:
+        cs.TREE_N *= scale
+    x, los = x.astype(np.float32), los.astype(np.float32)
+    tiers = np.digitize(los, np.quantile(los, [0.5, 0.85])).astype(np.float32)
+    days = np.maximum(np.rint(los), 1.0).astype(np.float32)
+    names = list(port.FEATURE_COLS)
+    cols = {c: x[:, j] for j, c in enumerate(names)}
+    table = port.Table.from_dict({**cols, port.LABEL_COL: los})
+    glm_table = port.VectorAssembler(names).transform(port.Table.from_dict(
+        {**cols, port.LABEL_COL: days,
+         "log_exposure": np.log(x[:, 0].astype(np.float64) + 1.0).astype(np.float32)}))
+    tune = len(x) // 4
+    xz = ((x[:tune] - x[:tune].mean(axis=0)) / x[:tune].std(axis=0)).astype(np.float32)
+
+    def arrays(m) -> list:
+        """Every array a fitted model (or composite) holds, on the host."""
+        if hasattr(m, "models"):
+            return [a for sub in m.models for a in arrays(sub)]
+        if hasattr(m, "stages"):
+            return [a for sub in m.stages for a in arrays(sub)]
+        if hasattr(m, "best_model"):
+            metrics = getattr(m, "avg_metrics", getattr(m, "validation_metrics", None))
+            return [np.asarray(metrics), np.asarray(m.best_index)] + arrays(m.best_model)
+        if hasattr(m, "weights") and isinstance(m.weights, list):
+            return [t.cpu().numpy() for wb in m.weights for t in wb]
+        out = []
+        for f in dataclasses.fields(m) if dataclasses.is_dataclass(m) else ():
+            v = getattr(m, f.name)
+            if isinstance(v, torch.Tensor):
+                out.append(v.cpu().numpy())
+            elif isinstance(v, (np.ndarray, float, int)):
+                out.append(np.asarray(v))
+        return out
+
+    grid_d = port.ParamGridBuilder().add_grid("max_depth", [3, 5]).build()
+    grid_k = port.ParamGridBuilder().add_grid("k", [8, 16]).build()
+    legs = {
+        "svc": lambda m: port.LinearSVC(tol=cs.CLS_TOL).fit((x, yb), mesh=m),
+        "nb_gaussian": lambda m: port.NaiveBayes(model_type="gaussian").fit((x, tiers), mesh=m),
+        "ovr_tree": lambda m: port.OneVsRest(port.DecisionTreeClassifier(max_depth=5)).fit(
+            (x, tiers), mesh=m),
+        "ovr_logistic": lambda m: port.OneVsRest(port.LogisticRegression(tol=cs.CLS_TOL)).fit(
+            (x, tiers), mesh=m),
+        "glm": lambda m: port.GeneralizedLinearRegression(
+            family="poisson", tol=cs.FAM_TOL, offset_col="log_exposure").fit(glm_table, mesh=m),
+        "aft": lambda m: port.AFTSurvivalRegression(max_iter=100).fit((xa, ya), mesh=m,
+                                                                      censor=cen),
+        "fm": lambda m: port.FMRegressor(factor_size=8, max_iter=100).fit((x, los), mesh=m),
+        "mlp": lambda m: port.MultilayerPerceptronClassifier(
+            layers=(4, 16, 2), max_iter=150, seed=0).fit((x, yb), mesh=m),
+        "isotonic": lambda m: port.IsotonicRegression(feature_index=1).fit((x, los), mesh=m),
+        "pipe_lr": lambda m: port.Pipeline([port.VectorAssembler(names), port.StandardScaler(),
+                                            port.LinearRegression()]).fit(table, mesh=m),
+        "pipe_kmeans": lambda m: port.Pipeline([
+            port.VectorAssembler(names), port.StandardScaler(),
+            port.KMeans(k=16, seed=SEED, max_iter=MAX_ITER)]).fit(table, mesh=m),
+        "cv_tree": lambda m: port.CrossValidator(
+            port.DecisionTreeRegressor(), grid_d, port.RegressionEvaluator("rmse"),
+            num_folds=3).fit((x[:tune], days[:tune]), mesh=m),
+        "tvs_kmeans": lambda m: port.TrainValidationSplit(
+            port.KMeans(seed=SEED, max_iter=MAX_ITER), grid_k,
+            port.ClusteringEvaluator()).fit(xz, mesh=m),
+    }
+    legs["svc"](port.build_mesh(port.MeshConfig(data=C), cards))   # first use of each card
+    secs = {}
+    for leg, run in legs.items():
+        got = {}
+        for name, devs in (("cards", cards), ("one_card", one)):
+            mesh = port.build_mesh(port.MeshConfig(data=C), devs)
+            sync_all(dev)
+            t0 = time.perf_counter()
+            model = run(mesh)
+            sync_all(dev)
+            got[name] = (arrays(model), time.perf_counter() - t0)
+        (a, s_a), (b, s_b) = got["cards"], got["one_card"]
+        if leg == "tvs_kmeans":
+            # the silhouette's first pass sums with index_add_, whose order on
+            # the card varies from call to call (ROADMAP queue 3): its metrics
+            # are held at the phase's limit, the chosen index and fit ==
+            if cs.rel_each(a[0], b[0]) > cs.ME_LIMITS["tvs_kmeans"]["metrics"]:
+                fail(f"the TrainValidationSplit's metrics over {C} cards {a[0]} are off one "
+                     f"card's {b[0]}")
+            a, b = a[1:], b[1:]
+        if not a or len(a) != len(b) or not all(np.array_equal(u, v) for u, v in zip(a, b)):
+            fail(f"slice 8c-3's {leg} over {C} cards differs from one card's")
+        secs[leg] = {"cards_s": s_a, "one_card_s": s_b}
+    print(f"({C}, 1) slice 8c-3 estimators and composites, one process, on {len(x)} hospital "
+          f"rows over {C} cards against one card: "
+          + "; ".join(f"{leg} {v['cards_s']:.4f} s / {v['one_card_s']:.4f} s "
+                      f"({v['one_card_s'] / v['cards_s']:.2f}x)" for leg, v in secs.items())
+          + f"; each == bit for bit ({card})", flush=True)
+    return secs
+
+
 def fit(port, ds, warm, mesh, dev: str):
     """A warm KMeans fit of the dataset ``ds`` laid over ``mesh`` →
     (model, seconds)."""
@@ -288,41 +409,10 @@ def rank_main(rank: int, world: int, store: str, dev: str, rows_path: str, out_p
     os._exit(0)
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cpu", type=int, default=0,
-                    help="rehearse on this many CPU entries (gloo ranks, small rows)")
-    args = ap.parse_args()
-    sys.path.insert(0, str(ROOT))
-    import numpy as np
-    import torch
-    import torch.multiprocessing as mp
-
-    import chip_smoke as cs
-    import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
-
-    if args.cpu:
-        dev, C, n = "cpu", args.cpu, 200_000
-        card = f"cpu rehearsal, {C} entries"
-    else:
-        if not torch.cuda.is_available():
-            fail("no CUDA device: pass --cpu N to rehearse")
-        dev, C, n = "cuda", torch.cuda.device_count(), cs.N
-        if C < 2:
-            fail(f"{C} card(s): this script needs at least 2")
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             timeout=60)
-        card = "; ".join(sorted(set(smi.stdout.strip().splitlines())))
-        from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import _build
-
-        _build.build()
-    print(card, flush=True)
-    x = cs.make_data(n, cs.D, K, SEED)
-    warm = x[:K].copy()
-    out = {"cards": C, "card": card, "rows": n}
-    cards = [dev if dev == "cpu" else f"cuda:{i}" for i in range(C)]
-    one = [dev if dev == "cpu" else "cuda:0"] * C
+def in_process_leg(port, x, warm, C: int, cards: list, one: list, dev: str, card: str,
+                   out: dict):
+    """Item 1: KMeans over (C, 1) and (C/2, 2) meshes of the cards against
+    the same shapes over one card.  → the (C, 1) fit."""
     ds = port.device_dataset(x, device=one[0])
     legs = {}
     for shape in ((C, 1), (C // 2, 2)):
@@ -346,28 +436,15 @@ def main() -> None:
             ref = spread
         del on_cards, on_one
     out["in_process"] = legs
-    del ds
-    window = port.extract_training_window(
-        port.Table.from_dict(cs.hospital_events((40_000 if dev == "cpu" else cs.TREE_N) // 5),
-                             port.hospital_event_schema()), port.PipelineConfig(), device=one[0])
-    out["model_stage"] = stage_leg(port, window, C, cards, one, dev, card,
-                                   "before the clustering legs")
-    out["clustering"] = clustering_leg(port, cs, C, cards, one, dev, 50 if dev == "cpu" else 1,
-                                       ref, x, card)
-    if dev != "cpu":
-        torch.cuda.empty_cache()
-    # the stage once more: what the clustering legs leave behind slows it or not
-    out["model_stage_after_clustering"] = stage_leg(port, window, C, cards, one, dev, card,
-                                                    "after the clustering legs")
-    if dev != "cpu":
-        torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        out["outofcore"] = outofcore_leg(port, cs, C, cards, one, dev, x, warm, tmp,
-                                         50 if dev == "cpu" else 1, card)
-    if dev != "cpu":
-        torch.cuda.empty_cache()
+    return ref
 
-    # the ranks after the in-process legs, so no leg shares a card
+
+def ranks_leg(x, C: int, dev: str, ref, card: str) -> dict:
+    """Item 5: C processes, one card each, every rank's model ``==`` the
+    in-process (C, 1) fit ``ref``.  → the ranks' seconds."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
     with tempfile.TemporaryDirectory() as tmp:
         rows_path = os.path.join(tmp, "rows.npy")
         np.save(rows_path, x)
@@ -396,14 +473,90 @@ def main() -> None:
                 fail(f"rank {r['rank']}: {r['error']}")
             if not same(r["model"], ref):
                 fail(f"rank {r['rank']} differs from the in-process ({C}, 1) fit")
-        out["ranks"] = {"backend": ranks[0]["backend"],
-                        "fit_s": [r["fit_s"] for r in ranks],
-                        "gather_s": [r["gather_s"] for r in ranks],
-                        "wall_s": time.perf_counter() - t_spawn}
+        res = {"backend": ranks[0]["backend"], "fit_s": [r["fit_s"] for r in ranks],
+               "gather_s": [r["gather_s"] for r in ranks],
+               "wall_s": time.perf_counter() - t_spawn}
         print(f"({C}, 1) mesh over {C} processes, one entry each, {ranks[0]['backend']}: every "
               f"rank == the in-process fit; fit s {[round(r['fit_s'], 4) for r in ranks]}, of it "
               f"in the ordered gather {[round(r['gather_s'], 4) for r in ranks]} ({card})",
               flush=True)
+    return res
+
+
+def empty_caches(dev: str) -> None:
+    if dev != "cpu":
+        import torch
+
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cpu", type=int, default=0,
+                    help="rehearse on this many CPU entries (gloo ranks, small rows)")
+    ap.add_argument("--legs", default="1,2,3,4,5,6",
+                    help="the legs to run, by their numbers above (default all)")
+    args = ap.parse_args()
+    legs_on = {int(v) for v in args.legs.split(",")}
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    import chip_smoke as cs
+    import clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch as port
+
+    if args.cpu:
+        dev, C, n = "cpu", args.cpu, 200_000
+        card = f"cpu rehearsal, {C} entries"
+    else:
+        if not torch.cuda.is_available():
+            fail("no CUDA device: pass --cpu N to rehearse")
+        dev, C, n = "cuda", torch.cuda.device_count(), cs.N
+        if C < 2:
+            fail(f"{C} card(s): this script needs at least 2")
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        card = "; ".join(sorted(set(smi.stdout.strip().splitlines())))
+        from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import _build
+
+        _build.build()
+    print(card, flush=True)
+    if legs_on & {1, 3, 4, 5}:
+        x = cs.make_data(n, cs.D, K, SEED)
+        warm = x[:K].copy()
+    out = {"cards": C, "card": card, "rows": n}
+    cards = [dev if dev == "cpu" else f"cuda:{i}" for i in range(C)]
+    one = [dev if dev == "cpu" else "cuda:0"] * C
+    if legs_on & {1, 3, 5}:       # legs 3 and 5 hold to leg 1's (C, 1) fit
+        ref = in_process_leg(port, x, warm, C, cards, one, dev, card, out)
+    if legs_on & {2, 3}:
+        window = port.extract_training_window(
+            port.Table.from_dict(cs.hospital_events((40_000 if dev == "cpu" else cs.TREE_N) // 5),
+                                 port.hospital_event_schema()), port.PipelineConfig(),
+            device=one[0])
+    if 2 in legs_on:
+        out["model_stage"] = stage_leg(port, window, C, cards, one, dev, card,
+                                       "before the clustering legs")
+    if 3 in legs_on:
+        out["clustering"] = clustering_leg(port, cs, C, cards, one, dev,
+                                           50 if dev == "cpu" else 1, ref, x, card)
+        empty_caches(dev)
+        # the stage once more: what the clustering legs leave behind slows it or not
+        out["model_stage_after_clustering"] = stage_leg(port, window, C, cards, one, dev, card,
+                                                        "after the clustering legs")
+    empty_caches(dev)
+    if 4 in legs_on:
+        with tempfile.TemporaryDirectory() as tmp:
+            out["outofcore"] = outofcore_leg(port, cs, C, cards, one, dev, x, warm, tmp,
+                                             50 if dev == "cpu" else 1, card)
+        empty_caches(dev)
+    if 6 in legs_on:
+        out["estimators"] = estimators_leg(port, cs, C, cards, one, dev,
+                                           50 if dev == "cpu" else 1, card)
+        empty_caches(dev)
+    if 5 in legs_on:
+        # the ranks after the in-process legs, so no leg shares a card
+        out["ranks"] = ranks_leg(x, C, dev, ref, card)
     print(json.dumps(out), flush=True)
 
 

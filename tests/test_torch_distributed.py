@@ -9,8 +9,9 @@ owns its data shards of a (2, 1) mesh, then of a (2, 2) mesh (two local
 entries a rank, the model axis inside the rank).  Every join has a 120 s
 timeout, so a hang fails the test instead of the suite's limit.
 
-The ranks also run the JAX package's cross-process phases
-(``tests/test_distributed.py``) on the port: 1, the WLS fit; 3, a depth-3
+The ranks also fit a Poisson GLM and an MLP (slice 8c-3), and run the
+JAX package's cross-process phases (``tests/test_distributed.py``) on
+the port: 1, the WLS fit; 3, a depth-3
 histogram tree on the shared thresholds; 4, five EM steps of a
 3-component GMM from the shared init; 5, the multinomial logistic fit.
 
@@ -102,6 +103,26 @@ def _phases(mesh) -> dict:
     return out
 
 
+def _glm_mlp(mesh) -> dict:
+    """Slice 8c-3's two solver families over ``mesh``: a Poisson GLM
+    (IRLS; its summary's AIC and standard errors) and an MLP (L-BFGS,
+    whose line search decides from the summed values on every rank), on
+    an odd row count: the last shard holds a pad row."""
+    x = _rows()[:N - 1, :4]
+    rng = np.random.default_rng(5)
+    counts = rng.poisson(np.exp(0.1 * x[:, 0] - 0.05 * x[:, 1] + 0.5)).astype(np.float32)
+    y3 = np.digitize(x[:, 0] + 0.3 * x[:, 2], [-2.0, 2.0]).astype(np.float32)
+    g = port.GeneralizedLinearRegression(family="poisson", tol=1e-4).fit((x, counts), mesh=mesh)
+    m = port.MultilayerPerceptronClassifier(layers=(4, 5, 3), max_iter=8, seed=0).fit(
+        (x, y3), mesh=mesh)
+    return {"glm_coef": g.coefficients.numpy(), "glm_head": np.array(
+                [g.intercept, g.deviance, g.n_iter, g.summary.aic]),
+            "glm_se": g.summary.coefficient_standard_errors,
+            "mlp_w": np.concatenate([t.numpy().ravel() for wb in m.weights for t in wb]),
+            "mlp_info": np.array([m.fit_info["n_iter"], m.fit_info["loss"],
+                                  m.fit_info["evaluations"]])}
+
+
 def _rank_main(rank: int, store: str, model: int, out_dir: str) -> None:
     """One rank: join the group, fit KMeans on its shards and run the
     cross-process phases, write what it got."""
@@ -119,6 +140,7 @@ def _rank_main(rank: int, store: str, model: int, out_dir: str) -> None:
             port.HostDataset(x=x, max_device_rows=OOC_ROWS), mesh=mesh)
         phases.update(ooc_centers=ooc.cluster_centers, ooc_sizes=ooc.cluster_sizes,
                       ooc_cost=np.float64(ooc.training_cost), ooc_n_iter=np.int64(ooc.n_iter))
+        phases.update(_glm_mlp(mesh))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), centers=m.cluster_centers,
                  sizes=m.cluster_sizes, cost=np.float64(m.training_cost),
                  n_iter=np.int64(m.n_iter), pred=pred, shape=np.array(list(mesh.shape.values())),
@@ -224,6 +246,20 @@ def test_two_process_outofcore_kmeans_is_the_in_process_fit(clusters, model):
         np.testing.assert_array_equal(r["ooc_sizes"], ref.cluster_sizes)
         assert float(r["ooc_cost"]) == ref.training_cost
         assert int(r["ooc_n_iter"]) == ref.n_iter
+
+
+@pytest.mark.parametrize("model", [1, 2])
+def test_two_process_glm_and_mlp_are_the_in_process_fit(clusters, model):
+    """The Poisson GLM (with its summary) and the MLP over (2, M) across two
+    ranks: ``==`` on both ranks to the in-process fit on the same mesh
+    shape (the IRLS sums and the L-BFGS values, slopes and gradients are
+    gathered and folded in shard order on every rank)."""
+    ranks = clusters(model)
+    mesh = P.build_mesh(port.MeshConfig(data=2, model=model), [torch.device("cpu")] * 2 * model)
+    here = _glm_mlp(mesh)
+    for key, want in here.items():
+        for r in ranks:
+            np.testing.assert_array_equal(r[key], want, err_msg=key)
 
 
 @pytest.mark.parametrize("model", [1, 2])

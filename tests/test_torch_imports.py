@@ -1272,3 +1272,59 @@ def test_module_names_cover_the_reference(name):
         elif inspect.isclass(v) and inspect.isclass(got):
             missing |= {f"{n}.{m}" for m in _members(v) if not hasattr(got, m)}
     assert missing == NAME_GAPS.get(name, set())
+
+
+def test_slice_8c3_estimators_fit_over_a_mesh_and_8c4_ones_still_raise(monkeypatch):
+    """Slice 8c-3's estimators run their fits over shards (``mesh_fit``,
+    ``fit(..., mesh=)``), default to the card and raise without one; the
+    fits left to slice 8c-4 (LDA, PIC, ALS; PCA inside a pipeline) raise
+    over a mesh of more than one shard, naming it."""
+    import inspect
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models import base
+
+    assert base.MESH_SLICE == "8c-4"
+    ests = [port.LinearSVC, port.NaiveBayes, port.OneVsRest, port.GeneralizedLinearRegression,
+            port.AFTSurvivalRegression, port.FMRegressor, port.FMClassifier,
+            port.MultilayerPerceptronClassifier, port.IsotonicRegression]
+    for cls in ests:
+        assert cls.mesh_fit and "mesh" in inspect.signature(cls.fit).parameters, cls
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(24, 2)).astype(np.float32)
+    yb = (x[:, 0] > 0).astype(np.float32)
+    mesh = parallel.build_mesh(port.MeshConfig(data=2), [torch.device("cpu")] * 2)
+    for est in (port.LinearSVC(), port.NaiveBayes(model_type="gaussian"),
+                port.OneVsRest(port.LogisticRegression()), port.IsotonicRegression()):
+        est.fit((x, yb), mesh=mesh)
+    counts = np.abs(np.round(x * 3))
+    for call in (lambda: port.LDA(k=2).fit(counts, mesh=mesh),
+                 lambda: port.Pipeline([port.PCA(k=1)]).fit(x, mesh=mesh)):
+        with pytest.raises(NotImplementedError, match="slice 8c-4"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for est in (port.LinearSVC(), port.GeneralizedLinearRegression(family="binomial"),
+                port.MultilayerPerceptronClassifier(layers=(2, 2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            est.fit((x, yb))
+
+
+def test_slice_8c3_composites_take_the_reference_order():
+    """``Pipeline.fit`` / ``PipelineModel.transform`` and the tuners' ``fit``
+    / ``transform`` take the reference's positional order ``(data,
+    label_col, mesh)``; the port's ``device`` is a keyword."""
+    import inspect
+
+    import clustermachinelearningforhospitalnetworks_apache_spark_tpu as J
+
+    pairs = [(port.Pipeline.fit, J.Pipeline.fit),
+             (port.PipelineModel.transform, J.PipelineModel.transform),
+             (port.CrossValidator.fit, J.CrossValidator.fit),
+             (port.TrainValidationSplit.fit, J.TrainValidationSplit.fit),
+             (port.CrossValidatorModel.transform, J.CrossValidatorModel.transform),
+             (port.TrainValidationSplitModel.transform, J.TrainValidationSplitModel.transform)]
+    for mine, ref in pairs:
+        got, want = inspect.signature(mine).parameters, inspect.signature(ref).parameters
+        positional = [n for n, p in got.items() if p.kind is p.POSITIONAL_OR_KEYWORD]
+        assert positional == list(want) == ["self", "data", "label_col", "mesh"], mine
+        assert [n for n, p in got.items() if p.kind is p.KEYWORD_ONLY] == ["device"], mine

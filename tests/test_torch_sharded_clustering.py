@@ -141,8 +141,9 @@ def test_bisecting_out_of_core_over_a_mesh_raises():
     """BisectingKMeans fits a HostDataset over a mesh since slice 8c-2 (on
     integer rows the (4, 1) fit is the one-device out-of-core fit, bit for
     bit: ``tests/test_torch_sharded_outofcore.py`` holds it to the JAX
-    package); the out-of-core fits outside that slice, LinearSVC's and
-    NaiveBayes', still raise over a mesh of more than one shard."""
+    package); LinearSVC's and NaiveBayes' out-of-core fits do since slice
+    8c-3 (``==`` one device on integer counts for NaiveBayes), and LDA's,
+    left to slice 8c-4, still raises over a mesh of more than one shard."""
     x = np.round(_blobs(n=256))
     one = port.BisectingKMeans(k=2).fit(port.HostDataset(x=x, max_device_rows=64), device="cpu")
     got = port.BisectingKMeans(k=2).fit(port.HostDataset(x=x, max_device_rows=64),
@@ -150,9 +151,14 @@ def test_bisecting_out_of_core_over_a_mesh_raises():
     np.testing.assert_array_equal(got.cluster_centers, one.cluster_centers)
     np.testing.assert_array_equal(got.cluster_sizes, one.cluster_sizes)
     yb = (x[:, 0] > 0).astype(np.float32)
-    for est in (port.LinearSVC(), port.NaiveBayes(model_type="gaussian")):
-        with pytest.raises(NotImplementedError, match="slice 8c"):
-            est.fit(port.HostDataset(x=x, y=yb, max_device_rows=64), mesh=_mesh((4, 1)))
+    counts = np.abs(x)
+    hd = port.HostDataset(x=counts, y=yb, max_device_rows=64)
+    nb1 = port.NaiveBayes().fit(hd, device="cpu")
+    nb4 = port.NaiveBayes().fit(hd, mesh=_mesh((4, 1)))
+    np.testing.assert_array_equal(nb4.theta, nb1.theta)
+    port.LinearSVC().fit(port.HostDataset(x=x, y=yb, max_device_rows=64), mesh=_mesh((4, 1)))
+    with pytest.raises(NotImplementedError, match="slice 8c-4"):
+        port.LDA(k=2).fit(port.HostDataset(x=counts, max_device_rows=64), mesh=_mesh((4, 1)))
 
 
 # ------------------------------------------------------------ StreamingKMeans

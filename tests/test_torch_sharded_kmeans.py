@@ -179,29 +179,29 @@ def test_partials_protocol_honours_the_mesh(integers):
 
 def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
     """The estimators and paths outside the mesh slices raise, naming slice
-    8c, and never gather the shards (LinearRegression, the trees,
-    GaussianMixture and LogisticRegression fit over a mesh since slice 8b,
-    BisectingKMeans' resident fit since slice 8c-1:
-    ``tests/test_torch_sharded_models.py``,
-    ``tests/test_torch_sharded_clustering.py``); KMeans and BisectingKMeans
-    fit a HostDataset over a mesh since slice 8c-2
-    (``tests/test_torch_sharded_outofcore.py``), LinearSVC's and
-    NaiveBayes' out-of-core fits still raise."""
+    8c-4, and never gather the shards: LDA (resident and out of core) and
+    the session's SQL device columns.  LinearSVC and NaiveBayes, which
+    raised until slice 8c-3, fit over the mesh, resident and out of core
+    (``tests/test_torch_sharded_estimators.py`` holds them to the JAX
+    package)."""
     mesh = _mesh((4, 1))
     yb = (blobs[:, 0] > 0).astype(np.float32)
+    counts = np.abs(np.round(blobs))
     session = port.Session(port.PipelineConfig(), mesh=mesh)
     try:
         for call in (
-            lambda: port.LinearSVC().fit((blobs, yb), mesh=mesh),
-            lambda: port.NaiveBayes(model_type="gaussian").fit((blobs, yb), mesh=mesh),
-            lambda: port.LinearSVC().fit(port.HostDataset(x=blobs, y=yb, max_device_rows=512),
-                                         mesh=mesh),
+            lambda: port.LDA(k=2).fit(counts, mesh=mesh),
+            lambda: port.LDA(k=2).fit(port.HostDataset(x=counts, max_device_rows=512),
+                                      mesh=mesh),
             lambda: session.sql_to_device("SELECT * FROM events"),
         ):
-            with pytest.raises(NotImplementedError, match="slice 8c"):
+            with pytest.raises(NotImplementedError, match="slice 8c-4"):
                 call()
     finally:
         session.stop()
+    port.LinearSVC().fit((blobs, yb), mesh=mesh)
+    port.NaiveBayes(model_type="gaussian").fit((blobs, yb), mesh=mesh)
+    port.LinearSVC().fit(port.HostDataset(x=blobs, y=yb, max_device_rows=512), mesh=mesh)
     lr = port.LinearRegression().fit((blobs, blobs[:, 0]), mesh=P.single_device_mesh("cpu"))
     assert lr.coefficients.device == torch.device("cpu")
 
