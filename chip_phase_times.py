@@ -4,9 +4,10 @@ two commits on one card.
     python3 chip_phase_times.py <checkout dir> <tag>
 
 runs ``chip_smoke.main()`` of the checkout in ``<checkout dir>`` with each
-phase function wrapped in a host-clock timer and prints, after the
-script's own output, one line ``PHASE_TIMES {...}``: the tag, the script's
-exit code, its total seconds and each phase's.  One process a run: the
+phase function (and a few parts of the longest phases) wrapped in a
+host-clock timer and prints, after the script's own output, one line
+``PHASE_TIMES {...}``: the tag, the script's exit code, its total seconds
+and each phase's.  One process a run: the
 checkout's package is imported from its own directory.  To
 compare a parent with a change, unpack the parent (``git archive``) into a
 git-ignored directory and run, in one call to the card, parent, change,
@@ -27,7 +28,13 @@ PHASES = ["kernel_case", "k2_case", "edge_cases", "k3_phase", "sql_window",
           "streaming_phase", "gmm_phase", "bisecting_phase", "outofcore_phase", "gbt_phase",
           "lr_phase", "precision_phase", "bisecting_more", "classification_phase",
           "families_phase", "features_phase", "beyond_phase", "history_phase",
-          "front_door_phase", "farm_lifecycle_phase", "fleet_phase"]
+          "front_door_phase", "farm_lifecycle_phase", "fleet_phase", "federated_phase",
+          "pipeline_stream_phase", "soak_phase", "mesh_phase", "mesh_models_phase",
+          "mesh_clustering_phase", "mesh_outofcore_phase", "mesh_estimators_phase",
+          "mesh_features_phase",
+          # parts of the phases above (their seconds are inside their phase's)
+          "selectors_part", "text_part", "als_part", "pic_part", "fleet_in_process",
+          "fleet_multiproc", "fleet_lifecycle"]
 
 
 def main() -> None:

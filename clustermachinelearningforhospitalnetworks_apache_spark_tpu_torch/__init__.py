@@ -134,8 +134,9 @@ GaussianMixture and LogisticRegression, each shard's statistics summed in
 ascending shard order.  Slices 8c-1 to 8c-3 bring the clustering family,
 out of core, the other estimators and the composites (``Pipeline``,
 ``CrossValidator``, ``TrainValidationSplit``: ``fit(data, label_col,
-mesh)``); what is left (PCA, the selectors, LDA, PIC, ALS) raises for more
-than one shard, naming slice 8c-4.  Its CPU tests: ``python -m pytest
+mesh)``); slice 8c-4 the rest (PCA, the scalers and selectors, ``stat/``,
+LDA, PIC, ALS's sharded buckets, ``Session.sql_to_device``), so every path
+the reference runs over a mesh runs over the port's.  Its CPU tests: ``python -m pytest
 tests/test_torch_sharded_models.py tests/test_torch_sharded_pipeline.py
 tests/test_torch_distributed.py``; on a card, ``chip_smoke.py``'s
 ``mesh_models_phase``.

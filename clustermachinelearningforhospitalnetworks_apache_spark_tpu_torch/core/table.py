@@ -327,7 +327,12 @@ class Table:
                     f"column {name!r} ({col.dtype}) has no device "
                     "representation — string columns stay on the host"
                 )
-            arr = torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+            from ..parallel.mesh import single_device_mesh
+            from ..parallel.partitioner import family
+
+            # the SQL executor's placement, declared in the one
+            # partitioner: replicated over the one-entry mesh of ``dev``
+            arr = family("sql").put("column", host, single_device_mesh(dev)).block(0, 0)
             self._device_cache[key] = arr
         return arr
 

@@ -39,11 +39,8 @@ def confusion(pred, label, w, num_classes: int) -> np.ndarray:
 
     if isinstance(pred, MeshArray):
         cm = tree_aggregate(lambda t: _onehot_counts(*t, num_classes), (pred, label, w))
-        return cm.reshape(num_classes, num_classes).cpu().numpy()
-    p = pred.to(torch.int64).clamp(0, num_classes - 1)
-    t = label.to(torch.int64).clamp(0, num_classes - 1)
-    cm = torch.zeros(num_classes * num_classes, dtype=torch.float32, device=pred.device)
-    cm.index_add_(0, t * num_classes + p, w.to(torch.float32))
+    else:
+        cm = _onehot_counts(pred, label, w, num_classes)
     return cm.reshape(num_classes, num_classes).cpu().numpy()
 
 

@@ -5,7 +5,9 @@ The JAX package's ``evaluation/clustering.py`` formulation (Spark's):
     Σ_{q∈C} ||p−q||² = N_C·||p||² − 2·p·Y_C + Ψ_C,
     with Y_C = Σ_{q∈C} q  and  Ψ_C = Σ_{q∈C} ||q||².
 
-Pass 1 accumulates the weighted (N_C, Y_C, Ψ_C); pass 2 scores rows in
+Pass 1 accumulates the weighted (N_C, Y_C, Ψ_C) as one-hot products a
+chunk of rows, summed in chunk order (the same bits run after run on the
+card, where a scatter's float atomics are not); pass 2 scores rows in
 chunks against them, so no (n, n) or (n, k) tensor is ever built.  a(p)
 divides by N_C−1 (self excluded), b(p) is the min over other non-empty
 clusters dividing by N_C, s(p) = (b−a)/max(a,b); singleton clusters score
@@ -24,21 +26,29 @@ from ..device import resolve_device
 
 #: bound on the floats of one (chunk, k) tile of pass 2
 _SIL_TILE = 1 << 24
+#: rows a chunk of pass 1: the (chunk, k) one-hot of k = 256 is 64 MiB
+_SIL_CHUNK = 1 << 16
 
 
 def _cluster_stats(x, assign, w, k: int):
     """Pass 1: (idx, w masked to in-range assignments, |x|², the per-cluster
-    (N_C, Y_C, Ψ_C) packed as one (k·(d + 2),) vector)."""
+    (N_C, Y_C, Ψ_C) packed as one (k·(d + 2),) vector).  The sums are the
+    reference's one-hot products, ``onehot(idx)ᵀ·[x | 1 | |x|²]`` weighted,
+    one a chunk of :data:`_SIL_CHUNK` rows, added in chunk order: no
+    scatter, so the order of the sum is fixed on every device."""
     in_range = (assign >= 0) & (assign < k)
     w = torch.where(in_range, w, torch.zeros_like(w))
     idx = torch.where(in_range, assign, torch.zeros_like(assign)).to(torch.int64)
     sq = (x * x).sum(dim=1)
-    counts = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(0, idx, w)
-    y = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device).index_add_(
-        0, idx, x * w[:, None]
-    )
-    psi = torch.zeros((k,), dtype=x.dtype, device=x.device).index_add_(0, idx, sq * w)
-    return idx, w, sq, torch.cat([counts, y.reshape(-1), psi])
+    d = x.shape[1]
+    cells = torch.arange(k, device=x.device)
+    sums = torch.zeros((k, d + 2), dtype=x.dtype, device=x.device)
+    for s in range(0, x.shape[0], _SIL_CHUNK):
+        e = s + _SIL_CHUNK
+        oh = (idx[s:e, None] == cells[None, :]).to(x.dtype) * w[s:e, None]
+        rhs = torch.cat([x[s:e], torch.ones_like(sq[s:e, None]), sq[s:e, None]], dim=1)
+        sums = sums + oh.T @ rhs
+    return idx, w, sq, torch.cat([sums[:, d], sums[:, :d].reshape(-1), sums[:, d + 1]])
 
 
 def _score(x, idx, w, sq, packed, k: int) -> torch.Tensor:

@@ -214,10 +214,15 @@ def pack_tenants(
 
 
 def _place_stack(arr, device: torch.device) -> torch.Tensor:
-    """A tenant-stacked host array as float32 on ``device``.  (The JAX
-    package places it through its partitioner's farm rules; on one device
-    that is a plain move.)"""
-    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32)).to(device)
+    """A tenant-stacked host array as float32 on ``device``, placed through
+    the partitioner's ``"farm"`` rules (``stack/*``: the TENANT axis, which
+    aliases to no mesh axis) on the one-entry mesh of ``device``, as the
+    reference places it: one whole copy on that device."""
+    from ..parallel.mesh import single_device_mesh
+    from ..parallel.partitioner import family
+
+    return family("farm").put("stack/rows", np.asarray(arr, np.float32),
+                              single_device_mesh(device)).block(0, 0)
 
 
 def _halve(p: torch.Tensor, dim: int) -> torch.Tensor:

@@ -44,8 +44,8 @@ class VectorAssembler:
             output_col=self.output_col,
         )
 
-    def transform_device(self, view, label_col: str | None = None, na_drop: bool = True,
-                         compact: bool = False):
+    def transform_device(self, view, label_col: str | None = None, mesh=None,
+                         na_drop: bool = True, compact: bool = False):
         """Fused assembly: a compiled row-level query's result
         (:class:`~..core.sql_compile.DeviceView`) → a
         :class:`~..data.DeviceDataset` on the view's device, with no row
@@ -53,10 +53,16 @@ class VectorAssembler:
         column and ``na_drop`` folds Spark's ``na.drop()`` over the feature
         and label columns into it: invalid rows stay in place, zeroed,
         with weight 0.  ``compact=True`` gathers the valid rows, in source
-        order, into exactly as many rows (one host sync: their count)."""
+        order, into exactly as many rows (one host sync: their count).
+
+        Over ``mesh`` (more than one shard) the assembled rows are laid
+        over its data axis device to device (``sharding.shard_dataset``,
+        the reference's ``"rows"`` layout), weight-0 rows padding them to
+        a multiple of it: a ShardedDataset."""
         from ..core.schema import LABEL_COL
         from ..core.sql_compile import compact_dataset, one_empty_row
         from ..data import DeviceDataset
+        from ..parallel.sharding import shard_dataset, uses_shards
 
         if label_col is None and LABEL_COL in view.out_names:
             label_col = LABEL_COL
@@ -65,7 +71,10 @@ class VectorAssembler:
             x, y, w = compact_dataset(x, y, w)
         elif x.shape[0] == 0:
             x, y, w = one_empty_row(x)
-        return DeviceDataset(x=x, y=y, w=w)
+        ds = DeviceDataset(x=x, y=y, w=w)
+        if mesh is not None and uses_shards(mesh):
+            return shard_dataset(ds, mesh)
+        return ds
 
 
 @dataclass(frozen=True)

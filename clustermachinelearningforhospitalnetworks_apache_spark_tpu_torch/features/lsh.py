@@ -192,7 +192,9 @@ class BucketedRandomProjectionLSH:
     num_hash_tables: int = 1
     seed: int = 0
 
-    def fit(self, data, label_col=None) -> BucketedRandomProjectionLSHModel:
+    def fit(self, data, label_col=None, mesh=None) -> BucketedRandomProjectionLSHModel:
+        """The hash draws, on the host (``mesh`` is accepted and unused, as
+        in the reference: the draws do not read the rows)."""
         if self.bucket_length <= 0:
             raise ValueError(
                 f"bucket_length must be > 0, got {self.bucket_length}"
@@ -272,7 +274,8 @@ class MinHashLSH:
     num_hash_tables: int = 1
     seed: int = 0
 
-    def fit(self, data, label_col=None) -> MinHashLSHModel:
+    def fit(self, data, label_col=None, mesh=None) -> MinHashLSHModel:
+        """The hash draws, on the host (``mesh`` accepted and unused)."""
         if self.num_hash_tables < 1:
             raise ValueError(
                 f"num_hash_tables must be >= 1, got {self.num_hash_tables}"

@@ -20,8 +20,8 @@ import torch
 
 from ..data import DeviceDataset
 from ..io.model_io import register_model
-from .assembler import AssembledTable
-from .scaler import _matrix
+from ..parallel.sharding import ShardedDataset
+from .scaler import _matrix, _stage_input
 from .vector_ops import _dispatch
 
 
@@ -77,13 +77,14 @@ class MinMaxScaler:
     min_out: float = 0.0   # Spark's min
     max_out: float = 1.0   # Spark's max
 
-    def fit(self, data, device=None) -> MinMaxScalerModel:
+    def fit(self, data, device=None, mesh=None) -> MinMaxScalerModel:
+        """``data`` as ``PCA.fit`` takes it: over ``mesh`` the extremes are
+        the shards' min / max of min / max, the same on every mesh shape."""
         # ops.reductions imports models/, whose base imports this package
         from ..ops.reductions import host_moments
 
-        if isinstance(data, AssembledTable):
-            data = data.to_device(device=device)
-        if isinstance(data, DeviceDataset):
+        data, device = _stage_input(data, device, mesh)
+        if isinstance(data, (DeviceDataset, ShardedDataset)):
             s = host_moments(data.x, data.w)
             # the float32 extremes, as the JAX package keeps them
             lo, hi = s["min"].astype(np.float32), s["max"].astype(np.float32)
@@ -92,7 +93,7 @@ class MinMaxScaler:
             lo, hi = torch.stack([x.min(dim=0).values, x.max(dim=0).values]).cpu().numpy()
         return MinMaxScalerModel(lo, hi, self.min_out, self.max_out)
 
-    def fit_transform(self, data, device=None):
+    def fit_transform(self, data, device=None, mesh=None):
         # transform the ORIGINAL container, so the type that comes back is
         # fit(data).transform(data)'s
-        return self.fit(data, device=device).transform(data)
+        return self.fit(data, device=device, mesh=mesh).transform(data)

@@ -3,7 +3,8 @@ package's ``features/pca.py``).
 
 Parity with ``pyspark.ml.feature.PCA``.  The fit is one weighted pass
 over the rows on the device (``ops.reductions.host_moments``: n, Σw·x and
-the chunked XᵀWX); only the (d, d) matrix reaches the host, where the
+the chunked XᵀWX; over a mesh a shard on its device, summed in shard
+order); only the (d, d) matrix reaches the host, where the
 covariance's eigendecomposition runs in float64 (Spark likewise solves
 it on one machine).  A matrix (ndarray or tensor) is fit in float64 on
 ``device`` (default the card), as the JAX package fits an ndarray on the
@@ -22,8 +23,8 @@ import torch
 
 from ..data import DeviceDataset
 from ..io.model_io import register_model
-from .assembler import AssembledTable
-from .scaler import _matrix
+from ..parallel.sharding import ShardedDataset
+from .scaler import _matrix, _stage_input
 from .vector_ops import _dispatch
 
 
@@ -73,13 +74,15 @@ class PCAModel:
 class PCA:
     k: int
 
-    def fit(self, data, device=None) -> PCAModel:
+    def fit(self, data, device=None, mesh=None) -> PCAModel:
+        """``data``: a DeviceDataset or ShardedDataset (fit where it lies),
+        an AssembledTable moved to ``device`` (default the card) or laid
+        over ``mesh``, or a matrix (float64 on ``device``)."""
         # ops.reductions imports models/, whose base imports this package
         from ..ops.reductions import host_moments
 
-        if isinstance(data, AssembledTable):
-            data = data.to_device(device=device)
-        if isinstance(data, DeviceDataset):
+        data, device = _stage_input(data, device, mesh)
+        if isinstance(data, (DeviceDataset, ShardedDataset)):
             s = host_moments(data.x, data.w)
             n, s1, s2 = s["n"], s["s1"], s["xtx"]
         else:
@@ -104,7 +107,7 @@ class PCA:
         comps = comps * np.where(flip == 0, 1.0, flip)[None, :]
         return PCAModel(comps, evals, mean)
 
-    def fit_transform(self, data, device=None):
+    def fit_transform(self, data, device=None, mesh=None):
         # transform the ORIGINAL container, so the type that comes back is
         # fit(data).transform(data)'s
-        return self.fit(data, device=device).transform(data)
+        return self.fit(data, device=device, mesh=mesh).transform(data)

@@ -9,9 +9,10 @@ MaxAbsScaler's statistic is one masked min / max pass on the device
 non-finite, and the min / max are then taken again NaN-aware, still on
 the device (the JAX package takes them again on the host).
 RobustScaler's quantiles come from a bounded host sample of valid rows
-(``data.sample_valid_rows``, the draw the JAX package makes), as Spark
-takes them with approxQuantile.  Fits take ``device=`` (default the
-card); a DeviceDataset fits where it lies.
+(``parallel.sharding.sample_valid_rows``, the draw the JAX package makes,
+the same rows on every mesh shape), as Spark takes them with
+approxQuantile.  Fits take ``device=`` (default the card) or ``mesh=``;
+a DeviceDataset or ShardedDataset fits where it lies.
 """
 
 from __future__ import annotations
@@ -22,21 +23,38 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..data import DeviceDataset, sample_valid_rows
+from ..data import DeviceDataset
 from ..io.model_io import register_model
-from .assembler import AssembledTable
-from .scaler import _matrix
+from ..parallel.collectives import gather_shards
+from ..parallel.sharding import ShardedDataset, sample_valid_rows
+from .scaler import _matrix, _stage_input
 from .vector_ops import _dispatch
 
 
-def _nan_min_max(x: torch.Tensor) -> np.ndarray:
-    """(2, d) float64 [column minima, maxima] of ``x`` with NaN skipped
-    (±inf where a column is all NaN), in one copy to the host."""
+def _nan_min_max(x: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """(2, d) float64 [column minima, maxima] of ``x``'s ``valid`` rows (all
+    rows by default) with NaN skipped (±inf where a column has no such
+    value), on x's device."""
     x = x.to(torch.float64)
-    nan = torch.isnan(x)
-    lo = torch.where(nan, float("inf"), x).min(dim=0).values
-    hi = torch.where(nan, float("-inf"), x).max(dim=0).values
-    return torch.stack([lo, hi]).cpu().numpy()
+    skip = torch.isnan(x)
+    if valid is not None:
+        skip = skip | ~valid[:, None]
+    lo = torch.where(skip, float("inf"), x).min(dim=0).values
+    hi = torch.where(skip, float("-inf"), x).max(dim=0).values
+    return torch.stack([lo, hi])
+
+
+def _valid_nan_min_max(ds) -> np.ndarray:
+    """``_nan_min_max`` of a dataset's valid rows, on the host: a shard at a
+    time over a mesh, then the min / max of the shards'."""
+    if not isinstance(ds, ShardedDataset):
+        return _nan_min_max(ds.x, ds.w > 0).cpu().numpy()
+    parts: list = [None] * ds.mesh.devices.shape[0]
+    for i in ds.mesh.local_data_shards():
+        s = ds.shard(i)
+        parts[i] = _nan_min_max(s.x, s.w > 0)
+    got = torch.stack([p.cpu() for p in gather_shards(parts, ds.mesh)])
+    return torch.stack([got[:, 0].min(dim=0).values, got[:, 1].max(dim=0).values]).numpy()
 
 
 @register_model("MaxAbsScalerModel")
@@ -67,13 +85,14 @@ class MaxAbsScalerModel:
 
 @dataclass(frozen=True)
 class MaxAbsScaler:
-    def fit(self, data, device=None) -> MaxAbsScalerModel:
+    def fit(self, data, device=None, mesh=None) -> MaxAbsScalerModel:
+        """``data`` as ``PCA.fit`` takes it; over ``mesh`` the extremes are
+        the shards' min / max of min / max."""
         # ops.reductions imports models/, whose base imports this package
         from ..ops.reductions import host_moments
 
-        if isinstance(data, AssembledTable):
-            data = data.to_device(device=device)
-        if isinstance(data, DeviceDataset):
+        data, device = _stage_input(data, device, mesh)
+        if isinstance(data, (DeviceDataset, ShardedDataset)):
             s = host_moments(data.x, data.w)
             if s["count"] == 0.0:
                 raise ValueError("MaxAbsScaler fit on an empty dataset")
@@ -81,18 +100,18 @@ class MaxAbsScaler:
             if not (np.isfinite(lo).all() and np.isfinite(hi).all()):
                 # a NaN in the rows poisons the masked min / max: take them
                 # again over the valid rows with NaN skipped
-                lo, hi = _nan_min_max(data.x[data.w > 0])
+                lo, hi = _valid_nan_min_max(data)
         else:
             x = _matrix(data, device)
             if x.shape[0] == 0:
                 raise ValueError("MaxAbsScaler fit on an empty dataset")
             # NaN-tolerant: one missing value must not de-scale a column
-            lo, hi = _nan_min_max(x)
+            lo, hi = _nan_min_max(x).cpu().numpy()
         m = np.maximum(np.abs(lo), np.abs(hi))
         return MaxAbsScalerModel(np.where(np.isfinite(m), m, 0.0))
 
-    def fit_transform(self, data, device=None):
-        return self.fit(data, device=device).transform(data)
+    def fit_transform(self, data, device=None, mesh=None):
+        return self.fit(data, device=device, mesh=mesh).transform(data)
 
 
 @register_model("RobustScalerModel")
@@ -157,10 +176,12 @@ class RobustScaler:
         if not 0.0 <= self.lower < self.upper <= 1.0:
             raise ValueError(f"need 0 <= lower < upper <= 1; got ({self.lower}, {self.upper})")
 
-    def fit(self, data, device=None) -> RobustScalerModel:
-        if isinstance(data, AssembledTable):
-            data = data.to_device(device=device)
-        if isinstance(data, DeviceDataset):
+    def fit(self, data, device=None, mesh=None) -> RobustScalerModel:
+        """``data`` as ``PCA.fit`` takes it; over ``mesh`` the sample is
+        the one-device draw (``sample_valid_rows`` draws over the valid
+        rows' global indices), read from the shards that hold it."""
+        data, device = _stage_input(data, device, mesh)
+        if isinstance(data, (DeviceDataset, ShardedDataset)):
             sample = sample_valid_rows(data, self.sample_size, seed=0)
         else:
             x = _matrix(data, device)
@@ -184,5 +205,5 @@ class RobustScaler:
             with_centering=self.with_centering, with_scaling=self.with_scaling,
         )
 
-    def fit_transform(self, data, device=None):
-        return self.fit(data, device=device).transform(data)
+    def fit_transform(self, data, device=None, mesh=None):
+        return self.fit(data, device=device, mesh=mesh).transform(data)

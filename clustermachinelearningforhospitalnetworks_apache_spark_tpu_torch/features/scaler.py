@@ -151,6 +151,28 @@ class StandardScaler:
         return out if isinstance(data, torch.Tensor) else out.cpu().numpy()
 
 
+def _stage_input(data, device=None, mesh=None):
+    """What a device-data stage fits on → (data, device): over ``mesh`` (or
+    for a ShardedDataset) an AssembledTable or dataset laid over the data
+    shards (a one-entry mesh gives its device's DeviceDataset); else an
+    AssembledTable moved to ``device`` (default the card) and a dataset
+    where it lies.  An ndarray or tensor comes back as it is, to be fit in
+    float64 on ``device`` or the mesh's first device, as the reference fits
+    a matrix on the host."""
+    from ..models.base import is_sharded, on_mesh
+
+    if is_sharded(data) or (mesh is not None and not isinstance(
+            data, (np.ndarray, torch.Tensor))):
+        return on_mesh(data, None, device, None, mesh), None
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        device = mesh.device(0, 0)
+    if isinstance(data, AssembledTable):
+        return data.to_device(device=device), device
+    return data, device
+
+
 def _matrix(data, device) -> torch.Tensor:
     """An ndarray or tensor as a float64 matrix on ``device``."""
     if not isinstance(data, torch.Tensor):

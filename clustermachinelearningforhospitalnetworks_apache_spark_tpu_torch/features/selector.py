@@ -146,7 +146,8 @@ class VectorIndexer:
     max_categories: int = 20        # Spark default
     handle_invalid: str = "error"
 
-    def fit(self, data, label_col=None) -> VectorIndexerModel:
+    def fit(self, data, label_col=None, mesh=None) -> VectorIndexerModel:
+        """Host work: ``mesh`` is accepted and unused, as in the reference."""
         if self.handle_invalid not in ("error", "keep", "skip"):
             raise ValueError(
                 f"handle_invalid must be error|keep|skip, got "
@@ -203,28 +204,31 @@ class UnivariateFeatureSelector:
     selection_threshold: float | None = None  # mode-dependent default
     label_col: str = "LOS_binary"
 
-    def _p_values(self, x, y, device):
+    def _p_values(self, x, y, device, mesh=None):
         from ..stat import ANOVATest, ChiSquareTest, FValueTest
 
         ft, lt = self.feature_type, self.label_type
         if ft == "categorical" and lt == "categorical":
-            return ChiSquareTest.test(x, y, device=device).p_values
+            # host work, as in the reference
+            return ChiSquareTest.test(
+                x, y, device=device if mesh is None else mesh.device(0, 0)).p_values
         if ft == "continuous" and lt == "categorical":
             return ANOVATest.test(
-                x.astype(np.float32), y.astype(np.float32), device=device
+                x.astype(np.float32), y.astype(np.float32), mesh, device=device
             ).p_values
         if ft == "continuous" and lt == "continuous":
             return FValueTest.test(
-                x.astype(np.float32), y.astype(np.float32), device=device
+                x.astype(np.float32), y.astype(np.float32), mesh, device=device
             ).p_values
         raise ValueError(
             "categorical features with a continuous label have no Spark "
             "test; bucketize the label or use feature_type='continuous'"
         )
 
-    def fit(self, data, label_col: str | None = None, device=None):
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None):
         """Test every feature of ``data`` (an AssembledTable) against its
-        label column on ``device`` (default the card)."""
+        label column on ``device`` (default the card), or over ``mesh``
+        (the ANOVA and F-value sums a shard, in shard order)."""
         x = _as_matrix(data)
         if isinstance(data, AssembledTable):
             y = data.label(label_col or self.label_col)
@@ -233,7 +237,7 @@ class UnivariateFeatureSelector:
                 "UnivariateFeatureSelector needs an AssembledTable (the "
                 "label column resolves against the table)"
             )
-        p = np.asarray(self._p_values(x, y, device), dtype=np.float64)
+        p = np.asarray(self._p_values(x, y, device, mesh), dtype=np.float64)
         d = x.shape[1]
         mode = self.selection_mode
         if mode == "numTopFeatures":
@@ -262,14 +266,14 @@ class ChiSqSelector:
     num_top_features: int = 50
     label_col: str = "LOS_binary"
 
-    def fit(self, data, label_col: str | None = None, device=None):
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None):
         return UnivariateFeatureSelector(
             feature_type="categorical",
             label_type="categorical",
             selection_mode="numTopFeatures",
             selection_threshold=self.num_top_features,
             label_col=label_col or self.label_col,
-        ).fit(data, label_col=label_col, device=device)
+        ).fit(data, label_col=label_col, device=device, mesh=mesh)
 
 
 # --------------------------------------------- VarianceThresholdSelector
@@ -279,7 +283,11 @@ class VarianceThresholdSelectorModel(_Saveable):
     selected: tuple[int, ...]
 
     def transform(self, data):
+        from ..parallel.sharding import ShardedDataset, map_shards
+
         idx = list(self.selected)
+        if isinstance(data, ShardedDataset):
+            return map_shards(data, self.transform)
         if isinstance(data, DeviceDataset):
             # the column subset stays where the dataset lies
             cols = torch.as_tensor(idx, dtype=torch.int64, device=data.x.device)
@@ -306,19 +314,21 @@ class VarianceThresholdSelectorModel(_Saveable):
 class VarianceThresholdSelector:
     """Drop features whose SAMPLE variance is ≤ ``variance_threshold``
     (Spark 3.1's selector; default 0 keeps everything non-constant).
-    A table moves to ``device`` (default the card) and a dataset or a
-    tensor stays where it lies, for one device moment pass; an ndarray's
-    variances are numpy float64."""
+    A table moves to ``device`` (default the card) or is laid over
+    ``mesh``, and a dataset or a tensor stays where it lies, for one
+    device moment pass (a shard on its device over a mesh, summed in shard
+    order); an ndarray's variances are numpy float64."""
 
     variance_threshold: float = 0.0
 
-    def fit(self, data, label_col: str | None = None, device=None):
+    def fit(self, data, label_col: str | None = None, device=None, mesh=None):
         # ops.reductions imports models/, whose base imports this package
         from ..ops.reductions import host_moments
+        from ..parallel.sharding import ShardedDataset
+        from .scaler import _stage_input
 
-        if isinstance(data, AssembledTable):
-            ds = data.to_device(device=device)
-        elif isinstance(data, DeviceDataset):
+        data, _ = _stage_input(data, device, mesh)
+        if isinstance(data, (DeviceDataset, ShardedDataset)):
             ds = data
         elif isinstance(data, torch.Tensor):
             ds = DeviceDataset(x=data, y=data.new_zeros(data.shape[0]),

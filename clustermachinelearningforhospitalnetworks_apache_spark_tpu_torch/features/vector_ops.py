@@ -20,14 +20,19 @@ from .assembler import AssembledTable
 
 def _dispatch(x, fn, cols_fn=None):
     """The container plumbing of every matrix stage's transform:
-    AssembledTable / DeviceDataset (pad rows zeroed again) / matrix.
+    AssembledTable / DeviceDataset (pad rows zeroed again) /
+    ShardedDataset (each shard where it lies) / matrix.
     ``cols_fn(feature_cols) -> new feature_cols`` keeps an AssembledTable's
     column names in step with the transformed matrix's width."""
+    from ..parallel.sharding import ShardedDataset, map_shards
+
     if isinstance(x, AssembledTable):
         cols = tuple(cols_fn(x.feature_cols)) if cols_fn is not None else x.feature_cols
         return replace(x, features=fn(x.features), feature_cols=cols)
     if isinstance(x, DeviceDataset):
         return DeviceDataset(x=fn(x.x) * (x.w[:, None] > 0), y=x.y, w=x.w)
+    if isinstance(x, ShardedDataset):
+        return map_shards(x, lambda s: _dispatch(s, fn))
     return fn(x)
 
 

@@ -136,9 +136,6 @@ class AFTSurvivalRegression(Estimator):
         model.fit_info = info
         return model
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None, censor=None, mesh=None):
         """``censor`` as an array for non-table inputs; a table input
         resolves ``censor_col``.  On ``device`` (default the card) or over

@@ -21,7 +21,15 @@ Spark's ``implicitPrefs=True``), as dense batched linear algebra on
   ``YᵀY`` term computed once per half-step.
 
 The factors stay on the device across iterations; the index/rating
-blocks are built once on the host and moved once.  ``predict`` is host
+blocks are built once on the host and moved once.  Over a mesh
+(``fit(..., mesh=)``) each bucket of at least D rows (D data shards) is
+zero-padded to a multiple of the data axis and split over it: each shard
+solves its own rows' normal equations against the opposite factors sent
+to its device.  A smaller bucket (the heavy tail) is solved once, on the
+home device.  The solved rows are written back into the one factor
+matrix on the home device, in row order (one gather a bucket under a
+process group).  Every row's system is its own, so a sharded fit gives
+the one-device factors.  ``predict`` is host
 numpy, as in the JAX package; ``recommend_*`` score on ``device`` with
 one product and take the top k in ``lax.top_k``'s order (ties to the
 lower index).
@@ -36,6 +44,8 @@ import torch
 
 from ..device import resolve_device
 from ..io.model_io import register_model
+from ..parallel.collectives import gather_shards
+from ..parallel.sharding import pad_block_host, pad_rows
 from .base import Estimator, Model
 
 
@@ -174,14 +184,29 @@ def _solve_implicit(y, yty, idx, val, msk, reg: float, alpha: float, rank: int,
     return _solve(a, lam, b, rank, nonnegative)
 
 
-def _stage_buckets(buckets, dev):
-    """Host buckets → tensors on ``dev``, staged once before the loop
-    (indices as int64, the type torch indexes with)."""
-    return [
-        tuple(torch.from_numpy(a.astype(np.int64) if a.dtype.kind == "i" else a).to(dev)
-              for a in bucket)
-        for bucket in buckets
-    ]
+def _stage_buckets(buckets, dev, mesh=None):
+    """Host buckets → tensors, staged once before the loop (indices as
+    int64, the type torch indexes with) → ``[(rows on dev, {part: (idx,
+    val, msk, cnt)})]``.  On one device (``mesh`` None or of one data
+    shard), or for a bucket of fewer rows than data shards, the one part
+    ``None`` is the whole bucket on ``dev``.  Otherwise the bucket is
+    zero-padded to a multiple of the data axis (pad rows: mask 0, count 0,
+    solved to 0 and dropped) and part ``i`` is shard i's contiguous rows on
+    its device, for every local data shard."""
+    D = 1 if mesh is None else mesh.devices.shape[0]
+    out = []
+    for rows, *arrs in buckets:
+        arrs = [a.astype(np.int64) if a.dtype.kind == "i" else a for a in arrs]
+        r = torch.from_numpy(rows.astype(np.int64)).to(dev)
+        if D == 1 or rows.size < D:
+            out.append((r, {None: tuple(torch.from_numpy(a).to(dev) for a in arrs)}))
+            continue
+        per = pad_rows(rows.size, D) // D
+        padded = [pad_block_host(a, per * D, a.dtype) for a in arrs]
+        out.append((r, {i: tuple(torch.from_numpy(a[i * per:(i + 1) * per]).to(mesh.device(i, 0))
+                                 for a in padded)
+                        for i in mesh.local_data_shards()}))
+    return out
 
 
 #: score rows a chunk of ``recommend_*``: the (rows, targets) float32
@@ -317,16 +342,20 @@ class ALS(Estimator):
     cold_start_strategy: str = "nan"
     nonnegative: bool = False
 
-    def fit(self, ratings, label_col: str | None = None, device=None) -> ALSModel:
+    def fit(self, ratings, label_col: str | None = None, device=None, mesh=None) -> ALSModel:
         """``ratings``: (user, item, rating) as a 3-tuple of arrays, an
         (n, 3) array, or a Table with user/item/rating columns; the
-        half-steps run on ``device`` (default the card)."""
+        half-steps run on ``device`` (default the card), or over ``mesh``:
+        each bucket of at least D rows split over its data shards
+        (:func:`_stage_buckets`), the factors on its home device."""
+        from ..parallel.outofcore import stream_home, stream_mesh
+
         if self.cold_start_strategy not in ("nan", "drop"):
             raise ValueError(
                 f"cold_start_strategy must be nan|drop, got "
                 f"{self.cold_start_strategy!r}"
             )
-        dev = resolve_device(device)
+        dev = stream_home(stream_mesh(mesh, device))
         users, items, vals = self._coerce(ratings)
         if len(users) == 0:
             raise ValueError("ALS fit on an empty rating set")
@@ -335,8 +364,10 @@ class ALS(Estimator):
         n_users = int(users.max()) + 1
         n_items = int(items.max()) + 1
 
-        u_buckets = _stage_buckets(_group_ratings_bucketed(users, items, vals, n_users), dev)
-        i_buckets = _stage_buckets(_group_ratings_bucketed(items, users, vals, n_items), dev)
+        u_buckets = _stage_buckets(_group_ratings_bucketed(users, items, vals, n_users), dev,
+                                   mesh)
+        i_buckets = _stage_buckets(_group_ratings_bucketed(items, users, vals, n_items), dev,
+                                   mesh)
 
         rng = np.random.default_rng(self.seed)
         # Spark seeds factors with scaled |N(0,1)|-ish draws; scale keeps
@@ -357,28 +388,41 @@ class ALS(Estimator):
         alpha = float(np.float32(self.alpha))
 
         for _ in range(self.max_iter):
-            self._half_step(vf, u_buckets, uf, reg, alpha)
-            self._half_step(uf, i_buckets, vf, reg, alpha)
+            self._half_step(vf, u_buckets, uf, reg, alpha, mesh)
+            self._half_step(uf, i_buckets, vf, reg, alpha, mesh)
         return ALSModel(
             user_factors=uf.cpu().numpy(),
             item_factors=vf.cpu().numpy(),
             cold_start_strategy=self.cold_start_strategy,
         )
 
-    def _half_step(self, y, buckets, out, reg: float, alpha: float) -> None:
-        """Solve every count bucket against ``y`` and write the results
-        into ``out``'s rows."""
+    def _half_step(self, y, buckets, out, reg: float, alpha: float, mesh=None) -> None:
+        """Solve every count bucket against ``y`` (sent once to each device
+        a part lies on) and write the results into ``out``'s rows: a split
+        bucket's parts in data-shard order (``collectives.gather_shards``),
+        its pad rows dropped."""
         yty = (y.T @ y) if self.implicit_prefs else None
-        for rows, idx, val, msk, cnt in buckets:
-            if self.implicit_prefs:
-                solved = _solve_implicit(
-                    y, yty, idx, val, msk, reg, alpha, self.rank, self.nonnegative,
-                )
+        on: dict = {}
+        for rows, parts in buckets:
+            solved: dict = {}
+            for i, (idx, val, msk, cnt) in parts.items():
+                if idx.device not in on:
+                    on[idx.device] = (y.to(idx.device),
+                                      None if yty is None else yty.to(idx.device))
+                yi, ytyi = on[idx.device]
+                if self.implicit_prefs:
+                    solved[i] = _solve_implicit(
+                        yi, ytyi, idx, val, msk, reg, alpha, self.rank, self.nonnegative,
+                    )
+                else:
+                    solved[i] = _solve_explicit(
+                        yi, idx, val, msk, cnt, reg, self.rank, self.nonnegative
+                    )
+            if None in solved:
+                out[rows] = solved[None]
             else:
-                solved = _solve_explicit(
-                    y, idx, val, msk, cnt, reg, self.rank, self.nonnegative
-                )
-            out[rows] = solved
+                got = gather_shards([solved.get(i) for i in range(mesh.devices.shape[0])], mesh)
+                out[rows] = torch.cat(got)[: rows.shape[0]].to(out.device)
 
     @staticmethod
     def _coerce(ratings):

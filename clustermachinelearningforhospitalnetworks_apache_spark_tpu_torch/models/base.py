@@ -17,8 +17,6 @@ package's artifact layout (``io/model_io.py``).
 
 from __future__ import annotations
 
-import functools
-import inspect
 from dataclasses import dataclass
 from typing import Any
 
@@ -30,65 +28,8 @@ from ..device import resolve_device
 from ..features.assembler import AssembledTable
 
 
-#: the slice of the port that brings ``mesh=`` to the estimators that still
-#: fit on one device (PCA, the selectors, LSH, ``stat/``, LDA, PIC)
-MESH_SLICE = "8c-4"
-
-
-def _sharded(data: Any) -> bool:
-    from ..parallel.federation import FederatedDataset
-    from ..parallel.sharding import ShardedDataset
-
-    if isinstance(data, FederatedDataset):
-        data = data.data
-    return isinstance(data, ShardedDataset)
-
-
-def require_single_shard(data: Any, mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` naming slice 8c-4 when ``mesh`` has more
-    than one entry (or a process group is active) or ``data`` is sharded:
-    ``what`` runs on one device until its mesh slice lands, and never
-    gathers the shards silently."""
-    from ..parallel.sharding import uses_shards
-
-    if (mesh is not None and uses_shards(mesh)) or _sharded(data):
-        raise NotImplementedError(
-            f"{what} over a mesh of more than one shard comes with slice {MESH_SLICE} of "
-            "the port; run it on one device (device=) or a one-entry mesh"
-        )
-
-
-def _mesh_guarded(fit):
-    """``fit`` taking ``mesh=`` (the reference's keyword): a mesh of more
-    than one shard, or sharded data, raises (:func:`require_single_shard`);
-    a one-entry mesh runs the fit on its device."""
-    sig = inspect.signature(fit)
-    params = list(sig.parameters)
-    takes_mesh = "mesh" in params
-    device_at = params.index("device") if "device" in params else None
-
-    @functools.wraps(fit)
-    def guarded(self, *args, mesh=None, **kw):
-        data = args[0] if args else kw.get(params[1])
-        require_single_shard(data, mesh, f"{type(self).__name__}.fit")
-        if mesh is not None:
-            if takes_mesh:
-                kw["mesh"] = mesh
-            if device_at is not None and len(args) < device_at and kw.get("device") is None:
-                kw["device"] = mesh.device(0, 0)
-        return fit(self, *args, **kw)
-
-    # the signature callers read (a Pipeline's ``_call_stage``) names
-    # ``mesh``, so a mesh reaches the guard and is never dropped
-    if not takes_mesh:
-        guarded.__signature__ = sig.replace(parameters=[
-            *sig.parameters.values(),
-            inspect.Parameter("mesh", inspect.Parameter.KEYWORD_ONLY, default=None)])
-    return guarded
-
-
 def as_device_dataset(data: Any, label_col: str | None = None, device=None,
-                      weight_col: str | None = None, mesh=None, sharded: bool = False):
+                      weight_col: str | None = None, mesh=None):
     """Coerce (DeviceDataset | AssembledTable | (X, y[, w]) | X) to a
     padded dataset on ``device`` (default the card), or over ``mesh``.  A
     DeviceDataset is returned as it is, on its own device; a
@@ -96,16 +37,13 @@ def as_device_dataset(data: Any, label_col: str | None = None, device=None,
     (``label_col``) and weights (``weight_col``) from its source table.
 
     ``mesh=None`` keeps ``device=``; a mesh of one entry (and no process
-    group) gives the single-device dataset on its device.  A caller that
-    runs over shards passes ``sharded=True`` and gets a ShardedDataset for
-    a larger mesh; any other caller raises (:func:`require_single_shard`)."""
+    group) gives the single-device dataset on its device, a larger one
+    (or a group) a ShardedDataset."""
     from ..parallel.federation import FederatedDataset
     from ..parallel.sharding import ShardedDataset, shard_dataset, uses_shards
 
     if isinstance(data, FederatedDataset):
         data = data.data
-    if not sharded:
-        require_single_shard(data, mesh, "fitting or predicting")
     if isinstance(data, (DeviceDataset, ShardedDataset)):
         return data
     if mesh is not None:
@@ -148,7 +86,7 @@ def stream_batch(data: Any, label_col: str | None = None, device=None, mesh=None
             raise ValueError("pass a mesh or a device, not both")
         if not isinstance(data, (DeviceDataset, ShardedDataset)):
             mesh = microbatch_mesh(batch_rows(data), mesh, min_rows_per_device)
-    return as_device_dataset(data, label_col, device=device, mesh=mesh, sharded=True)
+    return as_device_dataset(data, label_col, device=device, mesh=mesh)
 
 
 def on_mesh(data: Any, label_col: str | None = None, device=None,
@@ -161,8 +99,7 @@ def on_mesh(data: Any, label_col: str | None = None, device=None,
     equal."""
     from ..parallel.sharding import ShardedDataset, shard_dataset, uses_shards
 
-    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col, mesh=mesh,
-                           sharded=True)
+    ds = as_device_dataset(data, label_col, device=device, weight_col=weight_col, mesh=mesh)
     if isinstance(ds, ShardedDataset):
         if mesh is not None and mesh != ds.mesh:
             raise ValueError(f"the data lies on {ds.mesh}, not on the mesh given ({mesh})")
@@ -319,8 +256,9 @@ def host_array(t) -> np.ndarray:
 
 
 class Estimator:
-    """Base: subclasses implement ``fit(data, label_col=None, device=None)
-    -> Model``.
+    """Base: subclasses implement ``fit(data, label_col=None, device=None,
+    mesh=None) -> Model`` (a mesh or a device, not both; every fit runs
+    over a mesh of more than one shard).
 
     Estimators that fit from mergeable sufficient statistics also
     implement the **partials protocol** (the JAX package's, for
@@ -338,21 +276,7 @@ class Estimator:
     #: when the estimator cannot fit from merged statistics
     partials_family: str | None = None
 
-    #: True where ``fit`` runs over a mesh of more than one shard itself
-    #: (the clustering family, LinearRegression, the trees, GaussianMixture,
-    #: LogisticRegression, LinearSVC, NaiveBayes, OneVsRest, the GLM, AFT,
-    #: the FMs, the MLP, IsotonicRegression).  Every other subclass's
-    #: ``fit`` takes ``mesh=`` too: a one-entry mesh names its device, a
-    #: larger one raises until slice 8c-4 (:func:`_mesh_guarded`)
-    mesh_fit: bool = False
-
-    def __init_subclass__(cls, **kw):
-        super().__init_subclass__(**kw)
-        fit = cls.__dict__.get("fit")
-        if fit is not None and not cls.mesh_fit:
-            cls.fit = _mesh_guarded(fit)
-
-    def fit(self, data: Any, label_col: str | None = None, device=None):
+    def fit(self, data: Any, label_col: str | None = None, device=None, mesh=None):
         raise NotImplementedError
 
     # ---------------------------------------------------- partials protocol

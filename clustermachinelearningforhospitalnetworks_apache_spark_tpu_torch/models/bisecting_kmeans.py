@@ -197,9 +197,6 @@ class BisectingKMeans(Estimator):
     #: from the key itself); the lowest final cost wins
     n_restarts: int = 4
 
-    #: ``fit`` runs over a mesh of more than one shard (its resident path)
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, mesh=None,
             device=None) -> BisectingKMeansModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,

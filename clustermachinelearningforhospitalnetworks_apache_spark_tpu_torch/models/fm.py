@@ -197,9 +197,6 @@ class _FMParams:
 
 @dataclass(frozen=True)
 class FMRegressor(Estimator, _FMParams):
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> FMModel:
         """Fit on ``device`` (default the card) or over ``mesh``."""
         return self._fit(data, label_col, device, mesh, "squared")
@@ -208,9 +205,6 @@ class FMRegressor(Estimator, _FMParams):
 @dataclass(frozen=True)
 class FMClassifier(Estimator, _FMParams):
     label_col: str = "LOS_binary"
-
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
 
     def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> FMModel:
         """Fit on ``device`` (default the card) or over ``mesh``."""

@@ -604,9 +604,6 @@ class GeneralizedLinearRegression(Estimator):
             lp = float(self.link_power) if self.link_power is not None else 1.0 - vp
         return link, vp, lp
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None, mesh=None):
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a

@@ -449,9 +449,6 @@ class GaussianMixture(Estimator):
             n_iter=it,
         )
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, mesh=None, on_iteration=None,
             device=None) -> GaussianMixtureModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,

@@ -114,9 +114,6 @@ class IsotonicRegression(Estimator):
             raise ValueError(f"feature_index {self.feature_index} out of range "
                              f"[0, {n_features})")
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> IsotonicRegressionModel:
         """Fit on ``data``; its rows are staged on ``device`` (default the

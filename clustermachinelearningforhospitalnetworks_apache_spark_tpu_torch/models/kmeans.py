@@ -430,7 +430,7 @@ class KMeansModel(ClusteringModel):
         computeCost; on unit rows in cosine mode).  Over a mesh each data
         shard runs K2 on its device and the shards' sums add in ascending
         shard order."""
-        ds = as_device_dataset(data, device=device, mesh=mesh, sharded=True)
+        ds = as_device_dataset(data, device=device, mesh=mesh)
         if isinstance(ds, ShardedDataset):
             return float(ordered_sum([None if s is None else self._cost(s)
                                       for s in ds.shards], ds.mesh))
@@ -494,9 +494,6 @@ class KMeans(Estimator):
     checkpoint_dir: str | None = None
     checkpoint_every: int = 5
     weight_col: str | None = None  # Spark's weightCol
-
-    #: ``fit`` runs over a mesh of more than one shard (``_fit_sharded``)
-    mesh_fit = True
 
     def _init_from_sample(self, valid: np.ndarray) -> np.ndarray:
         """(sample of valid rows) → (k, d) start centers."""

@@ -13,8 +13,13 @@ over the document-term matrix on ``device`` (default the card):
 - M-step: λ ← (1−ρ)λ + ρ·λ̂ with ρ_t = (τ₀+t)^{−κ} (Spark's
   learningOffset/learningDecay defaults 1024/0.51).
 
-A :class:`~..parallel.outofcore.HostDataset` trains as Hoffman's
-minibatch form, one streamed block an update.  ``transform`` returns
+Over a mesh (``fit(..., mesh=)`` or a ``ShardedDataset``; one device is
+one shard of ``base.Shards``) the E-step runs once a data shard on its
+device, the sufficient statistics are summed in ascending shard order and
+λ is updated once on the home device, then sent to every shard.  A
+:class:`~..parallel.outofcore.HostDataset` trains as Hoffman's minibatch
+form, one streamed block an update (a block over the mesh's shards, its
+size rounded to the data axis as the reference rounds it).  ``transform`` returns
 per-document topic mixtures; ``describe_topics`` and the variational
 ``log_perplexity`` bound mirror Spark's surface.
 """
@@ -29,7 +34,7 @@ import torch
 from ..data import DeviceDataset
 from ..device import resolve_device
 from ..io.model_io import register_model
-from .base import Estimator, Model, as_device_dataset, check_features
+from .base import Estimator, Model, Shards, check_features, on_mesh
 
 
 def _dirichlet_expectation(a):
@@ -113,10 +118,15 @@ class LDAModel(Model):
                            expelog_beta, float(np.float32(self.alpha)), self.e_step_sweeps)
         return gamma, expelog_beta
 
-    def transform(self, counts, device=None) -> np.ndarray:
+    def transform(self, counts, mesh=None, device=None) -> np.ndarray:
         """(n, k) normalized per-document topic mixtures (Spark's
         ``topicDistribution`` column), inferred on ``device`` (default
-        the card; a tensor where it lies)."""
+        the card; a tensor where it lies) or on ``mesh``'s first device,
+        where the reference infers them unsharded."""
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both")
+            device = mesh.device(0, 0)
         gamma, _ = self._gamma(_counts_on(counts, device))
         g = gamma.cpu().numpy().astype(np.float64)
         return g / g.sum(axis=1, keepdims=True)
@@ -183,20 +193,31 @@ class LDA(Estimator):
             rng.gamma(100.0, 1.0 / 100.0, size=(self.k, v)).astype(np.float32)
         ).to(dev)
 
-    def _update(self, lam, x, w, alpha: float, eta: float, scale: float, t: int):
-        """One online step on the documents ``x`` (weights ``w``), their
-        statistics scaled by ``scale`` (n / |batch|; 1 on the full batch)."""
+    def _update(self, lam, shard_sum, alpha: float, eta: float, scale: float, t: int):
+        """One online step: ``shard_sum(fn)`` sums ``fn(i, shard)``'s
+        statistics over the documents' shards in shard order; each shard's
+        E-step runs on its device against exp(E[log β]) sent there, and its
+        statistics are scaled by ``scale`` (n / |batch|; 1 on the full
+        batch)."""
         expelog_beta = torch.exp(_dirichlet_expectation(lam))
-        _, sstats = _e_step(x, w, expelog_beta, float(np.float32(alpha)), self.e_step_sweeps)
+        a = float(np.float32(alpha))
+
+        def stats(i, s):
+            eb = expelog_beta.to(s.x.device)
+            return (_e_step(s.x.to(torch.float32), s.w.to(torch.float32), eb, a,
+                            self.e_step_sweeps)[1],)
+
+        sstats = shard_sum(stats)[0]
         lam_hat = eta + (scale * sstats if scale != 1.0 else sstats) * expelog_beta
         rho = (self.learning_offset + t) ** (-self.learning_decay)
         return (1.0 - rho) * lam + rho * lam_hat
 
-    def fit(self, counts, label_col: str | None = None, device=None) -> LDAModel:
+    def fit(self, counts, label_col: str | None = None, device=None, mesh=None) -> LDAModel:
         """``counts``: (n_docs, vocab) term-count matrix (CountVectorizer
-        output shape), moved to ``device`` (default the card); a
-        DeviceDataset or a tensor trains where it lies, a HostDataset
-        streams its blocks to ``device``."""
+        output shape), moved to ``device`` (default the card) or laid over
+        ``mesh``; a DeviceDataset, ShardedDataset or tensor trains where it
+        lies, a HostDataset streams its blocks to ``device`` or over
+        ``mesh``."""
         if self.optimizer != "online":
             raise ValueError(
                 f"optimizer must be 'online' (Spark's default; EM is not "
@@ -207,23 +228,21 @@ class LDA(Estimator):
         from ..parallel.outofcore import HostDataset
 
         if isinstance(counts, HostDataset):
-            return self._fit_outofcore(counts, resolve_device(device))
+            return self._fit_outofcore(counts, mesh, device)
         if isinstance(counts, torch.Tensor):
-            ds = DeviceDataset(x=counts, y=counts.new_zeros(counts.shape[0]),
-                               w=counts.new_ones(counts.shape[0], dtype=torch.float32))
-        else:
-            ds = as_device_dataset(counts, device=device)
-        if float(torch.min(ds.x)) < 0:
+            counts = DeviceDataset(x=counts, y=counts.new_zeros(counts.shape[0]),
+                                   w=counts.new_ones(counts.shape[0], dtype=torch.float32))
+        sh = Shards(on_mesh(counts, None, device, None, mesh))
+        lo = sh.rows(lambda i, s: s.x.min().reshape(1)).min()
+        if lo < 0:
             raise ValueError("LDA needs a non-negative term-count matrix")
-        n, v = int(torch.sum(ds.w > 0)), ds.n_features
+        n, v = int(sh.sum(lambda i, s: (torch.sum(s.w > 0),))[0]), sh.n_features
         if n == 0:
             raise ValueError("LDA fit on an empty dataset")
         alpha, eta = self._priors()
-        lam = self._init_lam(v, ds.x.device)
-        x = ds.x.to(torch.float32)
-        w = ds.w.to(torch.float32)
+        lam = self._init_lam(v, sh.home)
         for t in range(self.max_iter):
-            lam = self._update(lam, x, w, alpha, eta, 1.0, t)
+            lam = self._update(lam, sh.sum, alpha, eta, 1.0, t)
         return LDAModel(
             lam=lam.cpu().numpy(),
             alpha=float(alpha),
@@ -232,12 +251,16 @@ class LDA(Estimator):
             e_step_sweeps=self.e_step_sweeps,
         )
 
-    def _fit_outofcore(self, hd, dev) -> LDAModel:
+    def _fit_outofcore(self, hd, mesh=None, device=None) -> LDAModel:
         """Docs ≫ device memory online VB — Hoffman's algorithm in its
         NATIVE form: each update consumes one minibatch (here: one
-        streamed host block) with sufficient statistics scaled by
-        n/|batch|, blended at rate ρ_t.  Each block step counts as one
-        iteration (Spark's convention too)."""
+        streamed host block, over ``mesh`` or on ``device``) with
+        sufficient statistics scaled by n/|batch|, blended at rate ρ_t.
+        Each block step counts as one iteration (Spark's convention too);
+        |batch| counts the valid rows of the block's span at the
+        mesh-rounded block size."""
+        from ..parallel.outofcore import shard_sum, stream_home, stream_mesh
+
         if np.min(hd.x) < 0:
             raise ValueError("LDA needs a non-negative term-count matrix")
         w_host = (
@@ -247,19 +270,20 @@ class LDA(Estimator):
         if n == 0:
             raise ValueError("LDA fit on an empty dataset")
         alpha, eta = self._priors()
-        lam = self._init_lam(hd.n_features, dev)
-        n_blocks, b = hd.block_shape()
+        home = stream_home(stream_mesh(mesh, device))
+        lam = self._init_lam(hd.n_features, home)
+        n_blocks, b = hd.block_shape(mesh)
         shuffle = np.random.default_rng(self.seed + 1)
         t = 0
         while t < self.max_iter:
             perm = shuffle.permutation(n_blocks)
-            for i, blk in zip(perm, hd.blocks(device=dev, order=perm)):
+            for i, blk in zip(perm, hd.blocks(mesh, order=perm, device=device)):
                 if t >= self.max_iter:
                     break
                 s, e = int(i) * b, min(int(i) * b + b, hd.n)
                 bsz = max(float(np.sum(w_host[s:e] > 0)), 1.0)
-                lam = self._update(lam, blk.x.to(torch.float32), blk.w.to(torch.float32),
-                                   alpha, eta, n / bsz, t)
+                lam = self._update(lam, lambda fn: shard_sum(blk, fn), alpha, eta,
+                                   n / bsz, t)
                 t += 1
         return LDAModel(
             lam=lam.cpu().numpy(),

@@ -364,9 +364,6 @@ class LinearRegression(Estimator):
     standardize: bool = True
     weight_col: str | None = None
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> LinearRegressionModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,

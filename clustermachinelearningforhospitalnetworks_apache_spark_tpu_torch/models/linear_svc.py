@@ -169,9 +169,6 @@ class LinearSVC(Estimator):
     features_col: str = "features"
     weight_col: str | None = None
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> LinearSVCModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,

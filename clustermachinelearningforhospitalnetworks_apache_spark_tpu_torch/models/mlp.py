@@ -154,9 +154,6 @@ class MultilayerPerceptronClassifier(Estimator):
         model.fit_info = info
         return model
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None, mesh=None):
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a

@@ -179,9 +179,6 @@ class NaiveBayes(Estimator):
     features_col: str = "features"
     weight_col: str | None = None
 
-    #: ``fit`` runs over a mesh of more than one shard
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> NaiveBayesModel:
         """One pass of per-class statistics on ``device`` (default the

@@ -109,9 +109,6 @@ class OneVsRest(Estimator):
     features_col: str = "features"
     weight_col: str | None = None
 
-    #: ``fit`` runs over a mesh of more than one shard (its classifier's)
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> OneVsRestModel:
         """k one-vs-all fits of ``classifier`` on ``device`` (default the

@@ -9,7 +9,9 @@ k-means on that embedding assigns the clusters.
 The (symmetrized) affinity is a dense matrix on ``device`` (default the
 card) and each iteration is one matrix-vector product; the k-means step
 is the port's ``KMeans`` on the (n, 1) embedding (K1 a Lloyd step, K2 in
-predict on the card).  Dense (n, n) is the honest trade for this
+predict on the card).  Over a mesh the power iteration stays on its first
+device, as the reference's dense affinity does, and the KMeans fits and
+predicts over the mesh: K1 and K2 once a data shard.  Dense (n, n) is the honest trade for this
 estimator's scale (Spark's own docs position PIC for up to ~10⁵ nodes);
 beyond the node budget it raises rather than thrash.
 """
@@ -115,16 +117,22 @@ class PowerIterationClustering(Estimator):
         v0 = torch.from_numpy(np.asarray(v0, np.float32)).to(dev)
         return _power_iterate(w_norm, v0, self.max_iter).cpu().numpy().astype(np.float64)
 
-    def assign_clusters(self, src, dst, weight=None, device=None) -> np.ndarray:
+    def assign_clusters(self, src, dst, weight=None, mesh=None, device=None) -> np.ndarray:
         """(n,) cluster id per node (node ids = 0..max id): the embedding,
         then k-means on it (Lin & Cohen step 3), both on ``device``
-        (default the card)."""
-        v = self.embed(src, dst, weight, device=device)
+        (default the card); or over ``mesh``: the embedding on its first
+        device, the k-means fit and its predict over the shards."""
         from .kmeans import KMeans
 
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        v = self.embed(src, dst, weight, device=device if mesh is None else mesh.device(0, 0))
         emb = v[:, None].astype(np.float32)
-        km = KMeans(k=self.k, seed=self.seed, max_iter=40).fit(emb, device=device)
-        return np.asarray(km.predict_numpy(emb, device=device)).astype(np.int64)
+        km = KMeans(k=self.k, seed=self.seed, max_iter=40).fit(emb, device=device, mesh=mesh)
+        if mesh is None:
+            return np.asarray(km.predict_numpy(emb, device=device)).astype(np.int64)
+        pred, _ = km.transform(emb, mesh=mesh).to_numpy(emb.shape[0])
+        return pred.astype(np.int64)
 
 
 __all__ = ["PowerIterationClustering"]

@@ -213,7 +213,7 @@ class StreamingKMeans:
             mesh = microbatch_mesh(max(batch_rows(b) for b in batches), mesh,
                                    self.shard_min_rows_per_device)
         for b in batches:
-            self._update(as_device_dataset(b, device=device, mesh=mesh, sharded=True))
+            self._update(as_device_dataset(b, device=device, mesh=mesh))
         return self
 
     def _update(self, ds) -> "StreamingKMeans":

@@ -187,8 +187,6 @@ class _TreeParams:
 
 @dataclass(frozen=True)
 class DecisionTreeRegressor(Estimator, _TreeParams):
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> DecisionTreeModel:
         grown = _fit_grown(data, label_col or self.label_col, self.weight_col, device,
@@ -200,7 +198,6 @@ class DecisionTreeRegressor(Estimator, _TreeParams):
 class DecisionTreeClassifier(Estimator, _TreeParams):
     num_classes: int = 2
     label_col: str = "LOS_binary"
-    mesh_fit = True
 
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> DecisionTreeModel:

@@ -530,6 +530,7 @@ def grow_forest(
     bootstrap: bool = False,
     subsampling_rate: float = 1.0,
     seed: int = 0,
+    mesh=None,
     init_sample_size: int = 65536,
     categorical_features: dict[int, int] | None = None,
     bin_thresholds: np.ndarray | None = None,
@@ -542,7 +543,8 @@ def grow_forest(
     """Train ``num_trees`` trees level by level over the data shards of
     ``ds``: a DeviceDataset (one shard, on its device), a
     ``ShardedDataset`` or a ``models.base.Shards`` (see the module
-    docstring).
+    docstring).  ``mesh``, the reference's keyword, lays a DeviceDataset
+    over its data shards (a ShardedDataset must already lie on it).
 
     Steps: quantile thresholds from a host sample of valid rows; the
     (d, n) bin matrix on the device; per-tree weights (validity × Poisson
@@ -568,8 +570,10 @@ def grow_forest(
     sets.  ``timings``, when given, receives host seconds per step
     (each step ends with a device sync, so only pass it when timing)."""
     from ...parallel.sharding import sample_valid_rows
-    from ..base import Shards
+    from ..base import Shards, on_mesh
 
+    if mesh is not None and not isinstance(ds, Shards):
+        ds = on_mesh(ds, mesh=mesh)
     sh = ds if isinstance(ds, Shards) else Shards(ds)
     d, T, B, home = sh.n_features, num_trees, max_bins, sh.home
 

@@ -532,8 +532,6 @@ class _GBTParams:
 
 @dataclass(frozen=True)
 class GBTRegressor(Estimator, _GBTParams):
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> GBTModel:
         """Fit on ``data`` (DeviceDataset, ShardedDataset, AssembledTable,
         (x, y[, w])) on ``device`` (default the card) or over ``mesh``; a
@@ -564,7 +562,6 @@ def _check_binary_labels(ds) -> None:
 @dataclass(frozen=True)
 class GBTClassifier(Estimator, _GBTParams):
     label_col: str = "LOS_binary"
-    mesh_fit = True
 
     def fit(self, data, label_col: str | None = None, device=None, mesh=None) -> GBTModel:
         """As :meth:`GBTRegressor.fit`, on labels 0/1."""

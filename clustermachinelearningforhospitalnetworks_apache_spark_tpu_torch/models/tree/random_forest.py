@@ -46,8 +46,6 @@ class RandomForestRegressor(Estimator, _TreeParams):
     subsampling_rate: float = 1.0
     feature_subset_strategy: str = "auto"
 
-    mesh_fit = True
-
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> RandomForestModel:
         grown = _fit_grown(
@@ -66,8 +64,6 @@ class RandomForestClassifier(Estimator, _TreeParams):
     subsampling_rate: float = 1.0
     feature_subset_strategy: str = "auto"
     label_col: str = "LOS_binary"
-
-    mesh_fit = True
 
     def fit(self, data, label_col: str | None = None, device=None,
             mesh=None) -> RandomForestModel:

@@ -10,6 +10,14 @@ chunked_gram``), so its float32 sum stays near the reference's
 per-device sums.  Σw·x accumulates in float64: a column mean is then the
 same on every device, where two float32 sums of 2M rows in different
 orders differ by as much as rounding the rows to bfloat16 moves them.
+
+Rows laid over a mesh (``x`` and ``w`` row-sharded
+:class:`~..parallel.sharding.MeshArray` s, the reference's sharded
+arrays) take the pass once a data shard on its device; the sums (n,
+count, s1, s2, xtx, l1, nnz) are added in ascending shard order
+(``collectives.aggregate_shards``) and the extremes are the min / max of
+the shards', so count, min, max and nnz (sums of integers) are the same
+on every mesh shape.
 """
 
 from __future__ import annotations
@@ -23,9 +31,18 @@ from ..models.linear_regression import chunked_gram
 MASK_BIG = float(np.float32(3.4e38))
 
 
-def moment_stats(x: torch.Tensor, w: torch.Tensor) -> dict:
+#: the statistics summed over the shards (the rest are extremes)
+_SUMS = ("n", "count", "s1", "s2", "xtx", "l1", "nnz")
+
+
+def moment_stats(x, w) -> dict:
     """The statistics of weighted, padded rows (pad rows w = 0), on x's
-    device."""
+    device; row-sharded MeshArrays give their shards' statistics
+    combined on the home device (this process's first data shard's)."""
+    from ..parallel.sharding import MeshArray
+
+    if isinstance(x, MeshArray):
+        return _sharded_moment_stats(x, w)
     x = x.to(torch.float32)
     w = w.to(torch.float32)
     wcol = w[:, None]
@@ -44,7 +61,25 @@ def moment_stats(x: torch.Tensor, w: torch.Tensor) -> dict:
     }
 
 
-def host_moments(x: torch.Tensor, w: torch.Tensor) -> dict:
+def _sharded_moment_stats(x, w) -> dict:
+    """``moment_stats`` a data shard, the sums added in ascending shard
+    order and the extremes reduced over the shards' (one gather each
+    under a process group)."""
+    from ..parallel.collectives import aggregate_shards, gather_shards
+
+    mesh = x.mesh
+    per = {i: moment_stats(x.block(i), w.block(i)) for i in mesh.local_data_shards()}
+    out = aggregate_shards(lambda i: {k: per[i][k] for k in _SUMS}, mesh)
+    ext: list = [None] * mesh.devices.shape[0]
+    for i, s in per.items():
+        ext[i] = torch.stack([s["min"], s["max"]])
+    ext = torch.stack([e.to(out["n"].device) for e in gather_shards(ext, mesh)])
+    out["min"] = ext[:, 0].min(dim=0).values
+    out["max"] = ext[:, 1].max(dim=0).values
+    return out
+
+
+def host_moments(x, w) -> dict:
     """``moment_stats`` on the host as float64, read in one copy."""
     s = moment_stats(x, w)
     flat = torch.cat([v.reshape(-1) for v in s.values()]).cpu().numpy().astype(np.float64)

@@ -403,6 +403,11 @@ class HostDataset:
                    for dev in devs} for _ in range(2)]
         copy_stream = {dev: torch.cuda.Stream(dev) for dev in devs}
         compute = {dev: torch.cuda.current_stream(dev) for dev in devs}
+        for dev in devs:
+            # ``on_dev`` was allocated on the compute stream, maybe from memory
+            # that work still queued there reads (the previous stream's last
+            # block): the side stream writes it only after that work
+            copy_stream[dev].wait_stream(compute[dev])
         copied: list = [{}, {}]    # slot → {card: event after the slot's last copy}
         consumed: list = [{}, {}]  # slot → {card: event after the consumer's work}
 

@@ -218,6 +218,22 @@ class ShardedDataset:
                 f"mesh={self.mesh.shape})")
 
 
+def map_shards(ds: ShardedDataset, fn) -> ShardedDataset:
+    """``fn`` (DeviceDataset → DeviceDataset) on each local entry of
+    ``ds`` where it lies: a transform's shard-by-shard form.  An entry
+    that holds the same rows as its data shard's first (a repeated
+    device) reuses that entry's result."""
+    blocks = np.empty(ds.blocks.shape, dtype=object)
+    done: dict = {}
+    for i, j in np.ndindex(blocks.shape):
+        b = ds.blocks[i, j]
+        if b is not None:
+            if id(b.x) not in done:
+                done[id(b.x)] = fn(b)
+            blocks[i, j] = done[id(b.x)]
+    return ShardedDataset(ds.mesh, blocks)
+
+
 def place_dataset(xp: np.ndarray, yp: np.ndarray, wp: np.ndarray, mesh: Mesh) -> ShardedDataset:
     """Padded host (or device) rows, labels and weights (``n_pad``
     divisible by the data axis) → a :class:`ShardedDataset`: shard i the

@@ -47,13 +47,10 @@ def _accepts(fn, name: str) -> bool:
 
 def _call_stage(fn, data, label_col, mesh, device=None):
     """``fn(data)`` with the pipeline's ``label_col`` and ``mesh`` (or
-    ``device``) where it takes them.  A stage that takes ``mesh`` gets it
-    (an estimator whose fit does not run over shards yet raises there); a
-    stage that takes only ``device`` runs on one device, the mesh's first
-    for a one-entry mesh, and raises over a larger one rather than fit the
-    rows of every shard on one device."""
-    from ..models.base import require_single_shard
-
+    ``device``) where it takes them.  A stage that takes ``mesh`` gets it;
+    a stage that takes only ``device`` (a host-input stage such as
+    ``Word2Vec.fit(tokens, device=)``) runs on the mesh's first device,
+    where the reference runs it unsharded."""
     kwargs = {}
     if label_col is not None and _accepts(fn, "label_col"):
         kwargs["label_col"] = label_col
@@ -63,7 +60,6 @@ def _call_stage(fn, data, label_col, mesh, device=None):
         if _accepts(fn, "mesh"):
             kwargs["mesh"] = mesh
         elif _accepts(fn, "device"):
-            require_single_shard(None, mesh, getattr(fn, "__qualname__", repr(fn)))
             kwargs["device"] = mesh.device(0, 0)
     elif device is not None and _accepts(fn, "device"):
         kwargs["device"] = device

@@ -211,16 +211,20 @@ class Session:
         return self.views.register(name, query, source, watermark=watermark)
 
     def sql_to_device(self, query: str, feature_cols=None, label_col: str | None = None,
-                      na_drop: bool = True, clock=None, mode: str = "auto"):
+                      mesh=None, na_drop: bool = True, clock=None, mode: str = "auto"):
         """The fused training path: SQL window → feature assembly → a
-        :class:`~.data.DeviceDataset` on the session's device.  When the
-        plan compiles (a fully supported row-level query without LIMIT),
-        the query runs as torch ops over the device column cache and the
-        assembly stacks its result there (``DeviceView.assemble``): no row
-        reaches the host.  Otherwise the interpreter (or the compiled
-        aggregate) builds a host Table, ``na_drop`` and ``VectorAssembler``
-        run on the host and the matrix transfers once; ``mode="compile"``
-        raises :class:`~.core.sql.SqlCompileUnsupported` instead, and
+        dataset over ``mesh`` (default the session's): a
+        :class:`~.data.DeviceDataset` on a one-entry mesh's device, a
+        :class:`~.parallel.sharding.ShardedDataset` over a larger one.
+        When the plan compiles (a fully supported row-level query without
+        LIMIT), the query runs as torch ops over the device column cache on
+        the session's device, the assembly stacks its result there
+        (``DeviceView.assemble``) and the rows are laid over the mesh
+        device to device: no row reaches the host.  Otherwise the
+        interpreter (or the compiled aggregate) builds a host Table,
+        ``na_drop`` and ``VectorAssembler`` run on the host and the matrix
+        transfers once; ``mode="compile"`` raises
+        :class:`~.core.sql.SqlCompileUnsupported` instead, and
         ``core.sql.last_dispatch()`` records the route.  ``na_drop``
         mirrors the reference's ``na.drop()`` over the feature and label
         columns.  ``clock``: anything with a ``stage(name)`` context
@@ -228,20 +232,19 @@ class Session:
         from contextlib import nullcontext
 
         from .core.schema import FEATURE_COLS, LABEL_COL
-        from .models.base import require_single_shard
-
-        require_single_shard(None, self.mesh, "Session.sql_to_device")
         from .core.sql import execute
         from .core.sql_compile import compile_rowlevel
         from .features.assembler import VectorAssembler
 
+        mesh = mesh or self.mesh
         feature_cols = tuple(feature_cols or FEATURE_COLS)
         assembler = VectorAssembler(feature_cols)
         view = compile_rowlevel(query, self.table, mode=mode, clock=clock, device=self.device)
         stage = clock.stage if clock is not None else (lambda _: nullcontext())
         if view is not None:
             with stage("assemble"):
-                return assembler.transform_device(view, label_col=label_col, na_drop=na_drop)
+                return assembler.transform_device(view, label_col=label_col, mesh=mesh,
+                                                  na_drop=na_drop)
         # the host route: one transfer, at to_device.  A fresh
         # fingerprint-matched materialized view answers here too (the
         # fused device route above stays view-free: it never
@@ -254,7 +257,7 @@ class Session:
         if na_drop:
             t = t.na_drop(subset=list(feature_cols) + ([label_col] if label_col else []))
         with stage("assemble"):
-            return assembler.transform(t).to_device(label_col=label_col, device=self.device)
+            return assembler.transform(t).to_device(label_col=label_col, mesh=mesh)
 
     # streaming read ----------------------------------------------------
     @property

@@ -11,7 +11,14 @@ there, the normal CDF being ``torch.special.ndtr`` of the standardized
 values.  The p-values come from scipy on the host.
 
 Every entry point takes ``device=`` (default the card) and raises without
-one unless it names the CPU, the host-only tests included.
+one unless it names the CPU, the host-only tests included.  The device
+tests take the reference's ``mesh=`` too: over a mesh of more than one
+shard (or for a ShardedDataset) each statistic is taken a data shard on
+its device and the sums are added in ascending shard order
+(``collectives.aggregate_shards``); a centred statistic takes its global
+means first, summed so, then its centred sums a shard; the KS sort
+gathers the valid values of every shard to the home device, as the
+reference's sort of a sharded array does.  ``device=`` is a keyword.
 """
 
 from __future__ import annotations
@@ -24,13 +31,27 @@ import torch
 from ..data import DeviceDataset
 from ..device import resolve_device
 from ..features.assembler import AssembledTable
-from ..models.base import as_device_dataset
+from ..models.base import Shards, host_array, is_sharded, on_mesh, padded_column
 from ..models.linear_regression import chunked_gram
 from ..ops.reductions import host_moments
+from ..parallel.collectives import gather_shards
+from ..parallel.sharding import ShardedDataset
 
 
-def _as_ds(data, device) -> DeviceDataset:
-    return as_device_dataset(data, device=resolve_device(device))
+def _as_ds(data, device=None, mesh=None):
+    """``data`` as a DeviceDataset on ``device`` (default the card; a
+    dataset where it lies), or laid over ``mesh`` (a ShardedDataset for
+    more than one shard)."""
+    if mesh is None and not is_sharded(data):
+        device = resolve_device(device)
+    return on_mesh(data, None, device, None, mesh)
+
+
+def _as_xw(data, mesh=None, device=None):
+    """(x, w) of any accepted feature container, on ``device`` or over
+    ``mesh`` (row-sharded MeshArrays)."""
+    ds = _as_ds(data, device, mesh)
+    return ds.x, ds.w
 
 
 @dataclass(frozen=True)
@@ -43,9 +64,9 @@ class ChiSquareTestResult:
 def _host_features(data, allow_weights: bool = False) -> np.ndarray:
     if isinstance(data, AssembledTable):
         return np.asarray(data.features, dtype=np.float64)
-    if isinstance(data, DeviceDataset):
-        x = data.x.cpu().numpy().astype(np.float64)
-        w = data.w.cpu().numpy()
+    if isinstance(data, (DeviceDataset, ShardedDataset)):
+        x = host_array(data.x).astype(np.float64)
+        w = host_array(data.w)
         if not allow_weights and not np.all((w == 0) | (w == 1)):
             raise ValueError(
                 "spearman correlation does not support fractional sample weights; drop "
@@ -61,9 +82,9 @@ class ChiSquareTest:
     @staticmethod
     def test(features, labels, device=None) -> ChiSquareTestResult:
         resolve_device(device)
-        if isinstance(features, DeviceDataset):
-            x = features.x.cpu().numpy().astype(np.float64)
-            w = features.w.cpu().numpy().astype(np.float64)
+        if isinstance(features, (DeviceDataset, ShardedDataset)):
+            x = host_array(features.x).astype(np.float64)
+            w = host_array(features.w).astype(np.float64)
         else:
             x = _host_features(features, allow_weights=True)
             w = np.ones(x.shape[0])
@@ -112,18 +133,18 @@ class Correlation:
     """``Correlation.corr(data, method="pearson"|"spearman")`` → (d, d)."""
 
     @staticmethod
-    def corr(data, method: str = "pearson", device=None) -> np.ndarray:
+    def corr(data, method: str = "pearson", mesh=None, *, device=None) -> np.ndarray:
         if method not in ("pearson", "spearman"):
             raise ValueError(f"method must be pearson|spearman, got {method!r}")
         if method == "spearman":
-            resolve_device(device)
+            if mesh is None:
+                resolve_device(device)
             x = _host_features(data)
             ranks = np.empty_like(x, dtype=np.float64)
             for j in range(x.shape[1]):
                 ranks[:, j] = _avg_rank(x[:, j])
             return np.corrcoef(ranks, rowvar=False)
-        ds = _as_ds(data, device)
-        s = host_moments(ds.x, ds.w)
+        s = host_moments(*_as_xw(data, mesh, device))
         n = max(s["n"], 1.0)
         mean = s["s1"] / n
         cov = s["xtx"] / n - np.outer(mean, mean)
@@ -157,27 +178,39 @@ def ks_statistic(x: torch.Tensor, w: torch.Tensor, mean: float, std: float):
     return torch.maximum(d_plus, d_minus), n
 
 
+def _ks_rows(ds):
+    """The sample column and its weights on one device: a DeviceDataset's
+    own, or every shard's gathered to the home device in row order (the
+    sort is global, as the reference's sort of a sharded array)."""
+    if not isinstance(ds, ShardedDataset):
+        return ds.x[:, 0], ds.w
+    sh = Shards(ds)
+    parts: list = [None] * sh.D
+    for i, s in sh.data.items():
+        parts[i] = torch.stack([s.x[:, 0].to(torch.float32), s.w.to(torch.float32)])
+    xw = torch.cat(gather_shards(parts, sh.mesh), dim=1)
+    return xw[0], xw[1]
+
+
 class KolmogorovSmirnovTest:
     """One-sample KS test against a normal distribution (the only
     distribution Spark supports); the statistic on the device, the exact
     p-value from scipy (``kstwo``)."""
 
     @staticmethod
-    def test(data, dist: str = "norm", mean: float = 0.0, std: float = 1.0,
+    def test(data, dist: str = "norm", mean: float = 0.0, std: float = 1.0, mesh=None, *,
              device=None) -> KolmogorovSmirnovTestResult:
         if dist != "norm":
             raise ValueError(f"only the 'norm' theoretical distribution is supported "
                              f"(Spark parity), got {dist!r}")
         if std <= 0:
             raise ValueError(f"std must be positive, got {std}")
-        ds = _as_ds(data, device)
-        x = ds.x
-        if x.ndim == 2:
-            if x.shape[1] != 1:
-                raise ValueError(f"KS is a single-column test; got {x.shape[1]} columns "
-                                 "— select one (Spark's sampleCol)")
-            x = x[:, 0]
-        stat, n = ks_statistic(x.to(torch.float32), ds.w, mean, std)
+        ds = _as_ds(data, device, mesh)
+        if ds.n_features != 1:
+            raise ValueError(f"KS is a single-column test; got {ds.n_features} columns "
+                             "— select one (Spark's sampleCol)")
+        x, w = _ks_rows(ds)
+        stat, n = ks_statistic(x.to(torch.float32), w, mean, std)
         stat, n = torch.stack([stat.to(torch.float64), n.to(torch.float64)]).tolist()
         n = int(n)
         if n == 0:
@@ -197,27 +230,40 @@ class FTestResult:
     f_values: np.ndarray            # (d,)
 
 
-def _padded_labels(ds: DeviceDataset, y: np.ndarray, test_name: str) -> torch.Tensor:
-    """Labels zero-padded to the padded row count; refuses labels that stop
-    short of a valid row (positional alignment would shift them)."""
+def _padded_labels(ds, y: np.ndarray, test_name: str):
+    """Labels zero-padded to the padded row count and laid out as the rows
+    are (``base.padded_column``: a tensor on the dataset's device, or
+    row-sharded over its mesh); refuses labels that stop short of a valid
+    row (positional alignment would shift them)."""
     if y.shape[0] > ds.n_padded:
         raise ValueError(f"{test_name}: {y.shape[0]} labels exceed the padded row count "
                          f"{ds.n_padded}")
-    w_host = ds.w.cpu().numpy()
+    w_host = host_array(ds.w)
     if np.any(w_host[y.shape[0]:] > 0):
         last = int(np.flatnonzero(w_host > 0).max()) + 1
         raise ValueError(f"{test_name}: labels have {y.shape[0]} rows but valid feature "
                          f"rows extend to row {last} — pass one label per feature row")
-    yp = np.zeros((ds.n_padded,), np.float32)
-    yp[: y.shape[0]] = y
-    return torch.from_numpy(yp).to(ds.x.device)
+    return padded_column(y, ds)
 
 
-def anova_stats(x, y, w, k: int):
+def _global_means(sh: Shards, ys: dict | None = None):
+    """(n, Σw·x / n[, Σw·y / n]) over every shard, the sums added in shard
+    order, on the home device: the means a centred statistic subtracts
+    (n = max(Σw, 1))."""
+    def sums(i, s):
+        x, w = s.x.to(torch.float32), s.w.to(torch.float32)
+        out = (w.sum(), torch.sum(x * w[:, None], dim=0))
+        return out if ys is None else out + (torch.sum(ys[i] * w),)
+
+    tot = sh.sum(sums)
+    n = torch.clamp(tot[0], min=1.0)
+    return (n,) + tuple(t / n for t in tot[1:])
+
+
+def anova_stats(x, y, w, k: int, gmean):
     """Per-class (count, Σxc, Σxc²) on globally centred features (no
-    float32 Σx² − n·mean² cancellation; F is shift-invariant)."""
-    n = torch.clamp(w.sum(), min=1.0)
-    gmean = torch.sum(x * w[:, None], dim=0) / n
+    float32 Σx² − n·mean² cancellation; F is shift-invariant).  ``gmean``:
+    the global weighted mean of every shard's rows (``_global_means``)."""
     xc = x - gmean[None, :]
     yi = y.to(torch.int64)
     onehot = (yi[:, None] == torch.arange(k, device=x.device)[None, :]).to(x.dtype) * w[:, None]
@@ -229,14 +275,17 @@ class ANOVATest:
     categorical label (scipy's ``f_oneway``)."""
 
     @staticmethod
-    def test(features, labels, device=None) -> FTestResult:
-        ds = _as_ds(features, device)
+    def test(features, labels, mesh=None, *, device=None) -> FTestResult:
+        ds = _as_ds(features, device, mesh)
         y = np.asarray(labels).reshape(-1)
-        yp = _padded_labels(ds, y, "ANOVA")
         k = int(y.max()) + 1 if y.size else 1
         if k < 2:
             raise ValueError("ANOVA needs at least 2 label classes")
-        counts, s1, s2 = anova_stats(ds.x.to(torch.float32), yp, ds.w.to(torch.float32), k)
+        sh = Shards(ds)
+        ys = sh.parts(_padded_labels(ds, y, "ANOVA"))
+        gmean = sh.put(_global_means(sh)[1])
+        counts, s1, s2 = sh.sum(lambda i, s: anova_stats(
+            s.x.to(torch.float32), ys[i], s.w.to(torch.float32), k, gmean[i]))
         flat = torch.cat([counts, s1.reshape(-1), s2.reshape(-1)]).cpu().numpy()
         flat = flat.astype(np.float64)
         d = ds.n_features
@@ -258,12 +307,13 @@ class ANOVATest:
                            degrees_of_freedom=np.full(f.shape, df_w), f_values=np.asarray(f))
 
 
-def fvalue_stats(x, y, w):
-    """(Σw, Σw·xc², Σw·yc², Σw·xc·yc) of centred columns."""
+def fvalue_stats(x, y, w, means):
+    """(Σw, Σw·xc², Σw·yc², Σw·xc·yc) of centred columns.  ``means``: the
+    global weighted (x mean, y mean) of every shard's rows
+    (``_global_means``)."""
     wcol = w[:, None]
-    n = torch.clamp(w.sum(), min=1.0)
-    xc = x - (torch.sum(x * wcol, dim=0) / n)[None, :]
-    yc = y - torch.sum(y * w) / n
+    xc = x - means[0][None, :]
+    yc = y - means[1]
     return (torch.sum(w), torch.sum(xc * xc * wcol, dim=0), torch.sum(yc * yc * w),
             torch.sum(xc * (yc * w)[:, None], dim=0))
 
@@ -273,11 +323,15 @@ class FValueTest:
     F = r²/(1 − r²)·(n − 2) (sklearn's ``f_regression``)."""
 
     @staticmethod
-    def test(features, labels, device=None) -> FTestResult:
-        ds = _as_ds(features, device)
+    def test(features, labels, mesh=None, *, device=None) -> FTestResult:
+        ds = _as_ds(features, device, mesh)
         y = np.asarray(labels, dtype=np.float64).reshape(-1)
-        yp = _padded_labels(ds, y, "FValueTest")
-        sw, sxx, syy, sxy = fvalue_stats(ds.x.to(torch.float32), yp, ds.w.to(torch.float32))
+        sh = Shards(ds)
+        ys = sh.parts(_padded_labels(ds, y, "FValueTest"))
+        _, xm, ym = _global_means(sh, ys)
+        xms, yms = sh.put(xm), sh.put(ym)
+        sw, sxx, syy, sxy = sh.sum(lambda i, s: fvalue_stats(
+            s.x.to(torch.float32), ys[i], s.w.to(torch.float32), (xms[i], yms[i])))
         d = ds.n_features
         flat = torch.cat([sw.reshape(1), sxx, syy.reshape(1), sxy]).cpu().numpy()
         flat = flat.astype(np.float64)
@@ -315,9 +369,8 @@ class Summarizer:
     metrics in one reduction."""
 
     @staticmethod
-    def summary(data, device=None) -> SummaryStats:
-        ds = _as_ds(data, device)
-        s = host_moments(ds.x, ds.w)
+    def summary(data, mesh=None, *, device=None) -> SummaryStats:
+        s = host_moments(*_as_xw(data, mesh, device))
         n = max(s["n"], 1.0)
         mean = s["s1"] / n
         biased = np.maximum(s["s2"] / n - mean * mean, 0.0)

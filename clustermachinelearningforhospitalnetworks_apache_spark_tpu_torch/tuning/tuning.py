@@ -172,7 +172,7 @@ def _score(model, val, evaluator, label_col, mesh, device=None) -> float:
         from ..parallel.sharding import unpad
 
         x = _val_features(val)
-        ds = as_device_dataset(x, device=device, mesh=mesh, sharded=True)
+        ds = as_device_dataset(x, device=device, mesh=mesh)
         pred = ds.x.map_data(model.predict) if is_sharded(ds) else model.predict(ds.x)
         assign = np.asarray(unpad(pred, x.shape[0]))
         k = getattr(model, "k", None) or getattr(

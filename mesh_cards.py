@@ -46,8 +46,17 @@ from its first 256 rows:
    LogisticRegression, the Poisson GLM with an offset and its summary,
    AFT, FMRegressor, the MLP, IsotonicRegression, the two pipelines, the
    CrossValidator and the TrainValidationSplit (its silhouette metrics
-   within the phase's limit: their sums are not order-stable on the card),
-   with their seconds.
+   too: the silhouette's first pass sums in a fixed order), with their
+   seconds;
+7. slice 8c-4's modules over a (C, 1) mesh of the C cards, each ``==`` the
+   (C, 1) mesh over ``[cuda:0] * C``: the sharded moments, PCA,
+   MinMaxScaler, MaxAbsScaler, RobustScaler and VarianceThresholdSelector,
+   ``stat/``'s Summarizer, Correlation, KS, ANOVA and FValue and the
+   ANOVA selector on ``chip_smoke.py``'s 2M hospital rows; LDA(k=10)
+   resident and out of core on 20,000 of its clinical notes;
+   PowerIterationClustering on the bundled CSV's 20,000-node graph; ALS
+   (explicit and implicit) on its first 20,000 patients' ratings; with
+   their seconds.
 
 ``--legs`` runs a subset of the legs (the numbers above, default all), so
 a call that tests one slice's path runs that path alone.
@@ -334,19 +343,118 @@ def estimators_leg(port, cs, C: int, cards: list, one: list, dev: str, scale: in
             sync_all(dev)
             got[name] = (arrays(model), time.perf_counter() - t0)
         (a, s_a), (b, s_b) = got["cards"], got["one_card"]
-        if leg == "tvs_kmeans":
-            # the silhouette's first pass sums with index_add_, whose order on
-            # the card varies from call to call (ROADMAP queue 3): its metrics
-            # are held at the phase's limit, the chosen index and fit ==
-            if cs.rel_each(a[0], b[0]) > cs.ME_LIMITS["tvs_kmeans"]["metrics"]:
-                fail(f"the TrainValidationSplit's metrics over {C} cards {a[0]} are off one "
-                     f"card's {b[0]}")
-            a, b = a[1:], b[1:]
         if not a or len(a) != len(b) or not all(np.array_equal(u, v) for u, v in zip(a, b)):
             fail(f"slice 8c-3's {leg} over {C} cards differs from one card's")
         secs[leg] = {"cards_s": s_a, "one_card_s": s_b}
     print(f"({C}, 1) slice 8c-3 estimators and composites, one process, on {len(x)} hospital "
           f"rows over {C} cards against one card: "
+          + "; ".join(f"{leg} {v['cards_s']:.4f} s / {v['one_card_s']:.4f} s "
+                      f"({v['one_card_s'] / v['cards_s']:.2f}x)" for leg, v in secs.items())
+          + f"; each == bit for bit ({card})", flush=True)
+    return secs
+
+
+def features_leg(port, cs, C: int, cards: list, one: list, dev: str, scale: int,
+                 card: str) -> dict:
+    """Slice 8c-4's modules over a (C, 1) mesh of the cards against the same
+    shape over one card: every result ``==``.  The hospital rows, notes,
+    ratings and graph are ``chip_smoke.py``'s, their counts divided by
+    ``scale``.  → each leg's seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.ops import reductions
+
+    cs.TREE_N //= scale
+    try:
+        x, los, _ = cs.stage_rows()
+    finally:
+        cs.TREE_N *= scale
+    x, lf = x.astype(np.float32), los.astype(np.float32)
+    tiers = np.digitize(lf, np.quantile(lf, [0.5, 0.85])).astype(np.float32)
+    z = ((lf - lf.mean()) / lf.std()).astype(np.float32)[:, None]
+    names = list(port.FEATURE_COLS)
+    asm = port.VectorAssembler(names).transform(port.Table.from_dict(
+        {**{c: x[:, j] for j, c in enumerate(names)}, "tier": tiers}))
+    texts = cs.clinical_notes(cs.MF_DOCS // scale, port.StopWordsRemover().stop_words)
+    clean = port.StopWordsRemover().transform(port.Tokenizer().transform(texts))
+    docs = port.CountVectorizer(min_df=2).fit(clean).transform(clean)
+    uu, ii, rr = cs.als_ratings()
+    cut = uu < cs.ALS_CUT_USERS // scale
+    cu, ci, cr = uu[cut], ii[cut], rr[cut]
+    table = port.read_csv(str(cs.CSV), port.hospital_event_schema())
+    xg = table.numeric_matrix(port.FEATURE_COLS)[: 20_000 // scale]
+    cs.DEV = one[0]
+    src, dst, w = cs.knn_graph((xg - xg.mean(0)) / xg.std(0), cs.PIC_NEIGHBOURS)
+
+    def arrays(m) -> list:
+        if isinstance(m, dict):
+            return [np.asarray(v) for v in m.values()]
+        if isinstance(m, (tuple, list)):
+            return [np.asarray(v) for v in m]
+        if isinstance(m, np.ndarray):
+            return [m]
+        if dataclasses.is_dataclass(m):
+            out = []
+            for f in dataclasses.fields(m):
+                v = getattr(m, f.name)
+                if isinstance(v, torch.Tensor):
+                    out.append(v.cpu().numpy())
+                elif isinstance(v, (np.ndarray, float, int, tuple)):
+                    out.append(np.asarray(v))
+            return out
+        return [np.asarray(v) for v in vars(m).values()]
+
+    st = port.stat
+    hd = port.HostDataset(x=docs, max_device_rows=len(docs) // cs.LDA_BLOCKS)
+
+    def rows(m):
+        return port.parallel.device_dataset(x, mesh=m)
+
+    legs = {
+        "moments": lambda m: reductions.host_moments(rows(m).x, rows(m).w),
+        "pca": lambda m: port.PCA(3).fit(rows(m)),
+        "minmax": lambda m: port.MinMaxScaler().fit(rows(m)),
+        "maxabs": lambda m: port.MaxAbsScaler().fit(rows(m)),
+        "robust": lambda m: port.RobustScaler().fit(rows(m)),
+        "variance": lambda m: port.VarianceThresholdSelector(1.0).fit(rows(m)).selected,
+        "summary": lambda m: st.Summarizer.summary(x, m),
+        "corr": lambda m: st.Correlation.corr(x, "pearson", m),
+        "ks": lambda m: st.KolmogorovSmirnovTest.test(z, "norm", 0.0, 1.0, m),
+        "anova": lambda m: st.ANOVATest.test(x, tiers, m),
+        "fvalue": lambda m: st.FValueTest.test(x, lf, m),
+        "selector": lambda m: port.UnivariateFeatureSelector(
+            selection_mode="numTopFeatures", selection_threshold=2,
+            label_col="tier").fit(asm, mesh=m).selected,
+        "lda": lambda m: port.LDA(k=cs.NOTE_TOPICS, max_iter=cs.MF_LDA_ITERS).fit(docs, mesh=m),
+        "lda_ooc": lambda m: port.LDA(k=cs.NOTE_TOPICS, max_iter=cs.LDA_BLOCKS).fit(hd, mesh=m),
+        "pic": lambda m: port.PowerIterationClustering(k=cs.PIC_K, max_iter=20).assign_clusters(
+            src, dst, w, m),
+        "als": lambda m: port.ALS(rank=cs.ALS_RANK, max_iter=10, reg_param=0.1).fit(
+            (cu, ci, cr), mesh=m),
+        "als_implicit": lambda m: port.ALS(rank=cs.ALS_RANK, max_iter=10, reg_param=0.1,
+                                           implicit_prefs=True).fit(
+            (cu, ci, np.maximum(cr, 0.0)), mesh=m),
+    }
+    legs["moments"](port.build_mesh(port.MeshConfig(data=C), cards))   # first use of each card
+    secs = {}
+    for leg, run in legs.items():
+        got = {}
+        for name, devs in (("cards", cards), ("one_card", one)):
+            mesh = port.build_mesh(port.MeshConfig(data=C), devs)
+            sync_all(dev)
+            t0 = time.perf_counter()
+            out = run(mesh)
+            sync_all(dev)
+            got[name] = (arrays(out), time.perf_counter() - t0)
+        (a, s_a), (b, s_b) = got["cards"], got["one_card"]
+        if not a or len(a) != len(b) or not all(np.array_equal(u, v) for u, v in zip(a, b)):
+            fail(f"slice 8c-4's {leg} over {C} cards differs from one card's")
+        secs[leg] = {"cards_s": s_a, "one_card_s": s_b}
+    print(f"({C}, 1) slice 8c-4 modules, one process, on {len(x)} hospital rows, {len(docs)} "
+          f"notes, {len(cu)} ratings and {len(xg)} graph nodes over {C} cards against one card: "
           + "; ".join(f"{leg} {v['cards_s']:.4f} s / {v['one_card_s']:.4f} s "
                       f"({v['one_card_s'] / v['cards_s']:.2f}x)" for leg, v in secs.items())
           + f"; each == bit for bit ({card})", flush=True)
@@ -494,7 +602,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu", type=int, default=0,
                     help="rehearse on this many CPU entries (gloo ranks, small rows)")
-    ap.add_argument("--legs", default="1,2,3,4,5,6",
+    ap.add_argument("--legs", default="1,2,3,4,5,6,7",
                     help="the legs to run, by their numbers above (default all)")
     args = ap.parse_args()
     legs_on = {int(v) for v in args.legs.split(",")}
@@ -553,6 +661,10 @@ def main() -> None:
     if 6 in legs_on:
         out["estimators"] = estimators_leg(port, cs, C, cards, one, dev,
                                            50 if dev == "cpu" else 1, card)
+        empty_caches(dev)
+    if 7 in legs_on:
+        out["features"] = features_leg(port, cs, C, cards, one, dev,
+                                       50 if dev == "cpu" else 1, card)
         empty_caches(dev)
     if 5 in legs_on:
         # the ranks after the in-process legs, so no leg shares a card

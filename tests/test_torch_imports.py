@@ -1274,22 +1274,28 @@ def test_module_names_cover_the_reference(name):
     assert missing == NAME_GAPS.get(name, set())
 
 
-def test_slice_8c3_estimators_fit_over_a_mesh_and_8c4_ones_still_raise(monkeypatch):
-    """Slice 8c-3's estimators run their fits over shards (``mesh_fit``,
-    ``fit(..., mesh=)``), default to the card and raise without one; the
-    fits left to slice 8c-4 (LDA, PIC, ALS; PCA inside a pipeline) raise
-    over a mesh of more than one shard, naming it."""
+def test_slices_8c3_8c4_estimators_fit_over_a_mesh(monkeypatch):
+    """Every estimator's ``fit`` takes ``mesh=`` and runs over a mesh of more
+    than one shard (slice 8c-3's estimators, and since slice 8c-4 LDA and
+    PCA inside a pipeline, whose guard is gone), default to the card and
+    raise without one."""
     import inspect
 
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel
     from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch.models import base
 
-    assert base.MESH_SLICE == "8c-4"
-    ests = [port.LinearSVC, port.NaiveBayes, port.OneVsRest, port.GeneralizedLinearRegression,
-            port.AFTSurvivalRegression, port.FMRegressor, port.FMClassifier,
-            port.MultilayerPerceptronClassifier, port.IsotonicRegression]
+    assert not any(hasattr(base, n) for n in ("MESH_SLICE", "require_single_shard",
+                                              "_mesh_guarded"))
+
+    def subclasses(cls):
+        for c in cls.__subclasses__():
+            yield c
+            yield from subclasses(c)
+
+    ests = set(subclasses(base.Estimator))
+    assert len(ests) >= 22
     for cls in ests:
-        assert cls.mesh_fit and "mesh" in inspect.signature(cls.fit).parameters, cls
+        assert "mesh" in inspect.signature(cls.fit).parameters, cls
     rng = np.random.default_rng(12)
     x = rng.normal(size=(24, 2)).astype(np.float32)
     yb = (x[:, 0] > 0).astype(np.float32)
@@ -1298,15 +1304,114 @@ def test_slice_8c3_estimators_fit_over_a_mesh_and_8c4_ones_still_raise(monkeypat
                 port.OneVsRest(port.LogisticRegression()), port.IsotonicRegression()):
         est.fit((x, yb), mesh=mesh)
     counts = np.abs(np.round(x * 3))
-    for call in (lambda: port.LDA(k=2).fit(counts, mesh=mesh),
-                 lambda: port.Pipeline([port.PCA(k=1)]).fit(x, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="slice 8c-4"):
-            call()
+    assert port.LDA(k=2, max_iter=2).fit(counts, mesh=mesh).lam.shape == (2, 2)
+    pm = port.Pipeline([port.PCA(k=1)]).fit(x, mesh=mesh)
+    assert pm.stages[0].components.shape == (2, 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for est in (port.LinearSVC(), port.GeneralizedLinearRegression(family="binomial"),
                 port.MultilayerPerceptronClassifier(layers=(2, 2))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             est.fit((x, yb))
+
+
+#: public callables of the JAX package that take ``mesh`` with no port
+#: counterpart taking it, each with its reason (none: every one is ported)
+MESH_DECIDED: dict = {}
+
+
+def _mesh_callables(pkg_name: str):
+    """``{module.qualname: callable}`` of a package's public functions and
+    public methods (and ``__init__``) whose signature names ``mesh``."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    pkg = importlib.import_module(pkg_name)
+    out = {}
+    for info in pkgutil.walk_packages(pkg.__path__, pkg_name + "."):
+        mod = importlib.import_module(info.name)
+        rel = info.name[len(pkg_name) + 1:]
+        for n, v in _defined_public(mod).items():
+            cands = [(n, v)] if inspect.isfunction(v) else []
+            if inspect.isclass(v):
+                for mn, mv in vars(v).items():
+                    if mn.startswith("_") and mn != "__init__":
+                        continue
+                    if isinstance(mv, (staticmethod, classmethod)):
+                        mv = mv.__func__
+                    if inspect.isfunction(mv):
+                        cands.append((f"{n}.{mn}", mv))
+            for qn, f in cands:
+                if "mesh" in inspect.signature(f).parameters:
+                    out[f"{rel}.{qn}"] = f
+    return out
+
+
+def test_every_reference_callable_taking_a_mesh_has_a_port_counterpart_taking_one():
+    """Walk every public callable of the JAX package whose signature has
+    ``mesh``: the port's callable of the same module and name takes
+    ``mesh`` too, or it is on the decided list."""
+    import importlib
+    import inspect
+
+    ref = _mesh_callables(JAX_PKG)
+    assert len(ref) > 90
+    missing = set()
+    for key in ref:
+        mod, _, qn = key.rpartition(".")
+        parts = key.split(".")
+        for cut in range(len(parts) - 1, 0, -1):
+            try:
+                obj = importlib.import_module(f"{port.__name__}.{'.'.join(parts[:cut])}")
+            except ModuleNotFoundError:
+                continue
+            for attr in parts[cut:]:
+                obj = getattr(obj, attr, None)
+            break
+        else:
+            obj = None
+        if obj is None or "mesh" not in inspect.signature(obj).parameters:
+            missing.add(key)
+    assert missing == set(MESH_DECIDED)
+
+
+def test_slice_8c4_host_device_split(monkeypatch):
+    """Slice 8c-4's entry points with no mesh and no device default to the
+    card and raise without one; over a mesh they run on its devices; the
+    host draws (VectorIndexer, the LSH families) and ChiSquareTest's host
+    tables need no mesh to be a device; a mesh and a device together are
+    refused."""
+    from clustermachinelearningforhospitalnetworks_apache_spark_tpu_torch import parallel
+
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(16, 3)).astype(np.float32)
+    y01 = (x[:, 0] > 0).astype(np.float32)
+    counts = rng.poisson(2.0, size=(16, 6)).astype(np.float32)
+    lda = port.lda_model_from_jax_arrays(np.ones((2, 6), np.float32), alpha=0.5, eta=0.5)
+    mesh = parallel.build_mesh(port.MeshConfig(data=2), [torch.device("cpu")] * 2)
+    on_mesh = [
+        lambda m: port.PCA(2).fit(x, mesh=m),
+        lambda m: port.stat.Summarizer.summary(x, m),
+        lambda m: port.stat.Correlation.corr(x, "pearson", m),
+        lambda m: port.stat.KolmogorovSmirnovTest.test(x[:, :1], "norm", 0.0, 1.0, m),
+        lambda m: port.stat.ANOVATest.test(x, y01, m),
+        lambda m: port.stat.FValueTest.test(x, x[:, 1], m),
+        lambda m: port.LDA(k=2, max_iter=1).fit(counts, mesh=m),
+        lambda m: lda.transform(counts, m),
+        lambda m: port.ALS(rank=2, max_iter=1).fit(
+            (np.arange(16) % 4, np.arange(16) % 3, x[:, 0]), mesh=m),
+    ]
+    for call in on_mesh:
+        call(mesh)
+    with pytest.raises(ValueError, match="not both"):
+        port.PCA(2).fit(x, device="cpu", mesh=mesh)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in on_mesh:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(None)
+    port.VectorIndexer().fit(x, mesh=mesh)
+    port.MinHashLSH(seed=1).fit(np.abs(np.round(x)), mesh=mesh)
+    port.BucketedRandomProjectionLSH(bucket_length=1.0).fit(x, mesh=mesh)
 
 
 def test_slice_8c3_composites_take_the_reference_order():

@@ -137,13 +137,16 @@ def test_bisecting_cosine_and_weights_over_the_mesh(kw):
                                    rtol=1e-5, atol=1e-4)
 
 
-def test_bisecting_out_of_core_over_a_mesh_raises():
+def test_out_of_core_fits_over_a_mesh():
     """BisectingKMeans fits a HostDataset over a mesh since slice 8c-2 (on
     integer rows the (4, 1) fit is the one-device out-of-core fit, bit for
     bit: ``tests/test_torch_sharded_outofcore.py`` holds it to the JAX
     package); LinearSVC's and NaiveBayes' out-of-core fits do since slice
-    8c-3 (``==`` one device on integer counts for NaiveBayes), and LDA's,
-    left to slice 8c-4, still raises over a mesh of more than one shard."""
+    8c-3 (``==`` one device on integer counts for NaiveBayes), and LDA's
+    since slice 8c-4: its blocks over (4, 1) are the one-device blocks
+    (the block size is rounded to the data axis) and λ stays within 5e-5
+    of the one-device λ (``tests/test_torch_sharded_recommenders.py``
+    holds it to the JAX package)."""
     x = np.round(_blobs(n=256))
     one = port.BisectingKMeans(k=2).fit(port.HostDataset(x=x, max_device_rows=64), device="cpu")
     got = port.BisectingKMeans(k=2).fit(port.HostDataset(x=x, max_device_rows=64),
@@ -157,8 +160,13 @@ def test_bisecting_out_of_core_over_a_mesh_raises():
     nb4 = port.NaiveBayes().fit(hd, mesh=_mesh((4, 1)))
     np.testing.assert_array_equal(nb4.theta, nb1.theta)
     port.LinearSVC().fit(port.HostDataset(x=x, y=yb, max_device_rows=64), mesh=_mesh((4, 1)))
-    with pytest.raises(NotImplementedError, match="slice 8c-4"):
-        port.LDA(k=2).fit(port.HostDataset(x=counts, max_device_rows=64), mesh=_mesh((4, 1)))
+    lda4 = port.LDA(k=2, max_iter=6).fit(port.HostDataset(x=counts, max_device_rows=64),
+                                         mesh=_mesh((4, 1)))
+    lda1 = port.LDA(k=2, max_iter=6).fit(port.HostDataset(x=counts, max_device_rows=64),
+                                         device="cpu")
+    assert lda4.n_docs_trained == lda1.n_docs_trained
+    gap = np.abs(lda4.lam.astype(np.float64) - lda1.lam).max()
+    assert gap <= 5e-5 * np.abs(lda1.lam).max()
 
 
 # ------------------------------------------------------------ StreamingKMeans

@@ -161,21 +161,28 @@ def test_pipeline_save_load_roundtrip(hospital_table, tmp_path):
                                pm.stages[2].coefficients.numpy(), rtol=1e-6)
 
 
-def test_a_stage_not_over_shards_raises_inside_a_pipeline(hospital_table):
-    """Slice 8c-4's stages (PCA: a device fit; LDA: an estimator behind the
-    mesh guard) raise over a mesh of more than one shard, and never fit
-    the rows of every shard on one device; a one-entry mesh names their
-    device; a mesh and a device together are refused."""
+def test_device_stages_fit_over_shards_inside_a_pipeline(hospital_table):
+    """Slice 8c-4's stages (PCA: a device fit; LDA behind a scaler) fit over
+    a mesh of more than one shard inside a pipeline, a shard on its device,
+    and never fit the rows of every shard on one device: the (8, 1) PCA is
+    within 5e-5 of the one-device PCA (float32 moments summed in another
+    order); a one-entry mesh names their device (``==``); a mesh and a
+    device together are refused."""
     table = _port_table(hospital_table)
-    for stages in ([port.VectorAssembler(port.FEATURE_COLS), port.PCA(k=2)],
-                   [port.VectorAssembler(port.FEATURE_COLS), port.StandardScaler(), port.LDA(k=2)]):
-        with pytest.raises(NotImplementedError, match="slice 8c-4"):
-            port.Pipeline(stages).fit(table, mesh=_mesh())
+    pca8 = port.Pipeline([port.VectorAssembler(port.FEATURE_COLS), port.PCA(k=2)]).fit(
+        table, mesh=_mesh())
+    lda8 = port.Pipeline([port.VectorAssembler(port.FEATURE_COLS), port.MaxAbsScaler(),
+                          port.LDA(k=2, max_iter=3)]).fit(table, mesh=_mesh())
+    assert lda8.stages[2].lam.shape == (2, len(port.FEATURE_COLS))
     pm = port.Pipeline([port.VectorAssembler(port.FEATURE_COLS), port.PCA(k=2)]).fit(
         table, mesh=_mesh(1))
     one = port.Pipeline([port.VectorAssembler(port.FEATURE_COLS), port.PCA(k=2)]).fit(
         table, device="cpu")
     assert np.array_equal(pm.stages[1].components, one.stages[1].components)
+    np.testing.assert_allclose(pca8.stages[1].explained_variance,
+                               one.stages[1].explained_variance, rtol=5e-5)
+    np.testing.assert_allclose(np.abs(pca8.stages[1].components.T @ one.stages[1].components),
+                               np.eye(2), atol=5e-5)
     with pytest.raises(ValueError, match="not both"):
         port.Pipeline(_regression_stages(port)).fit(table, mesh=_mesh(), device="cpu")
 

@@ -177,28 +177,31 @@ def test_partials_protocol_honours_the_mesh(integers):
     np.testing.assert_array_equal(init_mesh, init_one)
 
 
-def test_other_estimators_raise_on_a_mesh_of_more_than_one_shard(blobs):
-    """The estimators and paths outside the mesh slices raise, naming slice
-    8c-4, and never gather the shards: LDA (resident and out of core) and
-    the session's SQL device columns.  LinearSVC and NaiveBayes, which
-    raised until slice 8c-3, fit over the mesh, resident and out of core
-    (``tests/test_torch_sharded_estimators.py`` holds them to the JAX
-    package)."""
+def test_other_estimators_fit_on_a_mesh_of_more_than_one_shard(blobs):
+    """The estimators and paths that raised until slice 8c-4 run over the
+    mesh and never gather the shards: LDA (resident and out of core) and
+    the session's fused SQL route, whose rows land as a ShardedDataset.
+    LinearSVC and NaiveBayes, which raised until slice 8c-3, fit over the
+    mesh, resident and out of core (``tests/test_torch_sharded_estimators.py``
+    holds them to the JAX package; ``test_torch_sharded_recommenders.py``
+    LDA and the SQL route)."""
     mesh = _mesh((4, 1))
     yb = (blobs[:, 0] > 0).astype(np.float32)
     counts = np.abs(np.round(blobs))
     session = port.Session(port.PipelineConfig(), mesh=mesh)
     try:
-        for call in (
-            lambda: port.LDA(k=2).fit(counts, mesh=mesh),
-            lambda: port.LDA(k=2).fit(port.HostDataset(x=counts, max_device_rows=512),
-                                      mesh=mesh),
-            lambda: session.sql_to_device("SELECT * FROM events"),
-        ):
-            with pytest.raises(NotImplementedError, match="slice 8c-4"):
-                call()
+        session.register_table("events", port.Table.from_dict(
+            {"a": blobs[:, 0].astype(np.float64), "b": blobs[:, 1].astype(np.float64)}))
+        ds = session.sql_to_device("SELECT a, b FROM events WHERE a > 0",
+                                   feature_cols=("a", "b"))
+        assert isinstance(ds, P.sharding.ShardedDataset) and ds.mesh == mesh
+        assert float(ds.count()) == float((blobs[:, 0] > 0).sum())
     finally:
         session.stop()
+    one = port.LDA(k=2, max_iter=2).fit(counts, device="cpu")
+    got = port.LDA(k=2, max_iter=2).fit(counts, mesh=mesh)
+    assert got.lam.shape == one.lam.shape and got.n_docs_trained == one.n_docs_trained
+    port.LDA(k=2, max_iter=2).fit(port.HostDataset(x=counts, max_device_rows=512), mesh=mesh)
     port.LinearSVC().fit((blobs, yb), mesh=mesh)
     port.NaiveBayes(model_type="gaussian").fit((blobs, yb), mesh=mesh)
     port.LinearSVC().fit(port.HostDataset(x=blobs, y=yb, max_device_rows=512), mesh=mesh)
